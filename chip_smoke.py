@@ -1,0 +1,530 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+1. Print the card (``nvidia-smi``), build every CUDA kernel of the port
+   from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
+   parallel) and print the build seconds.
+2. Hold each kernel against its plain PyTorch version on the card at
+   granite-8b's full-width shapes (32 q heads over 8 kv heads, head_dim
+   128, pages of 16, vocab 49152) in bfloat16 and float32: max abs error
+   with its tolerance, the kernel's and the plain version's device time
+   (20 calls in one CUDA graph, timed with CUDA events), the least time
+   the card could take for the same work, and a PyTorch library call's
+   time where one computes the same function.
+3. Serve the same greedy and seeded requests through the port's
+   ``ServingEngine`` on granite-8b ``reduced()`` (float32, 2 kv heads) on
+   the card and on the CPU; the streams must be token-identical.
+4. Serve granite-8b at full width (36 layers, bfloat16, random weights
+   from a fixed seed): 8 slots, 16 requests of 20-600 prompt tokens and 64
+   new tokens, half greedy and half seeded. Every request must finish with
+   its budget, a second run must give the same streams, and every kernel
+   of the path must have launched. Prints TTFT p50 and p90 (host clock),
+   tokens/s and peak device memory; then serves 8 of the requests on the
+   8 slots at once and prints the steady decode rate and tick time.
+
+``--profile DIR`` repeats the steady-decode serve (8 requests on 8
+slots) under ``torch.profiler``, prints the device's busy share of that
+run and writes its device-time table by kernel into DIR.
+
+The last two lines are the ``{"kernels": [...]}`` record and
+``{"ok": true, "device": {...}}``. With no CUDA device, or without the
+repository's ``src/repro_torch`` beside it, the script exits non-zero and
+prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+HBM_BW = 3.35e12  # H100 SXM device memory, bytes/s (data sheet)
+PEAK = {"bfloat16": 989e12, "float32": 67e12}  # dense FLOP/s (data sheet)
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def fail(msg: str) -> int:
+    print(f"FAIL: {msg}", flush=True)
+    return 1
+
+
+def time_ms(torch, fn, iters: int = 20, warm: int = 3) -> float:
+    """Device milliseconds of one ``fn(i)``: ``iters`` calls (i = 0, 1,
+    ...) captured in one CUDA graph, so no host time falls between the
+    launches; the median of 5 timed replays (CUDA events) over ``iters``.
+    ``fn`` may cycle through several input sets by ``i`` to keep them
+    out of the L2 cache, as the main path finds them."""
+    for i in range(warm):
+        fn(i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e) / iters)
+    del graph
+    return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    t_b, t_f = nbytes / HBM_BW, flops / PEAK[dtype]
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def phase_kernels(torch, rec):
+    """Phase 2: every kernel against its plain version, full width."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+    from repro_torch.serving import prng
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    H, KVH, D = 32, 8, 128
+    ok = True
+
+    # -- prefill attention --------------------------------------------------
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        for s in (16, 128, 512, 2048):
+            q = torch.randn((1, s, H, D), generator=gen, device=dev).to(dt)
+            k = torch.randn((1, s, KVH, D), generator=gen, device=dev).to(dt)
+            v = torch.randn((1, s, KVH, D), generator=gen, device=dev).to(dt)
+            got = ops.flash_attention(q, k, v, causal=True)
+            want = L.dense_attention(q, k, v, causal=True)
+            oracle = ref.ref_attention(
+                q.transpose(1, 2).reshape(H, s, D),
+                k.repeat_interleave(H // KVH, 2).transpose(1, 2).reshape(
+                    H, s, D),
+                v.repeat_interleave(H // KVH, 2).transpose(1, 2).reshape(
+                    H, s, D)).reshape(1, H, s, D).transpose(1, 2)
+            err = (got.float() - want.float()).abs().max().item()
+            err_ref = (got.float() - oracle.float()).abs().max().item()
+            tol = TOL[dt_name]
+            good = err <= tol and err_ref <= tol
+            ok &= good
+            ms = time_ms(torch, lambda i: ops.flash_attention(q, k, v))
+            plain = time_ms(torch, lambda i: L.dense_attention(q, k, v,
+                                                               causal=True))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib = time_ms(torch, lambda i: torch.nn.functional
+                          .scaled_dot_product_attention(
+                              qt, kt, vt, is_causal=True, enable_gqa=True))
+            esz = q.element_size()
+            nbytes = esz * (2 * q.numel() + k.numel() + v.numel())
+            flops = 4.0 * H * D * s * (s + 1) / 2
+            b_ms, b_by = bound(nbytes, flops, dt_name)
+            print(f"prefill {dt_name} S={s}: max_abs_err={err:.3g} "
+                  f"(vs ref.ref_attention {err_ref:.3g}) tol={tol} "
+                  f"{'ok' if good else 'FAIL'} ms={ms:.4f} "
+                  f"plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
+                  f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+            if dt_name == "bfloat16" and s == 512:
+                rec["flash_attention"].update(
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib)
+
+    # -- paged decode attention ------------------------------------------------
+    ps, n_pages, B = 16, 64, 8
+    P = B * n_pages + 1
+    ctx = [1, 15, 16, 17, 200, 513, 1000, 1024]  # partial and full pages
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        # 4 pool pairs (over 130 MB in bfloat16, more than the 50 MB L2):
+        # the timed launches cycle through them, as the main path reads
+        # each layer's pools cold
+        pools = [tuple(torch.randn((P, ps, KVH, D), generator=gen,
+                                   device=dev).to(dt) for _ in range(2))
+                 for _ in range(4)]
+        kp, vp = pools[0]
+        perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+        table = perm[:B * n_pages].reshape(B, n_pages).to(torch.int32)
+        table_rel = table.clone()
+        table_rel[3] = 0  # a released slot: every entry the trash page
+        for s in (1, 4, 8):
+            for name, tab, pos_list in (
+                    ("live", table, [max(c, s) for c in ctx]),
+                    ("released", table_rel,
+                     [max(c, s) if i != 3 else s for i, c in
+                      enumerate(ctx)])):
+                pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+                q = torch.randn((B, s, H, D), generator=gen,
+                                device=dev).to(dt)
+                got = ops.paged_decode_attention(q, kp, vp, tab, pos)
+                want = L.paged_decode_attention(q, kp, vp, tab, pos)
+                oracle = ref.ref_paged_decode_attention(q, kp, vp, tab, pos)
+                err = (got.float() - want.float()).abs().max().item()
+                err_ref = (got.float() - oracle.float()).abs().max().item()
+                tol = TOL[dt_name]
+                good = err <= tol and err_ref <= tol
+                ok &= good
+                line = (f"paged decode {dt_name} S={s} {name}: "
+                        f"max_abs_err={err:.3g} (vs ref {err_ref:.3g}) "
+                        f"tol={tol} {'ok' if good else 'FAIL'}")
+                if name == "live" and s in (1, 4):
+                    ms = time_ms(torch, lambda i: ops.paged_decode_attention(
+                        q, *pools[i % 4], tab, pos))
+                    plain = time_ms(torch, lambda i: L.paged_decode_attention(
+                        q, *pools[i % 4], tab, pos))
+                    esz = q.element_size()
+                    valid = sum(min(p, n_pages * ps) for p in pos_list)
+                    nbytes = (esz * (2 * valid * KVH * D + 2 * q.numel())
+                              + 4 * (tab.numel() + B))
+                    flops = 4.0 * valid * H * D * s
+                    b_ms, b_by = bound(nbytes, flops, dt_name)
+                    line += (f" ms={ms:.4f} plain_ms={plain:.4f} "
+                             f"bound_ms={b_ms:.5f} ({b_by})")
+                    if dt_name == "bfloat16" and s == 1:
+                        rec["paged_decode_attention"].update(
+                            max_abs_err=err, ms=ms, plain_ms=plain,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                print(line, flush=True)
+
+    # -- sampler -----------------------------------------------------------------
+    V = 49152
+    logits = torch.randn((B, V), generator=gen, device=dev) * 4.0
+    logits[0, 7] = logits[0, 9] = logits[0].max() + 1.0  # an argmax tie
+    greedy = torch.tensor([1, 0, 0, 1, 0, 0, 0, 1], dtype=torch.bool,
+                          device=dev)
+    temp = torch.tensor([1.0, 0.7, 1.3, 1.0, 0.9, 1.0, 0.5, 1.0],
+                        device=dev)
+    top_k = torch.tensor([0, 50, 0, 0, 200, 0, 1, 0], dtype=torch.int32,
+                         device=dev)
+    top_p = torch.tensor([1.0, 1.0, 0.9, 1.0, 0.95, 1.0, 1.0, 1.0],
+                         device=dev)
+    keys = torch.tensor([prng.prng_key(1000 + i) for i in range(B)],
+                        dtype=torch.int64, device=dev)
+    n_draws, mismatches = 0, 0
+    for step in range(16):
+        pos = torch.full((B,), 100 + step, dtype=torch.int64, device=dev)
+        u = prng.uniform(prng.fold_in(keys, pos), True)
+        got = ops.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+        want = L.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+        mismatches += int((got.long() != want.long()).sum())
+        n_draws += B
+    good = mismatches == 0 and int(got[0]) == 7
+    ok &= good
+    ms = time_ms(torch, lambda i: ops.sample_tokens(logits, greedy, temp,
+                                                    top_k, top_p, u))
+    plain = time_ms(torch, lambda i: L.sample_tokens(logits, greedy, temp,
+                                                     top_k, top_p, u))
+    b_ms, b_by = bound(4 * B * V + 4 * 6 * B, 0.0, "float32")
+    print(f"sample_tokens B={B} V={V}: token mismatches {mismatches}/"
+          f"{n_draws} (exact equality required) "
+          f"{'ok' if good else 'FAIL'} ms={ms:.4f} plain_ms={plain:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+    rec["sample_tokens"].update(max_abs_err=float(mismatches), ms=ms,
+                                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=None)
+
+    kk = torch.randint(1, V + 1, (B,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    kk[0], kk[1] = 1, V
+    uu = torch.rand((B, V), generator=gen, device=dev)
+    got = ops.topk_sample(logits, kk, temp, uu)
+    want_ref = ref.ref_topk_sample(logits, kk, temp, uu)
+    want = L.topk_sample(logits, kk, temp, uu)
+    good = bool((got == want_ref).all()) and bool((got == want).all())
+    ok &= good
+    ms = time_ms(torch, lambda i: ops.topk_sample(logits, kk, temp, uu))
+    plain = time_ms(torch, lambda i: L.topk_sample(logits, kk, temp, uu))
+    print(f"topk_sample (Pallas semantics) B={B} V={V}: exact vs "
+          f"ref.ref_topk_sample and plain: {'ok' if good else 'FAIL'} "
+          f"ms={ms:.4f} plain_ms={plain:.4f}", flush=True)
+    return ok
+
+
+def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
+          sync_every=8, seeded=lambda i: i % 2 == 1):
+    from repro_torch.serving import (
+        EngineConfig,
+        Request,
+        SamplingParams,
+        ServingEngine,
+    )
+
+    eng = ServingEngine(cfg, params,
+                        EngineConfig(slots=slots, max_seq=max_seq,
+                                     sync_every=sync_every),
+                        device=device)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new,
+                    sampling=(SamplingParams(temperature=0.8, top_k=50,
+                                             top_p=0.95, seed=1000 + i)
+                              if seeded(i) else SamplingParams()))
+            for i, p in enumerate(prompts)]
+    # TTFT on the host clock: a request's first token exists once the
+    # submit or step call that admitted it returns (the engine's own
+    # ``ttft`` stamps the time the call began, before its prefill ran)
+    ttft = {}
+
+    def stamp():
+        now = time.perf_counter() - t0
+        for r in reqs:
+            if r.output and r.rid not in ttft:
+                ttft[r.rid] = now
+
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r, time.perf_counter() - t0)
+        stamp()
+    t_admitted = time.perf_counter() - t0
+    done = 0
+    while done < len(reqs):
+        done += len(eng.step(time.perf_counter() - t0))
+        stamp()
+    done += len(eng.drain(time.perf_counter() - t0))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return reqs, {"wall": wall, "ttft": [ttft[r.rid] for r in reqs],
+                  "after_submit": wall - t_admitted,
+                  "ticks": eng.metrics.decode_ticks}
+
+
+def phase_reduced(torch):
+    """Phase 3: reduced float32 streams, CUDA vs CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+
+    cfg = dataclasses.replace(get_config("granite-8b").reduced(),
+                              num_kv_heads=2)
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    p_gpu = _to(torch, p_cpu, "cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 23, 40, 17, 64, 9)]
+    a, _ = serve(torch, cfg, p_gpu, prompts, device="cuda", max_new=24,
+                 slots=3, max_seq=128)
+    b, _ = serve(torch, cfg, p_cpu, prompts, device="cpu", max_new=24,
+                 slots=3, max_seq=128)
+    ok = True
+    for ra, rb in zip(a, b):
+        if ra.output == rb.output:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(ra.output, rb.output))
+                 if x != y)
+        toks = np.concatenate([rb.prompt, np.asarray(rb.output[:i],
+                                                     np.int32)])
+        logits, _ = forward(cfg, p_cpu, torch.from_numpy(toks)[None])
+        top2 = torch.topk(logits[0, -1], 2).values
+        gap = float(top2[0] - top2[1])
+        kind = "seeded" if ra.sampling.temperature > 0 else "greedy"
+        print(f"reduced rid={ra.rid} ({kind}): first divergent token "
+              f"#{i}: cuda {ra.output[i]} vs cpu {rb.output[i]}, top-2 "
+              f"logit gap {gap:.3g}", flush=True)
+        if gap > 1e-4:
+            ok = False
+    n_tok = sum(len(r.output) for r in a)
+    print(f"reduced granite-8b f32 (kv_heads=2): {len(a)} requests, "
+          f"{n_tok} tokens, cuda streams == cpu streams: "
+          f"{all(x.output == y.output for x, y in zip(a, b))}",
+          flush=True)
+    return ok
+
+
+def _to(torch, tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(torch, v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(torch, v, device) for v in tree]
+    return tree.to(device)
+
+
+def phase_full(torch, rec, profile_dir=None):
+    """Phase 4: granite-8b at full width through the engine."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+
+    cfg = get_config("granite-8b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for lay in params["layers"]
+                for sub in lay.values() for p in sub.values())
+    n_par += params["embed"].numel() + params["lm_head"].numel()
+    print(f"full width granite-8b: {n_par / 1e9:.3f} B params (bf16) "
+          f"initialized in {time.perf_counter() - t0:.1f}s", flush=True)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(20, 601, 16)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    run = dict(device="cuda", max_new=64, slots=8, max_seq=1024)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    reqs, st = serve(torch, cfg, params, prompts, **run)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ok = True
+    unfinished = [r.rid for r in reqs
+                  if r.state.value != "finished" or len(r.output) != 64]
+    if unfinished:
+        ok = False
+        print(f"FAIL: requests without their 64 tokens: {unfinished}")
+    for name in ("flash_attention", "paged_decode_attention",
+                 "sample_tokens"):
+        rec[name]["launches"] = launches[name]
+        if launches[name] <= 0:
+            ok = False
+            print(f"FAIL: kernel {name} never launched on the main path")
+    n_tok = sum(len(r.output) for r in reqs)
+    print(f"full width: {len(reqs)} requests at once on 8 slots (prompts "
+          f"{int(lens.min())}-{int(lens.max())} tokens, 64 new, half "
+          f"seeded), {n_tok} tokens in {st['wall']:.3f}s -> "
+          f"{n_tok / st['wall']:.1f} tok/s, TTFT p50 "
+          f"{statistics.median(st['ttft']) * 1e3:.1f} ms p90 "
+          f"{np.percentile(st['ttft'], 90) * 1e3:.1f} ms, peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB", flush=True)
+    print("kernels (launches on the main path): "
+          + ", ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+
+    reqs2, _ = serve(torch, cfg, params, prompts, **run)
+    same = all(a.output == b.output for a, b in zip(reqs, reqs2))
+    ok &= same
+    print(f"second run identical: {same}", flush=True)
+
+    # steady decode: 8 requests fill the 8 slots at once, so after the
+    # submissions (8 prefills) every step is a decode window of 8 slots
+    reqs3, st3 = serve(torch, cfg, params, prompts[:8], **run)
+    dec_tok = sum(len(r.output) - 1 for r in reqs3)
+    print(f"decode at 8 slots: {dec_tok} tokens in "
+          f"{st3['after_submit']:.3f}s -> "
+          f"{dec_tok / st3['after_submit']:.1f} tok/s, "
+          f"{st3['after_submit'] / st3['ticks'] * 1e3:.2f} ms per tick "
+          f"({st3['ticks']} ticks)", flush=True)
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, st4 = serve(torch, cfg, params, prompts[:8], **run)
+        write_profile(prof, profile_dir, st4)
+    return ok
+
+
+def write_profile(prof, out_dir, st):
+    """Device time by kernel name, and the device's busy share of the
+    profiled serve (its whole run and its decode part), from
+    ``torch.profiler``; the table goes to ``out_dir``."""
+    os.makedirs(out_dir, exist_ok=True)
+    events = prof.key_averages()
+    table = events.table(sort_by="self_cuda_time_total", row_limit=40)
+    with open(os.path.join(out_dir, "decode_kernels.txt"), "w") as f:
+        f.write(table)
+    # kernels only: an operator's row repeats the time of the kernels it
+    # launched, which have rows of their own
+    from torch.autograd import DeviceType
+
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA)
+    tick_ms = st["after_submit"] / st["ticks"] * 1e3
+    print(f"profiled decode at 8 slots: {tick_ms:.2f} ms per tick; device "
+          f"busy {dev_us / 1e6:.3f}s of {st['wall']:.3f}s wall "
+          f"({100 * dev_us / 1e6 / st['wall']:.1f}%); table in "
+          f"{out_dir}/decode_kernels.txt", flush=True)
+    for line in table.splitlines()[:18]:
+        print(line, flush=True)
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py needs one GPU",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"no src/repro_torch beside {__file__}: run chip_smoke.py "
+              f"from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    profile_dir = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--profile":
+        profile_dir = sys.argv[2]
+    elif len(sys.argv) != 1:
+        print("usage: python3 chip_smoke.py [--profile DIR]",
+              file=sys.stderr)
+        return 2
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+
+    from repro_torch.kernels import build
+
+    lib = build.load(verbose=True)
+    print(f"kernels built and loaded in {lib.build_s:.1f}s", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    csrc = "src/repro_torch/kernels/csrc"
+    rec = {
+        "flash_attention": dict(
+            name="flash_attention", route="cuda",
+            source=f"{csrc}/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:74"),
+        "paged_decode_attention": dict(
+            name="paged_decode_attention", route="cuda",
+            source=f"{csrc}/paged_decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:167"),
+        "sample_tokens": dict(
+            name="sample_tokens", route="cuda",
+            source=f"{csrc}/sampling.cu",
+            replaces="src/repro/kernels/topk_sample.py:63"),
+    }
+    for phase, fn in (("kernels vs plain", lambda: phase_kernels(torch,
+                                                                 rec)),
+                      ("reduced streams cuda == cpu",
+                       lambda: phase_reduced(torch)),
+                      ("full-width serving",
+                       lambda: phase_full(torch, rec, profile_dir))):
+        t0 = time.perf_counter()
+        if not fn():
+            return fail(f"phase '{phase}'")
+        print(f"phase '{phase}' ok in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(card, flush=True)
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in rec.values()]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

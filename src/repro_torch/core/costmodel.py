@@ -1,0 +1,90 @@
+"""Analytic latency model for serving work: the three-term roofline of the
+JAX package's ``core/costmodel.py``, restricted to what the engine's
+admission plan needs, over the chip constants in
+``repro_torch.core.hardware`` (default: one H100)."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from repro_torch.core.hardware import DISPATCH_OVERHEAD_S, H100_SXM, Chip
+
+
+@dataclass(frozen=True)
+class WorkEstimate:
+    """Roofline terms for one step of work on a device (group)."""
+
+    flops: float
+    hbm_bytes: float
+    chip: Chip = H100_SXM
+    n_chips: int = 1
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops / (self.chip.peak_flops * self.n_chips)
+
+    @property
+    def memory_s(self) -> float:
+        return self.hbm_bytes / (self.chip.hbm_bw * self.n_chips)
+
+    @property
+    def latency_s(self) -> float:
+        return max(self.compute_s, self.memory_s) + DISPATCH_OVERHEAD_S
+
+    @property
+    def bottleneck(self) -> str:
+        return "compute" if self.compute_s >= self.memory_s else "memory"
+
+
+def _dtype_bytes(cfg) -> int:
+    return 2 if cfg.dtype == "bfloat16" else 4
+
+
+def _n_attn_layers(cfg) -> int:
+    if cfg.arch_type != "hybrid":
+        return cfg.num_layers
+    pat = cfg.block_pattern or ("rglru", "rglru", "local_attn")
+    return cfg.num_layers * sum(b == "local_attn" for b in pat) // len(pat)
+
+
+def kv_bytes_per_token(cfg, kv_cache_dtype: str = "") -> float:
+    """Device bytes one cached token costs across every attention layer.
+    Only the model dtype is served by the port so far; any other pool
+    dtype is refused loudly (a wrong estimate over-admits the pool)."""
+    if not cfg.has_attention:
+        return 0.0
+    if kv_cache_dtype != "":
+        raise AssertionError(
+            f"kv_bytes_per_token: kv_cache_dtype {kv_cache_dtype!r} is not "
+            f"served by repro_torch yet")
+    per_vec = cfg.resolved_head_dim * _dtype_bytes(cfg)
+    return 2.0 * _n_attn_layers(cfg) * cfg.num_kv_heads * per_vec
+
+
+def _attn_flops(cfg, batch: int, s_q: int, s_kv: int) -> float:
+    if not cfg.has_attention:
+        return 0.0
+    hd = cfg.resolved_head_dim
+    pairs = s_q * s_kv * (0.5 if (cfg.causal and s_q == s_kv) else 1.0)
+    return 4.0 * batch * _n_attn_layers(cfg) * cfg.num_heads * pairs * hd
+
+
+def estimate_prefill(cfg, batch: int, seq: int, *, chip: Chip = H100_SXM,
+                     n_chips: int = 1) -> WorkEstimate:
+    flops = (2.0 * cfg.active_param_count() * batch * seq
+             + _attn_flops(cfg, batch, seq, seq))
+    wb = _dtype_bytes(cfg)
+    hbm = cfg.param_count() * wb + 12.0 * batch * seq * cfg.d_model * wb
+    return WorkEstimate(flops, hbm, chip, n_chips)
+
+
+def estimate_decode(cfg, batch: int, context: int, *, chip: Chip = H100_SXM,
+                    n_chips: int = 1) -> WorkEstimate:
+    flops = (2.0 * cfg.active_param_count() * batch
+             + _attn_flops(cfg, batch, 1, context))
+    wb = _dtype_bytes(cfg)
+    kv_bytes = 0.0
+    if cfg.has_attention:
+        kv_bytes = (2.0 * batch * _n_attn_layers(cfg) * context
+                    * cfg.num_kv_heads * cfg.resolved_head_dim * wb)
+    hbm = cfg.param_count() * wb + kv_bytes
+    return WorkEstimate(flops, hbm, chip, n_chips)

@@ -1,0 +1,12 @@
+"""The one dispatch point per kernel (the port's counterpart of the JAX
+package's ``kernels/ops.py``). Each takes the model layout; a CPU tensor
+runs the plain PyTorch version, a CUDA tensor the hand-written kernel."""
+from __future__ import annotations
+
+from repro_torch.kernels.build import LAUNCHES, reset_launches
+from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.topk_sample import sample_tokens, topk_sample
+
+__all__ = ["LAUNCHES", "flash_attention", "paged_decode_attention",
+           "reset_launches", "sample_tokens", "topk_sample"]

@@ -1,0 +1,156 @@
+"""Serving CLI of the PyTorch port: one ``ServingEngine`` fed by a
+synthetic open-loop client, with the JAX package's report lines (QPS,
+tokens/s, latency and TTFT percentiles).
+
+    python -m repro_torch.launch.serve --arch granite-8b --requests 16 \
+        --slots 8 --prompt-len 256 --max-new 64 --max-seq 1024
+
+runs on the GPU (``--device cuda``, the default; it raises when there is
+no CUDA device). ``--device cpu --reduced`` runs the plain PyTorch path on
+the CPU. Weights are random, from ``--seed``. ``--temperature`` > 0
+switches every request to seeded stochastic decode; request i samples with
+seed ``--sample-seed + i``, so a rerun reproduces every stream.
+
+Only the main path is ported: the paged KV cache, single-shot bucketed
+prefill, one card. ``EngineConfig.validate`` names the ROADMAP.md item of
+every other option.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.device import resolve_device
+from repro_torch.models import init_params
+from repro_torch.serving import (
+    EngineConfig,
+    Request,
+    SamplingParams,
+    ServingEngine,
+)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--slots", type=int, default=4,
+                    help="decode slots; 0 = derive from the cost model")
+    ap.add_argument("--window", type=int, default=256)
+    ap.add_argument("--rate", type=float, default=8.0, help="arrivals/s")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--sync-every", type=int, default=8,
+                    help="decode ticks per device->host token sync")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page")
+    ap.add_argument("--max-seq", type=int, default=0,
+                    help="per-request token cap / page-table width; "
+                         "0 = window")
+    ap.add_argument("--pool-pages", type=int, default=0,
+                    help="shared KV pool size in pages; 0 = full headroom, "
+                         "less oversubscribes (admission backpressure)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="decode sampling temperature; 0 = greedy argmax")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="sample from the k largest logits; 0 = no cut")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass; 1 = no cut")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="base sampling seed; request i uses seed+i")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (hand-written kernels) or cpu (plain "
+                         "PyTorch versions)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.temperature <= 0 and (args.top_k > 0 or args.top_p < 1.0):
+        print("warning: --top-k/--top-p have no effect with "
+              "--temperature 0 (greedy decode); pass --temperature > 0 "
+              "to sample", file=sys.stderr)
+
+    config = EngineConfig(slots=args.slots, window=args.window,
+                          sync_every=args.sync_every,
+                          page_size=args.page_size,
+                          max_seq=args.max_seq or None,
+                          pool_pages=args.pool_pages or None)
+    config.validate(cfg)
+    rng = np.random.default_rng(args.seed)
+    params = init_params(cfg, seed=args.seed, device=device)
+    eng = ServingEngine(cfg, params, config, device=device)
+    card = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"device: {card}  arch={cfg.name} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} dtype={cfg.dtype}")
+    if not args.slots:
+        print(f"admission plan: slots={eng.slots} "
+              f"flush_deadline={eng.plan.flush_deadline_s*1e3:.2f}ms "
+              f"(cost-model step={eng.plan.step_latency_s*1e3:.3f}ms)")
+    print(f"paged KV: page_size={eng.page_size} max_seq={eng.max_seq} "
+          f"pool={eng.pool_pages} pages "
+          f"({eng.allocator.capacity} usable + trash)")
+
+    arrivals = np.cumsum(rng.exponential(1.0 / args.rate, args.requests))
+    reqs = [
+        Request(
+            rid=i,
+            prompt=rng.integers(0, cfg.vocab_size,
+                                args.prompt_len).astype(np.int32),
+            max_new_tokens=args.max_new,
+            arrival_time=float(arrivals[i]),
+            sampling=SamplingParams(temperature=args.temperature,
+                                    top_k=args.top_k, top_p=args.top_p,
+                                    seed=args.sample_seed + i),
+        )
+        for i in range(args.requests)
+    ]
+    queue = list(reqs)
+    t0 = time.time()
+    done = 0
+    while done < args.requests:
+        now = time.time() - t0
+        while queue and queue[0].arrival_time <= now:
+            eng.submit(queue.pop(0), now)
+        done += len(eng.step(time.time() - t0))
+        busy = eng.n_active or eng.backlog or eng.admission.pending
+        if not busy and queue:
+            # idle until the next arrival
+            time.sleep(max(0.0, queue[0].arrival_time - (time.time() - t0)))
+    done += len(eng.drain(time.time() - t0))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.time() - t0
+    m = eng.metrics
+    m.total_time = wall
+    lats = [r.finish_time - r.arrival_time for r in reqs]
+    ttfts = [r.ttft for r in reqs if r.ttft >= 0]
+    print(f"served {args.requests} requests in {wall:.2f}s  "
+          f"qps={args.requests/wall:.2f}  tok/s={m.total_tokens/wall:.1f}  "
+          f"ticks={m.decode_ticks}  host_syncs={m.host_syncs}  "
+          f"prefill_chunks={m.prefill_chunks}")
+    if m.sampled_requests:
+        print(f"sampled decode: {m.sampled_requests} requests "
+              f"(T={args.temperature} top_k={args.top_k} "
+              f"top_p={args.top_p}, seeds {args.sample_seed}+rid)")
+    print(f"latency p50={np.percentile(lats,50)*1e3:.0f}ms "
+          f"p99={np.percentile(lats,99)*1e3:.0f}ms  "
+          f"mean_jct={np.mean(lats)*1e3:.0f}ms  "
+          f"ttft p50={np.percentile(ttfts,50)*1e3:.0f}ms "
+          f"p95={np.percentile(ttfts,95)*1e3:.0f}ms")
+    if m.rejected:
+        print(f"lifecycle: rejected={m.rejected}")
+    return reqs
+
+
+if __name__ == "__main__":
+    main()

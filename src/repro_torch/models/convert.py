@@ -1,0 +1,53 @@
+"""Weights carried across from the JAX package.
+
+``params_from_jax(cfg, tree, device)`` takes the reference's parameter
+pytree as nested dicts/lists of NUMPY arrays (a test builds it with
+``jax.tree.map(np.asarray, repro.models.init_params(cfg, key))``) and
+returns the port's params. ``body`` leaves carry a leading ``n_repeat``
+axis (one slice per scanned repeat); they are unstacked into one dict per
+layer, in scan order. Weight matrices keep the reference's (in, out)
+orientation, so no transpose is needed.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.models.model import block_program
+
+
+def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret bits
+        return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def params_from_jax(cfg, tree, device="cuda"):
+    device = resolve_device(device)
+    pattern, n_repeat, tail = block_program(cfg)
+    layers = []
+    for r in range(n_repeat):
+        for j in range(len(pattern)):
+            layers.append(_map(tree["body"][j],
+                               lambda a, r=r: _tensor(np.asarray(a)[r],
+                                                      device)))
+    for blk in tree["tail"]:
+        layers.append(_map(blk, lambda a: _tensor(a, device)))
+    out = {"layers": layers,
+           "final_norm": _map(tree["final_norm"],
+                              lambda a: _tensor(a, device))}
+    for name in ("embed", "lm_head"):
+        if name in tree:
+            out[name] = _tensor(tree[name], device)
+    return out

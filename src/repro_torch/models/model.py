@@ -1,0 +1,169 @@
+"""Model of the PyTorch port: block program -> an unrolled loop over
+layers (the JAX package scans stacked weights; the port keeps one param
+dict per layer, in scan order).
+
+Public API (device explicit everywhere):
+  block_program(cfg)                          -> (pattern, n_repeat, tail)
+  init_params(cfg, seed, device)              -> params dict (random weights)
+  init_paged_cache(cfg, batch, n_pages, page_size, max_pages, device)
+  forward(cfg, params, tokens, ...)           -> (logits, per-layer (k, v))
+  decode_step(cfg, params, cache, tokens)     -> logits (B, S, V); cache
+                                                 updated in place
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.blocks import (
+    PORTED_BLOCKS,
+    apply_block,
+    init_block,
+    init_norm,
+    init_paged_block_cache,
+    paged_write_index,
+)
+
+F32 = torch.float32
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+
+
+def block_program(cfg):
+    if cfg.arch_type in ("dense", "vlm"):
+        pattern = ("dense",)
+    elif cfg.arch_type == "audio":
+        pattern = ("encoder",)
+    elif cfg.arch_type == "moe":
+        k = cfg.moe_layer_period
+        pattern = ("dense",) * (k - 1) + ("moe",)
+    elif cfg.arch_type == "ssm":
+        pattern = ("ssd",)
+    elif cfg.arch_type == "hybrid":
+        pattern = cfg.block_pattern or ("rglru", "rglru", "local_attn")
+    else:
+        raise ValueError(cfg.arch_type)
+    n_repeat = cfg.num_layers // len(pattern)
+    tail = pattern[: cfg.num_layers % len(pattern)]
+    return pattern, n_repeat, tail
+
+
+def layer_types(cfg):
+    """Block type of every layer, in the reference's scan order."""
+    pattern, n_repeat, tail = block_program(cfg)
+    return list(pattern) * n_repeat + list(tail)
+
+
+def ported(cfg) -> bool:
+    return all(bt in PORTED_BLOCKS for bt in layer_types(cfg))
+
+
+def init_params(cfg, seed: int = 0, device="cuda"):
+    """Random weights from a ``torch.Generator`` on ``device`` (normal,
+    scaled as the reference's init). Not the reference's bits: parity tests
+    convert the JAX package's weights with ``convert.params_from_jax``."""
+    device = resolve_device(device)
+    dtype = dtype_of(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d, v = cfg.d_model, cfg.vocab_size
+    params = {
+        "layers": [init_block(cfg, bt, gen, dtype, device)
+                   for bt in layer_types(cfg)],
+        "final_norm": init_norm(cfg, d, dtype, device),
+        "embed": (torch.randn((v, d), generator=gen, device=device)
+                  * d ** -0.5).to(dtype),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = (torch.randn((d, v), generator=gen,
+                                         device=device)
+                             * d ** -0.5).to(dtype)
+    return params
+
+
+def init_paged_cache(cfg, batch: int, n_pages: int, page_size: int,
+                     max_pages_per_slot: int, device="cuda"):
+    """One page pool pair per layer plus one page-table row and position
+    per slot. Table entries start at 0 — the reserved trash page."""
+    if not ported(cfg):
+        raise ValueError(f"{cfg.name}: arch has blocks the port does not "
+                         f"serve yet")
+    device = resolve_device(device)
+    dtype = dtype_of(cfg)
+    return {
+        "layers": [init_paged_block_cache(cfg, n_pages, page_size, dtype,
+                                          device)
+                   for _ in layer_types(cfg)],
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "page_table": torch.zeros((batch, max_pages_per_slot),
+                                  dtype=torch.int32, device=device),
+    }
+
+
+def _embed(params, tokens):
+    return params["embed"][tokens.to(torch.int64)]
+
+
+def head_f32(params):
+    """The lm head in float32 (the reference's ``preferred_element_type``
+    product): a cached float32 copy when the caller made one, else an
+    upcast per call."""
+    if "lm_head_f32" in params:
+        return params["lm_head_f32"]
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    return head.to(F32)
+
+
+def _logits(cfg, params, x):
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    return torch.matmul(x.to(F32), head_f32(params))
+
+
+def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
+            want_kv: bool = False):
+    """Full-sequence causal forward (prefill). tokens (B, S) integer.
+    Returns (logits, kv): logits (B, S, V) float32, or (B, V) at the
+    positions ``logits_at`` (B,) when given; kv is the per-layer list of
+    the prompt's (k, v), each (B, S, kv, hd), when ``want_kv``."""
+    b, s = tokens.shape
+    x = _embed(params, tokens)
+    rope_pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    rope = L.rope_table(cfg, rope_pos)
+    kvs = []
+    for bt, p in zip(layer_types(cfg), params["layers"]):
+        x, kv = apply_block(cfg, bt, p, x, rope, mode="prefill")
+        if want_kv:
+            kvs.append(kv)
+    if logits_at is not None:
+        x = x[torch.arange(b, device=x.device), logits_at.to(torch.int64)]
+    return _logits(cfg, params, x), (kvs if want_kv else None)
+
+
+def decode_step(cfg, params, cache, tokens):
+    """Incremental decode against the paged cache. tokens (B, S): S=1 is
+    the one-token decode step. Writes the S tokens' K/V into the pools and
+    advances ``cache["pos"]`` by S, in place. Returns logits (B, S, V)
+    float32."""
+    b, s = tokens.shape
+    pos = cache["pos"]
+    pages = cache["page_table"]
+    x = _embed(params, tokens)
+    rope_pos = pos.to(torch.int64)[:, None] + torch.arange(
+        s, device=tokens.device)[None, :]
+    # what every layer shares, built once per step
+    rope = L.rope_table(cfg, rope_pos)
+    write_at = paged_write_index(pages, pos, s,
+                                 cache["layers"][0]["k"].shape[1])
+    n_valid = (pos + s).to(torch.int32)
+    for bt, p, c in zip(layer_types(cfg), params["layers"], cache["layers"]):
+        x, _ = apply_block(cfg, bt, p, x, rope, mode="decode", cache=c,
+                           pages=pages, write_at=write_at, n_valid=n_valid)
+    cache["pos"] = n_valid
+    return _logits(cfg, params, x)

@@ -1,0 +1,181 @@
+"""Engine configuration of the port: ``PrecisionConfig``,
+``DeviceTopology`` and the frozen ``EngineConfig``, with the JAX package's
+fields (``repro/serving/config.py``).
+
+The port serves the main path first: the paged KV cache on dense archs,
+single-shot bucketed prefill, model-dtype pools and weights, one card.
+``validate()`` refuses every option whose path is not ported yet and
+names the ``ROADMAP.md`` item that brings it, so nothing silently runs a
+different path than the one asked for. ``chunk_prefill`` therefore
+defaults to 0 here (the reference's default is 64).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+MOE_CAPACITY_POLICIES = ("strict", "backpressure", "drop")
+KV_CACHE_DTYPES = ("", "int8")
+WEIGHT_DTYPES = ("", "int8")
+KV_SCALE_GRANULARITIES = ("page", "token")
+
+
+@dataclass(frozen=True)
+class PrecisionConfig:
+    """Serving-path numeric precision ("" = the model dtype)."""
+
+    kv_cache_dtype: str = ""
+    weight_dtype: str = ""
+    kv_scale_granularity: str = "page"
+
+    def __post_init__(self):
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"unknown kv_cache_dtype "
+                             f"{self.kv_cache_dtype!r} (want one of "
+                             f"{KV_CACHE_DTYPES})")
+        if self.weight_dtype not in WEIGHT_DTYPES:
+            raise ValueError(f"unknown weight_dtype {self.weight_dtype!r} "
+                             f"(want one of {WEIGHT_DTYPES})")
+        if self.kv_scale_granularity not in KV_SCALE_GRANULARITIES:
+            raise ValueError(f"unknown kv_scale_granularity "
+                             f"{self.kv_scale_granularity!r} (want one of "
+                             f"{KV_SCALE_GRANULARITIES})")
+
+    @property
+    def quantized_kv(self) -> bool:
+        return self.kv_cache_dtype != ""
+
+    @property
+    def quantized_weights(self) -> bool:
+        return self.weight_dtype != ""
+
+
+@dataclass(frozen=True)
+class DeviceTopology:
+    """Mesh shape one engine replica spans (dp x tp); (1, 1) is one card."""
+
+    dp: int = 1
+    tp: int = 1
+
+    def __post_init__(self):
+        if self.dp < 1 or self.tp < 1:
+            raise ValueError(f"DeviceTopology axes must be >= 1 (got "
+                             f"dp={self.dp}, tp={self.tp})")
+
+    @property
+    def n_chips(self) -> int:
+        return self.dp * self.tp
+
+    @property
+    def sharded(self) -> bool:
+        return self.n_chips > 1
+
+    @property
+    def mesh_axes(self) -> tuple:
+        return (("data", self.dp), ("model", self.tp))
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """Everything that shapes a ``ServingEngine`` besides (cfg, params);
+    field semantics as in the JAX package."""
+
+    slots: Optional[int] = 4
+    window: int = 512
+    eos_id: int = -1
+    sync_every: int = 8
+    donate: bool = True
+    bucket_prompts: bool = True
+    chunk_prefill: int = 0
+    sla_s: float = 0.05
+    prefill_policy: Optional[object] = None
+    paged: Optional[bool] = None
+    page_size: int = 16
+    pool_pages: Optional[int] = None
+    max_seq: Optional[int] = None
+    kv_hbm_budget: Optional[float] = None
+    expected_len: Optional[int] = None
+    edf_backlog: bool = False
+    prefix_cache: bool = False
+    preemption: bool = False
+    preempt_policy: str = "latest-deadline"
+    shed_overdue: bool = False
+    topology: DeviceTopology = DeviceTopology()
+    modeled_chips: int = 0
+    moe_capacity_policy: Optional[str] = None
+    precision: PrecisionConfig = PrecisionConfig()
+    tracing: bool = False
+    trace_sample_n: int = 1
+    trace_ring: int = 0
+    profile_dir: Optional[str] = None
+
+    def __post_init__(self):
+        if (self.moe_capacity_policy is not None
+                and self.moe_capacity_policy not in MOE_CAPACITY_POLICIES):
+            raise ValueError(f"unknown moe_capacity_policy "
+                             f"{self.moe_capacity_policy!r} (want one of "
+                             f"{MOE_CAPACITY_POLICIES})")
+        if self.modeled_chips < 0:
+            raise ValueError(f"modeled_chips must be >= 0, got "
+                             f"{self.modeled_chips}")
+        if self.trace_sample_n < 1:
+            raise ValueError(f"trace_sample_n must be >= 1, got "
+                             f"{self.trace_sample_n}")
+        if self.trace_ring < 0:
+            raise ValueError(f"trace_ring must be >= 0, got "
+                             f"{self.trace_ring}")
+
+    @property
+    def n_chips(self) -> int:
+        return self.modeled_chips or self.topology.n_chips
+
+    def validate(self, cfg=None) -> "EngineConfig":
+        """Refuse, before any work, every option whose path the port does
+        not serve yet; the message names the ROADMAP.md item."""
+        q1 = "ROADMAP.md queue 1"
+        not_yet = []
+        if self.chunk_prefill > 0 or self.prefill_policy is not None:
+            not_yet.append(("chunk_prefill > 0 (chunked prefill)",
+                            f"{q1}, 'Engine, remaining paths': chunked "
+                            f"prefill"))
+        if self.paged is False:
+            not_yet.append(("paged=False (rolling KV windows)",
+                            f"{q1}, 'Engine, remaining paths': rolling "
+                            f"caches"))
+        if self.prefix_cache:
+            not_yet.append(("prefix_cache", f"{q1}, 'Engine, remaining "
+                            f"paths': prefix cache and copy-on-write"))
+        if self.preemption:
+            not_yet.append(("preemption", f"{q1}, 'Engine, remaining "
+                            f"paths': lifecycle and preemption"))
+        if self.shed_overdue:
+            not_yet.append(("shed_overdue", f"{q1}, 'Engine, remaining "
+                            f"paths': lifecycle and preemption"))
+        if self.precision.quantized_kv or self.precision.quantized_weights:
+            not_yet.append((f"precision={self.precision} (int8)",
+                            f"{q1}, 'Engine, remaining paths': int8; and "
+                            f"queue 2, kernels 4-5"))
+        if self.topology.sharded:
+            not_yet.append((f"topology dp={self.topology.dp} "
+                            f"tp={self.topology.tp} (sharded replica)",
+                            f"{q1}, 'Multi-GPU'"))
+        if self.tracing or self.profile_dir:
+            not_yet.append(("tracing / profile_dir", f"{q1}, 'Engine, "
+                            f"remaining paths': span/metrics hooks and a "
+                            f"torch.profiler stand-in"))
+        if cfg is not None:
+            from repro_torch.models import layer_types, ported
+
+            if not ported(cfg):
+                bad = sorted(set(layer_types(cfg)) - {"dense"})
+                not_yet.append((f"arch {cfg.name} with {bad} blocks",
+                                f"{q1}, 'Other block families'"))
+        if not_yet:
+            what, item = not_yet[0]
+            raise ValueError(f"{what} is not ported to repro_torch yet "
+                             f"(see {item})")
+        return self
+
+    def replace(self, **kw) -> "EngineConfig":
+        return dataclasses.replace(self, **kw)

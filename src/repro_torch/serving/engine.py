@@ -1,0 +1,545 @@
+"""Serving engine of the PyTorch port: the main path of the JAX package's
+``repro/serving/engine.py`` — continuous batching over a paged KV cache on
+dense archs, bucketed single-shot prefill, fused decode windows with one
+host sync per window, and device-resident sampling keyed by (seed,
+absolute position).
+
+Where the reference jits pure functions and donates buffers, the port runs
+eagerly and updates the page pools, page table, positions and sampling
+state IN PLACE: the engine is their only owner. The three kernels of the
+path (prefill attention, paged decode attention, the sampler) are reached
+through ``repro_torch.kernels.ops``: plain PyTorch on a CPU device, the
+hand-written Hopper kernels on CUDA.
+
+Seeded streams match the reference's bits: the uniform of a stochastic
+slot is ``uniform(fold_in(PRNGKey(seed), pos))`` from the port's
+threefry (``serving/prng.py``) in the ``jax_threefry_partitionable`` mode
+the engine is built with.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Deque, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.costmodel import estimate_decode
+from repro_torch.core.device import resolve_device
+from repro_torch.core.misd.batching import BatchAccumulator, plan_admission
+from repro_torch.kernels import ops
+from repro_torch.models import decode_step, dtype_of, forward, init_paged_cache
+from repro_torch.serving import prng
+from repro_torch.serving.config import EngineConfig
+from repro_torch.serving.paging import PageAllocator
+from repro_torch.serving.request import (
+    Request,
+    RequestRejected,
+    RequestState,
+    SamplingParams,
+    ServeMetrics,
+)
+
+__all__ = [
+    "EngineConfig", "ServingEngine", "decode_scan_step", "decode_tick",
+    "init_sampling_state", "page_table_append", "paged_prefill_step",
+    "pages_insert", "prompt_bucket", "resolve_device", "sampling_row",
+    "sampling_set", "slot_release",
+]
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
+
+
+def prompt_bucket(n: int, *, min_bucket: int = 16) -> int:
+    """Power-of-two bucket for a prompt of ``n`` tokens."""
+    return max(min_bucket, 1 << max(n - 1, 1).bit_length())
+
+
+def paged_prefill_step(cfg, params, tokens, true_len: int):
+    """Prefill a prompt padded at the end to a bucket: tokens (1, L). The
+    pad keys are hidden from the true tokens by causality. Returns
+    (first greedy token (1,) int32, last-true-position logits (1, V),
+    per-layer (k, v) of all L positions for the page scatter)."""
+    at = torch.full((tokens.shape[0],), true_len - 1, dtype=torch.int64,
+                    device=tokens.device)
+    last, kv = forward(cfg, params, tokens, logits_at=at, want_kv=True)
+    return torch.argmax(last, dim=-1).to(torch.int32), last, kv
+
+
+def pages_insert(cache, kv, pages, slot: int, true_len: int):
+    """Admit a prefilled request: scatter its K/V (the n pages' worth of
+    positions) into the pool pages ``pages`` (n,), point the slot's table
+    row at them (trash page 0 after) and set its position. In place."""
+    n = pages.shape[0]
+    for layer, (k, v) in zip(cache["layers"], kv):
+        ps = layer["k"].shape[1]
+        layer["k"][pages] = k[0, :n * ps].reshape(
+            n, ps, *k.shape[2:]).to(layer["k"].dtype)
+        layer["v"][pages] = v[0, :n * ps].reshape(
+            n, ps, *v.shape[2:]).to(layer["v"].dtype)
+    row = cache["page_table"][slot]
+    row.zero_()
+    row[:n] = pages
+    cache["pos"][slot] = true_len
+
+
+def page_table_append(cache, slot: int, idx: int, page: int):
+    """Grant one more page to a slot mid-decode: table[slot, idx] = page."""
+    cache["page_table"][slot, idx] = page
+
+
+def slot_release(cache, slot: int):
+    """Point a retired slot's whole table row at the trash page and zero
+    its position: it keeps riding in the decode batch, but its writes can
+    no longer land in a reclaimed page."""
+    cache["page_table"][slot].zero_()
+    cache["pos"][slot] = 0
+
+
+def init_sampling_state(slots: int, device) -> dict:
+    """Per-slot device sampling state, all-greedy by default. ``key`` holds
+    each slot's ``PRNGKey(seed)`` pair as int64 values of 32 bits."""
+    return {
+        "greedy": torch.ones((slots,), dtype=torch.bool, device=device),
+        "temperature": torch.ones((slots,), dtype=torch.float32,
+                                  device=device),
+        "top_k": torch.zeros((slots,), dtype=torch.int32, device=device),
+        "top_p": torch.ones((slots,), dtype=torch.float32, device=device),
+        "key": torch.zeros((slots, 2), dtype=torch.int64, device=device),
+    }
+
+
+def sampling_row(sp: Optional[SamplingParams]) -> dict:
+    """Host-side one-slot values for ``init_sampling_state`` leaves.
+    Greedy rows skip the key: their lane never draws."""
+    sp = sp or SamplingParams()
+    greedy = sp.greedy
+    return {
+        "greedy": bool(greedy),
+        "temperature": 1.0 if greedy else max(sp.temperature, 1e-6),
+        "top_k": 0 if greedy else int(sp.top_k),
+        "top_p": 1.0 if greedy else float(sp.top_p),
+        "key": (0, 0) if greedy else prng.prng_key(sp.seed),
+    }
+
+
+def sampling_set(samp, slot: int, row: dict):
+    """Write one slot's sampling values into the per-slot state, in place."""
+    for name, leaf in samp.items():
+        leaf[slot] = torch.as_tensor(row[name], dtype=leaf.dtype)
+
+
+def window_uniforms(samp, pos, n: int, *, partitionable: bool = True):
+    """The uniforms of ``n`` decode ticks at once, (n, B): tick i draws
+    the token at position ``pos + i + 1`` (every slot advances by one per
+    tick), so its uniform is ``uniform(fold_in(key, pos + i + 1))``. One
+    threefry pass per window instead of one per tick."""
+    at = (pos.to(torch.int64)[None, :]
+          + torch.arange(1, n + 1, device=pos.device)[:, None])
+    return prng.uniform(prng.fold_in(samp["key"][None], at), partitionable)
+
+
+def draw_tokens(last, samp, pos, *, partitionable: bool = True,
+                all_greedy: bool = False, uniform=None):
+    """Pick each row's next token from its logits ``last`` (B, V) through
+    the sampler kernel. ``pos`` (B,) is the absolute position of the token
+    being drawn; a stochastic row's uniform is ``uniform(fold_in(key,
+    pos))``, unless the caller drew it already (``uniform``).
+    ``all_greedy`` (a host-side fact) skips the threefry work."""
+    if all_greedy:
+        uniform = torch.zeros(last.shape[0], dtype=torch.float32,
+                              device=last.device)
+    elif uniform is None:
+        uniform = prng.uniform(prng.fold_in(samp["key"], pos),
+                               partitionable)
+    return ops.sample_tokens(last.to(torch.float32).contiguous(),
+                             samp["greedy"], samp["temperature"],
+                             samp["top_k"], samp["top_p"], uniform)
+
+
+def decode_tick(cfg, params, cache, tokens, samp, *,
+                partitionable: bool = True, all_greedy: bool = False,
+                uniform=None):
+    """One decode step for every slot: ``tokens`` (B,) is the device-
+    resident last-token carry. The token drawn lands at the post-step
+    position, the same fold key the first token uses (pos = prompt_len).
+    Returns next tokens (B,) int32; the cache advances in place."""
+    logits = decode_step(cfg, params, cache, tokens[:, None])
+    return draw_tokens(logits[:, -1], samp, cache["pos"],
+                       partitionable=partitionable, all_greedy=all_greedy,
+                       uniform=uniform)
+
+
+def decode_scan_step(cfg, params, cache, tokens, samp, *, n: int,
+                     partitionable: bool = True, all_greedy: bool = False):
+    """``n`` decode ticks back to back with no host sync between them (the
+    reference's fused ``lax.scan`` window). Returns (final tokens (B,),
+    token history (n, B)) — the caller syncs the history once."""
+    us = (None if all_greedy else
+          window_uniforms(samp, cache["pos"], n, partitionable=partitionable))
+    hist = []
+    for i in range(n):
+        tokens = decode_tick(cfg, params, cache, tokens, samp,
+                             partitionable=partitionable,
+                             all_greedy=all_greedy,
+                             uniform=None if us is None else us[i])
+        hist.append(tokens)
+    return tokens, torch.stack(hist)
+
+
+def _padded_len(n: int, chunk: int) -> int:
+    return ((n + chunk - 1) // chunk) * chunk
+
+
+# ---------------------------------------------------------------------------
+# continuous-batching executor
+# ---------------------------------------------------------------------------
+
+
+class ServingEngine:
+    """Single-card engine with continuous batching over a paged KV cache
+    (the reference's ``ServingEngine`` main path; see its docstring for
+    the knobs). ``device`` defaults to CUDA and raises when no card is
+    present unless ``device="cpu"`` is asked for. ``threefry_partitionable``
+    selects the ``jax_threefry_partitionable`` mode whose bits seeded
+    streams reproduce."""
+
+    def __init__(self, cfg, params, config: Optional[EngineConfig] = None,
+                 *, device="cuda", threefry_partitionable: bool = True):
+        if config is None:
+            config = EngineConfig()
+        config.validate(cfg)
+        self.config = config
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.partitionable = bool(threefry_partitionable)
+        params = dict(params)
+        if dtype_of(cfg) != torch.float32:
+            # the lm head's float32 product (the reference's preferred
+            # element type), kept once instead of upcast every tick
+            head = params.get("lm_head")
+            if head is None:
+                head = params["embed"].T
+            params["lm_head_f32"] = head.to(torch.float32)
+        self.params = params
+        page_size = config.page_size
+        if page_size <= 0 or page_size & (page_size - 1):
+            raise ValueError(f"page_size must be a power of two, got "
+                             f"{page_size}")
+        self.page_size = page_size
+        self.window = config.window
+        self.max_seq = _padded_len(int(config.max_seq or config.window),
+                                   page_size)
+        self.max_pages = self.max_seq // page_size
+        self.plan = plan_admission(
+            cfg, context=config.window, sla_s=config.sla_s,
+            n_chips=config.n_chips, kv_hbm_budget_bytes=config.kv_hbm_budget,
+            mean_context=config.expected_len or None)
+        slots = config.slots or self.plan.slots
+        self.slots = slots
+        self._tick_est_s = estimate_decode(cfg, slots, config.window).latency_s
+        self.eos_id = config.eos_id
+        self.sync_every = 1 if config.eos_id >= 0 else max(1,
+                                                           config.sync_every)
+        self.bucket_prompts = config.bucket_prompts
+        self.edf_backlog = config.edf_backlog
+        self.metrics = ServeMetrics()
+        self.paged = True
+        self.pool_pages = config.pool_pages or slots * self.max_pages + 1
+        self.allocator = PageAllocator(self.pool_pages, page_size)
+        self.cache = init_paged_cache(cfg, slots, self.pool_pages, page_size,
+                                      self.max_pages, device=self.device)
+        self._pos_h: List[int] = [0] * slots  # host mirror of cache pos
+        self._tabled: List[int] = [0] * slots  # table entries written
+        self._tokens = torch.zeros((slots,), dtype=torch.int32,
+                                   device=self.device)
+        self._samp = init_sampling_state(slots, self.device)
+        self._samp_greedy_h: List[bool] = [True] * slots
+        self.active: List[Optional[Request]] = [None] * slots
+        self.decoding: List[bool] = [False] * slots
+        self._unsynced: List[torch.Tensor] = []
+        self._finished: List[Request] = []
+        self.backlog: Deque[Request] = deque()
+        self.admission = BatchAccumulator(
+            target_batch=slots, deadline_s=self.plan.flush_deadline_s)
+        self.prefill_calls = 0
+
+    # -- admission ---------------------------------------------------------
+    def submit(self, req: Request, now: float) -> bool:
+        """Admit at once while a slot is free; once saturated, queue and
+        batch admissions up to the cost-model deadline. An unservable
+        request comes back FAILED from the next ``step`` (and ``False`` is
+        returned) instead of raising."""
+        try:
+            self._check_servable(req)
+        except RequestRejected as e:
+            self._reject(req, now, str(e))
+            return False
+        if (not self.backlog and not self.admission.pending
+                and self.try_admit(req, now)):
+            return True
+        flushed = self.admission.add(req, now)
+        if flushed:
+            self.backlog.extend(flushed)
+            self._drain_backlog(now)
+        return True
+
+    def _reject(self, req: Request, now: float, reason: str):
+        req.state = RequestState.FAILED
+        req.fail_reason = reason
+        req.finish_time = now
+        self.metrics.rejected += 1
+        self._finished.append(req)
+
+    def _pump_admissions(self, now: float):
+        flushed = self.admission.poll(now)
+        if flushed:
+            self.backlog.extend(flushed)
+        self._drain_backlog(now)
+
+    def _drain_backlog(self, now: float):
+        while self.backlog:
+            idx = 0
+            if self.edf_backlog:
+                idx = min(range(len(self.backlog)),
+                          key=lambda k: (self.backlog[k].ttft_deadline, k))
+            if not self.try_admit(self.backlog[idx], now):
+                break
+            del self.backlog[idx]
+
+    def _check_servable(self, req: Request):
+        if req.prompt_len > self.max_seq:
+            raise RequestRejected(
+                f"prompt of {req.prompt_len} tokens exceeds max_seq="
+                f"{self.max_seq}; raise EngineConfig(max_seq=...)")
+
+    def try_admit(self, req: Request, now: float) -> bool:
+        """Claim a free slot and the request's worst-case pages (padded
+        prompt + token budget, capped at max_seq), then prefill. An
+        exhausted pool refuses the admission (backpressure)."""
+        self._check_servable(req)
+        for i, r in enumerate(self.active):
+            if r is None:
+                if not self._reserve_pages(req, i):
+                    return False
+                self._admit_now(req, i, now)
+                return True
+        return False
+
+    def _prefill_len(self, req: Request) -> int:
+        """Padded prompt length: the power-of-two bucket when it fits
+        max_seq, else the page-rounded prompt."""
+        plen = req.prompt_len
+        if self.bucket_prompts:
+            b = prompt_bucket(plen, min_bucket=max(16, self.page_size))
+            if b <= self.max_seq:
+                return b
+        return _padded_len(plen, self.page_size)
+
+    def _reserve_pages(self, req: Request, slot: int) -> bool:
+        if self.allocator.owned(slot):
+            slot_release(self.cache, slot)
+            self.allocator.free_slot(slot)
+            self._pos_h[slot] = 0
+            self._tabled[slot] = 0
+        lifetime = min(req.prompt_len + max(1, req.remaining_tokens) - 1,
+                       self.max_seq)
+        n = self.allocator.pages_for(max(self._prefill_len(req), lifetime))
+        return self.allocator.alloc(slot, n) is not None
+
+    def _admit_now(self, req: Request, slot: int, now: float):
+        plen = req.prompt_len
+        padded = np.zeros((1, self._prefill_len(req)), np.int32)
+        padded[0, :plen] = req.prompt
+        tokens = torch.from_numpy(padded).to(self.device)
+        tok, last, kv = paged_prefill_step(self.cfg, self.params, tokens,
+                                           plen)
+        self.prefill_calls += 1
+        self._activate(req, slot, tok, last, kv, now)
+
+    def _activate(self, req: Request, slot: int, tok, last, kv, now: float):
+        """Install a prefilled request: sampling state, first token (drawn
+        at position prompt_len for a stochastic request), page scatter and
+        table row, token carry. Flushes deferred tokens first so a fused
+        window only ever spans a fixed slot membership."""
+        self._flush(now)
+        sp = req.sampling or SamplingParams()
+        row = sampling_row(sp)
+        if not (sp.greedy and self._samp_greedy_h[slot]):
+            sampling_set(self._samp, slot, row)
+        self._samp_greedy_h[slot] = sp.greedy
+        if not sp.greedy:
+            self.metrics.sampled_requests += 1
+            samp1 = {k: v[slot:slot + 1] for k, v in self._samp.items()}
+            pos1 = torch.full((1,), req.prompt_len, dtype=torch.int64,
+                              device=self.device)
+            tok = draw_tokens(last, samp1, pos1,
+                              partitionable=self.partitionable)
+        n_pref = self.allocator.pages_for(self._prefill_len(req))
+        pages = torch.tensor(self.allocator.owned(slot)[:n_pref],
+                             dtype=torch.int64, device=self.device)
+        pages_insert(self.cache, kv, pages, slot, req.prompt_len)
+        self._pos_h[slot] = req.prompt_len
+        self._tabled[slot] = n_pref
+        already = len(req.output)
+        cap = max(1, self.max_seq - req.prompt_len)
+        if req.max_new_tokens - already > cap:
+            req.max_new_tokens = already + cap
+            req.budget_capped = True
+        self._tokens[slot] = tok[0]
+        req.output.append(int(tok[0]))
+        if req.prefill_done < 0:
+            req.prefill_done = now
+            self.metrics.ttfts.append(req.ttft)
+        req.state = RequestState.DECODE
+        self.active[slot] = req
+        self.decoding[slot] = True
+        if req.done:
+            self._finalize_request(req, slot, now)
+
+    # -- decode --------------------------------------------------------------
+    def step(self, now: float) -> List[Request]:
+        """One engine tick: pump queued admissions, then batched decode. In
+        steady state the whole ``sync_every`` window runs with one host
+        sync. Returns the requests that finished this tick."""
+        self._pump_admissions(now)
+        if not any(self.decoding):
+            return self._take_finished()
+        all_greedy = all(self._samp_greedy_h)
+        if self._fusable():
+            self._ensure_headroom(self.sync_every)
+            toks, hist = decode_scan_step(
+                self.cfg, self.params, self.cache, self._tokens, self._samp,
+                n=self.sync_every, partitionable=self.partitionable,
+                all_greedy=all_greedy)
+            self._tokens = toks
+            self.metrics.decode_ticks += self.sync_every
+            self._advance_pos(self.sync_every)
+            self._distribute(hist.cpu().numpy(), now)
+            return self._take_finished()
+        self._ensure_headroom(1)
+        nxt = decode_tick(self.cfg, self.params, self.cache, self._tokens,
+                          self._samp, partitionable=self.partitionable,
+                          all_greedy=all_greedy)
+        self._tokens = nxt
+        self._unsynced.append(nxt)
+        self.metrics.decode_ticks += 1
+        self._advance_pos(1)
+        pend = len(self._unsynced)
+        if (pend >= self.sync_every
+                or any(r is not None and d
+                       and len(r.output) + pend >= r.max_new_tokens
+                       for r, d in zip(self.active, self.decoding))):
+            self._flush(now)
+        return self._take_finished()
+
+    def _advance_pos(self, n: int):
+        for i, d in enumerate(self.decoding):
+            if d:
+                self._pos_h[i] += n
+
+    def _ensure_headroom(self, n: int):
+        """Write every decoding slot's table entries for ``n`` more tokens
+        before the window runs (table writes are host decisions). The
+        pages come from the admission-time reservation."""
+        for i, (r, d) in enumerate(zip(self.active, self.decoding)):
+            if r is None or not d:
+                continue
+            end = min(self._pos_h[i] + n, self.max_seq)
+            need = self.allocator.pages_for(end)
+            if need <= self._tabled[i]:
+                continue
+            owned = self.allocator.owned(i)
+            for k in range(self._tabled[i], min(need, len(owned))):
+                page_table_append(self.cache, i, k, owned[k])
+            self._tabled[i] = min(need, len(owned))
+
+    def _fusable(self) -> bool:
+        return (self.sync_every > 1
+                and not self._unsynced
+                and not self.backlog
+                and not self.admission.pending
+                and all(r.max_new_tokens - len(r.output) >= self.sync_every
+                        for r, d in zip(self.active, self.decoding)
+                        if r is not None and d))
+
+    def _flush(self, now: float = None):
+        """One host sync for the deferred ticks' tokens."""
+        if not self._unsynced:
+            return
+        toks = torch.stack(self._unsynced).cpu().numpy()
+        self._unsynced = []
+        self._distribute(toks, now)
+
+    def _distribute(self, toks: np.ndarray, now: float = None):
+        """Hand a (T, B) host token block to the per-slot requests."""
+        self.metrics.host_syncs += 1
+        t_now = time.time() if now is None else now
+        for i, r in enumerate(self.active):
+            if r is None or not self.decoding[i]:
+                continue
+            done = False
+            for t in range(toks.shape[0]):
+                if r.done:
+                    break
+                tok = int(toks[t, i])
+                r.output.append(tok)
+                if r.done or tok == self.eos_id:
+                    done = True
+                    break
+            if done:
+                self._finalize_request(r, i, t_now)
+
+    def _finalize_request(self, req: Request, slot: int, now: float):
+        req.state = RequestState.FINISHED
+        req.finish_time = now
+        self._finished.append(req)
+        self.release_slot(slot)
+        self.metrics.completed += 1
+        self.metrics.total_tokens += len(req.output)
+        jct = now - req.arrival_time
+        self.metrics.jcts.append(jct)
+        self.metrics.latencies.append(jct)
+        if req.tpot > 0:
+            self.metrics.tpots.append(req.tpot)
+        self.metrics.record_slo(req)
+
+    def release_slot(self, slot: int):
+        """Retire ``slot``: reset a stochastic lane to greedy (so all-greedy
+        batches skip the PRNG again), return its pages and neutralize its
+        table row."""
+        self.active[slot] = None
+        self.decoding[slot] = False
+        if not self._samp_greedy_h[slot]:
+            sampling_set(self._samp, slot, sampling_row(None))
+            self._samp_greedy_h[slot] = True
+        slot_release(self.cache, slot)
+        self.allocator.free_slot(slot)
+        self._pos_h[slot] = 0
+        self._tabled[slot] = 0
+
+    def _take_finished(self) -> List[Request]:
+        out, self._finished = self._finished, []
+        return out
+
+    def drain(self, now: float):
+        """Flush any deferred tokens (end-of-run bookkeeping)."""
+        self._flush(now)
+        return self._take_finished()
+
+    @property
+    def idle(self) -> bool:
+        return (self.n_active == 0 and not self.backlog
+                and not self.admission.pending and not self._unsynced)
+
+    @property
+    def n_active(self) -> int:
+        return sum(r is not None for r in self.active)
+
+    @property
+    def n_decoding(self) -> int:
+        return sum(self.decoding)

@@ -1,0 +1,169 @@
+"""The port's hand-written CUDA kernels on a card, against their plain
+PyTorch versions at small shapes, and the wrappers' refusals. Every test
+here needs a CUDA device and the CUDA toolkit (``nvcc``): marked ``gpu``,
+they skip without a card. On the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+
+(``--noconftest``: the JAX suite's ``tests/conftest.py`` imports jax, which
+that machine does not have.)
+
+Tolerances: float32 2e-5 (the reference suite's); bfloat16 2e-2; sampled
+tokens exact."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build, ops
+from repro_torch.kernels.topk_sample import max_vocab
+from repro_torch.models import layers as L
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    build.load()
+    return torch.device("cuda")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _rand(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [16, 40, 160])
+def test_flash_attention_kernel_matches_plain(dev, s, dtype):
+    gen = torch.Generator(device=dev).manual_seed(s)
+    q = _rand(gen, (2, s, 8, 64), dtype, dev)
+    k = _rand(gen, (2, s, 2, 64), dtype, dev)
+    v = _rand(gen, (2, s, 2, 64), dtype, dev)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = L.dense_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 4, 8])
+def test_paged_decode_kernel_matches_plain(dev, s, dtype):
+    gen = torch.Generator(device=dev).manual_seed(s)
+    b, ps, n_pages, kvh, h, d = 3, 16, 5, 2, 8, 64
+    pool = b * n_pages + 1
+    kp = _rand(gen, (pool, ps, kvh, d), dtype, dev)
+    vp = _rand(gen, (pool, ps, kvh, d), dtype, dev)
+    table = (torch.randperm(pool - 1, generator=gen, device=dev)[
+        :b * n_pages] + 1).reshape(b, n_pages).to(torch.int32)
+    table[2] = 0  # a released slot on trash page 0
+    pos = torch.tensor([max(s, 21), ps * n_pages, s], dtype=torch.int32,
+                       device=dev)
+    q = _rand(gen, (b, s, h, d), dtype, dev)
+    got = ops.paged_decode_attention(q, kp, vp, table, pos)
+    want = L.paged_decode_attention(q, kp, vp, table, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_sampler_kernels_match_plain_exactly(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, v = 6, 4096
+    logits = torch.randn((b, v), generator=gen, device=dev) * 3
+    logits[0, 5] = logits[0, 9] = logits[0].max() + 1.0
+    greedy = torch.tensor([1, 0, 0, 0, 1, 0], dtype=torch.bool, device=dev)
+    temp = torch.tensor([1.0, 0.8, 1.2, 0.5, 1.0, 1.0], device=dev)
+    top_k = torch.tensor([0, 10, 0, 40, 0, 1], dtype=torch.int32,
+                         device=dev)
+    top_p = torch.tensor([1.0, 1.0, 0.8, 0.9, 1.0, 1.0], device=dev)
+    for _ in range(8):
+        u = torch.rand((b,), generator=gen, device=dev)
+        got = ops.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+        want = L.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+        assert torch.equal(got, want)
+        assert int(got[0]) == 5
+    k = torch.randint(1, v + 1, (b,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    uu = torch.rand((b, v), generator=gen, device=dev)
+    assert torch.equal(ops.topk_sample(logits, k, temp, uu),
+                       L.topk_sample(logits, k, temp, uu))
+
+
+def test_wrappers_raise_on_cuda_inputs_they_cannot_take(dev):
+    q = torch.zeros((1, 16, 4, 48), device=dev)  # head_dim 48
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    q = torch.zeros((1, 16, 4, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.flash_attention(q, q[:, :, :2].contiguous(),
+                            q[:, :, :2].contiguous())
+    pool = torch.zeros((3, 16, 1, 64), device=dev)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    pos = torch.ones((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="exceeds"):  # G * S = 64 rows
+        ops.paged_decode_attention(torch.zeros((1, 8, 8, 64), device=dev),
+                                   pool, pool, table, pos)
+    with pytest.raises(ValueError, match="int32"):
+        ops.paged_decode_attention(torch.zeros((1, 1, 4, 64), device=dev),
+                                   pool, pool, table.long(), pos)
+    big = max_vocab() + 1
+    logits = torch.zeros((1, big), device=dev)
+    one = torch.ones((1,), device=dev)
+    with pytest.raises(ValueError, match="does not fit"):
+        ops.sample_tokens(logits, one.bool(), one, one.int(), one, one)
+
+
+def test_engine_streams_on_cuda_match_the_cpu(dev):
+    import dataclasses
+
+    from repro_torch import serving as ts
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("granite-8b").reduced(),
+                              num_kv_heads=2)
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    p_gpu = _to(p_cpu, dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 23, 40, 17)]
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = []
+        for params, device in ((p_gpu, dev), (p_cpu, "cpu")):
+            eng = ts.ServingEngine(cfg, params,
+                                   ts.EngineConfig(slots=3, max_seq=128),
+                                   device=device)
+            reqs = [ts.Request(rid=i, prompt=p, max_new_tokens=12,
+                               sampling=(ts.SamplingParams(
+                                   temperature=0.8, top_k=20, top_p=0.9,
+                                   seed=1000 + i) if i % 2
+                                   else ts.SamplingParams()))
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r, 0.0)
+            t = 0.0
+            while sum(r.done for r in reqs) < len(reqs) and t < 500:
+                t += 1.0
+                eng.step(t)
+            eng.drain(t)
+            outs.append([r.output for r in reqs])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert outs[0] == outs[1]
