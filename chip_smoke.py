@@ -14,10 +14,13 @@ Phases, in order; any failure exits non-zero:
    with its tolerance, the kernel's and the plain version's device time
    (20 calls in one CUDA graph, timed with CUDA events), the least time
    the card could take for the same work, and a PyTorch library call's
-   time where one computes the same function.
+   time where one computes the same function. The int8 kernels (paged
+   decode over int8 pools, the int8-weight matmul) likewise, at the same
+   shapes and at granite's projection shapes.
 3. Serve the same greedy and seeded requests through the port's
    ``ServingEngine`` on granite-8b ``reduced()`` (float32, 2 kv heads) on
-   the card and on the CPU; the streams must be token-identical.
+   the card and on the CPU, in the model dtype and with int8 KV pages
+   and int8 weights; the streams must be token-identical.
 4. Serve granite-8b at full width (36 layers, bfloat16, random weights
    from a fixed seed): 8 slots, 16 requests of 20-600 prompt tokens and 64
    new tokens, half greedy and half seeded. Every request must finish with
@@ -25,10 +28,18 @@ Phases, in order; any failure exits non-zero:
    of the path must have launched. Prints TTFT p50 and p90 (host clock),
    tokens/s and peak device memory; then serves 8 of the requests on the
    8 slots at once and prints the steady decode rate and tick time.
+5. Serve the same 16 requests at full width under quantized precision,
+   each configuration after one short warm-up request: int8 KV pages
+   alone (every request finishes; each first token equals
+   phase 4's, since prefill attends the unquantized K/V), then int8 KV
+   pages and int8 weights (every request finishes, a second run gives the
+   same streams, the int8 kernels launched; TTFT, tokens/s, peak memory,
+   resident weight bytes, and the steady decode tick beside phase 4's).
 
 ``--profile DIR`` repeats the steady-decode serve (8 requests on 8
-slots) under ``torch.profiler``, prints the device's busy share of that
-run and writes its device-time table by kernel into DIR.
+slots) of phases 4 and 5 under ``torch.profiler``, prints the device's
+busy share of each run and writes its device-time table by kernel into
+DIR.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -51,6 +62,11 @@ SRC = os.path.join(ROOT, "src")
 HBM_BW = 3.35e12  # H100 SXM device memory, bytes/s (data sheet)
 PEAK = {"bfloat16": 989e12, "float32": 67e12}  # dense FLOP/s (data sheet)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The int8 paged decode kernel against its plain version. bfloat16 holds
+# it to 1e-3 absolute, not 2e-2: a kernel that dequantizes in float32 and
+# never rounds code * scale to q's dtype (the Pallas body's semantics)
+# lies about 8e-3 away, so 2e-2 could not tell it from the twin.
+INT8_DECODE_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
 
 
 def fail(msg: str) -> int:
@@ -200,6 +216,9 @@ def phase_kernels(torch, rec):
                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
                 print(line, flush=True)
 
+    ok &= int8_decode_kernel(torch, rec, gen, H, KVH, D)
+    ok &= int8_matmul_kernel(torch, rec, gen)
+
     # -- sampler -----------------------------------------------------------------
     V = 49152
     logits = torch.randn((B, V), generator=gen, device=dev) * 4.0
@@ -254,10 +273,172 @@ def phase_kernels(torch, rec):
     return ok
 
 
+def int8_decode_kernel(torch, rec, gen, H, KVH, D):
+    """The int8 paged decode kernel against its plain version (the twin
+    ``layers.paged_decode_attention_int8``), the oracle, the Pallas body's
+    float32-dequant semantics (printed), and within
+    ``int8_attention_output_bound`` (plus the type's tolerance, for the
+    rounding of both outputs) of the model-dtype kernel on the unquantized
+    K/V."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+    from repro_torch.models.blocks import dequantize_kv, quantize_kv
+
+    dev = "cuda"
+    ps, n_pages, B = 16, 64, 8
+    P = B * n_pages + 1
+    ctx = [1, 15, 16, 17, 200, 513, 1000, 1024]  # partial and full pages
+    ok = True
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        tol, tol_twin = TOL[dt_name], INT8_DECODE_TOL[dt_name]
+        raw = [torch.randn((P * ps, KVH, D), generator=gen,
+                           device=dev).to(dt) for _ in range(2)]
+        perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+        table = perm[:B * n_pages].reshape(B, n_pages).to(torch.int32)
+        table_rel = table.clone()
+        table_rel[3] = 0  # a released slot: every entry the trash page
+        for gran in ("page", "token"):
+            group = ps if gran == "page" else 0
+            # 4 pool sets (about 70 MB, more than the 50 MB L2) for the
+            # timed launches, as the main path reads each layer's cold
+            sets = []
+            for i in range(4):
+                pools = []
+                for t in raw:
+                    if i:
+                        t = torch.randn(t.shape, generator=gen,
+                                        device=dev).to(dt)
+                    q8, sc = quantize_kv(t, group=group)
+                    pools += [q8.reshape(P, ps, KVH, D),
+                              sc.reshape(P, ps, KVH, 1)]
+                sets.append((pools[0], pools[2], pools[1], pools[3]))
+            k8, v8, ks, vs = sets[0]
+            kraw, vraw = (t.reshape(P, ps, KVH, D) for t in raw)
+            for s in (1, 4):
+                for name, tab, pos_list in (
+                        ("live", table, [max(c, s) for c in ctx]),
+                        ("released", table_rel,
+                         [max(c, s) if i != 3 else s for i, c in
+                          enumerate(ctx)])):
+                    pos = torch.tensor(pos_list, dtype=torch.int32,
+                                       device=dev)
+                    q = torch.randn((B, s, H, D), generator=gen,
+                                    device=dev).to(dt)
+                    args = (k8, v8, ks, vs, tab, pos)
+                    got = ops.paged_decode_attention_int8(q, *args)
+                    want = L.paged_decode_attention_int8(q, *args)
+                    oracle = ref.ref_paged_decode_attention_int8(q, *args)
+                    pallas = ref.ref_paged_decode_attention(
+                        q, dequantize_kv(k8, ks, torch.float32),
+                        dequantize_kv(v8, vs, torch.float32), tab, pos)
+                    exact = ops.paged_decode_attention(q, kraw, vraw, tab,
+                                                       pos)
+                    bnd = float(ref.int8_attention_output_bound(
+                        q, ks, vs, dequantize_kv(v8, vs, dt)))
+
+                    def err(x):
+                        return (got.float() - x.float()).abs().max().item()
+
+                    e, e_ref, e_pal, e_ex = (err(want), err(oracle),
+                                             err(pallas), err(exact))
+                    good = (e <= tol_twin and e_ref <= tol
+                            and e_ex <= bnd + tol)
+                    ok &= good
+                    line = (f"paged decode int8 {dt_name} {gran} scales "
+                            f"S={s} {name}: max_abs_err={e:.3g} "
+                            f"tol={tol_twin} (vs ref {e_ref:.3g} "
+                            f"tol={tol}); vs float32-dequant "
+                            f"(Pallas body) {e_pal:.3g}; vs unquantized "
+                            f"kernel {e_ex:.3g} <= bound {bnd:.3g} + tol "
+                            f"{'ok' if good else 'FAIL'}")
+                    if name == "live":
+                        ms = time_ms(torch, lambda i: (
+                            ops.paged_decode_attention_int8(
+                                q, *sets[i % 4], tab, pos)))
+                        plain = time_ms(torch, lambda i: (
+                            L.paged_decode_attention_int8(
+                                q, *sets[i % 4], tab, pos)))
+                        valid = sum(min(p, n_pages * ps) for p in pos_list)
+                        nbytes = (2 * valid * KVH * (D + 4)
+                                  + 2 * q.element_size() * q.numel()
+                                  + 4 * (tab.numel() + B))
+                        flops = 4.0 * valid * H * D * s
+                        b_ms, b_by = bound(nbytes, flops, dt_name)
+                        line += (f" ms={ms:.4f} plain_ms={plain:.4f} "
+                                 f"bound_ms={b_ms:.5f} ({b_by})")
+                        if dt_name == "bfloat16" and s == 1 \
+                                and gran == "page":
+                            rec["paged_decode_attention_int8"].update(
+                                max_abs_err=e, ms=ms, plain_ms=plain,
+                                bound_ms=b_ms, bound_by=b_by,
+                                library_ms=None)
+                    print(line, flush=True)
+            del sets
+    return ok
+
+
+def int8_matmul_kernel(torch, rec, gen):
+    """The int8-weight matmul against its plain version at granite's
+    projection shapes, decode (M = 8) and prefill (M = 512); the library
+    yardstick is torch.matmul with the same weight held in x's dtype (the
+    projection the kernel replaces)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+
+    dev = "cuda"
+    ok = True
+    for dt_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dt_name)
+        tol = TOL[dt_name]
+        for k, n in ((4096, 4096), (4096, 1024), (4096, 14336),
+                     (14336, 4096)):
+            # enough weight sets to exceed the 50 MB L2 between launches
+            n_sets = max(1, -(-120_000_000 // (k * n)))
+            ws = [ops.quantize_int8(torch.randn((k, n), generator=gen,
+                                                device=dev))
+                  for _ in range(n_sets)]
+            w_lib = [(q.to(torch.float32) * s).to(dt) for q, s in ws]
+            w_q, scale = ws[0]
+            for m in (8, 512):
+                x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+                got = ops.int8_matmul(x, w_q, scale)
+                want = L.int8_matmul(x, w_q, scale)
+                oracle = ref.ref_int8_matmul(x, w_q, scale)
+                e = (got.float() - want.float()).abs().max().item()
+                rel = e / want.float().abs().max().item()
+                e_ref = (got.float() - oracle.float()).abs().max().item()
+                # float32 sums of K products in another order: relative
+                good = rel <= tol
+                ok &= good
+                ms = time_ms(torch, lambda i: ops.int8_matmul(
+                    x, *ws[i % n_sets]))
+                plain = time_ms(torch, lambda i: L.int8_matmul(
+                    x, *ws[i % n_sets]))
+                lib = time_ms(torch, lambda i: torch.matmul(
+                    x, w_lib[i % n_sets]))
+                esz = x.element_size()
+                nbytes = k * n + esz * (m * k + m * n) + 4 * n
+                b_ms, b_by = bound(nbytes, 2.0 * m * k * n, dt_name)
+                print(f"int8_matmul {dt_name} M={m} K={k} N={n}: "
+                      f"max_abs_err={e:.3g} (relative {rel:.3g}, vs "
+                      f"ref.ref_int8_matmul {e_ref:.3g}) tol={tol} "
+                      f"{'ok' if good else 'FAIL'} ms={ms:.4f} "
+                      f"plain_ms={plain:.4f} matmul_{dt_name}_ms={lib:.4f}"
+                      f" bound_ms={b_ms:.5f} ({b_by})", flush=True)
+                if dt_name == "bfloat16" and m == 8 and n == 14336:
+                    rec["int8_matmul"].update(
+                        max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib)
+            del ws, w_lib
+    return ok
+
+
 def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
-          sync_every=8, seeded=lambda i: i % 2 == 1):
+          sync_every=8, seeded=lambda i: i % 2 == 1, precision=None):
     from repro_torch.serving import (
         EngineConfig,
+        PrecisionConfig,
         Request,
         SamplingParams,
         ServingEngine,
@@ -265,7 +446,9 @@ def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
 
     eng = ServingEngine(cfg, params,
                         EngineConfig(slots=slots, max_seq=max_seq,
-                                     sync_every=sync_every),
+                                     sync_every=sync_every,
+                                     precision=PrecisionConfig(
+                                         **(precision or {}))),
                         device=device)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new,
                     sampling=(SamplingParams(temperature=0.8, top_k=50,
@@ -296,17 +479,32 @@ def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    weight_bytes = sum(
+        t.numel() * t.element_size() for t in _leaves(eng.params))
     return reqs, {"wall": wall, "ttft": [ttft[r.rid] for r in reqs],
                   "after_submit": wall - t_admitted,
-                  "ticks": eng.metrics.decode_ticks}
+                  "ticks": eng.metrics.decode_ticks,
+                  "weight_bytes": weight_bytes}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def phase_reduced(torch):
-    """Phase 3: reduced float32 streams, CUDA vs CPU."""
+    """Phase 3: reduced float32 streams, CUDA vs CPU, in the model dtype
+    and with int8 KV pages and int8 weights."""
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.models import forward, init_params
+    from repro_torch.models import forward, init_params, quantize_weights
 
     cfg = dataclasses.replace(get_config("granite-8b").reduced(),
                               num_kv_heads=2)
@@ -315,32 +513,36 @@ def phase_reduced(torch):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (5, 23, 40, 17, 64, 9)]
-    a, _ = serve(torch, cfg, p_gpu, prompts, device="cuda", max_new=24,
-                 slots=3, max_seq=128)
-    b, _ = serve(torch, cfg, p_cpu, prompts, device="cpu", max_new=24,
-                 slots=3, max_seq=128)
     ok = True
-    for ra, rb in zip(a, b):
-        if ra.output == rb.output:
-            continue
-        i = next(j for j, (x, y) in enumerate(zip(ra.output, rb.output))
-                 if x != y)
-        toks = np.concatenate([rb.prompt, np.asarray(rb.output[:i],
-                                                     np.int32)])
-        logits, _ = forward(cfg, p_cpu, torch.from_numpy(toks)[None])
-        top2 = torch.topk(logits[0, -1], 2).values
-        gap = float(top2[0] - top2[1])
-        kind = "seeded" if ra.sampling.temperature > 0 else "greedy"
-        print(f"reduced rid={ra.rid} ({kind}): first divergent token "
-              f"#{i}: cuda {ra.output[i]} vs cpu {rb.output[i]}, top-2 "
-              f"logit gap {gap:.3g}", flush=True)
-        if gap > 1e-4:
-            ok = False
-    n_tok = sum(len(r.output) for r in a)
-    print(f"reduced granite-8b f32 (kv_heads=2): {len(a)} requests, "
-          f"{n_tok} tokens, cuda streams == cpu streams: "
-          f"{all(x.output == y.output for x, y in zip(a, b))}",
-          flush=True)
+    for label, precision in (
+            ("f32", None),
+            ("int8 kv + int8 weights", dict(kv_cache_dtype="int8",
+                                            weight_dtype="int8"))):
+        run = dict(max_new=24, slots=3, max_seq=128, precision=precision)
+        a, _ = serve(torch, cfg, p_gpu, prompts, device="cuda", **run)
+        b, _ = serve(torch, cfg, p_cpu, prompts, device="cpu", **run)
+        p_ref = (quantize_weights(cfg, p_cpu) if precision else p_cpu)
+        for ra, rb in zip(a, b):
+            if ra.output == rb.output:
+                continue
+            i = next(j for j, (x, y) in enumerate(zip(ra.output, rb.output))
+                     if x != y)
+            toks = np.concatenate([rb.prompt, np.asarray(rb.output[:i],
+                                                         np.int32)])
+            logits, _ = forward(cfg, p_ref, torch.from_numpy(toks)[None])
+            top2 = torch.topk(logits[0, -1], 2).values
+            gap = float(top2[0] - top2[1])
+            kind = "seeded" if ra.sampling.temperature > 0 else "greedy"
+            print(f"reduced {label} rid={ra.rid} ({kind}): first divergent "
+                  f"token #{i}: cuda {ra.output[i]} vs cpu {rb.output[i]}, "
+                  f"top-2 logit gap {gap:.3g}", flush=True)
+            if gap > 1e-4:
+                ok = False
+        n_tok = sum(len(r.output) for r in a)
+        print(f"reduced granite-8b {label} (kv_heads=2): {len(a)} requests, "
+              f"{n_tok} tokens, cuda streams == cpu streams: "
+              f"{all(x.output == y.output for x, y in zip(a, b))}",
+              flush=True)
     return ok
 
 
@@ -352,8 +554,9 @@ def _to(torch, tree, device):
     return tree.to(device)
 
 
-def phase_full(torch, rec, profile_dir=None):
-    """Phase 4: granite-8b at full width through the engine."""
+def phase_full(torch, rec, full, profile_dir=None):
+    """Phase 4: granite-8b at full width through the engine. Leaves the
+    weights, prompts, streams and steady tick in ``full`` for phase 5."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -422,18 +625,108 @@ def phase_full(torch, rec, profile_dir=None):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, st4 = serve(torch, cfg, params, prompts[:8], **run)
-        write_profile(prof, profile_dir, st4)
+        write_profile(prof, profile_dir, st4, "decode_kernels.txt")
+    full.update(cfg=cfg, params=params, prompts=prompts, run=run,
+                outputs=[r.output for r in reqs],
+                tick_ms=st3["after_submit"] / st3["ticks"] * 1e3)
     return ok
 
 
-def write_profile(prof, out_dir, st):
+def phase_quant(torch, rec, full, profile_dir=None):
+    """Phase 5: the same 16 requests at full width, int8 KV pages alone,
+    then int8 KV pages and int8 weights (quantized by the engine at load,
+    on the card)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    cfg, params, prompts = full["cfg"], full["params"], full["prompts"]
+    ok = True
+
+    def warm_up(run):
+        # one short request, so that the timed burst of a precision does
+        # not carry the first run of its code path
+        serve(torch, cfg, params, prompts[:1], **dict(run, max_new=4))
+
+    kv8 = dict(full["run"], precision=dict(kv_cache_dtype="int8"))
+    warm_up(kv8)
+    ops.reset_launches()
+    reqs, st = serve(torch, cfg, params, prompts, **kv8)
+    launches = dict(ops.LAUNCHES)
+    finished = all(r.state.value == "finished" and len(r.output) == 64
+                   for r in reqs)
+    first = [r.output[0] for r in reqs] == [o[0] for o in full["outputs"]]
+    ok &= finished and first and launches["paged_decode_attention"] == 0 \
+        and launches["paged_decode_attention_int8"] > 0
+    print(f"int8 kv: {len(reqs)} requests finished with 64 tokens: "
+          f"{finished}; first tokens equal phase 4's: {first}; "
+          f"{sum(len(r.output) for r in reqs) / st['wall']:.1f} tok/s; "
+          "launches: " + ", ".join(f"{k}={v}" for k, v in launches.items()),
+          flush=True)
+
+    both = dict(full["run"], precision=dict(kv_cache_dtype="int8",
+                                            weight_dtype="int8"))
+    warm_up(both)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    reqs, st = serve(torch, cfg, params, prompts, **both)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    unfinished = [r.rid for r in reqs
+                  if r.state.value != "finished" or len(r.output) != 64]
+    if unfinished:
+        ok = False
+        print(f"FAIL: int8 requests without their 64 tokens: {unfinished}")
+    for name in ("paged_decode_attention_int8", "int8_matmul",
+                 "flash_attention", "sample_tokens"):
+        if launches[name] <= 0:
+            ok = False
+            print(f"FAIL: kernel {name} never launched on the int8 path")
+    for name in ("paged_decode_attention_int8", "int8_matmul"):
+        rec[name]["launches"] = launches[name]
+    n_tok = sum(len(r.output) for r in reqs)
+    greedy = [i for i in range(len(reqs)) if i % 2 == 0]
+    agree = sum(reqs[i].output == full["outputs"][i] for i in greedy)
+    print(f"int8 kv + int8 weights: {len(reqs)} requests, {n_tok} tokens "
+          f"in {st['wall']:.3f}s -> {n_tok / st['wall']:.1f} tok/s, TTFT "
+          f"p50 {statistics.median(st['ttft']) * 1e3:.1f} ms p90 "
+          f"{np.percentile(st['ttft'], 90) * 1e3:.1f} ms, peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB (the script's bf16 weights "
+          f"included), resident engine weights "
+          f"{st['weight_bytes'] / 2 ** 30:.2f} GiB; greedy streams equal "
+          f"to phase 4's: {agree}/{len(greedy)}", flush=True)
+    print("kernels (launches on the int8 path): "
+          + ", ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+    reqs2, _ = serve(torch, cfg, params, prompts, **both)
+    same = all(a.output == b.output for a, b in zip(reqs, reqs2))
+    ok &= same
+    print(f"int8 second run identical: {same}", flush=True)
+    reqs3, st3 = serve(torch, cfg, params, prompts[:8], **both)
+    dec_tok = sum(len(r.output) - 1 for r in reqs3)
+    tick = st3["after_submit"] / st3["ticks"] * 1e3
+    print(f"int8 decode at 8 slots: {dec_tok} tokens in "
+          f"{st3['after_submit']:.3f}s -> "
+          f"{dec_tok / st3['after_submit']:.1f} tok/s, {tick:.2f} ms per "
+          f"tick ({st3['ticks']} ticks); phase 4 (bf16): "
+          f"{full['tick_ms']:.2f} ms per tick", flush=True)
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, st4 = serve(torch, cfg, params, prompts[:8], **both)
+        write_profile(prof, profile_dir, st4, "decode_kernels_int8.txt")
+    return ok
+
+
+def write_profile(prof, out_dir, st, table_name):
     """Device time by kernel name, and the device's busy share of the
     profiled serve (its whole run and its decode part), from
     ``torch.profiler``; the table goes to ``out_dir``."""
     os.makedirs(out_dir, exist_ok=True)
     events = prof.key_averages()
     table = events.table(sort_by="self_cuda_time_total", row_limit=40)
-    with open(os.path.join(out_dir, "decode_kernels.txt"), "w") as f:
+    with open(os.path.join(out_dir, table_name), "w") as f:
         f.write(table)
     # kernels only: an operator's row repeats the time of the kernels it
     # launched, which have rows of their own
@@ -445,7 +738,7 @@ def write_profile(prof, out_dir, st):
     print(f"profiled decode at 8 slots: {tick_ms:.2f} ms per tick; device "
           f"busy {dev_us / 1e6:.3f}s of {st['wall']:.3f}s wall "
           f"({100 * dev_us / 1e6 / st['wall']:.1f}%); table in "
-          f"{out_dir}/decode_kernels.txt", flush=True)
+          f"{out_dir}/{table_name}", flush=True)
     for line in table.splitlines()[:18]:
         print(line, flush=True)
 
@@ -502,13 +795,24 @@ def main() -> int:
             name="sample_tokens", route="cuda",
             source=f"{csrc}/sampling.cu",
             replaces="src/repro/kernels/topk_sample.py:63"),
+        "paged_decode_attention_int8": dict(
+            name="paged_decode_attention_int8", route="cuda",
+            source=f"{csrc}/paged_decode_attention_int8.cu",
+            replaces="src/repro/kernels/decode_attention.py:216"),
+        "int8_matmul": dict(
+            name="int8_matmul", route="cuda",
+            source=f"{csrc}/int8_matmul.cu",
+            replaces="src/repro/kernels/int8_matmul.py:38"),
     }
+    full = {}
     for phase, fn in (("kernels vs plain", lambda: phase_kernels(torch,
                                                                  rec)),
                       ("reduced streams cuda == cpu",
                        lambda: phase_reduced(torch)),
                       ("full-width serving",
-                       lambda: phase_full(torch, rec, profile_dir))):
+                       lambda: phase_full(torch, rec, full, profile_dir)),
+                      ("full-width quantized serving",
+                       lambda: phase_quant(torch, rec, full, profile_dir))):
         t0 = time.perf_counter()
         if not fn():
             return fail(f"phase '{phase}'")

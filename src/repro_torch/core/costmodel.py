@@ -48,15 +48,21 @@ def _n_attn_layers(cfg) -> int:
 
 def kv_bytes_per_token(cfg, kv_cache_dtype: str = "") -> float:
     """Device bytes one cached token costs across every attention layer.
-    Only the model dtype is served by the port so far; any other pool
-    dtype is refused loudly (a wrong estimate over-admits the pool)."""
+    ``kv_cache_dtype`` is the pool's storage dtype: "" (the model dtype) or
+    "int8" (1 byte per element plus one float32 scale per (token, kv
+    head) vector). Any other dtype is refused loudly: a wrong estimate
+    over-admits the pool."""
     if not cfg.has_attention:
         return 0.0
-    if kv_cache_dtype != "":
+    hd = cfg.resolved_head_dim
+    if kv_cache_dtype == "":
+        per_vec = hd * _dtype_bytes(cfg)
+    elif kv_cache_dtype == "int8":
+        per_vec = hd * 1 + 4.0
+    else:
         raise AssertionError(
-            f"kv_bytes_per_token: kv_cache_dtype {kv_cache_dtype!r} is not "
-            f"served by repro_torch yet")
-    per_vec = cfg.resolved_head_dim * _dtype_bytes(cfg)
+            f"kv_bytes_per_token: unknown kv_cache_dtype "
+            f"{kv_cache_dtype!r}: capacity planning would over-admit")
     return 2.0 * _n_attn_layers(cfg) * cfg.num_kv_heads * per_vec
 
 

@@ -21,7 +21,8 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_attention", "paged_decode_attention", "sampling")
+SOURCES = ("flash_attention", "paged_decode_attention",
+           "paged_decode_attention_int8", "int8_matmul", "sampling")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,6 +43,14 @@ SIGNATURES = {
     "paged_decode_attention_bf16": (
         "paged_decode_attention",
         [_P] * 9 + [_I] * 7 + [_L] * 3 + [_I, _F, _P]),
+    "paged_decode_attention_int8_f32": (
+        "paged_decode_attention_int8",
+        [_P] * 11 + [_I] * 7 + [_L] * 6 + [_I, _F, _P]),
+    "paged_decode_attention_int8_bf16": (
+        "paged_decode_attention_int8",
+        [_P] * 11 + [_I] * 7 + [_L] * 6 + [_I, _F, _P]),
+    "int8_matmul_f32": ("int8_matmul", [_P] * 5 + [_I] * 6 + [_P]),
+    "int8_matmul_bf16": ("int8_matmul", [_P] * 5 + [_I] * 6 + [_P]),
     "sample_tokens_f32": ("sampling", [_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                        _P]),
     "topk_sample_f32": ("sampling", [_P, _P, _P, _P, _P, _I, _I, _P]),
@@ -52,6 +61,8 @@ SIGNATURES = {
 #: adds one where it launches its kernel on the card, and nowhere else.
 LAUNCHES: Dict[str, int] = {"flash_attention": 0,
                             "paged_decode_attention": 0,
+                            "paged_decode_attention_int8": 0,
+                            "int8_matmul": 0,
                             "sample_tokens": 0, "topk_sample": 0}
 
 

@@ -34,6 +34,13 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32<T>(from_f32<T>(x));
 }
 
+// Code e of a 16-byte vector of int8 codes, as a float (exact); e is a
+// constant once the caller's loop is unrolled.
+__device__ __forceinline__ float int8_code(const uint4& v, int e) {
+  const uint32_t word = e < 4 ? v.x : e < 8 ? v.y : e < 12 ? v.z : v.w;
+  return (float)(int8_t)(uint8_t)(word >> (8 * (e & 3)));
+}
+
 // A tile of ROWS rows of D elements of T, copied from device memory to
 // float32 shared memory by a block of THREADS threads in 16-byte loads.
 // ``load`` issues every load of the tile into registers before any is

@@ -1,10 +1,13 @@
-"""Paged decode attention: the wrapper of the hand-written Hopper kernel
+"""Paged decode attention: the wrappers of the hand-written Hopper kernels
 ``csrc/paged_decode_attention.cu`` (the port of TPU kernel 2,
-``repro/kernels/decode_attention.py::paged_decode_attention``) beside its
-plain version ``layers.paged_decode_attention``.
+``repro/kernels/decode_attention.py::paged_decode_attention``) and
+``csrc/paged_decode_attention_int8.cu`` (TPU kernel 4,
+``::paged_decode_attention_int8``), beside their plain versions
+``plain.paged_decode_attention`` and ``plain.paged_decode_attention_int8``.
 
 q (B, S, H, D); k/v_pool (P, ps, KVH, D) in the model layout, read through
-their strides (no transpose per call); page_table (B, n_pages) int32;
+their strides (no transpose per call); int8 pools come with float32 scale
+pools (P, ps, KVH, 1), also read in place; page_table (B, n_pages) int32;
 pos (B,) int32 = tokens written including the S queries. A CPU tensor goes
 to the plain version; a CUDA tensor launches the kernel or raises."""
 from __future__ import annotations
@@ -12,10 +15,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.models import layers as L
+from repro_torch.kernels import plain
 
 _ENTRY = {torch.float32: "paged_decode_attention_f32",
           torch.bfloat16: "paged_decode_attention_bf16"}
+_ENTRY_INT8 = {torch.float32: "paged_decode_attention_int8_f32",
+               torch.bfloat16: "paged_decode_attention_int8_bf16"}
 MAX_ROWS = 32  # G * S query rows per (slot, kv head) block
 TILE = 32  # cache slots per tile
 TARGET_BLOCKS = 2 * 132  # two blocks for each of the H100's 132 SMs
@@ -27,49 +32,53 @@ def n_splits(b: int, hkv: int, window: int) -> int:
     return max(1, min(-(-TARGET_BLOCKS // (b * hkv)), -(-window // TILE)))
 
 
-def paged_decode_attention(q, k_pool, v_pool, page_table, pos):
+def _check_shapes(name, q, k_pool, v_pool, page_table, pos):
     if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
-        raise ValueError(f"paged_decode_attention: want q (B,S,H,D), pools "
-                         f"(P,ps,KVH,D); got {tuple(q.shape)}, "
-                         f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
-    b, s, h, d = q.shape
-    _, ps, hkv, d2 = k_pool.shape
-    n_pages = page_table.shape[1]
+        raise ValueError(f"{name}: want q (B,S,H,D), pools (P,ps,KVH,D); "
+                         f"got {tuple(q.shape)}, {tuple(k_pool.shape)}, "
+                         f"{tuple(v_pool.shape)}")
+    b, _, h, d = q.shape
+    _, _, hkv, d2 = k_pool.shape
     if d2 != d or h % hkv or page_table.shape[0] != b \
             or tuple(pos.shape) != (b,):
-        raise ValueError("paged_decode_attention: shapes do not match: q "
+        raise ValueError(f"{name}: shapes do not match: q "
                          f"{tuple(q.shape)} pool {tuple(k_pool.shape)} "
                          f"table {tuple(page_table.shape)} pos "
                          f"{tuple(pos.shape)}")
-    if q.device.type == "cpu":
-        return L.paged_decode_attention(q, k_pool, v_pool, page_table, pos)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
-    if q.dtype not in _ENTRY or not (q.dtype == k_pool.dtype
-                                     == v_pool.dtype):
-        raise ValueError(f"paged_decode_attention: float32 or bfloat16 "
-                         f"q/pools required, got {q.dtype}/{k_pool.dtype}")
+
+
+def _strides(name, pools, vec: int):
+    """The pools' common strides; each pool needs a contiguous last axis,
+    rows on ``vec``-element (16-byte) boundaries and a 16-byte base."""
+    st = pools[0].stride()
+    if (any(p.stride() != st for p in pools) or st[3] != 1
+            or any(s % vec for s in st[:3])
+            or any(p.data_ptr() % 16 for p in pools)):
+        raise ValueError(f"{name}: pools need equal strides, a contiguous "
+                         f"last axis and rows aligned to 16 bytes")
+    return st[:3]
+
+
+def _launch(name, entry, q, pools, scale_pools, page_table, pos):
+    """Checks every kernel of the family shares, then one launch of
+    ``entry`` (three kernels on the current stream)."""
+    b, s, h, d = q.shape
+    _, ps, hkv, _ = pools[0].shape
+    n_pages = page_table.shape[1]
     if page_table.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise ValueError("paged_decode_attention: page_table and pos must "
-                         "be int32")
+        raise ValueError(f"{name}: page_table and pos must be int32")
     if d not in (32, 64, 128):
-        raise ValueError(f"paged_decode_attention: head_dim {d} not in "
-                         f"(32, 64, 128)")
+        raise ValueError(f"{name}: head_dim {d} not in (32, 64, 128)")
     rows = (h // hkv) * s
     if rows > MAX_ROWS:
-        raise ValueError(f"paged_decode_attention: G*S = {rows} query rows "
-                         f"per kv head exceeds {MAX_ROWS}")
-    vec = 16 // k_pool.element_size()  # the kernel's 16-byte loads
-    if (k_pool.stride() != v_pool.stride() or k_pool.stride(3) != 1
-            or any(st % vec for st in k_pool.stride()[:3])
-            or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16):
-        raise ValueError("paged_decode_attention: pools need equal strides, "
-                         "a contiguous head_dim and rows aligned to 16 "
-                         "bytes")
+        raise ValueError(f"{name}: G*S = {rows} query rows per kv head "
+                         f"exceeds {MAX_ROWS}")
+    strides = _strides(name, pools, 16 // pools[0].element_size())
+    if scale_pools:
+        strides += _strides(name, scale_pools, 1)
     if not (q.is_contiguous() and page_table.is_contiguous()
             and pos.is_contiguous()):
-        raise ValueError("paged_decode_attention: q, page_table, pos must "
-                         "be contiguous")
+        raise ValueError(f"{name}: q, page_table, pos must be contiguous")
     out = torch.empty_like(q)
     window = n_pages * ps
     nsplit = n_splits(b, hkv, window)
@@ -79,13 +88,55 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, pos):
     scores = torch.empty((b, hkv, rows, -(-window // TILE) * TILE), **f32)
     stats = torch.empty((b, hkv, nsplit, rows, 2), **f32)
     partial = torch.empty((b, hkv, nsplit, rows, d), **f32)
-    sp, ss, sh, _ = k_pool.stride()
     lib = build.load()
-    lib.call(_ENTRY[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-             v_pool.data_ptr(), page_table.data_ptr(), pos.data_ptr(),
-             out.data_ptr(), scores.data_ptr(), stats.data_ptr(),
-             partial.data_ptr(), b, s, h, hkv, d, n_pages, ps, sp, ss, sh,
-             nsplit, d ** -0.5,
+    lib.call(entry, q.data_ptr(), *(p.data_ptr() for p in pools),
+             *(p.data_ptr() for p in scale_pools), page_table.data_ptr(),
+             pos.data_ptr(), out.data_ptr(), scores.data_ptr(),
+             stats.data_ptr(), partial.data_ptr(), b, s, h, hkv, d, n_pages,
+             ps, *strides, nsplit, d ** -0.5,
              torch.cuda.current_stream(q.device).cuda_stream)
-    build.LAUNCHES["paged_decode_attention"] += 1
+    build.LAUNCHES[name] += 1
     return out
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, pos):
+    name = "paged_decode_attention"
+    _check_shapes(name, q, k_pool, v_pool, page_table, pos)
+    if q.device.type == "cpu":
+        return plain.paged_decode_attention(q, k_pool, v_pool, page_table, pos)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {q.device}")
+    if q.dtype not in _ENTRY or not (q.dtype == k_pool.dtype
+                                     == v_pool.dtype):
+        raise ValueError(f"{name}: float32 or bfloat16 q/pools required, "
+                         f"got {q.dtype}/{k_pool.dtype}")
+    return _launch(name, _ENTRY[q.dtype], q, (k_pool, v_pool), (),
+                   page_table, pos)
+
+
+def paged_decode_attention_int8(q, k_pool, v_pool, k_scale, v_scale,
+                                page_table, pos):
+    """Over int8 pools with float32 scale pools (P, ps, KVH, 1): each
+    element is ``(code * scale)`` rounded to q's dtype, then the model-
+    dtype kernel's softmax and P V."""
+    name = "paged_decode_attention_int8"
+    _check_shapes(name, q, k_pool, v_pool, page_table, pos)
+    if tuple(k_scale.shape) != tuple(k_pool.shape[:3]) + (1,) \
+            or k_scale.shape != v_scale.shape:
+        raise ValueError(f"{name}: scale pools must be (P, ps, KVH, 1), "
+                         f"got {tuple(k_scale.shape)}, "
+                         f"{tuple(v_scale.shape)} for pools "
+                         f"{tuple(k_pool.shape)}")
+    if q.device.type == "cpu":
+        return plain.paged_decode_attention_int8(q, k_pool, v_pool, k_scale,
+                                             v_scale, page_table, pos)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {q.device}")
+    if q.dtype not in _ENTRY_INT8 or not (
+            k_pool.dtype == v_pool.dtype == torch.int8
+            and k_scale.dtype == v_scale.dtype == torch.float32):
+        raise ValueError(f"{name}: float32 or bfloat16 q, int8 pools and "
+                         f"float32 scales required, got {q.dtype}/"
+                         f"{k_pool.dtype}/{k_scale.dtype}")
+    return _launch(name, _ENTRY_INT8[q.dtype], q, (k_pool, v_pool),
+                   (k_scale, v_scale), page_table, pos)

@@ -1,7 +1,7 @@
 """Prefill attention: the wrapper of the hand-written Hopper kernel
 ``csrc/flash_attention.cu`` (the port of TPU kernel 1,
 ``repro/kernels/flash_attention.py::flash_attention``) beside its plain
-version ``layers.dense_attention``.
+version ``plain.dense_attention``.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises. q (B, S, H, D), k/v (B, S, KVH, D), float32 or bfloat16, any S;
@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.models import layers as L
+from repro_torch.kernels import plain
 
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -30,7 +30,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
     if q.device.type == "cpu":
-        return L.dense_attention(q, k, v, causal=causal)
+        return plain.dense_attention(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     if q.dtype not in _ENTRY or not (q.dtype == k.dtype == v.dtype):

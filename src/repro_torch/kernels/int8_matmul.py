@@ -1,0 +1,96 @@
+"""Weight-only int8 matmul: the wrapper of the hand-written Hopper kernel
+``csrc/int8_matmul.cu`` (the port of TPU kernel 5,
+``repro/kernels/int8_matmul.py::int8_matmul``) beside its plain version
+``plain.int8_matmul``, and ``quantize_int8``, the JAX module's helper.
+
+x (M, K) float32 or bfloat16, any M >= 1; w_q (K, N) int8 in the JAX
+orientation; scale (N,) or (1, N) float32, applied per output column after
+the float32 dot; the result (M, N) in x's dtype. K and N are multiples of
+16. A CPU tensor goes to the plain version; a CUDA tensor launches the
+kernel or raises."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import plain
+
+F32 = torch.float32
+_ENTRY = {torch.float32: "int8_matmul_f32", torch.bfloat16: "int8_matmul_bf16"}
+BN, BK = 128, 32  # output columns per block, contraction rows per tile
+SMS = 132  # the H100's streaming multiprocessors
+TARGET_BLOCKS = 4 * SMS  # a K split aims at four blocks per SM
+MIN_TILES = 8  # and leaves each split at least 8 tiles of K
+
+
+def block_rows(m: int, dtype) -> int:
+    """Rows of x per block: 16 for decode batches and for float32 x (the
+    FMA path), 64 for bfloat16 prefill."""
+    return 16 if dtype == torch.float32 or m <= 32 else 64
+
+
+def k_splits(m: int, k: int, n: int, bm: int):
+    """(splits, kchunk): how many blocks share one output tile's K, and
+    the K rows each covers (a multiple of the tile depth). A call with
+    fewer output tiles than SMs (decode: N / 128 column blocks) splits K
+    until about ``TARGET_BLOCKS`` blocks are in flight."""
+    blocks = -(-n // BN) * -(-m // bm)
+    tiles = -(-k // BK)
+    if blocks >= SMS:
+        return 1, tiles * BK
+    splits = max(1, min(-(-TARGET_BLOCKS // blocks), tiles // MIN_TILES))
+    per = -(-tiles // splits)
+    return -(-tiles // per), per * BK
+
+
+def quantize_int8(w, axis: int = 0):
+    """Symmetric per-output-channel int8 quantization of w (K, N), as the
+    JAX package's ``kernels/int8_matmul.py::quantize_int8``: returns
+    (w_q int8, scale (N,) float32)."""
+    amax = torch.amax(torch.abs(w.to(F32)), dim=axis, keepdim=True)
+    scale = torch.clamp(amax / 127.0, min=1e-12)
+    w_q = torch.clamp(torch.round(w.to(F32) / scale), -127, 127)
+    return w_q.to(torch.int8), scale.reshape(-1)
+
+
+def int8_matmul(x, w_q, scale):
+    name = "int8_matmul"
+    if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0] \
+            or scale.numel() != w_q.shape[1]:
+        raise ValueError(f"{name}: want x (M, K), w_q (K, N), scale (N,); "
+                         f"got {tuple(x.shape)}, {tuple(w_q.shape)}, "
+                         f"{tuple(scale.shape)}")
+    if not (x.device == w_q.device == scale.device):
+        raise ValueError(f"{name}: x, w_q, scale on different devices")
+    if x.device.type == "cpu":
+        return plain.int8_matmul(x, w_q, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    if x.dtype not in _ENTRY or w_q.dtype != torch.int8 \
+            or scale.dtype != F32:
+        raise ValueError(f"{name}: float32 or bfloat16 x, int8 w_q and "
+                         f"float32 scale required, got {x.dtype}/"
+                         f"{w_q.dtype}/{scale.dtype}")
+    m, k = x.shape
+    n = w_q.shape[1]
+    if k % 16 or n % 16:
+        raise ValueError(f"{name}: K = {k} and N = {n} must be multiples "
+                         f"of 16 (the kernel's 16-byte loads)")
+    if not (x.is_contiguous() and w_q.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError(f"{name}: x, w_q, scale must be contiguous")
+    if x.data_ptr() % 16 or w_q.data_ptr() % 16:
+        raise ValueError(f"{name}: x and w_q must be 16-byte aligned")
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    bm = block_rows(m, x.dtype)
+    splits, kchunk = k_splits(m, k, n, bm)
+    # the K split's float32 partials; freed on return, its memory is
+    # reused only by later work on the same stream
+    partial = (torch.empty((splits, m, n), dtype=F32, device=x.device)
+               if splits > 1 else y)
+    build.load().call(_ENTRY[x.dtype], x.data_ptr(), w_q.data_ptr(),
+                      scale.data_ptr(), y.data_ptr(), partial.data_ptr(), m,
+                      k, n, bm, splits, kchunk,
+                      torch.cuda.current_stream(x.device).cuda_stream)
+    build.LAUNCHES[name] += 1
+    return y

@@ -1,0 +1,213 @@
+"""Plain PyTorch versions of the port's hand-written kernels: the int8
+matmul, prefill and (paged, int8) decode attention, and the sampler. They
+are the torch twins of the JAX package's ``repro.models.layers`` functions
+of the same names, and ``repro_torch.models.layers`` re-exports them. Each
+kernel wrapper calls its plain version for CPU tensors, and
+``chip_smoke.py`` holds each kernel against it on the card. This module
+imports nothing of the port, so the kernel layer does not depend on the
+model layer.
+
+Arithmetic as in ``repro_torch.models.layers``: matmul products of the
+model dtype accumulate in float32, softmax statistics are float32, masked
+scores are ``-1e30`` (not ``-inf``) and probabilities are cast to the
+query dtype before the PV product.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+F32 = torch.float32
+NEG = -1e30
+_U32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# Weight-only int8 matmul (plain version of kernels/int8_matmul)
+# ---------------------------------------------------------------------------
+
+
+def int8_matmul(x, w_q, scale):
+    """Plain version of kernels/int8_matmul (the dict path of the
+    reference's ``layers.linear``): float32 product of x (M, K) and the
+    int8 codes (K, N), times the per-column scale AFTER the dot, cast once
+    to x's dtype."""
+    y = torch.matmul(x.to(F32), w_q.to(F32))
+    return (y * scale.reshape(-1).to(F32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention — prefill (plain version of kernels/flash_attention)
+# ---------------------------------------------------------------------------
+
+
+def dense_attention(q, k, v, *, causal: bool):
+    """Plain masked attention. q (B,Sq,H,D), k/v (B,Skv,Hkv,D); q head h
+    reads kv head ``h // G``. Scores and softmax in float32, probabilities
+    cast to ``q.dtype`` before PV, output in ``q.dtype``."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.to(F32).reshape(b, sq, hkv, g, d)
+    scale = d ** -0.5
+    scores = torch.einsum("bqcgd,bkcd->bcgqk", qg, k.to(F32)) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        scores = scores.masked_fill(~(kpos <= qpos), NEG)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bcgqk,bkcd->bqcgd", probs.to(q.dtype).to(F32),
+                       v.to(F32))
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention — decode against a rolling or paged KV cache
+# ---------------------------------------------------------------------------
+
+
+def decode_attention(q, k_cache, v_cache, pos):
+    """q (B,S,H,D); k/v_cache (B,W,Hkv,D); pos (B,) = tokens written
+    INCLUDING the S queries: query i of S sees ``pos - S + 1 + i`` slots
+    (capped at W). Grouped-GQA contraction, as the reference."""
+    b, w, hkv, d = k_cache.shape
+    sq, h = q.shape[1], q.shape[2]
+    g = h // hkv
+    qg = q.to(F32).reshape(b, sq, hkv, g, d)
+    scale = d ** -0.5
+    scores = torch.einsum("bqcgd,bwcd->bcgqw", qg, k_cache.to(F32)) * scale
+    pos = torch.as_tensor(pos, device=q.device).to(torch.int64)
+    pos = pos.reshape(-1).expand(b)
+    n_valid = torch.clamp(
+        pos[:, None] - (sq - 1)
+        + torch.arange(sq, device=q.device)[None, :], max=w)  # (B, S)
+    valid = (torch.arange(w, device=q.device)[None, None, None, None, :]
+             < n_valid[:, None, None, :, None])
+    scores = scores.masked_fill(~valid, NEG)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bcgqw,bwcd->bqcgd", probs.to(q.dtype).to(F32),
+                       v_cache.to(F32))
+    return out.to(q.dtype).reshape(b, sq, h, d)
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, pos):
+    """Decode attention through a paged KV cache (plain version of
+    kernels/decode_attention): gathers each slot's pages into a linear
+    (B, n_pages*ps, Hkv, D) view and runs ``decode_attention`` on it, so
+    garbage in unwritten slots is hidden by the same validity mask."""
+    b = q.shape[0]
+    _, ps, hkv, d = k_pool.shape
+    n_pages = page_table.shape[1]
+    idx = page_table.to(torch.int64)
+    k = k_pool[idx].reshape(b, n_pages * ps, hkv, d)
+    v = v_pool[idx].reshape(b, n_pages * ps, hkv, d)
+    return decode_attention(q, k, v, pos)
+
+
+def paged_decode_attention_int8(q, k_pool, v_pool, k_scale, v_scale,
+                                page_table, pos):
+    """Over int8 pools (plain version of kernels/decode_attention's int8
+    kernel): gathers values and their (P, ps, Hkv, 1) float32 scales
+    through the page table, dequantizes as ``(code * scale)`` rounded to
+    q's dtype and runs the same masked softmax as
+    ``paged_decode_attention``."""
+    b = q.shape[0]
+    _, ps, hkv, d = k_pool.shape
+    n_pages = page_table.shape[1]
+    idx = page_table.to(torch.int64)
+
+    def gather(pool, scale):
+        deq = (pool[idx].to(F32) * scale[idx]).to(q.dtype)
+        return deq.reshape(b, n_pages * ps, hkv, d)
+
+    return decode_attention(q, gather(k_pool, k_scale),
+                            gather(v_pool, v_scale), pos)
+
+
+# ---------------------------------------------------------------------------
+# Sampler (plain version of kernels/topk_sample)
+# ---------------------------------------------------------------------------
+
+
+def _float_bits_descending(x):
+    """Order-isomorphic unsigned image of float32, held in int64 (torch on
+    the CPU has no right shift for uint32): bigger float <=> bigger value.
+    ``+ 0.0`` canonicalizes -0.0 first."""
+    bits = (x.to(F32) + 0.0).view(torch.int32).to(torch.int64) & _U32
+    return torch.where((bits >> 31) == 0, bits | 0x80000000, (~bits) & _U32)
+
+
+def _radix_threshold(weights, mapped, target):
+    """Per row, the largest mapped value t with ``sum(weights where mapped
+    >= t) >= target``: 32 rounds of MSB-first bit building."""
+    t = torch.zeros(weights.shape[0], dtype=torch.int64,
+                    device=weights.device)
+    zero = torch.zeros((), dtype=weights.dtype, device=weights.device)
+    for b in range(32):
+        cand = t | (1 << (31 - b))
+        acc = torch.where(mapped >= cand[:, None], weights, zero).sum(-1)
+        t = torch.where(acc >= target, cand, t)
+    return t
+
+
+def _restricted_probs(x, top_k, top_p):
+    """Both cuts as thresholds over ONE logit-bit image: the k-th largest
+    logit by a count radix, then the nucleus boundary by a mass radix over
+    the restricted softmax weights. Rows without a cut (top_k <= 0,
+    top_p >= 1) keep everything, as the reference's batch-wide skip does.
+    Returns (keep mask, softmax weights with 0 outside the mask)."""
+    v = x.shape[1]
+    mapped = _float_bits_descending(x)
+    k = torch.where(top_k > 0, torch.clamp(top_k, 1, v),
+                    torch.full_like(top_k, v)).to(F32)
+    kth = _radix_threshold(torch.ones_like(x), mapped, k)
+    keep = mapped >= kth[:, None]
+    w = torch.where(keep, torch.softmax(x, dim=-1), torch.zeros_like(x))
+    target = torch.clamp(top_p.to(F32), 1e-30, 1.0) * w.sum(-1)
+    pth = _radix_threshold(w, mapped, target)
+    keep = keep & ((mapped >= pth[:, None]) | (top_p >= 1.0)[:, None])
+    return keep, torch.where(keep, w, torch.zeros_like(w))
+
+
+def process_logits(logits, temperature, top_k, top_p):
+    """Temperature scale, then top-k and top-p restriction; removed entries
+    come back ``-inf``."""
+    x = logits.to(F32) / torch.clamp(temperature.to(F32), min=1e-6)[:, None]
+    keep, _ = _restricted_probs(x, top_k, top_p)
+    return torch.where(keep, x, torch.full_like(x, -math.inf))
+
+
+def sample_tokens(logits, greedy, temperature, top_k, top_p, uniform):
+    """Engine-facing masked composition: greedy rows take argmax (lowest
+    index on ties); stochastic rows draw one token from the temperature-
+    scaled, top-k/top-p-restricted softmax by inverse CDF with ONE uniform
+    per row, ``min(u*total, nextafter(total, 0))`` against the cumulative
+    masked weights. logits (B, V); greedy (B,) bool; temperature, top_p,
+    uniform (B,) float32; top_k (B,) int. Returns (B,) int32."""
+    last = logits.to(F32)
+    greedy_tok = torch.argmax(last, dim=-1)
+    x = last / torch.clamp(temperature.to(F32), min=1e-6)[:, None]
+    _, pk = _restricted_probs(x, top_k, top_p)
+    c = torch.cumsum(pk, dim=-1)
+    total = c[:, -1]
+    thresh = torch.minimum(uniform.to(F32) * total,
+                           torch.nextafter(total, torch.zeros_like(total)))
+    stoch = torch.argmax((c > thresh[:, None]).to(torch.int32), dim=-1)
+    return torch.where(greedy.to(torch.bool), greedy_tok,
+                       stoch).to(torch.int32)
+
+
+def topk_sample(logits, k, temperature, uniform):
+    """Plain version of the Pallas kernel's own semantics (kernels/
+    topk_sample.py, TPU kernel 3): ``x = logits/T + 0.0``, keep ``x >=
+    kth`` (the k-th largest by radix select), Gumbel argmax with the
+    caller's (B, V) uniforms, lowest index on ties."""
+    x = logits.to(F32) / temperature.to(F32)[:, None] + 0.0
+    mapped = _float_bits_descending(x)
+    kth = _radix_threshold(torch.ones_like(x), mapped, k.to(F32))
+    keep = mapped >= kth[:, None]
+    u = torch.clamp(uniform.to(F32), min=1e-12)
+    z = torch.where(keep, x - torch.log(-torch.log(u)),
+                    torch.full_like(x, NEG))
+    return torch.argmax(z, dim=-1).to(torch.int32)

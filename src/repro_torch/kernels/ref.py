@@ -63,3 +63,39 @@ def ref_topk_sample(logits, k, temperature, uniform):
     g = -torch.log(-torch.log(torch.clamp(uniform.to(F32), min=1e-12)))
     z = torch.where(x >= kth, x + g, torch.full_like(x, -float("inf")))
     return torch.argmax(z, dim=-1).to(torch.int32)
+
+
+def ref_paged_decode_attention_int8(q, k_pool, v_pool, k_scale, v_scale,
+                                    page_table, n_valid):
+    """Oracle of the int8 paged kernel: dequantize the pools (int8 values
+    times their (P, ps, Hkv, 1) float32 scales, rounded to q's dtype),
+    then the paged oracle."""
+    kd = (k_pool.to(F32) * k_scale.to(F32)).to(q.dtype)
+    vd = (v_pool.to(F32) * v_scale.to(F32)).to(q.dtype)
+    return ref_paged_decode_attention(q, kd, vd, page_table, n_valid)
+
+
+def int8_attention_score_bound(q, k_scale):
+    """Bound on the max absolute scaled-score error of int8-K attention
+    against exact K: ``(max scale / 2) * max_row ||q||_1 * d^-1/2`` (a
+    float32 scalar tensor)."""
+    d = q.shape[-1]
+    q1 = torch.sum(torch.abs(q.to(F32)), dim=-1)
+    return 0.5 * torch.max(k_scale.to(F32)) * torch.max(q1) * float(d) ** -0.5
+
+
+def int8_attention_output_bound(q, k_scale, v_scale, v_deq):
+    """Bound on the max absolute output error of int8-K/V attention against
+    exact attention: ``(e^{2 eps} - 1) * max|v_deq| + max(v_scale) / 2``
+    with eps the score bound; ``v_deq`` is the dequantized V attended."""
+    eps = int8_attention_score_bound(q, k_scale)
+    vmax = torch.max(torch.abs(v_deq.to(F32)))
+    return (torch.exp(2.0 * eps) - 1.0) * vmax \
+        + 0.5 * torch.max(v_scale.to(F32))
+
+
+def ref_int8_matmul(x, w_q, scales):
+    """The looser oracle: the weight is scaled first, then the float32
+    product, cast to x's dtype."""
+    w = w_q.to(F32) * scales.reshape(1, -1).to(F32)
+    return (x.to(F32) @ w).to(x.dtype)

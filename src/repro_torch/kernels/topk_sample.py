@@ -1,10 +1,10 @@
 """The decode sampling tail: wrappers of the hand-written Hopper kernel
 ``csrc/sampling.cu`` (the port of TPU kernel 3,
 ``repro/kernels/topk_sample.py::topk_sample``) beside their plain
-versions in ``layers``.
+versions in ``plain``.
 
 ``sample_tokens`` is what the engine calls (the semantics of
-``layers.sample_tokens``: greedy mask, temperature, top-k, top-p, one
+``plain.sample_tokens``: greedy mask, temperature, top-k, top-p, one
 uniform per row, inverse CDF); ``topk_sample`` keeps the Pallas kernel's
 own semantics (Gumbel argmax over (B, V) uniforms). One block per row
 keeps the whole row in shared memory, so the vocabulary must fit there.
@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.models import layers as L
+from repro_torch.kernels import plain
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _STATIC = 1024  # the kernels' own reduction scratch, rounded up
@@ -58,7 +58,7 @@ def sample_tokens(logits, greedy, temperature, top_k, top_p, uniform):
     _check_rows("sample_tokens", logits, greedy, temperature, top_k, top_p,
                 uniform)
     if logits.device.type == "cpu":
-        return L.sample_tokens(logits, greedy, temperature, top_k, top_p,
+        return plain.sample_tokens(logits, greedy, temperature, top_k, top_p,
                                uniform)
     _check_cuda("sample_tokens", logits,
                 [(logits, torch.float32), (greedy, torch.bool),
@@ -80,7 +80,7 @@ def topk_sample(logits, k, temperature, uniform):
     uniform (B, V) in [0, 1). Returns (B,) int32."""
     _check_rows("topk_sample", logits, k, temperature, uniform)
     if logits.device.type == "cpu":
-        return L.topk_sample(logits, k, temperature, uniform)
+        return plain.topk_sample(logits, k, temperature, uniform)
     _check_cuda("topk_sample", logits,
                 [(logits, torch.float32), (k, torch.int32),
                  (temperature, torch.float32), (uniform, torch.float32)])

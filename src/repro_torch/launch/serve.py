@@ -12,8 +12,9 @@ switches every request to seeded stochastic decode; request i samples with
 seed ``--sample-seed + i``, so a rerun reproduces every stream.
 
 Only the main path is ported: the paged KV cache, single-shot bucketed
-prefill, one card. ``EngineConfig.validate`` names the ROADMAP.md item of
-every other option.
+prefill, one card, with ``--kv-dtype int8`` (int8 KV pages) and
+``--weight-dtype int8`` (weight-only int8) as its quantized variant.
+``EngineConfig.validate`` names the ROADMAP.md item of every other option.
 """
 from __future__ import annotations
 
@@ -25,10 +26,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.costmodel import kv_bytes_per_token
 from repro_torch.core.device import resolve_device
 from repro_torch.models import init_params
 from repro_torch.serving import (
     EngineConfig,
+    PrecisionConfig,
     Request,
     SamplingParams,
     ServingEngine,
@@ -56,6 +59,12 @@ def main(argv=None):
     ap.add_argument("--pool-pages", type=int, default=0,
                     help="shared KV pool size in pages; 0 = full headroom, "
                          "less oversubscribes (admission backpressure)")
+    ap.add_argument("--kv-dtype", default="", choices=["", "int8"],
+                    help="KV-cache page dtype: int8 stores pages as int8 "
+                         "values + per-vector fp32 scales")
+    ap.add_argument("--weight-dtype", default="", choices=["", "int8"],
+                    help="weight-only int8 for the attention/MLP matmuls "
+                         "(per-output-channel fp32 scales, f32 accumulation)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="decode sampling temperature; 0 = greedy argmax")
     ap.add_argument("--top-k", type=int, default=0,
@@ -83,7 +92,10 @@ def main(argv=None):
                           sync_every=args.sync_every,
                           page_size=args.page_size,
                           max_seq=args.max_seq or None,
-                          pool_pages=args.pool_pages or None)
+                          pool_pages=args.pool_pages or None,
+                          precision=PrecisionConfig(
+                              kv_cache_dtype=args.kv_dtype,
+                              weight_dtype=args.weight_dtype))
     config.validate(cfg)
     rng = np.random.default_rng(args.seed)
     params = init_params(cfg, seed=args.seed, device=device)
@@ -99,6 +111,11 @@ def main(argv=None):
     print(f"paged KV: page_size={eng.page_size} max_seq={eng.max_seq} "
           f"pool={eng.pool_pages} pages "
           f"({eng.allocator.capacity} usable + trash)")
+    if args.kv_dtype or args.weight_dtype:
+        print(f"quantized: kv_cache_dtype={args.kv_dtype or cfg.dtype} "
+              f"weight_dtype={args.weight_dtype or cfg.dtype} "
+              f"kv_bytes/token="
+              f"{kv_bytes_per_token(cfg, args.kv_dtype):.0f}")
 
     arrivals = np.cumsum(rng.exponential(1.0 / args.rate, args.requests))
     reqs = [

@@ -1,5 +1,6 @@
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import (
+    QUANT_WEIGHT_KEYS,
     block_program,
     decode_step,
     dtype_of,
@@ -7,9 +8,11 @@ from repro_torch.models.model import (
     init_paged_cache,
     init_params,
     layer_types,
+    paged_ok,
     ported,
+    quantize_weights,
 )
 
-__all__ = ["block_program", "decode_step", "dtype_of", "forward",
-           "init_paged_cache", "init_params", "layer_types",
-           "params_from_jax", "ported"]
+__all__ = ["QUANT_WEIGHT_KEYS", "block_program", "decode_step", "dtype_of",
+           "forward", "init_paged_cache", "init_params", "layer_types",
+           "paged_ok", "params_from_jax", "ported", "quantize_weights"]

@@ -1,6 +1,7 @@
 """Transformer blocks of the PyTorch port (the dense block type of
-``repro.models.blocks``), with the main path's attention going through the
-kernels' dispatch points (``repro_torch.kernels.ops``).
+``repro.models.blocks``), with the main path's attention and int8
+projections going through the kernels' dispatch points
+(``repro_torch.kernels.ops``).
 
 Params are plain dicts of tensors in the reference's (in, out) weight
 orientation. Paged pools are updated IN PLACE (``index_put_``), where the
@@ -10,12 +11,76 @@ nothing else holds a reference to it.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
+F32 = torch.float32
+
 # Block types the port serves so far (ROADMAP.md queue 1 lists the rest).
 PORTED_BLOCKS = ("dense",)
+
+# Block types servable from a paged KV cache (the reference's list).
+PAGED_BLOCKS = ("dense", "moe")
+
+
+# ---------------------------------------------------------------------------
+# KV quantization (int8 values + per-vector float32 scales)
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(t, group: int = 0):
+    """Symmetric int8 quantization of a (..., S, kv, hd) K/V tensor, as the
+    reference's ``blocks.quantize_kv``: one float32 scale per (token, kv
+    head) vector, shaped (..., S, kv, 1). ``group`` > 1 that divides S
+    shares one scale per ``group`` consecutive tokens (the "page" scale
+    granularity); otherwise scales stay per token."""
+    tf = t.to(F32)
+    a = torch.amax(torch.abs(tf), dim=-1, keepdim=True)
+    s = t.shape[-3]
+    if group and group > 1 and s % group == 0:
+        shp = a.shape
+        grouped = shp[:-3] + (s // group, group) + shp[-2:]
+        g = torch.amax(a.reshape(grouped), dim=-3, keepdim=True)
+        a = g.expand(grouped).reshape(shp)
+    scale = torch.clamp(a / 127.0, min=1e-8)
+    q8 = torch.clamp(torch.round(tf / scale), -127, 127)
+    return q8.to(torch.int8), scale
+
+
+def dequantize_kv(q8, scale, dtype):
+    return (q8.to(F32) * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Projections and MLPs
+# ---------------------------------------------------------------------------
+
+
+def linear(x, w):
+    """``x @ w`` with the weight in the reference's (in, out) orientation.
+    A plain tensor runs ``torch.matmul`` untouched; a ``{"w_q": int8,
+    "scale": float32}`` dict (``model.quantize_weights``) runs weight-only
+    int8 (``ops.int8_matmul``) over the leading dims flattened into M."""
+    if isinstance(w, dict):
+        k = x.shape[-1]
+        y = ops.int8_matmul(x.reshape(-1, k).contiguous(), w["w_q"],
+                            w["scale"])
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    return torch.matmul(x, w)
+
+
+def apply_mlp(cfg, p, x):
+    if cfg.mlp_variant in ("swiglu", "geglu"):
+        g = linear(x, p["w_gate"])
+        u = linear(x, p["w_up"])
+        act = (F.silu(g) if cfg.mlp_variant == "swiglu"
+               else F.gelu(g, approximate="tanh"))
+        h = act * u
+    else:
+        h = F.gelu(linear(x, p["w_up"]), approximate="tanh")
+    return linear(h, p["w_down"])
 
 
 def init_attn(cfg, gen, dtype, device):
@@ -70,13 +135,21 @@ def init_block(cfg, btype: str, gen, dtype, device):
 
 
 def init_paged_block_cache(cfg, n_pages: int, page_size: int, dtype,
-                           device):
+                           device, kv_dtype: str = ""):
     """One attention block's page pools (P, ps, kv, hd), shared by every
     slot. Zero-filled, never ``torch.empty``: unwritten slots are masked
     in the scores, but a masked slot still multiplies its V by 0, and
-    0 * NaN would poison the row."""
+    0 * NaN would poison the row. ``kv_dtype`` "int8" stores int8 values
+    plus float32 scale pools (P, ps, kv, 1) addressed by the same page
+    ids."""
     hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
     shape = (n_pages, page_size, kv, hd)
+    if kv_dtype == "int8":
+        scales = (n_pages, page_size, kv, 1)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(scales, dtype=F32, device=device),
+                "v_scale": torch.zeros(scales, dtype=F32, device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -97,8 +170,19 @@ def paged_write_index(pages, pos, s: int, page_size: int):
 def _paged_attn_decode(q, k, v, cache, pages, write_at, n_valid):
     """Write the chunk's K/V at ``write_at`` (``paged_write_index``), in
     place, and attend through the page table; ``n_valid`` (B,) int32 is
-    each slot's token count including the S new ones."""
+    each slot's token count including the S new ones. Over int8 pools
+    the values and their per-token scales are written at the same
+    addresses (decode-time writes are always per token, whatever the
+    prefill's scale granularity)."""
     phys, off = write_at
+    if "k_scale" in cache:
+        for name, t in (("k", k), ("v", v)):
+            q8, scale = quantize_kv(t)
+            cache[name].index_put_((phys, off), q8)
+            cache[name + "_scale"].index_put_((phys, off), scale)
+        return ops.paged_decode_attention_int8(
+            q, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
+            pages, n_valid)
     cache["k"].index_put_((phys, off), k.to(cache["k"].dtype))
     cache["v"].index_put_((phys, off), v.to(cache["v"].dtype))
     return ops.paged_decode_attention(q, cache["k"], cache["v"], pages,
@@ -115,9 +199,9 @@ def _attn_apply(cfg, p, x, rope, *, mode: str, cache=None, pages=None,
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
-    q = L.linear(x, p["wq"]).reshape(b, s, h, hd)
-    k = L.linear(x, p["wk"]).reshape(b, s, kv, hd)
-    v = L.linear(x, p["wv"]).reshape(b, s, kv, hd)
+    q = linear(x, p["wq"]).reshape(b, s, h, hd)
+    k = linear(x, p["wk"]).reshape(b, s, kv, hd)
+    v = linear(x, p["wv"]).reshape(b, s, kv, hd)
     if rope is not None:
         q, k = L.rotate(q, rope), L.rotate(k, rope)
     if mode == "decode":
@@ -127,7 +211,7 @@ def _attn_apply(cfg, p, x, rope, *, mode: str, cache=None, pages=None,
         out = ops.flash_attention(q, k, v, causal=cfg.causal)
         new_kv = (k, v)
     out = out.reshape(b, s, h * hd)
-    return L.linear(out, p["wo"]), new_kv
+    return linear(out, p["wo"]), new_kv
 
 
 def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
@@ -141,5 +225,5 @@ def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
                             pages=pages, write_at=write_at, n_valid=n_valid)
     x = x + a
     h = L.apply_norm(cfg, p["norm2"], x)
-    x = x + L.apply_mlp(cfg, p["mlp"], h)
+    x = x + apply_mlp(cfg, p["mlp"], h)
     return x, new_kv

@@ -6,7 +6,10 @@ pytree as nested dicts/lists of NUMPY arrays (a test builds it with
 returns the port's params. ``body`` leaves carry a leading ``n_repeat``
 axis (one slice per scanned repeat); they are unstacked into one dict per
 layer, in scan order. Weight matrices keep the reference's (in, out)
-orientation, so no transpose is needed.
+orientation, so no transpose is needed. A quantized tree
+(``repro.models.quantize_weights``) converts the same way: its
+``{"w_q", "scale"}`` leaves map leaf by leaf, and a body scale
+(n_repeat, 1, N) is unstacked like its weight.
 """
 from __future__ import annotations
 

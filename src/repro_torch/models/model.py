@@ -5,7 +5,9 @@ dict per layer, in scan order).
 Public API (device explicit everywhere):
   block_program(cfg)                          -> (pattern, n_repeat, tail)
   init_params(cfg, seed, device)              -> params dict (random weights)
-  init_paged_cache(cfg, batch, n_pages, page_size, max_pages, device)
+  init_paged_cache(cfg, batch, n_pages, page_size, max_pages, device,
+                   kv_dtype)
+  quantize_weights(cfg, params)               -> params with int8 leaves
   forward(cfg, params, tokens, ...)           -> (logits, per-layer (k, v))
   decode_step(cfg, params, cache, tokens)     -> logits (B, S, V); cache
                                                  updated in place
@@ -17,8 +19,10 @@ from typing import Optional
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import (
+    PAGED_BLOCKS,
     PORTED_BLOCKS,
     apply_block,
     init_block,
@@ -63,6 +67,13 @@ def ported(cfg) -> bool:
     return all(bt in PORTED_BLOCKS for bt in layer_types(cfg))
 
 
+def paged_ok(cfg) -> bool:
+    """Every block of the arch can serve from a paged KV cache (the
+    reference's ``models.paged_ok``)."""
+    pattern, _, tail = block_program(cfg)
+    return all(bt in PAGED_BLOCKS for bt in pattern + tail)
+
+
 def init_params(cfg, seed: int = 0, device="cuda"):
     """Random weights from a ``torch.Generator`` on ``device`` (normal,
     scaled as the reference's init). Not the reference's bits: parity tests
@@ -87,9 +98,11 @@ def init_params(cfg, seed: int = 0, device="cuda"):
 
 
 def init_paged_cache(cfg, batch: int, n_pages: int, page_size: int,
-                     max_pages_per_slot: int, device="cuda"):
+                     max_pages_per_slot: int, device="cuda",
+                     kv_dtype: str = ""):
     """One page pool pair per layer plus one page-table row and position
-    per slot. Table entries start at 0 — the reserved trash page."""
+    per slot. Table entries start at 0 — the reserved trash page.
+    ``kv_dtype`` "int8": int8 pools with float32 scale pools."""
     if not ported(cfg):
         raise ValueError(f"{cfg.name}: arch has blocks the port does not "
                          f"serve yet")
@@ -97,12 +110,40 @@ def init_paged_cache(cfg, batch: int, n_pages: int, page_size: int,
     dtype = dtype_of(cfg)
     return {
         "layers": [init_paged_block_cache(cfg, n_pages, page_size, dtype,
-                                          device)
+                                          device, kv_dtype)
                    for _ in layer_types(cfg)],
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
         "page_table": torch.zeros((batch, max_pages_per_slot),
                                   dtype=torch.int32, device=device),
     }
+
+
+#: attention/MLP matmul weights eligible for weight-only int8. Embeddings,
+#: the lm head and norms stay in the model dtype.
+QUANT_WEIGHT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _quantize_leaf(w):
+    """Symmetric per-output-channel int8 over the contraction axis, as the
+    reference: ``{"w_q": int8 (K, N), "scale": float32 (1, N)}``."""
+    w_q, scale = ops.quantize_int8(w)
+    return {"w_q": w_q, "scale": scale.reshape(1, -1)}
+
+
+def quantize_weights(cfg, params):
+    """Weight-only int8 (the reference's ``model.quantize_weights``): each
+    attention/MLP matmul weight of every layer becomes a ``{"w_q",
+    "scale"}`` dict, which ``blocks.linear`` dispatches to the int8
+    matmul kernel. Returns new params; the input is left as it is."""
+    layers = []
+    for p in params["layers"]:
+        p = dict(p)
+        for sub in ("attn", "mlp"):
+            if sub in p:
+                p[sub] = {k: (_quantize_leaf(v) if k in QUANT_WEIGHT_KEYS
+                              else v) for k, v in p[sub].items()}
+        layers.append(p)
+    return {**params, "layers": layers}
 
 
 def _embed(params, tokens):

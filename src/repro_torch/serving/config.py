@@ -3,7 +3,8 @@
 fields (``repro/serving/config.py``).
 
 The port serves the main path first: the paged KV cache on dense archs,
-single-shot bucketed prefill, model-dtype pools and weights, one card.
+single-shot bucketed prefill, model-dtype or int8 pools and weights, one
+card.
 ``validate()`` refuses every option whose path is not ported yet and
 names the ``ROADMAP.md`` item that brings it, so nothing silently runs a
 different path than the one asked for. ``chunk_prefill`` therefore
@@ -18,7 +19,15 @@ from typing import Optional
 MOE_CAPACITY_POLICIES = ("strict", "backpressure", "drop")
 KV_CACHE_DTYPES = ("", "int8")
 WEIGHT_DTYPES = ("", "int8")
+#: Scale granularity of the quantized KV cache. Storage is identical (one
+#: float32 scale per (token, kv head) vector); "page" coarsens prefill
+#: writes to one scale per (page, kv head), while decode-time appends
+#: always get their own scale. "token" keeps per-token scales everywhere.
 KV_SCALE_GRANULARITIES = ("page", "token")
+
+#: Block types whose attention/MLP matmul weights may quantize to int8
+#: (the reference's list; the port serves "dense" of them so far).
+WEIGHT_QUANT_BLOCKS = ("dense", "encoder", "local_attn")
 
 
 @dataclass(frozen=True)
@@ -131,8 +140,10 @@ class EngineConfig:
         return self.modeled_chips or self.topology.n_chips
 
     def validate(self, cfg=None) -> "EngineConfig":
-        """Refuse, before any work, every option whose path the port does
-        not serve yet; the message names the ROADMAP.md item."""
+        """Refuse, before any work, a precision the reference refuses
+        (with its message), then every option whose path the port does
+        not serve yet; that message names the ROADMAP.md item."""
+        self._validate_precision(cfg)
         q1 = "ROADMAP.md queue 1"
         not_yet = []
         if self.chunk_prefill > 0 or self.prefill_policy is not None:
@@ -152,10 +163,6 @@ class EngineConfig:
         if self.shed_overdue:
             not_yet.append(("shed_overdue", f"{q1}, 'Engine, remaining "
                             f"paths': lifecycle and preemption"))
-        if self.precision.quantized_kv or self.precision.quantized_weights:
-            not_yet.append((f"precision={self.precision} (int8)",
-                            f"{q1}, 'Engine, remaining paths': int8; and "
-                            f"queue 2, kernels 4-5"))
         if self.topology.sharded:
             not_yet.append((f"topology dp={self.topology.dp} "
                             f"tp={self.topology.tp} (sharded replica)",
@@ -176,6 +183,45 @@ class EngineConfig:
             raise ValueError(f"{what} is not ported to repro_torch yet "
                              f"(see {item})")
         return self
+
+    def _validate_precision(self, cfg):
+        """The reference's rules: int8 KV needs the paged cache and an arch
+        whose every block is pageable; int8 weights need
+        ``WEIGHT_QUANT_BLOCKS`` and one card."""
+        pr = self.precision
+        if cfg is not None and pr.quantized_kv:
+            from repro_torch.models import paged_ok
+
+            if self.paged is False:
+                raise ValueError(
+                    f"precision.kv_cache_dtype={pr.kv_cache_dtype!r} "
+                    f"quantizes KV-cache PAGES; the rolling cache "
+                    f"(paged=False) has no paged pools — drop paged=False "
+                    f"or clear kv_cache_dtype")
+            if not paged_ok(cfg):
+                raise ValueError(
+                    f"precision.kv_cache_dtype={pr.kv_cache_dtype!r} "
+                    f"needs every block pageable, but {cfg.name} has "
+                    f"rolling/recurrent-cache blocks (local_attn/rglru/"
+                    f"ssd) that cannot serve from quantized pages — clear "
+                    f"kv_cache_dtype for this arch")
+        if cfg is not None and pr.quantized_weights:
+            from repro_torch.models import block_program
+
+            pattern, _, tail = block_program(cfg)
+            bad = sorted({bt for bt in pattern + tail
+                          if bt not in WEIGHT_QUANT_BLOCKS})
+            if bad:
+                raise ValueError(
+                    f"precision.weight_dtype={pr.weight_dtype!r} supports "
+                    f"blocks {WEIGHT_QUANT_BLOCKS} only, but {cfg.name} "
+                    f"contains {bad} — clear weight_dtype for this arch")
+            if self.topology.sharded:
+                raise ValueError(
+                    f"precision.weight_dtype={pr.weight_dtype!r} is not "
+                    f"supported on sharded replicas yet (int8 weight "
+                    f"leaves have no GSPMD profile) — serve quantized "
+                    f"weights on 1-chip replicas or clear weight_dtype")
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)

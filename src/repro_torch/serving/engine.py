@@ -6,10 +6,11 @@ absolute position).
 
 Where the reference jits pure functions and donates buffers, the port runs
 eagerly and updates the page pools, page table, positions and sampling
-state IN PLACE: the engine is their only owner. The three kernels of the
-path (prefill attention, paged decode attention, the sampler) are reached
-through ``repro_torch.kernels.ops``: plain PyTorch on a CPU device, the
-hand-written Hopper kernels on CUDA.
+state IN PLACE: the engine is their only owner. The kernels of the path
+(prefill attention, paged decode attention, the sampler; under an int8
+``PrecisionConfig`` the int8 paged decode and the int8-weight matmul) are
+reached through ``repro_torch.kernels.ops``: plain PyTorch on a CPU
+device, the hand-written Hopper kernels on CUDA.
 
 Seeded streams match the reference's bits: the uniform of a stochastic
 slot is ``uniform(fold_in(PRNGKey(seed), pos))`` from the port's
@@ -29,7 +30,14 @@ from repro_torch.core.costmodel import estimate_decode
 from repro_torch.core.device import resolve_device
 from repro_torch.core.misd.batching import BatchAccumulator, plan_admission
 from repro_torch.kernels import ops
-from repro_torch.models import decode_step, dtype_of, forward, init_paged_cache
+from repro_torch.models import (
+    decode_step,
+    dtype_of,
+    forward,
+    init_paged_cache,
+    quantize_weights,
+)
+from repro_torch.models.blocks import quantize_kv
 from repro_torch.serving import prng
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.paging import PageAllocator
@@ -70,17 +78,27 @@ def paged_prefill_step(cfg, params, tokens, true_len: int):
     return torch.argmax(last, dim=-1).to(torch.int32), last, kv
 
 
-def pages_insert(cache, kv, pages, slot: int, true_len: int):
+def pages_insert(cache, kv, pages, slot: int, true_len: int, *,
+                 scale_group: int = 0):
     """Admit a prefilled request: scatter its K/V (the n pages' worth of
     positions) into the pool pages ``pages`` (n,), point the slot's table
-    row at them (trash page 0 after) and set its position. In place."""
+    row at them (trash page 0 after) and set its position. In place.
+    Int8 pools get the quantized values and their scales, quantized over
+    all n pages' positions pads included (as the reference's prefill
+    quantizes its whole padded window): one scale per ``scale_group``
+    tokens (the page, under the "page" granularity) or, with 0, per
+    token."""
     n = pages.shape[0]
     for layer, (k, v) in zip(cache["layers"], kv):
         ps = layer["k"].shape[1]
-        layer["k"][pages] = k[0, :n * ps].reshape(
-            n, ps, *k.shape[2:]).to(layer["k"].dtype)
-        layer["v"][pages] = v[0, :n * ps].reshape(
-            n, ps, *v.shape[2:]).to(layer["v"].dtype)
+        for name, t in (("k", k), ("v", v)):
+            t = t[0, :n * ps]
+            if name + "_scale" in layer:
+                t, scale = quantize_kv(t, group=scale_group)
+                layer[name + "_scale"][pages] = scale.reshape(
+                    n, ps, *scale.shape[1:])
+            layer[name][pages] = t.reshape(n, ps, *t.shape[1:]).to(
+                layer[name].dtype)
     row = cache["page_table"][slot]
     row.zero_()
     row[:n] = pages
@@ -217,6 +235,10 @@ class ServingEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.partitionable = bool(threefry_partitionable)
+        if config.precision.quantized_weights:
+            # weight-only int8 at load: attention/MLP matmul weights
+            # become {"w_q", "scale"} dicts (blocks.linear dispatches)
+            params = quantize_weights(cfg, params)
         params = dict(params)
         if dtype_of(cfg) != torch.float32:
             # the lm head's float32 product (the reference's preferred
@@ -231,6 +253,12 @@ class ServingEngine:
             raise ValueError(f"page_size must be a power of two, got "
                              f"{page_size}")
         self.page_size = page_size
+        # int8 KV pages; "page" scale granularity groups the prefill's
+        # scales by page (the reference's kv_scale_page trace hint)
+        self.kv_dtype = config.precision.kv_cache_dtype
+        self.kv_scale_group = (
+            page_size if self.kv_dtype
+            and config.precision.kv_scale_granularity == "page" else 0)
         self.window = config.window
         self.max_seq = _padded_len(int(config.max_seq or config.window),
                                    page_size)
@@ -238,7 +266,8 @@ class ServingEngine:
         self.plan = plan_admission(
             cfg, context=config.window, sla_s=config.sla_s,
             n_chips=config.n_chips, kv_hbm_budget_bytes=config.kv_hbm_budget,
-            mean_context=config.expected_len or None)
+            mean_context=config.expected_len or None,
+            kv_cache_dtype=self.kv_dtype)
         slots = config.slots or self.plan.slots
         self.slots = slots
         self._tick_est_s = estimate_decode(cfg, slots, config.window).latency_s
@@ -252,7 +281,8 @@ class ServingEngine:
         self.pool_pages = config.pool_pages or slots * self.max_pages + 1
         self.allocator = PageAllocator(self.pool_pages, page_size)
         self.cache = init_paged_cache(cfg, slots, self.pool_pages, page_size,
-                                      self.max_pages, device=self.device)
+                                      self.max_pages, device=self.device,
+                                      kv_dtype=self.kv_dtype)
         self._pos_h: List[int] = [0] * slots  # host mirror of cache pos
         self._tabled: List[int] = [0] * slots  # table entries written
         self._tokens = torch.zeros((slots,), dtype=torch.int32,
@@ -382,7 +412,8 @@ class ServingEngine:
         n_pref = self.allocator.pages_for(self._prefill_len(req))
         pages = torch.tensor(self.allocator.owned(slot)[:n_pref],
                              dtype=torch.int64, device=self.device)
-        pages_insert(self.cache, kv, pages, slot, req.prompt_len)
+        pages_insert(self.cache, kv, pages, slot, req.prompt_len,
+                     scale_group=self.kv_scale_group)
         self._pos_h[slot] = req.prompt_len
         self._tabled[slot] = n_pref
         already = len(req.output)

@@ -131,10 +131,6 @@ _NOT_PORTED = {
     "rolling": (dict(paged=False), "rolling caches"),
     "prefix_cache": (dict(prefix_cache=True), "prefix cache"),
     "preemption": (dict(preemption=True), "preemption"),
-    "int8_kv": (dict(precision=ts.PrecisionConfig(kv_cache_dtype="int8")),
-                "int8"),
-    "int8_weights": (dict(precision=ts.PrecisionConfig(
-        weight_dtype="int8")), "int8"),
     "sharded": (dict(topology=ts.DeviceTopology(tp=2)), "Multi-GPU"),
     "tracing": (dict(tracing=True), "span/metrics"),
 }

@@ -8,8 +8,8 @@ they skip without a card. On the machine with the card:
 (``--noconftest``: the JAX suite's ``tests/conftest.py`` imports jax, which
 that machine does not have.)
 
-Tolerances: float32 2e-5 (the reference suite's); bfloat16 2e-2; sampled
-tokens exact."""
+Tolerances: float32 2e-5 (the reference suite's); bfloat16 2e-2, and 1e-3
+absolute for the int8 paged decode kernel; sampled tokens exact."""
 import numpy as np
 import pytest
 import torch
@@ -17,10 +17,15 @@ import torch
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.topk_sample import max_vocab
 from repro_torch.models import layers as L
+from repro_torch.models.blocks import quantize_kv
 
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the int8 paged decode kernel against its plain version: bfloat16 at 1e-3
+# absolute (no relative term), which a kernel that skips rounding each
+# dequantized element to q's dtype does not meet (chip_smoke.py)
+INT8_DECODE_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-3, 0.0)}
 
 
 @pytest.fixture
@@ -81,6 +86,56 @@ def test_paged_decode_kernel_matches_plain(dev, s, dtype):
                                rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("gran", ["page", "token"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 4])
+def test_int8_paged_decode_kernel_matches_plain(dev, s, dtype, gran):
+    gen = torch.Generator(device=dev).manual_seed(10 + s)
+    b, ps, n_pages, kvh, h, d = 3, 16, 5, 2, 8, 64
+    pool = b * n_pages + 1
+    pools = []
+    for _ in range(2):
+        raw = _rand(gen, (pool * ps, kvh, d), torch.float32, dev)
+        q8, sc = quantize_kv(raw, group=ps if gran == "page" else 0)
+        pools += [q8.reshape(pool, ps, kvh, d), sc.reshape(pool, ps, kvh, 1)]
+    k8, ks, v8, vs = pools
+    table = (torch.randperm(pool - 1, generator=gen, device=dev)[
+        :b * n_pages] + 1).reshape(b, n_pages).to(torch.int32)
+    table[2] = 0  # a released slot on trash page 0
+    pos = torch.tensor([max(s, 21), ps * n_pages, s], dtype=torch.int32,
+                       device=dev)
+    q = _rand(gen, (b, s, h, d), dtype, dev)
+    before = ops.LAUNCHES["paged_decode_attention_int8"]
+    got = ops.paged_decode_attention_int8(q, k8, v8, ks, vs, table, pos)
+    assert ops.LAUNCHES["paged_decode_attention_int8"] == before + 1
+    want = L.paged_decode_attention_int8(q, k8, v8, ks, vs, table, pos)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    atol, rtol = INT8_DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 256, 384), (8, 256, 64),
+                                   (37, 512, 384), (100, 128, 256),
+                                   (8, 4096, 1024)])
+def test_int8_matmul_kernel_matches_plain(dev, m, k, n, dtype):
+    """Ragged M (masked in the kernel), N not a multiple of the 128-wide
+    block, and a decode shape that splits K across blocks."""
+    gen = torch.Generator(device=dev).manual_seed(m + n)
+    x = _rand(gen, (m, k), dtype, dev)
+    w_q, scale = ops.quantize_int8(_rand(gen, (k, n), torch.float32, dev))
+    before = ops.LAUNCHES["int8_matmul"]
+    got = ops.int8_matmul(x, w_q, scale)
+    assert ops.LAUNCHES["int8_matmul"] == before + 1
+    want = L.int8_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and tuple(got.shape) == (m, n)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
 def test_sampler_kernels_match_plain_exactly(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     b, v = 6, 4096
@@ -121,6 +176,25 @@ def test_wrappers_raise_on_cuda_inputs_they_cannot_take(dev):
     with pytest.raises(ValueError, match="int32"):
         ops.paged_decode_attention(torch.zeros((1, 1, 4, 64), device=dev),
                                    pool, pool, table.long(), pos)
+    pool8 = torch.zeros((3, 16, 1, 64), device=dev, dtype=torch.int8)
+    sc = torch.zeros((3, 16, 1, 1), device=dev)
+    q = torch.zeros((1, 1, 4, 64), device=dev)
+    with pytest.raises(ValueError, match="int8 pools"):  # float64 scales
+        ops.paged_decode_attention_int8(q, pool8, pool8, sc.double(),
+                                        sc.double(), table, pos)
+    with pytest.raises(ValueError, match="int8 pools"):  # model-dtype pools
+        ops.paged_decode_attention_int8(q, pool, pool, sc, sc, table, pos)
+    x = torch.zeros((4, 64), device=dev, dtype=torch.bfloat16)
+    w8 = torch.zeros((64, 32), device=dev, dtype=torch.int8)
+    one = torch.ones((32,), device=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16 x"):
+        ops.int8_matmul(x.half(), w8, one)
+    with pytest.raises(ValueError, match="float32 or bfloat16 x"):
+        ops.int8_matmul(x, w8.float(), one)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ops.int8_matmul(x[:, :40].contiguous(), w8[:40], one)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.int8_matmul(x, w8.t().contiguous().t(), one)
     big = max_vocab() + 1
     logits = torch.zeros((1, big), device=dev)
     one = torch.ones((1,), device=dev)
@@ -128,7 +202,10 @@ def test_wrappers_raise_on_cuda_inputs_they_cannot_take(dev):
         ops.sample_tokens(logits, one.bool(), one, one.int(), one, one)
 
 
-def test_engine_streams_on_cuda_match_the_cpu(dev):
+@pytest.mark.parametrize("precision", [
+    dict(), dict(kv_cache_dtype="int8", weight_dtype="int8"),
+    dict(kv_cache_dtype="int8", kv_scale_granularity="token")])
+def test_engine_streams_on_cuda_match_the_cpu(dev, precision):
     import dataclasses
 
     from repro_torch import serving as ts
@@ -147,9 +224,11 @@ def test_engine_streams_on_cuda_match_the_cpu(dev):
     try:
         outs = []
         for params, device in ((p_gpu, dev), (p_cpu, "cpu")):
-            eng = ts.ServingEngine(cfg, params,
-                                   ts.EngineConfig(slots=3, max_seq=128),
-                                   device=device)
+            eng = ts.ServingEngine(
+                cfg, params, ts.EngineConfig(
+                    slots=3, max_seq=128,
+                    precision=ts.PrecisionConfig(**precision)),
+                device=device)
             reqs = [ts.Request(rid=i, prompt=p, max_new_tokens=12,
                                sampling=(ts.SamplingParams(
                                    temperature=0.8, top_k=20, top_p=0.9,

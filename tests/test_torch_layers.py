@@ -13,7 +13,9 @@ import torch
 from repro.configs import get_config as jax_config
 from repro.models import layers as JL
 from repro_torch.configs import get_config as torch_config
+from repro_torch.kernels import plain as TP
 from repro_torch.models import layers as TL
+from repro_torch.models.blocks import apply_mlp
 from repro_torch.serving import prng
 
 torch.set_num_threads(2)
@@ -64,8 +66,8 @@ def test_mlp_swiglu():
     p = {k: (rng.standard_normal(s) * 0.05).astype(np.float32)
          for k, s in (("w_gate", (256, 512)), ("w_up", (256, 512)),
                       ("w_down", (512, 256)))}
-    got = TL.apply_mlp(tc, {k: torch.from_numpy(v) for k, v in p.items()},
-                       torch.from_numpy(x))
+    got = apply_mlp(tc, {k: torch.from_numpy(v) for k, v in p.items()},
+                    torch.from_numpy(x))
     want = JL.apply_mlp(jc, {k: jnp.asarray(v) for k, v in p.items()},
                         jnp.asarray(x))
     _close(got, want, 1e-4)  # 512-term float32 sums in another order
@@ -120,11 +122,11 @@ def test_float_bits_and_radix_threshold():
     # +0.0 and -0.0 map alike (denormals are left out: XLA on the CPU
     # flushes them to zero, torch and the CUDA kernel keep them)
     x[0, :2] = [0.0, -0.0]
-    got = TL._float_bits_descending(torch.from_numpy(x))
+    got = TP._float_bits_descending(torch.from_numpy(x))
     want = np.asarray(JL._float_bits_descending(jnp.asarray(x)))
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
     k = np.array([1, 5, 64], np.float32)
-    t = TL._radix_threshold(torch.ones(3, 64), got, torch.from_numpy(k))
+    t = TP._radix_threshold(torch.ones(3, 64), got, torch.from_numpy(k))
     j = JL._radix_threshold(jnp.ones((3, 64)), jnp.asarray(want),
                             jnp.asarray(k))
     np.testing.assert_array_equal(t.numpy(), np.asarray(j).astype(np.int64))
