@@ -16,11 +16,18 @@ Phases, in order; any failure exits non-zero:
    the card could take for the same work, and a PyTorch library call's
    time where one computes the same function. The int8 kernels (paged
    decode over int8 pools, the int8-weight matmul) likewise, at the same
-   shapes and at granite's projection shapes.
+   shapes and at granite's projection shapes. Then recurrentgemma-9b's
+   shapes: windowed prefill attention (S 2560, 16 q heads over 1 kv head,
+   head_dim 256, window 2048), rolling-cache decode attention (8 rings of
+   2048, S 1 and 4, rings partly filled to wrapped), the RG-LRU scan
+   (L 4096) and the sampler at vocab 256000.
 3. Serve the same greedy and seeded requests through the port's
    ``ServingEngine`` on granite-8b ``reduced()`` (float32, 2 kv heads) on
-   the card and on the CPU, in the model dtype and with int8 KV pages
-   and int8 weights; the streams must be token-identical.
+   the card and on the CPU, in the model dtype, with int8 KV pages and
+   int8 weights, and from rolling caches (``paged=False``); then
+   recurrentgemma-9b ``reduced()`` cut to 5 layers (float32, window 64)
+   with prompts longer than the window; the streams must be
+   token-identical.
 4. Serve granite-8b at full width (36 layers, bfloat16, random weights
    from a fixed seed): 8 slots, 16 requests of 20-600 prompt tokens and 64
    new tokens, half greedy and half seeded. Every request must finish with
@@ -35,9 +42,19 @@ Phases, in order; any failure exits non-zero:
    pages and int8 weights (every request finishes, a second run gives the
    same streams, the int8 kernels launched; TTFT, tokens/s, peak memory,
    resident weight bytes, and the steady decode tick beside phase 4's).
+6. With granite's weights freed, serve recurrentgemma-9b at full width
+   (38 layers, bfloat16, random weights from a fixed seed) from rolling
+   caches (rings of its native window 2048, 8 slots): phase 4's 16
+   prompts and one of 2500 tokens (longer than the window, not a multiple
+   of it), 64 new tokens each, half greedy and half seeded. Every request
+   must finish, a second run must give the same streams, the prefill,
+   rolling-decode, RG-LRU scan and sampler kernels must have launched,
+   and the 2500-token prompt's first decode logits must match the full
+   forward over the prompt and that token. Prints TTFT, tokens/s, peak
+   memory and the steady decode tick of 8 slots beside its floor.
 
 ``--profile DIR`` repeats the steady-decode serve (8 requests on 8
-slots) of phases 4 and 5 under ``torch.profiler``, prints the device's
+slots) of phases 4, 5 and 6 under ``torch.profiler``, prints the device's
 busy share of each run and writes its device-time table by kernel into
 DIR.
 
@@ -49,6 +66,7 @@ prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -67,6 +85,15 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # never rounds code * scale to q's dtype (the Pallas body's semantics)
 # lies about 8e-3 away, so 2e-2 could not tell it from the twin.
 INT8_DECODE_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
+# The RG-LRU scan against its plain version: the reference suite's
+# tolerance for its scan kernel (tests/test_kernels.py).
+SCAN_TOL = 1e-4
+# recurrentgemma-9b's decode logits against its full forward, in float32
+# at full width, relative to the largest logit: the two paths sum in
+# another order (products of 1 and of S rows, the decode kernel against
+# the prefill kernel) through 38 layers; in bfloat16 that rounding alone
+# moves the logits by a few percent (printed, not a gate).
+F32_DECODE_TOL = 1e-3
 
 
 def fail(msg: str) -> int:
@@ -270,6 +297,192 @@ def phase_kernels(torch, rec):
     print(f"topk_sample (Pallas semantics) B={B} V={V}: exact vs "
           f"ref.ref_topk_sample and plain: {'ok' if good else 'FAIL'} "
           f"ms={ms:.4f} plain_ms={plain:.4f}", flush=True)
+    ok &= hybrid_kernels(torch, rec, gen)
+    return ok
+
+
+def hybrid_kernels(torch, rec, gen):
+    """recurrentgemma-9b's kernel shapes: windowed prefill attention at
+    head_dim 256, rolling-cache decode attention, the RG-LRU scan and the
+    sampler at vocab 256000, each against its plain version."""
+    from repro_torch.kernels import ops, plain, ref
+    from repro_torch.serving import prng
+
+    dev = "cuda"
+    H, KVH, D, WIN = 16, 1, 256, 2048
+    ok = True
+
+    # -- prefill attention over the local window ---------------------------
+    S = 2560
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        q = torch.randn((1, S, H, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((1, S, KVH, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((1, S, KVH, D), generator=gen, device=dev).to(dt)
+        got = ops.flash_attention(q, k, v, causal=True, window=WIN)
+        want = plain.dense_attention(q, k, v, causal=True, window=WIN)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL[dt_name]
+        good = err <= tol
+        ok &= good
+        ms = time_ms(torch, lambda i: ops.flash_attention(
+            q, k, v, causal=True, window=WIN))
+        pl_ms = time_ms(torch, lambda i: plain.dense_attention(
+            q, k, v, causal=True, window=WIN), iters=4)
+        pos = torch.arange(S, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                                 > pos[:, None] - WIN)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = time_ms(torch, lambda i: torch.nn.functional
+                      .scaled_dot_product_attention(
+                          qt, kt, vt, attn_mask=band, enable_gqa=True))
+        pairs = sum(min(t + 1, WIN) for t in range(S))
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound(nbytes, 4.0 * H * D * pairs, dt_name)
+        print(f"prefill local {dt_name} S={S} H={H}/{KVH} D={D} "
+              f"window={WIN}: max_abs_err={err:.3g} tol={tol} "
+              f"{'ok' if good else 'FAIL'} ms={ms:.4f} plain_ms={pl_ms:.4f} "
+              f"sdpa_mask_ms={lib:.4f} bound_ms={b_ms:.5f} ({b_by})",
+              flush=True)
+        if dt_name == "bfloat16":
+            rec["flash_attention_local"].update(
+                max_abs_err=err, ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
+        del q, k, v, got, want, band
+
+    # -- decode attention over rolling caches --------------------------------
+    B, W = 8, 2048
+    ctx = [1, 100, 777, 2047, 2048, 2049, 3000, 5000]  # up to wrapped rings
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        # 4 ring pairs (67 MB in bfloat16, more than the 50 MB L2), cycled
+        # by the timed launches as the main path reads each layer's cold
+        rings = [tuple(torch.randn((B, W, KVH, D), generator=gen,
+                                   device=dev).to(dt) for _ in range(2))
+                 for _ in range(4)]
+        kc, vc = rings[0]
+        for s in (1, 4):
+            pos = torch.tensor([max(c, s) for c in ctx], dtype=torch.int32,
+                               device=dev)
+            q = torch.randn((B, s, H, D), generator=gen, device=dev).to(dt)
+            got = ops.decode_attention(q, kc, vc, pos)
+            want = plain.decode_attention(q, kc, vc, pos)
+            err = (got.float() - want.float()).abs().max().item()
+            line = ""
+            if s == 1:  # the oracle takes one query row per (slot, head)
+                oracle = ref.ref_decode_attention(
+                    q.transpose(1, 2).reshape(B * H, s, D),
+                    kc.expand(B, W, H, D).transpose(1, 2).reshape(
+                        B * H, W, D),
+                    vc.expand(B, W, H, D).transpose(1, 2).reshape(
+                        B * H, W, D),
+                    torch.clamp(pos, max=W).repeat_interleave(H))
+                e_ref = (got.float() - oracle.reshape(B, H, s, D)
+                         .transpose(1, 2).float()).abs().max().item()
+                line = f" (vs ref {e_ref:.3g})"
+                err = max(err, e_ref)
+            tol = TOL[dt_name]
+            good = err <= tol
+            ok &= good
+            ms = time_ms(torch, lambda i: ops.decode_attention(
+                q, *rings[i % 4], pos))
+            pl_ms = time_ms(torch, lambda i: plain.decode_attention(
+                q, *rings[i % 4], pos))
+            n_s = torch.arange(s, device=dev)
+            valid = torch.clamp(pos[:, None] - (s - 1) + n_s, max=W)
+            mask = (torch.arange(W, device=dev)[None, None, None, :]
+                    < valid[:, None, :, None])  # (B, 1, S, W)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
+            lib = time_ms(torch, lambda i: torch.nn.functional
+                          .scaled_dot_product_attention(
+                              qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            rows = int(torch.clamp(pos, max=W).sum())
+            esz = q.element_size()
+            nbytes = esz * (2 * rows * KVH * D + 2 * q.numel()) + 4 * B
+            b_ms, b_by = bound(nbytes, 4.0 * rows * H * D * s, dt_name)
+            print(f"rolling decode {dt_name} B={B} W={W} S={s} H={H}/{KVH} "
+                  f"D={D} pos {ctx[0]}..{ctx[-1]}: max_abs_err={err:.3g}"
+                  f"{line} tol={tol} {'ok' if good else 'FAIL'} "
+                  f"ms={ms:.4f} plain_ms={pl_ms:.4f} sdpa_mask_ms={lib:.4f}"
+                  f" bound_ms={b_ms:.5f} ({b_by})", flush=True)
+            if dt_name == "bfloat16" and s == 1:
+                rec["decode_attention"].update(
+                    max_abs_err=err, ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib)
+        del rings, kc, vc
+
+    # -- the RG-LRU scan -----------------------------------------------------
+    for b, s, l in ((1, 2560, 4096), (2, 384, 4096)):
+        sets = [(torch.rand((b, s, l), generator=gen, device=dev) * 0.2
+                 + 0.79, torch.randn((b, s, l), generator=gen, device=dev),
+                 torch.randn((b, l), generator=gen, device=dev))
+                for _ in range(2)]
+        a, x, h0 = sets[0]
+        y, h = ops.rglru_scan(a, x, h0)
+        y_want, h_want = plain.rglru_scan(a, x, h0)
+        err = max((y - y_want).abs().max().item(),
+                  (h - h_want).abs().max().item())
+        good = err <= SCAN_TOL
+        ok &= good
+        ms = time_ms(torch, lambda i: ops.rglru_scan(*sets[i % 2]))
+        pl_ms = time_ms(torch, lambda i: plain.rglru_scan(*sets[i % 2]),
+                        iters=2, warm=1)
+        b_ms, b_by = bound(3.0 * b * s * l * 4 + 2 * b * l * 4,
+                           2.0 * b * s * l, "float32")
+        print(f"rglru_scan B={b} S={s} L={l}: max_abs_err={err:.3g} "
+              f"tol={SCAN_TOL} {'ok' if good else 'FAIL'} ms={ms:.4f} "
+              f"plain_ms={pl_ms:.4f} bound_ms={b_ms:.5f} ({b_by}); no "
+              f"library call computes this recurrence", flush=True)
+        if s == 2560:
+            rec["rglru_scan"].update(
+                max_abs_err=err, ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+        del sets, a, x, h0, y, h, y_want, h_want
+
+    # -- the sampler at vocab 256000 (a cluster of 8 blocks per row) ---------
+    V = 256000
+    logits = torch.randn((B, V), generator=gen, device=dev) * 4.0
+    logits[0, V - 5] = logits[0, 3] = logits[0].max() + 1.0  # a tie
+    greedy = torch.tensor([1, 0, 0, 1, 0, 0, 0, 1], dtype=torch.bool,
+                          device=dev)
+    temp = torch.tensor([1.0, 0.7, 1.3, 1.0, 0.9, 1.0, 0.5, 1.0],
+                        device=dev)
+    top_k = torch.tensor([0, 50, 0, 0, 200, 0, 1, 0], dtype=torch.int32,
+                         device=dev)
+    top_p = torch.tensor([1.0, 1.0, 0.9, 1.0, 0.95, 1.0, 1.0, 1.0],
+                         device=dev)
+    keys = torch.tensor([prng.prng_key(2000 + i) for i in range(B)],
+                        dtype=torch.int64, device=dev)
+    n_draws, mismatches = 0, 0
+    for step in range(16):
+        pos = torch.full((B,), 300 + step, dtype=torch.int64, device=dev)
+        u = prng.uniform(prng.fold_in(keys, pos), True)
+        got = ops.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+        want = plain.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+        mismatches += int((got.long() != want.long()).sum())
+        n_draws += B
+    good = mismatches == 0 and int(got[0]) == 3
+    ms = time_ms(torch, lambda i: ops.sample_tokens(logits, greedy, temp,
+                                                    top_k, top_p, u))
+    pl_ms = time_ms(torch, lambda i: plain.sample_tokens(
+        logits, greedy, temp, top_k, top_p, u))
+    b_ms, b_by = bound(4 * B * V + 4 * 6 * B, 0.0, "float32")
+    kk = torch.randint(1, V + 1, (B,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    kk[0], kk[1] = 1, V
+    uu = torch.rand((B, V), generator=gen, device=dev)
+    topk_good = bool((ops.topk_sample(logits, kk, temp, uu)
+                      == ref.ref_topk_sample(logits, kk, temp, uu)).all())
+    good &= topk_good
+    ok &= good
+    print(f"sample_tokens B={B} V={V}: token mismatches {mismatches}/"
+          f"{n_draws} (exact equality required); topk_sample exact vs "
+          f"ref.ref_topk_sample: {topk_good} {'ok' if good else 'FAIL'} "
+          f"ms={ms:.4f} plain_ms={pl_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
+          flush=True)
+    rec["sample_tokens_v256k"].update(
+        max_abs_err=float(mismatches), ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
     return ok
 
 
@@ -435,7 +648,10 @@ def int8_matmul_kernel(torch, rec, gen):
 
 
 def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
-          sync_every=8, seeded=lambda i: i % 2 == 1, precision=None):
+          sync_every=8, seeded=lambda i: i % 2 == 1, precision=None,
+          **engine):
+    """Serve ``prompts`` at once; ``engine`` holds further EngineConfig
+    fields (``paged``, ``window``)."""
     from repro_torch.serving import (
         EngineConfig,
         PrecisionConfig,
@@ -448,7 +664,7 @@ def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
                         EngineConfig(slots=slots, max_seq=max_seq,
                                      sync_every=sync_every,
                                      precision=PrecisionConfig(
-                                         **(precision or {}))),
+                                         **(precision or {})), **engine),
                         device=device)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new,
                     sampling=(SamplingParams(temperature=0.8, top_k=50,
@@ -499,8 +715,9 @@ def _leaves(tree):
 
 
 def phase_reduced(torch):
-    """Phase 3: reduced float32 streams, CUDA vs CPU, in the model dtype
-    and with int8 KV pages and int8 weights."""
+    """Phase 3: reduced float32 streams, CUDA vs CPU: granite in the model
+    dtype, with int8 KV pages and int8 weights, and from rolling caches;
+    recurrentgemma (5 layers, rings of 64) with prompts past the window."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -508,20 +725,31 @@ def phase_reduced(torch):
 
     cfg = dataclasses.replace(get_config("granite-8b").reduced(),
                               num_kv_heads=2)
-    p_cpu = init_params(cfg, seed=0, device="cpu")
-    p_gpu = _to(torch, p_cpu, "cuda")
+    hybrid = dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                                 num_layers=5)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (5, 23, 40, 17, 64, 9)]
+    long_prompts = [rng.integers(0, hybrid.vocab_size, n).astype(np.int32)
+                    for n in (100, 5, 130, 64, 23, 70)]
+    weights = {}
     ok = True
-    for label, precision in (
-            ("f32", None),
-            ("int8 kv + int8 weights", dict(kv_cache_dtype="int8",
-                                            weight_dtype="int8"))):
-        run = dict(max_new=24, slots=3, max_seq=128, precision=precision)
-        a, _ = serve(torch, cfg, p_gpu, prompts, device="cuda", **run)
-        b, _ = serve(torch, cfg, p_cpu, prompts, device="cpu", **run)
-        p_ref = (quantize_weights(cfg, p_cpu) if precision else p_cpu)
+    for label, arch, precision, engine in (
+            ("granite f32", cfg, None, {}),
+            ("granite int8 kv + int8 weights", cfg,
+             dict(kv_cache_dtype="int8", weight_dtype="int8"), {}),
+            ("granite f32 paged=False", cfg, None, dict(paged=False)),
+            ("recurrentgemma 5 layers f32, rings of 64", hybrid, None, {})):
+        if arch.name not in weights:
+            p_cpu = init_params(arch, seed=0, device="cpu")
+            weights[arch.name] = (p_cpu, _to(torch, p_cpu, "cuda"))
+        p_cpu, p_gpu = weights[arch.name]
+        ps = long_prompts if arch is hybrid else prompts
+        run = dict(max_new=24, slots=3, max_seq=128, precision=precision,
+                   **engine)
+        a, _ = serve(torch, arch, p_gpu, ps, device="cuda", **run)
+        b, _ = serve(torch, arch, p_cpu, ps, device="cpu", **run)
+        p_ref = (quantize_weights(arch, p_cpu) if precision else p_cpu)
         for ra, rb in zip(a, b):
             if ra.output == rb.output:
                 continue
@@ -529,7 +757,7 @@ def phase_reduced(torch):
                      if x != y)
             toks = np.concatenate([rb.prompt, np.asarray(rb.output[:i],
                                                          np.int32)])
-            logits, _ = forward(cfg, p_ref, torch.from_numpy(toks)[None])
+            logits, _ = forward(arch, p_ref, torch.from_numpy(toks)[None])
             top2 = torch.topk(logits[0, -1], 2).values
             gap = float(top2[0] - top2[1])
             kind = "seeded" if ra.sampling.temperature > 0 else "greedy"
@@ -539,8 +767,9 @@ def phase_reduced(torch):
             if gap > 1e-4:
                 ok = False
         n_tok = sum(len(r.output) for r in a)
-        print(f"reduced granite-8b {label} (kv_heads=2): {len(a)} requests, "
-              f"{n_tok} tokens, cuda streams == cpu streams: "
+        print(f"reduced {label}: {len(a)} requests (prompts "
+              f"{min(map(len, ps))}-{max(map(len, ps))}), {n_tok} tokens, "
+              f"cuda streams == cpu streams: "
               f"{all(x.output == y.output for x, y in zip(a, b))}",
               flush=True)
     return ok
@@ -719,6 +948,172 @@ def phase_quant(torch, rec, full, profile_dir=None):
     return ok
 
 
+def phase_hybrid(torch, rec, profile_dir=None):
+    """Phase 6: recurrentgemma-9b at full width from rolling caches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+
+    cfg = get_config("recurrentgemma-9b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    n_par = sum(t.numel() for t in _leaves(params))
+    print(f"full width recurrentgemma-9b: {n_par / 1e9:.3f} B params "
+          f"({n_bytes / 1e9:.2f} GB) initialized in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    rng = np.random.default_rng(0)
+    lens = list(rng.integers(20, 601, 16)) + [2500]
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    win = cfg.local_window
+    run = dict(device="cuda", max_new=64, slots=8, max_seq=None, window=win)
+    ok = True
+
+    # the 2500-token prompt's rings, exactly: row t % W holds token t
+    placed, errs = ring_check(torch, cfg, params, prompts[-1], ticks=(1,))
+    ok &= placed
+    print(f"bf16 ring after the {len(prompts[-1])}-token prompt: rows "
+          f"t % {win} hold the last {win} tokens' K/V exactly: {placed} "
+          f"{'ok' if placed else 'FAIL'}; first decode logits vs the full "
+          f"forward over prompt + 1 token (printed, not a gate: bf16 "
+          f"rounding through 38 layers): max_abs_err={errs[1][0]:.4g}, "
+          f"with the rings placed as the reference places them "
+          f"{errs[1][1]:.4g}; max|logit| {errs[1][2]:.3g}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    reqs, st = serve(torch, cfg, params, prompts, **run)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    unfinished = [r.rid for r in reqs
+                  if r.state.value != "finished" or len(r.output) != 64]
+    if unfinished:
+        ok = False
+        print(f"FAIL: requests without their 64 tokens: {unfinished}")
+    for key, name in (("flash_attention_local", "flash_attention"),
+                      ("decode_attention", "decode_attention"),
+                      ("rglru_scan", "rglru_scan"),
+                      ("sample_tokens_v256k", "sample_tokens")):
+        rec[key]["launches"] = launches[name]
+        if launches[name] <= 0:
+            ok = False
+            print(f"FAIL: kernel {name} never launched on the hybrid path")
+    n_tok = sum(len(r.output) for r in reqs)
+    print(f"recurrentgemma-9b: {len(reqs)} requests on 8 slots (prompts "
+          f"{min(lens)}-{max(lens)} tokens, 64 new, half seeded), {n_tok} "
+          f"tokens in {st['wall']:.3f}s -> {n_tok / st['wall']:.1f} tok/s, "
+          f"TTFT p50 {statistics.median(st['ttft']) * 1e3:.1f} ms p90 "
+          f"{np.percentile(st['ttft'], 90) * 1e3:.1f} ms, peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB, engine weights "
+          f"{st['weight_bytes'] / 2 ** 30:.2f} GiB (the float32 head copy "
+          f"included)", flush=True)
+    print("kernels (launches on the hybrid path): "
+          + ", ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+    reqs2, _ = serve(torch, cfg, params, prompts, **run)
+    same = all(a.output == b.output for a, b in zip(reqs, reqs2))
+    ok &= same
+    print(f"hybrid second run identical: {same}", flush=True)
+    reqs3, st3 = serve(torch, cfg, params, prompts[:8], **run)
+    dec_tok = sum(len(r.output) - 1 for r in reqs3)
+    tick = st3["after_submit"] / st3["ticks"] * 1e3
+    floor_ms = st["weight_bytes"] / HBM_BW * 1e3
+    print(f"hybrid decode at 8 slots: {dec_tok} tokens in "
+          f"{st3['after_submit']:.3f}s -> "
+          f"{dec_tok / st3['after_submit']:.1f} tok/s, {tick:.2f} ms per "
+          f"tick ({st3['ticks']} ticks); floor {floor_ms:.2f} ms (the "
+          f"engine's weight bytes, the float32 head included, at 3.35 TB/s)",
+          flush=True)
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, st4 = serve(torch, cfg, params, prompts[:8], **run)
+        write_profile(prof, profile_dir, st4, "decode_kernels_hybrid.txt")
+
+    # the decode path against the full forward, end to end, in float32
+    # (the same architecture at full width, 38 layers, weights from the
+    # same seed): after 1 and 16 decode ticks past the 2500-token prompt
+    del params, reqs, reqs2, reqs3
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg32, seed=0, device="cuda")
+    placed, errs = ring_check(torch, cfg32, params, prompts[-1],
+                              ticks=(1, 16))
+    good = placed
+    for t, (err, err_ref, scale) in errs.items():
+        tol = F32_DECODE_TOL * scale
+        good &= err <= tol
+        print(f"float32 decode tick {t} after the {len(prompts[-1])}-token "
+              f"prompt vs the full forward: max_abs_err={err:.4g} "
+              f"tol={tol:.4g} ({F32_DECODE_TOL} x max|logit| {scale:.3g}); "
+              f"with the rings placed as the reference places them "
+              f"{err_ref:.4g}", flush=True)
+    print(f"float32 rings placed exactly: {placed}; decode vs forward "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    ok &= good
+    del params
+    return ok
+
+
+def ring_check(torch, cfg, params, prompt, ticks):
+    """Prefill ``prompt`` into fresh rolling caches and check every local
+    attention ring exactly: row t % W holds token t's K/V for the last W
+    tokens. Then decode greedily and, at each tick in ``ticks``, compare
+    the logits with the full forward over the prompt and the decoded
+    tokens; the same decode over a copy of the rings rolled to the
+    reference's placement (the last W tokens at rows 0..W-1) shows what
+    that placement would change. Returns (placed, {tick: (max abs error,
+    its error with the reference's placement, max |logit|)})."""
+    from repro_torch.models import (
+        decode_step,
+        forward,
+        init_cache,
+        layer_types,
+    )
+
+    win = cfg.local_window
+    toks = torch.from_numpy(prompt).to("cuda")[None]
+    n = toks.shape[1]
+    cache = init_cache(cfg, 1, win, device="cuda")
+    at = torch.full((1,), n - 1, dtype=torch.int64, device="cuda")
+    last, kv = forward(cfg, params, toks, logits_at=at, want_kv=True,
+                       cache=cache)
+    attn = [i for i, bt in enumerate(layer_types(cfg)) if bt == "local_attn"]
+    rows = torch.arange(n - win, n, device="cuda") % win
+    placed = all(torch.equal(cache["layers"][i][name][0, rows],
+                             kv[i][j][0, n - win:])
+                 for i in attn for j, name in enumerate(("k", "v")))
+    del kv
+    ref_cache = {"layers": [{k: (torch.roll(v, -((n - win) % win), 1)
+                                 if k in ("k", "v") else v.clone())
+                             for k, v in c.items()}
+                            for c in cache["layers"]],
+                 "pos": cache["pos"].clone()}
+    seq = toks
+    nxt = torch.argmax(last, dim=-1)[:, None]
+    errs = {}
+    for t in range(1, max(ticks) + 1):
+        seq = torch.cat([seq, nxt], 1)
+        dec = decode_step(cfg, params, cache, nxt)[:, 0]
+        dec_ref = decode_step(cfg, params, ref_cache, nxt)[:, 0]
+        if t in ticks:
+            at = torch.full((1,), seq.shape[1] - 1, dtype=torch.int64,
+                            device="cuda")
+            want, _ = forward(cfg, params, seq, logits_at=at)
+            errs[t] = ((dec - want).abs().max().item(),
+                       (dec_ref - want).abs().max().item(),
+                       max(1.0, want.abs().max().item()))
+        nxt = torch.argmax(dec, dim=-1)[:, None]
+    return placed, errs
+
+
 def write_profile(prof, out_dir, st, table_name):
     """Device time by kernel name, and the device's busy share of the
     profiled serve (its whole run and its decode part), from
@@ -803,6 +1198,22 @@ def main() -> int:
             name="int8_matmul", route="cuda",
             source=f"{csrc}/int8_matmul.cu",
             replaces="src/repro/kernels/int8_matmul.py:38"),
+        "decode_attention": dict(
+            name="decode_attention", route="cuda",
+            source=f"{csrc}/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:264"),
+        "rglru_scan": dict(
+            name="rglru_scan", route="cuda",
+            source=f"{csrc}/rglru_scan.cu",
+            replaces="src/repro/kernels/rglru_scan.py:48"),
+        "flash_attention_local": dict(
+            name="flash_attention (window 2048, head_dim 256)", route="cuda",
+            source=f"{csrc}/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:74"),
+        "sample_tokens_v256k": dict(
+            name="sample_tokens (vocab 256000)", route="cuda",
+            source=f"{csrc}/sampling.cu",
+            replaces="src/repro/kernels/topk_sample.py:63"),
     }
     full = {}
     for phase, fn in (("kernels vs plain", lambda: phase_kernels(torch,
@@ -812,12 +1223,17 @@ def main() -> int:
                       ("full-width serving",
                        lambda: phase_full(torch, rec, full, profile_dir)),
                       ("full-width quantized serving",
-                       lambda: phase_quant(torch, rec, full, profile_dir))):
+                       lambda: phase_quant(torch, rec, full, profile_dir)),
+                      ("full-width hybrid serving",
+                       lambda: phase_hybrid(torch, rec, profile_dir))):
         t0 = time.perf_counter()
         if not fn():
             return fail(f"phase '{phase}'")
         print(f"phase '{phase}' ok in {time.perf_counter() - t0:.1f}s",
               flush=True)
+        if phase == "full-width quantized serving":
+            full.clear()  # granite's weights go before recurrentgemma's
+            torch.cuda.empty_cache()
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

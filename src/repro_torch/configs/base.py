@@ -276,7 +276,7 @@ _ALIAS = {
 
 #: Architectures whose config module the port carries so far; the others
 #: come with their block families (ROADMAP.md queue 1).
-PORTED_ARCHS = ("granite_8b",)
+PORTED_ARCHS = ("granite_8b", "recurrentgemma_9b")
 
 
 def get_config(name: str) -> ArchConfig:

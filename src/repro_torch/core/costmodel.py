@@ -71,6 +71,8 @@ def _attn_flops(cfg, batch: int, s_q: int, s_kv: int) -> float:
         return 0.0
     hd = cfg.resolved_head_dim
     pairs = s_q * s_kv * (0.5 if (cfg.causal and s_q == s_kv) else 1.0)
+    if cfg.arch_type == "hybrid":
+        pairs = min(pairs, s_q * cfg.local_window)
     return 4.0 * batch * _n_attn_layers(cfg) * cfg.num_heads * pairs * hd
 
 
@@ -90,7 +92,12 @@ def estimate_decode(cfg, batch: int, context: int, *, chip: Chip = H100_SXM,
     wb = _dtype_bytes(cfg)
     kv_bytes = 0.0
     if cfg.has_attention:
-        kv_bytes = (2.0 * batch * _n_attn_layers(cfg) * context
+        kv_len = (min(context, cfg.local_window)
+                  if cfg.arch_type == "hybrid" else context)
+        kv_bytes = (2.0 * batch * _n_attn_layers(cfg) * kv_len
                     * cfg.num_kv_heads * cfg.resolved_head_dim * wb)
+    if cfg.arch_type in ("ssm", "hybrid"):
+        # recurrent state read and write
+        kv_bytes += batch * cfg.num_layers * cfg.d_model * 4 * 4.0
     hbm = cfg.param_count() * wb + kv_bytes
     return WorkEstimate(flops, hbm, chip, n_chips)

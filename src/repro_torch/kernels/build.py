@@ -22,7 +22,8 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_attention", "paged_decode_attention",
-           "paged_decode_attention_int8", "int8_matmul", "sampling")
+           "paged_decode_attention_int8", "decode_attention", "int8_matmul",
+           "rglru_scan", "sampling")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -33,10 +34,9 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 #: (a cudaError_t, 0 on success).
 SIGNATURES = {
     "flash_attention_f32": ("flash_attention",
-                            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+                            [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P]),
     "flash_attention_bf16": ("flash_attention",
-                             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                              _P]),
+                             [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P]),
     "paged_decode_attention_f32": (
         "paged_decode_attention",
         [_P] * 9 + [_I] * 7 + [_L] * 3 + [_I, _F, _P]),
@@ -49,6 +49,11 @@ SIGNATURES = {
     "paged_decode_attention_int8_bf16": (
         "paged_decode_attention_int8",
         [_P] * 11 + [_I] * 7 + [_L] * 6 + [_I, _F, _P]),
+    "decode_attention_f32": (
+        "decode_attention", [_P] * 8 + [_I] * 6 + [_L] * 3 + [_I, _F, _P]),
+    "decode_attention_bf16": (
+        "decode_attention", [_P] * 8 + [_I] * 6 + [_L] * 3 + [_I, _F, _P]),
+    "rglru_scan_f32": ("rglru_scan", [_P] * 5 + [_I] * 3 + [_P]),
     "int8_matmul_f32": ("int8_matmul", [_P] * 5 + [_I] * 6 + [_P]),
     "int8_matmul_bf16": ("int8_matmul", [_P] * 5 + [_I] * 6 + [_P]),
     "sample_tokens_f32": ("sampling", [_P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -62,7 +67,8 @@ SIGNATURES = {
 LAUNCHES: Dict[str, int] = {"flash_attention": 0,
                             "paged_decode_attention": 0,
                             "paged_decode_attention_int8": 0,
-                            "int8_matmul": 0,
+                            "decode_attention": 0,
+                            "int8_matmul": 0, "rglru_scan": 0,
                             "sample_tokens": 0, "topk_sample": 0}
 
 

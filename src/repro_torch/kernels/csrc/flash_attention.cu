@@ -2,7 +2,10 @@
 // ``repro/kernels/flash_attention.py::flash_attention`` (TPU kernel 1).
 //
 // Computes softmax(Q K^T d^-1/2) V, causal or not, for q (B, S, H, D) and
-// k/v (B, S, KVH, D) in their model layout; q head h reads kv head h / G
+// k/v (B, S, KVH, D) in their model layout, optionally over a local
+// window (``window`` > 0: query s sees keys t > s - window, as the
+// reference's ``layers.dense_attention``; the local-attention blocks of
+// hybrid archs, window 2048 at head_dim 256); q head h reads kv head h / G
 // inside the kernel (no repeated K/V is ever materialized, unlike the
 // reference wrapper's jnp.repeat). S may be any length: the engine's
 // buckets (16, 32, 64, ...) are smaller than one tile and the ragged edge
@@ -20,7 +23,9 @@
 // (no wgmma) and computes Q K^T twice, so it sits well below that bound.
 // K/V tiles are staged once in shared memory per block and read by all
 // 32 query rows, the next tile's loads in flight during the current
-// tile's compute (TileLoader); fully masked causal tiles are skipped. Making it fast
+// tile's compute (TileLoader); tiles wholly past the causal edge or
+// wholly behind the window are skipped. At head_dim 256 a block holds
+// 4 * (32*256 + 32*257 + 32*256) B = 98,432 B of shared memory. Making it fast
 // (wgmma on bf16 tiles, TMA, one pass) is later work.
 #include "common.cuh"
 
@@ -36,7 +41,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int S,
-                       int H, int KVH, float scale, int causal) {
+                       int H, int KVH, float scale, int causal, int window) {
   constexpr int E = D / 32;  // output columns per lane
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][D]
@@ -54,9 +59,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     : 0.0f;
   }
 
-  // causal: no key past the block's last query row is ever needed
+  // causal: no key past the block's last query row is ever needed;
+  // window: none at or before the block's first row's window start
   const int q_last = min(q0 + BQ, S) - 1;
   const int n_keys = causal ? q_last + 1 : S;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
 
   float m[ROWS_PER_WARP], l[ROWS_PER_WARP];
 #pragma unroll
@@ -89,8 +96,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   // ---- pass 1: row max and softmax denominator over every key ----
-  ktile.load(keys_from(k, 0));
-  for (int k0 = 0; k0 < n_keys; k0 += BK) {
+  ktile.load(keys_from(k, k_begin));
+  for (int k0 = k_begin; k0 < n_keys; k0 += BK) {
     __syncthreads();
     ktile.store(ks, D + 1);
     __syncthreads();
@@ -101,7 +108,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < ROWS_PER_WARP; ++i) {
       const int s = q0 + w * ROWS_PER_WARP + i;
-      const bool ok = t < S && (!causal || t <= s);
+      const bool ok = t < S && (!causal || t <= s) &&
+                      (window <= 0 || t > s - window);
       const float x = ok ? sc[i] : -INFINITY;
       const float mt = warp_max(x);
       const float mn = fmaxf(m[i], mt);
@@ -121,9 +129,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[i][e] = 0.0f;
 
-  ktile.load(keys_from(k, 0));
-  vtile.load(keys_from(v, 0));
-  for (int k0 = 0; k0 < n_keys; k0 += BK) {
+  ktile.load(keys_from(k, k_begin));
+  vtile.load(keys_from(v, k_begin));
+  for (int k0 = k_begin; k0 < n_keys; k0 += BK) {
     __syncthreads();
     ktile.store(ks, D + 1);
     vtile.store(vs, D);
@@ -138,7 +146,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < ROWS_PER_WARP; ++i) {
       const int s = q0 + w * ROWS_PER_WARP + i;
-      const bool ok = t < S && (!causal || t <= s);
+      const bool ok = t < S && (!causal || t <= s) &&
+                      (window <= 0 || t > s - window);
       const float p = ok ? round_to<T>(expf(sc[i] - m[i]) / l[i]) : 0.0f;
       for (int j = 0; j < BK; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
@@ -161,7 +170,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int KVH, float scale, int causal,
+           int S, int H, int KVH, float scale, int causal, int window,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * (BQ * D + BK * (D + 1) + BK * D);
   cudaError_t err = cudaFuncSetAttribute(
@@ -171,36 +180,47 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, KVH, scale,
-      causal);
+      causal, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int S, int H, int KVH, int D, float scale, int causal,
-             void* stream) {
+             int window, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KVH, scale, causal, st);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KVH, scale, causal, st);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KVH, scale, causal, st);
+    case 32:
+      return launch<T, 32>(q, k, v, o, B, S, H, KVH, scale, causal, window,
+                           st);
+    case 64:
+      return launch<T, 64>(q, k, v, o, B, S, H, KVH, scale, causal, window,
+                           st);
+    case 128:
+      return launch<T, 128>(q, k, v, o, B, S, H, KVH, scale, causal, window,
+                            st);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, S, H, KVH, scale, causal, window,
+                            st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// ``window`` > 0 masks keys t <= s - window for query s; 0 sees them all.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
                                    int H, int KVH, int D, float scale,
-                                   int causal, void* stream) {
-  return dispatch<float>(q, k, v, o, B, S, H, KVH, D, scale, causal, stream);
+                                   int causal, int window, void* stream) {
+  return dispatch<float>(q, k, v, o, B, S, H, KVH, D, scale, causal, window,
+                         stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int B, int S,
                                     int H, int KVH, int D, float scale,
-                                    int causal, void* stream) {
+                                    int causal, int window, void* stream) {
   return dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KVH, D, scale, causal,
-                                 stream);
+                                 window, stream);
 }

@@ -1,17 +1,21 @@
-// Split-context paged decode attention for Hopper (sm_90a), shared by the
-// ports of the Pallas TPU kernels
+// Split-context decode attention for Hopper (sm_90a), shared by the ports
+// of the Pallas TPU kernels
 // ``repro/kernels/decode_attention.py::paged_decode_attention`` (TPU
-// kernel 2, pools in the model dtype: ``paged_decode_attention.cu``) and
+// kernel 2, pools in the model dtype: ``paged_decode_attention.cu``),
 // ``::paged_decode_attention_int8`` (TPU kernel 4, int8 pools with one
-// float32 scale per (slot, kv head): ``paged_decode_attention_int8.cu``).
-// The kernels are templated on the pool type; a pool type says where a
-// cache row lives and how a tile of rows becomes float32 in shared memory.
+// float32 scale per (slot, kv head): ``paged_decode_attention_int8.cu``)
+// and ``::decode_attention`` (TPU kernel 6, a rolling cache of W rows per
+// slot: ``decode_attention.cu``). The kernels are templated on the pool
+// type; a pool type says where a cache row lives (through the slot's
+// page-table row, or at row t of slot b of a ring when ``kRing``) and how
+// a tile of rows becomes float32 in shared memory.
 //
 // For each decode slot b and kv head c, the G*S query rows that share the
 // kv head (rows ordered (g, s); q head c*G + g) attend the slot's pages,
-// resolved through its row of the page table. Query s of S sees
-// min(pos - (S-1) + s, n_pages*ps) cache slots; slots at or past the
-// slot's last valid one are never loaded.
+// resolved through its row of the page table, or its ring. Query s of S
+// sees min(pos - (S-1) + s, W) cache slots (capped per query, as the
+// twins: a ring written past W holds W valid rows for every query); slots
+// at or past the slot's last valid one are never loaded.
 //
 // The pools are read in their model layout (P, ps, KVH, D) through the
 // strides the wrapper passes: no per-call transpose of the pool (the
@@ -20,7 +24,7 @@
 // so each K/V element is fetched from device memory once for G heads.
 //
 // What bounds it: decode reads every valid K/V element once and does two
-// FLOPs per element per query row, so at G*S <= 32 rows it is bound by
+// FLOPs per element per query row, so at G*S <= 64 rows it is bound by
 // device-memory bandwidth, and at the engine's batch (8 slots x 8 kv
 // heads = 64 pairs for 132 SMs) by how many loads are in flight. So each
 // slot's context is split across ``nsplit`` blocks (flash-decoding), and
@@ -47,8 +51,11 @@ namespace paged {
 constexpr int TK = 32;        // cache slots per tile (one per lane)
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int MAX_ROWS = 32;  // G * S
-constexpr int RPW = MAX_ROWS / WARPS;  // rows per warp, at most
+// G * S query rows per block, at most: each kernel is instantiated for
+// MR = 32 and MR = 64 rows (MR / WARPS rows per warp in registers), and a
+// call takes the smaller that holds its rows (recurrentgemma's 16 heads
+// over one kv head: 16 rows at S = 1, 64 at S = 4).
+constexpr int MAX_ROWS = 64;
 
 // What every block of one call shares: shapes and its own range.
 struct Geometry {
@@ -66,21 +73,31 @@ __device__ __forceinline__ void split_range(const Geometry& g, int nmax,
   t_end = min(nmax, (split + 1) * per * TK);
 }
 
-// Cache slot t0 + j of (slot row ``trow``, kv head c), or the pool's
-// empty row past the last valid one.
+// Cache slot t0 + j of (decode slot b, kv head c), or the pool's empty
+// row past the last valid one. A paged pool finds it through the slot's
+// page-table row ``trow``; a ring holds it at row t of slot b.
 template <typename Pool>
 struct SlotRows {
   Pool pool;
   const int* trow;
-  int ps, c, t0, nmax;
+  int b, ps, c, t0, nmax;
   __device__ __forceinline__ typename Pool::Row operator()(int j) const {
     const int t = t0 + j;
     if (t >= nmax) return Pool::none();
-    return pool.row(trow[t / ps], t % ps, c);
+    if constexpr (Pool::kRing)
+      return pool.ring_row(b, t, c);
+    else
+      return pool.row(trow[t / ps], t % ps, c);
   }
 };
 
-template <typename T, typename Pool, int D>
+// The page-table row of decode slot b (none for a ring).
+__device__ __forceinline__ const int* table_row(const int* table, int b,
+                                                int n_pages) {
+  return table != nullptr ? table + (size_t)b * n_pages : nullptr;
+}
+
+template <typename T, typename Pool, int D, int MR>
 __global__ void __launch_bounds__(THREADS)
 scores_kernel(const T* __restrict__ q, Pool kp, const int* __restrict__ table,
               const int* __restrict__ pos, float* __restrict__ scores,
@@ -94,11 +111,11 @@ scores_kernel(const T* __restrict__ q, Pool kp, const int* __restrict__ table,
   const int nmax = min(pos[b], g.W);  // valid slots of the last query row
   int t_begin, t_end;
   split_range(g, nmax, split, t_begin, t_end);
-  const int* trow = table + (size_t)b * g.n_pages;
+  const int* trow = table_row(table, b, g.n_pages);
 
   typename Pool::template Tile<TK, D, THREADS> tile;
   if (t_begin < t_end)
-    tile.load(SlotRows<Pool>{kp, trow, g.ps, c, t_begin, nmax});
+    tile.load(SlotRows<Pool>{kp, trow, b, g.ps, c, t_begin, nmax});
   for (int idx = tid; idx < g.R * D; idx += blockDim.x) {
     const int r = idx / D, d = idx % D;
     const int gi = r / g.S, s = r % g.S;
@@ -108,6 +125,7 @@ scores_kernel(const T* __restrict__ q, Pool kp, const int* __restrict__ table,
 
   int nr = 0;  // rows of this warp: r = w + WARPS * i
   for (int r = w; r < g.R; r += WARPS) ++nr;
+  constexpr int RPW = MR / WARPS;  // rows per warp, at most
   float m[RPW], l[RPW];
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
@@ -121,7 +139,7 @@ scores_kernel(const T* __restrict__ q, Pool kp, const int* __restrict__ table,
     tile.store(ks, D + 1);
     __syncthreads();
     if (t0 + TK < t_end)
-      tile.load(SlotRows<Pool>{kp, trow, g.ps, c, t0 + TK, nmax});
+      tile.load(SlotRows<Pool>{kp, trow, b, g.ps, c, t0 + TK, nmax});
     float acc[RPW];
 #pragma unroll
     for (int i = 0; i < RPW; ++i) acc[i] = 0.0f;
@@ -137,7 +155,7 @@ scores_kernel(const T* __restrict__ q, Pool kp, const int* __restrict__ table,
     for (int i = 0; i < RPW; ++i) {
       if (i >= nr) break;
       const int r = w + WARPS * i, s = r % g.S;
-      const int lim = min(nmax - (g.S - 1) + s, g.W);
+      const int lim = min(pos[b] - (g.S - 1) + s, g.W);
       const bool ok = t < lim;
       const float x = ok ? acc[i] * scale : -INFINITY;
       srow[(size_t)r * g.wpad + t] = x;
@@ -156,7 +174,7 @@ scores_kernel(const T* __restrict__ q, Pool kp, const int* __restrict__ table,
   }
 }
 
-template <typename T, typename Pool, int D>
+template <typename T, typename Pool, int D, int MR>
 __global__ void __launch_bounds__(THREADS)
 pv_kernel(Pool vp, const int* __restrict__ table, const int* __restrict__ pos,
           const float* __restrict__ scores, const float2* __restrict__ stats,
@@ -165,18 +183,18 @@ pv_kernel(Pool vp, const int* __restrict__ table, const int* __restrict__ pos,
   extern __shared__ float smem[];
   float* vs = smem;            // [TK][D]
   float* rm = vs + TK * D;     // [R] the row's global max
-  float* rl = rm + MAX_ROWS;   // [R] and sum of exp
+  float* rl = rm + MR;         // [R] and sum of exp
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int c = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int nmax = min(pos[b], g.W);
   int t_begin, t_end;
   split_range(g, nmax, split, t_begin, t_end);
-  const int* trow = table + (size_t)b * g.n_pages;
+  const int* trow = table_row(table, b, g.n_pages);
 
   typename Pool::template Tile<TK, D, THREADS> tile;
   if (t_begin < t_end)
-    tile.load(SlotRows<Pool>{vp, trow, g.ps, c, t_begin, nmax});
+    tile.load(SlotRows<Pool>{vp, trow, b, g.ps, c, t_begin, nmax});
   const float2* st = stats + (size_t)(b * g.KVH + c) * g.nsplit * g.R;
   for (int r = tid; r < g.R; r += blockDim.x) {
     float mx = -INFINITY;
@@ -192,6 +210,7 @@ pv_kernel(Pool vp, const int* __restrict__ table, const int* __restrict__ pos,
 
   int nr = 0;
   for (int r = w; r < g.R; r += WARPS) ++nr;
+  constexpr int RPW = MR / WARPS;
   float out[RPW][E];
 #pragma unroll
   for (int i = 0; i < RPW; ++i)
@@ -204,13 +223,13 @@ pv_kernel(Pool vp, const int* __restrict__ table, const int* __restrict__ pos,
     tile.store(vs, D);
     __syncthreads();
     if (t0 + TK < t_end)
-      tile.load(SlotRows<Pool>{vp, trow, g.ps, c, t0 + TK, nmax});
+      tile.load(SlotRows<Pool>{vp, trow, b, g.ps, c, t0 + TK, nmax});
     const int t = t0 + lane;
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       if (i >= nr) break;
       const int r = w + WARPS * i, s = r % g.S;
-      const int lim = min(nmax - (g.S - 1) + s, g.W);
+      const int lim = min(pos[b] - (g.S - 1) + s, g.W);
       const float p =
           t < lim ? round_to<T>(expf(srow[(size_t)r * g.wpad + t] - rm[r]) /
                                 rl[r])
@@ -247,23 +266,23 @@ combine_kernel(const float* __restrict__ partial, T* __restrict__ o,
   }
 }
 
-template <typename T, typename Pool, int D>
+template <typename T, typename Pool, int D, int MR>
 int launch(const void* q, const Pool& kp, const Pool& vp, const int* table,
            const int* pos, void* o, float* scores, float* stats,
            float* partial, int B, const Geometry& g, float scale,
            cudaStream_t stream) {
   const size_t smem_s = sizeof(float) * ((size_t)g.R * D + TK * (D + 1));
-  const size_t smem_p = sizeof(float) * ((size_t)TK * D + 2 * MAX_ROWS);
+  const size_t smem_p = sizeof(float) * ((size_t)TK * D + 2 * MR);
   cudaError_t err = cudaFuncSetAttribute(
-      scores_kernel<T, Pool, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_s);
+      scores_kernel<T, Pool, D, MR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_s);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(g.KVH, B, g.nsplit);
-  scores_kernel<T, Pool, D><<<grid, THREADS, smem_s, stream>>>(
+  scores_kernel<T, Pool, D, MR><<<grid, THREADS, smem_s, stream>>>(
       (const T*)q, kp, table, pos, scores, (float2*)stats, g, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  pv_kernel<T, Pool, D><<<grid, THREADS, smem_p, stream>>>(
+  pv_kernel<T, Pool, D, MR><<<grid, THREADS, smem_p, stream>>>(
       vp, table, pos, scores, (const float2*)stats, partial, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -272,7 +291,21 @@ int launch(const void* q, const Pool& kp, const Pool& vp, const int* table,
   return (int)cudaGetLastError();
 }
 
-// Shapes to a Geometry, and the head dim to its instantiation.
+// The smaller row capacity that holds the call's G * S rows.
+template <typename T, typename Pool, int D>
+int by_rows(const void* q, const Pool& kp, const Pool& vp, const int* table,
+            const int* pos, void* o, float* scores, float* stats,
+            float* partial, int B, const Geometry& g, float scale,
+            cudaStream_t st) {
+  if (g.R <= 32)
+    return launch<T, Pool, D, 32>(q, kp, vp, table, pos, o, scores, stats,
+                                  partial, B, g, scale, st);
+  return launch<T, Pool, D, 64>(q, kp, vp, table, pos, o, scores, stats,
+                                partial, B, g, scale, st);
+}
+
+// Shapes to a Geometry, and the head dim to its instantiation. A ring is
+// one page of W = ps rows per slot, with no page table (table nullptr).
 template <typename T, typename Pool>
 int dispatch(const void* q, const Pool& kp, const Pool& vp, const int* table,
              const int* pos, void* o, float* scores, float* stats,
@@ -293,14 +326,17 @@ int dispatch(const void* q, const Pool& kp, const Pool& vp, const int* table,
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 32:
-      return launch<T, Pool, 32>(q, kp, vp, table, pos, o, scores, stats,
-                                 partial, B, g, scale, st);
-    case 64:
-      return launch<T, Pool, 64>(q, kp, vp, table, pos, o, scores, stats,
-                                 partial, B, g, scale, st);
-    case 128:
-      return launch<T, Pool, 128>(q, kp, vp, table, pos, o, scores, stats,
+      return by_rows<T, Pool, 32>(q, kp, vp, table, pos, o, scores, stats,
                                   partial, B, g, scale, st);
+    case 64:
+      return by_rows<T, Pool, 64>(q, kp, vp, table, pos, o, scores, stats,
+                                  partial, B, g, scale, st);
+    case 128:
+      return by_rows<T, Pool, 128>(q, kp, vp, table, pos, o, scores, stats,
+                                   partial, B, g, scale, st);
+    case 256:
+      return by_rows<T, Pool, 256>(q, kp, vp, table, pos, o, scores, stats,
+                                   partial, B, g, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

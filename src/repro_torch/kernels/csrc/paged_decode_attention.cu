@@ -13,6 +13,7 @@ struct PlainPool {
   using Row = const T*;
   template <int ROWS, int D, int THREADS>
   using Tile = TileLoader<T, ROWS, D, THREADS>;
+  static constexpr bool kRing = false;
   const T* base;
   long long sp, ss, sh;
   __device__ __forceinline__ static Row none() { return nullptr; }

@@ -78,6 +78,7 @@ struct Int8Pool {
   using Row = Int8Row;
   template <int ROWS, int D, int THREADS>
   using Tile = Int8TileLoader<T, ROWS, D, THREADS>;
+  static constexpr bool kRing = false;
   const int8_t* base;
   const float* scale;
   long long sp, ss, sh;  // value strides

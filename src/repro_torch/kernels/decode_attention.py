@@ -1,15 +1,19 @@
-"""Paged decode attention: the wrappers of the hand-written Hopper kernels
+"""Decode attention: the wrappers of the hand-written Hopper kernels
 ``csrc/paged_decode_attention.cu`` (the port of TPU kernel 2,
-``repro/kernels/decode_attention.py::paged_decode_attention``) and
+``repro/kernels/decode_attention.py::paged_decode_attention``),
 ``csrc/paged_decode_attention_int8.cu`` (TPU kernel 4,
-``::paged_decode_attention_int8``), beside their plain versions
-``plain.paged_decode_attention`` and ``plain.paged_decode_attention_int8``.
+``::paged_decode_attention_int8``) and ``csrc/decode_attention.cu`` (TPU
+kernel 6, ``::decode_attention``, over a rolling cache), beside their
+plain versions ``plain.paged_decode_attention``,
+``plain.paged_decode_attention_int8`` and ``plain.decode_attention``.
 
 q (B, S, H, D); k/v_pool (P, ps, KVH, D) in the model layout, read through
 their strides (no transpose per call); int8 pools come with float32 scale
 pools (P, ps, KVH, 1), also read in place; page_table (B, n_pages) int32;
-pos (B,) int32 = tokens written including the S queries. A CPU tensor goes
-to the plain version; a CUDA tensor launches the kernel or raises."""
+a rolling cache is k/v_cache (B, W, KVH, D), also read through its
+strides; pos (B,) int32 = tokens written including the S queries. head_dim
+32, 64, 128 or 256. A CPU tensor goes to the plain version; a CUDA tensor
+launches the kernel or raises."""
 from __future__ import annotations
 
 import torch
@@ -21,7 +25,10 @@ _ENTRY = {torch.float32: "paged_decode_attention_f32",
           torch.bfloat16: "paged_decode_attention_bf16"}
 _ENTRY_INT8 = {torch.float32: "paged_decode_attention_int8_f32",
                torch.bfloat16: "paged_decode_attention_int8_bf16"}
-MAX_ROWS = 32  # G * S query rows per (slot, kv head) block
+_ENTRY_RING = {torch.float32: "decode_attention_f32",
+               torch.bfloat16: "decode_attention_bf16"}
+HEAD_DIMS = (32, 64, 128, 256)
+MAX_ROWS = 64  # G * S query rows per (slot, kv head) block
 TILE = 32  # cache slots per tile
 TARGET_BLOCKS = 2 * 132  # two blocks for each of the H100's 132 SMs
 
@@ -33,18 +40,19 @@ def n_splits(b: int, hkv: int, window: int) -> int:
 
 
 def _check_shapes(name, q, k_pool, v_pool, page_table, pos):
+    """page_table None: the pools are rolling caches (B, W, KVH, D)."""
     if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
-        raise ValueError(f"{name}: want q (B,S,H,D), pools (P,ps,KVH,D); "
-                         f"got {tuple(q.shape)}, {tuple(k_pool.shape)}, "
-                         f"{tuple(v_pool.shape)}")
+        raise ValueError(f"{name}: want q (B,S,H,D), pools (P,ps,KVH,D) "
+                         f"or caches (B,W,KVH,D); got {tuple(q.shape)}, "
+                         f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
     b, _, h, d = q.shape
     _, _, hkv, d2 = k_pool.shape
-    if d2 != d or h % hkv or page_table.shape[0] != b \
-            or tuple(pos.shape) != (b,):
+    rows = k_pool.shape[0] if page_table is None else page_table.shape[0]
+    if d2 != d or h % hkv or rows != b or tuple(pos.shape) != (b,):
+        table = None if page_table is None else tuple(page_table.shape)
         raise ValueError(f"{name}: shapes do not match: q "
                          f"{tuple(q.shape)} pool {tuple(k_pool.shape)} "
-                         f"table {tuple(page_table.shape)} pos "
-                         f"{tuple(pos.shape)}")
+                         f"table {table} pos {tuple(pos.shape)}")
 
 
 def _strides(name, pools, vec: int):
@@ -61,14 +69,18 @@ def _strides(name, pools, vec: int):
 
 def _launch(name, entry, q, pools, scale_pools, page_table, pos):
     """Checks every kernel of the family shares, then one launch of
-    ``entry`` (three kernels on the current stream)."""
+    ``entry`` (three kernels on the current stream). ``page_table`` None:
+    the pools are rolling caches (B, W, KVH, D), one page of W rows per
+    slot, and the entry takes no table."""
     b, s, h, d = q.shape
+    ring = page_table is None
     _, ps, hkv, _ = pools[0].shape
-    n_pages = page_table.shape[1]
-    if page_table.dtype != torch.int32 or pos.dtype != torch.int32:
+    n_pages = 1 if ring else page_table.shape[1]
+    if pos.dtype != torch.int32 or not (ring
+                                        or page_table.dtype == torch.int32):
         raise ValueError(f"{name}: page_table and pos must be int32")
-    if d not in (32, 64, 128):
-        raise ValueError(f"{name}: head_dim {d} not in (32, 64, 128)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} not in {HEAD_DIMS}")
     rows = (h // hkv) * s
     if rows > MAX_ROWS:
         raise ValueError(f"{name}: G*S = {rows} query rows per kv head "
@@ -76,8 +88,8 @@ def _launch(name, entry, q, pools, scale_pools, page_table, pos):
     strides = _strides(name, pools, 16 // pools[0].element_size())
     if scale_pools:
         strides += _strides(name, scale_pools, 1)
-    if not (q.is_contiguous() and page_table.is_contiguous()
-            and pos.is_contiguous()):
+    if not (q.is_contiguous() and pos.is_contiguous()
+            and (ring or page_table.is_contiguous())):
         raise ValueError(f"{name}: q, page_table, pos must be contiguous")
     out = torch.empty_like(q)
     window = n_pages * ps
@@ -89,14 +101,33 @@ def _launch(name, entry, q, pools, scale_pools, page_table, pos):
     stats = torch.empty((b, hkv, nsplit, rows, 2), **f32)
     partial = torch.empty((b, hkv, nsplit, rows, d), **f32)
     lib = build.load()
+    table = () if ring else (page_table.data_ptr(),)
+    geometry = (ps,) if ring else (n_pages, ps)
     lib.call(entry, q.data_ptr(), *(p.data_ptr() for p in pools),
-             *(p.data_ptr() for p in scale_pools), page_table.data_ptr(),
+             *(p.data_ptr() for p in scale_pools), *table,
              pos.data_ptr(), out.data_ptr(), scores.data_ptr(),
-             stats.data_ptr(), partial.data_ptr(), b, s, h, hkv, d, n_pages,
-             ps, *strides, nsplit, d ** -0.5,
+             stats.data_ptr(), partial.data_ptr(), b, s, h, hkv, d,
+             *geometry, *strides, nsplit, d ** -0.5,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.LAUNCHES[name] += 1
     return out
+
+
+def decode_attention(q, k_cache, v_cache, pos):
+    """Over rolling caches (B, W, KVH, D): query s of S sees
+    ``min(pos - (S-1) + s, W)`` rows of its slot's ring."""
+    name = "decode_attention"
+    _check_shapes(name, q, k_cache, v_cache, None, pos)
+    if q.device.type == "cpu":
+        return plain.decode_attention(q, k_cache, v_cache, pos)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {q.device}")
+    if q.dtype not in _ENTRY_RING or not (q.dtype == k_cache.dtype
+                                          == v_cache.dtype):
+        raise ValueError(f"{name}: float32 or bfloat16 q/caches required, "
+                         f"got {q.dtype}/{k_cache.dtype}")
+    return _launch(name, _ENTRY_RING[q.dtype], q, (k_cache, v_cache), (),
+                   None, pos)
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, pos):

@@ -5,13 +5,16 @@ from __future__ import annotations
 
 from repro_torch.kernels.build import LAUNCHES, reset_launches
 from repro_torch.kernels.decode_attention import (
+    decode_attention,
     paged_decode_attention,
     paged_decode_attention_int8,
 )
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.int8_matmul import int8_matmul, quantize_int8
+from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.topk_sample import sample_tokens, topk_sample
 
-__all__ = ["LAUNCHES", "flash_attention", "int8_matmul",
+__all__ = ["LAUNCHES", "decode_attention", "flash_attention", "int8_matmul",
            "paged_decode_attention", "paged_decode_attention_int8",
-           "quantize_int8", "reset_launches", "sample_tokens", "topk_sample"]
+           "quantize_int8", "reset_launches", "rglru_scan", "sample_tokens",
+           "topk_sample"]

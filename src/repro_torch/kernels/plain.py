@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's hand-written kernels: the int8
-matmul, prefill and (paged, int8) decode attention, and the sampler. They
+matmul, prefill (optionally windowed) and (rolling, paged, int8) decode
+attention, the RG-LRU scan, and the sampler. They
 are the torch twins of the JAX package's ``repro.models.layers`` functions
 of the same names, and ``repro_torch.models.layers`` re-exports them. Each
 kernel wrapper calls its plain version for CPU tensors, and
@@ -19,6 +20,7 @@ import math
 import torch
 
 F32 = torch.float32
+F64 = torch.float64
 NEG = -1e30
 _U32 = 0xFFFFFFFF
 
@@ -42,20 +44,27 @@ def int8_matmul(x, w_q, scale):
 # ---------------------------------------------------------------------------
 
 
-def dense_attention(q, k, v, *, causal: bool):
+def dense_attention(q, k, v, *, causal: bool, window: int = 0):
     """Plain masked attention. q (B,Sq,H,D), k/v (B,Skv,Hkv,D); q head h
-    reads kv head ``h // G``. Scores and softmax in float32, probabilities
-    cast to ``q.dtype`` before PV, output in ``q.dtype``."""
+    reads kv head ``h // G``. ``window`` > 0 masks keys further than
+    ``window`` behind the query (``kpos > qpos - window`` is kept). Scores
+    and softmax in float32, probabilities cast to ``q.dtype`` before PV,
+    output in ``q.dtype``."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     qg = q.to(F32).reshape(b, sq, hkv, g, d)
     scale = d ** -0.5
     scores = torch.einsum("bqcgd,bkcd->bcgqk", qg, k.to(F32)) * scale
-    if causal:
+    if causal or window:
         qpos = torch.arange(sq, device=q.device)[:, None]
         kpos = torch.arange(sk, device=q.device)[None, :]
-        scores = scores.masked_fill(~(kpos <= qpos), NEG)
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        scores = scores.masked_fill(~mask, NEG)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bcgqk,bkcd->bqcgd", probs.to(q.dtype).to(F32),
                        v.to(F32))
@@ -126,6 +135,25 @@ def paged_decode_attention_int8(q, k_pool, v_pool, k_scale, v_scale,
 
 
 # ---------------------------------------------------------------------------
+# RG-LRU linear recurrence (plain version of kernels/rglru_scan)
+# ---------------------------------------------------------------------------
+
+
+def rglru_scan(a, x, h0):
+    """``h_t = a_t * h_{t-1} + x_t`` in float32, walked in time order as
+    the Pallas kernel walks it (the semantics of the reference's
+    ``ref_rglru_scan``, whose associative scan sums in another order).
+    a, x (B, S, L); h0 (B, L). Returns (y (B, S, L), h_S (B, L)), float32."""
+    af, xf = a.to(F32), x.to(F32)
+    h = h0.to(F32)
+    y = torch.empty_like(af)
+    for t in range(af.shape[1]):
+        h = af[:, t] * h + xf[:, t]
+        y[:, t] = h
+    return y, h
+
+
+# ---------------------------------------------------------------------------
 # Sampler (plain version of kernels/topk_sample)
 # ---------------------------------------------------------------------------
 
@@ -156,16 +184,26 @@ def _restricted_probs(x, top_k, top_p):
     logit by a count radix, then the nucleus boundary by a mass radix over
     the restricted softmax weights. Rows without a cut (top_k <= 0,
     top_p >= 1) keep everything, as the reference's batch-wide skip does.
-    Returns (keep mask, softmax weights with 0 outside the mask)."""
+    Returns (keep mask, softmax weights with 0 outside the mask).
+
+    Every sum over the row is taken in float64 (the softmax denominator,
+    rounded once to float32, and the mass radix's sums): a float32 sum
+    depends on its order, which the kernel cannot share with PyTorch's
+    reductions (at 256000 logits, 1 draw in 128 differed); in float64 the
+    order moves the result by about 1e-16, so both give the same tokens.
+    The weights stay float32, as the reference's."""
     v = x.shape[1]
     mapped = _float_bits_descending(x)
     k = torch.where(top_k > 0, torch.clamp(top_k, 1, v),
                     torch.full_like(top_k, v)).to(F32)
     kth = _radix_threshold(torch.ones_like(x), mapped, k)
     keep = mapped >= kth[:, None]
-    w = torch.where(keep, torch.softmax(x, dim=-1), torch.zeros_like(x))
-    target = torch.clamp(top_p.to(F32), 1e-30, 1.0) * w.sum(-1)
-    pth = _radix_threshold(w, mapped, target)
+    e = torch.exp(x - torch.amax(x, dim=-1, keepdim=True))
+    z = torch.sum(e, dim=-1, keepdim=True, dtype=F64).to(F32)
+    w = torch.where(keep, e / z, torch.zeros_like(x))
+    target = (torch.clamp(top_p.to(F32), 1e-30, 1.0).to(F64)
+              * w.sum(-1, dtype=F64))
+    pth = _radix_threshold(w.to(F64), mapped, target)
     keep = keep & ((mapped >= pth[:, None]) | (top_p >= 1.0)[:, None])
     return keep, torch.where(keep, w, torch.zeros_like(w))
 
@@ -183,15 +221,16 @@ def sample_tokens(logits, greedy, temperature, top_k, top_p, uniform):
     index on ties); stochastic rows draw one token from the temperature-
     scaled, top-k/top-p-restricted softmax by inverse CDF with ONE uniform
     per row, ``min(u*total, nextafter(total, 0))`` against the cumulative
-    masked weights. logits (B, V); greedy (B,) bool; temperature, top_p,
-    uniform (B,) float32; top_k (B,) int. Returns (B,) int32."""
+    masked weights (summed in float64, as every sum of
+    ``_restricted_probs``). logits (B, V); greedy (B,) bool; temperature,
+    top_p, uniform (B,) float32; top_k (B,) int. Returns (B,) int32."""
     last = logits.to(F32)
     greedy_tok = torch.argmax(last, dim=-1)
     x = last / torch.clamp(temperature.to(F32), min=1e-6)[:, None]
     _, pk = _restricted_probs(x, top_k, top_p)
-    c = torch.cumsum(pk, dim=-1)
+    c = torch.cumsum(pk, dim=-1, dtype=F64)
     total = c[:, -1]
-    thresh = torch.minimum(uniform.to(F32) * total,
+    thresh = torch.minimum(uniform.to(F64) * total,
                            torch.nextafter(total, torch.zeros_like(total)))
     stoch = torch.argmax((c > thresh[:, None]).to(torch.int32), dim=-1)
     return torch.where(greedy.to(torch.bool), greedy_tok,

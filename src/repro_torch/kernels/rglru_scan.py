@@ -1,0 +1,45 @@
+"""The RG-LRU linear recurrence: the wrapper of the hand-written Hopper
+kernel ``csrc/rglru_scan.cu`` (the port of TPU kernel 7,
+``repro/kernels/rglru_scan.py::rglru_scan_kernel``) beside its plain
+version ``plain.rglru_scan``.
+
+``h_t = a_t * h_{t-1} + x_t`` over a, x (B, S, L) float32 from h0 (B, L)
+float32, any S >= 1; returns (y (B, S, L), h_S (B, L)), both float32. A
+CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
+raises."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import plain
+
+
+def rglru_scan(a, x, h0):
+    name = "rglru_scan"
+    if a.dim() != 3 or x.shape != a.shape or h0.dim() != 2 \
+            or tuple(h0.shape) != (a.shape[0], a.shape[2]) \
+            or a.shape[1] < 1:
+        raise ValueError(f"{name}: want a, x (B, S>=1, L) and h0 (B, L); "
+                         f"got {tuple(a.shape)}, {tuple(x.shape)}, "
+                         f"{tuple(h0.shape)}")
+    if not (a.device == x.device == h0.device):
+        raise ValueError(f"{name}: a, x, h0 on different devices")
+    if a.device.type == "cpu":
+        return plain.rglru_scan(a, x, h0)
+    if a.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {a.device}")
+    if not (a.dtype == x.dtype == h0.dtype == torch.float32):
+        raise ValueError(f"{name}: float32 a, x, h0 required, got "
+                         f"{a.dtype}/{x.dtype}/{h0.dtype}")
+    if not (a.is_contiguous() and x.is_contiguous() and h0.is_contiguous()):
+        raise ValueError(f"{name}: a, x, h0 must be contiguous")
+    b, s, l = a.shape
+    y = torch.empty_like(a)
+    h_last = torch.empty_like(h0)
+    lib = build.load()
+    lib.call("rglru_scan_f32", a.data_ptr(), x.data_ptr(), h0.data_ptr(),
+             y.data_ptr(), h_last.data_ptr(), b, s, l,
+             torch.cuda.current_stream(a.device).cuda_stream)
+    build.LAUNCHES[name] += 1
+    return y, h_last

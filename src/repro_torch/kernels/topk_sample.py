@@ -6,10 +6,11 @@ versions in ``plain``.
 ``sample_tokens`` is what the engine calls (the semantics of
 ``plain.sample_tokens``: greedy mask, temperature, top-k, top-p, one
 uniform per row, inverse CDF); ``topk_sample`` keeps the Pallas kernel's
-own semantics (Gumbel argmax over (B, V) uniforms). One block per row
-keeps the whole row in shared memory, so the vocabulary must fit there.
-A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-or raises."""
+own semantics (Gumbel argmax over (B, V) uniforms). A cluster of 8 blocks
+per row keeps the whole row in their shared memories (an eighth each), so
+the vocabulary must fit in 8 blocks' shared memory: recurrentgemma's
+256000 takes 128,000 B per block. A CPU tensor goes to the plain version;
+a CUDA tensor launches the kernel or raises."""
 from __future__ import annotations
 
 import torch
@@ -19,10 +20,11 @@ from repro_torch.kernels import plain
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _STATIC = 1024  # the kernels' own reduction scratch, rounded up
+CLUSTER = 8  # blocks per row (the portable thread-block cluster size)
 
 
 def max_vocab() -> int:
-    return (SMEM_LIMIT - _STATIC) // 4
+    return CLUSTER * ((SMEM_LIMIT - _STATIC) // 4)
 
 
 def _check_rows(name, logits, *rows):
@@ -43,9 +45,9 @@ def _check_cuda(name, logits, typed):
         raise ValueError(f"{name}: no kernel for {logits.device}")
     v = logits.shape[1]
     if v > max_vocab():
-        raise ValueError(f"{name}: a vocabulary of {v} does not fit in one "
-                         f"block's shared memory (at most {max_vocab()} "
-                         f"float32 logits)")
+        raise ValueError(f"{name}: a vocabulary of {v} does not fit in "
+                         f"{CLUSTER} blocks' shared memory (at most "
+                         f"{max_vocab()} float32 logits)")
     for t, dt in typed:
         if t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: want contiguous {dt}, got "

@@ -11,10 +11,15 @@ the CPU. Weights are random, from ``--seed``. ``--temperature`` > 0
 switches every request to seeded stochastic decode; request i samples with
 seed ``--sample-seed + i``, so a rerun reproduces every stream.
 
-Only the main path is ported: the paged KV cache, single-shot bucketed
-prefill, one card, with ``--kv-dtype int8`` (int8 KV pages) and
-``--weight-dtype int8`` (weight-only int8) as its quantized variant.
+Ported so far: the paged KV cache (dense archs), rolling caches
+(``--no-paged`` on dense archs; recurrentgemma-9b always, its KV rings
+and RG-LRU states), single-shot prefill, one card, with ``--kv-dtype
+int8`` (int8 KV pages) and ``--weight-dtype int8`` (weight-only int8) as
+the paged path's quantized variant. The banner says which cache serves.
 ``EngineConfig.validate`` names the ROADMAP.md item of every other option.
+
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+        --requests 16 --slots 8 --window 2048 --prompt-len 256 --max-new 64
 """
 from __future__ import annotations
 
@@ -51,6 +56,9 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--sync-every", type=int, default=8,
                     help="decode ticks per device->host token sync")
+    ap.add_argument("--no-paged", action="store_true",
+                    help="serve from rolling KV windows instead of pages "
+                         "(archs that cannot page always do)")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page")
     ap.add_argument("--max-seq", type=int, default=0,
@@ -90,6 +98,7 @@ def main(argv=None):
 
     config = EngineConfig(slots=args.slots, window=args.window,
                           sync_every=args.sync_every,
+                          paged=False if args.no_paged else None,
                           page_size=args.page_size,
                           max_seq=args.max_seq or None,
                           pool_pages=args.pool_pages or None,
@@ -108,9 +117,16 @@ def main(argv=None):
         print(f"admission plan: slots={eng.slots} "
               f"flush_deadline={eng.plan.flush_deadline_s*1e3:.2f}ms "
               f"(cost-model step={eng.plan.step_latency_s*1e3:.3f}ms)")
-    print(f"paged KV: page_size={eng.page_size} max_seq={eng.max_seq} "
-          f"pool={eng.pool_pages} pages "
-          f"({eng.allocator.capacity} usable + trash)")
+    if eng.paged:
+        print(f"paged KV: page_size={eng.page_size} max_seq={eng.max_seq} "
+              f"pool={eng.pool_pages} pages "
+              f"({eng.allocator.capacity} usable + trash)")
+    else:
+        rings = sorted({c["k"].shape[1] for c in eng.cache["layers"]
+                        if "k" in c})
+        n_rec = sum("state" in c for c in eng.cache["layers"])
+        print(f"rolling caches: window={eng.window} KV rings of {rings} "
+              f"tokens, {n_rec} recurrent states, {eng.slots} slots")
     if args.kv_dtype or args.weight_dtype:
         print(f"quantized: kv_cache_dtype={args.kv_dtype or cfg.dtype} "
               f"weight_dtype={args.weight_dtype or cfg.dtype} "

@@ -1,10 +1,11 @@
-from repro_torch.models.convert import params_from_jax
+from repro_torch.models.convert import cache_from_jax, params_from_jax
 from repro_torch.models.model import (
     QUANT_WEIGHT_KEYS,
     block_program,
     decode_step,
     dtype_of,
     forward,
+    init_cache,
     init_paged_cache,
     init_params,
     layer_types,
@@ -13,6 +14,7 @@ from repro_torch.models.model import (
     quantize_weights,
 )
 
-__all__ = ["QUANT_WEIGHT_KEYS", "block_program", "decode_step", "dtype_of",
-           "forward", "init_paged_cache", "init_params", "layer_types",
-           "paged_ok", "params_from_jax", "ported", "quantize_weights"]
+__all__ = ["QUANT_WEIGHT_KEYS", "block_program", "cache_from_jax",
+           "decode_step", "dtype_of", "forward", "init_cache",
+           "init_paged_cache", "init_params", "layer_types", "paged_ok",
+           "params_from_jax", "ported", "quantize_weights"]

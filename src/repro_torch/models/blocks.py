@@ -1,12 +1,12 @@
-"""Transformer blocks of the PyTorch port (the dense block type of
-``repro.models.blocks``), with the main path's attention and int8
-projections going through the kernels' dispatch points
+"""Blocks of the PyTorch port (the ``dense``, ``local_attn`` and ``rglru``
+block types of ``repro.models.blocks``), with the attention, the RG-LRU
+scan and the int8 projections going through the kernels' dispatch points
 (``repro_torch.kernels.ops``).
 
 Params are plain dicts of tensors in the reference's (in, out) weight
-orientation. Paged pools are updated IN PLACE (``index_put_``), where the
-JAX package returns a new pytree: the engine owns one pool per layer and
-nothing else holds a reference to it.
+orientation. Paged pools, rolling rings and recurrent states are updated
+IN PLACE, where the JAX package returns a new pytree: the engine owns one
+cache per layer and nothing else holds a reference to it.
 """
 from __future__ import annotations
 
@@ -15,13 +15,23 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.rglru import (
+    apply_rglru_block,
+    init_rglru,
+    init_rglru_cache,
+)
 
 F32 = torch.float32
 
 # Block types the port serves so far (ROADMAP.md queue 1 lists the rest).
-PORTED_BLOCKS = ("dense",)
+PORTED_BLOCKS = ("dense", "local_attn", "rglru")
 
-# Block types servable from a paged KV cache (the reference's list).
+# Block types whose decode cache is a KV ring (vs recurrent state); the
+# engine keys bucketed prefill off this (the reference's list).
+KV_CACHE_BLOCKS = ("dense", "moe", "encoder", "local_attn")
+
+# Block types servable from a paged KV cache (the reference's list):
+# a local_attn ring IS its window (slot index != absolute position).
 PAGED_BLOCKS = ("dense", "moe")
 
 
@@ -127,11 +137,34 @@ def init_block(cfg, btype: str, gen, dtype, device):
         raise ValueError(f"block type {btype!r} is not ported yet "
                          f"(ROADMAP.md queue 1, 'Other block families')")
     d = cfg.d_model
+    if btype == "rglru":
+        return {"norm1": init_norm(cfg, d, dtype, device),
+                "mixer": init_rglru(cfg, gen, dtype, device),
+                "norm2": init_norm(cfg, d, dtype, device),
+                "mlp": init_mlp(cfg, gen, d, cfg.d_ff, dtype, device)}
     return {"norm1": init_norm(cfg, d, dtype, device),
             "attn": init_attn(cfg, gen, dtype, device),
             "norm2": init_norm(cfg, d, dtype, device),
             "mlp": init_mlp(cfg, gen, d, cfg.dense_d_ff or cfg.d_ff, dtype,
                             device)}
+
+
+def init_block_cache(cfg, btype: str, batch: int, window: int, dtype,
+                     device):
+    """One block's rolling decode cache: a KV ring (B, W, kv, hd), with
+    W = min(window, local_window) for local attention, or the RG-LRU
+    conv window and float32 state. Zero-filled (a masked ring row still
+    multiplies its V by 0)."""
+    if btype in KV_CACHE_BLOCKS:
+        w = min(window, cfg.local_window) if btype == "local_attn" \
+            else window
+        shape = (batch, w, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if btype == "rglru":
+        return init_rglru_cache(cfg, batch, dtype, device)
+    raise ValueError(f"block type {btype!r} has no rolling cache in the "
+                     f"port yet")
 
 
 def init_paged_block_cache(cfg, n_pages: int, page_size: int, dtype,
@@ -189,13 +222,44 @@ def _paged_attn_decode(q, k, v, cache, pages, write_at, n_valid):
                                       n_valid)
 
 
-def _attn_apply(cfg, p, x, rope, *, mode: str, cache=None, pages=None,
-                write_at=None, n_valid=None):
-    """Attention sub-block. ``rope`` is the step's ``L.rope_table``. mode
-    "prefill": causal attention over the whole sequence (the prefill
-    kernel); returns (out, (k, v)) so the caller can scatter the prompt's
-    K/V into pages. mode "decode": K/V of the S new tokens go through the
-    page table, then paged attention; returns (out, None)."""
+def ring_fill(cache, k, v):
+    """Store a prefill's keys in a fresh ring (B, W, kv, hd), in place:
+    the last min(S, W) tokens, token t at ring row ``t % W``, which is
+    where decode's writes (row ``pos % W``) assume them. (The reference
+    stores the last W at rows 0..W-1, which its decode misreads after a
+    prompt with S > W and S % W != 0: ROADMAP.md queue 3.)"""
+    s, w = k.shape[1], cache["k"].shape[1]
+    n = min(s, w)
+    rows = torch.arange(s - n, s, device=k.device) % w
+    cache["k"][:, rows] = k[:, s - n:].to(cache["k"].dtype)
+    cache["v"][:, rows] = v[:, s - n:].to(cache["v"].dtype)
+
+
+def _ring_attn_decode(q, k, v, cache, pos):
+    """Write the S new tokens' K/V at ring rows ``(pos + i) % W`` of each
+    slot, in place, and attend the ring; ``pos`` (B,) int32 is each slot's
+    token count before the S new ones."""
+    b, s = q.shape[:2]
+    w = cache["k"].shape[1]
+    rows = (pos.to(torch.int64)[:, None]
+            + torch.arange(s, device=q.device)[None, :]) % w
+    slots = torch.arange(b, device=q.device)[:, None]
+    cache["k"].index_put_((slots, rows), k.to(cache["k"].dtype))
+    cache["v"].index_put_((slots, rows), v.to(cache["v"].dtype))
+    return ops.decode_attention(q, cache["k"], cache["v"],
+                                (pos + s).to(torch.int32))
+
+
+def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,
+                pos=None, pages=None, write_at=None, n_valid=None):
+    """Attention sub-block. ``rope`` is the step's ``L.rope_table``;
+    ``window`` > 0 is local attention. mode "prefill": causal attention
+    over the whole sequence (the prefill kernel), then, given a rolling
+    ``cache``, the ring fill; returns (out, (k, v)) so the caller can
+    scatter the prompt's K/V into pages. mode "decode": K/V of the S new
+    tokens go through the page table (``pages``) and paged attention, or
+    into the ring at ``pos`` and rolling-cache attention; returns (out,
+    None)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
@@ -204,25 +268,39 @@ def _attn_apply(cfg, p, x, rope, *, mode: str, cache=None, pages=None,
     v = linear(x, p["wv"]).reshape(b, s, kv, hd)
     if rope is not None:
         q, k = L.rotate(q, rope), L.rotate(k, rope)
-    if mode == "decode":
+    new_kv = None
+    if mode == "decode" and pages is not None:
         out = _paged_attn_decode(q, k, v, cache, pages, write_at, n_valid)
-        new_kv = None
+    elif mode == "decode":
+        out = _ring_attn_decode(q, k, v, cache, pos)
     else:
-        out = ops.flash_attention(q, k, v, causal=cfg.causal)
+        out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window)
+        if cache is not None:
+            ring_fill(cache, k, v)
         new_kv = (k, v)
     out = out.reshape(b, s, h * hd)
     return linear(out, p["wo"]), new_kv
 
 
 def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
-                pages=None, write_at=None, n_valid=None):
-    """Pre-norm residual dense block. Returns (x, new_kv) where new_kv is
-    the prompt's (k, v) in prefill mode and None in decode mode."""
+                pos=None, pages=None, write_at=None, n_valid=None):
+    """Pre-norm residual block: attention (dense, or local over
+    ``cfg.local_window``) or the RG-LRU mixer, then the MLP. Returns
+    (x, new_kv): the prompt's (k, v) of an attention block in prefill
+    mode, else None. ``cache`` is the block's paged pools (with
+    ``pages``) or its rolling cache (ring or recurrent state, with the
+    slots' positions ``pos`` in decode mode), updated in place."""
     if btype not in PORTED_BLOCKS:
         raise ValueError(f"block type {btype!r} is not ported yet")
     h = L.apply_norm(cfg, p["norm1"], x)
-    a, new_kv = _attn_apply(cfg, p["attn"], h, rope, mode=mode, cache=cache,
-                            pages=pages, write_at=write_at, n_valid=n_valid)
+    if btype == "rglru":
+        a, new_kv = apply_rglru_block(cfg, p["mixer"], h, cache=cache), None
+    else:
+        window = cfg.local_window if btype == "local_attn" else 0
+        a, new_kv = _attn_apply(cfg, p["attn"], h, rope, mode=mode,
+                                window=window, cache=cache, pos=pos,
+                                pages=pages, write_at=write_at,
+                                n_valid=n_valid)
     x = x + a
     h = L.apply_norm(cfg, p["norm2"], x)
     x = x + apply_mlp(cfg, p["mlp"], h)

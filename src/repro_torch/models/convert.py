@@ -9,7 +9,12 @@ layer, in scan order. Weight matrices keep the reference's (in, out)
 orientation, so no transpose is needed. A quantized tree
 (``repro.models.quantize_weights``) converts the same way: its
 ``{"w_q", "scale"}`` leaves map leaf by leaf, and a body scale
-(n_repeat, 1, N) is unstacked like its weight.
+(n_repeat, 1, N) is unstacked like its weight. RG-LRU blocks carry their
+``mixer`` leaves (float32 ``Lambda``, ``b_a``, ``b_x``) the same way.
+
+``cache_from_jax(cfg, tree, device)`` does the same for the reference's
+rolling cache (``init_cache`` or a prefill's output: rings, RG-LRU conv
+windows and states, ``pos``), so tests can hold the port's caches to it.
 """
 from __future__ import annotations
 
@@ -36,9 +41,9 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_jax(cfg, tree, device="cuda"):
-    device = resolve_device(device)
-    pattern, n_repeat, tail = block_program(cfg)
+def _layers(cfg, tree, device):
+    """The per-layer list, in scan order, of a {"body", "tail"} tree."""
+    pattern, n_repeat, _ = block_program(cfg)
     layers = []
     for r in range(n_repeat):
         for j in range(len(pattern)):
@@ -47,10 +52,21 @@ def params_from_jax(cfg, tree, device="cuda"):
                                                       device)))
     for blk in tree["tail"]:
         layers.append(_map(blk, lambda a: _tensor(a, device)))
-    out = {"layers": layers,
+    return layers
+
+
+def params_from_jax(cfg, tree, device="cuda"):
+    device = resolve_device(device)
+    out = {"layers": _layers(cfg, tree, device),
            "final_norm": _map(tree["final_norm"],
                               lambda a: _tensor(a, device))}
     for name in ("embed", "lm_head"):
         if name in tree:
             out[name] = _tensor(tree[name], device)
     return out
+
+
+def cache_from_jax(cfg, tree, device="cuda"):
+    device = resolve_device(device)
+    return {"layers": _layers(cfg, tree, device),
+            "pos": _tensor(tree["pos"], device).to(torch.int32)}

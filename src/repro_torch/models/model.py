@@ -5,12 +5,16 @@ dict per layer, in scan order).
 Public API (device explicit everywhere):
   block_program(cfg)                          -> (pattern, n_repeat, tail)
   init_params(cfg, seed, device)              -> params dict (random weights)
+  init_cache(cfg, batch, window, device)      -> rolling caches (rings,
+                                                 RG-LRU states, pos)
   init_paged_cache(cfg, batch, n_pages, page_size, max_pages, device,
                    kv_dtype)
   quantize_weights(cfg, params)               -> params with int8 leaves
-  forward(cfg, params, tokens, ...)           -> (logits, per-layer (k, v))
+  forward(cfg, params, tokens, ...)           -> (logits, per-layer (k, v));
+                                                 fills a rolling cache
   decode_step(cfg, params, cache, tokens)     -> logits (B, S, V); cache
-                                                 updated in place
+                                                 (paged or rolling) updated
+                                                 in place
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from repro_torch.models.blocks import (
     PORTED_BLOCKS,
     apply_block,
     init_block,
+    init_block_cache,
     init_norm,
     init_paged_block_cache,
     paged_write_index,
@@ -95,6 +100,22 @@ def init_params(cfg, seed: int = 0, device="cuda"):
                                          device=device)
                              * d ** -0.5).to(dtype)
     return params
+
+
+def init_cache(cfg, batch: int, window: int, device="cuda"):
+    """Rolling decode caches: per layer a KV ring (B, W, kv, hd) or the
+    RG-LRU conv window and state (``blocks.init_block_cache``), plus each
+    slot's position ``pos`` (B,) int32."""
+    if not ported(cfg):
+        raise ValueError(f"{cfg.name}: arch has blocks the port does not "
+                         f"serve yet")
+    device = resolve_device(device)
+    dtype = dtype_of(cfg)
+    return {
+        "layers": [init_block_cache(cfg, bt, batch, window, dtype, device)
+                   for bt in layer_types(cfg)],
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
 
 
 def init_paged_cache(cfg, batch: int, n_pages: int, page_size: int,
@@ -168,43 +189,52 @@ def _logits(cfg, params, x):
 
 
 def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
-            want_kv: bool = False):
+            want_kv: bool = False, cache: Optional[dict] = None):
     """Full-sequence causal forward (prefill). tokens (B, S) integer.
     Returns (logits, kv): logits (B, S, V) float32, or (B, V) at the
     positions ``logits_at`` (B,) when given; kv is the per-layer list of
-    the prompt's (k, v), each (B, S, kv, hd), when ``want_kv``."""
+    the prompt's (k, v), each (B, S, kv, hd), when ``want_kv``. A fresh
+    rolling ``cache`` (``init_cache``) is filled in place: every ring with
+    the prompt's last keys, every RG-LRU state, and ``pos`` = S."""
     b, s = tokens.shape
     x = _embed(params, tokens)
     rope_pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
     rope = L.rope_table(cfg, rope_pos)
     kvs = []
-    for bt, p in zip(layer_types(cfg), params["layers"]):
-        x, kv = apply_block(cfg, bt, p, x, rope, mode="prefill")
+    layer_caches = (cache["layers"] if cache is not None
+                    else [None] * cfg.num_layers)
+    for bt, p, c in zip(layer_types(cfg), params["layers"], layer_caches):
+        x, kv = apply_block(cfg, bt, p, x, rope, mode="prefill", cache=c)
         if want_kv:
             kvs.append(kv)
+    if cache is not None:
+        cache["pos"].fill_(s)
     if logits_at is not None:
         x = x[torch.arange(b, device=x.device), logits_at.to(torch.int64)]
     return _logits(cfg, params, x), (kvs if want_kv else None)
 
 
 def decode_step(cfg, params, cache, tokens):
-    """Incremental decode against the paged cache. tokens (B, S): S=1 is
-    the one-token decode step. Writes the S tokens' K/V into the pools and
+    """Incremental decode against the paged cache (``init_paged_cache``)
+    or the rolling one (``init_cache``). tokens (B, S): S=1 is the
+    one-token decode step (recurrent blocks take S=1 only). Writes the S
+    tokens' K/V into the pools or rings, steps every recurrent state and
     advances ``cache["pos"]`` by S, in place. Returns logits (B, S, V)
     float32."""
     b, s = tokens.shape
     pos = cache["pos"]
-    pages = cache["page_table"]
+    pages = cache.get("page_table")
     x = _embed(params, tokens)
     rope_pos = pos.to(torch.int64)[:, None] + torch.arange(
         s, device=tokens.device)[None, :]
     # what every layer shares, built once per step
     rope = L.rope_table(cfg, rope_pos)
-    write_at = paged_write_index(pages, pos, s,
-                                 cache["layers"][0]["k"].shape[1])
+    write_at = (None if pages is None else paged_write_index(
+        pages, pos, s, cache["layers"][0]["k"].shape[1]))
     n_valid = (pos + s).to(torch.int32)
     for bt, p, c in zip(layer_types(cfg), params["layers"], cache["layers"]):
         x, _ = apply_block(cfg, bt, p, x, rope, mode="decode", cache=c,
-                           pages=pages, write_at=write_at, n_valid=n_valid)
+                           pos=pos, pages=pages, write_at=write_at,
+                           n_valid=n_valid)
     cache["pos"] = n_valid
     return _logits(cfg, params, x)

@@ -3,7 +3,8 @@
 fields (``repro/serving/config.py``).
 
 The port serves the main path first: the paged KV cache on dense archs,
-single-shot bucketed prefill, model-dtype or int8 pools and weights, one
+rolling caches (``paged=False``, and recurrentgemma's rings and RG-LRU
+states), single-shot prefill, model-dtype or int8 pools and weights, one
 card.
 ``validate()`` refuses every option whose path is not ported yet and
 names the ``ROADMAP.md`` item that brings it, so nothing silently runs a
@@ -26,7 +27,8 @@ WEIGHT_DTYPES = ("", "int8")
 KV_SCALE_GRANULARITIES = ("page", "token")
 
 #: Block types whose attention/MLP matmul weights may quantize to int8
-#: (the reference's list; the port serves "dense" of them so far).
+#: (the reference's list): an arch with any other block, such as
+#: recurrentgemma's rglru, is refused int8 weights, as in the reference.
 WEIGHT_QUANT_BLOCKS = ("dense", "encoder", "local_attn")
 
 
@@ -140,20 +142,26 @@ class EngineConfig:
         return self.modeled_chips or self.topology.n_chips
 
     def validate(self, cfg=None) -> "EngineConfig":
-        """Refuse, before any work, a precision the reference refuses
-        (with its message), then every option whose path the port does
-        not serve yet; that message names the ROADMAP.md item."""
+        """Refuse, before any work, a paged cache or a precision the
+        reference refuses (with its message), then every option whose path
+        the port does not serve yet; that message names the ROADMAP.md
+        item."""
+        if cfg is not None and self.paged:
+            from repro_torch.models import paged_ok
+
+            if not paged_ok(cfg):
+                raise ValueError(
+                    f"{cfg.name}: arch has non-pageable blocks (recurrent "
+                    f"or local-attention); pass paged=None to auto-fall "
+                    f"back to rolling windows")
         self._validate_precision(cfg)
         q1 = "ROADMAP.md queue 1"
         not_yet = []
         if self.chunk_prefill > 0 or self.prefill_policy is not None:
-            not_yet.append(("chunk_prefill > 0 (chunked prefill)",
+            not_yet.append(("chunk_prefill > 0 (chunked prefill, on pages "
+                            "and on rolling caches)",
                             f"{q1}, 'Engine, remaining paths': chunked "
                             f"prefill"))
-        if self.paged is False:
-            not_yet.append(("paged=False (rolling KV windows)",
-                            f"{q1}, 'Engine, remaining paths': rolling "
-                            f"caches"))
         if self.prefix_cache:
             not_yet.append(("prefix_cache", f"{q1}, 'Engine, remaining "
                             f"paths': prefix cache and copy-on-write"))
@@ -173,9 +181,10 @@ class EngineConfig:
                             f"torch.profiler stand-in"))
         if cfg is not None:
             from repro_torch.models import layer_types, ported
+            from repro_torch.models.blocks import PORTED_BLOCKS
 
             if not ported(cfg):
-                bad = sorted(set(layer_types(cfg)) - {"dense"})
+                bad = sorted(set(layer_types(cfg)) - set(PORTED_BLOCKS))
                 not_yet.append((f"arch {cfg.name} with {bad} blocks",
                                 f"{q1}, 'Other block families'"))
         if not_yet:

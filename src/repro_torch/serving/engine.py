@@ -1,16 +1,20 @@
 """Serving engine of the PyTorch port: the main path of the JAX package's
 ``repro/serving/engine.py`` — continuous batching over a paged KV cache on
-dense archs, bucketed single-shot prefill, fused decode windows with one
-host sync per window, and device-resident sampling keyed by (seed,
-absolute position).
+dense archs, or over rolling caches (KV rings and recurrent states) on
+archs that cannot page (recurrentgemma) and on dense archs with
+``paged=False``; single-shot prefill (bucketed, or at the exact prompt
+length where a recurrent state forbids end padding), fused decode windows
+with one host sync per window, and device-resident sampling keyed by
+(seed, absolute position).
 
 Where the reference jits pure functions and donates buffers, the port runs
-eagerly and updates the page pools, page table, positions and sampling
-state IN PLACE: the engine is their only owner. The kernels of the path
-(prefill attention, paged decode attention, the sampler; under an int8
-``PrecisionConfig`` the int8 paged decode and the int8-weight matmul) are
-reached through ``repro_torch.kernels.ops``: plain PyTorch on a CPU
-device, the hand-written Hopper kernels on CUDA.
+eagerly and updates the page pools, page table, rings, recurrent states,
+positions and sampling state IN PLACE: the engine is their only owner.
+The kernels of the path (prefill attention, paged or rolling-cache decode
+attention, the RG-LRU scan, the sampler; under an int8 ``PrecisionConfig``
+the int8 paged decode and the int8-weight matmul) are reached through
+``repro_torch.kernels.ops``: plain PyTorch on a CPU device, the
+hand-written Hopper kernels on CUDA.
 
 Seeded streams match the reference's bits: the uniform of a stochastic
 slot is ``uniform(fold_in(PRNGKey(seed), pos))`` from the port's
@@ -34,10 +38,13 @@ from repro_torch.models import (
     decode_step,
     dtype_of,
     forward,
+    init_cache,
     init_paged_cache,
+    layer_types,
+    paged_ok,
     quantize_weights,
 )
-from repro_torch.models.blocks import quantize_kv
+from repro_torch.models.blocks import KV_CACHE_BLOCKS, quantize_kv
 from repro_torch.serving import prng
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.paging import PageAllocator
@@ -50,10 +57,10 @@ from repro_torch.serving.request import (
 )
 
 __all__ = [
-    "EngineConfig", "ServingEngine", "decode_scan_step", "decode_tick",
-    "init_sampling_state", "page_table_append", "paged_prefill_step",
-    "pages_insert", "prompt_bucket", "resolve_device", "sampling_row",
-    "sampling_set", "slot_release",
+    "EngineConfig", "ServingEngine", "cache_insert", "decode_scan_step",
+    "decode_tick", "init_sampling_state", "page_table_append",
+    "paged_prefill_step", "pages_insert", "prompt_bucket", "resolve_device",
+    "rolling_prefill_step", "sampling_row", "sampling_set", "slot_release",
 ]
 
 
@@ -65,6 +72,37 @@ __all__ = [
 def prompt_bucket(n: int, *, min_bucket: int = 16) -> int:
     """Power-of-two bucket for a prompt of ``n`` tokens."""
     return max(min_bucket, 1 << max(n - 1, 1).bit_length())
+
+
+def rolling_prefill_step(cfg, params, tokens, true_len: int, *,
+                         window: int):
+    """Prefill a prompt into a fresh rolling cache (``init_cache``, rings
+    of ``window``): tokens (B, L) is the prompt at its exact length
+    (L = ``true_len``, the reference's ``prefill_step``: archs with
+    recurrent state, which end padding would corrupt) or padded at the end
+    to a bucket no larger than the smallest ring (its
+    ``bucketed_prefill_step``). Causality keeps the pads out of the true
+    tokens' keys; ``pos`` is clamped to ``true_len``, so decode's validity
+    mask hides the pad rows until its writes replace them. Returns (first
+    greedy token (B,) int32, last-true-position logits (B, V), cache)."""
+    b = tokens.shape[0]
+    cache = init_cache(cfg, b, window, device=tokens.device)
+    at = torch.full((b,), true_len - 1, dtype=torch.int64,
+                    device=tokens.device)
+    last, _ = forward(cfg, params, tokens, logits_at=at, cache=cache)
+    cache["pos"].fill_(true_len)
+    return torch.argmax(last, dim=-1).to(torch.int32), last, cache
+
+
+def cache_insert(cache, single, slot: int):
+    """Admit a prefilled request into a rolling cache: copy its B=1 rings,
+    RG-LRU conv windows and states and its position into the slot's rows,
+    in place (every leaf of the slot is overwritten, so nothing of the
+    slot's previous request survives)."""
+    for big, small in zip(cache["layers"], single["layers"]):
+        for name, leaf in big.items():
+            leaf[slot].copy_(small[name][0])
+    cache["pos"][slot] = single["pos"][0]
 
 
 def paged_prefill_step(cfg, params, tokens, true_len: int):
@@ -111,10 +149,12 @@ def page_table_append(cache, slot: int, idx: int, page: int):
 
 
 def slot_release(cache, slot: int):
-    """Point a retired slot's whole table row at the trash page and zero
-    its position: it keeps riding in the decode batch, but its writes can
-    no longer land in a reclaimed page."""
-    cache["page_table"][slot].zero_()
+    """Zero a retired slot's position and, in a paged cache, point its
+    whole table row at the trash page: it keeps riding in the decode
+    batch, but its writes can no longer land in a reclaimed page, and its
+    decode attention reads one row instead of a whole ring."""
+    if "page_table" in cache:
+        cache["page_table"][slot].zero_()
     cache["pos"][slot] = 0
 
 
@@ -218,13 +258,30 @@ def _padded_len(n: int, chunk: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _attn_only(cfg) -> bool:
+    """Every block's decode cache is a KV ring (no recurrent state): the
+    precondition for end-padded bucketed prefill."""
+    return all(bt in KV_CACHE_BLOCKS for bt in layer_types(cfg))
+
+
+def _min_cache_window(cfg, window: int) -> int:
+    """The smallest KV ring of the model: a bucketed prefill must fit in
+    it."""
+    if "local_attn" in layer_types(cfg):
+        return min(window, cfg.local_window)
+    return window
+
+
 class ServingEngine:
-    """Single-card engine with continuous batching over a paged KV cache
-    (the reference's ``ServingEngine`` main path; see its docstring for
-    the knobs). ``device`` defaults to CUDA and raises when no card is
-    present unless ``device="cpu"`` is asked for. ``threefry_partitionable``
-    selects the ``jax_threefry_partitionable`` mode whose bits seeded
-    streams reproduce."""
+    """Single-card engine with continuous batching over a paged KV cache,
+    or over rolling caches (the reference's ``ServingEngine`` main path;
+    see its docstring for the knobs). ``paged`` None serves from pages
+    whenever every block can, else from rolling caches; ``paged=True`` on
+    an arch that cannot page raises, as the reference. ``device`` defaults
+    to CUDA and raises when no card is present unless ``device="cpu"`` is
+    asked for. ``threefry_partitionable`` selects the
+    ``jax_threefry_partitionable`` mode whose bits seeded streams
+    reproduce."""
 
     def __init__(self, cfg, params, config: Optional[EngineConfig] = None,
                  *, device="cuda", threefry_partitionable: bool = True):
@@ -248,6 +305,9 @@ class ServingEngine:
                 head = params["embed"].T
             params["lm_head_f32"] = head.to(torch.float32)
         self.params = params
+        # validate() refused paged=True on an arch that cannot page
+        self.paged = (paged_ok(cfg) if config.paged is None
+                      else bool(config.paged))
         page_size = config.page_size
         if page_size <= 0 or page_size & (page_size - 1):
             raise ValueError(f"page_size must be a power of two, got "
@@ -266,7 +326,8 @@ class ServingEngine:
         self.plan = plan_admission(
             cfg, context=config.window, sla_s=config.sla_s,
             n_chips=config.n_chips, kv_hbm_budget_bytes=config.kv_hbm_budget,
-            mean_context=config.expected_len or None,
+            mean_context=((config.expected_len or None) if self.paged
+                          else config.window),
             kv_cache_dtype=self.kv_dtype)
         slots = config.slots or self.plan.slots
         self.slots = slots
@@ -274,15 +335,23 @@ class ServingEngine:
         self.eos_id = config.eos_id
         self.sync_every = 1 if config.eos_id >= 0 else max(1,
                                                            config.sync_every)
-        self.bucket_prompts = config.bucket_prompts
+        # end-padded buckets need KV rings only (a recurrent state would
+        # run over the pads); in rolling mode a bucket must fit the
+        # smallest ring
+        self.bucket_prompts = config.bucket_prompts and _attn_only(cfg)
+        self._min_window = _min_cache_window(cfg, config.window)
         self.edf_backlog = config.edf_backlog
         self.metrics = ServeMetrics()
-        self.paged = True
-        self.pool_pages = config.pool_pages or slots * self.max_pages + 1
-        self.allocator = PageAllocator(self.pool_pages, page_size)
-        self.cache = init_paged_cache(cfg, slots, self.pool_pages, page_size,
-                                      self.max_pages, device=self.device,
-                                      kv_dtype=self.kv_dtype)
+        if self.paged:
+            self.pool_pages = config.pool_pages or slots * self.max_pages + 1
+            self.allocator = PageAllocator(self.pool_pages, page_size)
+            self.cache = init_paged_cache(
+                cfg, slots, self.pool_pages, page_size, self.max_pages,
+                device=self.device, kv_dtype=self.kv_dtype)
+        else:
+            self.pool_pages, self.allocator = 0, None
+            self.cache = init_cache(cfg, slots, config.window,
+                                    device=self.device)
         self._pos_h: List[int] = [0] * slots  # host mirror of cache pos
         self._tabled: List[int] = [0] * slots  # table entries written
         self._tokens = torch.zeros((slots,), dtype=torch.int32,
@@ -342,19 +411,19 @@ class ServingEngine:
             del self.backlog[idx]
 
     def _check_servable(self, req: Request):
-        if req.prompt_len > self.max_seq:
+        if self.paged and req.prompt_len > self.max_seq:
             raise RequestRejected(
                 f"prompt of {req.prompt_len} tokens exceeds max_seq="
                 f"{self.max_seq}; raise EngineConfig(max_seq=...)")
 
     def try_admit(self, req: Request, now: float) -> bool:
-        """Claim a free slot and the request's worst-case pages (padded
-        prompt + token budget, capped at max_seq), then prefill. An
-        exhausted pool refuses the admission (backpressure)."""
+        """Claim a free slot and, in paged mode, the request's worst-case
+        pages (padded prompt + token budget, capped at max_seq), then
+        prefill. An exhausted pool refuses the admission (backpressure)."""
         self._check_servable(req)
         for i, r in enumerate(self.active):
             if r is None:
-                if not self._reserve_pages(req, i):
+                if self.paged and not self._reserve_pages(req, i):
                     return False
                 self._admit_now(req, i, now)
                 return True
@@ -362,13 +431,18 @@ class ServingEngine:
 
     def _prefill_len(self, req: Request) -> int:
         """Padded prompt length: the power-of-two bucket when it fits
-        max_seq, else the page-rounded prompt."""
+        max_seq (paged) or the smallest ring (rolling), else the
+        page-rounded prompt (paged) or the exact prompt (rolling)."""
         plen = req.prompt_len
         if self.bucket_prompts:
-            b = prompt_bucket(plen, min_bucket=max(16, self.page_size))
-            if b <= self.max_seq:
+            if self.paged:
+                b = prompt_bucket(plen, min_bucket=max(16, self.page_size))
+                cap = self.max_seq
+            else:
+                b, cap = prompt_bucket(plen), self._min_window
+            if b <= cap:
                 return b
-        return _padded_len(plen, self.page_size)
+        return _padded_len(plen, self.page_size) if self.paged else plen
 
     def _reserve_pages(self, req: Request, slot: int) -> bool:
         if self.allocator.owned(slot):
@@ -382,20 +456,27 @@ class ServingEngine:
         return self.allocator.alloc(slot, n) is not None
 
     def _admit_now(self, req: Request, slot: int, now: float):
+        """Prefill: page-aligned linear prefill (paged), or a bucket or the
+        exact prompt into fresh rolling caches."""
         plen = req.prompt_len
         padded = np.zeros((1, self._prefill_len(req)), np.int32)
         padded[0, :plen] = req.prompt
         tokens = torch.from_numpy(padded).to(self.device)
-        tok, last, kv = paged_prefill_step(self.cfg, self.params, tokens,
-                                           plen)
+        if self.paged:
+            tok, last, kv = paged_prefill_step(self.cfg, self.params, tokens,
+                                               plen)
+        else:
+            tok, last, kv = rolling_prefill_step(
+                self.cfg, self.params, tokens, plen, window=self.window)
         self.prefill_calls += 1
         self._activate(req, slot, tok, last, kv, now)
 
     def _activate(self, req: Request, slot: int, tok, last, kv, now: float):
         """Install a prefilled request: sampling state, first token (drawn
         at position prompt_len for a stochastic request), page scatter and
-        table row, token carry. Flushes deferred tokens first so a fused
-        window only ever spans a fixed slot membership."""
+        table row (paged) or the copy of its B=1 rolling cache into the
+        slot (``kv`` is that cache), token carry. Flushes deferred tokens
+        first so a fused window only ever spans a fixed slot membership."""
         self._flush(now)
         sp = req.sampling or SamplingParams()
         row = sampling_row(sp)
@@ -409,18 +490,22 @@ class ServingEngine:
                               device=self.device)
             tok = draw_tokens(last, samp1, pos1,
                               partitionable=self.partitionable)
-        n_pref = self.allocator.pages_for(self._prefill_len(req))
-        pages = torch.tensor(self.allocator.owned(slot)[:n_pref],
-                             dtype=torch.int64, device=self.device)
-        pages_insert(self.cache, kv, pages, slot, req.prompt_len,
-                     scale_group=self.kv_scale_group)
+        if self.paged:
+            n_pref = self.allocator.pages_for(self._prefill_len(req))
+            pages = torch.tensor(self.allocator.owned(slot)[:n_pref],
+                                 dtype=torch.int64, device=self.device)
+            pages_insert(self.cache, kv, pages, slot, req.prompt_len,
+                         scale_group=self.kv_scale_group)
+            self._tabled[slot] = n_pref
+            # the page table caps a request's lifetime tokens at max_seq
+            already = len(req.output)
+            cap = max(1, self.max_seq - req.prompt_len)
+            if req.max_new_tokens - already > cap:
+                req.max_new_tokens = already + cap
+                req.budget_capped = True
+        else:
+            cache_insert(self.cache, kv, slot)
         self._pos_h[slot] = req.prompt_len
-        self._tabled[slot] = n_pref
-        already = len(req.output)
-        cap = max(1, self.max_seq - req.prompt_len)
-        if req.max_new_tokens - already > cap:
-            req.max_new_tokens = already + cap
-            req.budget_capped = True
         self._tokens[slot] = tok[0]
         req.output.append(int(tok[0]))
         if req.prefill_done < 0:
@@ -442,7 +527,8 @@ class ServingEngine:
             return self._take_finished()
         all_greedy = all(self._samp_greedy_h)
         if self._fusable():
-            self._ensure_headroom(self.sync_every)
+            if self.paged:
+                self._ensure_headroom(self.sync_every)
             toks, hist = decode_scan_step(
                 self.cfg, self.params, self.cache, self._tokens, self._samp,
                 n=self.sync_every, partitionable=self.partitionable,
@@ -452,7 +538,8 @@ class ServingEngine:
             self._advance_pos(self.sync_every)
             self._distribute(hist.cpu().numpy(), now)
             return self._take_finished()
-        self._ensure_headroom(1)
+        if self.paged:
+            self._ensure_headroom(1)
         nxt = decode_tick(self.cfg, self.params, self.cache, self._tokens,
                           self._samp, partitionable=self.partitionable,
                           all_greedy=all_greedy)
@@ -541,15 +628,16 @@ class ServingEngine:
 
     def release_slot(self, slot: int):
         """Retire ``slot``: reset a stochastic lane to greedy (so all-greedy
-        batches skip the PRNG again), return its pages and neutralize its
-        table row."""
+        batches skip the PRNG again), zero its position and, in paged
+        mode, return its pages and neutralize its table row."""
         self.active[slot] = None
         self.decoding[slot] = False
         if not self._samp_greedy_h[slot]:
             sampling_set(self._samp, slot, sampling_row(None))
             self._samp_greedy_h[slot] = True
         slot_release(self.cache, slot)
-        self.allocator.free_slot(slot)
+        if self.paged:
+            self.allocator.free_slot(slot)
         self._pos_h[slot] = 0
         self._tabled[slot] = 0
 

@@ -128,7 +128,8 @@ def test_prompt_bucket_and_table_helpers_match_jax():
 
 _NOT_PORTED = {
     "chunk_prefill": (dict(chunk_prefill=32), "chunked prefill"),
-    "rolling": (dict(paged=False), "rolling caches"),
+    # rolling caches are served; chunked prefill over them is not
+    "rolling": (dict(paged=False, chunk_prefill=32), "chunked prefill"),
     "prefix_cache": (dict(prefix_cache=True), "prefix cache"),
     "preemption": (dict(preemption=True), "preemption"),
     "sharded": (dict(topology=ts.DeviceTopology(tp=2)), "Multi-GPU"),

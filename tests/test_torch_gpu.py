@@ -9,12 +9,13 @@ they skip without a card. On the machine with the card:
 that machine does not have.)
 
 Tolerances: float32 2e-5 (the reference suite's); bfloat16 2e-2, and 1e-3
-absolute for the int8 paged decode kernel; sampled tokens exact."""
+absolute for the int8 paged decode kernel; 1e-4 for the RG-LRU scan (the
+reference suite's, ``tests/test_kernels.py``); sampled tokens exact."""
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, ops
+from repro_torch.kernels import build, ops, plain
 from repro_torch.kernels.topk_sample import max_vocab
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import quantize_kv
@@ -136,6 +137,92 @@ def test_int8_matmul_kernel_matches_plain(dev, m, k, n, dtype):
                                rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,kvh,d,window", [(40, 8, 2, 64, 16),
+                                              (200, 16, 1, 256, 64),
+                                              (70, 4, 1, 256, 0)])
+def test_windowed_and_head_dim_256_prefill_matches_plain(dev, s, h, kvh, d,
+                                                         window, dtype):
+    """Local attention (keys t > s - window) skips the tiles behind the
+    band; head_dim 256 is recurrentgemma's."""
+    gen = torch.Generator(device=dev).manual_seed(s + d)
+    q = _rand(gen, (1, s, h, d), dtype, dev)
+    k = _rand(gen, (1, s, kvh, d), dtype, dev)
+    v = _rand(gen, (1, s, kvh, d), dtype, dev)
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = L.dense_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("h,kvh,d", [(16, 1, 256), (8, 2, 64)])
+def test_rolling_decode_kernel_matches_plain(dev, s, h, kvh, d, dtype):
+    """Rings partly filled, full, and wrapped (pos past W)."""
+    gen = torch.Generator(device=dev).manual_seed(20 + s + d)
+    b, w = 4, 64
+    k = _rand(gen, (b, w, kvh, d), dtype, dev)
+    v = _rand(gen, (b, w, kvh, d), dtype, dev)
+    pos = torch.tensor([s, 37, w, w + 29], dtype=torch.int32, device=dev)
+    q = _rand(gen, (b, s, h, d), dtype, dev)
+    before = ops.LAUNCHES["decode_attention"]
+    got = ops.decode_attention(q, k, v, pos)
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    want = L.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,s,l", [(1, 37, 4096), (2, 130, 256),
+                                   (3, 1, 64)])
+def test_rglru_scan_kernel_matches_plain(dev, b, s, l):
+    gen = torch.Generator(device=dev).manual_seed(s)
+    a = torch.rand((b, s, l), generator=gen, device=dev) * 0.2 + 0.8
+    x = torch.randn((b, s, l), generator=gen, device=dev)
+    h0 = torch.randn((b, l), generator=gen, device=dev)
+    before = ops.LAUNCHES["rglru_scan"]
+    y, h = ops.rglru_scan(a, x, h0)
+    assert ops.LAUNCHES["rglru_scan"] == before + 1
+    y_want, h_want = plain.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, h_want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("v", [256000, 1000])
+def test_sampler_kernels_at_a_cluster_wide_vocab(dev, v):
+    """A row spread over a cluster of 8 blocks: recurrentgemma's 256000
+    and a vocabulary whose last block's slice is short."""
+    gen = torch.Generator(device=dev).manual_seed(v)
+    b = 8
+    logits = torch.randn((b, v), generator=gen, device=dev) * 4
+    logits[0, v - 3] = logits[0, 2] = logits[0].max() + 1.0  # tie
+    logits[3, v - 1] = logits[3].max() + 2.0  # the last index wins
+    greedy = torch.tensor([1, 0, 0, 1, 0, 0, 0, 1], dtype=torch.bool,
+                          device=dev)
+    temp = torch.tensor([1.0, 0.7, 1.3, 1.0, 0.9, 1.0, 0.5, 1.0],
+                        device=dev)
+    top_k = torch.tensor([0, 50, 0, 0, 200, 0, 1, 0], dtype=torch.int32,
+                         device=dev)
+    top_p = torch.tensor([1.0, 1.0, 0.9, 1.0, 0.95, 1.0, 1.0, 1.0],
+                         device=dev)
+    for _ in range(8):
+        u = torch.rand((b,), generator=gen, device=dev)
+        got = ops.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+        want = L.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+        assert torch.equal(got, want)
+        assert int(got[0]) == 2 and int(got[3]) == v - 1
+    k = torch.randint(1, v + 1, (b,), generator=gen, device=dev,
+                      dtype=torch.int32)
+    uu = torch.rand((b, v), generator=gen, device=dev)
+    assert torch.equal(ops.topk_sample(logits, k, temp, uu),
+                       L.topk_sample(logits, k, temp, uu))
+
+
 def test_sampler_kernels_match_plain_exactly(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     b, v = 6, 4096
@@ -170,12 +257,19 @@ def test_wrappers_raise_on_cuda_inputs_they_cannot_take(dev):
     pool = torch.zeros((3, 16, 1, 64), device=dev)
     table = torch.zeros((1, 2), dtype=torch.int32, device=dev)
     pos = torch.ones((1,), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="exceeds"):  # G * S = 64 rows
-        ops.paged_decode_attention(torch.zeros((1, 8, 8, 64), device=dev),
+    with pytest.raises(ValueError, match="exceeds"):  # G * S = 72 rows
+        ops.paged_decode_attention(torch.zeros((1, 9, 8, 64), device=dev),
                                    pool, pool, table, pos)
     with pytest.raises(ValueError, match="int32"):
         ops.paged_decode_attention(torch.zeros((1, 1, 4, 64), device=dev),
                                    pool, pool, table.long(), pos)
+    ring = torch.zeros((1, 16, 1, 48), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.decode_attention(torch.zeros((1, 1, 4, 48), device=dev), ring,
+                             ring, pos)
+    a = torch.zeros((1, 8, 64), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        ops.rglru_scan(a.bfloat16(), a.bfloat16(), a[:, 0].bfloat16())
     pool8 = torch.zeros((3, 16, 1, 64), device=dev, dtype=torch.int8)
     sc = torch.zeros((3, 16, 1, 1), device=dev)
     q = torch.zeros((1, 1, 4, 64), device=dev)
@@ -245,4 +339,49 @@ def test_engine_streams_on_cuda_match_the_cpu(dev, precision):
             outs.append([r.output for r in reqs])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-9b"])
+def test_rolling_engine_streams_on_cuda_match_the_cpu(dev, arch):
+    """Rolling caches: granite with paged=False (rings of 32 that wrap),
+    recurrentgemma cut to 5 layers (rings of 64, prompts past them)."""
+    import dataclasses
+
+    from repro_torch import serving as ts
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    base = get_config(arch).reduced()
+    if arch == "granite-8b":
+        cfg = dataclasses.replace(base, num_kv_heads=2)
+        engine, lens = dict(paged=False, window=32), (5, 23, 32, 17)
+    else:
+        cfg = dataclasses.replace(base, num_layers=5)
+        engine, lens = {}, (100, 5, 64, 23)
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    p_gpu = _to(p_cpu, dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    outs = []
+    for params, device in ((p_gpu, dev), (p_cpu, "cpu")):
+        eng = ts.ServingEngine(cfg, params,
+                               ts.EngineConfig(slots=3, **engine),
+                               device=device)
+        assert not eng.paged
+        reqs = [ts.Request(rid=i, prompt=p, max_new_tokens=12,
+                           sampling=(ts.SamplingParams(
+                               temperature=0.8, top_k=20, top_p=0.9,
+                               seed=1000 + i) if i % 2
+                               else ts.SamplingParams()))
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r, 0.0)
+        t = 0.0
+        while sum(r.done for r in reqs) < len(reqs) and t < 500:
+            t += 1.0
+            eng.step(t)
+        eng.drain(t)
+        outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
