@@ -14,9 +14,11 @@ Phases, in order; any failure exits non-zero:
    with its tolerance, the kernel's and the plain version's device time
    (20 calls in one CUDA graph, timed with CUDA events), the least time
    the card could take for the same work, and a PyTorch library call's
-   time where one computes the same function. The int8 kernels (paged
-   decode over int8 pools, the int8-weight matmul) likewise, at the same
-   shapes and at granite's projection shapes. Then recurrentgemma-9b's
+   time where one computes the same function, and the achieved TFLOP/s
+   of each time for prefill attention and the int8 matmul. The int8
+   kernels (paged decode over int8 pools, the int8-weight matmul)
+   likewise, at the same shapes and at granite's projection shapes
+   (decode M 8 and prefill M 512). Then recurrentgemma-9b's
    shapes: windowed prefill attention (S 2560, 16 q heads over 1 kv head,
    head_dim 256, window 2048), rolling-cache decode attention (8 rings of
    2048, S 1 and 4, rings partly filled to wrapped), the RG-LRU scan
@@ -54,9 +56,10 @@ Phases, in order; any failure exits non-zero:
    memory and the steady decode tick of 8 slots beside its floor.
 
 ``--profile DIR`` repeats the steady-decode serve (8 requests on 8
-slots) of phases 4, 5 and 6 under ``torch.profiler``, prints the device's
-busy share of each run and writes its device-time table by kernel into
-DIR.
+slots) of phases 4, 5 and 6, and recurrentgemma's 2500-token prompt
+alone (its prefill and one tick), under ``torch.profiler``, prints the
+device's busy share of each run and writes its device-time table by
+kernel into DIR.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -85,6 +88,14 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # never rounds code * scale to q's dtype (the Pallas body's semantics)
 # lies about 8e-3 away, so 2e-2 could not tell it from the twin.
 INT8_DECODE_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
+# bf16 prefill attention is also held to its error in units of 2^-8 of
+# sum_j p_j |v_j| (the attention of |v|, the scale of a row's rounding
+# error): the kernel rounds P = exp(s - m) and the output to bf16, the
+# twin the normalized p and the output, and each rounding moves a row by at
+# most one unit of that scale, so they differ by about two units at any
+# |o| (one bf16 step at the top of a binade), where the absolute 2e-2
+# above is loose for long rows (|o| ~ 0.05) and tight at |o| >= 4.
+BF16_UNIT, BF16_UNITS_TOL = 2.0 ** -8, 4.0
 # The RG-LRU scan against its plain version: the reference suite's
 # tolerance for its scan kernel (tests/test_kernels.py).
 SCAN_TOL = 1e-4
@@ -129,9 +140,25 @@ def time_ms(torch, fn, iters: int = 20, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+def tflops(flops: float, ms: float) -> str:
+    """The achieved rate of ``flops`` in ``ms`` milliseconds."""
+    return f"{flops / ms / 1e9:.1f} TFLOP/s"
+
+
 def bound(nbytes: float, flops: float, dtype: str):
     t_b, t_f = nbytes / HBM_BW, flops / PEAK[dtype]
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def bf16_units(got, want, q, k, v, *, causal=True, window=0):
+    """max |got - want| / (2^-8 * attention(q, k, |v|)), the attention of
+    |v| in float32 by the plain version."""
+    from repro_torch.kernels import plain
+
+    scale = plain.dense_attention(q.float(), k.float(), v.float().abs(),
+                                  causal=causal, window=window)
+    return ((got.float() - want.float()).abs() / scale).max().item() \
+        / BF16_UNIT
 
 
 def phase_kernels(torch, rec):
@@ -165,6 +192,13 @@ def phase_kernels(torch, rec):
             err_ref = (got.float() - oracle.float()).abs().max().item()
             tol = TOL[dt_name]
             good = err <= tol and err_ref <= tol
+            units = ""
+            if dt_name == "bfloat16":
+                u, u_ref = (bf16_units(got, x, q, k, v)
+                            for x in (want, oracle))
+                good &= max(u, u_ref) <= BF16_UNITS_TOL
+                units = (f" scaled {u:.3g} (vs ref {u_ref:.3g}) units of "
+                         f"2^-8 sum p|v| tol={BF16_UNITS_TOL:g}")
             ok &= good
             ms = time_ms(torch, lambda i: ops.flash_attention(q, k, v))
             plain = time_ms(torch, lambda i: L.dense_attention(q, k, v,
@@ -178,12 +212,15 @@ def phase_kernels(torch, rec):
             flops = 4.0 * H * D * s * (s + 1) / 2
             b_ms, b_by = bound(nbytes, flops, dt_name)
             print(f"prefill {dt_name} S={s}: max_abs_err={err:.3g} "
-                  f"(vs ref.ref_attention {err_ref:.3g}) tol={tol} "
+                  f"(vs ref.ref_attention {err_ref:.3g}) tol={tol}{units} "
                   f"{'ok' if good else 'FAIL'} ms={ms:.4f} "
-                  f"plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
-                  f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
-            if dt_name == "bfloat16" and s == 512:
-                rec["flash_attention"].update(
+                  f"({tflops(flops, ms)}) plain_ms={plain:.4f} "
+                  f"({tflops(flops, plain)}) sdpa_ms={lib:.4f} "
+                  f"({tflops(flops, lib)}) bound_ms={b_ms:.5f} ({b_by})",
+                  flush=True)
+            key = {512: "flash_attention", 2048: "flash_attention_s2048"}
+            if dt_name == "bfloat16" and s in key:
+                rec[key[s]].update(
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib)
 
@@ -324,6 +361,12 @@ def hybrid_kernels(torch, rec, gen):
         err = (got.float() - want.float()).abs().max().item()
         tol = TOL[dt_name]
         good = err <= tol
+        units = ""
+        if dt_name == "bfloat16":
+            u = bf16_units(got, want, q, k, v, window=WIN)
+            good &= u <= BF16_UNITS_TOL
+            units = (f" scaled {u:.3g} units of 2^-8 sum p|v| "
+                     f"tol={BF16_UNITS_TOL:g}")
         ok &= good
         ms = time_ms(torch, lambda i: ops.flash_attention(
             q, k, v, causal=True, window=WIN))
@@ -338,11 +381,14 @@ def hybrid_kernels(torch, rec, gen):
                           qt, kt, vt, attn_mask=band, enable_gqa=True))
         pairs = sum(min(t + 1, WIN) for t in range(S))
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        b_ms, b_by = bound(nbytes, 4.0 * H * D * pairs, dt_name)
+        flops = 4.0 * H * D * pairs
+        b_ms, b_by = bound(nbytes, flops, dt_name)
         print(f"prefill local {dt_name} S={S} H={H}/{KVH} D={D} "
-              f"window={WIN}: max_abs_err={err:.3g} tol={tol} "
-              f"{'ok' if good else 'FAIL'} ms={ms:.4f} plain_ms={pl_ms:.4f} "
-              f"sdpa_mask_ms={lib:.4f} bound_ms={b_ms:.5f} ({b_by})",
+              f"window={WIN}: max_abs_err={err:.3g} tol={tol}{units} "
+              f"{'ok' if good else 'FAIL'} ms={ms:.4f} "
+              f"({tflops(flops, ms)}) plain_ms={pl_ms:.4f} "
+              f"({tflops(flops, pl_ms)}) sdpa_mask_ms={lib:.4f} "
+              f"({tflops(flops, lib)}) bound_ms={b_ms:.5f} ({b_by})",
               flush=True)
         if dt_name == "bfloat16":
             rec["flash_attention_local"].update(
@@ -632,15 +678,21 @@ def int8_matmul_kernel(torch, rec, gen):
                     x, w_lib[i % n_sets]))
                 esz = x.element_size()
                 nbytes = k * n + esz * (m * k + m * n) + 4 * n
-                b_ms, b_by = bound(nbytes, 2.0 * m * k * n, dt_name)
+                flops = 2.0 * m * k * n
+                b_ms, b_by = bound(nbytes, flops, dt_name)
                 print(f"int8_matmul {dt_name} M={m} K={k} N={n}: "
                       f"max_abs_err={e:.3g} (relative {rel:.3g}, vs "
                       f"ref.ref_int8_matmul {e_ref:.3g}) tol={tol} "
                       f"{'ok' if good else 'FAIL'} ms={ms:.4f} "
-                      f"plain_ms={plain:.4f} matmul_{dt_name}_ms={lib:.4f}"
-                      f" bound_ms={b_ms:.5f} ({b_by})", flush=True)
-                if dt_name == "bfloat16" and m == 8 and n == 14336:
-                    rec["int8_matmul"].update(
+                      f"({tflops(flops, ms)}) plain_ms={plain:.4f} "
+                      f"({tflops(flops, plain)}) "
+                      f"matmul_{dt_name}_ms={lib:.4f} "
+                      f"({tflops(flops, lib)}) bound_ms={b_ms:.5f} "
+                      f"({b_by})", flush=True)
+                key = {(8, 4096, 14336): "int8_matmul",
+                       (512, 14336, 4096): "int8_matmul_prefill"}
+                if dt_name == "bfloat16" and (m, k, n) in key:
+                    rec[key[m, k, n]].update(
                         max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib)
             del ws, w_lib
@@ -817,6 +869,7 @@ def phase_full(torch, rec, full, profile_dir=None):
     if unfinished:
         ok = False
         print(f"FAIL: requests without their 64 tokens: {unfinished}")
+    rec["flash_attention_s2048"]["launches"] = launches["flash_attention"]
     for name in ("flash_attention", "paged_decode_attention",
                  "sample_tokens"):
         rec[name]["launches"] = launches[name]
@@ -907,11 +960,12 @@ def phase_quant(torch, rec, full, profile_dir=None):
         ok = False
         print(f"FAIL: int8 requests without their 64 tokens: {unfinished}")
     for name in ("paged_decode_attention_int8", "int8_matmul",
-                 "flash_attention", "sample_tokens"):
+                 "int8_matmul_prefill", "flash_attention", "sample_tokens"):
         if launches[name] <= 0:
             ok = False
             print(f"FAIL: kernel {name} never launched on the int8 path")
-    for name in ("paged_decode_attention_int8", "int8_matmul"):
+    for name in ("paged_decode_attention_int8", "int8_matmul",
+                 "int8_matmul_prefill"):
         rec[name]["launches"] = launches[name]
     n_tok = sum(len(r.output) for r in reqs)
     greedy = [i for i in range(len(reqs)) if i % 2 == 0]
@@ -1035,6 +1089,13 @@ def phase_hybrid(torch, rec, profile_dir=None):
                                  ProfilerActivity.CUDA]) as prof:
             _, st4 = serve(torch, cfg, params, prompts[:8], **run)
         write_profile(prof, profile_dir, st4, "decode_kernels_hybrid.txt")
+        # the 2500-token prompt alone: its exact-length prefill and one tick
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, st5 = serve(torch, cfg, params, prompts[-1:],
+                           **dict(run, max_new=2))
+        write_profile(prof, profile_dir, st5, "prefill_2500_hybrid.txt",
+                      label=f"{len(prompts[-1])}-token prefill + 1 tick")
 
     # the decode path against the full forward, end to end, in float32
     # (the same architecture at full width, 38 layers, weights from the
@@ -1114,7 +1175,8 @@ def ring_check(torch, cfg, params, prompt, ticks):
     return placed, errs
 
 
-def write_profile(prof, out_dir, st, table_name):
+def write_profile(prof, out_dir, st, table_name,
+                  label="decode at 8 slots"):
     """Device time by kernel name, and the device's busy share of the
     profiled serve (its whole run and its decode part), from
     ``torch.profiler``; the table goes to ``out_dir``."""
@@ -1130,7 +1192,7 @@ def write_profile(prof, out_dir, st, table_name):
     dev_us = sum(e.self_device_time_total for e in events
                  if e.device_type == DeviceType.CUDA)
     tick_ms = st["after_submit"] / st["ticks"] * 1e3
-    print(f"profiled decode at 8 slots: {tick_ms:.2f} ms per tick; device "
+    print(f"profiled {label}: {tick_ms:.2f} ms per tick; device "
           f"busy {dev_us / 1e6:.3f}s of {st['wall']:.3f}s wall "
           f"({100 * dev_us / 1e6 / st['wall']:.1f}%); table in "
           f"{out_dir}/{table_name}", flush=True)
@@ -1206,6 +1268,14 @@ def main() -> int:
             name="rglru_scan", route="cuda",
             source=f"{csrc}/rglru_scan.cu",
             replaces="src/repro/kernels/rglru_scan.py:48"),
+        "flash_attention_s2048": dict(
+            name="flash_attention (S 2048)", route="cuda",
+            source=f"{csrc}/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:74"),
+        "int8_matmul_prefill": dict(
+            name="int8_matmul (prefill, M 512, 14336x4096)", route="cuda",
+            source=f"{csrc}/int8_matmul.cu",
+            replaces="src/repro/kernels/int8_matmul.py:38"),
         "flash_attention_local": dict(
             name="flash_attention (window 2048, head_dim 256)", route="cuda",
             source=f"{csrc}/flash_attention.cu",

@@ -68,7 +68,8 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0,
                             "paged_decode_attention": 0,
                             "paged_decode_attention_int8": 0,
                             "decode_attention": 0,
-                            "int8_matmul": 0, "rglru_scan": 0,
+                            "int8_matmul": 0, "int8_matmul_prefill": 0,
+                            "rglru_scan": 0,
                             "sample_tokens": 0, "topk_sample": 0}
 
 

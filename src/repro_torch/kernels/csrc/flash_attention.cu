@@ -10,26 +10,51 @@
 // reference wrapper's jnp.repeat). S may be any length: the engine's
 // buckets (16, 32, 64, ...) are smaller than one tile and the ragged edge
 // is masked here; a bucket's end padding is hidden by causality alone.
+// Tiles wholly past the causal edge or wholly behind the window are
+// skipped, so a block reads at most window + one tile of keys.
 //
-// Numerics follow the model's twin ``layers.dense_attention`` rather than
-// an online softmax: pass 1 finds each row's max and sum over all keys,
-// pass 2 forms the NORMALIZED probability, rounds it to the input type
-// (the twin's ``probs.astype(q.dtype)``) and accumulates P V in float32.
-// So bf16 outputs land where the twin's do, up to summation order.
+// What bounds it: at the engine's prompt lengths (16..2560) a layer's
+// attention is 0.1 to 52 GFLOP against a few MB of q/k/v/o, so the bound
+// is the tensor cores' rate (989 TFLOP/s bf16), not the bytes.
 //
-// What bounds it: at the engine's prompt lengths (16..2048) a layer's
-// attention is a few to a few tens of GFLOP, so the bound is the tensor
-// cores' rate; this first version runs float32 FMAs from shared memory
-// (no wgmma) and computes Q K^T twice, so it sits well below that bound.
-// K/V tiles are staged once in shared memory per block and read by all
-// 32 query rows, the next tile's loads in flight during the current
-// tile's compute (TileLoader); tiles wholly past the causal edge or
-// wholly behind the window are skipped. At head_dim 256 a block holds
-// 4 * (32*256 + 32*257 + 32*256) B = 98,432 B of shared memory. Making it fast
-// (wgmma on bf16 tiles, TMA, one pass) is later work.
+// bfloat16 (``flash_attention_bf16``): one pass over K/V with an online
+// softmax, as the Pallas kernel runs it. A block is WARPS warps of 16
+// query rows of one head; for each tile of 64 keys, S = Q K^T and
+// O += P V run on the tensor cores (``mma.sync.m16n8k16`` bf16 -> f32),
+// with fragments from ``ldmatrix`` (``.trans`` for V) on XOR-swizzled bf16
+// tiles; the running max and sum and the O accumulator stay float32 in
+// registers; P = exp(s - m) is rounded to bf16 as the A operand (no other
+// rounding: between the Pallas kernel, which rounds nothing, and the
+// twin, which rounds the normalized p), and O is divided by the sum once
+// at the end. K/V tiles stream through a ring of STAGES shared-memory
+// stages filled by 16-byte ``cp.async`` copies (rows past S zero-filled),
+// so the next tiles' copies fly while the current one computes, with one
+// barrier per tile. Only tiles on the causal edge, the window's edge or
+// S's edge are masked; the heaviest causal row tiles are first in the
+// grid. WARPS and STAGES are fixed per head_dim (``flash_attention_bf16``
+// below): at head_dim 256 8 warps and 2 stages, 2 * 256 * (128 + 2 * 64 *
+// 2) = 196,608 B of the 232,448 a block may have; at head_dim 128 and
+// below 4 warps and 3 stages (two or more blocks per SM).
+//
+// float32 (``flash_attention_f32``) keeps the first FMA kernel: two passes,
+// float32 FMAs from shared memory. Float32 inputs are not exact in bf16
+// or TF32 tensor-core products, and two gates need float32 arithmetic: the
+// 2e-5 tolerance against the plain version, and ``chip_smoke.py`` phase 3,
+// where float32 engine streams on the card must equal the CPU's token for
+// token. Its numerics follow the twin ``layers.dense_attention``: pass 1
+// finds each row's max and sum over all keys, pass 2 forms the NORMALIZED
+// probability, rounds it to the input type and accumulates P V.
 #include "common.cuh"
+#include "tensor_core.cuh"
+
+#include <type_traits>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// float32: FMAs from float32 shared tiles, 32 query rows per block
+// ---------------------------------------------------------------------------
+namespace f32path {
 
 constexpr int BQ = 32;       // query rows per block
 constexpr int BK = 32;       // keys per tile (one per lane)
@@ -37,7 +62,9 @@ constexpr int WARPS = 8;     // 4 query rows per warp
 constexpr int THREADS = WARPS * 32;
 constexpr int ROWS_PER_WARP = BQ / WARPS;
 
-template <typename T, int D>
+using T = float;
+
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int S,
@@ -168,42 +195,239 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int H, int KVH, float scale, int causal, int window,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * (BQ * D + BK * (D + 1) + BK * D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
+      flash_attention_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, KVH, scale,
-      causal, window);
+  flash_attention_kernel<D><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H,
+      KVH, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int H, int KVH, int D, float scale, int causal,
-             int window, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, S, H, KVH, scale, causal, window,
-                           st);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, S, H, KVH, scale, causal, window,
-                           st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, S, H, KVH, scale, causal, window,
-                            st);
-    case 256:
-      return launch<T, 256>(q, k, v, o, B, S, H, KVH, scale, causal, window,
-                            st);
-    default: return (int)cudaErrorInvalidValue;
+}  // namespace f32path
+
+// ---------------------------------------------------------------------------
+// bfloat16: one pass on the tensor cores
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+constexpr int BKV = 64;  // keys per K/V tile
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D, int WARPS, int STAGES>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_attention_bf16_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, bf16* __restrict__ o,
+                            int S, int H, int KVH, float scale_log2,
+                            int causal, int window) {
+  constexpr int BQ = 16 * WARPS;   // query rows per block
+  constexpr int THREADS = WARPS * 32;
+  constexpr int CPR = D / 8;       // 16-byte chunks per row
+  constexpr int DT = D / 8;        // 8-column tiles of O
+  constexpr int KT = BKV / 8;      // 8-key tiles of S
+  constexpr int TILE = BKV * CPR;  // chunks of one K or V tile
+  extern __shared__ uint4 ring_smem[];
+  uint4* qs = ring_smem;        // [BQ][CPR], swizzled
+  uint4* ring = qs + BQ * CPR;  // STAGES x (K tile, V tile)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest first
+  const int c = h / (H / KVH);
+  const size_t qstride = (size_t)H * D, kvstride = (size_t)KVH * D;
+  const bf16* qb = q + (size_t)b * S * qstride + (size_t)h * D;
+  const bf16* kb = k + (size_t)b * S * kvstride + (size_t)c * D;
+  const bf16* vb = v + (size_t)b * S * kvstride + (size_t)c * D;
+
+  // causal: no key past the block's last row; window: none at or before
+  // the first row's window start
+  const int q_last = min(q0 + BQ, S) - 1;
+  const int k_end = causal ? q_last + 1 : S;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
+  const int n_tiles = (k_end - k_begin + BKV - 1) / BKV;
+
+  // ROWS rows from row r0 of ``src`` (rows past S as zeros) into ``dst``
+  auto copy_rows = [&](uint4* dst, const bf16* src, size_t stride, int r0,
+                       auto rows_c) {
+    constexpr int ROWS = decltype(rows_c)::value;
+#pragma unroll
+    for (int i = 0; i < (ROWS * CPR + THREADS - 1) / THREADS; ++i) {
+      const int idx = tid + i * THREADS;
+      if (ROWS * CPR % THREADS == 0 || idx < ROWS * CPR) {
+        const int r = idx / CPR, ch = idx % CPR, s = r0 + r;
+        const bool ok = s < S;
+        cp_async16(dst + swizzle<CPR>(r, ch),
+                   src + (size_t)(ok ? s : 0) * stride + ch * 8, ok);
+      }
+    }
+  };
+  using TileRows = std::integral_constant<int, BKV>;
+  auto load_tile = [&](int j) {
+    uint4* st = ring + (j % STAGES) * 2 * TILE;
+    copy_rows(st, kb, kvstride, k_begin + j * BKV, TileRows{});
+    copy_rows(st + TILE, vb, kvstride, k_begin + j * BKV, TileRows{});
+  };
+
+  copy_rows(qs, qb, qstride, q0, std::integral_constant<int, BQ>{});
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load_tile(st);
+    cp_async_commit();
   }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1
+    if (j + STAGES - 1 < n_tiles) load_tile(j + STAGES - 1);
+    cp_async_commit();
+    const uint4* ks = ring + (j % STAGES) * 2 * TILE;
+    const uint4* vs = ks + TILE;
+    const int k0 = k_begin + j * BKV;
+
+    // ---- S = Q K^T ----
+    float sc[KT][4];
+#pragma unroll
+    for (int n = 0; n < KT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, qs + swizzle<CPR>(warp * 16 + (lane & 15),
+                                       2 * kk + (lane >> 4)));
+#pragma unroll
+      for (int np = 0; np < KT / 2; ++np) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, ks + swizzle<CPR>(
+                                 np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                 2 * kk + ((lane >> 3) & 1)));
+        mma_bf16(sc[2 * np], a, bk);
+        mma_bf16(sc[2 * np + 1], a, bk + 2);
+      }
+    }
+
+    // ---- scale and mask (edge tiles only), online softmax ----
+    const bool edge = k0 + BKV > S || (causal && k0 + BKV - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+#pragma unroll
+    for (int n = 0; n < KT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[n][e] * scale_log2;
+        if (edge) {
+          const int tk = k0 + 8 * n + 2 * t + (e & 1);
+          const int s = row0 + 8 * (e >> 1);
+          const bool ok = tk < S && (!causal || tk <= s) &&
+                          (window <= 0 || tk > s - window);
+          x = ok ? x : -INFINITY;
+        }
+        sc[n][e] = x;
+      }
+    float base[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m_run[i];
+#pragma unroll
+      for (int n = 0; n < KT; ++n)
+        mx = fmaxf(mx, fmaxf(sc[n][2 * i], sc[n][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // a row with every key masked so far keeps m = -inf; exp against 0
+      base[i] = mx == -INFINITY ? 0.0f : mx;
+      const float alpha = fast_exp2(m_run[i] - base[i]);
+      m_run[i] = mx;
+      l_run[i] *= alpha;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        acc[d][2 * i] *= alpha;
+        acc[d][2 * i + 1] *= alpha;
+      }
+    }
+    // P as the A operand of P V: S's n-tiles 2kk, 2kk + 1 are the k-step
+    // kk of the product (the C layout of m16n8 is the A layout of m16k16)
+    uint32_t pa[BKV / 16][4];
+#pragma unroll
+    for (int n = 0; n < KT; ++n) {
+      const float p0 = fast_exp2(sc[n][0] - base[0]);
+      const float p1 = fast_exp2(sc[n][1] - base[0]);
+      const float p2 = fast_exp2(sc[n][2] - base[1]);
+      const float p3 = fast_exp2(sc[n][3] - base[1]);
+      l_run[0] += p0 + p1;
+      l_run[1] += p2 + p3;
+      pa[n / 2][(n & 1) * 2] = pack_bf16(p0, p1);
+      pa[n / 2][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+
+    // ---- O += P V ----
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(
+            bv, vs + swizzle<CPR>(16 * kk + (lane & 7) +
+                                      (((lane >> 3) & 1) << 3),
+                                  2 * dp + (lane >> 4)));
+        mma_bf16(acc[2 * dp], pa[kk], bv);
+        mma_bf16(acc[2 * dp + 1], pa[kk], bv + 2);
+      }
+  }
+  cp_async_wait<0>();
+
+  // each thread summed its own columns: the row's sum is the quad's
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+    const int s = row0 + 8 * i;
+    if (s >= S) continue;
+    const float inv = 1.0f / l_run[i];
+    bf16* orow = o + ((size_t)b * S + s) * qstride + (size_t)h * D + 2 * t;
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      *reinterpret_cast<uint32_t*>(orow + 8 * d) =
+          pack_bf16(acc[d][2 * i] * inv, acc[d][2 * i + 1] * inv);
+  }
+}
+
+template <int D, int WARPS, int STAGES>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int KVH, float scale, int causal, int window,
+                cudaStream_t stream) {
+  constexpr int BQ = 16 * WARPS;
+  constexpr size_t smem = sizeof(bf16) * D * (BQ + 2 * BKV * STAGES);
+  static_assert(smem <= 232448, "a block's shared memory");
+  auto* kernel = flash_attention_bf16_kernel<D, WARPS, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(H, B, (S + BQ - 1) / BQ);
+  kernel<<<grid, WARPS * 32, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, S, H, KVH,
+      scale * 1.4426950408889634f, causal, window);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -213,14 +437,45 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
                                    int H, int KVH, int D, float scale,
                                    int causal, int window, void* stream) {
-  return dispatch<float>(q, k, v, o, B, S, H, KVH, D, scale, causal, window,
-                         stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 32:
+      return f32path::launch<32>(q, k, v, o, B, S, H, KVH, scale, causal,
+                                 window, st);
+    case 64:
+      return f32path::launch<64>(q, k, v, o, B, S, H, KVH, scale, causal,
+                                 window, st);
+    case 128:
+      return f32path::launch<128>(q, k, v, o, B, S, H, KVH, scale, causal,
+                                  window, st);
+    case 256:
+      return f32path::launch<256>(q, k, v, o, B, S, H, KVH, scale, causal,
+                                  window, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
+// WARPS (16 query rows each) and STAGES (K/V tiles in flight) per head_dim:
+// 8 x 2 at 256 (a third stage of 8 warps would pass the 232,448 B, and
+// 4 x 3 measured slower at recurrentgemma's band), 4 x 3 below.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int B, int S,
                                     int H, int KVH, int D, float scale,
                                     int causal, int window, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KVH, D, scale, causal,
-                                 window, stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 32:
+      return launch_bf16<32, 4, 3>(q, k, v, o, B, S, H, KVH, scale, causal,
+                                   window, st);
+    case 64:
+      return launch_bf16<64, 4, 3>(q, k, v, o, B, S, H, KVH, scale, causal,
+                                   window, st);
+    case 128:
+      return launch_bf16<128, 4, 3>(q, k, v, o, B, S, H, KVH, scale, causal,
+                                    window, st);
+    case 256:
+      return launch_bf16<256, 8, 2>(q, k, v, o, B, S, H, KVH, scale, causal,
+                                    window, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

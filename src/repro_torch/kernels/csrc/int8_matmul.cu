@@ -2,27 +2,53 @@
 // kernel ``repro/kernels/int8_matmul.py::int8_matmul`` (TPU kernel 5):
 //   y (M, N) = (float(x) @ float(w_q)) * scale, cast once to x's type,
 // x (M, K) float32 or bfloat16 row-major, w_q (K, N) int8 row-major (the
-// JAX orientation), scale (N,) float32, applied per output column after
-// the dot (``layers.linear``'s dict path).
+// JAX orientation, which ``models.model.quantize_weights`` keeps: no
+// re-ordered copy of a weight is ever made), scale (N,) float32, applied
+// per output column after the dot (``layers.linear``'s dict path).
 //
 // What bounds it: at decode (M = 8 slots) the int8 weight read, K*N bytes
 // against 2*M*K*N FLOPs, so device-memory bandwidth; at prefill (M = a
-// bucket of 16..1024) the FLOPs. The weight is read as int8, once per
-// M tile, and converted in registers: no dequantized copy of a weight is
+// bucket of 32..1024) the FLOPs (granite's projections at M 512: 4.3 to
+// 60 GFLOP against 4 to 59 MB). The weight is read as int8, once per M
+// tile, and converted in registers: no dequantized copy of a weight is
 // ever written to device memory, since halving that read is the point.
-// Few output tiles (decode: N/128 column blocks) cannot keep 132 SMs'
-// loads in flight, so the wrapper splits K over ``splits`` blocks per
-// tile; each writes a float32 partial and a second launch sums the
-// partials in split order (deterministic), scales and casts.
+// Few output tiles cannot keep 132 SMs busy, so the wrapper splits K over
+// ``splits`` blocks per tile; each writes a float32 partial and a second
+// launch sums the partials in split order (deterministic), scales and
+// casts.
 //
-// bfloat16 x runs on tensor cores: ``mma.sync.m16n8k16`` bf16 x bf16 ->
-// f32. An int8 code (|q| <= 127) is exact in bfloat16, and the product of
-// two bfloat16 values is exact in float32, so the tensor cores form the
-// twin's products exactly; only the order of the sum differs. The weight
-// tile is stored in shared memory as bf16 pairs (k, k+1) of one column,
-// one 32-bit word each, which is the mma's B fragment. float32 x is not
-// exact in bf16 (nor in TF32): it takes a float32 FMA path.
+// bfloat16 x runs on tensor cores, bf16 x bf16 -> f32. An int8 code
+// (|q| <= 127) is exact in bfloat16, and the product of two bfloat16
+// values is exact in float32, so the tensor cores form the twin's
+// products exactly; only the order of the sum differs.
+//
+// Prefill (bm 128, M > 32): ``wgmma``, Hopper's warpgroup product, on
+// y^T = w^T x^T. A block is one warpgroup (4 warps) computing 64 output
+// columns for 128 rows of x, 64 deep per step. A ring of 3 shared-memory
+// stages, filled by 16-byte ``cp.async`` copies with the next 2 tiles in
+// flight, holds x in bf16 (rows of 128 B in the 128-byte swizzle, which
+// ``wgmma`` reads directly through a descriptor as its B operand) and w
+// AS INT8 (half the bytes of a bf16 copy), with one barrier per step.
+// The weight is the A operand, from registers: each thread loads 16-bit
+// words (two columns) from its 4 k rows per k-step and byte permutes plus
+// one float subtraction turn them into exact bf16 pairs
+// (``codes_to_bf16x2``), so the conversion never touches the copy path.
+// A tile's 4 k-steps are converted first and then issued as one group of
+// 4 products: ptxas serializes products whose A registers are written
+// while earlier ones are in flight, and 3 blocks per SM (64 KB each) fill
+// each other's conversion gaps. An ``mma.sync.m16n8k16`` tile with
+// ``ldmatrix`` fragments (the first design) measured slower than this one
+// at granite's M-512 shapes on the H100.
+//
+// Decode (bm 16, M <= 32): ``mma.sync.m16n8k16``, 16 x 128 tiles of 4
+// warps, 32 deep, the weight tile stored in shared memory as bf16 pairs
+// (k, k+1) of one column (the mma's B fragment), with K split across
+// blocks.
+//
+// float32 x is not exact in bf16 (nor in TF32) and the 2e-5 gate needs
+// float32 arithmetic: it takes a float32 FMA path.
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -110,27 +136,16 @@ __device__ __forceinline__ uint32_t bf16_pair(const uint4& lo,
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// bfloat16 x on tensor cores. BM = 16 (decode: 4 warps side by side, 16 x
-// 32 each) or 64 (prefill: 2 x 2 warps of 32 x 64).
-template <int BM>
+// bfloat16 x at decode on tensor cores: 16 rows, 4 warps side by side,
+// 16 x 32 each.
 __global__ void __launch_bounds__(THREADS)
 int8_mm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                     const int8_t* __restrict__ w,
                     const float* __restrict__ scale,
                     __nv_bfloat16* __restrict__ y, float* __restrict__ partial,
                     int M, int K, int N, int kchunk) {
-  constexpr int WARPS_N = BM == 16 ? 4 : 2;
-  constexpr int WM = BM == 16 ? 16 : 32, WN = BN / WARPS_N;
+  constexpr int BM = 16, WARPS_N = 4;
+  constexpr int WM = 16, WN = BN / WARPS_N;
   constexpr int MT = WM / 16, NT = WN / 8;
   __shared__ __align__(16) uint32_t ws[(BK / 2) * WPITCH];
   __shared__ __align__(16) __nv_bfloat16 xs[BM * XPITCH];
@@ -223,6 +238,197 @@ int8_mm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
       emit(y, partial, scale, M, N, m + 8, n + 1, acc[i][j][3], split);
     }
 }
+
+// bfloat16 x at prefill (M > 32) on Hopper's warpgroup products, as
+// y^T = w^T x^T: a block is one warpgroup computing 64 output columns for
+// 128 rows of x. The int8 weight is the A operand, converted to bf16 in
+// registers; the x tile is the B operand, read by ``wgmma`` straight from
+// the swizzled shared ring through a descriptor.
+namespace prefill {
+
+constexpr int BN = 64, BM = 128, BK = 64, STAGES = 3, THREADS = 128;
+constexpr int XBYTES = BM * BK * 2;  // 128 rows of 128 B, 1024-aligned
+constexpr int WPITCH = BN + 16;  // bytes per weight row (80): a quad's
+                                 // rows 2t fall in distinct banks
+constexpr int WBYTES = BK * WPITCH;
+constexpr int SMEM = 1024 + STAGES * (XBYTES + WBYTES);  // + alignment
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving a register across an asynchronous
+// product that reads or writes it.
+__device__ __forceinline__ void fence_reg(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+__device__ __forceinline__ void fence_reg(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+// cp.async writes (generic proxy) made visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A K-major tile of rows of 64 bf16 (128 B) in the 128-byte swizzle
+// (``swizzle<8>``): 8-row groups 1024 B apart; ``addr`` is the
+// 1024-aligned tile plus the k-step's 32-byte offset.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (64 x 128) += a (64 x 16, bf16 in registers) b (16 x 128, bf16 in
+// shared memory through ``desc``), float32 accumulators.
+__device__ __forceinline__ void wgmma_n128(float* d, const uint32_t* a,
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__global__ void __launch_bounds__(THREADS)
+kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+       const float* __restrict__ scale, __nv_bfloat16* __restrict__ y,
+       float* __restrict__ partial, int M, int K, int N, int kchunk) {
+  extern __shared__ uint4 wg_smem[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(wg_smem) +
+                      ((1024 - (smem_addr(wg_smem) & 1023)) & 1023);
+  unsigned char* wring = sm + STAGES * XBYTES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int k_begin = blockIdx.z * kchunk;
+  const int k_end = min(K, k_begin + kchunk);
+  const int n_tiles = (k_end - k_begin + BK - 1) / BK;
+
+  // Tile j: x rows m0.. (8 chunks of 8 each, swizzled) and w rows k0..
+  // (4 chunks of 16 columns each); zeros past M, N and the split's end (K
+  // and N are multiples of 16, so a chunk is wholly inside or outside).
+  auto load_tile = [&](int j) {
+    uint4* xs = reinterpret_cast<uint4*>(sm + (j % STAGES) * XBYTES);
+    unsigned char* ws = wring + (j % STAGES) * WBYTES;
+    const int k0 = k_begin + j * BK;
+#pragma unroll
+    for (int i = 0; i < BM * 8 / THREADS; ++i) {
+      const int idx = tid + i * THREADS, r = idx >> 3, ch = idx & 7;
+      const int m = m0 + r, k = k0 + 8 * ch;
+      const bool ok = m < M && k < k_end;
+      cp_async16(xs + swizzle<8>(r, ch), x + (ok ? (size_t)m * K + k : 0),
+                 ok);
+    }
+#pragma unroll
+    for (int i = 0; i < BK * 4 / THREADS; ++i) {
+      const int idx = tid + i * THREADS, r = idx >> 2, ch = idx & 3;
+      const int k = k0 + r, n = n0 + 16 * ch;
+      const bool ok = k < k_end && n < N;
+      cp_async16(ws + r * WPITCH + 16 * ch,
+                 w + (ok ? (size_t)k * N + n : 0), ok);
+    }
+  };
+
+  float acc[BM / 2];
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load_tile(st);
+    cp_async_commit();
+  }
+  // A fragments of a tile's 4 k-steps. Logical rows g and g + 8 of this
+  // warp's 16 are weight columns 16 warp + 2g and + 1, so one 16-bit load
+  // per k row (2t, 2t + 1, 2t + 8, 2t + 9) gives both.
+  uint32_t a[BK / 16][4];
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<STAGES - 2>();
+    fence_async_shared();
+    __syncthreads();  // tile j landed; every product of tile j - 1 done
+    if (j + STAGES - 1 < n_tiles) load_tile(j + STAGES - 1);
+    cp_async_commit();
+    const uint32_t xs = smem_addr(sm + (j % STAGES) * XBYTES);
+    const unsigned char* ws = wring + (j % STAGES) * WBYTES;
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      const unsigned char* p =
+          ws + (16 * ks + 2 * t) * WPITCH + 16 * warp + 2 * g;
+      uint32_t h[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)  // rows 2t, 2t + 1, 2t + 8, 2t + 9
+        h[r] = *reinterpret_cast<const uint16_t*>(
+                   p + ((r & 1) + 8 * (r >> 1)) * WPITCH) ^ 0x8080u;
+      a[ks][0] = codes_to_bf16x2(h[0], h[1], 0);
+      a[ks][1] = codes_to_bf16x2(h[0], h[1], 1);
+      a[ks][2] = codes_to_bf16x2(h[2], h[3], 0);
+      a[ks][3] = codes_to_bf16x2(h[2], h[3], 1);
+    }
+    // every A register is written before the group starts: ptxas then
+    // runs the four products back to back
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+      wgmma_n128(acc, a[ks], desc_sw128(xs + 32 * ks));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) fence_reg(a[ks][e]);
+  }
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) fence_reg(acc[i]);
+  cp_async_wait<0>();
+
+  // acc[4i + e]: logical row g (e < 2: weight column c) or g + 8 (column
+  // c + 1), x row 8i + 2t + (e & 1)
+  const int c = n0 + 16 * warp + 2 * g;
+  if (c >= N) return;
+  const bool split = gridDim.z > 1;
+  const float s0 = __ldg(scale + c), s1 = __ldg(scale + c + 1);
+#pragma unroll
+  for (int i = 0; i < BM / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * i + 2 * t + e;
+      if (m >= M) continue;
+      const float v0 = acc[4 * i + e], v1 = acc[4 * i + 2 + e];
+      if (split)
+        *reinterpret_cast<float2*>(
+            partial + ((size_t)blockIdx.z * M + m) * N + c) =
+            make_float2(v0, v1);
+      else
+        *reinterpret_cast<uint32_t*>(y + (size_t)m * N + c) =
+            pack_bf16(v0 * s0, v1 * s1);
+    }
+}
+
+}  // namespace prefill
 
 // float32 x on CUDA cores: 16 x 128 outputs per block, 4 x 4 per thread
 // (rows ty + 4i, columns tx + 32j), float32 FMAs from shared memory.
@@ -326,28 +532,36 @@ int finish(const float* partial, const float* scale, T* y, int M, int N,
 
 // x (M, K), w (K, N) int8, scale (N,) float32, y (M, N) like x; partial
 // (splits, M, N) float32 scratch when splits > 1. Split z covers K rows
-// [z * kchunk, min(K, (z + 1) * kchunk)); kchunk is a multiple of 32.
-// bm: 16 or 64 rows per block (bf16); 16 (f32).
+// [z * kchunk, min(K, (z + 1) * kchunk)); kchunk is a multiple of the
+// tile depth (32 at bm 16, 64 at bm 128). bm: rows of x per block, 16
+// (decode, 128 columns per block) or 128 (prefill, 64 columns) in bf16;
+// 16 in f32.
 extern "C" int int8_matmul_bf16(const void* x, const void* w,
                                 const void* scale, void* y, void* partial,
                                 int M, int K, int N, int bm, int splits,
                                 int kchunk, void* stream) {
-  if (K % 16 || N % 16 || kchunk % BK || splits < 1)
+  if (K % 16 || N % 16 || splits < 1 || (bm != 16 && bm != prefill::BM) ||
+      kchunk % (bm == 16 ? BK : prefill::BK))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((N + BN - 1) / BN, (M + bm - 1) / bm, splits);
   const auto* xp = (const __nv_bfloat16*)x;
   auto* yp = (__nv_bfloat16*)y;
-  if (bm == 16)
-    int8_mm_bf16_kernel<16><<<grid, THREADS, 0, st>>>(
+  if (bm == 16) {
+    const dim3 grid((N + BN - 1) / BN, (M + bm - 1) / bm, splits);
+    int8_mm_bf16_kernel<<<grid, THREADS, 0, st>>>(
         xp, (const int8_t*)w, (const float*)scale, yp, (float*)partial, M,
         K, N, kchunk);
-  else if (bm == 64)
-    int8_mm_bf16_kernel<64><<<grid, THREADS, 0, st>>>(
+  } else {
+    const cudaError_t err = cudaFuncSetAttribute(
+        prefill::kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        prefill::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((N + prefill::BN - 1) / prefill::BN,
+                    (M + prefill::BM - 1) / prefill::BM, splits);
+    prefill::kernel<<<grid, prefill::THREADS, prefill::SMEM, st>>>(
         xp, (const int8_t*)w, (const float*)scale, yp, (float*)partial, M,
         K, N, kchunk);
-  else
-    return (int)cudaErrorInvalidValue;
+  }
   return finish((const float*)partial, (const float*)scale, yp, M, N,
                 splits, st);
 }
@@ -366,3 +580,4 @@ extern "C" int int8_matmul_f32(const void* x, const void* w,
   return finish((const float*)partial, (const float*)scale, (float*)y, M,
                 N, splits, st);
 }
+

@@ -7,7 +7,11 @@ A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises. q (B, S, H, D), k/v (B, S, KVH, D), float32 or bfloat16, any S,
 head_dim 32, 64, 128 or 256; q head h reads kv head ``h // (H // KVH)``
 inside the kernel. ``window`` > 0 is local attention: query s sees keys
-t > s - window (the local-attention blocks of hybrid archs)."""
+t > s - window (the local-attention blocks of hybrid archs).
+
+bfloat16 runs on the tensor cores in one pass, float32 on the FMA
+kernel, as the source note says; the kernel fixes its tile geometry per
+head_dim."""
 from __future__ import annotations
 
 import torch
@@ -43,9 +47,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                          f"(32, 64, 128, 256)")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_attention: k and v must be 16-byte aligned "
-                         "(the kernel's vector loads)")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_attention: q, k and v must be 16-byte "
+                         "aligned (the kernel's vector loads)")
     out = torch.empty_like(q)
     lib = build.load()
     lib.call(_ENTRY[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -17,30 +17,45 @@ from repro_torch.kernels import plain
 
 F32 = torch.float32
 _ENTRY = {torch.float32: "int8_matmul_f32", torch.bfloat16: "int8_matmul_bf16"}
-BN, BK = 128, 32  # output columns per block, contraction rows per tile
+DECODE_ROWS, PREFILL_ROWS = 16, 128  # rows of x per block
 SMS = 132  # the H100's streaming multiprocessors
-TARGET_BLOCKS = 4 * SMS  # a K split aims at four blocks per SM
-MIN_TILES = 8  # and leaves each split at least 8 tiles of K
+TARGET_BLOCKS = 4 * SMS  # a decode K split aims at four blocks per SM
+MIN_TILES = 8  # and a split leaves each at least 8 tiles of K
 
 
 def block_rows(m: int, dtype) -> int:
     """Rows of x per block: 16 for decode batches and for float32 x (the
-    FMA path), 64 for bfloat16 prefill."""
-    return 16 if dtype == torch.float32 or m <= 32 else 64
+    FMA path), 128 for bfloat16 prefill (M > 32, the warpgroup tile)."""
+    return DECODE_ROWS if dtype == torch.float32 or m <= 32 \
+        else PREFILL_ROWS
+
+
+def block_cols(bm: int) -> int:
+    """Output columns per block: 64 for the prefill tile, 128 otherwise."""
+    return 64 if bm == PREFILL_ROWS else 128
+
+
+def tile_depth(bm: int) -> int:
+    """K rows per tile: 64 for the prefill tile, 32 otherwise."""
+    return 64 if bm == PREFILL_ROWS else 32
 
 
 def k_splits(m: int, k: int, n: int, bm: int):
     """(splits, kchunk): how many blocks share one output tile's K, and
     the K rows each covers (a multiple of the tile depth). A call with
-    fewer output tiles than SMs (decode: N / 128 column blocks) splits K
-    until about ``TARGET_BLOCKS`` blocks are in flight."""
-    blocks = -(-n // BN) * -(-m // bm)
-    tiles = -(-k // BK)
+    fewer output tiles than SMs splits K: at decode (N / 128 column
+    blocks) until about ``TARGET_BLOCKS`` are in flight; at prefill until
+    about one block per SM."""
+    bk = tile_depth(bm)
+    blocks = -(-n // block_cols(bm)) * -(-m // bm)
+    tiles = -(-k // bk)
     if blocks >= SMS:
-        return 1, tiles * BK
-    splits = max(1, min(-(-TARGET_BLOCKS // blocks), tiles // MIN_TILES))
+        return 1, tiles * bk
+    want = (-(-TARGET_BLOCKS // blocks) if bm == DECODE_ROWS
+            else SMS // blocks)
+    splits = max(1, min(want, tiles // MIN_TILES))
     per = -(-tiles // splits)
-    return -(-tiles // per), per * BK
+    return -(-tiles // per), per * bk
 
 
 def quantize_int8(w, axis: int = 0):
@@ -92,5 +107,6 @@ def int8_matmul(x, w_q, scale):
                       scale.data_ptr(), y.data_ptr(), partial.data_ptr(), m,
                       k, n, bm, splits, kchunk,
                       torch.cuda.current_stream(x.device).cuda_stream)
-    build.LAUNCHES[name] += 1
+    # the prefill tile is a kernel of its own and counts apart
+    build.LAUNCHES[name + "_prefill" if bm == PREFILL_ROWS else name] += 1
     return y

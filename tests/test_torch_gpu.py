@@ -127,9 +127,12 @@ def test_int8_matmul_kernel_matches_plain(dev, m, k, n, dtype):
     gen = torch.Generator(device=dev).manual_seed(m + n)
     x = _rand(gen, (m, k), dtype, dev)
     w_q, scale = ops.quantize_int8(_rand(gen, (k, n), torch.float32, dev))
-    before = ops.LAUNCHES["int8_matmul"]
+    # the prefill tile (bf16, M > 32) counts its launches apart
+    key = ("int8_matmul_prefill" if dtype == torch.bfloat16 and m > 32
+           else "int8_matmul")
+    before = dict(ops.LAUNCHES)
     got = ops.int8_matmul(x, w_q, scale)
-    assert ops.LAUNCHES["int8_matmul"] == before + 1
+    assert ops.LAUNCHES == dict(before, **{key: before[key] + 1})
     want = L.int8_matmul(x, w_q, scale)
     torch.cuda.synchronize()
     assert got.dtype == dtype and tuple(got.shape) == (m, n)
@@ -154,6 +157,71 @@ def test_windowed_and_head_dim_256_prefill_matches_plain(dev, s, h, kvh, d,
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("s", [1, 15, 63, 64, 65, 200, 1000])
+def test_bf16_prefill_on_tensor_cores_matches_plain(dev, s, d, causal):
+    """The one-pass tensor-core kernel at S below, at and past one
+    64-row tile, each head_dim, groups of 1, 4 and 16 q heads per kv head
+    (q head h reads kv head h // G), causal or not, batch 2."""
+    for g, kvh in ((1, 4), (4, 2), (16, 1)):
+        gen = torch.Generator(device=dev).manual_seed(s * d + g)
+        q = _rand(gen, (2, s, g * kvh, d), torch.bfloat16, dev)
+        k = _rand(gen, (2, s, kvh, d), torch.bfloat16, dev)
+        v = _rand(gen, (2, s, kvh, d), torch.bfloat16, dev)
+        before = ops.LAUNCHES["flash_attention"]
+        got = ops.flash_attention(q, k, v, causal=causal)
+        assert ops.LAUNCHES["flash_attention"] == before + 1
+        want = L.dense_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("s", [65, 200, 1000])
+@pytest.mark.parametrize("window", [16, 64, 100])
+def test_bf16_windowed_prefill_matches_plain(dev, window, s, d, causal):
+    """Local windows narrower than, equal to and not a multiple of the
+    64-key tile: tiles wholly behind the band are skipped, the band's
+    edge tiles masked."""
+    gen = torch.Generator(device=dev).manual_seed(window + s + d)
+    q = _rand(gen, (2, s, 8, d), torch.bfloat16, dev)
+    k = _rand(gen, (2, s, 2, d), torch.bfloat16, dev)
+    v = _rand(gen, (2, s, 2, d), torch.bfloat16, dev)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = L.dense_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("k", [128, 512, 14336])
+@pytest.mark.parametrize("n", [64, 384, 4096])
+@pytest.mark.parametrize("m", [33, 64, 65, 128, 200, 512, 1024])
+def test_int8_matmul_prefill_tiles_match_plain(dev, m, n, k):
+    """The pipelined 128 x 128 bf16 tile (every M > 32): ragged M, N
+    narrower than a tile and not a multiple of it, K from one 64-deep
+    step to granite's 14336, split across blocks where tiles are few."""
+    from repro_torch.kernels.int8_matmul import PREFILL_ROWS, block_rows
+
+    assert block_rows(m, torch.bfloat16) == PREFILL_ROWS
+    gen = torch.Generator(device=dev).manual_seed(m + n + k)
+    x = _rand(gen, (m, k), torch.bfloat16, dev)
+    w_q, scale = ops.quantize_int8(_rand(gen, (k, n), torch.float32, dev))
+    before = dict(ops.LAUNCHES)
+    got = ops.int8_matmul(x, w_q, scale)
+    assert ops.LAUNCHES == dict(
+        before, int8_matmul_prefill=before["int8_matmul_prefill"] + 1)
+    want = L.int8_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, n)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

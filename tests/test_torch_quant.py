@@ -215,16 +215,21 @@ def test_int8_matmul_matches_the_pallas_kernel(m, k, n, dtype):
 def test_int8_matmul_k_split_fills_the_card():
     """Decode shapes (M = 8 slots) split K until about four blocks per SM
     of the H100 are in flight, each split at least 8 tiles deep and none
-    empty; prefill shapes (M = 512) have blocks enough and no split."""
+    empty; prefill shapes (M = 512, 128 x 64 tiles 64 deep) split only
+    where the tiles are fewer than the SMs (wk/wv, N 1024)."""
     from repro_torch.kernels.int8_matmul import block_rows, k_splits
 
     assert block_rows(8, torch.bfloat16) == 16
-    assert block_rows(512, torch.bfloat16) == 64
+    assert block_rows(32, torch.bfloat16) == 16
+    assert block_rows(33, torch.bfloat16) == 128
+    assert block_rows(512, torch.bfloat16) == 128
     assert block_rows(512, torch.float32) == 16
     assert k_splits(8, 4096, 14336, 16) == (5, 832)
     assert k_splits(8, 4096, 1024, 16) == (16, 256)
     assert k_splits(8, 14336, 4096, 16) == (17, 864)
-    assert k_splits(512, 4096, 4096, 64) == (1, 4096)
+    assert k_splits(512, 4096, 4096, 128) == (1, 4096)
+    assert k_splits(512, 14336, 4096, 128) == (1, 14336)
+    assert k_splits(512, 4096, 1024, 128) == (2, 2048)
     for m, k, n in ((1, 256, 384), (8, 4096, 4096), (37, 512, 64)):
         splits, chunk = k_splits(m, k, n, 16)
         assert chunk % 32 == 0 and (splits - 1) * chunk < k <= splits * chunk
