@@ -21,8 +21,11 @@ Phases, in order; any failure exits non-zero:
    (decode M 8 and prefill M 512). Then recurrentgemma-9b's
    shapes: windowed prefill attention (S 2560, 16 q heads over 1 kv head,
    head_dim 256, window 2048), rolling-cache decode attention (8 rings of
-   2048, S 1 and 4, rings partly filled to wrapped), the RG-LRU scan
-   (L 4096) and the sampler at vocab 256000.
+   2048, S 1 and 4, rings partly filled to wrapped; bf16 on the one-pass
+   kernel, also in units of 2^-8 sum p|v| and repeated bit for bit, and
+   float32 on the three-launch one), the RG-LRU scan (L 4096) and the
+   sampler at vocab 256000. The int8 matmul's bf16 decode tile is timed
+   at M 8, 16 and 32.
 3. Serve the same greedy and seeded requests through the port's
    ``ServingEngine`` on granite-8b ``reduced()`` (float32, 2 kv heads) on
    the card and on the CPU, in the model dtype, with int8 KV pages and
@@ -58,8 +61,8 @@ Phases, in order; any failure exits non-zero:
 ``--profile DIR`` repeats the steady-decode serve (8 requests on 8
 slots) of phases 4, 5 and 6, and recurrentgemma's 2500-token prompt
 alone (its prefill and one tick), under ``torch.profiler``, prints the
-device's busy share of each run and writes its device-time table by
-kernel into DIR.
+device's busy share and the kernel launches of each run and writes its
+device-time table by kernel into DIR.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -94,7 +97,9 @@ INT8_DECODE_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
 # twin the normalized p and the output, and each rounding moves a row by at
 # most one unit of that scale, so they differ by about two units at any
 # |o| (one bf16 step at the top of a binade), where the absolute 2e-2
-# above is loose for long rows (|o| ~ 0.05) and tight at |o| >= 4.
+# above is loose for long rows (|o| ~ 0.05) and tight at |o| >= 4. bf16
+# rolling-cache decode attention rounds the same way and is held to the
+# same units (against the decode attention of |v|).
 BF16_UNIT, BF16_UNITS_TOL = 2.0 ** -8, 4.0
 # The RG-LRU scan against its plain version: the reference suite's
 # tolerance for its scan kernel (tests/test_kernels.py).
@@ -338,6 +343,17 @@ def phase_kernels(torch, rec):
     return ok
 
 
+def ring_units(got, want, q, k, v, pos):
+    """max |got - want| / (2^-8 * decode attention of |v|) over rolling
+    caches, the attention of |v| in float32 by the plain version."""
+    from repro_torch.kernels import plain
+
+    scale = plain.decode_attention(q.float(), k.float(), v.float().abs(),
+                                   pos)
+    return ((got.float() - want.float()).abs() / scale).max().item() \
+        / BF16_UNIT
+
+
 def hybrid_kernels(torch, rec, gen):
     """recurrentgemma-9b's kernel shapes: windowed prefill attention at
     head_dim 256, rolling-cache decode attention, the RG-LRU scan and the
@@ -429,6 +445,15 @@ def hybrid_kernels(torch, rec, gen):
                 err = max(err, e_ref)
             tol = TOL[dt_name]
             good = err <= tol
+            units = ""
+            if dt_name == "bfloat16":
+                u = ring_units(got, want, q, kc, vc, pos)
+                same = bool(torch.equal(
+                    got, ops.decode_attention(q, kc, vc, pos)))
+                good &= u <= BF16_UNITS_TOL and same
+                units = (f" scaled {u:.3g} units of 2^-8 sum p|v| "
+                         f"tol={BF16_UNITS_TOL:g}, a second call "
+                         f"bit-identical: {same}")
             ok &= good
             ms = time_ms(torch, lambda i: ops.decode_attention(
                 q, *rings[i % 4], pos))
@@ -448,7 +473,7 @@ def hybrid_kernels(torch, rec, gen):
             b_ms, b_by = bound(nbytes, 4.0 * rows * H * D * s, dt_name)
             print(f"rolling decode {dt_name} B={B} W={W} S={s} H={H}/{KVH} "
                   f"D={D} pos {ctx[0]}..{ctx[-1]}: max_abs_err={err:.3g}"
-                  f"{line} tol={tol} {'ok' if good else 'FAIL'} "
+                  f"{line} tol={tol}{units} {'ok' if good else 'FAIL'} "
                   f"ms={ms:.4f} plain_ms={pl_ms:.4f} sdpa_mask_ms={lib:.4f}"
                   f" bound_ms={b_ms:.5f} ({b_by})", flush=True)
             if dt_name == "bfloat16" and s == 1:
@@ -659,7 +684,8 @@ def int8_matmul_kernel(torch, rec, gen):
                   for _ in range(n_sets)]
             w_lib = [(q.to(torch.float32) * s).to(dt) for q, s in ws]
             w_q, scale = ws[0]
-            for m in (8, 512):
+            for m in ((8, 16, 32, 512) if dt_name == "bfloat16"
+                      else (8, 512)):
                 x = torch.randn((m, k), generator=gen, device=dev).to(dt)
                 got = ops.int8_matmul(x, w_q, scale)
                 want = L.int8_matmul(x, w_q, scale)
@@ -904,6 +930,7 @@ def phase_full(torch, rec, full, profile_dir=None):
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
 
+        ops.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, st4 = serve(torch, cfg, params, prompts[:8], **run)
@@ -995,6 +1022,7 @@ def phase_quant(torch, rec, full, profile_dir=None):
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
 
+        ops.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, st4 = serve(torch, cfg, params, prompts[:8], **both)
@@ -1085,11 +1113,13 @@ def phase_hybrid(torch, rec, profile_dir=None):
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
 
+        ops.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, st4 = serve(torch, cfg, params, prompts[:8], **run)
         write_profile(prof, profile_dir, st4, "decode_kernels_hybrid.txt")
         # the 2500-token prompt alone: its exact-length prefill and one tick
+        ops.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, st5 = serve(torch, cfg, params, prompts[-1:],
@@ -1192,10 +1222,14 @@ def write_profile(prof, out_dir, st, table_name,
     dev_us = sum(e.self_device_time_total for e in events
                  if e.device_type == DeviceType.CUDA)
     tick_ms = st["after_submit"] / st["ticks"] * 1e3
+    from repro_torch.kernels import ops
+
     print(f"profiled {label}: {tick_ms:.2f} ms per tick; device "
           f"busy {dev_us / 1e6:.3f}s of {st['wall']:.3f}s wall "
           f"({100 * dev_us / 1e6 / st['wall']:.1f}%); table in "
-          f"{out_dir}/{table_name}", flush=True)
+          f"{out_dir}/{table_name}; kernel launches: "
+          + ", ".join(f"{k}={v}" for k, v in ops.LAUNCHES.items() if v),
+          flush=True)
     for line in table.splitlines()[:18]:
         print(line, flush=True)
 

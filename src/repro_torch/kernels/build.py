@@ -52,10 +52,11 @@ SIGNATURES = {
     "decode_attention_f32": (
         "decode_attention", [_P] * 8 + [_I] * 6 + [_L] * 3 + [_I, _F, _P]),
     "decode_attention_bf16": (
-        "decode_attention", [_P] * 8 + [_I] * 6 + [_L] * 3 + [_I, _F, _P]),
+        "decode_attention", [_P] * 5 + [_I] * 6 + [_L] * 3 + [_I, _F, _P]),
     "rglru_scan_f32": ("rglru_scan", [_P] * 5 + [_I] * 3 + [_P]),
     "int8_matmul_f32": ("int8_matmul", [_P] * 5 + [_I] * 6 + [_P]),
     "int8_matmul_bf16": ("int8_matmul", [_P] * 5 + [_I] * 6 + [_P]),
+    "int8_matmul_decode_bf16": ("int8_matmul", [_P] * 4 + [_I] * 6 + [_P]),
     "sample_tokens_f32": ("sampling", [_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                        _P]),
     "topk_sample_f32": ("sampling", [_P, _P, _P, _P, _P, _I, _I, _P]),

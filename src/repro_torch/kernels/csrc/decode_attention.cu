@@ -10,21 +10,28 @@
 // has written W tokens every row is valid, whatever order the ring's
 // writes left them in (attention is a sum over rows).
 //
-// The Pallas kernel runs an online softmax over 256-wide blocks; this one
-// is a third instantiation of the split-context machinery in
-// ``paged_decode.cuh`` (a ring is one page of W rows per slot), so its
-// numerics are those of the plain version ``plain.decode_attention``: the
-// row's global max and sum, probabilities rounded to q's type before P V.
-// What bounds it is the same as there: the bytes of the valid K/V rows
-// (recurrentgemma: 8 slots x 2048 rows x 1 kv head x 256 x 2 B x 2 = 16.8
-// MB per layer in bf16), read once for the G = 16 query heads sharing the
-// kv head, with each slot's ring split over enough blocks to fill the card.
-#include "paged_decode.cuh"
+// What bounds it: the bytes of the valid K/V rows (recurrentgemma: 8
+// slots x 2048 rows x 1 kv head x 256 x 2 B x 2 = 16.8 MB per layer in
+// bf16), read once for the G = 16 query heads sharing the kv head, with
+// each slot's ring split over enough blocks to fill the card.
+//
+// bfloat16 (``decode_attention_bf16``) runs the one-pass kernel of
+// ``decode_sm90.cuh`` on the tensor cores: an online softmax like the
+// Pallas kernel's, P = exp(s - m) rounded to bf16 before normalization,
+// the splits merged through a thread-block cluster's shared memory in one
+// launch. float32 (``decode_attention_f32``) is an instantiation of the
+// three-launch machinery of ``paged_decode.cuh`` (a ring is one page of W
+// rows per slot), whose numerics are those of the plain version
+// ``plain.decode_attention``: the row's global max and sum, normalized
+// probabilities rounded to q's type before P V, in float32 FMAs (the 2e-5
+// gate and the CUDA == CPU float32 streams need float32 arithmetic).
+#include "decode_sm90.cuh"
 
 namespace {
 
-// A ring (B, W, KVH, D) of T read through its strides; a tile of its rows
-// is copied with 16-byte loads (TileLoader).
+// A ring (B, W, KVH, D) of T read through its strides: the three-launch
+// kernels copy a tile of its rows with 16-byte loads (TileLoader), the
+// one-pass kernel takes each row's address (``paged::SlotRows``).
 template <typename T>
 struct RingPool {
   using Row = const T*;
@@ -39,19 +46,6 @@ struct RingPool {
   }
 };
 
-template <typename T>
-int run(const void* q, const void* kc, const void* vc, const void* pos,
-        void* o, void* scores, void* stats, void* partial, int B, int S,
-        int H, int KVH, int D, int W, long long sb, long long ss,
-        long long sh, int nsplit, float scale, void* stream) {
-  const RingPool<T> k{(const T*)kc, sb, ss, sh};
-  const RingPool<T> v{(const T*)vc, sb, ss, sh};
-  return paged::dispatch<T>(q, k, v, nullptr, (const int*)pos, o,
-                            (float*)scores, (float*)stats, (float*)partial,
-                            B, S, H, KVH, D, /*n_pages=*/1, /*ps=*/W, nsplit,
-                            scale, stream);
-}
-
 }  // namespace
 
 // scores: (B, KVH, G*S, wpad) float32, stats: (B, KVH, nsplit, G*S, 2)
@@ -62,15 +56,24 @@ extern "C" int decode_attention_f32(
     void* scores, void* stats, void* partial, int B, int S, int H, int KVH,
     int D, int W, long long sb, long long ss, long long sh, int nsplit,
     float scale, void* stream) {
-  return run<float>(q, kc, vc, pos, o, scores, stats, partial, B, S, H, KVH,
-                    D, W, sb, ss, sh, nsplit, scale, stream);
+  const RingPool<float> k{(const float*)kc, sb, ss, sh};
+  const RingPool<float> v{(const float*)vc, sb, ss, sh};
+  return paged::dispatch<float>(q, k, v, nullptr, (const int*)pos, o,
+                                (float*)scores, (float*)stats,
+                                (float*)partial, B, S, H, KVH, D,
+                                /*n_pages=*/1, /*ps=*/W, nsplit, scale,
+                                stream);
 }
 
+// nsplit splits per (slot, kv head), one thread-block cluster: a power
+// of two up to 8 (``decode_attention.n_splits_sm90``).
 extern "C" int decode_attention_bf16(
     const void* q, const void* kc, const void* vc, const void* pos, void* o,
-    void* scores, void* stats, void* partial, int B, int S, int H, int KVH,
-    int D, int W, long long sb, long long ss, long long sh, int nsplit,
-    float scale, void* stream) {
-  return run<__nv_bfloat16>(q, kc, vc, pos, o, scores, stats, partial, B, S,
-                            H, KVH, D, W, sb, ss, sh, nsplit, scale, stream);
+    int B, int S, int H, int KVH, int D, int W, long long sb, long long ss,
+    long long sh, int nsplit, float scale, void* stream) {
+  using T = __nv_bfloat16;
+  const RingPool<T> k{(const T*)kc, sb, ss, sh};
+  const RingPool<T> v{(const T*)vc, sb, ss, sh};
+  return sm90::dispatch(q, k, v, (const int*)pos, o, B, S, H, KVH, D, W,
+                        nsplit, scale, stream);
 }

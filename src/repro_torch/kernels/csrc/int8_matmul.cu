@@ -13,9 +13,10 @@
 // tile, and converted in registers: no dequantized copy of a weight is
 // ever written to device memory, since halving that read is the point.
 // Few output tiles cannot keep 132 SMs busy, so the wrapper splits K over
-// ``splits`` blocks per tile; each writes a float32 partial and a second
-// launch sums the partials in split order (deterministic), scales and
-// casts.
+// ``splits`` blocks per tile, and the partials are summed in split order
+// (deterministic): inside the launch by the bf16 decode tile, by a second
+// launch after the prefill and float32 tiles, which write float32
+// partials.
 //
 // bfloat16 x runs on tensor cores, bf16 x bf16 -> f32. An int8 code
 // (|q| <= 127) is exact in bfloat16, and the product of two bfloat16
@@ -40,13 +41,31 @@
 // ``ldmatrix`` fragments (the first design) measured slower than this one
 // at granite's M-512 shapes on the H100.
 //
-// Decode (bm 16, M <= 32): ``mma.sync.m16n8k16``, 16 x 128 tiles of 4
-// warps, 32 deep, the weight tile stored in shared memory as bf16 pairs
-// (k, k+1) of one column (the mma's B fragment), with K split across
-// blocks.
+// Decode (M <= 32, ``decode::kernel``): a weight stream on
+// ``mma.sync.m16n8k16``, also on y^T = w^T x^T, so the weight fills the
+// m16 side and the slots the n8 side (8 slots are one n8 tile, with no
+// padded half). The int8 weight and x go global -> shared by 16-byte
+// ``cp.async`` copies into a ring of 6 stages of 64 K rows (5 in flight,
+// 20 KB of weight per block at 64 columns, 40 KB at 128), with no
+// register staging; each warp converts its codes to exact bf16 pairs in
+// registers right before its products (one 32-bit shared load per k row
+// gives the codes of two m16 tiles). The wrapper's plan (``decode_plan``)
+// picks 128, 64 or 32 columns per block and the fewest K splits (a power
+// of two up to 8) that make about one block per SM; the splits of one
+// column tile are one thread-block cluster, and each block sums its share
+// of the columns over the cluster's partials through distributed shared
+// memory, in rank order, then scales and casts: one launch, no float32
+// partials in device memory. One bulk copy (TMA) per weight row instead,
+// started by one warp, measured slower on the H100. The first decode
+// tile (16 x 128, weights staged through registers 4 KB a block, converted
+// into shared memory, a second launch for the split sum) ran 0.0134 ms
+// on an H100 SXM (700 W) at M 8 and 4096x1024, against 0.0082 for bf16
+// ``torch.matmul``.
 //
 // float32 x is not exact in bf16 (nor in TF32) and the 2e-5 gate needs
 // float32 arithmetic: it takes a float32 FMA path.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "tensor_core.cuh"
 
@@ -55,8 +74,6 @@ namespace {
 constexpr int BN = 128;         // output columns per block
 constexpr int BK = 32;          // contraction depth per tile
 constexpr int THREADS = 128;    // four warps
-constexpr int WPITCH = BN + 8;  // words per pair row of the bf16 weight tile
-constexpr int XPITCH = BK + 8;  // elements per row of the bf16 x tile
 constexpr int FXPITCH = BK + 4;  // floats per row of the f32 x tile
 constexpr int FWPITCH = BN + 4;  // floats per row of the f32 weight tile
 
@@ -127,117 +144,229 @@ __device__ __forceinline__ void emit(T* y, float* partial,
     y[(size_t)m * N + n] = from_f32<T>(acc * __ldg(scale + n));
 }
 
-// Codes e of rows k (lo) and k + 1 (hi) as one bf16 pair, k in the low
-// half (the mma's B fragment order); exact, since |code| <= 127.
-__device__ __forceinline__ uint32_t bf16_pair(const uint4& lo,
-                                              const uint4& hi, int e) {
-  __nv_bfloat162 p =
-      __floats2bfloat162_rn(int8_code(lo, e), int8_code(hi, e));
-  return *reinterpret_cast<uint32_t*>(&p);
-}
+// bfloat16 x at decode (M <= 32): the weight stream, on y^T = w^T x^T.
+namespace decode {
 
-// bfloat16 x at decode on tensor cores: 16 rows, 4 warps side by side,
-// 16 x 32 each.
-__global__ void __launch_bounds__(THREADS)
-int8_mm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                    const int8_t* __restrict__ w,
-                    const float* __restrict__ scale,
-                    __nv_bfloat16* __restrict__ y, float* __restrict__ partial,
-                    int M, int K, int N, int kchunk) {
-  constexpr int BM = 16, WARPS_N = 4;
-  constexpr int WM = 16, WN = BN / WARPS_N;
-  constexpr int MT = WM / 16, NT = WN / 8;
-  __shared__ __align__(16) uint32_t ws[(BK / 2) * WPITCH];
-  __shared__ __align__(16) __nv_bfloat16 xs[BM * XPITCH];
+namespace cg = cooperative_groups;
 
+constexpr int BK = 64;           // K rows per stage
+constexpr int MAX_CLUSTER = 8;   // K splits of one column tile, at most
+
+// BN output columns per block (32, 64 or 128: a warp per 32 columns,
+// the warps of a column group splitting each stage's 4 k-steps; 8 warps,
+// 4 at 32 columns), MTN n8 tiles of x rows (M <= 8 MTN, rows past M
+// zero).
+template <int BN, int MTN>
+struct Cfg {
+  // ring depth: 5 stages in flight ahead of the one in use (12 or 16 at
+  // 64 or 32 columns measured no faster)
+  static constexpr int STAGES = 6;
+  static constexpr int WPITCH = BN + 16;  // bytes per weight row: the rows
+                                          // 2t of a quad in distinct banks
+  static constexpr int W_BYTES = BK * WPITCH;
+  static constexpr int XR = MTN * 8;
+  static constexpr int X_BYTES = XR * BK * 2;  // rows of 128 B, swizzled
+  static constexpr int STAGE = W_BYTES + X_BYTES;
+  static constexpr int WARPS = BN == 32 ? 4 : 8;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int CG = BN / 32;     // column groups
+  static constexpr int KG = WARPS / CG;  // k groups per column group
+  static constexpr int KSW = BK / 16 / KG;  // k-steps per warp per stage
+  static constexpr int OPITCH = BN + 4;  // floats per published row
+  static constexpr int O_BYTES = KG * XR * OPITCH * 4;
+  static constexpr int SMEM =
+      STAGES * STAGE > O_BYTES ? STAGES * STAGE : O_BYTES;
+  static_assert(STAGE % 16 == 0 && KSW >= 1, "tiling");
+};
+
+// The weight is the A operand of ``mma.sync.m16n8k16``: a warp's 32
+// columns are two m16 tiles, logical rows g and g + 8 of tile u being
+// columns 4g + 2u and 4g + 2u + 1, so one 32-bit shared load per k row
+// gives a thread the codes of both tiles; ``codes_to_bf16x2`` turns them
+// into exact bf16 pairs in registers. x is the B operand (``ldmatrix``
+// from the swizzled x tile): 8 slots fill one n8 tile.
+template <int BN, int MTN>
+__global__ void __launch_bounds__(Cfg<BN, MTN>::THREADS)
+kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+       const float* __restrict__ scale, __nv_bfloat16* __restrict__ y,
+       int M, int K, int N, int kchunk) {
+  using C = Cfg<BN, MTN>;
+  extern __shared__ uint4 dec_smem[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(dec_smem);
+  float* os = reinterpret_cast<float*>(dec_smem);  // after the loop
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int cgp = warp % C::CG, kgp = warp / C::CG;
+  const int n0 = blockIdx.x * BN;
   const int k_begin = blockIdx.z * kchunk;
   const int k_end = min(K, k_begin + kchunk);
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  float acc[MT][NT][4];
+  // Stage j: BK weight rows of BN codes, and x's XR rows of BK values;
+  // zeros past M, N and the split's end (K and N are multiples of 16, so
+  // a 16-byte chunk is wholly inside or outside).
+  auto load_tile = [&](int j) {
+    unsigned char* st = sm + (j % C::STAGES) * C::STAGE;
+    uint4* xs = reinterpret_cast<uint4*>(st + C::W_BYTES);
+    const int k0 = k_begin + j * BK;
+    constexpr int WCH = BK * BN / 16, XCH = C::XR * 8;
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  WTile wt;
-  XTile<__nv_bfloat16, BM> xt;
-  wt.load(w, N, k_begin, k_end, n0);
-  xt.load(x, M, K, m0, k_begin, k_end);
-  const int kp = tid >> 3, cc = tid & 7;
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    {
-      // 16 (k, k+1) words of 16 columns in 4 stores of 16 bytes; store j
-      // writes quad (j + cc / 2) % 4, so a quarter warp's stores hit
-      // distinct banks
-      uint4 quad[4];
-#pragma unroll
-      for (int qd = 0; qd < 4; ++qd) {
-        quad[qd].x = bf16_pair(wt.lo, wt.hi, 4 * qd + 0);
-        quad[qd].y = bf16_pair(wt.lo, wt.hi, 4 * qd + 1);
-        quad[qd].z = bf16_pair(wt.lo, wt.hi, 4 * qd + 2);
-        quad[qd].w = bf16_pair(wt.lo, wt.hi, 4 * qd + 3);
-      }
-      uint32_t* dst = ws + kp * WPITCH + 16 * cc;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qd = (j + (cc >> 1)) & 3;
-        const uint4 v = qd == 0 ? quad[0]
-                        : qd == 1 ? quad[1]
-                        : qd == 2 ? quad[2]
-                                  : quad[3];
-        *reinterpret_cast<uint4*>(dst + 4 * qd) = v;
-      }
-      xt.store(xs, XPITCH);
-    }
-    __syncthreads();
-    if (k0 + BK < k_end) {
-      wt.load(w, N, k0 + BK, k_end, n0);
-      xt.load(x, M, K, m0, k0 + BK, k_end);
+    for (int i = 0; i < WCH / C::THREADS; ++i) {
+      const int idx = tid + i * C::THREADS;
+      const int r = idx / (BN / 16), ch = idx % (BN / 16);
+      const int k = k0 + r, n = n0 + 16 * ch;
+      const bool ok = k < k_end && n < N;
+      cp_async16(st + r * C::WPITCH + 16 * ch,
+                 w + (ok ? (size_t)k * N + n : 0), ok);
     }
 #pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t a[MT][4], b[NT][2];
+    for (int i = 0; i < (XCH + C::THREADS - 1) / C::THREADS; ++i) {
+      const int idx = tid + i * C::THREADS;
+      if (XCH % C::THREADS == 0 || idx < XCH) {
+        const int r = idx >> 3, ch = idx & 7, k = k0 + 8 * ch;
+        const bool ok = r < M && k < k_end;
+        cp_async16(xs + swizzle<8>(r, ch), x + (ok ? (size_t)r * K + k : 0),
+                   ok);
+      }
+    }
+  };
+
+  float acc[2][MTN][4];
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const __nv_bfloat16* xr =
-            xs + (wm0 + 16 * i + g) * XPITCH + 16 * ks + 2 * t;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(xr);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(xr + 8 * XPITCH);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(xr + 8);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(xr + 8 * XPITCH + 8);
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int jn = 0; jn < MTN; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[u][jn][e] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < C::STAGES - 1; ++st) {
+    if (st < n_tiles) load_tile(st);
+    cp_async_commit();
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();  // stage j landed; every warp is done with stage j - 1
+    if (j + C::STAGES - 1 < n_tiles) load_tile(j + C::STAGES - 1);
+    cp_async_commit();
+    const unsigned char* ws = sm + (j % C::STAGES) * C::STAGE;
+    const uint4* xs = reinterpret_cast<const uint4*>(ws + C::W_BYTES);
+#pragma unroll
+    for (int kq = 0; kq < C::KSW; ++kq) {
+      const int ks = kgp * C::KSW + kq;
+      const unsigned char* p =
+          ws + (16 * ks + 2 * t) * C::WPITCH + 32 * cgp + 4 * g;
+      // k rows 2t, 2t + 1, 2t + 8, 2t + 9; codes biased by 0x80
+      const uint32_t h0 = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+      const uint32_t h1 =
+          *reinterpret_cast<const uint32_t*>(p + C::WPITCH) ^ 0x80808080u;
+      const uint32_t h2 =
+          *reinterpret_cast<const uint32_t*>(p + 8 * C::WPITCH) ^ 0x80808080u;
+      const uint32_t h3 =
+          *reinterpret_cast<const uint32_t*>(p + 9 * C::WPITCH) ^ 0x80808080u;
+      uint32_t a[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        a[u][0] = codes_to_bf16x2(h0, h1, 2 * u);
+        a[u][1] = codes_to_bf16x2(h0, h1, 2 * u + 1);
+        a[u][2] = codes_to_bf16x2(h2, h3, 2 * u);
+        a[u][3] = codes_to_bf16x2(h2, h3, 2 * u + 1);
       }
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const uint32_t* wr = ws + (8 * ks + t) * WPITCH + wn0 + 8 * j + g;
-        b[j][0] = wr[0];
-        b[j][1] = wr[4 * WPITCH];
+      for (int jn = 0; jn < MTN; ++jn) {
+        uint32_t b[2];
+        ldmatrix_x2(b, xs + swizzle<8>(8 * jn + (lane & 7),
+                                       2 * ks + ((lane >> 3) & 1)));
+        mma_bf16(acc[0][jn], a[0], b);
+        mma_bf16(acc[1][jn], a[1], b);
       }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a[i], b[j]);
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the published partial
 
-  const bool split = gridDim.z > 1;
+  // acc[u][jn]: c0 column 4g + 2u, x row 8jn + 2t; c1 row + 1; c2, c3
+  // column + 1. Published as os[k group][x row][column], four columns a
+  // float4.
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int jn = 0; jn < MTN; ++jn)
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int m = m0 + wm0 + 16 * i + g, n = n0 + wn0 + 8 * j + 2 * t;
-      emit(y, partial, scale, M, N, m, n, acc[i][j][0], split);
-      emit(y, partial, scale, M, N, m, n + 1, acc[i][j][1], split);
-      emit(y, partial, scale, M, N, m + 8, n, acc[i][j][2], split);
-      emit(y, partial, scale, M, N, m + 8, n + 1, acc[i][j][3], split);
+    for (int e = 0; e < 2; ++e) {
+      const int m = 8 * jn + 2 * t + e;
+      *reinterpret_cast<float4*>(os + (kgp * C::XR + m) * C::OPITCH +
+                                 32 * cgp + 4 * g) =
+          make_float4(acc[0][jn][e], acc[0][jn][2 + e], acc[1][jn][e],
+                      acc[1][jn][2 + e]);
     }
+
+  // The K splits of this column tile are one cluster: block ``rank`` sums
+  // columns [rank BN / cs, ...) over the k groups and the cluster's
+  // blocks, in rank order, through distributed shared memory, then scales
+  // and casts.
+  cg::cluster_group cl = cg::this_cluster();
+  const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  cl.sync();
+  const int cols = BN / cs, c0 = rank * cols;
+  const float* src[MAX_CLUSTER];
+#pragma unroll
+  for (int r = 0; r < MAX_CLUSTER; ++r)
+    src[r] = cl.map_shared_rank(os, r < cs ? r : 0);
+  for (int idx = tid; idx < M * cols; idx += C::THREADS) {
+    const int m = idx / cols, nl = c0 + idx % cols, n = n0 + nl;
+    if (n >= N) continue;
+    float v[MAX_CLUSTER][C::KG];  // every load in flight at once
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r)
+#pragma unroll
+      for (int kg = 0; kg < C::KG; ++kg)
+        v[r][kg] = r < cs ? src[r][(kg * C::XR + m) * C::OPITCH + nl] : 0.0f;
+    float sum = 0.0f;
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r)
+#pragma unroll
+      for (int kg = 0; kg < C::KG; ++kg) sum += v[r][kg];
+    y[(size_t)m * N + n] = __float2bfloat16(sum * __ldg(scale + n));
+  }
+  cl.sync();  // no block leaves while another reads its shared memory
 }
+
+template <int BN, int MTN>
+int launch(const void* x, const void* w, const void* scale, void* y, int M,
+           int K, int N, int splits, int kchunk, cudaStream_t stream) {
+  using C = Cfg<BN, MTN>;
+  auto* k = kernel<BN, MTN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN, 1, splits);
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, k, (const __nv_bfloat16*)x,
+                           (const int8_t*)w, (const float*)scale,
+                           (__nv_bfloat16*)y, M, K, N, kchunk);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int BN>
+int by_rows(const void* x, const void* w, const void* scale, void* y, int M,
+            int K, int N, int splits, int kchunk, cudaStream_t st) {
+  if (M <= 8) return launch<BN, 1>(x, w, scale, y, M, K, N, splits, kchunk, st);
+  if (M <= 16)
+    return launch<BN, 2>(x, w, scale, y, M, K, N, splits, kchunk, st);
+  return launch<BN, 4>(x, w, scale, y, M, K, N, splits, kchunk, st);
+}
+
+}  // namespace decode
 
 // bfloat16 x at prefill (M > 32) on Hopper's warpgroup products, as
 // y^T = w^T x^T: a block is one warpgroup computing 64 output columns for
@@ -533,37 +662,55 @@ int finish(const float* partial, const float* scale, T* y, int M, int N,
 // x (M, K), w (K, N) int8, scale (N,) float32, y (M, N) like x; partial
 // (splits, M, N) float32 scratch when splits > 1. Split z covers K rows
 // [z * kchunk, min(K, (z + 1) * kchunk)); kchunk is a multiple of the
-// tile depth (32 at bm 16, 64 at bm 128). bm: rows of x per block, 16
-// (decode, 128 columns per block) or 128 (prefill, 64 columns) in bf16;
-// 16 in f32.
+// tile depth (32 at bm 16, 64 at bm 128). bm: rows of x per block, 128
+// (the bf16 prefill tile, 64 columns, M > 32) in bf16; 16 in f32.
 extern "C" int int8_matmul_bf16(const void* x, const void* w,
                                 const void* scale, void* y, void* partial,
                                 int M, int K, int N, int bm, int splits,
                                 int kchunk, void* stream) {
-  if (K % 16 || N % 16 || splits < 1 || (bm != 16 && bm != prefill::BM) ||
-      kchunk % (bm == 16 ? BK : prefill::BK))
+  if (K % 16 || N % 16 || splits < 1 || bm != prefill::BM ||
+      kchunk % prefill::BK)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const auto* xp = (const __nv_bfloat16*)x;
   auto* yp = (__nv_bfloat16*)y;
-  if (bm == 16) {
-    const dim3 grid((N + BN - 1) / BN, (M + bm - 1) / bm, splits);
-    int8_mm_bf16_kernel<<<grid, THREADS, 0, st>>>(
-        xp, (const int8_t*)w, (const float*)scale, yp, (float*)partial, M,
-        K, N, kchunk);
-  } else {
-    const cudaError_t err = cudaFuncSetAttribute(
-        prefill::kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        prefill::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((N + prefill::BN - 1) / prefill::BN,
-                    (M + prefill::BM - 1) / prefill::BM, splits);
-    prefill::kernel<<<grid, prefill::THREADS, prefill::SMEM, st>>>(
-        xp, (const int8_t*)w, (const float*)scale, yp, (float*)partial, M,
-        K, N, kchunk);
-  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      prefill::kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      prefill::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + prefill::BN - 1) / prefill::BN,
+                  (M + prefill::BM - 1) / prefill::BM, splits);
+  prefill::kernel<<<grid, prefill::THREADS, prefill::SMEM, st>>>(
+      (const __nv_bfloat16*)x, (const int8_t*)w, (const float*)scale, yp,
+      (float*)partial, M, K, N, kchunk);
   return finish((const float*)partial, (const float*)scale, yp, M, N,
                 splits, st);
+}
+
+// The bf16 decode tile, M <= 32: bn output columns per block (32, 64 or
+// 128), ``splits`` K splits per column tile (a power of two up to 8, one
+// cluster), split z covering K rows [z * kchunk, ...), kchunk a multiple
+// of 64 (``int8_matmul.decode_plan``). One launch: the splits are summed
+// inside it.
+extern "C" int int8_matmul_decode_bf16(const void* x, const void* w,
+                                       const void* scale, void* y, int M,
+                                       int K, int N, int bn, int splits,
+                                       int kchunk, void* stream) {
+  if (M < 1 || M > 32 || K % 16 || N % 16 || kchunk < decode::BK ||
+      kchunk % decode::BK || splits < 1 || splits > decode::MAX_CLUSTER ||
+      (splits & (splits - 1)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (bn) {
+    case 32:
+      return decode::by_rows<32>(x, w, scale, y, M, K, N, splits, kchunk, st);
+    case 64:
+      return decode::by_rows<64>(x, w, scale, y, M, K, N, splits, kchunk, st);
+    case 128:
+      return decode::by_rows<128>(x, w, scale, y, M, K, N, splits, kchunk,
+                                  st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int int8_matmul_f32(const void* x, const void* w,

@@ -5,7 +5,8 @@
 // ``::paged_decode_attention_int8`` (TPU kernel 4, int8 pools with one
 // float32 scale per (slot, kv head): ``paged_decode_attention_int8.cu``)
 // and ``::decode_attention`` (TPU kernel 6, a rolling cache of W rows per
-// slot: ``decode_attention.cu``). The kernels are templated on the pool
+// slot: ``decode_attention.cu``, float32 rings; bf16 rings take the
+// one-pass ``decode_sm90.cuh``). The kernels are templated on the pool
 // type; a pool type says where a cache row lives (through the slot's
 // page-table row, or at row t of slot b of a ring when ``kRing``) and how
 // a tile of rows becomes float32 in shared memory.

@@ -1,9 +1,10 @@
-// Tensor-core building blocks shared by the bf16 prefill kernels
-// (flash_attention.cu, int8_matmul.cu): 16-byte asynchronous copies from
-// device memory into shared memory (``cp.async``, zero-filling rows past
-// an edge), ``ldmatrix`` fragment loads, the ``mma.sync.m16n8k16`` bf16
-// product with float32 accumulation, the XOR swizzle that keeps both
-// conflict-free, and the exact int8 -> bf16 conversion of weight codes.
+// Tensor-core building blocks shared by the bf16 kernels
+// (flash_attention.cu, int8_matmul.cu, decode_sm90.cuh): 16-byte
+// asynchronous copies from device memory into shared memory
+// (``cp.async``, zero-filling rows past an edge), ``ldmatrix`` fragment
+// loads, the ``mma.sync.m16n8k16`` bf16 product with float32
+// accumulation, the XOR swizzle that keeps both conflict-free, and the
+// exact int8 -> bf16 conversion of weight codes.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"): lane
 // = 4 * g + t. A (16 x 16, row-major): a0 (row g, cols 2t, 2t+1), a1 (row
@@ -44,6 +45,15 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Two 8 x 8 bf16 matrices; lanes 0-15 give the row addresses (lanes 16-31
+// must still hold shared addresses).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p)));
 }
 

@@ -3,7 +3,9 @@
 ``repro/kernels/decode_attention.py::paged_decode_attention``),
 ``csrc/paged_decode_attention_int8.cu`` (TPU kernel 4,
 ``::paged_decode_attention_int8``) and ``csrc/decode_attention.cu`` (TPU
-kernel 6, ``::decode_attention``, over a rolling cache), beside their
+kernel 6, ``::decode_attention``, over a rolling cache: bfloat16 rings
+take the one-pass tensor-core kernel of ``csrc/decode_sm90.cuh``, float32
+rings the three launches of ``csrc/paged_decode.cuh``), beside their
 plain versions ``plain.paged_decode_attention``,
 ``plain.paged_decode_attention_int8`` and ``plain.decode_attention``.
 
@@ -31,12 +33,37 @@ HEAD_DIMS = (32, 64, 128, 256)
 MAX_ROWS = 64  # G * S query rows per (slot, kv head) block
 TILE = 32  # cache slots per tile
 TARGET_BLOCKS = 2 * 132  # two blocks for each of the H100's 132 SMs
+SM90_TILE = 64  # cache rows per tile of the one-pass bf16 kernel
+MAX_SPLITS_SM90 = 8  # its splits of one (slot, kv head): one cluster
 
 
 def n_splits(b: int, hkv: int, window: int) -> int:
-    """Blocks each (slot, kv head) pair's context is split across: enough
-    pairs x splits to fill the card, never more splits than tiles."""
+    """Blocks each (slot, kv head) pair's context is split across by the
+    three-launch kernels (paged pools, float32 rings): enough pairs x
+    splits to fill the card, never more splits than tiles."""
     return max(1, min(-(-TARGET_BLOCKS // (b * hkv)), -(-window // TILE)))
+
+
+def n_splits_sm90(b: int, hkv: int, window: int) -> int:
+    """Splits per (slot, kv head) of the one-pass bf16 kernel, one
+    thread-block cluster: the power of two that brings pairs x splits to
+    about ``TARGET_BLOCKS``, at most 8 and at most the 64-row tiles (one
+    more power of two where the tiles are not one). At recurrentgemma's
+    8 slots over 1 kv head that is 8 splits, 64 blocks: 16 or 32 splits
+    merged across clusters measured slower on the H100."""
+    want = min(-(-TARGET_BLOCKS // (b * hkv)), -(-window // SM90_TILE),
+               MAX_SPLITS_SM90)
+    return 1 << (max(1, want) - 1).bit_length()
+
+
+def split_rows(nmax: int, nsplit: int, split: int):
+    """[begin, end) of the rows of a slot with ``nmax`` valid rows that
+    split ``split`` covers: whole 64-row tiles in contiguous runs (the
+    kernel's ``sm90::split_rows``)."""
+    tiles = -(-nmax // SM90_TILE)
+    per = -(-tiles // nsplit)
+    return (min(nmax, split * per * SM90_TILE),
+            min(nmax, (split + 1) * per * SM90_TILE))
 
 
 def _check_shapes(name, q, k_pool, v_pool, page_table, pos):
@@ -69,9 +96,9 @@ def _strides(name, pools, vec: int):
 
 def _launch(name, entry, q, pools, scale_pools, page_table, pos):
     """Checks every kernel of the family shares, then one launch of
-    ``entry`` (three kernels on the current stream). ``page_table`` None:
-    the pools are rolling caches (B, W, KVH, D), one page of W rows per
-    slot, and the entry takes no table."""
+    ``entry`` (three kernels on the current stream; one for a bf16
+    ring). ``page_table`` None: the pools are rolling caches (B, W, KVH,
+    D), one page of W rows per slot, and the entry takes no table."""
     b, s, h, d = q.shape
     ring = page_table is None
     _, ps, hkv, _ = pools[0].shape
@@ -93,6 +120,10 @@ def _launch(name, entry, q, pools, scale_pools, page_table, pos):
         raise ValueError(f"{name}: q, page_table, pos must be contiguous")
     out = torch.empty_like(q)
     window = n_pages * ps
+    lib = build.load()
+    if ring and q.dtype == torch.bfloat16:
+        return _launch_sm90(name, entry, lib, q, pools, pos, out, strides,
+                            window)
     nsplit = n_splits(b, hkv, window)
     # scratch of the kernel's three launches; freed on return, its memory
     # is reused only by later work on the same stream
@@ -100,7 +131,6 @@ def _launch(name, entry, q, pools, scale_pools, page_table, pos):
     scores = torch.empty((b, hkv, rows, -(-window // TILE) * TILE), **f32)
     stats = torch.empty((b, hkv, nsplit, rows, 2), **f32)
     partial = torch.empty((b, hkv, nsplit, rows, d), **f32)
-    lib = build.load()
     table = () if ring else (page_table.data_ptr(),)
     geometry = (ps,) if ring else (n_pages, ps)
     lib.call(entry, q.data_ptr(), *(p.data_ptr() for p in pools),
@@ -108,6 +138,18 @@ def _launch(name, entry, q, pools, scale_pools, page_table, pos):
              pos.data_ptr(), out.data_ptr(), scores.data_ptr(),
              stats.data_ptr(), partial.data_ptr(), b, s, h, hkv, d,
              *geometry, *strides, nsplit, d ** -0.5,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.LAUNCHES[name] += 1
+    return out
+
+
+def _launch_sm90(name, entry, lib, q, pools, pos, out, strides, window):
+    """One launch of the one-pass bf16 kernel over rings (B, W, KVH, D)."""
+    b, s, h, d = q.shape
+    hkv = pools[0].shape[2]
+    lib.call(entry, q.data_ptr(), *(p.data_ptr() for p in pools),
+             pos.data_ptr(), out.data_ptr(), b, s, h, hkv, d, window,
+             *strides, n_splits_sm90(b, hkv, window), d ** -0.5,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.LAUNCHES[name] += 1
     return out

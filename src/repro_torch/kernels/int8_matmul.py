@@ -21,11 +21,16 @@ DECODE_ROWS, PREFILL_ROWS = 16, 128  # rows of x per block
 SMS = 132  # the H100's streaming multiprocessors
 TARGET_BLOCKS = 4 * SMS  # a decode K split aims at four blocks per SM
 MIN_TILES = 8  # and a split leaves each at least 8 tiles of K
+DECODE_DEPTH = 64  # K rows per stage of the bf16 decode tile
+MAX_CLUSTER = 8  # its K splits of one column tile form one cluster
+DECODE_MIN_BLOCKS = 96  # it aims at one block per SM, at least 3/4 of them
 
 
 def block_rows(m: int, dtype) -> int:
-    """Rows of x per block: 16 for decode batches and for float32 x (the
-    FMA path), 128 for bfloat16 prefill (M > 32, the warpgroup tile)."""
+    """Rows of x per block: 16 for float32 x (the FMA tile, planned by
+    ``k_splits``) and for bfloat16 decode batches (M <= 32: the decode
+    tile, which takes all M rows at once, planned by ``decode_plan``),
+    128 for bfloat16 prefill (M > 32, the warpgroup tile)."""
     return DECODE_ROWS if dtype == torch.float32 or m <= 32 \
         else PREFILL_ROWS
 
@@ -41,8 +46,9 @@ def tile_depth(bm: int) -> int:
 
 
 def k_splits(m: int, k: int, n: int, bm: int):
-    """(splits, kchunk): how many blocks share one output tile's K, and
-    the K rows each covers (a multiple of the tile depth). A call with
+    """(splits, kchunk) of the float32 and prefill tiles: how many blocks
+    share one output tile's K, and the K rows each covers (a multiple of
+    the tile depth). A call with
     fewer output tiles than SMs splits K: at decode (N / 128 column
     blocks) until about ``TARGET_BLOCKS`` are in flight; at prefill until
     about one block per SM."""
@@ -56,6 +62,30 @@ def k_splits(m: int, k: int, n: int, bm: int):
     splits = max(1, min(want, tiles // MIN_TILES))
     per = -(-tiles // splits)
     return -(-tiles // per), per * bk
+
+
+def decode_plan(m: int, k: int, n: int):
+    """(columns per block, splits, kchunk) of the bf16 decode tile
+    (M <= 32): the fewest K splits (a power of two up to 8, one
+    thread-block cluster) that give at least ``DECODE_MIN_BLOCKS`` blocks
+    at 128 or 64 columns per block (the wider on a tie), else 32 columns
+    and 8 splits; never more splits than 64-row K tiles. Each split covers
+    kchunk K rows (whole tiles; trailing splits may be empty). About one
+    block per SM with long K runs measured faster on the H100 than two or
+    more per SM with more splits (e.g. 4096x14336: 1 split, 112 blocks,
+    against 2 splits, 224 blocks)."""
+    k_tiles = -(-k // DECODE_DEPTH)
+    best = (32, MAX_CLUSTER)
+    for bn in (64, 128):
+        tiles, splits = -(-n // bn), 1
+        while tiles * splits < DECODE_MIN_BLOCKS and splits < MAX_CLUSTER:
+            splits *= 2
+        if tiles * splits >= DECODE_MIN_BLOCKS and (
+                best[0] == 32 or splits <= best[1]):
+            best = (bn, splits)
+    bn, splits = best
+    splits = min(splits, 1 << (k_tiles.bit_length() - 1))
+    return bn, splits, -(-k_tiles // splits) * DECODE_DEPTH
 
 
 def quantize_int8(w, axis: int = 0):
@@ -97,6 +127,14 @@ def int8_matmul(x, w_q, scale):
     if x.data_ptr() % 16 or w_q.data_ptr() % 16:
         raise ValueError(f"{name}: x and w_q must be 16-byte aligned")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16 and m <= 32:
+        bn, splits, kchunk = decode_plan(m, k, n)
+        build.load().call("int8_matmul_decode_bf16", x.data_ptr(),
+                          w_q.data_ptr(), scale.data_ptr(), y.data_ptr(), m,
+                          k, n, bn, splits, kchunk, stream)
+        build.LAUNCHES[name] += 1
+        return y
     bm = block_rows(m, x.dtype)
     splits, kchunk = k_splits(m, k, n, bm)
     # the K split's float32 partials; freed on return, its memory is
@@ -105,8 +143,7 @@ def int8_matmul(x, w_q, scale):
                if splits > 1 else y)
     build.load().call(_ENTRY[x.dtype], x.data_ptr(), w_q.data_ptr(),
                       scale.data_ptr(), y.data_ptr(), partial.data_ptr(), m,
-                      k, n, bm, splits, kchunk,
-                      torch.cuda.current_stream(x.device).cuda_stream)
+                      k, n, bm, splits, kchunk, stream)
     # the prefill tile is a kernel of its own and counts apart
     build.LAUNCHES[name + "_prefill" if bm == PREFILL_ROWS else name] += 1
     return y

@@ -245,6 +245,65 @@ def test_rolling_decode_kernel_matches_plain(dev, s, h, kvh, d, dtype):
                                rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("window", [64, 2048])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("g", [1, 8, 16])
+@pytest.mark.parametrize("s", [1, 2, 4])
+def test_bf16_rolling_decode_one_pass_matches_plain(dev, s, g, d, window):
+    """The one-pass tensor-core kernel over bf16 rings: 8 slots whose
+    positions straddle a 64-row tile's edge, a split's edge (4 tiles a
+    split at W 2048), the window, and a wrapped ring (pos past W, pos % W
+    != 0); G = 1 over 4 kv heads, G = 8 and 16 over one (8 splits, one
+    cluster, at W 2048; one split at W 64). Two calls give bit-identical
+    outputs."""
+    from repro_torch.kernels.decode_attention import n_splits_sm90
+
+    kvh = 4 if g == 1 else 1
+    b = 8
+    gen = torch.Generator(device=dev).manual_seed(s * 1000 + g * d + window)
+    k = _rand(gen, (b, window, kvh, d), torch.bfloat16, dev)
+    v = _rand(gen, (b, window, kvh, d), torch.bfloat16, dev)
+    ctx = [1, 63, 64, 65, 257, window - 1, window, window + 777]
+    pos = torch.tensor([max(c, s) for c in ctx], dtype=torch.int32,
+                       device=dev)
+    q = _rand(gen, (b, s, g * kvh, d), torch.bfloat16, dev)
+    assert n_splits_sm90(b, kvh, window) == (1 if window == 64 else 8)
+    before = ops.LAUNCHES["decode_attention"]
+    got = ops.decode_attention(q, k, v, pos)
+    again = ops.decode_attention(q, k, v, pos)
+    assert ops.LAUNCHES["decode_attention"] == before + 2
+    want = L.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 14336),
+                                 (14336, 4096), (4112, 1040)])
+@pytest.mark.parametrize("m", [1, 8, 16, 32])
+def test_int8_matmul_decode_tile_matches_plain(dev, m, k, n):
+    """The bf16 decode tile (M <= 32) at granite's projection shapes and
+    at a K that is not a multiple of the 64-row stage (and an N that is
+    not one of 32 columns): one launch, and a second call gives the same
+    output."""
+    gen = torch.Generator(device=dev).manual_seed(m * 7 + k + n)
+    x = _rand(gen, (m, k), torch.bfloat16, dev)
+    w_q, scale = ops.quantize_int8(_rand(gen, (k, n), torch.float32, dev))
+    before = dict(ops.LAUNCHES)
+    got = ops.int8_matmul(x, w_q, scale)
+    assert ops.LAUNCHES == dict(before,
+                                int8_matmul=before["int8_matmul"] + 1)
+    again = ops.int8_matmul(x, w_q, scale)
+    want = L.int8_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, n)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
 @pytest.mark.parametrize("b,s,l", [(1, 37, 4096), (2, 130, 256),
                                    (3, 1, 64)])
 def test_rglru_scan_kernel_matches_plain(dev, b, s, l):

@@ -1,9 +1,12 @@
-"""The int8 matmul's launch tiling as its wrapper computes it in Python:
-the tile each M and dtype takes, and the K splits at granite's projection
-shapes (wq/wo, wk/wv, w1/w3, w2), for the decode and the prefill tiles."""
+"""The kernels' launch plans as their wrappers compute them in Python:
+the int8 matmul's tile for each M and dtype and its K splits at granite's
+projection shapes (wq/wo, wk/wv, w1/w3, w2), for the float32, bf16 decode
+and bf16 prefill tiles; and the one-pass bf16 rolling decode kernel's
+context splits (one thread-block cluster per slot and kv head)."""
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import int8_matmul as im
 
 GRANITE_KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
@@ -36,10 +39,10 @@ def test_int8_prefill_splits_cover_k_and_fill_the_card(m):
 
 @pytest.mark.parametrize("m", [1, 8, 16, 32])
 def test_int8_decode_splits_cover_k(m):
-    """Decode batches keep the 16-row tile and split K until about
-    ``TARGET_BLOCKS`` are in flight, each split at least ``MIN_TILES``
-    tiles deep."""
-    bm = im.block_rows(m, torch.bfloat16)
+    """float32 decode batches keep the 16-row FMA tile and split K until
+    about ``TARGET_BLOCKS`` are in flight, each split at least
+    ``MIN_TILES`` tiles deep (bf16 decode batches: ``decode_plan``)."""
+    bm = im.block_rows(m, torch.float32)
     assert bm == im.DECODE_ROWS
     for k, n in GRANITE_KN:
         splits, chunk, blocks = _check_splits(m, k, n, bm)
@@ -55,3 +58,86 @@ def test_float32_keeps_the_fma_tile(m):
     assert bm == im.DECODE_ROWS
     for k, n in GRANITE_KN:
         _check_splits(m, k, n, bm)
+
+
+def _decode_blocks(n, bn, splits):
+    return -(-n // bn) * splits
+
+
+@pytest.mark.parametrize("k,n", GRANITE_KN + ((4112, 1040), (256, 384),
+                                              (128, 64)))
+@pytest.mark.parametrize("m", [1, 8, 16, 32])
+def test_int8_bf16_decode_plan_covers_k_once(m, k, n):
+    """The bf16 decode tile's splits are whole 64-row K tiles that cover
+    K exactly once (trailing splits may be empty, none overlaps), a power
+    of two that one thread-block cluster holds."""
+    bn, splits, chunk = im.decode_plan(m, k, n)
+    assert bn in (32, 64, 128)
+    assert 1 <= splits <= im.MAX_CLUSTER and splits & (splits - 1) == 0
+    assert chunk % im.DECODE_DEPTH == 0
+    covered = [0] * k
+    for z in range(splits):
+        for r in range(z * chunk, min(k, (z + 1) * chunk)):
+            covered[r] += 1
+    assert covered == [1] * k
+    assert (splits - 1) * chunk < k or splits == 1
+
+
+def test_int8_bf16_decode_plan_at_granite_shapes():
+    """About one block per SM at every granite projection, with the
+    fewest K splits that reach it: 4096x14336 (w1/w3) 112 column tiles
+    of 128 and no split; 14336x4096 (w2) and 4096x4096 (wq/wo) 64 tiles
+    of 64 columns, 2 splits; 4096x1024 (wk/wv) 16 tiles, 8 splits."""
+    plans = {kn: im.decode_plan(8, *kn) for kn in GRANITE_KN}
+    assert plans[(4096, 14336)] == (128, 1, 4096)
+    assert plans[(14336, 4096)] == (64, 2, 7168)
+    assert plans[(4096, 4096)] == (64, 2, 2048)
+    assert plans[(4096, 1024)] == (64, 8, 512)
+    for (k, n), (bn, splits, _) in plans.items():
+        blocks = _decode_blocks(n, bn, splits)
+        assert im.DECODE_MIN_BLOCKS <= blocks <= im.SMS
+        assert splits == 1 or _decode_blocks(n, bn, splits // 2) \
+            < im.DECODE_MIN_BLOCKS
+
+
+# rolling decode: (slots, kv heads, window) of recurrentgemma's local
+# attention, of granite with paged=False, and small ones
+RING_SHAPES = ((8, 1, 2048), (8, 8, 1024), (8, 8, 256), (4, 2, 64),
+               (1, 1, 2048), (3, 8, 200), (16, 1, 2048))
+
+
+@pytest.mark.parametrize("b,hkv,window", RING_SHAPES)
+def test_rolling_sm90_splits_cover_every_row_once(b, hkv, window):
+    """Every valid row of a slot lies in exactly one split, for slots
+    holding 1 row, a tile's edge, a split's edge and the whole window."""
+    nsplit = da.n_splits_sm90(b, hkv, window)
+    for nmax in sorted({1, 63, 64, 65, 255, 256, 257, window - 1, window}):
+        if not 1 <= nmax <= window:
+            continue
+        covered = [0] * nmax
+        for z in range(nsplit):
+            lo, hi = da.split_rows(nmax, nsplit, z)
+            assert lo % da.SM90_TILE == 0 or lo == nmax
+            for t in range(lo, hi):
+                covered[t] += 1
+        assert covered == [1] * nmax
+
+
+@pytest.mark.parametrize("b,hkv,window", RING_SHAPES)
+def test_rolling_sm90_splits_fit_one_cluster(b, hkv, window):
+    """The splits of one (slot, kv head) are one thread-block cluster: a
+    power of two up to 8, no more than one past the 64-row tiles."""
+    nsplit = da.n_splits_sm90(b, hkv, window)
+    assert 1 <= nsplit <= da.MAX_SPLITS_SM90
+    assert nsplit & (nsplit - 1) == 0
+    assert nsplit < 2 * -(-window // da.SM90_TILE)
+
+
+def test_rolling_sm90_splits_at_the_served_shapes():
+    """recurrentgemma's 8 slots over 1 kv head take a full cluster of 8
+    splits (64 blocks: more splits, merged across clusters, measured
+    slower); granite's 8 slots x 8 kv heads over rings give at least 132
+    blocks."""
+    assert da.n_splits_sm90(8, 1, 2048) == 8
+    for window in (256, 1024):
+        assert 8 * 8 * da.n_splits_sm90(8, 8, window) >= im.SMS
