@@ -18,7 +18,9 @@ Phases, in order; any failure exits non-zero:
    of each time for prefill attention and the int8 matmul. The int8
    kernels (paged decode over int8 pools, the int8-weight matmul)
    likewise, at the same shapes and at granite's projection shapes
-   (decode M 8 and prefill M 512). Then recurrentgemma-9b's
+   (decode M 8 and prefill M 512). bf16 paged decode over model-dtype
+   and int8 pools (the one-launch twin-order kernel) also prints its
+   error in units of 2^-8 sum p|v| and must repeat bit for bit. Then recurrentgemma-9b's
    shapes: windowed prefill attention (S 2560, 16 q heads over 1 kv head,
    head_dim 256, window 2048), rolling-cache decode attention (8 rings of
    2048, S 1 and 4, rings partly filled to wrapped; bf16 on the one-pass
@@ -262,10 +264,19 @@ def phase_kernels(torch, rec):
                 err_ref = (got.float() - oracle.float()).abs().max().item()
                 tol = TOL[dt_name]
                 good = err <= tol and err_ref <= tol
+                units = ""
+                if dt_name == "bfloat16":
+                    u = paged_units(got, want, q, kp, vp, tab, pos)
+                    same = bool(torch.equal(
+                        got, ops.paged_decode_attention(q, kp, vp, tab,
+                                                        pos)))
+                    good &= same
+                    units = (f" scaled {u:.3g} units of 2^-8 sum p|v|, a "
+                             f"second call bit-identical: {same}")
                 ok &= good
                 line = (f"paged decode {dt_name} S={s} {name}: "
                         f"max_abs_err={err:.3g} (vs ref {err_ref:.3g}) "
-                        f"tol={tol} {'ok' if good else 'FAIL'}")
+                        f"tol={tol}{units} {'ok' if good else 'FAIL'}")
                 if name == "live" and s in (1, 4):
                     ms = time_ms(torch, lambda i: ops.paged_decode_attention(
                         q, *pools[i % 4], tab, pos))
@@ -341,6 +352,21 @@ def phase_kernels(torch, rec):
           f"ms={ms:.4f} plain_ms={plain:.4f}", flush=True)
     ok &= hybrid_kernels(torch, rec, gen)
     return ok
+
+
+def paged_units(got, want, q, k_pool, v_pool, table, pos):
+    """max |got - want| / (2^-8 * paged decode attention of |v|), the
+    attention of |v| in float32 by the plain version; an element equal in
+    both counts 0 (int8 codes of 0 make the attention of |v| 0 where a
+    query sees one row)."""
+    import torch
+    from repro_torch.kernels import plain
+
+    scale = plain.paged_decode_attention(q.float(), k_pool.float(),
+                                         v_pool.float().abs(), table, pos)
+    diff = (got.float() - want.float()).abs()
+    return torch.where(diff > 0, diff / scale,
+                       torch.zeros_like(diff)).max().item() / BF16_UNIT
 
 
 def ring_units(got, want, q, k, v, pos):
@@ -628,14 +654,24 @@ def int8_decode_kernel(torch, rec, gen, H, KVH, D):
                                              err(pallas), err(exact))
                     good = (e <= tol_twin and e_ref <= tol
                             and e_ex <= bnd + tol)
+                    units = ""
+                    if dt_name == "bfloat16":
+                        u = paged_units(got, want, q, dequantize_kv(
+                            k8, ks, dt), dequantize_kv(v8, vs, dt), tab, pos)
+                        same = bool(torch.equal(
+                            got, ops.paged_decode_attention_int8(q, *args)))
+                        good &= same
+                        units = (f"; scaled {u:.3g} units of 2^-8 sum "
+                                 f"p|v|, a second call bit-identical: "
+                                 f"{same}")
                     ok &= good
                     line = (f"paged decode int8 {dt_name} {gran} scales "
                             f"S={s} {name}: max_abs_err={e:.3g} "
                             f"tol={tol_twin} (vs ref {e_ref:.3g} "
                             f"tol={tol}); vs float32-dequant "
                             f"(Pallas body) {e_pal:.3g}; vs unquantized "
-                            f"kernel {e_ex:.3g} <= bound {bnd:.3g} + tol "
-                            f"{'ok' if good else 'FAIL'}")
+                            f"kernel {e_ex:.3g} <= bound {bnd:.3g} + tol"
+                            f"{units} {'ok' if good else 'FAIL'}")
                     if name == "live":
                         ms = time_ms(torch, lambda i: (
                             ops.paged_decode_attention_int8(

@@ -31,7 +31,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 
 #: C signature of every entry point: (library, argtypes); all return int
-#: (a cudaError_t, 0 on success).
+#: (a cudaError_t, 0 on success; ``paged_decode_sm90_smem``: bytes).
 SIGNATURES = {
     "flash_attention_f32": ("flash_attention",
                             [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P]),
@@ -42,13 +42,14 @@ SIGNATURES = {
         [_P] * 9 + [_I] * 7 + [_L] * 3 + [_I, _F, _P]),
     "paged_decode_attention_bf16": (
         "paged_decode_attention",
-        [_P] * 9 + [_I] * 7 + [_L] * 3 + [_I, _F, _P]),
+        [_P] * 6 + [_I] * 7 + [_L] * 3 + [_I] * 3 + [_F, _P]),
+    "paged_decode_sm90_smem": ("paged_decode_attention", [_I] * 7),
     "paged_decode_attention_int8_f32": (
         "paged_decode_attention_int8",
         [_P] * 11 + [_I] * 7 + [_L] * 6 + [_I, _F, _P]),
     "paged_decode_attention_int8_bf16": (
         "paged_decode_attention_int8",
-        [_P] * 11 + [_I] * 7 + [_L] * 6 + [_I, _F, _P]),
+        [_P] * 8 + [_I] * 7 + [_L] * 6 + [_I] * 3 + [_F, _P]),
     "decode_attention_f32": (
         "decode_attention", [_P] * 8 + [_I] * 6 + [_L] * 3 + [_I, _F, _P]),
     "decode_attention_bf16": (
@@ -98,6 +99,10 @@ class KernelLibrary:
         if err != 0:
             raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                                f"cudaError {err}")
+
+    def value(self, name: str, *args) -> int:
+        """The int a host-side entry (no launch) returns."""
+        return self._fns[name](*args)
 
 
 _LIB: Optional[KernelLibrary] = None

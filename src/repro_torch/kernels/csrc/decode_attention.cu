@@ -58,11 +58,9 @@ extern "C" int decode_attention_f32(
     float scale, void* stream) {
   const RingPool<float> k{(const float*)kc, sb, ss, sh};
   const RingPool<float> v{(const float*)vc, sb, ss, sh};
-  return paged::dispatch<float>(q, k, v, nullptr, (const int*)pos, o,
-                                (float*)scores, (float*)stats,
-                                (float*)partial, B, S, H, KVH, D,
-                                /*n_pages=*/1, /*ps=*/W, nsplit, scale,
-                                stream);
+  return paged::dispatch(q, k, v, nullptr, (const int*)pos, o, (float*)scores,
+                         (float*)stats, (float*)partial, B, S, H, KVH, D,
+                         /*n_pages=*/1, /*ps=*/W, nsplit, scale, stream);
 }
 
 // nsplit splits per (slot, kv head), one thread-block cluster: a power

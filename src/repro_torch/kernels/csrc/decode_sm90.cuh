@@ -1,54 +1,82 @@
-// One-pass split-context decode attention on Hopper's tensor cores
-// (sm_90a), bfloat16. It serves the port of the Pallas TPU kernel
-// ``repro/kernels/decode_attention.py::decode_attention`` (TPU kernel 6)
-// over bf16 rolling caches (``decode_attention.cu``, ``RingPool``), and is
-// templated on the same pool concept as ``paged_decode.cuh`` (``SlotRows``,
-// ``Pool::kRing``), so that the paged pools can move onto it by
-// instantiation. The float32 ring and the paged pools stay on
-// ``paged_decode.cuh``.
+// One-launch split-context decode attention on Hopper (sm_90a), bfloat16,
+// in two variants that share their loaders and their cluster of splits:
+//   * ``decode_kernel``, an online softmax on the tensor cores, serves the
+//     port of the Pallas TPU kernel
+//     ``repro/kernels/decode_attention.py::decode_attention`` (TPU kernel
+//     6) over bf16 rolling caches (``decode_attention.cu``, ``RingPool``);
+//   * ``twin_kernel``, the twins' softmax order in float32 FMAs, serves
+//     ``::paged_decode_attention`` (TPU kernel 2) over bf16 pools
+//     (``paged_decode_attention.cu``, ``PlainPool``) and
+//     ``::paged_decode_attention_int8`` (TPU kernel 4) over int8 pools
+//     with float32 scales (``paged_decode_attention_int8.cu``,
+//     ``Int8Pool``).
+// Both are templated on the pool concept of ``paged_decode.cuh``
+// (``SlotRows``: a row through the slot's page-table row, or row t of a
+// ring). float32 pools and rings stay on that header's three launches.
 //
 // For each decode slot b and kv head c, the G*S query rows that share the
 // kv head (rows ordered (g, s)) attend the slot's cache rows; query s of S
 // sees min(pos - (S-1) + s, W) rows. The grid is (KVH, B, nsplit): split z
-// takes a contiguous run of the slot's 64-row tiles (``split_rows``).
+// takes a contiguous run of the slot's 64-row tiles (``split_rows``), and
+// the nsplit splits of one (slot, kv head), at most 8, are one
+// thread-block cluster on neighbouring SMs, merged deterministically
+// through distributed shared memory, in rank order, with no atomics.
 //
-// What bounds it: the bytes of the valid K/V rows (recurrentgemma: 8
-// rings of 2048 rows x 256 x 2 B x 2 = 16.8 MB per layer when full), read
-// once for the G query heads; the FLOPs are 4 * G * S per element, far
-// below the tensor cores' rate. The three-launch core of
-// ``paged_decode.cuh`` lost 3.9x to one SDPA call at recurrentgemma's
-// shape: a float32 score scratch written and read back, scalar FMAs on
-// float32 copies of each tile, and a combine launch on B x KVH = 8 blocks.
-// This kernel is one launch with no score scratch:
-//   * Q (G*S rows, padded to a multiple of 16 with zeros), K and V tiles
-//     of 64 rows come into XOR-swizzled bf16 shared tiles by 16-byte
-//     ``cp.async`` copies (rows past the slot's last valid one are
-//     zero-filled and never fetched); K and V are separate commit groups,
-//     so S = Q K^T starts while V is still in flight. A ring of up to 3
-//     stages (as many as a split has tiles and shared memory holds: 3 at
-//     16 rows and head_dim 256, 2 at 64 rows) keeps the next tiles'
-//     copies in flight while one is computed. One bulk copy (TMA) per
-//     cache row instead, started by one warp, measured slower on the H100.
-//   * S = Q K^T and O += P V run on ``mma.sync.m16n8k16`` bf16 -> f32
-//     with ``ldmatrix`` fragments: for S each warp takes 8 keys of the
-//     tile for all query rows; the row maxima meet in shared memory; P =
-//     exp(s - m), rounded to bf16 (as the one-pass prefill kernel
-//     ``flash_attention.cu`` rounds it: before normalization, so the
-//     output moves by at most one bf16 step against the twin, which
-//     rounds the normalized p), goes to a shared tile; for O each warp
-//     takes D / WARPS output columns. Running max, sum and O stay float32
-//     in registers.
-//   * The splits of one (slot, kv head), at most 8, are one thread-block
-//     cluster on neighbouring SMs, and are merged deterministically, with
-//     no atomics: each block publishes (m, l, O) in its own shared memory
-//     and block r merges output columns [r D / nsplit, ...) of every
-//     block through distributed shared memory, in rank order. At
-//     recurrentgemma's shape (8 slots) that is 64 blocks of up to 4 tiles
-//     each; 16 or 32 splits (two or four clusters merged by the last to
-//     arrive, or one cluster of 16) measured slower, as did 4.
+// What bounds both: the bytes of the valid K/V rows, read once for the G
+// query heads (granite: 8 slots x up to 1024 rows x 8 kv heads x 128 x 2 B
+// x 2 = 33.6 MB per layer when full, half that plus 4 B a row in int8;
+// recurrentgemma: 8 rings of 2048 x 256 x 2 B x 2 = 16.8 MB); the FLOPs
+// are 4 * G * S per element, far below the card's rates. So both are one
+// launch that keeps every intermediate on chip: Q, K and V tiles of 64
+// rows come into XOR-swizzled bf16 shared tiles by 16-byte ``cp.async``
+// copies (rows past the slot's last valid one are zero-filled and never
+// fetched), through a ring that keeps the next tiles' copies in flight
+// while one is computed. One bulk copy (TMA) per cache row instead,
+// started by one warp, measured slower on the H100. int8 codes come in by
+// 16-byte copies and each row's scale by a 4-byte one; a conversion pass
+// writes round_to<bf16>(code * scale) into the swizzled bf16 tile,
+// exactly the twin's dequantized cache.
+//
+// The online kernel computes S = Q K^T and O += P V on
+// ``mma.sync.m16n8k16`` bf16 -> f32 with ``ldmatrix`` fragments (for S
+// each warp 8 keys of the tile for all query rows, for O D / WARPS output
+// columns) and rounds P = exp(s - m) to bf16 before normalization (as the
+// one-pass prefill kernel ``flash_attention.cu`` does), so its output
+// moves by at most one bf16 step against its twin (3.91e-3 at
+// recurrentgemma's shape): each split keeps a running max, sum and O in
+// registers, publishes (m, l, O), and block r merges output columns
+// [r D / nsplit, ...) of every block with the weights exp(m_j - M).
+//
+// The twin kernel keeps the twins' order of roundings
+// (``layers.paged_decode_attention``, ``_int8``), to which int8 decode is
+// held at 1e-3: the row's GLOBAL max M and sum L first, then p =
+// round_to<bf16>(exp(s - M) / L), then P V in float32. One launch:
+//   A. each split computes its scaled, masked scores S = Q K^T, keeps them
+//      in shared memory as float32 (``keep``) and its own (m, l);
+//   B. ``cluster.sync()``, then every block reads all ranks' (m, l)
+//      through distributed shared memory and forms M = max m_j and L =
+//      sum_j l_j exp(m_j - M) in rank order;
+//   C. p = round_to<bf16>(exp(s - M) / L) in place of the scores, O += P V;
+//      block r sums output columns [r D / nsplit, ...) of every block's O
+//      in rank order (p is already normalized: no rescaling) and writes
+//      bf16.
+// The scores never leave the SM. Both products are chains of float32 FMAs in
+// the twin's order (over d for S, over the split's keys for P V): bf16
+// products are exact, so within a split they are the twin's float32 sums bit
+// for bit. On ``mma.sync`` they are not: S differs in its last bits and p
+// then flips by one bf16 step, and the tensor cores' wider P V sums miss the
+// twin's float32 rounding onto a midpoint between two bf16 values (one
+// element 3.9e-3 off at S 4 in ``chip_smoke.py``); on the H100 both broke
+// the int8 kernel's 1e-3 gate now and then. A split whose scores do not fit
+// the shared memory (``keep`` 0: long contexts at many query rows) computes
+// Q K^T again in C from a second read of K. The ring's events are K tiles in
+// A, then V tiles (or K then V tiles) in C. ``expf`` (not ``ex2.approx``)
+// and a true division form p, as the twins do.
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "paged_decode.cuh"
 #include "tensor_core.cuh"
@@ -58,21 +86,43 @@ namespace sm90 {
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
-constexpr int BKV = 64;         // ring rows per K/V tile
+constexpr int BKV = 64;         // cache rows per K/V tile
 constexpr int MAX_CLUSTER = 8;   // splits per (slot, kv head): one cluster
 constexpr int MAX_ROWS = 64;     // G * S query rows per block
-constexpr int MAX_STAGES = 3;
+constexpr int MAX_STAGES = 3;    // ring stages of the online kernel
+constexpr int MAX_RING = 8;      // ring slots of the twin kernel
 constexpr int MAX_SMEM = 232448;  // a block's shared memory on sm_90
 
+// A pool whose rows are int8 codes and a float32 scale (``Row`` a struct
+// of both pointers), not bf16 elements (``Row`` a pointer).
+template <typename Pool>
+constexpr bool kCodes = !std::is_pointer<typename Pool::Row>::value;
+
 struct Geometry {
-  int S, H, KVH, G, R, W, nsplit, stages;
-  float scale_log2;  // d^-1/2 log2(e): scores in the exp2 domain
+  int S, H, KVH, G, R, W, n_pages, ps, nsplit, stages;
+  int keep, per;  // twin kernel: scores kept in shared memory; tiles a split
+  float scale;       // d^-1/2
+  float scale_log2;  // d^-1/2 log2(e): the online kernel's exp2 domain
 };
 
 __device__ __forceinline__ float exp2_fast(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Wait until at most n (0..7) of this thread's copy groups are in flight.
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
 }
 
 // The rows [t_begin, t_end) of a slot with nmax valid rows that split
@@ -84,6 +134,162 @@ __device__ __forceinline__ void split_rows(int nmax, int nsplit, int split,
   const int per = (ntiles + nsplit - 1) / nsplit;
   t_begin = min(nmax, split * per * BKV);
   t_end = min(nmax, (split + 1) * per * BKV);
+}
+
+// Q rows r = gi * S + s of (slot b, kv head c) into the swizzled tile
+// (zeros from R to RP); the caller commits the group.
+template <int D, int RP, int THREADS>
+__device__ __forceinline__ void load_q(uint4* qs, const bf16* q, int b,
+                                       int c, const Geometry& g) {
+  constexpr int CPR = D / 8;
+  for (int idx = threadIdx.x; idx < RP * CPR; idx += THREADS) {
+    const int r = idx / CPR, ch = idx % CPR;
+    const bool ok = r < g.R;
+    const bf16* src = q;
+    if (ok) {
+      const int gi = r / g.S, s = r % g.S;
+      src = q + ((size_t)(b * g.S + s) * g.H + c * g.G + gi) * D + ch * 8;
+    }
+    cp_async16(qs + swizzle<CPR>(r, ch), src, ok);
+  }
+}
+
+// Start the copies of 64 rows of a pool (``rows``) into a ring slot, rows
+// past the slot's last valid one as zeros, never fetched: bf16 rows
+// straight into the swizzled tile ``ldmatrix`` reads; int8 codes ([64][D]
+// bytes) and their scales ([64] floats after them) as they lie, for
+// ``convert_tile``. ``dummy`` is any mapped address.
+template <typename Pool, int D, int THREADS>
+__device__ __forceinline__ void issue_tile(unsigned char* slot,
+                                           const paged::SlotRows<Pool>& rows,
+                                           const void* dummy) {
+  const int tid = threadIdx.x;
+  if constexpr (!kCodes<Pool>) {
+    constexpr int CPR = D / 8;
+    uint4* dst = reinterpret_cast<uint4*>(slot);
+#pragma unroll
+    for (int i = 0; i < BKV * CPR / THREADS; ++i) {
+      const int idx = tid + i * THREADS;
+      const int r = idx / CPR, ch = idx % CPR;
+      const bf16* row = rows(r);
+      cp_async16(dst + swizzle<CPR>(r, ch),
+                 row != nullptr ? (const void*)(row + ch * 8) : dummy,
+                 row != nullptr);
+    }
+  } else {
+    constexpr int C16 = D / 16;  // 16-byte chunks of codes per row
+#pragma unroll
+    for (int i = 0; i < BKV * C16 / THREADS; ++i) {
+      const int idx = tid + i * THREADS;
+      const int r = idx / C16, ch = idx % C16;
+      const auto row = rows(r);
+      cp_async16(slot + r * D + ch * 16,
+                 row.v != nullptr ? (const void*)(row.v + ch * 16) : dummy,
+                 row.v != nullptr);
+    }
+    float* sc = reinterpret_cast<float*>(slot + BKV * D);
+    for (int r = tid; r < BKV; r += THREADS) {
+      const auto row = rows(r);
+      cp_async4(sc + r, row.s != nullptr ? (const void*)row.s : dummy,
+                row.s != nullptr);
+    }
+  }
+}
+
+// A slot of int8 codes and scales to the swizzled bf16 tile: each element
+// round_to<bf16>(code * scale), one float32 product rounded to nearest
+// even, as the twin dequantizes its cache.
+template <int D, int THREADS>
+__device__ __forceinline__ void convert_tile(const unsigned char* slot,
+                                             uint4* dst) {
+  constexpr int CPR = D / 8;
+  const float* sc = reinterpret_cast<const float*>(slot + BKV * D);
+  auto code = [](uint32_t w, int e) {
+    return (float)(int8_t)(uint8_t)(w >> (8 * e));
+  };
+#pragma unroll
+  for (int i = 0; i < BKV * CPR / THREADS; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    const int r = idx / CPR, ch = idx % CPR;
+    const uint2 c = *reinterpret_cast<const uint2*>(slot + r * D + ch * 8);
+    const float s = sc[r];
+    uint4 out;
+    out.x = pack_bf16(code(c.x, 0) * s, code(c.x, 1) * s);
+    out.y = pack_bf16(code(c.x, 2) * s, code(c.x, 3) * s);
+    out.z = pack_bf16(code(c.y, 0) * s, code(c.y, 1) * s);
+    out.w = pack_bf16(code(c.y, 2) * s, code(c.y, 3) * s);
+    dst[swizzle<CPR>(r, ch)] = out;
+  }
+}
+
+// S = Q K^T of one 64-row K tile on the tensor cores: this warp's keys
+// 8 (warp + WARPS i) .. + 7 for all RP = 16 MT query rows, in the
+// accumulator layout (rows mt * 16 + g (+ 8), keys 2 t (+ 1)).
+template <int D, int MT, int WARPS>
+__device__ __forceinline__ void qk_tile(const uint4* qs, const uint4* ks,
+                                        float (&sc)[MT][BKV / 8 / WARPS][4]) {
+  constexpr int CPR = D / 8, NPW = BKV / 8 / WARPS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < NPW; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[mt][i][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; kk += 2) {
+    uint32_t bk[NPW][4];  // k-steps kk ({0, 1}) and kk + 1 ({2, 3})
+#pragma unroll
+    for (int i = 0; i < NPW; ++i)
+      ldmatrix_x4(bk[i], ks + swizzle<CPR>((warp + WARPS * i) * 8 +
+                                               (lane & 7),
+                                           2 * kk + (lane >> 3)));
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      uint32_t a0[4], a1[4];
+      ldmatrix_x4(a0, qs + swizzle<CPR>(mt * 16 + (lane & 15),
+                                        2 * kk + (lane >> 4)));
+      ldmatrix_x4(a1, qs + swizzle<CPR>(mt * 16 + (lane & 15),
+                                        2 * kk + 2 + (lane >> 4)));
+#pragma unroll
+      for (int i = 0; i < NPW; ++i) {
+        mma_bf16(sc[mt][i], a0, bk[i]);
+        mma_bf16(sc[mt][i], a1, bk[i] + 2);
+      }
+    }
+  }
+}
+
+// O += P V of one 64-row V tile: P [RP][64] bf16 in ``ps``, this warp's
+// output columns (pairs of 8-column tiles warp * DPW / 2 + dp).
+template <int D, int MT, int WARPS>
+__device__ __forceinline__ void pv_tile(const uint4* ps, const uint4* vs,
+                                        float (&acc)[MT][D / 8 / WARPS][4]) {
+  constexpr int CPR = D / 8, DPW = D / 8 / WARPS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t pa[MT][BKV / 16][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      ldmatrix_x4(pa[mt][kk], ps + swizzle<8>(mt * 16 + (lane & 15),
+                                              2 * kk + (lane >> 4)));
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+    for (int dp = 0; dp < DPW / 2; ++dp) {
+      const int pair = warp * (DPW / 2) + dp;
+      uint32_t bv[4];
+      ldmatrix_x4_trans(
+          bv, vs + swizzle<CPR>(16 * kk + (lane & 7) +
+                                    (((lane >> 3) & 1) << 3),
+                                2 * pair + (lane >> 4)));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(acc[mt][2 * dp], pa[mt][kk], bv);
+        mma_bf16(acc[mt][2 * dp + 1], pa[mt][kk], bv + 2);
+      }
+    }
 }
 
 template <int D, int MT>
@@ -115,10 +321,10 @@ struct Config {
 template <typename Pool, int D, int MT>
 __global__ void __launch_bounds__(Config<D, MT>::THREADS)
 decode_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
-              const int* __restrict__ pos, bf16* __restrict__ o,
-              Geometry g) {
+              const int* __restrict__ table, const int* __restrict__ pos,
+              bf16* __restrict__ o, Geometry g) {
   using C = Config<D, MT>;
-  constexpr int CPR = C::CPR, RP = C::RP, WARPS = C::WARPS;
+  constexpr int RP = C::RP, WARPS = C::WARPS;
   extern __shared__ uint4 sm90_smem[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(sm90_smem);
   uint4* qs = sm90_smem;
@@ -141,29 +347,15 @@ decode_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
   split_rows(nmax, g.nsplit, split, t_begin, t_end);
   const int n_tiles = (t_end - t_begin + BKV - 1) / BKV;
   const int stages = g.stages;
+  const int* trow = paged::table_row(table, b, g.n_pages);
 
-  // Q rows r = gi * S + s (zeros past R), in the first commit group
-  for (int idx = tid; idx < RP * CPR; idx += C::THREADS) {
-    const int r = idx / CPR, ch = idx % CPR;
-    const bool ok = r < g.R;
-    const bf16* src = q;
-    if (ok) {
-      const int gi = r / g.S, s = r % g.S;
-      src = q + ((size_t)(b * g.S + s) * g.H + c * g.G + gi) * D + ch * 8;
-    }
-    cp_async16(qs + swizzle<CPR>(r, ch), src, ok);
-  }
+  // Q in the first commit group
+  load_q<D, RP, C::THREADS>(qs, q, b, c, g);
   // 64 rows of a pool from row t0 of the slot; rows past nmax as zeros
   auto load = [&](uint4* dst, const Pool& pool, int t0) {
-    const paged::SlotRows<Pool> rows{pool, nullptr, b, g.W, c, t0, nmax};
-#pragma unroll
-    for (int i = 0; i < C::TILE / C::THREADS; ++i) {
-      const int idx = tid + i * C::THREADS;
-      const int r = idx / CPR, ch = idx % CPR;
-      const bf16* row = rows(r);
-      cp_async16(dst + swizzle<CPR>(r, ch), row != nullptr ? row + ch * 8 : q,
-                 row != nullptr);
-    }
+    issue_tile<Pool, D, C::THREADS>(
+        reinterpret_cast<unsigned char*>(dst),
+        paged::SlotRows<Pool>{pool, trow, b, g.ps, c, t0, nmax}, q);
   };
   auto stage_k = [&](int j) { return ring + (j % stages) * 2 * C::TILE; };
   for (int st = 0; st < stages; ++st) {
@@ -193,44 +385,11 @@ decode_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
     const uint4* ks = stage_k(j);
     const uint4* vs = ks + C::TILE;
     // K_j is commit group 2j of 2 (stages + j): 2 stages - 1 may fly
-    if (stages == 1)
-      cp_async_wait<1>();
-    else if (stages == 2)
-      cp_async_wait<3>();
-    else
-      cp_async_wait<5>();
+    cp_async_wait_dyn(2 * stages - 1);
     __syncthreads();
 
-    // ---- S = Q K^T: this warp's keys 8 (warp + WARPS i) .. + 7 ----
     float sc[MT][C::NPW][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < C::NPW; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[mt][i][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; kk += 2) {
-      uint32_t bk[C::NPW][4];  // k-steps kk ({0, 1}) and kk + 1 ({2, 3})
-#pragma unroll
-      for (int i = 0; i < C::NPW; ++i)
-        ldmatrix_x4(bk[i], ks + swizzle<CPR>((warp + WARPS * i) * 8 +
-                                                 (lane & 7),
-                                             2 * kk + (lane >> 3)));
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t a0[4], a1[4];
-        ldmatrix_x4(a0, qs + swizzle<CPR>(mt * 16 + (lane & 15),
-                                          2 * kk + (lane >> 4)));
-        ldmatrix_x4(a1, qs + swizzle<CPR>(mt * 16 + (lane & 15),
-                                          2 * kk + 2 + (lane >> 4)));
-#pragma unroll
-        for (int i = 0; i < C::NPW; ++i) {
-          mma_bf16(sc[mt][i], a0, bk[i]);
-          mma_bf16(sc[mt][i], a1, bk[i] + 2);
-        }
-      }
-    }
+    qk_tile<D, MT, WARPS>(qs, ks, sc);
 
     // ---- scale, mask (tiles past query 0's limit), row maxima ----
     const bool edge = t0 + BKV > lim0;
@@ -300,38 +459,10 @@ decode_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
         reinterpret_cast<uint32_t*>(
             ps + swizzle<8>(mt * 16 + gq + 8, nt))[tq] = pack_bf16(p2, p3);
       }
-    if (stages == 1)  // V_j, group 2j + 1
-      cp_async_wait<0>();
-    else if (stages == 2)
-      cp_async_wait<2>();
-    else
-      cp_async_wait<4>();
+    cp_async_wait_dyn(2 * stages - 2);  // V_j, group 2j + 1
     __syncthreads();
 
-    // ---- O += P V: this warp's output columns ----
-    uint32_t pa[MT][BKV / 16][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk)
-        ldmatrix_x4(pa[mt][kk], ps + swizzle<8>(mt * 16 + (lane & 15),
-                                                2 * kk + (lane >> 4)));
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk)
-#pragma unroll
-      for (int dp = 0; dp < C::DPW / 2; ++dp) {
-        const int pair = warp * (C::DPW / 2) + dp;
-        uint32_t bv[4];
-        ldmatrix_x4_trans(
-            bv, vs + swizzle<CPR>(16 * kk + (lane & 7) +
-                                      (((lane >> 3) & 1) << 3),
-                                  2 * pair + (lane >> 4)));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * dp], pa[mt][kk], bv);
-          mma_bf16(acc[mt][2 * dp + 1], pa[mt][kk], bv + 2);
-        }
-      }
+    pv_tile<D, MT, WARPS>(ps, vs, acc);
     __syncthreads();  // every warp is done with this stage and with P
     const int nxt = j + stages;
     if (nxt < n_tiles) load(stage_k(nxt), kp, t_begin + nxt * BKV);
@@ -419,19 +550,374 @@ decode_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
   cl.sync();  // no block leaves while another reads its shared memory
 }
 
+// ---- the twin-order kernel -------------------------------------------
+
+__device__ __forceinline__ void unpack_bf16x8(const uint4& w, float* f) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(u[k] << 16);
+    f[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
+  }
+}
+
+// RPT rows r0 + (THREADS / 64) i of the scaled scores of the 64 keys of a
+// K tile from row t0 of the slot (thread t: key t % 64), masked past each
+// query's limit, into dst[r * pitch + key]. Each dot product is one chain
+// of float32 FMAs over d = 0, 1, ..., D - 1, the twin's float32 product
+// bit for bit. Rows past R compute row r0's chain again (no branch in the
+// loop) and are dropped.
+template <int D, int THREADS, int RPT>
+__device__ __forceinline__ void scores_rows(const float* qf, const uint4* ks,
+                                            float* dst, int pitch, int t0,
+                                            int p, const Geometry& g,
+                                            int r0) {
+  constexpr int CPR = D / 8, RG = THREADS / 64;
+  const int key = threadIdx.x % 64;
+  int rr[RPT];
+  float acc[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    rr[i] = r0 + RG * i < g.R ? r0 + RG * i : r0;
+    acc[i] = 0.0f;
+  }
+#pragma unroll 8
+  for (int ch = 0; ch < CPR; ++ch) {
+    float kf[8];
+    unpack_bf16x8(ks[swizzle<CPR>(key, ch)], kf);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const float4* qv = reinterpret_cast<const float4*>(qf + rr[i] * D);
+      const float4 a = qv[2 * ch], b = qv[2 * ch + 1];
+      const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[i] = fmaf(x[e], kf[e], acc[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = r0 + RG * i;
+    if (r < g.R) {
+      const int lim = min(p - (g.S - 1) + r % g.S, g.W);
+      dst[r * pitch + key] = t0 + key < lim ? acc[i] * g.scale : -INFINITY;
+    }
+  }
+}
+
+// The scores of one K tile for all R query rows (float32 Q [R][D] in
+// ``qf``): one row a thread when R <= THREADS / 64 (granite's S = 1),
+// else four at a time.
+template <int D, int THREADS>
+__device__ __forceinline__ void scores_fma(const float* qf, const uint4* ks,
+                                           float* dst, int pitch, int t0,
+                                           int p, const Geometry& g) {
+  constexpr int RG = THREADS / 64;
+  const int rg = threadIdx.x / 64;
+  if (g.R <= RG) {
+    if (rg < g.R)
+      scores_rows<D, THREADS, 1>(qf, ks, dst, pitch, t0, p, g, rg);
+  } else {
+    for (int r0 = rg; r0 < g.R; r0 += 4 * RG)
+      scores_rows<D, THREADS, 4>(qf, ks, dst, pitch, t0, p, g, r0);
+  }
+}
+
+// O += P V of one V tile for rows rg + RGC i (rg = t / (D / 2)) and
+// columns 2 c2, 2 c2 + 1 (c2 = t % (D / 2)) of thread t: P float32 (bf16
+// values) in pp[r * pitch + key], each output one chain of float32 FMAs
+// over the keys in order: over a split, the twin's float32 P V bit for
+// bit. Rows past R repeat row rg and are dropped.
+template <int D, int THREADS, int RPT>
+__device__ __forceinline__ void pv_rows(const float* pp, int pitch,
+                                        const uint4* vs,
+                                        float (&acc)[RPT][2], int R) {
+  constexpr int CPR = D / 8, RGC = THREADS / (D / 2);
+  const int c2 = threadIdx.x % (D / 2), rg = threadIdx.x / (D / 2);
+  int rr[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) rr[i] = rg + RGC * i < R ? rg + RGC * i : rg;
+#pragma unroll 8
+  for (int t = 0; t < BKV; ++t) {
+    const uint32_t w = reinterpret_cast<const uint32_t*>(
+        vs + swizzle<CPR>(t, c2 / 4))[c2 % 4];
+    const float v0 = __uint_as_float(w << 16);
+    const float v1 = __uint_as_float(w & 0xffff0000u);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const float pr = pp[rr[i] * pitch + t];
+      acc[i][0] = fmaf(pr, v0, acc[i][0]);
+      acc[i][1] = fmaf(pr, v1, acc[i][1]);
+    }
+  }
+}
+
+// Its shared-memory layout, in bytes: Q [RP][D] float32 | int8 only: the
+// converted K or V tile [64][D] bf16 | per-split m, l and global M, L
+// [RP] each | scores, then P in their place, [RP][64 per + 8] float32
+// (``keep``; else one tile's, [RP][72]) | the ring, ``stages`` slots of
+// one tile each (the published O [RP][D + 4] float32 after C).
+// ``decode_attention.sm90_smem`` in Python mirrors it.
+__host__ __device__ constexpr int twin_rp(int rows) {
+  return rows <= 16 ? 16 : rows <= 32 ? 32 : 64;
+}
+__host__ __device__ constexpr int twin_slot(bool codes, int d) {
+  return codes ? BKV * d + BKV * 4 : BKV * d * 2;
+}
+__host__ __device__ constexpr int twin_spitch(int per, int keep) {
+  return (keep ? per : 1) * BKV + 8;  // floats; rows 8 banks apart
+}
+__host__ __device__ constexpr int twin_ring_off(bool codes, int d, int rp,
+                                                int per, int keep) {
+  return rp * d * 4 + (codes ? BKV * d * 2 : 0) + 4 * rp * 4 +
+         rp * twin_spitch(per, keep) * 4;
+}
+__host__ __device__ constexpr int twin_smem(bool codes, int d, int rows,
+                                            int per, int keep, int stages) {
+  const int rp = twin_rp(rows);
+  const int ring = stages * twin_slot(codes, d), obytes = rp * (d + 4) * 4;
+  return twin_ring_off(codes, d, rp, per, keep) +
+         (ring > obytes ? ring : obytes);
+}
+
+// Blocks an SM the registers must allow: four at up to 16 query rows
+// (64 registers a thread at 256 threads), so that granite's 512 blocks at
+// S 1 and 4 run in one wave; two at more rows.
+template <int D, int MT>
+constexpr int twin_min_blocks() {
+  return D > 128 ? 1 : MT == 1 ? 4 : 2;
+}
+
 template <typename Pool, int D, int MT>
-int launch(const void* q, const Pool& kp, const Pool& vp, const int* pos,
-           void* o, int B, Geometry g, cudaStream_t stream) {
+__global__ void __launch_bounds__(Config<D, MT>::THREADS,
+                                  twin_min_blocks<D, MT>())
+twin_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
+            const int* __restrict__ table, const int* __restrict__ pos,
+            bf16* __restrict__ o, Geometry g) {
   using C = Config<D, MT>;
-  while (g.stages > 1 && C::smem(g.stages) > MAX_SMEM) --g.stages;
-  const int smem = C::smem(g.stages);
-  auto* kernel = decode_kernel<Pool, D, MT>;
+  constexpr bool CODES = kCodes<Pool>;
+  constexpr int RP = C::RP, WARPS = C::WARPS, THREADS = C::THREADS;
+  constexpr int SLOT = twin_slot(CODES, D);
+  extern __shared__ uint4 sm90_smem[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(sm90_smem);
+  float* qf = reinterpret_cast<float*>(sm);  // Q [RP][D]
+  uint4* conv = sm90_smem + RP * D / 4;  // int8: the converted K or V tile
+  float* pm = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(conv) + (CODES ? BKV * D * 2 : 0));
+  float* pl = pm + RP;  // [RP] this split's row max and sum of exp(s - max)
+  float* gm = pl + RP;  // [RP] the row's global max
+  float* gl = gm + RP;  // [RP] and sum
+  float* scs = gl + RP;  // [RP][spitch] scores, then P
+  const int spitch = twin_spitch(g.per, g.keep);
+  unsigned char* ring = sm + twin_ring_off(CODES, D, RP, g.per, g.keep);
+  float* os = reinterpret_cast<float*>(ring);  // [RP][D + 4] after C
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = blockIdx.x, b = blockIdx.y;
+  const int p = pos[b];
+  const int nmax = min(p, g.W);
+  int t_begin, t_end;
+  split_rows(nmax, g.nsplit, blockIdx.z, t_begin, t_end);
+  const int T = (t_end - t_begin + BKV - 1) / BKV;
+  const bool keep = g.keep != 0;
+  const int E = (keep ? 2 : 3) * T;  // ring events of this split
+  const int stages = g.stages;
+  const int* trow = paged::table_row(table, b, g.n_pages);
+
+  // ---- the ring: event e < T is K tile e (A); then V tile j (keep) or
+  // K tile j, V tile j (recompute) (C); slot e % stages. Event e is
+  // commit group e; one group is committed for each event consumed, so
+  // stages - 1 groups may be in flight at acquire ----
+  auto slot = [&](int e) { return ring + (e % stages) * SLOT; };
+  auto issue = [&](int e) {
+    if (e < E) {
+      int j = e;
+      bool v = false;
+      if (e >= T) {
+        j = e - T;
+        v = keep || (j & 1);
+        if (!keep) j >>= 1;
+      }
+      issue_tile<Pool, D, THREADS>(
+          slot(e),
+          paged::SlotRows<Pool>{v ? vp : kp, trow, b, g.ps, c,
+                                t_begin + j * BKV, nmax},
+          q);
+    }
+    cp_async_commit();
+  };
+  // Event e's bf16 tile; int8: converted into ``conv`` (every read of the
+  // previous tile there is behind the barrier below), its slot refilled
+  // at once. A bf16 slot is refilled by ``release`` once every warp is
+  // past a barrier after its last read.
+  auto acquire = [&](int e) -> const uint4* {
+    cp_async_wait_dyn(stages - 1);
+    __syncthreads();
+    if constexpr (CODES) {
+      convert_tile<D, THREADS>(slot(e), conv);
+      __syncthreads();
+      issue(e + stages);
+      return conv;
+    } else {
+      return reinterpret_cast<const uint4*>(slot(e));
+    }
+  };
+  auto release = [&](int e) {
+    if constexpr (!CODES) issue(e + stages);
+  };
+  // K tile j's scores: column j * 64 of ``scs`` (keep), or its tile
+  auto tile_scores = [&](int j) { return scs + (keep ? j * BKV : 0); };
+
+  // the first copies, then Q, as float32
+  for (int e = 0; e < stages; ++e) issue(e);
+  for (int idx = tid; idx < g.R * D; idx += THREADS) {
+    const int r = idx / D, gi = r / g.S, s = r % g.S;
+    qf[idx] = __bfloat162float(
+        q[((size_t)(b * g.S + s) * g.H + c * g.G + gi) * D + idx % D]);
+  }
+  for (int r = tid; r < RP; r += THREADS) {
+    pm[r] = -INFINITY;
+    pl[r] = 0.0f;
+  }
+
+  // ---- A: scores, and this split's running (m, l) of each row, kept by
+  // the warp that owns the row ----
+  for (int j = 0; j < T; ++j) {
+    const uint4* ks = acquire(j);
+    float* sj = tile_scores(j);
+    scores_fma<D, THREADS>(qf, ks, sj, spitch, t_begin + j * BKV, p, g);
+    __syncthreads();  // the scores are whole; every warp is done with K
+    release(j);
+    for (int r = warp; r < g.R; r += WARPS) {
+      const float x0 = sj[r * spitch + lane], x1 = sj[r * spitch + lane + 32];
+      const float m_old = pm[r];
+      const float mx = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+      // a row with every key masked so far keeps m = -inf; exp against 0
+      const float base = mx == -INFINITY ? 0.0f : mx;
+      const float sum = warp_sum(expf(x0 - base) + expf(x1 - base));
+      if (lane == 0) {
+        pl[r] = pl[r] * expf(m_old - base) + sum;
+        pm[r] = mx;
+      }
+    }
+  }
+
+  // ---- B: every rank's (m, l) of a row through distributed shared
+  // memory, all loads in flight at once; the row's M and L in rank order
+  // (ranks past cs count as empty) ----
+  cg::cluster_group cl = cg::this_cluster();
+  const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  cl.sync();
+  for (int row = tid; row < g.R; row += THREADS) {
+    float mr[MAX_CLUSTER], lr[MAX_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r) {
+      mr[r] = r < cs ? *cl.map_shared_rank(pm + row, r) : -INFINITY;
+      lr[r] = r < cs ? *cl.map_shared_rank(pl + row, r) : 0.0f;
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r) mx = fmaxf(mx, mr[r]);
+    float l = 0.0f;
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r)
+      if (lr[r] > 0.0f) l += lr[r] * expf(mr[r] - mx);
+    gm[row] = mx;
+    gl[row] = l;
+  }
+  __syncthreads();
+
+  // ---- C: p = round_to<bf16>(exp(s - M) / L) in place of the scores,
+  // O += P V ----
+  constexpr int RGC = THREADS / (D / 2), RPT = RP / RGC;
+  const int rg = tid / (D / 2), c2 = tid % (D / 2);
+  const bool one_row = g.R <= RGC;  // one row a thread (granite's S = 1)
+  float acc1[1][2] = {{0.0f, 0.0f}};
+  float acc[RPT][2];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) acc[i][0] = acc[i][1] = 0.0f;
+  auto probs = [&](float* sj) {
+    for (int idx = tid; idx < g.R * BKV; idx += THREADS) {
+      float* x = sj + (idx / BKV) * spitch + idx % BKV;
+      const float m = gm[idx / BKV], l = gl[idx / BKV];
+      *x = *x == -INFINITY ? 0.0f : round_to<bf16>(expf(*x - m) / l);
+    }
+  };
+  for (int j = 0; j < T; ++j) {
+    int e = T + (keep ? j : 2 * j);
+    if (!keep) {
+      const uint4* ks = acquire(e);
+      scores_fma<D, THREADS>(qf, ks, scs, spitch, t_begin + j * BKV, p, g);
+      __syncthreads();  // the scores are whole; every warp is done with K
+      release(e);
+      ++e;
+    }
+    const uint4* vs = acquire(e);
+    float* sj = tile_scores(j);
+    probs(sj);
+    __syncthreads();  // P is whole
+    if (one_row) {
+      if (rg < g.R) pv_rows<D, THREADS, 1>(sj, spitch, vs, acc1, g.R);
+    } else {
+      pv_rows<D, THREADS, RPT>(sj, spitch, vs, acc, g.R);
+    }
+    if constexpr (!CODES) {
+      __syncthreads();  // every warp is done with the V tile and P
+      release(e);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the published O
+
+  // ---- merge: block ``rank`` sums output columns [rank D / cs, ...) of
+  // every rank's O in rank order and writes them ----
+  if (one_row) {
+    if (rg < g.R)
+      *reinterpret_cast<float2*>(os + rg * C::OPITCH + 2 * c2) =
+          make_float2(acc1[0][0], acc1[0][1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+      if (rg + RGC * i < g.R)
+        *reinterpret_cast<float2*>(os + (rg + RGC * i) * C::OPITCH +
+                                   2 * c2) = make_float2(acc[i][0],
+                                                         acc[i][1]);
+  }
+  cl.sync();
+  const int dcs = D / cs, d0 = rank * dcs;
+  const float* osr[MAX_CLUSTER];
+#pragma unroll
+  for (int r = 0; r < MAX_CLUSTER; ++r)
+    osr[r] = cl.map_shared_rank(os, r < cs ? r : 0);
+  for (int idx = tid; idx < g.R * dcs; idx += THREADS) {
+    const int row = idx / dcs, d = d0 + idx % dcs;
+    float v[MAX_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r)
+      v[r] = r < cs ? osr[r][row * C::OPITCH + d] : 0.0f;
+    float sum = 0.0f;
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r) sum += v[r];
+    const int gi = row / g.S, s = row % g.S;
+    o[((size_t)(b * g.S + s) * g.H + c * g.G + gi) * D + d] =
+        __float2bfloat16(sum);
+  }
+  cl.sync();  // no block leaves while another reads its shared memory
+}
+
+// One launch of ``kernel`` on the (KVH, B, nsplit) grid, the nsplit
+// splits of a (slot, kv head) one cluster.
+template <typename Kernel, typename Pool>
+int launch_cluster(Kernel kernel, int threads, int smem, const void* q,
+                   const Pool& kp, const Pool& vp, const int* table,
+                   const int* pos, void* o, int B, const Geometry& g,
+                   cudaStream_t stream) {
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(g.KVH, B, g.nsplit);
-  cfg.blockDim = dim3(C::THREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -441,57 +927,124 @@ int launch(const void* q, const Pool& kp, const Pool& vp, const int* pos,
   attr[0].val.clusterDim.z = g.nsplit;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, (const bf16*)q, kp, vp, pos,
+  err = cudaLaunchKernelEx(&cfg, kernel, (const bf16*)q, kp, vp, table, pos,
                            (bf16*)o, g);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <typename Pool, int D>
-int by_rows(const void* q, const Pool& kp, const Pool& vp, const int* pos,
-            void* o, int B, const Geometry& g, cudaStream_t st) {
-  if (g.R <= 16) return launch<Pool, D, 1>(q, kp, vp, pos, o, B, g, st);
-  if (g.R <= 32) return launch<Pool, D, 2>(q, kp, vp, pos, o, B, g, st);
-  return launch<Pool, D, 4>(q, kp, vp, pos, o, B, g, st);
+// TWIN: the twin-order kernel and its layout; else the online kernel
+// with as many stages as fit.
+template <bool TWIN, typename Pool, int D, int MT>
+int launch(const void* q, const Pool& kp, const Pool& vp, const int* table,
+           const int* pos, void* o, int B, Geometry g, cudaStream_t stream) {
+  using C = Config<D, MT>;
+  if constexpr (TWIN) {
+    return launch_cluster(
+        twin_kernel<Pool, D, MT>, C::THREADS,
+        twin_smem(kCodes<Pool>, D, g.R, g.per, g.keep, g.stages), q, kp, vp,
+        table, pos, o, B, g, stream);
+  } else {
+    while (g.stages > 1 && C::smem(g.stages) > MAX_SMEM) --g.stages;
+    return launch_cluster(decode_kernel<Pool, D, MT>, C::THREADS,
+                          C::smem(g.stages), q, kp, vp, table, pos, o, B, g,
+                          stream);
+  }
+}
+
+template <bool TWIN, typename Pool, int D>
+int by_rows(const void* q, const Pool& kp, const Pool& vp, const int* table,
+            const int* pos, void* o, int B, const Geometry& g,
+            cudaStream_t st) {
+  if (g.R <= 16)
+    return launch<TWIN, Pool, D, 1>(q, kp, vp, table, pos, o, B, g, st);
+  if (g.R <= 32)
+    return launch<TWIN, Pool, D, 2>(q, kp, vp, table, pos, o, B, g, st);
+  return launch<TWIN, Pool, D, 4>(q, kp, vp, table, pos, o, B, g, st);
 }
 
 // Shapes to a Geometry, and head_dim and rows to an instantiation. The
 // nsplit splits of a (slot, kv head) are one cluster: a power of two up to
-// MAX_CLUSTER. W rows per slot (a ring, or n_pages x ps).
-template <typename Pool>
-int dispatch(const void* q, const Pool& kp, const Pool& vp, const int* pos,
-             void* o, int B, int S, int H, int KVH, int D, int W, int nsplit,
-             float scale, void* stream) {
-  Geometry g;
+// MAX_CLUSTER. W = n_pages x ps rows per slot (a ring: one page of W rows,
+// no table).
+inline int geometry(Geometry& g, int S, int H, int KVH, int n_pages, int ps,
+                    int nsplit, float scale) {
   g.S = S;
   g.H = H;
   g.KVH = KVH;
   g.G = H / KVH;
   g.R = g.G * S;
-  g.W = W;
+  g.n_pages = n_pages;
+  g.ps = ps;
+  g.W = n_pages * ps;
   g.nsplit = nsplit;
+  g.keep = 0;
+  g.per = 0;
+  g.scale = scale;
   g.scale_log2 = scale * 1.4426950408889634f;
   if (g.R > MAX_ROWS || g.R < 1 || nsplit < 1 || nsplit > MAX_CLUSTER ||
       (nsplit & (nsplit - 1)))
     return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+template <bool TWIN, typename Pool>
+int by_head_dim(const void* q, const Pool& kp, const Pool& vp,
+                const int* table, const int* pos, void* o, int B, int D,
+                const Geometry& g, cudaStream_t st) {
+  switch (D) {
+    case 32:
+      return by_rows<TWIN, Pool, 32>(q, kp, vp, table, pos, o, B, g, st);
+    case 64:
+      return by_rows<TWIN, Pool, 64>(q, kp, vp, table, pos, o, B, g, st);
+    case 128:
+      return by_rows<TWIN, Pool, 128>(q, kp, vp, table, pos, o, B, g, st);
+    case 256:
+      return by_rows<TWIN, Pool, 256>(q, kp, vp, table, pos, o, B, g, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The online kernel over rings of W rows.
+template <typename Pool>
+int dispatch(const void* q, const Pool& kp, const Pool& vp, const int* pos,
+             void* o, int B, int S, int H, int KVH, int D, int W, int nsplit,
+             float scale, void* stream) {
+  Geometry g;
+  int err = geometry(g, S, H, KVH, 1, W, nsplit, scale);
+  if (err) return err;
   // as many stages as a split has tiles (``launch`` keeps what shared
   // memory holds)
   const int tiles = (W + BKV - 1) / BKV;
   const int per = (tiles + nsplit - 1) / nsplit;
   g.stages = per < MAX_STAGES ? per : MAX_STAGES;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 32:
-      return by_rows<Pool, 32>(q, kp, vp, pos, o, B, g, st);
-    case 64:
-      return by_rows<Pool, 64>(q, kp, vp, pos, o, B, g, st);
-    case 128:
-      return by_rows<Pool, 128>(q, kp, vp, pos, o, B, g, st);
-    case 256:
-      return by_rows<Pool, 256>(q, kp, vp, pos, o, B, g, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return by_head_dim<false>(q, kp, vp, nullptr, pos, o, B, D, g,
+                            (cudaStream_t)stream);
+}
+
+// The 64-row tiles of a split of W rows over nsplit.
+inline int tiles_per_split(int W, int nsplit) {
+  return ((W + BKV - 1) / BKV + nsplit - 1) / nsplit;
+}
+
+// The twin-order kernel over paged pools: the plan (nsplit, keep,
+// stages) is ``decode_attention.paged_plan_sm90``'s.
+template <typename Pool>
+int dispatch_twin(const void* q, const Pool& kp, const Pool& vp,
+                  const int* table, const int* pos, void* o, int B, int S,
+                  int H, int KVH, int D, int n_pages, int ps, int nsplit,
+                  int keep, int stages, float scale, void* stream) {
+  Geometry g;
+  int err = geometry(g, S, H, KVH, n_pages, ps, nsplit, scale);
+  if (err) return err;
+  if (stages < 1 || stages > MAX_RING || (keep != 0 && keep != 1))
+    return (int)cudaErrorInvalidValue;
+  g.keep = keep;
+  g.stages = stages;
+  g.per = tiles_per_split(g.W, nsplit);
+  return by_head_dim<true>(q, kp, vp, table, pos, o, B, D, g,
+                           (cudaStream_t)stream);
 }
 
 }  // namespace sm90

@@ -1,15 +1,20 @@
-// Split-context decode attention for Hopper (sm_90a), shared by the ports
-// of the Pallas TPU kernels
-// ``repro/kernels/decode_attention.py::paged_decode_attention`` (TPU
-// kernel 2, pools in the model dtype: ``paged_decode_attention.cu``),
+// Split-context decode attention in float32 for Hopper (sm_90a): three
+// launches of float32 FMAs, shared by the float32 entries of the ports of
+// the Pallas TPU kernels
+// ``repro/kernels/decode_attention.py::paged_decode_attention`` (TPU kernel
+// 2, float32 pools: ``paged_decode_attention.cu``),
 // ``::paged_decode_attention_int8`` (TPU kernel 4, int8 pools with one
-// float32 scale per (slot, kv head): ``paged_decode_attention_int8.cu``)
-// and ``::decode_attention`` (TPU kernel 6, a rolling cache of W rows per
-// slot: ``decode_attention.cu``, float32 rings; bf16 rings take the
-// one-pass ``decode_sm90.cuh``). The kernels are templated on the pool
-// type; a pool type says where a cache row lives (through the slot's
-// page-table row, or at row t of slot b of a ring when ``kRing``) and how
-// a tile of rows becomes float32 in shared memory.
+// float32 scale per (slot, kv head) and float32 q:
+// ``paged_decode_attention_int8.cu``) and ``::decode_attention`` (TPU kernel
+// 6, float32 rings of W rows per slot: ``decode_attention.cu``). Every
+// bfloat16 call takes a one-launch kernel of ``decode_sm90.cuh`` instead:
+// the twin-order kernel for bf16 and int8 pools, the online-softmax one on
+// the tensor cores for bf16 rings. float32 stays here: those kernels stage
+// bf16 tiles, and the 2e-5 gate against the twins and the CUDA == CPU
+// float32 streams of ``chip_smoke.py`` need float32 operands. The kernels
+// are templated on the pool type; a pool type says where a cache row lives
+// (through the slot's page-table row, or at row t of slot b of a ring when
+// ``kRing``) and how a tile of rows becomes float32 in shared memory.
 //
 // For each decode slot b and kv head c, the G*S query rows that share the
 // kv head (rows ordered (g, s); q head c*G + g) attend the slot's pages,
@@ -34,15 +39,15 @@
 //
 // Numerics follow the model's twins ``layers.paged_decode_attention`` and
 // ``layers.paged_decode_attention_int8``, whose probabilities are
-// normalized by the row's GLOBAL max and sum and rounded to the input
-// type before P V. Three launches keep that exact order across splits:
+// normalized by the row's GLOBAL max and sum before P V. Three launches
+// keep that order across splits:
 //   1. scores: each block writes its slots' scaled scores to a float32
 //      scratch and the (max, sum of exp) of its range for every row;
 //   2. pv: each block merges every split's (max, sum) into the row's
-//      global ones, forms round_to<T>(exp(s - max) / sum) for its range
-//      and accumulates P V in float32 into its partial output;
+//      global ones, forms exp(s - max) / sum for its range and accumulates
+//      P V into its partial output;
 //   3. combine: the partial outputs are summed over the splits, in split
-//      order, and written in T.
+//      order.
 #pragma once
 
 #include "common.cuh"
@@ -98,10 +103,11 @@ __device__ __forceinline__ const int* table_row(const int* table, int b,
   return table != nullptr ? table + (size_t)b * n_pages : nullptr;
 }
 
-template <typename T, typename Pool, int D, int MR>
+template <typename Pool, int D, int MR>
 __global__ void __launch_bounds__(THREADS)
-scores_kernel(const T* __restrict__ q, Pool kp, const int* __restrict__ table,
-              const int* __restrict__ pos, float* __restrict__ scores,
+scores_kernel(const float* __restrict__ q, Pool kp,
+              const int* __restrict__ table, const int* __restrict__ pos,
+              float* __restrict__ scores,
               float2* __restrict__ stats, Geometry g, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;        // [R][D]
@@ -120,8 +126,7 @@ scores_kernel(const T* __restrict__ q, Pool kp, const int* __restrict__ table,
   for (int idx = tid; idx < g.R * D; idx += blockDim.x) {
     const int r = idx / D, d = idx % D;
     const int gi = r / g.S, s = r % g.S;
-    qs[idx] = to_f32<T>(
-        q[((size_t)(b * g.S + s) * g.H + c * g.G + gi) * D + d]);
+    qs[idx] = q[((size_t)(b * g.S + s) * g.H + c * g.G + gi) * D + d];
   }
 
   int nr = 0;  // rows of this warp: r = w + WARPS * i
@@ -175,7 +180,7 @@ scores_kernel(const T* __restrict__ q, Pool kp, const int* __restrict__ table,
   }
 }
 
-template <typename T, typename Pool, int D, int MR>
+template <typename Pool, int D, int MR>
 __global__ void __launch_bounds__(THREADS)
 pv_kernel(Pool vp, const int* __restrict__ table, const int* __restrict__ pos,
           const float* __restrict__ scores, const float2* __restrict__ stats,
@@ -232,9 +237,7 @@ pv_kernel(Pool vp, const int* __restrict__ table, const int* __restrict__ pos,
       const int r = w + WARPS * i, s = r % g.S;
       const int lim = min(pos[b] - (g.S - 1) + s, g.W);
       const float p =
-          t < lim ? round_to<T>(expf(srow[(size_t)r * g.wpad + t] - rm[r]) /
-                                rl[r])
-                  : 0.0f;
+          t < lim ? expf(srow[(size_t)r * g.wpad + t] - rm[r]) / rl[r] : 0.0f;
       for (int j = 0; j < TK; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
@@ -253,9 +256,9 @@ pv_kernel(Pool vp, const int* __restrict__ table, const int* __restrict__ pos,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-combine_kernel(const float* __restrict__ partial, T* __restrict__ o,
+combine_kernel(const float* __restrict__ partial, float* __restrict__ o,
                Geometry g) {
   const int c = blockIdx.x, b = blockIdx.y;
   const float* src = partial + (size_t)(b * g.KVH + c) * g.nsplit * g.R * D;
@@ -263,11 +266,11 @@ combine_kernel(const float* __restrict__ partial, T* __restrict__ o,
     float sum = 0.0f;
     for (int j = 0; j < g.nsplit; ++j) sum += src[(size_t)j * g.R * D + idx];
     const int r = idx / D, d = idx % D, gi = r / g.S, s = r % g.S;
-    o[((size_t)(b * g.S + s) * g.H + c * g.G + gi) * D + d] = from_f32<T>(sum);
+    o[((size_t)(b * g.S + s) * g.H + c * g.G + gi) * D + d] = sum;
   }
 }
 
-template <typename T, typename Pool, int D, int MR>
+template <typename Pool, int D, int MR>
 int launch(const void* q, const Pool& kp, const Pool& vp, const int* table,
            const int* pos, void* o, float* scores, float* stats,
            float* partial, int B, const Geometry& g, float scale,
@@ -275,39 +278,39 @@ int launch(const void* q, const Pool& kp, const Pool& vp, const int* table,
   const size_t smem_s = sizeof(float) * ((size_t)g.R * D + TK * (D + 1));
   const size_t smem_p = sizeof(float) * ((size_t)TK * D + 2 * MR);
   cudaError_t err = cudaFuncSetAttribute(
-      scores_kernel<T, Pool, D, MR>,
+      scores_kernel<Pool, D, MR>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_s);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(g.KVH, B, g.nsplit);
-  scores_kernel<T, Pool, D, MR><<<grid, THREADS, smem_s, stream>>>(
-      (const T*)q, kp, table, pos, scores, (float2*)stats, g, scale);
+  scores_kernel<Pool, D, MR><<<grid, THREADS, smem_s, stream>>>(
+      (const float*)q, kp, table, pos, scores, (float2*)stats, g, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  pv_kernel<T, Pool, D, MR><<<grid, THREADS, smem_p, stream>>>(
+  pv_kernel<Pool, D, MR><<<grid, THREADS, smem_p, stream>>>(
       vp, table, pos, scores, (const float2*)stats, partial, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  combine_kernel<T, D><<<dim3(g.KVH, B), THREADS, 0, stream>>>(partial,
-                                                               (T*)o, g);
+  combine_kernel<D><<<dim3(g.KVH, B), THREADS, 0, stream>>>(
+      partial, (float*)o, g);
   return (int)cudaGetLastError();
 }
 
 // The smaller row capacity that holds the call's G * S rows.
-template <typename T, typename Pool, int D>
+template <typename Pool, int D>
 int by_rows(const void* q, const Pool& kp, const Pool& vp, const int* table,
             const int* pos, void* o, float* scores, float* stats,
             float* partial, int B, const Geometry& g, float scale,
             cudaStream_t st) {
   if (g.R <= 32)
-    return launch<T, Pool, D, 32>(q, kp, vp, table, pos, o, scores, stats,
-                                  partial, B, g, scale, st);
-  return launch<T, Pool, D, 64>(q, kp, vp, table, pos, o, scores, stats,
-                                partial, B, g, scale, st);
+    return launch<Pool, D, 32>(q, kp, vp, table, pos, o, scores, stats,
+                               partial, B, g, scale, st);
+  return launch<Pool, D, 64>(q, kp, vp, table, pos, o, scores, stats,
+                             partial, B, g, scale, st);
 }
 
 // Shapes to a Geometry, and the head dim to its instantiation. A ring is
 // one page of W = ps rows per slot, with no page table (table nullptr).
-template <typename T, typename Pool>
+template <typename Pool>
 int dispatch(const void* q, const Pool& kp, const Pool& vp, const int* table,
              const int* pos, void* o, float* scores, float* stats,
              float* partial, int B, int S, int H, int KVH, int D,
@@ -327,17 +330,17 @@ int dispatch(const void* q, const Pool& kp, const Pool& vp, const int* table,
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 32:
-      return by_rows<T, Pool, 32>(q, kp, vp, table, pos, o, scores, stats,
-                                  partial, B, g, scale, st);
+      return by_rows<Pool, 32>(q, kp, vp, table, pos, o, scores, stats,
+                               partial, B, g, scale, st);
     case 64:
-      return by_rows<T, Pool, 64>(q, kp, vp, table, pos, o, scores, stats,
-                                  partial, B, g, scale, st);
+      return by_rows<Pool, 64>(q, kp, vp, table, pos, o, scores, stats,
+                               partial, B, g, scale, st);
     case 128:
-      return by_rows<T, Pool, 128>(q, kp, vp, table, pos, o, scores, stats,
-                                   partial, B, g, scale, st);
+      return by_rows<Pool, 128>(q, kp, vp, table, pos, o, scores, stats,
+                                partial, B, g, scale, st);
     case 256:
-      return by_rows<T, Pool, 256>(q, kp, vp, table, pos, o, scores, stats,
-                                   partial, B, g, scale, st);
+      return by_rows<Pool, 256>(q, kp, vp, table, pos, o, scores, stats,
+                                partial, B, g, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

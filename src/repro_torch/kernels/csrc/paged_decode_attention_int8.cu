@@ -5,18 +5,21 @@
 // scale per (slot, kv head) in scale pools (P, ps, KVH, 1), addressed by
 // the same page ids; both are read in the model layout through strides.
 //
-// What bounds it: the same as the model-dtype kernel (``paged_decode.cuh``,
-// whose three launches it shares): the bytes of the valid K/V rows, now
-// D + 4 per (slot, kv head) instead of 2 D, so about half the bf16
-// kernel's bound. A tile of 32 rows is 16 codes per 16-byte load plus one
-// scale load per row, all issued before the previous tile's compute.
+// What bounds it: the bytes of the valid K/V rows, D + 4 per (slot, kv
+// head) instead of 2 D, so about half the bf16 kernel's bound. bfloat16 q
+// takes the one-launch twin-order kernel of ``decode_sm90.cuh``: codes by
+// 16-byte ``cp.async`` and each row's scale by a 4-byte one into a ring,
+// then a conversion pass into the bf16 tile the dot products read. float32
+// q takes the three launches of ``paged_decode.cuh`` (a tile of 32 rows,
+// 16 codes per 16-byte load plus one scale load per row).
 //
 // Numerics: each element is dequantized as ``round_to<T>(code * scale)``
 // (one float32 product, rounded to q's type) before its dot, exactly as
 // the twin ``layers.paged_decode_attention_int8`` builds the cache it
 // attends; the Pallas body keeps float32 and skips that rounding, which
-// differs in bfloat16. The softmax and P V are the model-dtype kernel's.
-#include "paged_decode.cuh"
+// differs in bfloat16 (about 8e-3 away; the bf16 kernel is held to 1e-3).
+// The softmax and P V are the model-dtype kernels'.
+#include "decode_sm90.cuh"
 
 namespace {
 
@@ -27,8 +30,9 @@ struct Int8Row {
 
 // A tile of ROWS cache rows of D int8 codes and their scales, copied by a
 // block of THREADS threads in 16-byte loads; ``store`` writes the
-// dequantized rows as float32 (see TileLoader for the load/store split).
-template <typename T, int ROWS, int D, int THREADS>
+// dequantized rows code * scale as float32, the float32 twin's cache (see
+// TileLoader for the load/store split).
+template <int ROWS, int D, int THREADS>
 struct Int8TileLoader {
   static constexpr int VEC = 16;
   static constexpr int PER_ROW = D / VEC;
@@ -64,8 +68,7 @@ struct Int8TileLoader {
         const int j = idx / PER_ROW, d0 = (idx % PER_ROW) * VEC;
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
-          dst[j * pitch + d0 + e] =
-              round_to<T>(int8_code(buf[i], e) * sc[i]);
+          dst[j * pitch + d0 + e] = int8_code(buf[i], e) * sc[i];
       }
     }
   }
@@ -73,11 +76,10 @@ struct Int8TileLoader {
 
 // An int8 page pool (P, ps, KVH, D) and its scale pool (P, ps, KVH, 1),
 // each read through its own strides.
-template <typename T>
 struct Int8Pool {
   using Row = Int8Row;
   template <int ROWS, int D, int THREADS>
-  using Tile = Int8TileLoader<T, ROWS, D, THREADS>;
+  using Tile = Int8TileLoader<ROWS, D, THREADS>;
   static constexpr bool kRing = false;
   const int8_t* base;
   const float* scale;
@@ -94,28 +96,11 @@ struct Int8Pool {
   }
 };
 
-template <typename T>
-int run(const void* q, const void* kp, const void* vp, const void* ks,
-        const void* vs, const void* table, const void* pos, void* o,
-        void* scores, void* stats, void* partial, int B, int S, int H,
-        int KVH, int D, int n_pages, int ps, long long sp, long long ss,
-        long long sh, long long qp, long long qs, long long qh, int nsplit,
-        float scale, void* stream) {
-  const Int8Pool<T> k{(const int8_t*)kp, (const float*)ks, sp, ss, sh,
-                      qp, qs, qh};
-  const Int8Pool<T> v{(const int8_t*)vp, (const float*)vs, sp, ss, sh,
-                      qp, qs, qh};
-  return paged::dispatch<T>(q, k, v, (const int*)table, (const int*)pos, o,
-                            (float*)scores, (float*)stats, (float*)partial,
-                            B, S, H, KVH, D, n_pages, ps, nsplit, scale,
-                            stream);
-}
-
 }  // namespace
 
-// q and o are T; kp/vp int8 pools and ks/vs their float32 scale pools
-// (strides sp/ss/sh and qp/qs/qh, in elements); the scratch is that of
-// paged_decode_attention_f32/_bf16.
+// q and o are float32; kp/vp int8 pools and ks/vs their float32 scale
+// pools (strides sp/ss/sh and qp/qs/qh, in elements); the scratch is that
+// of paged_decode_attention_f32.
 extern "C" int paged_decode_attention_int8_f32(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, const void* table, const void* pos, void* o,
@@ -123,19 +108,28 @@ extern "C" int paged_decode_attention_int8_f32(
     int D, int n_pages, int ps, long long sp, long long ss, long long sh,
     long long qp, long long qs, long long qh, int nsplit, float scale,
     void* stream) {
-  return run<float>(q, kp, vp, ks, vs, table, pos, o, scores, stats,
-                    partial, B, S, H, KVH, D, n_pages, ps, sp, ss, sh, qp,
-                    qs, qh, nsplit, scale, stream);
+  const Int8Pool k{(const int8_t*)kp, (const float*)ks, sp, ss, sh,
+                   qp, qs, qh};
+  const Int8Pool v{(const int8_t*)vp, (const float*)vs, sp, ss, sh,
+                   qp, qs, qh};
+  return paged::dispatch(q, k, v, (const int*)table, (const int*)pos, o,
+                         (float*)scores, (float*)stats, (float*)partial, B, S,
+                         H, KVH, D, n_pages, ps, nsplit, scale, stream);
 }
 
+// q and o bfloat16: one launch, no scratch, the plan of
+// paged_decode_attention_bf16.
 extern "C" int paged_decode_attention_int8_bf16(
     const void* q, const void* kp, const void* vp, const void* ks,
-    const void* vs, const void* table, const void* pos, void* o,
-    void* scores, void* stats, void* partial, int B, int S, int H, int KVH,
-    int D, int n_pages, int ps, long long sp, long long ss, long long sh,
-    long long qp, long long qs, long long qh, int nsplit, float scale,
-    void* stream) {
-  return run<__nv_bfloat16>(q, kp, vp, ks, vs, table, pos, o, scores, stats,
-                            partial, B, S, H, KVH, D, n_pages, ps, sp, ss,
-                            sh, qp, qs, qh, nsplit, scale, stream);
+    const void* vs, const void* table, const void* pos, void* o, int B,
+    int S, int H, int KVH, int D, int n_pages, int ps, long long sp,
+    long long ss, long long sh, long long qp, long long qs, long long qh,
+    int nsplit, int keep, int stages, float scale, void* stream) {
+  const Int8Pool k{(const int8_t*)kp, (const float*)ks, sp, ss, sh,
+                   qp, qs, qh};
+  const Int8Pool v{(const int8_t*)vp, (const float*)vs, sp, ss, sh,
+                   qp, qs, qh};
+  return sm90::dispatch_twin(q, k, v, (const int*)table, (const int*)pos, o,
+                             B, S, H, KVH, D, n_pages, ps, nsplit, keep,
+                             stages, scale, stream);
 }

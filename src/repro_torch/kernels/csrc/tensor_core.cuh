@@ -1,5 +1,5 @@
 // Tensor-core building blocks shared by the bf16 kernels
-// (flash_attention.cu, int8_matmul.cu, decode_sm90.cuh): 16-byte
+// (flash_attention.cu, int8_matmul.cu, decode_sm90.cuh): 16- and 4-byte
 // asynchronous copies from device memory into shared memory
 // (``cp.async``, zero-filling rows past an edge), ``ldmatrix`` fragment
 // loads, the ``mma.sync.m16n8k16`` bf16 product with float32
@@ -28,6 +28,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes, likewise (through L1: ``.cg`` takes only 16-byte copies).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -3,11 +3,15 @@
 ``repro/kernels/decode_attention.py::paged_decode_attention``),
 ``csrc/paged_decode_attention_int8.cu`` (TPU kernel 4,
 ``::paged_decode_attention_int8``) and ``csrc/decode_attention.cu`` (TPU
-kernel 6, ``::decode_attention``, over a rolling cache: bfloat16 rings
-take the one-pass tensor-core kernel of ``csrc/decode_sm90.cuh``, float32
-rings the three launches of ``csrc/paged_decode.cuh``), beside their
+kernel 6, ``::decode_attention``, over a rolling cache), beside their
 plain versions ``plain.paged_decode_attention``,
 ``plain.paged_decode_attention_int8`` and ``plain.decode_attention``.
+bfloat16 calls take one launch of ``csrc/decode_sm90.cuh`` and allocate
+only the output: bf16 and int8 pools the twin-order kernel (the row's
+global max and sum, then p rounded to bf16, then P V, in the twins'
+float32 FMA order), bf16 rings the online-softmax kernel on the tensor
+cores. float32 calls take the three launches of ``csrc/paged_decode.cuh``
+and their float32 scratch.
 
 q (B, S, H, D); k/v_pool (P, ps, KVH, D) in the model layout, read through
 their strides (no transpose per call); int8 pools come with float32 scale
@@ -17,6 +21,8 @@ strides; pos (B,) int32 = tokens written including the S queries. head_dim
 32, 64, 128 or 256. A CPU tensor goes to the plain version; a CUDA tensor
 launches the kernel or raises."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -33,19 +39,22 @@ HEAD_DIMS = (32, 64, 128, 256)
 MAX_ROWS = 64  # G * S query rows per (slot, kv head) block
 TILE = 32  # cache slots per tile
 TARGET_BLOCKS = 2 * 132  # two blocks for each of the H100's 132 SMs
-SM90_TILE = 64  # cache rows per tile of the one-pass bf16 kernel
-MAX_SPLITS_SM90 = 8  # its splits of one (slot, kv head): one cluster
+SM90_TILE = 64  # cache rows per tile of the one-launch bf16 kernels
+MAX_SPLITS_SM90 = 8  # their splits of one (slot, kv head): one cluster
+SM90_MAX_SMEM = 232448  # a block's shared memory on the H100
+SM90_MAX_RING = 8  # ring slots of the twin-order kernel
+SM90_SMEM_TARGET = SM90_MAX_SMEM // 4  # its blocks' size, ring permitting
 
 
 def n_splits(b: int, hkv: int, window: int) -> int:
     """Blocks each (slot, kv head) pair's context is split across by the
-    three-launch kernels (paged pools, float32 rings): enough pairs x
-    splits to fill the card, never more splits than tiles."""
+    three-launch float32 kernels: enough pairs x splits to fill the card,
+    never more splits than tiles."""
     return max(1, min(-(-TARGET_BLOCKS // (b * hkv)), -(-window // TILE)))
 
 
 def n_splits_sm90(b: int, hkv: int, window: int) -> int:
-    """Splits per (slot, kv head) of the one-pass bf16 kernel, one
+    """Splits per (slot, kv head) of the one-launch bf16 kernels, one
     thread-block cluster: the power of two that brings pairs x splits to
     about ``TARGET_BLOCKS``, at most 8 and at most the 64-row tiles (one
     more power of two where the tiles are not one). At recurrentgemma's
@@ -54,6 +63,44 @@ def n_splits_sm90(b: int, hkv: int, window: int) -> int:
     want = min(-(-TARGET_BLOCKS // (b * hkv)), -(-window // SM90_TILE),
                MAX_SPLITS_SM90)
     return 1 << (max(1, want) - 1).bit_length()
+
+
+def sm90_smem(d: int, rows: int, per: int, keep: bool, stages: int,
+              int8: bool) -> int:
+    """Shared-memory bytes of the twin-order kernel (``csrc/decode_sm90.cuh``
+    ``twin_smem``): float32 Q, int8's converted tile, row statistics,
+    float32 scores, then P (the split's ``per`` 64-row tiles when
+    ``keep``, else one tile; rows padded by 8), and a ring of ``stages``
+    tiles, which then holds the published O."""
+    rp = 16 if rows <= 16 else 32 if rows <= 32 else 64
+    slot = SM90_TILE * (d + 4) if int8 else SM90_TILE * d * 2
+    fixed = (rp * d * 4 + (SM90_TILE * d * 2 if int8 else 0) + 4 * rp * 4
+             + rp * ((per if keep else 1) * SM90_TILE + 8) * 4)
+    return fixed + max(stages * slot, rp * (d + 4) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def paged_plan_sm90(b: int, hkv: int, window: int, rows: int, d: int,
+                    int8: bool):
+    """(nsplit, 64-row tiles per split, keep, ring slots) of the
+    twin-order kernel over pools of ``window`` rows per slot, ``rows`` =
+    G * S query rows: the splits of ``n_splits_sm90``; the scores stay in
+    shared memory (``keep``) when they fit beside a ring of two tiles,
+    else phase C reads K again to recompute them; then two ring slots,
+    and more, up to one per event of the split (K tiles, then V tiles, or
+    K and V tiles) and ``SM90_MAX_RING``, while the block stays within
+    ``SM90_SMEM_TARGET``: four blocks an SM, so that granite's 512 blocks
+    (8 slots x 8 kv heads x 8 splits) run in one wave. Cached: every layer
+    of every tick asks for the same plan."""
+    nsplit = n_splits_sm90(b, hkv, window)
+    per = -(-(-(-window // SM90_TILE)) // nsplit)
+    keep = sm90_smem(d, rows, per, True, 2, int8) <= SM90_MAX_SMEM
+    events = (2 if keep else 3) * per
+    stages = 2
+    while stages < min(events, SM90_MAX_RING) and sm90_smem(
+            d, rows, per, keep, stages + 1, int8) <= SM90_SMEM_TARGET:
+        stages += 1
+    return nsplit, per, keep, stages
 
 
 def split_rows(nmax: int, nsplit: int, split: int):
@@ -96,8 +143,8 @@ def _strides(name, pools, vec: int):
 
 def _launch(name, entry, q, pools, scale_pools, page_table, pos):
     """Checks every kernel of the family shares, then one launch of
-    ``entry`` (three kernels on the current stream; one for a bf16
-    ring). ``page_table`` None: the pools are rolling caches (B, W, KVH,
+    ``entry`` (three kernels on the current stream in float32; one in
+    bf16). ``page_table`` None: the pools are rolling caches (B, W, KVH,
     D), one page of W rows per slot, and the entry takes no table."""
     b, s, h, d = q.shape
     ring = page_table is None
@@ -121,9 +168,9 @@ def _launch(name, entry, q, pools, scale_pools, page_table, pos):
     out = torch.empty_like(q)
     window = n_pages * ps
     lib = build.load()
-    if ring and q.dtype == torch.bfloat16:
-        return _launch_sm90(name, entry, lib, q, pools, pos, out, strides,
-                            window)
+    if q.dtype == torch.bfloat16:
+        return _launch_sm90(name, entry, lib, q, pools, scale_pools,
+                            page_table, pos, out, strides, window)
     nsplit = n_splits(b, hkv, window)
     # scratch of the kernel's three launches; freed on return, its memory
     # is reused only by later work on the same stream
@@ -143,14 +190,26 @@ def _launch(name, entry, q, pools, scale_pools, page_table, pos):
     return out
 
 
-def _launch_sm90(name, entry, lib, q, pools, pos, out, strides, window):
-    """One launch of the one-pass bf16 kernel over rings (B, W, KVH, D)."""
+def _launch_sm90(name, entry, lib, q, pools, scale_pools, page_table, pos,
+                 out, strides, window):
+    """One launch of a bf16 kernel of ``csrc/decode_sm90.cuh``, writing
+    only ``out``: over rings (B, W, KVH, D) the online-softmax kernel,
+    over pages the twin-order one with ``paged_plan_sm90``'s plan."""
     b, s, h, d = q.shape
-    hkv = pools[0].shape[2]
-    lib.call(entry, q.data_ptr(), *(p.data_ptr() for p in pools),
-             pos.data_ptr(), out.data_ptr(), b, s, h, hkv, d, window,
-             *strides, n_splits_sm90(b, hkv, window), d ** -0.5,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    _, ps, hkv, _ = pools[0].shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = [p.data_ptr() for p in (*pools, *scale_pools)]
+    if page_table is None:
+        lib.call(entry, q.data_ptr(), *ptrs, pos.data_ptr(), out.data_ptr(),
+                 b, s, h, hkv, d, window, *strides,
+                 n_splits_sm90(b, hkv, window), d ** -0.5, stream)
+    else:
+        nsplit, _, keep, stages = paged_plan_sm90(
+            b, hkv, window, (h // hkv) * s, d, bool(scale_pools))
+        lib.call(entry, q.data_ptr(), *ptrs, page_table.data_ptr(),
+                 pos.data_ptr(), out.data_ptr(), b, s, h, hkv, d,
+                 page_table.shape[1], ps, *strides, nsplit, int(keep),
+                 stages, d ** -0.5, stream)
     build.LAUNCHES[name] += 1
     return out
 

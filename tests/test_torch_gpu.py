@@ -117,6 +117,105 @@ def test_int8_paged_decode_kernel_matches_plain(dev, s, dtype, gran):
                                rtol=rtol)
 
 
+def _paged_kinds(gen, kind, pool, ps, kvh, d, dev):
+    """bf16 pools, or int8 pools with page or token scales, and the
+    name of the kernel (its launch counter and wrapper)."""
+    if kind == "bf16":
+        return "paged_decode_attention", tuple(
+            _rand(gen, (pool, ps, kvh, d), torch.bfloat16, dev)
+            for _ in range(2))
+    pools = []
+    for _ in range(2):
+        raw = _rand(gen, (pool * ps, kvh, d), torch.float32, dev)
+        q8, sc = quantize_kv(raw, group=ps if kind == "int8 page" else 0)
+        pools += [q8.reshape(pool, ps, kvh, d), sc.reshape(pool, ps, kvh, 1)]
+    return "paged_decode_attention_int8", (pools[0], pools[2], pools[1],
+                                           pools[3])
+
+
+def _twin_order_call(dev, kind, s, b, n_pages, kvh, h, d, pos_list,
+                     released, seed):
+    """One bf16 call of the twin-order kernel: one launch, a second call
+    bit for bit the same, within the standing tolerance of the twin (2e-2
+    for bf16 pools; int8 1e-3 absolute, no relative term)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ps = 16
+    pool = b * n_pages + 1
+    name, pools = _paged_kinds(gen, kind, pool, ps, kvh, d, dev)
+    table = (torch.randperm(pool - 1, generator=gen, device=dev)[
+        :b * n_pages] + 1).reshape(b, n_pages).to(torch.int32)
+    for i in released:
+        table[i] = 0  # a released slot on trash page 0
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    q = _rand(gen, (b, s, h, d), torch.bfloat16, dev)
+    fn = getattr(ops, name)
+    before = ops.LAUNCHES[name]
+    got = fn(q, *pools, table, pos)
+    assert ops.LAUNCHES[name] == before + 1
+    again = fn(q, *pools, table, pos)
+    assert ops.LAUNCHES[name] == before + 2
+    want = getattr(L, name)(q, *pools, table, pos)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    atol, rtol = ((TOL[torch.bfloat16],) * 2 if kind == "bf16"
+                  else INT8_DECODE_TOL[torch.bfloat16])
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8 page", "int8 token"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s", [1, 4, 8])
+def test_bf16_paged_decode_twin_order_matches_plain(dev, s, d, kind):
+    """The one-launch twin-order kernel over bf16 and int8 pools (4 slots
+    of 8 pages, G = 4 over 2 kv heads: 2 splits of 64 rows, one
+    cluster): a slot of S rows, one ending inside a page, a full one and
+    a released one."""
+    from repro_torch.kernels.decode_attention import paged_plan_sm90
+
+    b, n_pages, kvh, h = 4, 8, 2, 8
+    assert paged_plan_sm90(b, kvh, 16 * n_pages, 4 * s, d,
+                           kind != "bf16")[:3] == (2, 1, True)
+    _twin_order_call(dev, kind, s, b, n_pages, kvh, h, d,
+                     [s, max(s, 21), 16 * n_pages, s], released=(3,),
+                     seed=s * 100 + d)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8 page", "int8 token"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_paged_decode_recomputes_long_wide_splits(dev, d, kind):
+    """512 pages (8192 rows) a slot at G * S = 64: the scores do not fit
+    in shared memory and phase C computes them again from K; a full
+    slot, a slot ending inside a page past the middle, a released one."""
+    from repro_torch.kernels.decode_attention import paged_plan_sm90
+
+    b, n_pages, kvh, h, s = 3, 512, 1, 16, 4
+    nsplit, _, keep, _ = paged_plan_sm90(b, kvh, 16 * n_pages, 16 * s, d,
+                                         kind != "bf16")
+    assert (nsplit, keep) == (8, False)
+    _twin_order_call(dev, kind, s, b, n_pages, kvh, h, d,
+                     [16 * n_pages, 4103, s], released=(2,), seed=d)
+
+
+def test_paged_sm90_smem_matches_the_kernel(dev):
+    """The Python plan's shared-memory bytes are the kernel's own."""
+    from repro_torch.kernels import decode_attention as da
+
+    lib = build.load()
+    for b, hkv, window in ((8, 8, 1024), (3, 2, 80), (2, 1, 8192),
+                           (4, 2, 432)):
+        for rows in (1, 4, 16, 32, 64):
+            for d in (32, 64, 128, 256):
+                for int8 in (False, True):
+                    nsplit, per, keep, stages = da.paged_plan_sm90(
+                        b, hkv, window, rows, d, int8)
+                    assert lib.value(
+                        "paged_decode_sm90_smem", d, rows, window, nsplit,
+                        int(keep), stages, int(int8)) == \
+                        da.sm90_smem(d, rows, per, keep, stages, int8)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(1, 256, 384), (8, 256, 64),
                                    (37, 512, 384), (100, 128, 256),

@@ -141,3 +141,86 @@ def test_rolling_sm90_splits_at_the_served_shapes():
     assert da.n_splits_sm90(8, 1, 2048) == 8
     for window in (256, 1024):
         assert 8 * 8 * da.n_splits_sm90(8, 8, window) >= im.SMS
+
+
+# paged decode: (slots, kv heads, pages of 16) of granite's served pools
+# (max_seq 1024 and 4096), of the GPU tests' small pools, and a long one
+PAGED_SHAPES = ((8, 8, 64), (8, 8, 256), (3, 2, 5), (1, 1, 1), (2, 1, 512),
+                (16, 8, 64))
+
+
+@pytest.mark.parametrize("b,hkv,n_pages", PAGED_SHAPES)
+def test_paged_sm90_splits_cover_every_row_once(b, hkv, n_pages):
+    """The twin-order kernel's splits: a power of two up to 8 (one
+    cluster), no more tiles a split than the plan sized its shared memory
+    for, and every valid row of a slot in exactly one split, for slots
+    holding 1 row, a page's and a tile's edge, and the whole pool."""
+    window = 16 * n_pages
+    nsplit, per, _, _ = da.paged_plan_sm90(b, hkv, window, 4, 128, False)
+    assert nsplit == da.n_splits_sm90(b, hkv, window)
+    assert 1 <= nsplit <= da.MAX_SPLITS_SM90 and nsplit & (nsplit - 1) == 0
+    for nmax in sorted({1, 15, 16, 17, 63, 64, 65, 257, window - 1,
+                        window}):
+        if not 1 <= nmax <= window:
+            continue
+        covered = [0] * nmax
+        for z in range(nsplit):
+            lo, hi = da.split_rows(nmax, nsplit, z)
+            assert hi - lo <= per * da.SM90_TILE
+            for t in range(lo, hi):
+                covered[t] += 1
+        assert covered == [1] * nmax
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("rows", [1, 4, 16, 17, 32, 33, 64])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_paged_sm90_plan_fits_shared_memory(d, rows, int8):
+    """Every plan fits a block's 227 KB at every head_dim and G * S up to
+    64, for pools of 16 to 8192 rows per slot: the scores stay in shared
+    memory when they fit beside a ring of two tiles, else they are
+    recomputed; the ring has two slots, and more only while the block
+    stays within ``SM90_SMEM_TARGET`` (four an SM), up to one per event
+    of the split."""
+    for b, hkv, n_pages in PAGED_SHAPES:
+        for window in (16 * n_pages, 1024, 8192, 960):
+            nsplit, per, keep, stages = da.paged_plan_sm90(b, hkv, window,
+                                                           rows, d, int8)
+            assert da.sm90_smem(d, rows, per, keep, stages,
+                                int8) <= da.SM90_MAX_SMEM
+            assert keep == (da.sm90_smem(d, rows, per, True, 2, int8)
+                            <= da.SM90_MAX_SMEM)
+            cap = min(da.SM90_MAX_RING, (2 if keep else 3) * per)
+            assert 2 <= stages <= cap
+            if stages > 2:
+                assert da.sm90_smem(d, rows, per, keep, stages,
+                                    int8) <= da.SM90_SMEM_TARGET
+            if stages < cap:
+                assert da.sm90_smem(d, rows, per, keep, stages + 1,
+                                    int8) > da.SM90_SMEM_TARGET
+
+
+def test_paged_sm90_recomputes_only_long_wide_splits():
+    """Scores too large for shared memory are recomputed from K: 512
+    pages (8192 rows) at G * S 64 take that path; at G * S 4 the same
+    pools keep their scores."""
+    assert not da.paged_plan_sm90(2, 1, 8192, 64, 128, False)[2]
+    assert not da.paged_plan_sm90(2, 1, 8192, 64, 64, True)[2]
+    assert da.paged_plan_sm90(2, 1, 8192, 4, 128, False)[2]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("s", [1, 4, 8])
+def test_paged_sm90_plan_at_granite_served_shape(s, int8):
+    """granite-8b served: 8 slots x 8 kv heads, head_dim 128, max_seq
+    1024 (64 pages of 16), G = 4: 8 splits of 2 tiles (128 rows), one
+    cluster each, 512 blocks, the scores in shared memory; at S 1 and 4
+    four blocks fit an SM, so the 512 run in one wave."""
+    nsplit, per, keep, stages = da.paged_plan_sm90(8, 8, 1024, 4 * s, 128,
+                                                   int8)
+    assert (nsplit, per) == (8, 2)
+    assert keep
+    assert 8 * 8 * nsplit >= im.SMS
+    if s < 8:
+        assert 4 * da.sm90_smem(128, 4 * s, per, keep, stages,
+                                int8) <= da.SM90_MAX_SMEM
