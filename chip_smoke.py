@@ -25,9 +25,12 @@ Phases, in order; any failure exits non-zero:
    head_dim 256, window 2048), rolling-cache decode attention (8 rings of
    2048, S 1 and 4, rings partly filled to wrapped; bf16 on the one-pass
    kernel, also in units of 2^-8 sum p|v| and repeated bit for bit, and
-   float32 on the three-launch one), the RG-LRU scan (L 4096) and the
-   sampler at vocab 256000. The int8 matmul's bf16 decode tile is timed
-   at M 8, 16 and 32.
+   float32 on the three-launch one), the RG-LRU scan (L 4096, bit for
+   bit) and the sampler at vocab 256000. The int8 matmul's bf16 decode
+   tile is timed at M 8, 16 and 32. The sampler is timed at both
+   vocabularies under two mixes (phase 2's, and the bursts': 4 greedy
+   rows, 4 at T 0.8, top-k 50, top-p 0.95), with the rows each of its
+   paths served.
 3. Serve the same greedy and seeded requests through the port's
    ``ServingEngine`` on granite-8b ``reduced()`` (float32, 2 kv heads) on
    the card and on the CPU, in the model dtype, with int8 KV pages and
@@ -63,8 +66,9 @@ Phases, in order; any failure exits non-zero:
 ``--profile DIR`` repeats the steady-decode serve (8 requests on 8
 slots) of phases 4, 5 and 6, and recurrentgemma's 2500-token prompt
 alone (its prefill and one tick), under ``torch.profiler``, prints the
-device's busy share and the kernel launches of each run and writes its
-device-time table by kernel into DIR.
+device's busy share, the kernel launches of each run and the device
+time of the RG-LRU scan and the sampler, and writes its device-time table
+by kernel into DIR.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. With no CUDA device, or without the
@@ -104,7 +108,9 @@ INT8_DECODE_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
 # same units (against the decode attention of |v|).
 BF16_UNIT, BF16_UNITS_TOL = 2.0 ** -8, 4.0
 # The RG-LRU scan against its plain version: the reference suite's
-# tolerance for its scan kernel (tests/test_kernels.py).
+# tolerance for its scan kernel (tests/test_kernels.py), printed beside
+# the error; the gate is bit equality (the kernel rounds as the plain
+# version does, in the same order).
 SCAN_TOL = 1e-4
 # recurrentgemma-9b's decode logits against its full forward, in float32
 # at full width, relative to the largest logit: the two paths sum in
@@ -172,7 +178,6 @@ def phase_kernels(torch, rec):
     """Phase 2: every kernel against its plain version, full width."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import layers as L
-    from repro_torch.serving import prng
 
     dev = "cuda"
     gen = torch.Generator(device=dev)
@@ -303,38 +308,13 @@ def phase_kernels(torch, rec):
     V = 49152
     logits = torch.randn((B, V), generator=gen, device=dev) * 4.0
     logits[0, 7] = logits[0, 9] = logits[0].max() + 1.0  # an argmax tie
-    greedy = torch.tensor([1, 0, 0, 1, 0, 0, 0, 1], dtype=torch.bool,
-                          device=dev)
-    temp = torch.tensor([1.0, 0.7, 1.3, 1.0, 0.9, 1.0, 0.5, 1.0],
-                        device=dev)
-    top_k = torch.tensor([0, 50, 0, 0, 200, 0, 1, 0], dtype=torch.int32,
-                         device=dev)
-    top_p = torch.tensor([1.0, 1.0, 0.9, 1.0, 0.95, 1.0, 1.0, 1.0],
-                         device=dev)
-    keys = torch.tensor([prng.prng_key(1000 + i) for i in range(B)],
-                        dtype=torch.int64, device=dev)
-    n_draws, mismatches = 0, 0
-    for step in range(16):
-        pos = torch.full((B,), 100 + step, dtype=torch.int64, device=dev)
-        u = prng.uniform(prng.fold_in(keys, pos), True)
-        got = ops.sample_tokens(logits, greedy, temp, top_k, top_p, u)
-        want = L.sample_tokens(logits, greedy, temp, top_k, top_p, u)
-        mismatches += int((got.long() != want.long()).sum())
-        n_draws += B
-    good = mismatches == 0 and int(got[0]) == 7
+    good, res = sampler_check(torch, logits, 1000, 100, 7)
     ok &= good
-    ms = time_ms(torch, lambda i: ops.sample_tokens(logits, greedy, temp,
-                                                    top_k, top_p, u))
-    plain = time_ms(torch, lambda i: L.sample_tokens(logits, greedy, temp,
-                                                     top_k, top_p, u))
-    b_ms, b_by = bound(4 * B * V + 4 * 6 * B, 0.0, "float32")
-    print(f"sample_tokens B={B} V={V}: token mismatches {mismatches}/"
-          f"{n_draws} (exact equality required) "
-          f"{'ok' if good else 'FAIL'} ms={ms:.4f} plain_ms={plain:.4f} "
-          f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
-    rec["sample_tokens"].update(max_abs_err=float(mismatches), ms=ms,
+    mism, _, ms, plain, b_ms, b_by = res["phase 2"]
+    rec["sample_tokens"].update(max_abs_err=float(mism), ms=ms,
                                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                 library_ms=None)
+    temp = sampler_mixes(torch, dev, B)["phase 2"][1]
 
     kk = torch.randint(1, V + 1, (B,), generator=gen, device=dev,
                        dtype=torch.int32)
@@ -352,6 +332,74 @@ def phase_kernels(torch, rec):
           f"ms={ms:.4f} plain_ms={plain:.4f}", flush=True)
     ok &= hybrid_kernels(torch, rec, gen)
     return ok
+
+
+def sampler_mixes(torch, dev, B):
+    """(greedy, temperature, top_k, top_p) of phase 2's mix (every path of
+    the kernel) and of the bursts' (half greedy, half T 0.8, top-k 50,
+    top-p 0.95)."""
+    return {
+        "phase 2": (torch.tensor([1, 0, 0, 1, 0, 0, 0, 1], dtype=torch.bool,
+                                 device=dev),
+                    torch.tensor([1.0, 0.7, 1.3, 1.0, 0.9, 1.0, 0.5, 1.0],
+                                 device=dev),
+                    torch.tensor([0, 50, 0, 0, 200, 0, 1, 0],
+                                 dtype=torch.int32, device=dev),
+                    torch.tensor([1.0, 1.0, 0.9, 1.0, 0.95, 1.0, 1.0, 1.0],
+                                 device=dev)),
+        "burst": (torch.arange(B, device=dev) < B // 2,
+                  torch.full((B,), 0.8, device=dev),
+                  torch.full((B,), 50, dtype=torch.int32, device=dev),
+                  torch.full((B,), 0.95, device=dev)),
+    }
+
+
+def sampler_check(torch, logits, seed0, pos0, tie):
+    """Each mix: 16 draws against the plain sampler (row r's uniforms at
+    key ``seed0 + r`` and positions ``pos0 ..``; exact tokens, row 0 of
+    phase 2's mix at the argmax tie ``tie``), a repeat call
+    bit-identical, the rows each path served in one call, and the device
+    time. Returns (ok, {mix: (mismatches, draws, ms, plain ms)})."""
+    from repro_torch.kernels import ops, plain
+    from repro_torch.serving import prng
+
+    dev, (B, V) = logits.device, logits.shape
+    keys = torch.tensor([prng.prng_key(seed0 + i) for i in range(B)],
+                        dtype=torch.int64, device=dev)
+    ok, out = True, {}
+    for name, (greedy, temp, top_k, top_p) in sampler_mixes(
+            torch, dev, B).items():
+        n_draws, mismatches, same = 0, 0, True
+        for step in range(16):
+            pos = torch.full((B,), pos0 + step, dtype=torch.int64,
+                             device=dev)
+            u = prng.uniform(prng.fold_in(keys, pos), True)
+            got = ops.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+            want = plain.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+            mismatches += int((got.long() != want.long()).sum())
+            same &= bool(torch.equal(got, ops.sample_tokens(
+                logits, greedy, temp, top_k, top_p, u)))
+            n_draws += B
+        ops.reset_launches()
+        ops.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+        paths = ops.path_rows()
+        good = mismatches == 0 and same
+        if name == "phase 2":
+            good &= int(got[0]) == tie
+        ok &= good
+        ms = time_ms(torch, lambda i: ops.sample_tokens(
+            logits, greedy, temp, top_k, top_p, u))
+        pl_ms = time_ms(torch, lambda i: plain.sample_tokens(
+            logits, greedy, temp, top_k, top_p, u))
+        b_ms, b_by = bound(4 * B * V + 4 * 6 * B, 0.0, "float32")
+        print(f"sample_tokens B={B} V={V} {name} mix: token mismatches "
+              f"{mismatches}/{n_draws} (exact equality required), repeat "
+              f"calls bit-identical: {same}, rows by path "
+              + ", ".join(f"{k}={v}" for k, v in paths.items())
+              + f" {'ok' if good else 'FAIL'} ms={ms:.4f} plain_ms="
+              f"{pl_ms:.4f} bound_ms={b_ms:.5f} ({b_by})", flush=True)
+        out[name] = (mismatches, n_draws, ms, pl_ms, b_ms, b_by)
+    return ok, out
 
 
 def paged_units(got, want, q, k_pool, v_pool, table, pos):
@@ -385,7 +433,6 @@ def hybrid_kernels(torch, rec, gen):
     head_dim 256, rolling-cache decode attention, the RG-LRU scan and the
     sampler at vocab 256000, each against its plain version."""
     from repro_torch.kernels import ops, plain, ref
-    from repro_torch.serving import prng
 
     dev = "cuda"
     H, KVH, D, WIN = 16, 1, 256, 2048
@@ -519,7 +566,7 @@ def hybrid_kernels(torch, rec, gen):
         y_want, h_want = plain.rglru_scan(a, x, h0)
         err = max((y - y_want).abs().max().item(),
                   (h - h_want).abs().max().item())
-        good = err <= SCAN_TOL
+        good = err == 0.0
         ok &= good
         ms = time_ms(torch, lambda i: ops.rglru_scan(*sets[i % 2]))
         pl_ms = time_ms(torch, lambda i: plain.rglru_scan(*sets[i % 2]),
@@ -527,7 +574,8 @@ def hybrid_kernels(torch, rec, gen):
         b_ms, b_by = bound(3.0 * b * s * l * 4 + 2 * b * l * 4,
                            2.0 * b * s * l, "float32")
         print(f"rglru_scan B={b} S={s} L={l}: max_abs_err={err:.3g} "
-              f"tol={SCAN_TOL} {'ok' if good else 'FAIL'} ms={ms:.4f} "
+              f"(exactly 0 required; the reference's tolerance {SCAN_TOL}) "
+              f"{'ok' if good else 'FAIL'} ms={ms:.4f} "
               f"plain_ms={pl_ms:.4f} bound_ms={b_ms:.5f} ({b_by}); no "
               f"library call computes this recurrence", flush=True)
         if s == 2560:
@@ -536,34 +584,13 @@ def hybrid_kernels(torch, rec, gen):
                 bound_by=b_by, library_ms=None)
         del sets, a, x, h0, y, h, y_want, h_want
 
-    # -- the sampler at vocab 256000 (a cluster of 8 blocks per row) ---------
+    # -- the sampler at vocab 256000 -----------------------------------------
     V = 256000
     logits = torch.randn((B, V), generator=gen, device=dev) * 4.0
     logits[0, V - 5] = logits[0, 3] = logits[0].max() + 1.0  # a tie
-    greedy = torch.tensor([1, 0, 0, 1, 0, 0, 0, 1], dtype=torch.bool,
-                          device=dev)
-    temp = torch.tensor([1.0, 0.7, 1.3, 1.0, 0.9, 1.0, 0.5, 1.0],
-                        device=dev)
-    top_k = torch.tensor([0, 50, 0, 0, 200, 0, 1, 0], dtype=torch.int32,
-                         device=dev)
-    top_p = torch.tensor([1.0, 1.0, 0.9, 1.0, 0.95, 1.0, 1.0, 1.0],
-                         device=dev)
-    keys = torch.tensor([prng.prng_key(2000 + i) for i in range(B)],
-                        dtype=torch.int64, device=dev)
-    n_draws, mismatches = 0, 0
-    for step in range(16):
-        pos = torch.full((B,), 300 + step, dtype=torch.int64, device=dev)
-        u = prng.uniform(prng.fold_in(keys, pos), True)
-        got = ops.sample_tokens(logits, greedy, temp, top_k, top_p, u)
-        want = plain.sample_tokens(logits, greedy, temp, top_k, top_p, u)
-        mismatches += int((got.long() != want.long()).sum())
-        n_draws += B
-    good = mismatches == 0 and int(got[0]) == 3
-    ms = time_ms(torch, lambda i: ops.sample_tokens(logits, greedy, temp,
-                                                    top_k, top_p, u))
-    pl_ms = time_ms(torch, lambda i: plain.sample_tokens(
-        logits, greedy, temp, top_k, top_p, u))
-    b_ms, b_by = bound(4 * B * V + 4 * 6 * B, 0.0, "float32")
+    good, res = sampler_check(torch, logits, 2000, 300, 3)
+    mismatches, _, ms, pl_ms, b_ms, b_by = res["phase 2"]
+    temp = sampler_mixes(torch, dev, B)["phase 2"][1]
     kk = torch.randint(1, V + 1, (B,), generator=gen, device=dev,
                        dtype=torch.int32)
     kk[0], kk[1] = 1, V
@@ -572,10 +599,8 @@ def hybrid_kernels(torch, rec, gen):
                       == ref.ref_topk_sample(logits, kk, temp, uu)).all())
     good &= topk_good
     ok &= good
-    print(f"sample_tokens B={B} V={V}: token mismatches {mismatches}/"
-          f"{n_draws} (exact equality required); topk_sample exact vs "
-          f"ref.ref_topk_sample: {topk_good} {'ok' if good else 'FAIL'} "
-          f"ms={ms:.4f} plain_ms={pl_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
+    print(f"topk_sample (Pallas semantics) B={B} V={V}: exact vs "
+          f"ref.ref_topk_sample: {topk_good} {'ok' if good else 'FAIL'}",
           flush=True)
     rec["sample_tokens_v256k"].update(
         max_abs_err=float(mismatches), ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
@@ -947,7 +972,10 @@ def phase_full(torch, rec, full, profile_dir=None):
           f"{np.percentile(st['ttft'], 90) * 1e3:.1f} ms, peak device "
           f"memory {peak / 2 ** 30:.2f} GiB", flush=True)
     print("kernels (launches on the main path): "
-          + ", ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+          + ", ".join(f"{k}={v}" for k, v in launches.items())
+          + "; sampler rows by path: "
+          + ", ".join(f"{k}={v}" for k, v in ops.path_rows().items()),
+          flush=True)
 
     reqs2, _ = serve(torch, cfg, params, prompts, **run)
     same = all(a.output == b.output for a, b in zip(reqs, reqs2))
@@ -1042,7 +1070,10 @@ def phase_quant(torch, rec, full, profile_dir=None):
           f"{st['weight_bytes'] / 2 ** 30:.2f} GiB; greedy streams equal "
           f"to phase 4's: {agree}/{len(greedy)}", flush=True)
     print("kernels (launches on the int8 path): "
-          + ", ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+          + ", ".join(f"{k}={v}" for k, v in launches.items())
+          + "; sampler rows by path: "
+          + ", ".join(f"{k}={v}" for k, v in ops.path_rows().items()),
+          flush=True)
     reqs2, _ = serve(torch, cfg, params, prompts, **both)
     same = all(a.output == b.output for a, b in zip(reqs, reqs2))
     ok &= same
@@ -1131,7 +1162,10 @@ def phase_hybrid(torch, rec, profile_dir=None):
           f"{st['weight_bytes'] / 2 ** 30:.2f} GiB (the float32 head copy "
           f"included)", flush=True)
     print("kernels (launches on the hybrid path): "
-          + ", ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+          + ", ".join(f"{k}={v}" for k, v in launches.items())
+          + "; sampler rows by path: "
+          + ", ".join(f"{k}={v}" for k, v in ops.path_rows().items()),
+          flush=True)
     reqs2, _ = serve(torch, cfg, params, prompts, **run)
     same = all(a.output == b.output for a, b in zip(reqs, reqs2))
     ok &= same
@@ -1264,8 +1298,19 @@ def write_profile(prof, out_dir, st, table_name,
           f"busy {dev_us / 1e6:.3f}s of {st['wall']:.3f}s wall "
           f"({100 * dev_us / 1e6 / st['wall']:.1f}%); table in "
           f"{out_dir}/{table_name}; kernel launches: "
-          + ", ".join(f"{k}={v}" for k, v in ops.LAUNCHES.items() if v),
+          + ", ".join(f"{k}={v}" for k, v in ops.LAUNCHES.items() if v)
+          + "; sampler rows by path: "
+          + ", ".join(f"{k}={v}" for k, v in ops.path_rows().items()),
           flush=True)
+    # the two kernels this slice rebuilt, by their kernels' names
+    for label_k, key in (("RG-LRU scan", "scan_kernel"),
+                         ("sampler", "sample_tokens_kernel")):
+        hits = [e for e in events if e.device_type == DeviceType.CUDA
+                and key in e.key]
+        us = sum(e.self_device_time_total for e in hits)
+        calls = sum(e.count for e in hits)
+        print(f"  {label_k}: {us / 1e3:.3f} ms of device time in {calls} "
+              f"launches ({us / max(calls, 1):.2f} us a launch)", flush=True)
     for line in table.splitlines()[:18]:
         print(line, flush=True)
 

@@ -31,7 +31,9 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 
 #: C signature of every entry point: (library, argtypes); all return int
-#: (a cudaError_t, 0 on success; ``paged_decode_sm90_smem``: bytes).
+#: (a cudaError_t, 0 on success; ``paged_decode_sm90_smem`` and
+#: ``sample_tokens_static_smem``: bytes; ``sample_tokens_max_clusters``: a
+#: count).
 SIGNATURES = {
     "flash_attention_f32": ("flash_attention",
                             [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P]),
@@ -54,13 +56,14 @@ SIGNATURES = {
         "decode_attention", [_P] * 8 + [_I] * 6 + [_L] * 3 + [_I, _F, _P]),
     "decode_attention_bf16": (
         "decode_attention", [_P] * 5 + [_I] * 6 + [_L] * 3 + [_I, _F, _P]),
-    "rglru_scan_f32": ("rglru_scan", [_P] * 5 + [_I] * 3 + [_P]),
+    "rglru_scan_f32": ("rglru_scan", [_P] * 5 + [_I] * 4 + [_P]),
     "int8_matmul_f32": ("int8_matmul", [_P] * 5 + [_I] * 6 + [_P]),
     "int8_matmul_bf16": ("int8_matmul", [_P] * 5 + [_I] * 6 + [_P]),
     "int8_matmul_decode_bf16": ("int8_matmul", [_P] * 4 + [_I] * 6 + [_P]),
-    "sample_tokens_f32": ("sampling", [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                       _P]),
-    "topk_sample_f32": ("sampling", [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "sample_tokens_f32": ("sampling", [_P] * 8 + [_I] * 4 + [_P]),
+    "sample_tokens_static_smem": ("sampling", [_I]),
+    "sample_tokens_max_clusters": ("sampling", [_I] * 3),
+    "topk_sample_f32": ("sampling", [_P] * 5 + [_I] * 3 + [_P]),
 }
 
 

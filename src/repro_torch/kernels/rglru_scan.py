@@ -6,13 +6,43 @@ version ``plain.rglru_scan``.
 ``h_t = a_t * h_{t-1} + x_t`` over a, x (B, S, L) float32 from h0 (B, L)
 float32, any S >= 1; returns (y (B, S, L), h_S (B, L)), both float32. A
 CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
-raises."""
+raises. ``scan_plan`` is the launch plan, in Python so that it can be
+tested without a card."""
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import plain
+
+SMS = 132  # the H100's streaming multiprocessors
+SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+# the kernel's compile-time tile (``csrc/rglru_scan.cu``; 4 warps a block)
+CHANNELS = 32  # channels a block owns: one 128-byte segment a step
+TIME_TILE = 32  # steps of a and x in one ring stage
+STAGES = 8  # ring depth: STAGES - 1 tiles (56 KB a block) in flight
+# dynamic shared memory of one block: a ring of a and x tiles, two y tiles
+SMEM = (STAGES + 1) * 2 * TIME_TILE * CHANNELS * 4
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    vec: bool  # 16-byte copies (else 4-byte ones)
+    grid: tuple  # (channel blocks, B)
+
+    def channels(self, bx: int) -> range:
+        """The channels block column ``bx`` owns (the last block's may run
+        past L, where the kernel masks)."""
+        return range(bx * CHANNELS, (bx + 1) * CHANNELS)
+
+
+def scan_plan(b: int, s: int, l: int, aligned: bool = True) -> ScanPlan:
+    """One block per 32 channels of a row: (1, S, 4096) puts 128 blocks
+    on 128 SMs. 16-byte copies where L % 4 == 0 and a, x are 16-byte
+    aligned (``aligned``)."""
+    return ScanPlan(vec=aligned and l % 4 == 0, grid=(-(-l // CHANNELS), b))
 
 
 def rglru_scan(a, x, h0):
@@ -35,11 +65,12 @@ def rglru_scan(a, x, h0):
     if not (a.is_contiguous() and x.is_contiguous() and h0.is_contiguous()):
         raise ValueError(f"{name}: a, x, h0 must be contiguous")
     b, s, l = a.shape
+    p = scan_plan(b, s, l, a.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
     y = torch.empty_like(a)
     h_last = torch.empty_like(h0)
     lib = build.load()
     lib.call("rglru_scan_f32", a.data_ptr(), x.data_ptr(), h0.data_ptr(),
-             y.data_ptr(), h_last.data_ptr(), b, s, l,
+             y.data_ptr(), h_last.data_ptr(), b, s, l, int(p.vec),
              torch.cuda.current_stream(a.device).cuda_stream)
     build.LAUNCHES[name] += 1
     return y, h_last

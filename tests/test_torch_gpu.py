@@ -9,8 +9,9 @@ they skip without a card. On the machine with the card:
 that machine does not have.)
 
 Tolerances: float32 2e-5 (the reference suite's); bfloat16 2e-2, and 1e-3
-absolute for the int8 paged decode kernel; 1e-4 for the RG-LRU scan (the
-reference suite's, ``tests/test_kernels.py``); sampled tokens exact."""
+absolute for the int8 paged decode kernel; the RG-LRU scan bit for bit
+(it rounds as its plain version does, in the same order); sampled tokens
+exact, and a repeat call bit-identical."""
 import numpy as np
 import pytest
 import torch
@@ -404,8 +405,13 @@ def test_int8_matmul_decode_tile_matches_plain(dev, m, k, n):
 
 
 @pytest.mark.parametrize("b,s,l", [(1, 37, 4096), (2, 130, 256),
-                                   (3, 1, 64)])
+                                   (3, 1, 64), (1, 2560, 4096),
+                                   (2, 384, 4096), (1, 45, 100),
+                                   (2, 33, 4097), (1, 1, 1)])
 def test_rglru_scan_kernel_matches_plain(dev, b, s, l):
+    """Bit for bit: S past, on and off the time tile (32), S 1, L not a
+    multiple of the 32-channel tile (100) or of 4 (4097: 4-byte copies);
+    a repeat call gives the same bits."""
     gen = torch.Generator(device=dev).manual_seed(s)
     a = torch.rand((b, s, l), generator=gen, device=dev) * 0.2 + 0.8
     x = torch.randn((b, s, l), generator=gen, device=dev)
@@ -415,8 +421,30 @@ def test_rglru_scan_kernel_matches_plain(dev, b, s, l):
     assert ops.LAUNCHES["rglru_scan"] == before + 1
     y_want, h_want = plain.rglru_scan(a, x, h0)
     torch.cuda.synchronize()
-    torch.testing.assert_close(y, y_want, atol=1e-4, rtol=1e-4)
-    torch.testing.assert_close(h, h_want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(y, y_want) and torch.equal(h, h_want)
+    y2, h2 = ops.rglru_scan(a, x, h0)
+    assert torch.equal(y2, y) and torch.equal(h2, h)
+
+
+@pytest.mark.parametrize("b,s,l", [(2, 77, 320), (1, 40, 4096),
+                                   (3, 5, 64)])
+def test_rglru_scan_unaligned_views_match_plain(dev, b, s, l):
+    """The 4-byte copies of an unaligned view (a and x start 4 bytes into
+    their storage), bit for bit."""
+    from repro_torch.kernels.rglru_scan import scan_plan
+
+    gen = torch.Generator(device=dev).manual_seed(b * s + l)
+    a = torch.rand((b, s, l), generator=gen, device=dev) * 0.2 + 0.8
+    x = torch.randn((b, s, l), generator=gen, device=dev)
+    h0 = torch.randn((b, l), generator=gen, device=dev)
+    want = plain.rglru_scan(a, x, h0)
+    a1 = torch.empty(a.numel() + 1, device=dev)[1:].view(b, s, l)
+    x1 = torch.empty(x.numel() + 1, device=dev)[1:].view(b, s, l)
+    a1.copy_(a)
+    x1.copy_(x)
+    assert scan_plan(b, s, l, aligned=False).vec is False
+    got = ops.rglru_scan(a1, x1, h0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("v", [256000, 1000])
@@ -470,6 +498,173 @@ def test_sampler_kernels_match_plain_exactly(dev):
     uu = torch.rand((b, v), generator=gen, device=dev)
     assert torch.equal(ops.topk_sample(logits, k, temp, uu),
                        L.topk_sample(logits, k, temp, uu))
+
+
+def _from_image(u):
+    """float32 values whose order-isomorphic uint32 images are ``u``."""
+    u = np.asarray(u, dtype=np.uint64)
+    bits = np.where(u >= 2 ** 31, u - 2 ** 31, ~u & 0xFFFFFFFF)
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def _sampler_case(case, v):
+    """(logits, greedy, temperature, top_k, top_p) of 8 rows as numpy
+    arrays, and the rows each path of the kernel should serve."""
+    from repro_torch.kernels.topk_sample import CAP
+
+    rng = np.random.default_rng(v + len(case))
+    b = 8
+    x = rng.standard_normal((b, v)).astype(np.float32)
+    greedy = np.zeros(b, bool)
+    temp = np.ones(b, np.float32)
+    k = np.zeros(b, np.int32)
+    p = np.ones(b, np.float32)
+    if case == "digit ties":
+        # 3 values at image hi and 4 at hi - 1, above every normal draw;
+        # hi - 1 differs from hi in the digit holding bit s and every
+        # digit below it; k 5 cuts inside the group of 4, p 0.5 / 0.4 put
+        # the nucleus boundary on it / on the group of 3
+        shifts = (0, 8, 16, 24, 8, 24, 16, 0)
+        k[:] = (5, 5, 5, 5, 0, 0, CAP + 2, 0)
+        p[:] = (1.0, 0.5, 0.4, 0.5, 0.5, 0.4, 0.5, 1.0)
+        greedy[7] = True
+        for r, s in enumerate(shifts):
+            hi = 0xC2000000 if s == 24 else 0xC1000000 + (1 << s)
+            at = rng.choice(v, 7, replace=False)
+            x[r, at] = _from_image([hi] * 3 + [hi - 1] * 4)
+        paths = dict(greedy=1, candidates=4, mass_radix=3, whole_row=0)
+    elif case == "top_k over V":
+        k[:] = (v, v + 7, 2 ** 31 - 1, v, v + 1, v, 0, 1)
+        p[:] = (1.0, 1.0, 1.0, 0.9, 0.8, 0.3, 1.0, 1.0)
+        big = v > CAP
+        paths = dict(greedy=0, candidates=1 if big else 8,
+                     mass_radix=3 if big else 0, whole_row=4 if big else 0)
+    elif case == "equal logits":
+        x[:] = 0.25
+        greedy[0] = True
+        k[:] = (0, 0, 0, 10, 10, 1, 0, v)
+        p[:] = (1.0, 1.0, 0.9, 1.0, 0.9, 0.5, 0.999, 0.5)
+        big = v > CAP
+        paths = dict(greedy=1, candidates=0 if big else 7,
+                     mass_radix=5 if big else 0, whole_row=2 if big else 0)
+    elif case == "-inf entries":
+        x[rng.random((b, v)) < 0.3] = -np.inf
+        x[5, :] = -np.inf
+        x[5, v // 2] = 1.5  # one finite value
+        greedy[0] = True
+        k[:] = (0, 0, 0, 50, v, v - 10, 0, 3)
+        p[:] = (1.0, 1.0, 0.9, 0.95, 1.0, 0.8, 0.9, 0.6)
+        big = v > CAP
+        paths = dict(greedy=1, candidates=2 if big else 7,
+                     mass_radix=3 if big else 0, whole_row=2 if big else 0)
+    elif case == "over the cap":
+        # distinct logits: k CAP keeps CAP, k CAP + 1 one more; rows 3 and
+        # 4 tie the k-th value with the next, so CAP - 1 and CAP keep one
+        # more than k
+        k[:] = (CAP, CAP + 1, CAP + 1, CAP - 1, CAP, CAP, 50, CAP + 1)
+        p[:] = (1.0, 1.0, 0.9, 0.9, 0.9, 0.9, 0.95, 0.999)
+        order = np.argsort(-x, axis=1)
+        for r, kk in ((3, CAP - 1), (4, CAP)):
+            x[r, order[r, kk]] = x[r, order[r, kk - 1]]
+        paths = dict(greedy=0, candidates=4, mass_radix=3, whole_row=1)
+    elif case == "nucleus tie":
+        # 2 values at 6.0 and 10 at 5.0 above normals shifted by -2; p
+        # halfway into the group at 5.0 puts the boundary on the tie
+        x -= 2.0
+        for r in range(b):
+            at = rng.choice(v, 12, replace=False)
+            x[r, at[:2]], x[r, at[2:]] = 6.0, 5.0
+        e = np.exp(x.astype(np.float64) - 6.0)
+        m6, m5 = 2.0, 10.0 * np.exp(-1.0)
+        mid = (m6 + 0.5 * m5) / e.sum(1)
+        k[:] = (0, 20, CAP + 5, 0, 20, 12, 11, 0)
+        p[:] = mid.astype(np.float32)
+        p[5:7] = 0.999  # the tie at the k-th value alone
+        paths = dict(greedy=0, candidates=4, mass_radix=4, whole_row=0)
+    else:  # the burst's mix: 4 greedy rows, then T 0.8, k 50, p 0.95
+        greedy[:4] = True
+        temp[4:], k[4:], p[4:] = 0.8, 50, 0.95
+        paths = dict(greedy=4, candidates=4, mass_radix=0, whole_row=0)
+    return (x, greedy, temp, k, p), paths
+
+
+SAMPLER_CASES = [("digit ties", 4096), ("top_k over V", 300),
+                 ("top_k over V", 4096), ("equal logits", 300),
+                 ("equal logits", 4096), ("-inf entries", 300),
+                 ("-inf entries", 4096), ("over the cap", 4096),
+                 ("nucleus tie", 4096), ("burst", 1000), ("burst", 49152),
+                 ("burst", 256000), ("digit ties", 256000),
+                 ("over the cap", 256000)]
+
+
+@pytest.mark.parametrize("cluster,store_w", [(None, None), (8, None),
+                                             (8, False), (16, None),
+                                             (16, False)])
+@pytest.mark.parametrize("case,v", SAMPLER_CASES)
+def test_sampler_paths_match_plain(dev, case, v, cluster, store_w):
+    """Each path of the kernel against the plain sampler, token for
+    token, at uniforms 0, 1 - 2^-24 and random ones, under the served
+    plan (``sample_plan``) and each other: clusters of 8 and 16 blocks,
+    with the weights kept beside the logits (where they fit) and
+    recomputed; each row counted on the path it should take; a repeat
+    call bit-identical."""
+    from repro_torch.kernels import topk_sample as ts
+
+    plan = None if cluster is None else ts._slices(v, cluster, store_w)
+    (x, greedy, temp, k, p), paths = _sampler_case(case, v)
+    logits = torch.from_numpy(x).to(dev)
+    args = [torch.from_numpy(a).to(dev) for a in (greedy, temp, k, p)]
+    gen = torch.Generator(device=dev).manual_seed(v)
+    draws = [torch.zeros(8, device=dev),
+             torch.full((8,), 1.0 - 2 ** -24, device=dev)]
+    draws += [torch.rand((8,), generator=gen, device=dev) for _ in range(6)]
+    for u in draws:
+        ops.reset_launches()
+        got = ts.sample_tokens(logits, *args, u, _plan=plan)
+        assert ops.path_rows() == paths
+        want = L.sample_tokens(logits, *args, u)
+        assert torch.equal(got, want), (got.tolist(), want.tolist())
+        assert torch.equal(ts.sample_tokens(logits, *args, u, _plan=plan),
+                           got)
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("case,v", [("digit ties", 4096),
+                                    ("equal logits", 4096),
+                                    ("over the cap", 256000)])
+def test_topk_sample_radix_matches_plain(dev, case, v, cluster):
+    """The Pallas semantics over the digit radix: k of 1, CAP, V and past
+    V, on ties at the k-th value."""
+    from repro_torch.kernels import topk_sample as ts
+
+    (x, _, temp, _, _), _ = _sampler_case(case, v)
+    logits = torch.from_numpy(x).to(dev)
+    temp = torch.from_numpy(temp).to(dev)
+    k = torch.tensor([1, 5, 511, 512, 513, v, v + 5, 3], dtype=torch.int32,
+                     device=dev)
+    uu = torch.rand((8, v), generator=torch.Generator(device=dev)
+                    .manual_seed(1), device=dev)
+    got = ts.topk_sample(logits, k, temp, uu, _cluster=cluster)
+    assert torch.equal(got, L.topk_sample(logits, k, temp, uu))
+    again = ts.topk_sample(logits, k, temp, uu, _cluster=cluster)
+    assert torch.equal(again, got)
+
+
+def test_sampler_static_smem_within_the_plan(dev):
+    """The kernel's own shared memory stays inside the bound the wrapper
+    adds to the slice, and each plan that fits a block at vocab 256000
+    fits a cluster on the card (how many at once chip_smoke.py prints)."""
+    from repro_torch.kernels import topk_sample as ts
+
+    lib = build.load()
+    for cluster in (8, 16):
+        static = lib.value("sample_tokens_static_smem", cluster)
+        assert 0 < static <= ts.STATIC_SMEM
+        for store_w in (False, True):
+            if ts._slices(256000, cluster, store_w).smem \
+                    <= ts.SMEM_LIMIT:
+                assert lib.value("sample_tokens_max_clusters", 256000,
+                                 cluster, int(store_w)) >= 1
 
 
 def test_wrappers_raise_on_cuda_inputs_they_cannot_take(dev):

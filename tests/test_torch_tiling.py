@@ -1,13 +1,17 @@
 """The kernels' launch plans as their wrappers compute them in Python:
 the int8 matmul's tile for each M and dtype and its K splits at granite's
 projection shapes (wq/wo, wk/wv, w1/w3, w2), for the float32, bf16 decode
-and bf16 prefill tiles; and the one-pass bf16 rolling decode kernel's
-context splits (one thread-block cluster per slot and kv head)."""
+and bf16 prefill tiles; the one-pass bf16 rolling decode kernel's
+context splits (one thread-block cluster per slot and kv head); the RG-LRU
+scan's channel and time tiles; and the sampler's slices of a row over its
+thread-block cluster."""
 import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import int8_matmul as im
+from repro_torch.kernels import rglru_scan as rs
+from repro_torch.kernels import topk_sample as ts
 
 GRANITE_KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
 
@@ -224,3 +228,105 @@ def test_paged_sm90_plan_at_granite_served_shape(s, int8):
     if s < 8:
         assert 4 * da.sm90_smem(128, 4 * s, per, keep, stages,
                                 int8) <= da.SM90_MAX_SMEM
+
+
+# the RG-LRU scan: (B, S, L) of recurrentgemma's prefill (L 4096, B 1 at a
+# prompt's exact length), the GPU tests' shapes and ragged ones
+SCAN_SHAPES = ((1, 2560, 4096), (2, 384, 4096), (1, 1, 4096), (1, 37, 4096),
+               (2, 130, 256), (3, 1, 64), (1, 45, 100), (2, 33, 4097),
+               (1, 1, 1), (8, 7, 4096))
+
+
+@pytest.mark.parametrize("b,s,l", SCAN_SHAPES)
+def test_scan_plan_covers_every_channel_once(b, s, l):
+    """The blocks of a row own disjoint 32-channel tiles that cover every
+    channel of every row exactly once (the last block's tail is masked),
+    and each block's time tiles cover every step once."""
+    plan = rs.scan_plan(b, s, l)
+    nbx, rows = plan.grid
+    assert rows == b
+    covered = [0] * l
+    for bx in range(nbx):
+        ch = plan.channels(bx)
+        assert len(ch) == rs.CHANNELS
+        for c in ch:
+            if c < l:
+                covered[c] += 1
+    assert covered == [1] * l
+    assert (nbx - 1) * rs.CHANNELS < l
+    tiles = -(-s // rs.TIME_TILE)
+    assert (tiles - 1) * rs.TIME_TILE < s <= tiles * rs.TIME_TILE
+    assert plan.vec == (l % 4 == 0)
+    assert rs.scan_plan(b, s, l, aligned=False).vec is False
+
+
+def test_scan_tile_fits_shared_memory():
+    """The kernel's tile fits one block's shared memory (227 KB): the ring
+    of a and x tiles and two y tiles, 56 KB of a and x in flight a block,
+    and two blocks fit an SM."""
+    assert rs.SMEM == (rs.STAGES + 1) * rs.TIME_TILE * rs.CHANNELS * 8
+    assert (rs.STAGES - 1) * rs.TIME_TILE * rs.CHANNELS * 8 == 57344
+    assert 2 * rs.SMEM <= rs.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("s", [1, 384, 2500, 2560])
+def test_scan_plan_fills_the_card_at_batch_one(s):
+    """At B 1, L 4096 the plan puts at least 120 blocks (32 channels
+    each) on the 132 SMs, where one block of 64 threads per 64 channels
+    gave 64."""
+    plan = rs.scan_plan(1, s, 4096)
+    blocks = plan.grid[0] * plan.grid[1]
+    assert 120 <= blocks <= rs.SMS
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("v", [1, 7, 300, 1000, 4096, 49152, 256000])
+def test_sample_plan_slices_cover_the_row_once(v, cluster):
+    """The cluster's blocks hold disjoint 16-byte-aligned slices of the
+    row that cover it once (a short or empty last slice included)."""
+    plan = ts._slices(v, cluster)
+    assert plan.cluster == cluster and plan.chunk % 4 == 0
+    covered = [0] * v
+    for r in range(cluster):
+        base = min(r * plan.chunk, v)
+        for i in range(base, min(base + plan.chunk, v)):
+            covered[i] += 1
+    assert covered == [1] * v
+    assert plan.chunk < -(-v // cluster) + 4
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_sample_plan_fits_shared_memory_at_max_vocab(cluster):
+    """A block's slice and the kernel's own shared memory fit in 227 KB
+    at ``max_vocab``, which holds recurrentgemma's 256000, and one more
+    logit does not fit; the weights are kept beside the slice only where
+    both fit; the candidate cap is one value a thread of one block."""
+    top = ts.max_vocab(cluster)
+    assert top >= 256000
+    assert ts._slices(top, cluster).smem <= ts.SMEM_LIMIT
+    assert not ts._slices(top, cluster).store_w
+    assert ts._slices(top + 1, cluster).smem > ts.SMEM_LIMIT
+    for v in (1000, 49152, 256000):
+        plan = ts._slices(v, cluster)
+        assert plan.smem <= ts.SMEM_LIMIT
+        assert plan.store_w == (8 * plan.chunk + ts.STATIC_SMEM
+                                <= ts.SMEM_LIMIT)
+    assert 1 <= ts.CAP <= ts.THREADS
+    # rank 0 holds the candidates' value, index, weight and image
+    assert 16 * ts.CAP < ts.STATIC_SMEM
+
+
+@pytest.mark.parametrize("b,v,cluster,store_w", [
+    (8, 49152, 8, True), (1, 49152, 8, True), (9, 49152, 8, True),
+    (8, 1000, 8, True), (8, 216064, 8, True), (8, 216068, 16, True),
+    (8, 256000, 16, True), (1, 256000, 16, True), (16, 256000, 8, False),
+    (32, 500000, 16, False)])
+def test_sample_plan_at_the_served_shapes(b, v, cluster, store_w):
+    """8 blocks a row wherever they keep the weights beside the logits
+    (granite's 49152, up to 216064); past that, up to 8 rows take 16
+    blocks, which keep recurrentgemma's 256000 weights, and more rows take
+    8 without them; a vocabulary 8 blocks cannot hold takes 16 at any
+    batch. ``max_vocab()`` is the largest any plan holds."""
+    plan = ts.sample_plan(b, v)
+    assert (plan.cluster, plan.store_w) == (cluster, store_w)
+    assert ts.max_vocab() == ts.max_vocab(16) >= v
