@@ -37,26 +37,37 @@ Phases, in order; any failure exits non-zero:
    int8 weights, and from rolling caches (``paged=False``); then
    recurrentgemma-9b ``reduced()`` cut to 5 layers (float32, window 64)
    with prompts longer than the window; the streams must be
-   token-identical.
+   token-identical (on the card, through the engine's CUDA graphs).
 4. Serve granite-8b at full width (36 layers, bfloat16, random weights
    from a fixed seed): 8 slots, 16 requests of 20-600 prompt tokens and 64
-   new tokens, half greedy and half seeded. Every request must finish with
-   its budget, a second run must give the same streams, and every kernel
-   of the path must have launched. Prints TTFT p50 and p90 (host clock),
-   tokens/s and peak device memory; then serves 8 of the requests on the
-   8 slots at once and prints the steady decode rate and tick time.
+   new tokens, half greedy and half seeded. One engine serves every
+   round: a warm-up round captures its compiled steps (the decode tick,
+   the fused window, a prefill per padded prompt length; captures and
+   their seconds printed), then each round starts with ``reset()`` and
+   replays them. Every request must finish with its budget, the measured
+   round and a second one must give the warm-up round's streams, every
+   kernel of the path must have launched (replays count the launches
+   their capture recorded), and the probes must keep the reference's
+   rule (a prefill graph per padded length, at most two decode graphs,
+   none captured after the warm-up round). Prints TTFT p50 and p90 (host
+   clock), tokens/s and peak device memory (allocated, and reserved with
+   the graphs' pools); then serves 8 of the requests on the 8 slots at
+   once and prints the steady decode rate and tick time.
 5. Serve the same 16 requests at full width under quantized precision,
-   each configuration after one short warm-up request: int8 KV pages
-   alone (every request finishes; each first token equals
-   phase 4's, since prefill attends the unquantized K/V), then int8 KV
-   pages and int8 weights (every request finishes, a second run gives the
-   same streams, the int8 kernels launched; TTFT, tokens/s, peak memory,
-   resident weight bytes, and the steady decode tick beside phase 4's).
+   each configuration on its own engine after its warm-up round, with
+   the same gates on its graphs: int8 KV pages alone (every request
+   finishes; each first token equals phase 4's, since prefill attends the
+   unquantized K/V), then int8 KV pages and int8 weights (every request
+   finishes, a second run gives the same streams, the int8 kernels
+   launched; TTFT, tokens/s, peak memory, resident weight bytes, and the
+   steady decode tick beside phase 4's).
 6. With granite's weights freed, serve recurrentgemma-9b at full width
    (38 layers, bfloat16, random weights from a fixed seed) from rolling
    caches (rings of its native window 2048, 8 slots): phase 4's 16
    prompts and one of 2500 tokens (longer than the window, not a multiple
-   of it), 64 new tokens each, half greedy and half seeded. Every request
+   of it), 64 new tokens each, half greedy and half seeded, on one engine
+   after its warm-up round as in phase 4 (its prefill runs at the exact
+   prompt length, eagerly: only decode is captured). Every request
    must finish, a second run must give the same streams, the prefill,
    rolling-decode, RG-LRU scan and sampler kernels must have launched,
    and the 2500-token prompt's first decode logits must match the full
@@ -788,9 +799,11 @@ def int8_matmul_kernel(torch, rec, gen):
 
 def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
           sync_every=8, seeded=lambda i: i % 2 == 1, precision=None,
-          **engine):
+          eng=None, **engine):
     """Serve ``prompts`` at once; ``engine`` holds further EngineConfig
-    fields (``paged``, ``window``)."""
+    fields (``paged``, ``window``). ``eng``: an engine of an earlier round,
+    served on again after its ``reset()`` (its CUDA graphs captured), in
+    place of a new one. The engine comes back in the stats."""
     from repro_torch.serving import (
         EngineConfig,
         PrecisionConfig,
@@ -799,12 +812,16 @@ def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
         ServingEngine,
     )
 
-    eng = ServingEngine(cfg, params,
-                        EngineConfig(slots=slots, max_seq=max_seq,
-                                     sync_every=sync_every,
-                                     precision=PrecisionConfig(
-                                         **(precision or {})), **engine),
-                        device=device)
+    if eng is None:
+        eng = ServingEngine(cfg, params,
+                            EngineConfig(slots=slots, max_seq=max_seq,
+                                         sync_every=sync_every,
+                                         precision=PrecisionConfig(
+                                             **(precision or {})),
+                                         **engine),
+                            device=device)
+    else:
+        eng.reset()
     reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new,
                     sampling=(SamplingParams(temperature=0.8, top_k=50,
                                              top_p=0.95, seed=1000 + i)
@@ -839,7 +856,53 @@ def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
     return reqs, {"wall": wall, "ttft": [ttft[r.rid] for r in reqs],
                   "after_submit": wall - t_admitted,
                   "ticks": eng.metrics.decode_ticks,
-                  "weight_bytes": weight_bytes}
+                  "weight_bytes": weight_bytes, "engine": eng}
+
+
+def warm_round(torch, label, cfg, params, prompts, run):
+    """The warm-up round of a served path: a new engine serves
+    ``prompts``, paying every capture of its compiled steps. Returns
+    (requests, stats); prints the captures and their host seconds."""
+    reqs, st = serve(torch, cfg, params, prompts, **run)
+    g = st["engine"].graphs
+    print(f"{label} warm-up round: {g.captures} CUDA graphs captured in "
+          f"{g.capture_s:.2f}s of {st['wall']:.3f}s wall (keys "
+          + ", ".join(f"{name}{n}" for _, name, n in g.keys) + ")",
+          flush=True)
+    st["captures"] = g.captures
+    return reqs, st
+
+
+def graphs_ok(label, warm, st):
+    """The reference's compile-count rule on an engine after its measured
+    rounds: at most one prefill graph per padded prompt length the warm-up
+    round captured (bucketed, or page-rounded past the buckets; none for
+    exact-length prefill), at most two decode graphs (tick and window),
+    one capture per key, and none after the warm-up round."""
+    eng = st["engine"]
+    seen = {eng._prefill_len(r) for r in warm
+            if eng.paged or eng._bucket_for(r.prompt_len) is not None}
+    g = eng.graphs
+    ok = (eng.prefill_traces <= len(seen) and eng.decode_traces <= 2
+          and g.captures == eng.prefill_traces + eng.decode_traces
+          == st["captures"])
+    print(f"{label} graphs: prefill_traces={eng.prefill_traces} (padded "
+          f"lengths seen {len(seen)}), decode_traces={eng.decode_traces} "
+          f"(at most 2), captures {g.captures} (after the warm-up round "
+          f"{st['captures']}), replays {g.replays}, capture {g.capture_s:.2f}"
+          f"s {'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def memory(torch) -> str:
+    """Peak device memory since the last reset of the peak: allocated by
+    tensors, and reserved by the allocator (the graphs' pools, whose
+    temporaries no tensor holds between replays, are counted only
+    there)."""
+    gib = 2 ** 30
+    return (f"peak device memory {torch.cuda.max_memory_allocated() / gib:.2f}"
+            f" GiB allocated, {torch.cuda.max_memory_reserved() / gib:.2f} "
+            f"GiB reserved")
 
 
 def _leaves(tree):
@@ -945,17 +1008,23 @@ def phase_full(torch, rec, full, profile_dir=None):
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
     run = dict(device="cuda", max_new=64, slots=8, max_seq=1024)
+    warm, st0 = warm_round(torch, "granite bf16", cfg, params, prompts, run)
+    run["eng"] = st0["engine"]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     reqs, st = serve(torch, cfg, params, prompts, **run)
     launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    mem = memory(torch)
     ok = True
     unfinished = [r.rid for r in reqs
                   if r.state.value != "finished" or len(r.output) != 64]
     if unfinished:
         ok = False
         print(f"FAIL: requests without their 64 tokens: {unfinished}")
+    same = all(a.output == b.output for a, b in zip(warm, reqs))
+    ok &= same
+    print(f"measured round (replays) identical to the warm-up round (first "
+          f"calls eager): {same}", flush=True)
     rec["flash_attention_s2048"]["launches"] = launches["flash_attention"]
     for name in ("flash_attention", "paged_decode_attention",
                  "sample_tokens"):
@@ -969,8 +1038,8 @@ def phase_full(torch, rec, full, profile_dir=None):
           f"seeded), {n_tok} tokens in {st['wall']:.3f}s -> "
           f"{n_tok / st['wall']:.1f} tok/s, TTFT p50 "
           f"{statistics.median(st['ttft']) * 1e3:.1f} ms p90 "
-          f"{np.percentile(st['ttft'], 90) * 1e3:.1f} ms, peak device "
-          f"memory {peak / 2 ** 30:.2f} GiB", flush=True)
+          f"{np.percentile(st['ttft'], 90) * 1e3:.1f} ms, {mem}",
+          flush=True)
     print("kernels (launches on the main path): "
           + ", ".join(f"{k}={v}" for k, v in launches.items())
           + "; sampler rows by path: "
@@ -999,6 +1068,8 @@ def phase_full(torch, rec, full, profile_dir=None):
                                  ProfilerActivity.CUDA]) as prof:
             _, st4 = serve(torch, cfg, params, prompts[:8], **run)
         write_profile(prof, profile_dir, st4, "decode_kernels.txt")
+    ok &= graphs_ok("granite bf16", warm, st0)
+    del run["eng"]
     full.update(cfg=cfg, params=params, prompts=prompts, run=run,
                 outputs=[r.output for r in reqs],
                 tick_ms=st3["after_submit"] / st3["ticks"] * 1e3)
@@ -1016,13 +1087,10 @@ def phase_quant(torch, rec, full, profile_dir=None):
     cfg, params, prompts = full["cfg"], full["params"], full["prompts"]
     ok = True
 
-    def warm_up(run):
-        # one short request, so that the timed burst of a precision does
-        # not carry the first run of its code path
-        serve(torch, cfg, params, prompts[:1], **dict(run, max_new=4))
-
     kv8 = dict(full["run"], precision=dict(kv_cache_dtype="int8"))
-    warm_up(kv8)
+    warm, st0 = warm_round(torch, "granite int8 kv", cfg, params, prompts,
+                           kv8)
+    kv8["eng"] = st0["engine"]
     ops.reset_launches()
     reqs, st = serve(torch, cfg, params, prompts, **kv8)
     launches = dict(ops.LAUNCHES)
@@ -1036,15 +1104,24 @@ def phase_quant(torch, rec, full, profile_dir=None):
           f"{sum(len(r.output) for r in reqs) / st['wall']:.1f} tok/s; "
           "launches: " + ", ".join(f"{k}={v}" for k, v in launches.items()),
           flush=True)
+    ok &= graphs_ok("granite int8 kv", warm, st0)
+    del kv8, st0, st
+    gc.collect()
 
     both = dict(full["run"], precision=dict(kv_cache_dtype="int8",
                                             weight_dtype="int8"))
-    warm_up(both)
+    warm, st0 = warm_round(torch, "granite int8 kv + int8 weights", cfg,
+                           params, prompts, both)
+    both["eng"] = st0["engine"]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     reqs, st = serve(torch, cfg, params, prompts, **both)
     launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    mem = memory(torch)
+    same = all(a.output == b.output for a, b in zip(warm, reqs))
+    ok &= same
+    print(f"int8 measured round (replays) identical to the warm-up round: "
+          f"{same}", flush=True)
     unfinished = [r.rid for r in reqs
                   if r.state.value != "finished" or len(r.output) != 64]
     if unfinished:
@@ -1064,9 +1141,8 @@ def phase_quant(torch, rec, full, profile_dir=None):
     print(f"int8 kv + int8 weights: {len(reqs)} requests, {n_tok} tokens "
           f"in {st['wall']:.3f}s -> {n_tok / st['wall']:.1f} tok/s, TTFT "
           f"p50 {statistics.median(st['ttft']) * 1e3:.1f} ms p90 "
-          f"{np.percentile(st['ttft'], 90) * 1e3:.1f} ms, peak device "
-          f"memory {peak / 2 ** 30:.2f} GiB (the script's bf16 weights "
-          f"included), resident engine weights "
+          f"{np.percentile(st['ttft'], 90) * 1e3:.1f} ms, {mem} (the "
+          f"script's bf16 weights included), resident engine weights "
           f"{st['weight_bytes'] / 2 ** 30:.2f} GiB; greedy streams equal "
           f"to phase 4's: {agree}/{len(greedy)}", flush=True)
     print("kernels (launches on the int8 path): "
@@ -1094,6 +1170,7 @@ def phase_quant(torch, rec, full, profile_dir=None):
                                  ProfilerActivity.CUDA]) as prof:
             _, st4 = serve(torch, cfg, params, prompts[:8], **both)
         write_profile(prof, profile_dir, st4, "decode_kernels_int8.txt")
+    ok &= graphs_ok("granite int8 kv + int8 weights", warm, st0)
     return ok
 
 
@@ -1134,16 +1211,23 @@ def phase_hybrid(torch, rec, profile_dir=None):
           f"with the rings placed as the reference places them "
           f"{errs[1][1]:.4g}; max|logit| {errs[1][2]:.3g}", flush=True)
 
+    warm, st0 = warm_round(torch, "recurrentgemma bf16", cfg, params,
+                           prompts, run)
+    run["eng"] = st0["engine"]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     reqs, st = serve(torch, cfg, params, prompts, **run)
     launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    mem = memory(torch)
     unfinished = [r.rid for r in reqs
                   if r.state.value != "finished" or len(r.output) != 64]
     if unfinished:
         ok = False
         print(f"FAIL: requests without their 64 tokens: {unfinished}")
+    same = all(a.output == b.output for a, b in zip(warm, reqs))
+    ok &= same
+    print(f"hybrid measured round (replays) identical to the warm-up round: "
+          f"{same}", flush=True)
     for key, name in (("flash_attention_local", "flash_attention"),
                       ("decode_attention", "decode_attention"),
                       ("rglru_scan", "rglru_scan"),
@@ -1157,8 +1241,8 @@ def phase_hybrid(torch, rec, profile_dir=None):
           f"{min(lens)}-{max(lens)} tokens, 64 new, half seeded), {n_tok} "
           f"tokens in {st['wall']:.3f}s -> {n_tok / st['wall']:.1f} tok/s, "
           f"TTFT p50 {statistics.median(st['ttft']) * 1e3:.1f} ms p90 "
-          f"{np.percentile(st['ttft'], 90) * 1e3:.1f} ms, peak device "
-          f"memory {peak / 2 ** 30:.2f} GiB, engine weights "
+          f"{np.percentile(st['ttft'], 90) * 1e3:.1f} ms, {mem}, engine "
+          f"weights "
           f"{st['weight_bytes'] / 2 ** 30:.2f} GiB (the float32 head copy "
           f"included)", flush=True)
     print("kernels (launches on the hybrid path): "
@@ -1196,11 +1280,12 @@ def phase_hybrid(torch, rec, profile_dir=None):
                            **dict(run, max_new=2))
         write_profile(prof, profile_dir, st5, "prefill_2500_hybrid.txt",
                       label=f"{len(prompts[-1])}-token prefill + 1 tick")
+    ok &= graphs_ok("recurrentgemma bf16", warm, st0)
 
     # the decode path against the full forward, end to end, in float32
     # (the same architecture at full width, 38 layers, weights from the
     # same seed): after 1 and 16 decode ticks past the 2500-token prompt
-    del params, reqs, reqs2, reqs3
+    del params, reqs, reqs2, reqs3, run, st, st0, st3
     gc.collect()
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32")

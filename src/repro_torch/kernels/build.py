@@ -69,6 +69,10 @@ SIGNATURES = {
 
 #: Launches of each kernel since the last ``reset_launches()``: a wrapper
 #: adds one where it launches its kernel on the card, and nowhere else.
+#: A wrapper called inside a CUDA graph capture launches nothing: the
+#: engine's step cache (``serving/graphs.py``) takes those counts back out
+#: and adds them again at every replay of the graph, so on the served path
+#: the counts come from eager calls and from replays.
 LAUNCHES: Dict[str, int] = {"flash_attention": 0,
                             "paged_decode_attention": 0,
                             "paged_decode_attention_int8": 0,

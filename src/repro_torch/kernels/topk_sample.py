@@ -101,7 +101,16 @@ def reset_path_rows():
 
 
 def _path_counter(device) -> torch.Tensor:
+    """The card's row counts by path, made by the first launch there. A
+    CUDA graph must not be the first: a tensor made inside a capture is
+    never zeroed, so the step is run eagerly once before it is captured
+    (``serving/graphs.py``), and a capture that comes first raises."""
     if device not in _PATH_ROWS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "sample_tokens: first launch on this card inside a CUDA "
+                "graph capture; run the step eagerly once before capturing "
+                "it")
         _PATH_ROWS[device] = torch.zeros(len(PATHS), dtype=torch.int32,
                                          device=device)
     return _PATH_ROWS[device]

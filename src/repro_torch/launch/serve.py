@@ -171,6 +171,10 @@ def main(argv=None):
           f"qps={args.requests/wall:.2f}  tok/s={m.total_tokens/wall:.1f}  "
           f"ticks={m.decode_ticks}  host_syncs={m.host_syncs}  "
           f"prefill_chunks={m.prefill_chunks}")
+    g = eng.graphs
+    print(f"compiled steps: prefill_traces={eng.prefill_traces} "
+          f"decode_traces={eng.decode_traces} (CUDA graphs captured: "
+          f"{g.captures} in {g.capture_s:.2f}s, replays {g.replays})")
     if m.sampled_requests:
         print(f"sampled decode: {m.sampled_requests} requests "
               f"(T={args.temperature} top_k={args.top_k} "

@@ -219,8 +219,9 @@ def decode_step(cfg, params, cache, tokens):
     or the rolling one (``init_cache``). tokens (B, S): S=1 is the
     one-token decode step (recurrent blocks take S=1 only). Writes the S
     tokens' K/V into the pools or rings, steps every recurrent state and
-    advances ``cache["pos"]`` by S, in place. Returns logits (B, S, V)
-    float32."""
+    advances ``cache["pos"]`` by S, in place (never rebinding it: a
+    captured CUDA graph keeps reading the tensor it was captured with).
+    Returns logits (B, S, V) float32."""
     b, s = tokens.shape
     pos = cache["pos"]
     pages = cache.get("page_table")
@@ -236,5 +237,5 @@ def decode_step(cfg, params, cache, tokens):
         x, _ = apply_block(cfg, bt, p, x, rope, mode="decode", cache=c,
                            pos=pos, pages=pages, write_at=write_at,
                            n_valid=n_valid)
-    cache["pos"] = n_valid
+    cache["pos"].add_(s)  # after the layers' last read of the old value
     return _logits(cfg, params, x)

@@ -7,10 +7,18 @@ length where a recurrent state forbids end padding), fused decode windows
 with one host sync per window, and device-resident sampling keyed by
 (seed, absolute position).
 
-Where the reference jits pure functions and donates buffers, the port runs
-eagerly and updates the page pools, page table, rings, recurrent states,
-positions and sampling state IN PLACE: the engine is their only owner.
-The kernels of the path (prefill attention, paged or rolling-cache decode
+Where the reference jits pure functions and donates buffers, the port
+updates the page pools, page table, rings, recurrent states, positions,
+token carry and sampling state IN PLACE (the engine is their only owner)
+and, on a CUDA device, captures each step once per shape key into a CUDA
+graph and replays it (``serving/graphs.py``): the single decode tick, the
+fused ``sync_every`` window, and the bucketed prefill with its page
+scatter (paged) or its copy into the slot (rolling). Exact-length prefill
+(recurrentgemma, whose recurrent state forbids end padding) runs eagerly
+and is not counted: the reference retraces it per prompt length. The
+probes ``prefill_traces`` and ``decode_traces`` count the keys as the
+reference counts its traces; on the CPU the same steps run eagerly. The
+kernels of the path (prefill attention, paged or rolling-cache decode
 attention, the RG-LRU scan, the sampler; under an int8 ``PrecisionConfig``
 the int8 paged decode and the int8-weight matmul) are reached through
 ``repro_torch.kernels.ops``: plain PyTorch on a CPU device, the
@@ -25,7 +33,7 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +55,7 @@ from repro_torch.models import (
 from repro_torch.models.blocks import KV_CACHE_BLOCKS, quantize_kv
 from repro_torch.serving import prng
 from repro_torch.serving.config import EngineConfig
+from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.paging import PageAllocator
 from repro_torch.serving.request import (
     Request,
@@ -74,8 +83,14 @@ def prompt_bucket(n: int, *, min_bucket: int = 16) -> int:
     return max(min_bucket, 1 << max(n - 1, 1).bit_length())
 
 
-def rolling_prefill_step(cfg, params, tokens, true_len: int, *,
-                         window: int):
+def _dev_index(x, device):
+    """A host int, or a tensor already on ``device``, as a (1,) int64
+    tensor there: slot ids and lengths that live on the device let one
+    captured step serve every value."""
+    return torch.as_tensor(x, device=device).to(torch.int64).reshape(1)
+
+
+def rolling_prefill_step(cfg, params, tokens, true_len, *, window: int):
     """Prefill a prompt into a fresh rolling cache (``init_cache``, rings
     of ``window``): tokens (B, L) is the prompt at its exact length
     (L = ``true_len``, the reference's ``prefill_step``: archs with
@@ -83,49 +98,57 @@ def rolling_prefill_step(cfg, params, tokens, true_len: int, *,
     to a bucket no larger than the smallest ring (its
     ``bucketed_prefill_step``). Causality keeps the pads out of the true
     tokens' keys; ``pos`` is clamped to ``true_len``, so decode's validity
-    mask hides the pad rows until its writes replace them. Returns (first
-    greedy token (B,) int32, last-true-position logits (B, V), cache)."""
+    mask hides the pad rows until its writes replace them. ``true_len`` is
+    an int or a (1,) device tensor (the engine's captured buckets).
+    Returns (first greedy token (B,) int32, last-true-position logits
+    (B, V), cache)."""
     b = tokens.shape[0]
     cache = init_cache(cfg, b, window, device=tokens.device)
-    at = torch.full((b,), true_len - 1, dtype=torch.int64,
-                    device=tokens.device)
-    last, _ = forward(cfg, params, tokens, logits_at=at, cache=cache)
-    cache["pos"].fill_(true_len)
+    n = _dev_index(true_len, tokens.device)
+    last, _ = forward(cfg, params, tokens, logits_at=(n - 1).expand(b),
+                      cache=cache)
+    cache["pos"].copy_(n.expand(b))
     return torch.argmax(last, dim=-1).to(torch.int32), last, cache
 
 
-def cache_insert(cache, single, slot: int):
+def cache_insert(cache, single, slot):
     """Admit a prefilled request into a rolling cache: copy its B=1 rings,
-    RG-LRU conv windows and states and its position into the slot's rows,
-    in place (every leaf of the slot is overwritten, so nothing of the
-    slot's previous request survives)."""
+    RG-LRU conv windows and states and its position into the rows of
+    ``slot`` (an int or a (1,) device tensor), in place (every leaf of the
+    slot is overwritten, so nothing of the slot's previous request
+    survives)."""
+    at = _dev_index(slot, cache["pos"].device)
     for big, small in zip(cache["layers"], single["layers"]):
         for name, leaf in big.items():
-            leaf[slot].copy_(small[name][0])
-    cache["pos"][slot] = single["pos"][0]
+            leaf.index_copy_(0, at, small[name])
+    cache["pos"].index_copy_(0, at, single["pos"])
 
 
-def paged_prefill_step(cfg, params, tokens, true_len: int):
+def paged_prefill_step(cfg, params, tokens, true_len):
     """Prefill a prompt padded at the end to a bucket: tokens (1, L). The
-    pad keys are hidden from the true tokens by causality. Returns
+    pad keys are hidden from the true tokens by causality. ``true_len`` is
+    an int or a (1,) device tensor, so one captured bucket serves every
+    prompt length in it (the reference's traced ``true_len``). Returns
     (first greedy token (1,) int32, last-true-position logits (1, V),
     per-layer (k, v) of all L positions for the page scatter)."""
-    at = torch.full((tokens.shape[0],), true_len - 1, dtype=torch.int64,
-                    device=tokens.device)
-    last, kv = forward(cfg, params, tokens, logits_at=at, want_kv=True)
+    n = _dev_index(true_len, tokens.device)
+    last, kv = forward(cfg, params, tokens,
+                       logits_at=(n - 1).expand(tokens.shape[0]),
+                       want_kv=True)
     return torch.argmax(last, dim=-1).to(torch.int32), last, kv
 
 
-def pages_insert(cache, kv, pages, slot: int, true_len: int, *,
-                 scale_group: int = 0):
+def pages_insert(cache, kv, pages, slot, true_len, *, scale_group: int = 0):
     """Admit a prefilled request: scatter its K/V (the n pages' worth of
-    positions) into the pool pages ``pages`` (n,), point the slot's table
-    row at them (trash page 0 after) and set its position. In place.
-    Int8 pools get the quantized values and their scales, quantized over
-    all n pages' positions pads included (as the reference's prefill
-    quantizes its whole padded window): one scale per ``scale_group``
-    tokens (the page, under the "page" granularity) or, with 0, per
-    token."""
+    positions) into the pool pages ``pages`` (n,), point the table row of
+    ``slot`` at them (trash page 0 after) and set its position to
+    ``true_len``. In place; ``slot`` and ``true_len`` are ints or (1,)
+    device tensors, so the engine captures the scatter with its bucket's
+    prefill. Int8 pools get the quantized values and their scales,
+    quantized over all n pages' positions pads included (as the
+    reference's prefill quantizes its whole padded window): one scale per
+    ``scale_group`` tokens (the page, under the "page" granularity) or,
+    with 0, per token."""
     n = pages.shape[0]
     for layer, (k, v) in zip(cache["layers"], kv):
         ps = layer["k"].shape[1]
@@ -137,10 +160,12 @@ def pages_insert(cache, kv, pages, slot: int, true_len: int, *,
                     n, ps, *scale.shape[1:])
             layer[name][pages] = t.reshape(n, ps, *t.shape[1:]).to(
                 layer[name].dtype)
-    row = cache["page_table"][slot]
-    row.zero_()
-    row[:n] = pages
-    cache["pos"][slot] = true_len
+    table, pos = cache["page_table"], cache["pos"]
+    row = torch.zeros_like(table[:1])
+    row[0, :n] = pages
+    at = _dev_index(slot, pos.device)
+    table.index_copy_(0, at, row)
+    pos.index_copy_(0, at, _dev_index(true_len, pos.device).to(pos.dtype))
 
 
 def page_table_append(cache, slot: int, idx: int, page: int):
@@ -202,16 +227,15 @@ def window_uniforms(samp, pos, n: int, *, partitionable: bool = True):
 
 
 def draw_tokens(last, samp, pos, *, partitionable: bool = True,
-                all_greedy: bool = False, uniform=None):
+                uniform=None):
     """Pick each row's next token from its logits ``last`` (B, V) through
     the sampler kernel. ``pos`` (B,) is the absolute position of the token
     being drawn; a stochastic row's uniform is ``uniform(fold_in(key,
-    pos))``, unless the caller drew it already (``uniform``).
-    ``all_greedy`` (a host-side fact) skips the threefry work."""
-    if all_greedy:
-        uniform = torch.zeros(last.shape[0], dtype=torch.float32,
-                              device=last.device)
-    elif uniform is None:
+    pos))``, unless the caller drew it already (``uniform``). Every row
+    gets a uniform, whatever the mix: the kernel picks greedy rows by the
+    device mask, and their tokens do not depend on it (one step for any
+    mix, as the reference's one trace)."""
+    if uniform is None:
         uniform = prng.uniform(prng.fold_in(samp["key"], pos),
                                partitionable)
     return ops.sample_tokens(last.to(torch.float32).contiguous(),
@@ -220,33 +244,31 @@ def draw_tokens(last, samp, pos, *, partitionable: bool = True,
 
 
 def decode_tick(cfg, params, cache, tokens, samp, *,
-                partitionable: bool = True, all_greedy: bool = False,
-                uniform=None):
+                partitionable: bool = True, uniform=None):
     """One decode step for every slot: ``tokens`` (B,) is the device-
     resident last-token carry. The token drawn lands at the post-step
     position, the same fold key the first token uses (pos = prompt_len).
     Returns next tokens (B,) int32; the cache advances in place."""
     logits = decode_step(cfg, params, cache, tokens[:, None])
     return draw_tokens(logits[:, -1], samp, cache["pos"],
-                       partitionable=partitionable, all_greedy=all_greedy,
-                       uniform=uniform)
+                       partitionable=partitionable, uniform=uniform)
 
 
 def decode_scan_step(cfg, params, cache, tokens, samp, *, n: int,
-                     partitionable: bool = True, all_greedy: bool = False):
+                     out=None, partitionable: bool = True):
     """``n`` decode ticks back to back with no host sync between them (the
     reference's fused ``lax.scan`` window). Returns (final tokens (B,),
-    token history (n, B)) — the caller syncs the history once."""
-    us = (None if all_greedy else
-          window_uniforms(samp, cache["pos"], n, partitionable=partitionable))
-    hist = []
+    token history (n, B) int32) — the caller syncs the history once. The
+    history is written into ``out`` when given (the engine's static
+    buffer, which a captured window overwrites in place)."""
+    us = window_uniforms(samp, cache["pos"], n, partitionable=partitionable)
+    hist = out if out is not None else torch.empty(
+        (n, tokens.shape[0]), dtype=torch.int32, device=tokens.device)
     for i in range(n):
         tokens = decode_tick(cfg, params, cache, tokens, samp,
-                             partitionable=partitionable,
-                             all_greedy=all_greedy,
-                             uniform=None if us is None else us[i])
-        hist.append(tokens)
-    return tokens, torch.stack(hist)
+                             partitionable=partitionable, uniform=us[i])
+        hist[i].copy_(tokens)
+    return tokens, hist
 
 
 def _padded_len(n: int, chunk: int) -> int:
@@ -281,7 +303,8 @@ class ServingEngine:
     to CUDA and raises when no card is present unless ``device="cpu"`` is
     asked for. ``threefry_partitionable`` selects the
     ``jax_threefry_partitionable`` mode whose bits seeded streams
-    reproduce."""
+    reproduce. ``prefill_traces`` and ``decode_traces`` are the
+    reference's compile-count probes (``graphs.StepGraphs``)."""
 
     def __init__(self, cfg, params, config: Optional[EngineConfig] = None,
                  *, device="cuda", threefry_partitionable: bool = True):
@@ -354,18 +377,35 @@ class ServingEngine:
                                     device=self.device)
         self._pos_h: List[int] = [0] * slots  # host mirror of cache pos
         self._tabled: List[int] = [0] * slots  # table entries written
+        # static buffers the captured steps read and write in place
         self._tokens = torch.zeros((slots,), dtype=torch.int32,
                                    device=self.device)
         self._samp = init_sampling_state(slots, self.device)
+        # row k: the tokens of the k-th deferred tick; a fused window
+        # writes all sync_every rows
+        self._hist = torch.zeros((self.sync_every, slots), dtype=torch.int32,
+                                 device=self.device)
+        # per prompt bucket: its (1, L) token buffer and its int64
+        # (true_len, slot, pages...) arguments
+        self._prefill_in: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.graphs = StepGraphs(self.device)
         self._samp_greedy_h: List[bool] = [True] * slots
         self.active: List[Optional[Request]] = [None] * slots
         self.decoding: List[bool] = [False] * slots
-        self._unsynced: List[torch.Tensor] = []
+        self._unsynced = 0  # deferred ticks whose tokens wait in _hist
         self._finished: List[Request] = []
         self.backlog: Deque[Request] = deque()
         self.admission = BatchAccumulator(
             target_batch=slots, deadline_s=self.plan.flush_deadline_s)
         self.prefill_calls = 0
+
+    @property
+    def prefill_traces(self) -> int:
+        return self.graphs.prefill_traces
+
+    @property
+    def decode_traces(self) -> int:
+        return self.graphs.decode_traces
 
     # -- admission ---------------------------------------------------------
     def submit(self, req: Request, now: float) -> bool:
@@ -429,19 +469,24 @@ class ServingEngine:
                 return True
         return False
 
+    def _bucket_for(self, plen: int) -> Optional[int]:
+        """The power-of-two bucket of a prompt when it fits max_seq (paged)
+        or the smallest ring (rolling), else None."""
+        if not self.bucket_prompts:
+            return None
+        if self.paged:
+            b = prompt_bucket(plen, min_bucket=max(16, self.page_size))
+            return b if b <= self.max_seq else None
+        b = prompt_bucket(plen)
+        return b if b <= self._min_window else None
+
     def _prefill_len(self, req: Request) -> int:
-        """Padded prompt length: the power-of-two bucket when it fits
-        max_seq (paged) or the smallest ring (rolling), else the
-        page-rounded prompt (paged) or the exact prompt (rolling)."""
+        """Padded prompt length: the bucket, else the page-rounded prompt
+        (paged) or the exact prompt (rolling)."""
         plen = req.prompt_len
-        if self.bucket_prompts:
-            if self.paged:
-                b = prompt_bucket(plen, min_bucket=max(16, self.page_size))
-                cap = self.max_seq
-            else:
-                b, cap = prompt_bucket(plen), self._min_window
-            if b <= cap:
-                return b
+        bucket = self._bucket_for(plen)
+        if bucket is not None:
+            return bucket
         return _padded_len(plen, self.page_size) if self.paged else plen
 
     def _reserve_pages(self, req: Request, slot: int) -> bool:
@@ -456,27 +501,65 @@ class ServingEngine:
         return self.allocator.alloc(slot, n) is not None
 
     def _admit_now(self, req: Request, slot: int, now: float):
-        """Prefill: page-aligned linear prefill (paged), or a bucket or the
-        exact prompt into fresh rolling caches."""
+        """Prefill: page-aligned linear prefill and page scatter (paged),
+        or a bucket or the exact prompt into fresh rolling caches copied
+        into the slot."""
         plen = req.prompt_len
         padded = np.zeros((1, self._prefill_len(req)), np.int32)
         padded[0, :plen] = req.prompt
-        tokens = torch.from_numpy(padded).to(self.device)
-        if self.paged:
-            tok, last, kv = paged_prefill_step(self.cfg, self.params, tokens,
-                                               plen)
+        if self.paged or self._bucket_for(plen) is not None:
+            tok, last = self._prefill_bucket(padded, plen, slot)
         else:
-            tok, last, kv = rolling_prefill_step(
-                self.cfg, self.params, tokens, plen, window=self.window)
+            tok, last, single = rolling_prefill_step(
+                self.cfg, self.params, torch.from_numpy(padded).to(
+                    self.device), plen, window=self.window)
+            cache_insert(self.cache, single, slot)
         self.prefill_calls += 1
-        self._activate(req, slot, tok, last, kv, now)
+        self._activate(req, slot, tok, last, now)
 
-    def _activate(self, req: Request, slot: int, tok, last, kv, now: float):
-        """Install a prefilled request: sampling state, first token (drawn
-        at position prompt_len for a stochastic request), page scatter and
-        table row (paged) or the copy of its B=1 rolling cache into the
-        slot (``kv`` is that cache), token carry. Flushes deferred tokens
-        first so a fused window only ever spans a fixed slot membership."""
+    def _prefill_bucket(self, padded: np.ndarray, plen: int, slot: int):
+        """The padded prompt's prefill step, with the page scatter (paged)
+        or the copy into the slot (rolling), as one step keyed by its
+        length: the prompt, its true length, the slot and its pages go
+        into the bucket's static buffers first. Returns (first greedy
+        token (1,), logits (1, V)), the step's outputs."""
+        length = padded.shape[1]
+        n_pages = self.allocator.pages_for(length) if self.paged else 0
+        if length not in self._prefill_in:
+            self._prefill_in[length] = (
+                torch.zeros((1, length), dtype=torch.int32,
+                            device=self.device),
+                torch.zeros((2 + n_pages,), dtype=torch.int64,
+                            device=self.device))
+        tokens, args = self._prefill_in[length]
+        tokens.copy_(torch.from_numpy(padded))
+        pages = self.allocator.owned(slot)[:n_pages] if self.paged else []
+        args.copy_(torch.tensor([plen, slot, *pages], dtype=torch.int64))
+        true_len, at = args[0:1], args[1:2]
+
+        def paged():
+            tok, last, kv = paged_prefill_step(self.cfg, self.params, tokens,
+                                               true_len)
+            pages_insert(self.cache, kv, args[2:], at, true_len,
+                         scale_group=self.kv_scale_group)
+            return tok, last
+
+        def bucket():
+            tok, last, single = rolling_prefill_step(
+                self.cfg, self.params, tokens, true_len, window=self.window)
+            cache_insert(self.cache, single, at)
+            return tok, last
+
+        if self.paged:
+            return self.graphs.run("prefill", "paged", length, paged)
+        return self.graphs.run("prefill", "bucket", length, bucket)
+
+    def _activate(self, req: Request, slot: int, tok, last, now: float):
+        """Install a prefilled request (its cache rows already written):
+        sampling state, first token (drawn at position prompt_len for a
+        stochastic request), the table entries written, token carry.
+        Flushes deferred tokens first so a fused window only ever spans a
+        fixed slot membership."""
         self._flush(now)
         sp = req.sampling or SamplingParams()
         row = sampling_row(sp)
@@ -491,20 +574,14 @@ class ServingEngine:
             tok = draw_tokens(last, samp1, pos1,
                               partitionable=self.partitionable)
         if self.paged:
-            n_pref = self.allocator.pages_for(self._prefill_len(req))
-            pages = torch.tensor(self.allocator.owned(slot)[:n_pref],
-                                 dtype=torch.int64, device=self.device)
-            pages_insert(self.cache, kv, pages, slot, req.prompt_len,
-                         scale_group=self.kv_scale_group)
-            self._tabled[slot] = n_pref
+            self._tabled[slot] = self.allocator.pages_for(
+                self._prefill_len(req))
             # the page table caps a request's lifetime tokens at max_seq
             already = len(req.output)
             cap = max(1, self.max_seq - req.prompt_len)
             if req.max_new_tokens - already > cap:
                 req.max_new_tokens = already + cap
                 req.budget_capped = True
-        else:
-            cache_insert(self.cache, kv, slot)
         self._pos_h[slot] = req.prompt_len
         self._tokens[slot] = tok[0]
         req.output.append(int(tok[0]))
@@ -525,35 +602,44 @@ class ServingEngine:
         self._pump_admissions(now)
         if not any(self.decoding):
             return self._take_finished()
-        all_greedy = all(self._samp_greedy_h)
         if self._fusable():
             if self.paged:
                 self._ensure_headroom(self.sync_every)
-            toks, hist = decode_scan_step(
-                self.cfg, self.params, self.cache, self._tokens, self._samp,
-                n=self.sync_every, partitionable=self.partitionable,
-                all_greedy=all_greedy)
-            self._tokens = toks
+            self.graphs.run("decode", "scan", self.sync_every, self._window)
             self.metrics.decode_ticks += self.sync_every
             self._advance_pos(self.sync_every)
-            self._distribute(hist.cpu().numpy(), now)
+            self._distribute(self._hist.cpu().numpy(), now)
             return self._take_finished()
         if self.paged:
             self._ensure_headroom(1)
-        nxt = decode_tick(self.cfg, self.params, self.cache, self._tokens,
-                          self._samp, partitionable=self.partitionable,
-                          all_greedy=all_greedy)
-        self._tokens = nxt
-        self._unsynced.append(nxt)
+        self.graphs.run("decode", "tick", 1, self._tick)
+        # the carry is the tick's output: keep it before the next step
+        self._hist[self._unsynced].copy_(self._tokens)
+        self._unsynced += 1
         self.metrics.decode_ticks += 1
         self._advance_pos(1)
-        pend = len(self._unsynced)
+        pend = self._unsynced
         if (pend >= self.sync_every
                 or any(r is not None and d
                        and len(r.output) + pend >= r.max_new_tokens
                        for r, d in zip(self.active, self.decoding))):
             self._flush(now)
         return self._take_finished()
+
+    def _tick(self):
+        """The single decode tick, as a step: the carry in, the carry out."""
+        nxt = decode_tick(self.cfg, self.params, self.cache, self._tokens,
+                          self._samp, partitionable=self.partitionable)
+        self._tokens.copy_(nxt)
+
+    def _window(self):
+        """The fused window, as a step: the carry in, ``_hist`` and the
+        carry out."""
+        toks, _ = decode_scan_step(
+            self.cfg, self.params, self.cache, self._tokens, self._samp,
+            n=self.sync_every, out=self._hist,
+            partitionable=self.partitionable)
+        self._tokens.copy_(toks)
 
     def _advance_pos(self, n: int):
         for i, d in enumerate(self.decoding):
@@ -589,8 +675,8 @@ class ServingEngine:
         """One host sync for the deferred ticks' tokens."""
         if not self._unsynced:
             return
-        toks = torch.stack(self._unsynced).cpu().numpy()
-        self._unsynced = []
+        toks = self._hist[:self._unsynced].cpu().numpy()
+        self._unsynced = 0
         self._distribute(toks, now)
 
     def _distribute(self, toks: np.ndarray, now: float = None):
@@ -627,8 +713,8 @@ class ServingEngine:
         self.metrics.record_slo(req)
 
     def release_slot(self, slot: int):
-        """Retire ``slot``: reset a stochastic lane to greedy (so all-greedy
-        batches skip the PRNG again), zero its position and, in paged
+        """Retire ``slot``: reset a stochastic lane to greedy (so a vacated
+        slot's garbage lane never draws), zero its position and, in paged
         mode, return its pages and neutralize its table row."""
         self.active[slot] = None
         self.decoding[slot] = False
@@ -649,6 +735,29 @@ class ServingEngine:
         """Flush any deferred tokens (end-of-run bookkeeping)."""
         self._flush(now)
         return self._take_finished()
+
+    def reset(self):
+        """Return the engine to an empty state — every slot vacated (pages
+        reclaimed), queues and metrics cleared — while keeping its compiled
+        steps warm, so bench and test rounds reuse one engine without
+        paying captures again (the reference's ``reset``). State is zeroed
+        in place and no cache tensor is reallocated: the graphs hold their
+        addresses. In-flight requests are abandoned, not finished."""
+        self.drain(0.0)
+        for i in range(self.slots):
+            if self.active[i] is not None:
+                self.release_slot(i)
+        # vacated slots went on riding the batch: every slot back to a
+        # fresh engine's position, table row and carry
+        self.cache["pos"].zero_()
+        if self.paged:
+            self.cache["page_table"].zero_()
+        self._tokens.zero_()
+        self.backlog.clear()
+        self.admission.flush()
+        self._unsynced = 0
+        self._finished = []
+        self.metrics = ServeMetrics()
 
     @property
     def idle(self) -> bool:

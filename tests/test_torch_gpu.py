@@ -806,3 +806,136 @@ def test_rolling_engine_streams_on_cuda_match_the_cpu(dev, arch):
         eng.drain(t)
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
+
+
+def _reduced_granite(dev):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("granite-8b").reduced(),
+                              num_kv_heads=2)
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    return cfg, p_cpu, _to(p_cpu, dev)
+
+
+# arrival tick, prompt length, new tokens: arrivals between windows force
+# single ticks (and flushes) between the fused windows
+STAGGER = [(0, 5, 14), (0, 23, 9), (2, 40, 12), (5, 17, 10), (9, 9, 11)]
+
+
+def _staggered_round(ts, eng, seed=0):
+    rng = np.random.default_rng(seed)
+    reqs = [ts.Request(rid=i, prompt=rng.integers(
+                0, 500, n).astype(np.int32), max_new_tokens=new,
+                       sampling=(ts.SamplingParams(
+                           temperature=0.8, top_k=20, top_p=0.9,
+                           seed=1000 + i) if i % 2 else ts.SamplingParams()))
+            for i, (_, n, new) in enumerate(STAGGER)]
+    t, pending = 0.0, list(zip(STAGGER, reqs))
+    while pending or not all(r.done for r in reqs):
+        while pending and pending[0][0][0] <= t:
+            eng.submit(pending.pop(0)[1], t)
+        eng.step(t)
+        t += 1.0
+        assert t < 500
+    eng.drain(t)
+    return [r.output for r in reqs]
+
+
+@pytest.mark.parametrize("sync_every", [1, 3, 8])
+def test_graphed_streams_match_the_cpu_under_staggered_arrivals(
+        dev, sync_every):
+    """Decode ticks, fused windows and bucketed prefill replay captured
+    graphs on the card: the float32 streams equal the CPU engine's (an
+    aliased per-tick output or a rebound carry would not), one capture per
+    key and at most two decode keys; a second round after ``reset()``
+    captures nothing and gives the same streams."""
+    from repro_torch import serving as ts
+
+    cfg, p_cpu, p_gpu = _reduced_granite(dev)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = {}
+        for params, device in ((p_gpu, dev), (p_cpu, "cpu")):
+            eng = ts.ServingEngine(cfg, params, ts.EngineConfig(
+                slots=3, max_seq=128, sync_every=sync_every), device=device)
+            outs[str(device)] = _staggered_round(ts, eng)
+            if device == "cpu":
+                continue
+            g = eng.graphs
+            assert g.captures == eng.prefill_traces + eng.decode_traces
+            assert eng.decode_traces <= (2 if sync_every > 1 else 1)
+            assert g.replays > 0
+            captures, probes = g.captures, (eng.prefill_traces,
+                                            eng.decode_traces)
+            eng.reset()
+            assert _staggered_round(ts, eng) == outs[str(device)]
+            assert g.captures == captures
+            assert (eng.prefill_traces, eng.decode_traces) == probes
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert outs[str(dev)] == outs["cpu"]
+
+
+def test_replays_credit_one_eager_ticks_launches(dev):
+    """A replay calls no wrapper: the step cache credits each replay with
+    the launches the capture recorded, so N replays count N times one
+    eager tick, kernel by kernel; the sampler's device row counts advance
+    in the replays themselves."""
+    from repro_torch import serving as ts
+
+    cfg, _, p_gpu = _reduced_granite(dev)
+    eng = ts.ServingEngine(cfg, p_gpu, ts.EngineConfig(
+        slots=3, max_seq=128, sync_every=1), device=dev)
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        eng.submit(ts.Request(rid=i, prompt=rng.integers(
+            0, 500, 9 + 7 * i).astype(np.int32), max_new_tokens=64), 0.0)
+    eng._ensure_headroom(20)
+    ops.reset_launches()
+    eng._tick()
+    torch.cuda.synchronize()
+    eager = {k: v for k, v in ops.LAUNCHES.items() if v}
+    assert eager["sample_tokens"] == 1 and eager["paged_decode_attention"] > 0
+    ops.reset_launches()
+    eng.graphs.run("decode", "tick", 1, eng._tick)  # eager run + capture
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == eager
+    ops.reset_launches()
+    n = 7
+    for _ in range(n):
+        eng.graphs.run("decode", "tick", 1, eng._tick)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.LAUNCHES.items() if v} == {
+        k: n * v for k, v in eager.items()}
+    assert sum(ops.path_rows().values()) == n * eng.slots
+    assert eng.decode_traces == 1
+    assert eng.graphs.captures == eng.prefill_traces + eng.decode_traces
+
+
+def test_a_failed_capture_raises_and_never_serves_eagerly(dev):
+    """A step whose capture fails raises from ``run``, every time: the key
+    is neither counted nor cached, so no later call is served by the eager
+    path in its place."""
+    from repro_torch.serving.graphs import StepGraphs
+
+    g = StepGraphs(dev)
+    x = torch.zeros(4, device=dev)
+
+    def step():
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("forced capture failure")
+        x.add_(1)
+
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="forced capture failure"):
+            g.run("decode", "tick", 1, step)
+    torch.cuda.synchronize()
+    assert x.tolist() == [2.0] * 4  # the two first-call runs, nothing else
+    assert (g.captures, g.decode_traces, g.keys) == (0, 0, [])
+    g.run("decode", "tick", 2, lambda: x.add_(1))  # the cache still works
+    g.run("decode", "tick", 2, lambda: x.add_(1))
+    torch.cuda.synchronize()
+    assert x.tolist() == [4.0] * 4 and g.captures == 1 and g.replays == 1
