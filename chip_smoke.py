@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero:
+Phases, in order (phase 7 runs after phase 5, on granite's weights,
+before phase 6); any failure exits non-zero:
 
 1. Print the card (``nvidia-smi``), build every CUDA kernel of the port
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
@@ -18,7 +19,12 @@ Phases, in order; any failure exits non-zero:
    of each time for prefill attention and the int8 matmul. The int8
    kernels (paged decode over int8 pools, the int8-weight matmul)
    likewise, at the same shapes and at granite's projection shapes
-   (decode M 8 and prefill M 512). bf16 paged decode over model-dtype
+   (decode M 8, the chunk steps' M 64, and prefill M 512). Rolling-cache
+   decode attention also at the chunk and suffix steps' shapes: S 64 and
+   S 512 queries of granite's width over one (1, 1024) linear buffer (256
+   and 2048 query rows per kv head, in groups of 64), bf16 in units of
+   2^-8 sum p|v| and bit for bit on a repeat call, float32 to 2e-5, with
+   its time and bound. bf16 paged decode over model-dtype
    and int8 pools (the one-launch twin-order kernel) also prints its
    error in units of 2^-8 sum p|v| and must repeat bit for bit. Then recurrentgemma-9b's
    shapes: windowed prefill attention (S 2560, 16 q heads over 1 kv head,
@@ -36,8 +42,14 @@ Phases, in order; any failure exits non-zero:
    the card and on the CPU, in the model dtype, with int8 KV pages and
    int8 weights, and from rolling caches (``paged=False``); then
    recurrentgemma-9b ``reduced()`` cut to 5 layers (float32, window 64)
-   with prompts longer than the window; the streams must be
+   with prompts longer than the window; then granite with chunked prefill
+   (chunk 16: paged, ``paged=False`` and over int8 KV pages), prefix hits
+   (a synchronous and a chunked suffix) and a preempted-and-restored
+   seeded stream (with and without the prefix cache), which must also
+   equal the same request's stream unpreempted; the streams must be
    token-identical (on the card, through the engine's CUDA graphs).
+   Phases 4-6 pass ``chunk_prefill=0``: single-shot prefill, their cells
+   as before chunked prefill was ported.
 4. Serve granite-8b at full width (36 layers, bfloat16, random weights
    from a fixed seed): 8 slots, 16 requests of 20-600 prompt tokens and 64
    new tokens, half greedy and half seeded. One engine serves every
@@ -73,6 +85,27 @@ Phases, in order; any failure exits non-zero:
    and the 2500-token prompt's first decode logits must match the full
    forward over the prompt and that token. Prints TTFT, tokens/s, peak
    memory and the steady decode tick of 8 slots beside its floor.
+
+7. Before granite's weights go (it runs after phase 5, before phase 6):
+   the reference's remaining admission paths at full width in bf16. (a)
+   Chunked prefill with the reference's defaults (chunk 64,
+   ``ChunkedPrefillPolicy()``): phase 4's 16 requests on one engine after
+   its warm-up round; every request finishes with its 64 tokens, a second
+   run gives the same streams, rolling-cache decode attention launched on
+   the chunks, the graph rule holds (the chunk step and its activation
+   scatter are captured, uncounted); prints prefill_chunks, TTFT p50 and
+   p90, tok/s and the ms per decode tick while chunks interleave (every
+   step synchronized), beside phase 4's engine served and timed the same
+   way. (b) The prefix cache: two waves of 8 requests, each a shared
+   512-token prefix (numpy seed 7) and its own suffix of 16-300 tokens;
+   every request of the second wave hits 512 tokens or more, the pool
+   then holds just the cached pages and nothing after
+   ``clear_prefix_cache()``, nothing is captured after the warm-up round;
+   prints each wave's TTFT. (c) A pool of half the full headroom with
+   preemption on: 8 requests without a deadline, two cancelled
+   mid-decode and one timing out (one tick a step), then 4 with a TTFT
+   deadline that evict; at least one preemption, as many restores, every
+   other request finished, and every page back.
 
 ``--profile DIR`` repeats the steady-decode serve (8 requests on 8
 slots) of phases 4, 5 and 6, and recurrentgemma's 2500-token prompt
@@ -312,6 +345,7 @@ def phase_kernels(torch, rec):
                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
                 print(line, flush=True)
 
+    ok &= chunk_decode_kernel(torch, rec, gen, H, KVH, D)
     ok &= int8_decode_kernel(torch, rec, gen, H, KVH, D)
     ok &= int8_matmul_kernel(torch, rec, gen)
 
@@ -619,6 +653,73 @@ def hybrid_kernels(torch, rec, gen):
     return ok
 
 
+def chunk_decode_kernel(torch, rec, gen, H, KVH, D):
+    """Rolling-cache decode attention at the chunk and suffix steps'
+    shapes: S queries of granite's width over one (1, 1024) linear buffer
+    (G * S query rows in groups of 64), S 64 (a chunk of prefill, the
+    buffer's last) and S 512 (a suffix of 512 from 512), held to the
+    plain version: bf16 in units of 2^-8 sum p|v| and bit for bit on a
+    repeat call, float32 to 2e-5."""
+    from repro_torch.kernels import ops, plain
+
+    dev, W = "cuda", 1024
+    ok = True
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        # 4 buffer pairs, cycled by the timed launches: the chunk steps
+        # read each layer's buffer cold
+        bufs = [tuple(torch.randn((1, W, KVH, D), generator=gen,
+                                  device=dev).to(dt) for _ in range(2))
+                for _ in range(4)]
+        kc, vc = bufs[0]
+        for s in (64, 512):
+            pos = torch.tensor([W], dtype=torch.int32, device=dev)
+            q = torch.randn((1, s, H, D), generator=gen, device=dev).to(dt)
+            got = ops.decode_attention(q, kc, vc, pos)
+            want = plain.decode_attention(q, kc, vc, pos)
+            err = (got.float() - want.float()).abs().max().item()
+            tol = TOL[dt_name]
+            if dt_name == "bfloat16":
+                u = ring_units(got, want, q, kc, vc, pos)
+                same = bool(torch.equal(
+                    got, ops.decode_attention(q, kc, vc, pos)))
+                good = u <= BF16_UNITS_TOL and same
+                units = (f" scaled {u:.3g} units of 2^-8 sum p|v| "
+                         f"tol={BF16_UNITS_TOL:g}, a second call "
+                         f"bit-identical: {same}")
+            else:
+                good, units = err <= tol, f" tol={tol}"
+            ok &= good
+            ms = time_ms(torch, lambda i: ops.decode_attention(
+                q, *bufs[i % 4], pos))
+            pl_ms = time_ms(torch, lambda i: plain.decode_attention(
+                q, *bufs[i % 4], pos), iters=4)
+            n_s = torch.arange(s, device=dev)
+            valid = torch.clamp(pos[:, None] - (s - 1) + n_s, max=W)
+            mask = (torch.arange(W, device=dev)[None, None, None, :]
+                    < valid[:, None, :, None])
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
+            lib = time_ms(torch, lambda i: torch.nn.functional
+                          .scaled_dot_product_attention(
+                              qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            esz = q.element_size()
+            nbytes = esz * (2 * W * KVH * D + 2 * q.numel()) + 4
+            b_ms, b_by = bound(nbytes, 4.0 * H * D * int(valid.sum()),
+                               dt_name)
+            print(f"chunk decode {dt_name} (1, {W}) buffer S={s} "
+                  f"H={H}/{KVH} D={D} ({H // KVH * s} query rows per kv "
+                  f"head): max_abs_err={err:.3g}{units} "
+                  f"{'ok' if good else 'FAIL'} ms={ms:.4f} "
+                  f"plain_ms={pl_ms:.4f} sdpa_mask_ms={lib:.4f} "
+                  f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+            if dt_name == "bfloat16" and s == 64:
+                rec["decode_attention_chunk"].update(
+                    max_abs_err=err, ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib)
+        del bufs, kc, vc
+    return ok
+
+
 def int8_decode_kernel(torch, rec, gen, H, KVH, D):
     """The int8 paged decode kernel against its plain version (the twin
     ``layers.paged_decode_attention_int8``), the oracle, the Pallas body's
@@ -756,7 +857,7 @@ def int8_matmul_kernel(torch, rec, gen):
                   for _ in range(n_sets)]
             w_lib = [(q.to(torch.float32) * s).to(dt) for q, s in ws]
             w_q, scale = ws[0]
-            for m in ((8, 16, 32, 512) if dt_name == "bfloat16"
+            for m in ((8, 16, 32, 64, 512) if dt_name == "bfloat16"
                       else (8, 512)):
                 x = torch.randn((m, k), generator=gen, device=dev).to(dt)
                 got = ops.int8_matmul(x, w_q, scale)
@@ -799,11 +900,15 @@ def int8_matmul_kernel(torch, rec, gen):
 
 def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
           sync_every=8, seeded=lambda i: i % 2 == 1, precision=None,
-          eng=None, **engine):
+          eng=None, reset=True, step_log=None, **engine):
     """Serve ``prompts`` at once; ``engine`` holds further EngineConfig
-    fields (``paged``, ``window``). ``eng``: an engine of an earlier round,
-    served on again after its ``reset()`` (its CUDA graphs captured), in
-    place of a new one. The engine comes back in the stats."""
+    fields (``paged``, ``window``, ``chunk_prefill``, ``prefix_cache``).
+    ``eng``: an engine of an earlier round, served on again after its
+    ``reset()`` (its CUDA graphs captured; ``reset=False`` keeps its
+    state, a prefix cache's index with it), in place of a new one. With
+    ``step_log`` a list, every ``step`` is synchronized and logged as
+    (seconds, chunks, decode ticks, prefills activated). The engine comes
+    back in the stats."""
     from repro_torch.serving import (
         EngineConfig,
         PrecisionConfig,
@@ -820,7 +925,7 @@ def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
                                              **(precision or {})),
                                          **engine),
                             device=device)
-    else:
+    elif reset:
         eng.reset()
     reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new,
                     sampling=(SamplingParams(temperature=0.8, top_k=50,
@@ -845,7 +950,16 @@ def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
     t_admitted = time.perf_counter() - t0
     done = 0
     while done < len(reqs):
+        m = eng.metrics
+        before = (m.prefill_chunks, m.decode_ticks, eng.prefill_calls)
+        t_step = time.perf_counter()
         done += len(eng.step(time.perf_counter() - t0))
+        if step_log is not None:
+            torch.cuda.synchronize()
+            step_log.append((time.perf_counter() - t_step,
+                             m.prefill_chunks - before[0],
+                             m.decode_ticks - before[1],
+                             eng.prefill_calls - before[2]))
         stamp()
     done += len(eng.drain(time.perf_counter() - t0))
     if device != "cpu":
@@ -876,21 +990,24 @@ def warm_round(torch, label, cfg, params, prompts, run):
 def graphs_ok(label, warm, st):
     """The reference's compile-count rule on an engine after its measured
     rounds: at most one prefill graph per padded prompt length the warm-up
-    round captured (bucketed, or page-rounded past the buckets; none for
-    exact-length prefill), at most two decode graphs (tick and window),
-    one capture per key, and none after the warm-up round."""
+    round captured single-shot (bucketed, or page-rounded past the
+    buckets; none for exact-length prefill), at most two decode graphs
+    (tick and window), one capture per key (the uncounted "aux" steps of
+    chunked prefill included: one chunk step, its activation scatter),
+    and none after the warm-up round."""
     eng = st["engine"]
-    seen = {eng._prefill_len(r) for r in warm
-            if eng.paged or eng._bucket_for(r.prompt_len) is not None}
+    seen = {eng._prefill_len(r) for r in warm if not eng._chunkable(r)
+            and (eng.paged or eng._bucket_for(r.prompt_len) is not None)}
     g = eng.graphs
+    aux = sorted(f"{name}{n}" for kind, name, n in g.keys if kind == "aux")
     ok = (eng.prefill_traces <= len(seen) and eng.decode_traces <= 2
           and g.captures == eng.prefill_traces + eng.decode_traces
-          == st["captures"])
+          + len(aux) == st["captures"])
     print(f"{label} graphs: prefill_traces={eng.prefill_traces} (padded "
           f"lengths seen {len(seen)}), decode_traces={eng.decode_traces} "
-          f"(at most 2), captures {g.captures} (after the warm-up round "
-          f"{st['captures']}), replays {g.replays}, capture {g.capture_s:.2f}"
-          f"s {'ok' if ok else 'FAIL'}", flush=True)
+          f"(at most 2), aux {aux}, captures {g.captures} (after the "
+          f"warm-up round {st['captures']}), replays {g.replays}, capture "
+          f"{g.capture_s:.2f}s {'ok' if ok else 'FAIL'}", flush=True)
     return ok
 
 
@@ -941,6 +1058,11 @@ def phase_reduced(torch):
             ("granite int8 kv + int8 weights", cfg,
              dict(kv_cache_dtype="int8", weight_dtype="int8"), {}),
             ("granite f32 paged=False", cfg, None, dict(paged=False)),
+            ("granite f32 chunked 16", cfg, None, dict(chunk_prefill=16)),
+            ("granite f32 paged=False chunked 16", cfg, None,
+             dict(paged=False, chunk_prefill=16)),
+            ("granite int8 kv chunked 16", cfg,
+             dict(kv_cache_dtype="int8"), dict(chunk_prefill=16)),
             ("recurrentgemma 5 layers f32, rings of 64", hybrid, None, {})):
         if arch.name not in weights:
             p_cpu = init_params(arch, seed=0, device="cpu")
@@ -949,7 +1071,7 @@ def phase_reduced(torch):
         ps = long_prompts if arch is hybrid else prompts
         run = dict(max_new=24, slots=3, max_seq=128, precision=precision,
                    **engine)
-        a, _ = serve(torch, arch, p_gpu, ps, device="cuda", **run)
+        a, st_a = serve(torch, arch, p_gpu, ps, device="cuda", **run)
         b, _ = serve(torch, arch, p_cpu, ps, device="cpu", **run)
         p_ref = (quantize_weights(arch, p_cpu) if precision else p_cpu)
         for ra, rb in zip(a, b):
@@ -969,11 +1091,116 @@ def phase_reduced(torch):
             if gap > 1e-4:
                 ok = False
         n_tok = sum(len(r.output) for r in a)
+        chunks = st_a["engine"].metrics.prefill_chunks
         print(f"reduced {label}: {len(a)} requests (prompts "
               f"{min(map(len, ps))}-{max(map(len, ps))}), {n_tok} tokens, "
               f"cuda streams == cpu streams: "
-              f"{all(x.output == y.output for x, y in zip(a, b))}",
+              f"{all(x.output == y.output for x, y in zip(a, b))}"
+              + (f", prefill_chunks {chunks}" if chunks else ""),
               flush=True)
+        if engine.get("chunk_prefill") and not chunks:
+            ok = False
+            print(f"FAIL: reduced {label} ran no prefill chunk", flush=True)
+    ok &= reduced_prefix_and_preempt(torch, cfg, *weights[cfg.name])
+    return ok
+
+
+def prefix_round(ts, eng, now=None):
+    """A 64-token template (chunked at 16), then, arriving together, a hit
+    with a 5-token suffix (one suffix step), a hit with a 40-token suffix
+    (chunks after the gather) and a cold 90-token prompt; half seeded.
+    Returns each request's (stream, prefix-hit tokens)."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    tpl = rng.integers(0, 500, 64).astype(np.int32)
+    waves = [[tpl], [np.concatenate([tpl, rng.integers(0, 500, n)])
+                     .astype(np.int32) for n in (5, 40)]
+             + [rng.integers(0, 500, 90).astype(np.int32)]]
+    out, t, rid = [], 0.0, 0
+    for wave in waves:
+        reqs = []
+        for p in wave:
+            reqs.append(ts.Request(rid=rid, prompt=p, max_new_tokens=12,
+                                   sampling=(ts.SamplingParams(
+                                       temperature=0.8, top_k=20,
+                                       seed=300 + rid) if rid % 2
+                                       else ts.SamplingParams())))
+            eng.submit(reqs[-1], t)
+            rid += 1
+        while not all(r.done for r in reqs):
+            t += 1.0
+            eng.step(t)
+        eng.drain(t)
+        out += [(r.output, r.prefix_hit_tokens) for r in reqs]
+    return out
+
+
+def preempt_round(ts, eng, preempt: bool):
+    """A seeded 20-token request decoding 10 tokens on one slot; with
+    ``preempt``, a higher-priority request arrives after 3 ticks and
+    evicts it. Returns (its stream, its preemptions)."""
+    import numpy as np
+
+    sp = ts.SamplingParams(temperature=0.7, top_k=20, top_p=0.95, seed=77)
+    victim = ts.Request(0, np.random.default_rng(0).integers(
+        0, 500, 20).astype(np.int32), max_new_tokens=10, sampling=sp,
+        ttft_slo_s=100.0)
+    assert eng.try_admit(victim, 0.0)
+    reqs, t = [victim], 0.0
+    for t in (1.0, 2.0, 3.0):
+        eng.step(t)
+    if preempt:
+        hot = ts.Request(1, np.random.default_rng(9).integers(
+            0, 500, 10).astype(np.int32), max_new_tokens=3, priority=1,
+            ttft_slo_s=1.0)
+        eng.submit(hot, t)
+        reqs.append(hot)
+    while not all(r.done for r in reqs):
+        t += 1.0
+        eng.step(t)
+    return list(victim.output), victim.preemptions
+
+
+def reduced_prefix_and_preempt(torch, cfg, p_cpu, p_gpu):
+    """Phase 3, the prefix cache and preemption: prefix hits (a
+    synchronous suffix and a chunked one) and a preempted-and-restored
+    stream (with and without the prefix cache), on the card and on the
+    CPU, token for token; the restored stream must also equal the same
+    request's stream without preemption."""
+    from repro_torch import serving as ts
+
+    ok = True
+    outs = {}
+    for params, device in ((p_gpu, "cuda"), (p_cpu, "cpu")):
+        eng = ts.ServingEngine(cfg, params, ts.EngineConfig(
+            slots=3, max_seq=256, sync_every=3, chunk_prefill=16,
+            prefix_cache=True), device=device)
+        outs[device] = prefix_round(ts, eng)
+    hits = [h for _, h in outs["cpu"]]
+    good = outs["cuda"] == outs["cpu"] and hits == [0, 64, 64, 0]
+    ok &= good
+    print(f"reduced granite f32 prefix cache (chunk 16): prefix-hit tokens "
+          f"{hits}, cuda streams == cpu streams: "
+          f"{outs['cuda'] == outs['cpu']} {'ok' if good else 'FAIL'}",
+          flush=True)
+    kw = dict(slots=1, window=64, max_seq=64, sync_every=1, chunk_prefill=0)
+    for prefix_cache in (False, True):
+        runs = {}
+        for params, device in ((p_gpu, "cuda"), (p_cpu, "cpu")):
+            for preempt in (False, True):
+                eng = ts.ServingEngine(cfg, params, ts.EngineConfig(
+                    preemption=preempt, prefix_cache=prefix_cache, **kw),
+                    device=device)
+                runs[device, preempt] = preempt_round(ts, eng, preempt)
+        stream = runs["cpu", False][0]
+        good = (runs["cuda", True][1] >= 1
+                and all(v[0] == stream for v in runs.values()))
+        ok &= good
+        print(f"reduced granite f32 preempted and restored (prefix cache "
+              f"{prefix_cache}): preemptions {runs['cuda', True][1]}, "
+              f"restored stream == unpreempted stream on cuda and cpu: "
+              f"{good} {'ok' if good else 'FAIL'}", flush=True)
     return ok
 
 
@@ -1007,7 +1234,8 @@ def phase_full(torch, rec, full, profile_dir=None):
     lens = rng.integers(20, 601, 16)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
-    run = dict(device="cuda", max_new=64, slots=8, max_seq=1024)
+    run = dict(device="cuda", max_new=64, slots=8, max_seq=1024,
+               chunk_prefill=0)
     warm, st0 = warm_round(torch, "granite bf16", cfg, params, prompts, run)
     run["eng"] = st0["engine"]
     torch.cuda.reset_peak_memory_stats()
@@ -1071,6 +1299,8 @@ def phase_full(torch, rec, full, profile_dir=None):
     ok &= graphs_ok("granite bf16", warm, st0)
     del run["eng"]
     full.update(cfg=cfg, params=params, prompts=prompts, run=run,
+                engine=st0["engine"], ttft=st["ttft"],
+                tok_s=n_tok / st["wall"],
                 outputs=[r.output for r in reqs],
                 tick_ms=st3["after_submit"] / st3["ticks"] * 1e3)
     return ok
@@ -1174,6 +1404,212 @@ def phase_quant(torch, rec, full, profile_dir=None):
     return ok
 
 
+def tick_while(log, kind):
+    """(ms per decode tick of the logged steps that ran ``kind`` work,
+    "chunks" or "prefills", beside decode ticks; how many such steps),
+    and the ms per tick of the steps that ran decode ticks alone."""
+    col = 1 if kind == "chunks" else 3
+    busy = [(r[0], r[2]) for r in log if r[col] > 0 and r[2] > 0]
+    alone = [(r[0], r[2]) for r in log if r[2] > 0 and not r[1] and not r[3]]
+
+    def per_tick(rows):
+        ticks = sum(n for _, n in rows)
+        return sum(dt for dt, _ in rows) / ticks * 1e3 if ticks else 0.0
+    return per_tick(busy), len(busy), per_tick(alone)
+
+
+def burst_line(label, reqs, st):
+    """TTFT p50 / p90 (host clock) and tokens/s of a served burst."""
+    import numpy as np
+
+    n_tok = sum(len(r.output) for r in reqs)
+    return (f"{label}: TTFT p50 {statistics.median(st['ttft']) * 1e3:.1f} "
+            f"ms p90 {np.percentile(st['ttft'], 90) * 1e3:.1f} ms, "
+            f"{n_tok} tokens in {st['wall']:.3f}s -> "
+            f"{n_tok / st['wall']:.1f} tok/s")
+
+
+def phase_admission(torch, rec, full):
+    """Phase 7: granite-8b at full width in bf16 on phase 4's weights,
+    through the reference's remaining admission paths: (a) chunked prefill
+    with its defaults (chunk 64, ``ChunkedPrefillPolicy()``), beside phase
+    4's single-shot engine; (b) the prefix cache over two waves sharing a
+    512-token prefix; (c) preemption in a pool of half the full headroom,
+    with cancels and a timeout."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (
+        EngineConfig,
+        Request,
+        RequestState,
+        SamplingParams,
+        ServingEngine,
+    )
+
+    cfg, params, prompts = full["cfg"], full["params"], full["prompts"]
+    ok = True
+
+    # -- (a) chunked prefill, the reference's defaults ---------------------
+    chunked = dict(full["run"], chunk_prefill=64)
+    warm, st0 = warm_round(torch, "granite bf16 chunked", cfg, params,
+                           prompts, chunked)
+    chunked["eng"] = st0["engine"]
+    ops.reset_launches()
+    log = []
+    reqs, st = serve(torch, cfg, params, prompts, step_log=log, **chunked)
+    launches = dict(ops.LAUNCHES)
+    eng = st["engine"]
+    n_chunks = eng.metrics.prefill_chunks
+    unfinished = [r.rid for r in reqs
+                  if r.state.value != "finished" or len(r.output) != 64]
+    if unfinished:
+        ok = False
+        print(f"FAIL: chunked requests without their 64 tokens: "
+              f"{unfinished}", flush=True)
+    same = all(a.output == b.output for a, b in zip(warm, reqs))
+    ok &= same
+    rec["decode_attention_chunk"]["launches"] = launches["decode_attention"]
+    for name in ("decode_attention", "flash_attention",
+                 "paged_decode_attention", "sample_tokens"):
+        if launches[name] <= 0:
+            ok = False
+            print(f"FAIL: kernel {name} never launched on the chunked path",
+                  flush=True)
+    tick, n_busy, alone = tick_while(log, "chunks")
+    print(f"chunked measured round (replays) identical to the warm-up "
+          f"round: {same}; prefill_chunks {n_chunks}; "
+          + burst_line("chunked", reqs, st)
+          + f"; {tick:.2f} ms per tick while chunks interleave ({n_busy} "
+          f"steps), {alone:.2f} ms per tick of decode alone", flush=True)
+    print("kernels (launches on the chunked path): "
+          + ", ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+    reqs2, _ = serve(torch, cfg, params, prompts, **chunked)
+    same = all(a.output == b.output for a, b in zip(reqs, reqs2))
+    ok &= same
+    print(f"chunked second run identical: {same}", flush=True)
+    ok &= graphs_ok("granite bf16 chunked", warm, st0)
+    # phase 4's single-shot engine, timed the same way in this phase
+    base = dict(full["run"], eng=full["engine"])
+    log0 = []
+    reqs0, st_b = serve(torch, cfg, params, prompts, step_log=log0, **base)
+    tick0, n_busy0, alone0 = tick_while(log0, "prefills")
+    print(burst_line("phase 4's single-shot engine, same timing", reqs0,
+                     st_b)
+          + f"; {tick0:.2f} ms per tick while single-shot prefills "
+          f"interleave ({n_busy0} steps), {alone0:.2f} ms per tick of "
+          f"decode alone; phase 4's measured round: TTFT p50 "
+          f"{statistics.median(full['ttft']) * 1e3:.1f} ms p90 "
+          f"{np.percentile(full['ttft'], 90) * 1e3:.1f} ms, "
+          f"{full['tok_s']:.1f} tok/s", flush=True)
+    del chunked["eng"], base, st0, st, eng, warm, reqs, reqs2, reqs0
+    gc.collect()
+
+    # -- (b) the prefix cache ------------------------------------------------
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+    sfx = rng.integers(16, 301, 16)
+    waves = [[np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)])
+              .astype(np.int32) for n in sfx[w * 8:(w + 1) * 8]]
+             for w in range(2)]
+    pref = dict(full["run"], chunk_prefill=64, prefix_cache=True)
+
+    def two_waves(eng=None):
+        r1, s1 = serve(torch, cfg, params, waves[0], eng=eng, **pref)
+        eng = s1["engine"]
+        r2, s2 = serve(torch, cfg, params, waves[1], eng=eng, reset=False,
+                       **pref)
+        return eng, r1, s1, r2, s2
+
+    eng, *_ = two_waves()
+    captures = eng.graphs.captures
+    print(f"prefix warm-up round: {captures} CUDA graphs captured in "
+          f"{eng.graphs.capture_s:.2f}s (keys "
+          + ", ".join(f"{name}{n}" for _, name, n in eng.graphs.keys) + ")",
+          flush=True)
+    eng, r1, s1, r2, s2 = two_waves(eng)
+    hits = [r.prefix_hit_tokens for r in r2]
+    cached = eng.prefix_index.cached_pages
+    in_use = eng.allocator.pages_in_use
+    finished = all(r.state.value == "finished" and len(r.output) == 64
+                   for r in r1 + r2)
+    good = (finished and all(h >= 512 for h in hits)
+            and sum(hits) >= 8 * 512 and in_use == cached
+            and eng.graphs.captures == captures
+            and not [r.prefix_hit_tokens for r in r1 if r.prefix_hit_tokens])
+    eng.clear_prefix_cache()
+    eng.reset()
+    good &= eng.allocator.pages_in_use == 0
+    ok &= good
+    print(f"prefix cache: wave 2 prefix-hit tokens {hits} (sum "
+          f"{sum(hits)}, at least {8 * 512}), wave 1 misses; all finished "
+          f"with 64 tokens: {finished}; pages in use {in_use} == cached "
+          f"{cached}, 0 after clear_prefix_cache(); no capture after the "
+          f"warm-up: {eng.graphs.captures == captures} "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    print(burst_line("prefix miss wave (8 prompts of 512 + 16-300)", r1, s1)
+          + "; " + burst_line("hit wave", r2, s2), flush=True)
+    del eng, r1, r2, s1, s2
+    gc.collect()
+
+    # -- (c) lifecycle: preemption, cancels and a timeout ----------------------
+    max_pages = 1024 // 16
+    eng = ServingEngine(cfg, params, EngineConfig(
+        slots=8, max_seq=1024, pool_pages=8 * max_pages // 2 + 1,
+        preemption=True, sync_every=1), device=full["run"]["device"])
+    sp = SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=5)
+    base_reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=64,
+                         sampling=sp if i % 2 else SamplingParams())
+                 for i in range(8)]
+    base_reqs[5].timeout_s = 30.0  # times out mid-decode (one tick a step)
+    base_reqs[5].priority = 1  # never a victim: it must time out decoding
+    cancel = base_reqs[6:8]
+    urgent = [Request(rid=100 + j, prompt=rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=16,
+        ttft_slo_s=5.0) for j, n in enumerate((420, 480, 350, 500))]
+    allreq = base_reqs + urgent
+    for i in (6, 7, 0, 1, 2, 3, 4, 5):
+        eng.submit(base_reqs[i], 0.0)
+    t, sent, cancel_at = 0.0, False, {}
+    while not all(r.state.terminal for r in allreq) and t < 2000:
+        t += 1.0
+        eng.step(t)
+        for r in cancel:
+            if (r.rid not in cancel_at and r.state is RequestState.DECODE
+                    and len(r.output) >= 2):
+                r.cancel()
+                cancel_at[r.rid] = len(r.output)
+        if not sent and all(r.state.terminal for r in cancel):
+            for r in urgent:
+                r.arrival_time = t
+                eng.submit(r, t)
+            sent = True
+    eng.drain(t)
+    m = eng.metrics
+    states = {r.rid: r.state.value for r in allreq}
+    served = [r for r in allreq if r not in cancel and r is not
+              base_reqs[5]]
+    good = (m.preempted >= 1 and m.preempt_restores == m.preempted
+            and all(r.state.value == "finished"
+                    and len(r.output) == r.max_new_tokens for r in served)
+            and all(r.state is RequestState.CANCELLED
+                    and 0 < len(r.output) < 64 for r in cancel)
+            and base_reqs[5].state is RequestState.TIMED_OUT
+            and 0 < len(base_reqs[5].output) < 64
+            and m.cancelled == 2 and m.timed_out == 1
+            and eng.allocator.pages_in_use == 0 and eng.n_active == 0)
+    ok &= good
+    print(f"lifecycle (pool of {eng.allocator.capacity} pages, half the "
+          f"headroom, preemption on, one tick a step): {t:.0f} steps; "
+          f"preempted {m.preempted}, restored {m.preempt_restores}; "
+          f"cancelled {m.cancelled} (after {list(cancel_at.values())} "
+          f"tokens), timed out {m.timed_out} (after "
+          f"{len(base_reqs[5].output)} tokens); states {states}; pages in "
+          f"use at the end {eng.allocator.pages_in_use} "
+          f"{'ok' if good else 'FAIL'}", flush=True)
+    return ok
+
+
 def phase_hybrid(torch, rec, profile_dir=None):
     """Phase 6: recurrentgemma-9b at full width from rolling caches."""
     import numpy as np
@@ -1197,7 +1633,8 @@ def phase_hybrid(torch, rec, profile_dir=None):
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
     win = cfg.local_window
-    run = dict(device="cuda", max_new=64, slots=8, max_seq=None, window=win)
+    run = dict(device="cuda", max_new=64, slots=8, max_seq=None, window=win,
+               chunk_prefill=0)
     ok = True
 
     # the 2500-token prompt's rings, exactly: row t % W holds token t
@@ -1464,6 +1901,11 @@ def main() -> int:
             name="decode_attention", route="cuda",
             source=f"{csrc}/decode_attention.cu",
             replaces="src/repro/kernels/decode_attention.py:264"),
+        "decode_attention_chunk": dict(
+            name="decode_attention (chunk S 64, 32/8 heads, (1, 1024) "
+                 "buffer)", route="cuda",
+            source=f"{csrc}/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:264"),
         "rglru_scan": dict(
             name="rglru_scan", route="cuda",
             source=f"{csrc}/rglru_scan.cu",
@@ -1494,6 +1936,8 @@ def main() -> int:
                        lambda: phase_full(torch, rec, full, profile_dir)),
                       ("full-width quantized serving",
                        lambda: phase_quant(torch, rec, full, profile_dir)),
+                      ("full-width admission paths",
+                       lambda: phase_admission(torch, rec, full)),
                       ("full-width hybrid serving",
                        lambda: phase_hybrid(torch, rec, profile_dir))):
         t0 = time.perf_counter()
@@ -1501,7 +1945,7 @@ def main() -> int:
             return fail(f"phase '{phase}'")
         print(f"phase '{phase}' ok in {time.perf_counter() - t0:.1f}s",
               flush=True)
-        if phase == "full-width quantized serving":
+        if phase == "full-width admission paths":
             full.clear()  # granite's weights go before recurrentgemma's
             torch.cuda.empty_cache()
     keys = ("name", "route", "source", "replaces", "launches",

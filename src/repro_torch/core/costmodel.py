@@ -1,7 +1,9 @@
-"""Analytic latency model for serving work: the three-term roofline of the
-JAX package's ``core/costmodel.py``, restricted to what the engine's
-admission plan needs, over the chip constants in
-``repro_torch.core.hardware`` (default: one H100)."""
+"""Analytic latency model for serving work: the roofline of the JAX
+package's ``core/costmodel.py``, restricted to what the engine needs (its
+admission plan, the chunked-prefill policy, ``load_report``), over the chip
+constants in ``repro_torch.core.hardware`` (default: one H100). The port
+serves one card, so the collective term is per mesh axis only
+(``collective_bytes_per_axis``) and no estimate carries it."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -33,6 +35,14 @@ class WorkEstimate:
     @property
     def bottleneck(self) -> str:
         return "compute" if self.compute_s >= self.memory_s else "memory"
+
+
+def stream_occupancy(batch: int, *, half_sat: float = 16.0,
+                     floor: float = 0.30, cap: float = 0.95) -> float:
+    """Occupancy of a single inference stream as a function of batch size:
+    rises toward ``cap`` as batching amortizes dispatch/dependency
+    stalls."""
+    return min(cap, floor + (1.0 - floor) * batch / (batch + half_sat))
 
 
 def _dtype_bytes(cfg) -> int:
@@ -101,3 +111,57 @@ def estimate_decode(cfg, batch: int, context: int, *, chip: Chip = H100_SXM,
         kv_bytes += batch * cfg.num_layers * cfg.d_model * 4 * 4.0
     hbm = cfg.param_count() * wb + kv_bytes
     return WorkEstimate(flops, hbm, chip, n_chips)
+
+
+def collective_bytes_per_axis(cfg, tokens: int, *, mesh_axes=None) -> dict:
+    """Collective bytes per mesh axis (per participating card) for one
+    forward pass over ``tokens`` tokens, keyed off the mesh shape
+    ``((axis, size), ...)``: two activation collectives per layer on a
+    ``model`` axis of n > 1 cards (ring cost (n - 1) / n of the (tokens,
+    d) residual each), plus the expert all-to-all on MoE archs; ``data``
+    axes move nothing per step. One card (``mesh_axes`` None) has no
+    axis: ``{}``."""
+    wb = _dtype_bytes(cfg)
+    out = {}
+    for name, n in mesh_axes or ():
+        n = int(n)
+        traffic = 0.0
+        if name == "model" and n > 1:
+            ring = (n - 1) / n
+            traffic = 4.0 * cfg.num_layers * tokens * cfg.d_model * wb * ring
+            if cfg.arch_type == "moe" and cfg.num_experts:
+                moe_layers = cfg.num_layers // max(1, cfg.moe_layer_period)
+                k = max(1, cfg.experts_per_token)
+                traffic += (2.0 * moe_layers * tokens * k * cfg.d_model
+                            * wb * ring)
+        out[name] = traffic
+    return out
+
+
+def collective_s_per_axis(cfg, tokens: int, *, mesh_axes=None,
+                          chip: Chip = H100_SXM) -> dict:
+    """Collective seconds per mesh axis for one forward pass, at the
+    card's per-direction link rate; ``{}`` on one card."""
+    per_axis = collective_bytes_per_axis(cfg, tokens, mesh_axes=mesh_axes)
+    return {a: b / chip.link_bw for a, b in per_axis.items()}
+
+
+def estimate_backlog_s(cfg, *, queued_prefill_tokens: int,
+                       decode_tokens_remaining: int, slots: int,
+                       context: int, chip: Chip = H100_SXM,
+                       n_chips: int = 1) -> float:
+    """Seconds to drain an engine's outstanding work, the scalar a router
+    reads from ``ServingEngine.load_report``: every queued or unfinished
+    prefill token flows through prefill once, and every remaining decode
+    token costs a share of a batched decode tick (B slots emit up to B
+    tokens a tick). Both terms are monotone in load."""
+    s = 0.0
+    if queued_prefill_tokens > 0:
+        s += estimate_prefill(cfg, 1, queued_prefill_tokens, chip=chip,
+                              n_chips=n_chips).latency_s
+    if decode_tokens_remaining > 0:
+        b = max(1, slots)
+        per_tick = estimate_decode(cfg, b, context, chip=chip,
+                                   n_chips=n_chips).latency_s
+        s += per_tick * decode_tokens_remaining / b
+    return s

@@ -20,7 +20,12 @@
 // takes a contiguous run of the slot's 64-row tiles (``split_rows``), and
 // the nsplit splits of one (slot, kv head), at most 8, are one
 // thread-block cluster on neighbouring SMs, merged deterministically
-// through distributed shared memory, in rank order, with no atomics.
+// through distributed shared memory, in rank order, with no atomics. The
+// online kernel also serves more than 64 query rows (a chunk of prefill
+// over a linear buffer: granite's 64-token chunk is 256 rows, a suffix up
+// to 4096): the rows are cut into groups of 64, each group its own
+// cluster, folded with the slot into the grid's y (B x groups); a group
+// is computed exactly as a call of its 64 rows alone would be.
 //
 // What bounds both: the bytes of the valid K/V rows, read once for the G
 // query heads (granite: 8 slots x up to 1024 rows x 8 kv heads x 128 x 2 B
@@ -88,7 +93,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int BKV = 64;         // cache rows per K/V tile
 constexpr int MAX_CLUSTER = 8;   // splits per (slot, kv head): one cluster
-constexpr int MAX_ROWS = 64;     // G * S query rows per block
+constexpr int MAX_ROWS = 64;     // G * S query rows per block (a group)
 constexpr int MAX_STAGES = 3;    // ring stages of the online kernel
 constexpr int MAX_RING = 8;      // ring slots of the twin kernel
 constexpr int MAX_SMEM = 232448;  // a block's shared memory on sm_90
@@ -100,6 +105,7 @@ constexpr bool kCodes = !std::is_pointer<typename Pool::Row>::value;
 
 struct Geometry {
   int S, H, KVH, G, R, W, n_pages, ps, nsplit, stages;
+  int ngroups;  // groups of up to MAX_ROWS of the R rows (the twin: 1)
   int keep, per;  // twin kernel: scores kept in shared memory; tiles a split
   float scale;       // d^-1/2
   float scale_log2;  // d^-1/2 log2(e): the online kernel's exp2 domain
@@ -136,18 +142,19 @@ __device__ __forceinline__ void split_rows(int nmax, int nsplit, int split,
   t_end = min(nmax, (split + 1) * per * BKV);
 }
 
-// Q rows r = gi * S + s of (slot b, kv head c) into the swizzled tile
-// (zeros from R to RP); the caller commits the group.
+// Q rows r0 + r (r < R; row gi * S + s) of (slot b, kv head c) into the
+// swizzled tile (zeros from R to RP); the caller commits the group.
 template <int D, int RP, int THREADS>
 __device__ __forceinline__ void load_q(uint4* qs, const bf16* q, int b,
-                                       int c, const Geometry& g) {
+                                       int c, int r0, int R,
+                                       const Geometry& g) {
   constexpr int CPR = D / 8;
   for (int idx = threadIdx.x; idx < RP * CPR; idx += THREADS) {
     const int r = idx / CPR, ch = idx % CPR;
-    const bool ok = r < g.R;
+    const bool ok = r < R;
     const bf16* src = q;
     if (ok) {
-      const int gi = r / g.S, s = r % g.S;
+      const int gi = (r0 + r) / g.S, s = (r0 + r) % g.S;
       src = q + ((size_t)(b * g.S + s) * g.H + c * g.G + gi) * D + ch * 8;
     }
     cp_async16(qs + swizzle<CPR>(r, ch), src, ok);
@@ -339,10 +346,17 @@ decode_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
-  const int c = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int c = blockIdx.x, split = blockIdx.z;
+  // the slot and the group's rows [r0, r0 + R)
+  const int b = blockIdx.y / g.ngroups;
+  const int r0 = (blockIdx.y % g.ngroups) * MAX_ROWS;
+  const int R = min(g.R - r0, MAX_ROWS);
   const int p = pos[b];
   const int nmax = min(p, g.W);
-  const int lim0 = min(p - (g.S - 1), g.W);  // rows query 0 sees (fewest)
+  // the fewest rows a query of the group sees: its smallest s (0 when the
+  // group's rows wrap past a head's S queries)
+  const int s_min = r0 % g.S + R <= g.S ? r0 % g.S : 0;
+  const int lim0 = min(p - (g.S - 1) + s_min, g.W);
   int t_begin, t_end;
   split_rows(nmax, g.nsplit, split, t_begin, t_end);
   const int n_tiles = (t_end - t_begin + BKV - 1) / BKV;
@@ -350,7 +364,7 @@ decode_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
   const int* trow = paged::table_row(table, b, g.n_pages);
 
   // Q in the first commit group
-  load_q<D, RP, C::THREADS>(qs, q, b, c, g);
+  load_q<D, RP, C::THREADS>(qs, q, b, c, r0, R, g);
   // 64 rows of a pool from row t0 of the slot; rows past nmax as zeros
   auto load = [&](uint4* dst, const Pool& pool, int t0) {
     issue_tile<Pool, D, C::THREADS>(
@@ -402,7 +416,7 @@ decode_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
           float x = sc[mt][i][e] * g.scale_log2;
           if (edge) {
             const int tk = t0 + 8 * (warp + WARPS * i) + 2 * tq + (e & 1);
-            const int s = (mt * 16 + gq + 8 * (e >> 1)) % g.S;
+            const int s = (r0 + mt * 16 + gq + 8 * (e >> 1)) % g.S;
             if (tk >= min(p - (g.S - 1) + s, g.W)) x = -INFINITY;
           }
           sc[mt][i][e] = x;
@@ -506,7 +520,7 @@ decode_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
   cg::cluster_group cl = cg::this_cluster();
   const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
   cl.sync();
-  for (int row = tid; row < g.R; row += C::THREADS) {
+  for (int row = tid; row < R; row += C::THREADS) {
     float mr[MAX_CLUSTER], lr[MAX_CLUSTER];
 #pragma unroll
     for (int r = 0; r < MAX_CLUSTER; ++r) {
@@ -533,7 +547,7 @@ decode_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
 #pragma unroll
   for (int r = 0; r < MAX_CLUSTER; ++r)
     osr[r] = cl.map_shared_rank(os, r < cs ? r : 0);
-  for (int idx = tid; idx < g.R * dcs; idx += C::THREADS) {
+  for (int idx = tid; idx < R * dcs; idx += C::THREADS) {
     const int row = idx / dcs, d = d0 + idx % dcs;
     float v[MAX_CLUSTER];
 #pragma unroll
@@ -543,7 +557,7 @@ decode_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
 #pragma unroll
     for (int r = 0; r < MAX_CLUSTER; ++r)
       sum += cw[row * MAX_CLUSTER + r] * v[r];
-    const int gi = row / g.S, s = row % g.S;
+    const int gi = (r0 + row) / g.S, s = (r0 + row) % g.S;
     o[((size_t)(b * g.S + s) * g.H + c * g.G + gi) * D + d] =
         __float2bfloat16(sum * inv_sum[row]);
   }
@@ -904,8 +918,8 @@ twin_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
   cl.sync();  // no block leaves while another reads its shared memory
 }
 
-// One launch of ``kernel`` on the (KVH, B, nsplit) grid, the nsplit
-// splits of a (slot, kv head) one cluster.
+// One launch of ``kernel`` on the (KVH, B x groups, nsplit) grid, the
+// nsplit splits of a (slot, kv head, group) one cluster.
 template <typename Kernel, typename Pool>
 int launch_cluster(Kernel kernel, int threads, int smem, const void* q,
                    const Pool& kp, const Pool& vp, const int* table,
@@ -916,7 +930,7 @@ int launch_cluster(Kernel kernel, int threads, int smem, const void* q,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(g.KVH, B, g.nsplit);
+  cfg.gridDim = dim3(g.KVH, B * g.ngroups, g.nsplit);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -956,7 +970,7 @@ template <bool TWIN, typename Pool, int D>
 int by_rows(const void* q, const Pool& kp, const Pool& vp, const int* table,
             const int* pos, void* o, int B, const Geometry& g,
             cudaStream_t st) {
-  if (g.R <= 16)
+  if (g.R <= 16)  // one group
     return launch<TWIN, Pool, D, 1>(q, kp, vp, table, pos, o, B, g, st);
   if (g.R <= 32)
     return launch<TWIN, Pool, D, 2>(q, kp, vp, table, pos, o, B, g, st);
@@ -964,11 +978,12 @@ int by_rows(const void* q, const Pool& kp, const Pool& vp, const int* table,
 }
 
 // Shapes to a Geometry, and head_dim and rows to an instantiation. The
-// nsplit splits of a (slot, kv head) are one cluster: a power of two up to
-// MAX_CLUSTER. W = n_pages x ps rows per slot (a ring: one page of W rows,
-// no table).
-inline int geometry(Geometry& g, int S, int H, int KVH, int n_pages, int ps,
-                    int nsplit, float scale) {
+// nsplit splits of a (slot, kv head, group) are one cluster: a power of
+// two up to MAX_CLUSTER. W = n_pages x ps rows per slot (a ring: one page
+// of W rows, no table). ``max_rows``: the rows the kernel takes (the twin
+// kernel one group of MAX_ROWS).
+inline int geometry(Geometry& g, int B, int S, int H, int KVH, int n_pages,
+                    int ps, int nsplit, float scale, int max_rows) {
   g.S = S;
   g.H = H;
   g.KVH = KVH;
@@ -982,8 +997,9 @@ inline int geometry(Geometry& g, int S, int H, int KVH, int n_pages, int ps,
   g.per = 0;
   g.scale = scale;
   g.scale_log2 = scale * 1.4426950408889634f;
-  if (g.R > MAX_ROWS || g.R < 1 || nsplit < 1 || nsplit > MAX_CLUSTER ||
-      (nsplit & (nsplit - 1)))
+  g.ngroups = (g.R + MAX_ROWS - 1) / MAX_ROWS;
+  if (g.R > max_rows || g.R < 1 || nsplit < 1 || nsplit > MAX_CLUSTER ||
+      (nsplit & (nsplit - 1)) || (long long)B * g.ngroups > 65535)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -1012,7 +1028,7 @@ int dispatch(const void* q, const Pool& kp, const Pool& vp, const int* pos,
              void* o, int B, int S, int H, int KVH, int D, int W, int nsplit,
              float scale, void* stream) {
   Geometry g;
-  int err = geometry(g, S, H, KVH, 1, W, nsplit, scale);
+  int err = geometry(g, B, S, H, KVH, 1, W, nsplit, scale, 1 << 30);
   if (err) return err;
   // as many stages as a split has tiles (``launch`` keeps what shared
   // memory holds)
@@ -1036,7 +1052,7 @@ int dispatch_twin(const void* q, const Pool& kp, const Pool& vp,
                   int H, int KVH, int D, int n_pages, int ps, int nsplit,
                   int keep, int stages, float scale, void* stream) {
   Geometry g;
-  int err = geometry(g, S, H, KVH, n_pages, ps, nsplit, scale);
+  int err = geometry(g, B, S, H, KVH, n_pages, ps, nsplit, scale, MAX_ROWS);
   if (err) return err;
   if (stages < 1 || stages > MAX_RING || (keep != 0 && keep != 1))
     return (int)cudaErrorInvalidValue;

@@ -21,7 +21,11 @@
 // resolved through its row of the page table, or its ring. Query s of S
 // sees min(pos - (S-1) + s, W) cache slots (capped per query, as the
 // twins: a ring written past W holds W valid rows for every query); slots
-// at or past the slot's last valid one are never loaded.
+// at or past the slot's last valid one are never loaded. Past 64 rows
+// (a chunk of prefill over a linear buffer: granite's 64-token chunk is
+// 256 rows, a suffix up to 4096) the rows are cut into groups of 64, each
+// group its own blocks (the grid's y is slot x group); every group of a
+// slot splits its context alike, so the combine sums the same ranges.
 //
 // The pools are read in their model layout (P, ps, KVH, D) through the
 // strides the wrapper passes: no per-call transpose of the pool (the
@@ -59,14 +63,23 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 // G * S query rows per block, at most: each kernel is instantiated for
 // MR = 32 and MR = 64 rows (MR / WARPS rows per warp in registers), and a
-// call takes the smaller that holds its rows (recurrentgemma's 16 heads
-// over one kv head: 16 rows at S = 1, 64 at S = 4).
+// call takes the smaller that holds a group's rows (recurrentgemma's 16
+// heads over one kv head: 16 rows at S = 1, 64 at S = 4).
 constexpr int MAX_ROWS = 64;
 
-// What every block of one call shares: shapes and its own range.
+// What every block of one call shares: shapes and its own range. R is
+// every row of a (slot, kv head); ngroups groups of up to MAX_ROWS.
 struct Geometry {
-  int S, H, KVH, G, R, n_pages, ps, W, wpad, nsplit;
+  int S, H, KVH, G, R, n_pages, ps, W, wpad, nsplit, ngroups;
 };
+
+// The decode slot of block row y and its group's rows [r0, r0 + rows).
+__device__ __forceinline__ void block_rows(const Geometry& g, int y, int& b,
+                                           int& r0, int& rows) {
+  b = y / g.ngroups;
+  r0 = (y % g.ngroups) * MAX_ROWS;
+  rows = min(g.R - r0, MAX_ROWS);
+}
 
 // The slots [t_begin, t_end) of slot b that split ``split`` covers: the
 // slot's valid tiles are dealt out in contiguous runs.
@@ -110,11 +123,13 @@ scores_kernel(const float* __restrict__ q, Pool kp,
               float* __restrict__ scores,
               float2* __restrict__ stats, Geometry g, float scale) {
   extern __shared__ float smem[];
-  float* qs = smem;        // [R][D]
-  float* ks = qs + g.R * D;  // [TK][D + 1]
+  float* qs = smem;        // [R][D]: the group's rows
+  float* ks = qs + MR * D;  // [TK][D + 1]
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int c = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int c = blockIdx.x, split = blockIdx.z;
+  int b, r0, R;
+  block_rows(g, blockIdx.y, b, r0, R);
   const int nmax = min(pos[b], g.W);  // valid slots of the last query row
   int t_begin, t_end;
   split_range(g, nmax, split, t_begin, t_end);
@@ -123,14 +138,14 @@ scores_kernel(const float* __restrict__ q, Pool kp,
   typename Pool::template Tile<TK, D, THREADS> tile;
   if (t_begin < t_end)
     tile.load(SlotRows<Pool>{kp, trow, b, g.ps, c, t_begin, nmax});
-  for (int idx = tid; idx < g.R * D; idx += blockDim.x) {
+  for (int idx = tid; idx < R * D; idx += blockDim.x) {
     const int r = idx / D, d = idx % D;
-    const int gi = r / g.S, s = r % g.S;
+    const int gi = (r0 + r) / g.S, s = (r0 + r) % g.S;
     qs[idx] = q[((size_t)(b * g.S + s) * g.H + c * g.G + gi) * D + d];
   }
 
   int nr = 0;  // rows of this warp: r = w + WARPS * i
-  for (int r = w; r < g.R; r += WARPS) ++nr;
+  for (int r = w; r < R; r += WARPS) ++nr;
   constexpr int RPW = MR / WARPS;  // rows per warp, at most
   float m[RPW], l[RPW];
 #pragma unroll
@@ -160,7 +175,7 @@ scores_kernel(const float* __restrict__ q, Pool kp,
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       if (i >= nr) break;
-      const int r = w + WARPS * i, s = r % g.S;
+      const int r = r0 + w + WARPS * i, s = r % g.S;
       const int lim = min(pos[b] - (g.S - 1) + s, g.W);
       const bool ok = t < lim;
       const float x = ok ? acc[i] * scale : -INFINITY;
@@ -173,7 +188,7 @@ scores_kernel(const float* __restrict__ q, Pool kp,
   }
   if (lane == 0) {
     for (int i = 0; i < nr; ++i) {
-      const int r = w + WARPS * i;
+      const int r = r0 + w + WARPS * i;
       stats[((size_t)(b * g.KVH + c) * g.nsplit + split) * g.R + r] =
           make_float2(m[i], l[i]);
     }
@@ -192,7 +207,9 @@ pv_kernel(Pool vp, const int* __restrict__ table, const int* __restrict__ pos,
   float* rl = rm + MR;         // [R] and sum of exp
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int c = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int c = blockIdx.x, split = blockIdx.z;
+  int b, r0, R;
+  block_rows(g, blockIdx.y, b, r0, R);
   const int nmax = min(pos[b], g.W);
   int t_begin, t_end;
   split_range(g, nmax, split, t_begin, t_end);
@@ -201,8 +218,8 @@ pv_kernel(Pool vp, const int* __restrict__ table, const int* __restrict__ pos,
   typename Pool::template Tile<TK, D, THREADS> tile;
   if (t_begin < t_end)
     tile.load(SlotRows<Pool>{vp, trow, b, g.ps, c, t_begin, nmax});
-  const float2* st = stats + (size_t)(b * g.KVH + c) * g.nsplit * g.R;
-  for (int r = tid; r < g.R; r += blockDim.x) {
+  const float2* st = stats + (size_t)(b * g.KVH + c) * g.nsplit * g.R + r0;
+  for (int r = tid; r < R; r += blockDim.x) {
     float mx = -INFINITY;
     for (int j = 0; j < g.nsplit; ++j) mx = fmaxf(mx, st[j * g.R + r].x);
     float sum = 0.0f;
@@ -215,7 +232,7 @@ pv_kernel(Pool vp, const int* __restrict__ table, const int* __restrict__ pos,
   }
 
   int nr = 0;
-  for (int r = w; r < g.R; r += WARPS) ++nr;
+  for (int r = w; r < R; r += WARPS) ++nr;
   constexpr int RPW = MR / WARPS;
   float out[RPW][E];
 #pragma unroll
@@ -234,10 +251,11 @@ pv_kernel(Pool vp, const int* __restrict__ table, const int* __restrict__ pos,
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       if (i >= nr) break;
-      const int r = w + WARPS * i, s = r % g.S;
+      const int r = w + WARPS * i, s = (r0 + r) % g.S;
       const int lim = min(pos[b] - (g.S - 1) + s, g.W);
-      const float p =
-          t < lim ? expf(srow[(size_t)r * g.wpad + t] - rm[r]) / rl[r] : 0.0f;
+      const float p = t < lim ? expf(srow[(size_t)(r0 + r) * g.wpad + t] -
+                                     rm[r]) / rl[r]
+                              : 0.0f;
       for (int j = 0; j < TK; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
@@ -250,7 +268,7 @@ pv_kernel(Pool vp, const int* __restrict__ table, const int* __restrict__ pos,
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     if (i >= nr) break;
-    const int r = w + WARPS * i;
+    const int r = r0 + w + WARPS * i;
 #pragma unroll
     for (int e = 0; e < E; ++e) dst[(size_t)r * D + lane + 32 * e] = out[i][e];
   }
@@ -275,13 +293,13 @@ int launch(const void* q, const Pool& kp, const Pool& vp, const int* table,
            const int* pos, void* o, float* scores, float* stats,
            float* partial, int B, const Geometry& g, float scale,
            cudaStream_t stream) {
-  const size_t smem_s = sizeof(float) * ((size_t)g.R * D + TK * (D + 1));
+  const size_t smem_s = sizeof(float) * ((size_t)MR * D + TK * (D + 1));
   const size_t smem_p = sizeof(float) * ((size_t)TK * D + 2 * MR);
   cudaError_t err = cudaFuncSetAttribute(
       scores_kernel<Pool, D, MR>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_s);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(g.KVH, B, g.nsplit);
+  const dim3 grid(g.KVH, B * g.ngroups, g.nsplit);
   scores_kernel<Pool, D, MR><<<grid, THREADS, smem_s, stream>>>(
       (const float*)q, kp, table, pos, scores, (float2*)stats, g, scale);
   err = cudaGetLastError();
@@ -295,13 +313,13 @@ int launch(const void* q, const Pool& kp, const Pool& vp, const int* table,
   return (int)cudaGetLastError();
 }
 
-// The smaller row capacity that holds the call's G * S rows.
+// The smaller row capacity that holds a group's rows.
 template <typename Pool, int D>
 int by_rows(const void* q, const Pool& kp, const Pool& vp, const int* table,
             const int* pos, void* o, float* scores, float* stats,
             float* partial, int B, const Geometry& g, float scale,
             cudaStream_t st) {
-  if (g.R <= 32)
+  if (g.R <= 32)  // one group
     return launch<Pool, D, 32>(q, kp, vp, table, pos, o, scores, stats,
                                partial, B, g, scale, st);
   return launch<Pool, D, 64>(q, kp, vp, table, pos, o, scores, stats,
@@ -326,7 +344,10 @@ int dispatch(const void* q, const Pool& kp, const Pool& vp, const int* table,
   g.W = n_pages * ps;
   g.wpad = (g.W + TK - 1) / TK * TK;
   g.nsplit = nsplit;
-  if (g.R > MAX_ROWS || nsplit < 1) return (int)cudaErrorInvalidValue;
+  g.ngroups = (g.R + MAX_ROWS - 1) / MAX_ROWS;
+  // a group's blocks share y with the slot's: gridDim.y is at most 65535
+  if (g.R < 1 || nsplit < 1 || (long long)B * g.ngroups > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 32:

@@ -18,8 +18,10 @@ their strides (no transpose per call); int8 pools come with float32 scale
 pools (P, ps, KVH, 1), also read in place; page_table (B, n_pages) int32;
 a rolling cache is k/v_cache (B, W, KVH, D), also read through its
 strides; pos (B,) int32 = tokens written including the S queries. head_dim
-32, 64, 128 or 256. A CPU tensor goes to the plain version; a CUDA tensor
-launches the kernel or raises."""
+32, 64, 128 or 256. Pools take at most 64 query rows (G * S) per (slot, kv
+head); rolling caches any number, in groups of 64 (``ring_plan``): a chunk
+of prefill over a linear buffer is G * S rows at once. A CPU tensor goes
+to the plain version; a CUDA tensor launches the kernel or raises."""
 from __future__ import annotations
 
 import functools
@@ -36,7 +38,7 @@ _ENTRY_INT8 = {torch.float32: "paged_decode_attention_int8_f32",
 _ENTRY_RING = {torch.float32: "decode_attention_f32",
                torch.bfloat16: "decode_attention_bf16"}
 HEAD_DIMS = (32, 64, 128, 256)
-MAX_ROWS = 64  # G * S query rows per (slot, kv head) block
+MAX_ROWS = 64  # G * S query rows per (slot, kv head) block: a row group
 TILE = 32  # cache slots per tile
 TARGET_BLOCKS = 2 * 132  # two blocks for each of the H100's 132 SMs
 SM90_TILE = 64  # cache rows per tile of the one-launch bf16 kernels
@@ -63,6 +65,18 @@ def n_splits_sm90(b: int, hkv: int, window: int) -> int:
     want = min(-(-TARGET_BLOCKS // (b * hkv)), -(-window // SM90_TILE),
                MAX_SPLITS_SM90)
     return 1 << (max(1, want) - 1).bit_length()
+
+
+def ring_plan(b: int, hkv: int, window: int, rows: int, bf16: bool):
+    """(row groups, splits) of the rolling-cache kernels for ``rows`` =
+    G * S query rows per (slot, kv head): groups of ``MAX_ROWS`` rows, each
+    group its own blocks (its own cluster in bf16), and the splits of
+    ``n_splits_sm90`` (bf16) or ``n_splits`` (float32) over b x groups
+    (slot, group) pairs. One group (decode's S <= 16 at G 4) keeps the
+    plan of the pairs alone."""
+    groups = -(-rows // MAX_ROWS)
+    split = n_splits_sm90 if bf16 else n_splits
+    return groups, split(b * groups, hkv, window)
 
 
 def sm90_smem(d: int, rows: int, per: int, keep: bool, stages: int,
@@ -156,9 +170,11 @@ def _launch(name, entry, q, pools, scale_pools, page_table, pos):
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {d} not in {HEAD_DIMS}")
     rows = (h // hkv) * s
-    if rows > MAX_ROWS:
+    if not ring and rows > MAX_ROWS:
         raise ValueError(f"{name}: G*S = {rows} query rows per kv head "
                          f"exceeds {MAX_ROWS}")
+    if b * -(-rows // MAX_ROWS) > 65535:
+        raise ValueError(f"{name}: B x row groups exceeds 65535")
     strides = _strides(name, pools, 16 // pools[0].element_size())
     if scale_pools:
         strides += _strides(name, scale_pools, 1)
@@ -171,7 +187,8 @@ def _launch(name, entry, q, pools, scale_pools, page_table, pos):
     if q.dtype == torch.bfloat16:
         return _launch_sm90(name, entry, lib, q, pools, scale_pools,
                             page_table, pos, out, strides, window)
-    nsplit = n_splits(b, hkv, window)
+    nsplit = (ring_plan(b, hkv, window, rows, False)[1] if ring
+              else n_splits(b, hkv, window))
     # scratch of the kernel's three launches; freed on return, its memory
     # is reused only by later work on the same stream
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -200,9 +217,10 @@ def _launch_sm90(name, entry, lib, q, pools, scale_pools, page_table, pos,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [p.data_ptr() for p in (*pools, *scale_pools)]
     if page_table is None:
+        _, nsplit = ring_plan(b, hkv, window, (h // hkv) * s, True)
         lib.call(entry, q.data_ptr(), *ptrs, pos.data_ptr(), out.data_ptr(),
-                 b, s, h, hkv, d, window, *strides,
-                 n_splits_sm90(b, hkv, window), d ** -0.5, stream)
+                 b, s, h, hkv, d, window, *strides, nsplit, d ** -0.5,
+                 stream)
     else:
         nsplit, _, keep, stages = paged_plan_sm90(
             b, hkv, window, (h // hkv) * s, d, bool(scale_pools))
@@ -216,7 +234,9 @@ def _launch_sm90(name, entry, lib, q, pools, scale_pools, page_table, pos,
 
 def decode_attention(q, k_cache, v_cache, pos):
     """Over rolling caches (B, W, KVH, D): query s of S sees
-    ``min(pos - (S-1) + s, W)`` rows of its slot's ring."""
+    ``min(pos - (S-1) + s, W)`` rows of its slot's ring, at any G * S
+    (the engine's chunk and suffix steps run S up to max_seq over one
+    linear buffer)."""
     name = "decode_attention"
     _check_shapes(name, q, k_cache, v_cache, None, pos)
     if q.device.type == "cpu":

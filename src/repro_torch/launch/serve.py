@@ -13,10 +13,13 @@ seed ``--sample-seed + i``, so a rerun reproduces every stream.
 
 Ported so far: the paged KV cache (dense archs), rolling caches
 (``--no-paged`` on dense archs; recurrentgemma-9b always, its KV rings
-and RG-LRU states), single-shot prefill, one card, with ``--kv-dtype
-int8`` (int8 KV pages) and ``--weight-dtype int8`` (weight-only int8) as
-the paged path's quantized variant. The banner says which cache serves.
-``EngineConfig.validate`` names the ROADMAP.md item of every other option.
+and RG-LRU states), single-shot and chunked prefill (``--chunk-prefill``,
+64 by default as in the reference; 0 = single-shot), the shared-prefix
+KV cache (``--prefix-cache``) and preemption (``--preemption``), one card,
+with ``--kv-dtype int8`` (int8 KV pages) and ``--weight-dtype int8``
+(weight-only int8) as the paged path's quantized variant. The banner says
+which cache serves. ``EngineConfig.validate`` names the ROADMAP.md item of
+every other option.
 
     python -m repro_torch.launch.serve --arch recurrentgemma-9b \
         --requests 16 --slots 8 --window 2048 --prompt-len 256 --max-new 64
@@ -56,6 +59,8 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--sync-every", type=int, default=8,
                     help="decode ticks per device->host token sync")
+    ap.add_argument("--chunk-prefill", type=int, default=64,
+                    help="chunked-prefill piece size; 0 = single-shot")
     ap.add_argument("--no-paged", action="store_true",
                     help="serve from rolling KV windows instead of pages "
                          "(archs that cannot page always do)")
@@ -73,6 +78,15 @@ def main(argv=None):
     ap.add_argument("--weight-dtype", default="", choices=["", "int8"],
                     help="weight-only int8 for the attention/MLP matmuls "
                          "(per-output-channel fp32 scales, f32 accumulation)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="shared-prefix KV cache: keep finished prompts' "
+                         "pages in a radix index; later requests alias "
+                         "them and prefill only their suffix (paged only)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="allow evicting a decoding slot for a more "
+                         "urgent arrival; the victim's generated prefix "
+                         "is cached and its stream restored bit-identical "
+                         "(paged only)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="decode sampling temperature; 0 = greedy argmax")
     ap.add_argument("--top-k", type=int, default=0,
@@ -98,6 +112,9 @@ def main(argv=None):
 
     config = EngineConfig(slots=args.slots, window=args.window,
                           sync_every=args.sync_every,
+                          chunk_prefill=args.chunk_prefill,
+                          prefix_cache=args.prefix_cache,
+                          preemption=args.preemption,
                           paged=False if args.no_paged else None,
                           page_size=args.page_size,
                           max_seq=args.max_seq or None,
@@ -155,7 +172,7 @@ def main(argv=None):
         while queue and queue[0].arrival_time <= now:
             eng.submit(queue.pop(0), now)
         done += len(eng.step(time.time() - t0))
-        busy = eng.n_active or eng.backlog or eng.admission.pending
+        busy = not eng.idle
         if not busy and queue:
             # idle until the next arrival
             time.sleep(max(0.0, queue[0].arrival_time - (time.time() - t0)))
@@ -171,6 +188,9 @@ def main(argv=None):
           f"qps={args.requests/wall:.2f}  tok/s={m.total_tokens/wall:.1f}  "
           f"ticks={m.decode_ticks}  host_syncs={m.host_syncs}  "
           f"prefill_chunks={m.prefill_chunks}")
+    if m.prefix_hits:
+        print(f"prefix cache: {m.prefix_hits} hits, "
+              f"{m.prefix_hit_tokens} prompt tokens skipped")
     g = eng.graphs
     print(f"compiled steps: prefill_traces={eng.prefill_traces} "
           f"decode_traces={eng.decode_traces} (CUDA graphs captured: "
@@ -184,8 +204,12 @@ def main(argv=None):
           f"mean_jct={np.mean(lats)*1e3:.0f}ms  "
           f"ttft p50={np.percentile(ttfts,50)*1e3:.0f}ms "
           f"p95={np.percentile(ttfts,95)*1e3:.0f}ms")
-    if m.rejected:
-        print(f"lifecycle: rejected={m.rejected}")
+    lifecycle = (m.rejected, m.cancelled, m.timed_out, m.shed, m.failed,
+                 m.preempted)
+    if any(lifecycle):
+        print(f"lifecycle: rejected={m.rejected} cancelled={m.cancelled} "
+              f"timed_out={m.timed_out} shed={m.shed} failed={m.failed} "
+              f"preempted={m.preempted} (restored={m.preempt_restores})")
     return reqs
 
 

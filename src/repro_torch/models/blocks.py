@@ -150,15 +150,22 @@ def init_block(cfg, btype: str, gen, dtype, device):
 
 
 def init_block_cache(cfg, btype: str, batch: int, window: int, dtype,
-                     device):
+                     device, kv_dtype: str = ""):
     """One block's rolling decode cache: a KV ring (B, W, kv, hd), with
     W = min(window, local_window) for local attention, or the RG-LRU
     conv window and float32 state. Zero-filled (a masked ring row still
-    multiplies its V by 0)."""
+    multiplies its V by 0). ``kv_dtype`` "int8": int8 rings with float32
+    scales (B, W, kv, 1), the chunked-prefill buffer under int8 pages."""
     if btype in KV_CACHE_BLOCKS:
         w = min(window, cfg.local_window) if btype == "local_attn" \
             else window
         shape = (batch, w, cfg.num_kv_heads, cfg.resolved_head_dim)
+        if kv_dtype == "int8":
+            scales = shape[:3] + (1,)
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "k_scale": torch.zeros(scales, dtype=F32, device=device),
+                    "v_scale": torch.zeros(scales, dtype=F32, device=device)}
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if btype == "rglru":
@@ -238,16 +245,27 @@ def ring_fill(cache, k, v):
 def _ring_attn_decode(q, k, v, cache, pos):
     """Write the S new tokens' K/V at ring rows ``(pos + i) % W`` of each
     slot, in place, and attend the ring; ``pos`` (B,) int32 is each slot's
-    token count before the S new ones."""
+    token count before the S new ones. An int8 ring (the chunked-prefill
+    buffer under int8 pages) takes the tokens' per-token codes and scales,
+    and is attended dequantized to q's dtype, whole, as the reference
+    does."""
     b, s = q.shape[:2]
     w = cache["k"].shape[1]
     rows = (pos.to(torch.int64)[:, None]
             + torch.arange(s, device=q.device)[None, :]) % w
     slots = torch.arange(b, device=q.device)[:, None]
+    n_valid = (pos + s).to(torch.int32)
+    if "k_scale" in cache:
+        for name, t in (("k", k), ("v", v)):
+            q8, scale = quantize_kv(t)
+            cache[name].index_put_((slots, rows), q8)
+            cache[name + "_scale"].index_put_((slots, rows), scale)
+        return ops.decode_attention(
+            q, dequantize_kv(cache["k"], cache["k_scale"], q.dtype),
+            dequantize_kv(cache["v"], cache["v_scale"], q.dtype), n_valid)
     cache["k"].index_put_((slots, rows), k.to(cache["k"].dtype))
     cache["v"].index_put_((slots, rows), v.to(cache["v"].dtype))
-    return ops.decode_attention(q, cache["k"], cache["v"],
-                                (pos + s).to(torch.int32))
+    return ops.decode_attention(q, cache["k"], cache["v"], n_valid)
 
 
 def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,

@@ -102,17 +102,20 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     return params
 
 
-def init_cache(cfg, batch: int, window: int, device="cuda"):
+def init_cache(cfg, batch: int, window: int, device="cuda",
+               kv_dtype: str = ""):
     """Rolling decode caches: per layer a KV ring (B, W, kv, hd) or the
     RG-LRU conv window and state (``blocks.init_block_cache``), plus each
-    slot's position ``pos`` (B,) int32."""
+    slot's position ``pos`` (B,) int32. ``kv_dtype`` "int8": int8 rings
+    with float32 scales."""
     if not ported(cfg):
         raise ValueError(f"{cfg.name}: arch has blocks the port does not "
                          f"serve yet")
     device = resolve_device(device)
     dtype = dtype_of(cfg)
     return {
-        "layers": [init_block_cache(cfg, bt, batch, window, dtype, device)
+        "layers": [init_block_cache(cfg, bt, batch, window, dtype, device,
+                                    kv_dtype)
                    for bt in layer_types(cfg)],
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
@@ -214,14 +217,16 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
     return _logits(cfg, params, x), (kvs if want_kv else None)
 
 
-def decode_step(cfg, params, cache, tokens):
+def decode_step(cfg, params, cache, tokens, *,
+                logits_at: Optional[torch.Tensor] = None):
     """Incremental decode against the paged cache (``init_paged_cache``)
     or the rolling one (``init_cache``). tokens (B, S): S=1 is the
-    one-token decode step (recurrent blocks take S=1 only). Writes the S
-    tokens' K/V into the pools or rings, steps every recurrent state and
-    advances ``cache["pos"]`` by S, in place (never rebinding it: a
-    captured CUDA graph keeps reading the tensor it was captured with).
-    Returns logits (B, S, V) float32."""
+    one-token decode step, S > 1 a chunk of prefill (recurrent blocks
+    take S=1 only). Writes the S tokens' K/V into the pools or rings,
+    steps every recurrent state and advances ``cache["pos"]`` by S, in
+    place (never rebinding it: a captured CUDA graph keeps reading the
+    tensor it was captured with). Returns logits (B, S, V) float32, or
+    (B, V) at the chunk offsets ``logits_at`` (B,) when given."""
     b, s = tokens.shape
     pos = cache["pos"]
     pages = cache.get("page_table")
@@ -238,4 +243,6 @@ def decode_step(cfg, params, cache, tokens):
                            pos=pos, pages=pages, write_at=write_at,
                            n_valid=n_valid)
     cache["pos"].add_(s)  # after the layers' last read of the old value
+    if logits_at is not None:
+        x = x[torch.arange(b, device=x.device), logits_at.to(torch.int64)]
     return _logits(cfg, params, x)

@@ -2,14 +2,16 @@
 ``DeviceTopology`` and the frozen ``EngineConfig``, with the JAX package's
 fields (``repro/serving/config.py``).
 
-The port serves the main path first: the paged KV cache on dense archs,
-rolling caches (``paged=False``, and recurrentgemma's rings and RG-LRU
-states), single-shot prefill, model-dtype or int8 pools and weights, one
-card.
-``validate()`` refuses every option whose path is not ported yet and
-names the ``ROADMAP.md`` item that brings it, so nothing silently runs a
-different path than the one asked for. ``chunk_prefill`` therefore
-defaults to 0 here (the reference's default is 64).
+The port serves one card: the paged KV cache on dense archs, rolling
+caches (``paged=False``, and recurrentgemma's rings and RG-LRU states),
+single-shot and chunked prefill (``chunk_prefill`` defaults to 64, as in
+the reference), the prefix cache, cancel, timeouts, shedding and
+preemption, model-dtype or int8 pools and weights. ``validate()`` refuses
+every option whose path is not ported yet (tracing and profiling, sharded
+replicas, other block families) and names the ``ROADMAP.md`` item that
+brings it, so nothing silently runs a different path than the one asked
+for; the engine keeps the reference's own refusals (a prefix cache or
+preemption without pages, an unknown ``preempt_policy``).
 """
 from __future__ import annotations
 
@@ -98,9 +100,9 @@ class EngineConfig:
     sync_every: int = 8
     donate: bool = True
     bucket_prompts: bool = True
-    chunk_prefill: int = 0
+    chunk_prefill: int = 64
     sla_s: float = 0.05
-    prefill_policy: Optional[object] = None
+    prefill_policy: Optional[object] = None  # ChunkedPrefillPolicy
     paged: Optional[bool] = None
     page_size: int = 16
     pool_pages: Optional[int] = None
@@ -157,20 +159,6 @@ class EngineConfig:
         self._validate_precision(cfg)
         q1 = "ROADMAP.md queue 1"
         not_yet = []
-        if self.chunk_prefill > 0 or self.prefill_policy is not None:
-            not_yet.append(("chunk_prefill > 0 (chunked prefill, on pages "
-                            "and on rolling caches)",
-                            f"{q1}, 'Engine, remaining paths': chunked "
-                            f"prefill"))
-        if self.prefix_cache:
-            not_yet.append(("prefix_cache", f"{q1}, 'Engine, remaining "
-                            f"paths': prefix cache and copy-on-write"))
-        if self.preemption:
-            not_yet.append(("preemption", f"{q1}, 'Engine, remaining "
-                            f"paths': lifecycle and preemption"))
-        if self.shed_overdue:
-            not_yet.append(("shed_overdue", f"{q1}, 'Engine, remaining "
-                            f"paths': lifecycle and preemption"))
         if self.topology.sharded:
             not_yet.append((f"topology dp={self.topology.dp} "
                             f"tp={self.topology.tp} (sharded replica)",

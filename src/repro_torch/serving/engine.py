@@ -1,28 +1,36 @@
-"""Serving engine of the PyTorch port: the main path of the JAX package's
-``repro/serving/engine.py`` — continuous batching over a paged KV cache on
-dense archs, or over rolling caches (KV rings and recurrent states) on
-archs that cannot page (recurrentgemma) and on dense archs with
+"""Serving engine of the PyTorch port: the JAX package's
+``repro/serving/engine.py`` on one card — continuous batching over a paged
+KV cache on dense archs, or over rolling caches (KV rings and recurrent
+states) on archs that cannot page (recurrentgemma) and on dense archs with
 ``paged=False``; single-shot prefill (bucketed, or at the exact prompt
-length where a recurrent state forbids end padding), fused decode windows
-with one host sync per window, and device-resident sampling keyed by
-(seed, absolute position).
+length where a recurrent state forbids end padding) and chunked prefill
+(the reference's default: prompts longer than ``chunk_prefill`` tokens run
+chunk by chunk between decode ticks, as ``ChunkedPrefillPolicy`` allots);
+the shared-prefix KV cache with copy-on-write (``prefix_cache``); cancel,
+timeouts, shedding and preemption with exact restore; ``load_report``;
+fused decode windows with one host sync per window, and device-resident
+sampling keyed by (seed, absolute position).
 
 Where the reference jits pure functions and donates buffers, the port
 updates the page pools, page table, rings, recurrent states, positions,
 token carry and sampling state IN PLACE (the engine is their only owner)
 and, on a CUDA device, captures each step once per shape key into a CUDA
 graph and replays it (``serving/graphs.py``): the single decode tick, the
-fused ``sync_every`` window, and the bucketed prefill with its page
-scatter (paged) or its copy into the slot (rolling). Exact-length prefill
-(recurrentgemma, whose recurrent state forbids end padding) runs eagerly
-and is not counted: the reference retraces it per prompt length. The
-probes ``prefill_traces`` and ``decode_traces`` count the keys as the
-reference counts its traces; on the CPU the same steps run eagerly. The
-kernels of the path (prefill attention, paged or rolling-cache decode
-attention, the RG-LRU scan, the sampler; under an int8 ``PrecisionConfig``
-the int8 paged decode and the int8-weight matmul) are reached through
-``repro_torch.kernels.ops``: plain PyTorch on a CPU device, the
-hand-written Hopper kernels on CUDA.
+fused ``sync_every`` window, the bucketed prefill with its page scatter
+(paged) or its copy into the slot (rolling), the chunk step over the
+engine's one (1, max_seq) working buffer, and a prefix hit's suffix step
+with its gather and its scatter. Exact-length prefill (recurrentgemma,
+whose recurrent state forbids end padding) runs eagerly and is not
+counted: the reference retraces it per prompt length. The probes
+``prefill_traces`` and ``decode_traces`` count the keys as the reference
+counts its traces; on the CPU the same steps run eagerly. Host-decided
+writes (a page-table entry, a released slot's row and position) stay
+small eager writes in place. The kernels of the path (prefill attention,
+paged or rolling-cache decode attention, which also serves every chunk and
+suffix step, the RG-LRU scan, the sampler; under an int8
+``PrecisionConfig`` the int8 paged decode and the int8-weight matmul) are
+reached through ``repro_torch.kernels.ops``: plain PyTorch on a CPU
+device, the hand-written Hopper kernels on CUDA.
 
 Seeded streams match the reference's bits: the uniform of a stochastic
 slot is ``uniform(fold_in(PRNGKey(seed), pos))`` from the port's
@@ -31,16 +39,25 @@ the engine is built with.
 """
 from __future__ import annotations
 
+import math
 import time
 from collections import deque
+from dataclasses import dataclass
 from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.costmodel import estimate_decode
+from repro_torch.core.costmodel import (
+    collective_s_per_axis,
+    estimate_backlog_s,
+    estimate_decode,
+    estimate_prefill,
+    kv_bytes_per_token,
+)
 from repro_torch.core.device import resolve_device
 from repro_torch.core.misd.batching import BatchAccumulator, plan_admission
+from repro_torch.core.misd.scheduler import ChunkedPrefillPolicy
 from repro_torch.kernels import ops
 from repro_torch.models import (
     decode_step,
@@ -56,7 +73,7 @@ from repro_torch.models.blocks import KV_CACHE_BLOCKS, quantize_kv
 from repro_torch.serving import prng
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.graphs import StepGraphs
-from repro_torch.serving.paging import PageAllocator
+from repro_torch.serving.paging import PageAllocator, PrefixHit, PrefixIndex
 from repro_torch.serving.request import (
     Request,
     RequestRejected,
@@ -64,12 +81,16 @@ from repro_torch.serving.request import (
     SamplingParams,
     ServeMetrics,
 )
+from repro_torch.serving.telemetry import LoadReport
+from repro_torch.serving.tracing import Tracer
 
 __all__ = [
-    "EngineConfig", "ServingEngine", "cache_insert", "decode_scan_step",
-    "decode_tick", "init_sampling_state", "page_table_append",
-    "paged_prefill_step", "pages_insert", "prompt_bucket", "resolve_device",
-    "rolling_prefill_step", "sampling_row", "sampling_set", "slot_release",
+    "EngineConfig", "LoadReport", "PREEMPT_POLICIES", "ServingEngine",
+    "cache_insert", "decode_scan_step", "decode_tick", "init_sampling_state",
+    "page_table_append", "paged_prefill_step", "pages_insert",
+    "pages_insert_prefix", "prefill_chunk_step", "prefix_seed_cache",
+    "prompt_bucket", "resolve_device", "rolling_prefill_step",
+    "sampling_row", "sampling_set", "slot_release",
 ]
 
 
@@ -165,6 +186,66 @@ def pages_insert(cache, kv, pages, slot, true_len, *, scale_group: int = 0):
     row[0, :n] = pages
     at = _dev_index(slot, pos.device)
     table.index_copy_(0, at, row)
+    pos.index_copy_(0, at, _dev_index(true_len, pos.device).to(pos.dtype))
+
+
+def prefill_chunk_step(cfg, params, cache, tokens, true_len):
+    """One chunk of incremental prefill into a B=1 linear buffer (or a
+    ring the padded prompt fits in) through the multi-token decode path:
+    tokens (1, C) may carry end padding on the final chunks; the advanced
+    position is clamped to ``true_len`` (an int or a (1,) device tensor),
+    so the pad keys stay masked. Returns (greedy token (1,) int32 and
+    logits (1, V) at the last true position, clamped into the chunk); the
+    cache advances in place (the reference's ``prefill_chunk_step``)."""
+    b, c = tokens.shape
+    start = cache["pos"].to(torch.int64)  # a copy: decode_step advances pos
+    n = _dev_index(true_len, tokens.device)
+    at = torch.clamp(n - 1 - start, 0, c - 1)
+    last = decode_step(cfg, params, cache, tokens, logits_at=at)
+    cache["pos"].copy_(torch.minimum(cache["pos"],
+                                     n.to(cache["pos"].dtype)))
+    return torch.argmax(last, dim=-1).to(torch.int32), last
+
+
+def prefix_seed_cache(paged_cache, linear, pages, start):
+    """Gather a cached page chain into the B=1 linear buffer ``linear`` of
+    ``max_pages`` x page_size rows, in place: page i of ``pages``
+    (max_pages,) (the hit's full pages and its copy-on-write tail source,
+    trash-padded, so one shape serves every hit) lands at rows [i ps,
+    (i+1) ps); int8 pools bring their codes and scales as they are. The
+    buffer's position becomes ``start`` (an int or a (1,) device tensor),
+    which masks the trash rows and the donor's tokens past the restart.
+    Reads the pools only (the reference's ``prefix_seed_cache``)."""
+    for big, small in zip(paged_cache["layers"], linear["layers"]):
+        for name, pool in big.items():
+            chain = pool[pages]  # (n, ps, kv, d)
+            small[name][0].copy_(chain.reshape(-1, *chain.shape[2:]))
+    pos = linear["pos"]
+    pos.copy_(_dev_index(start, pos.device).to(pos.dtype))
+
+
+def pages_insert_prefix(paged_cache, linear, scatter_pages, table_pages,
+                        slot, true_len):
+    """Admit a request from the B=1 linear buffer ``linear`` (max_pages x
+    page_size rows): page i of the buffer goes to pool page
+    ``scatter_pages[i]`` (the trash page at every position the slot
+    aliases, so a shared page is never written: copy-on-write lands here,
+    the shared tail's matched tokens riding the buffer into the private
+    page), the slot's table row becomes ``table_pages`` in full and its
+    position ``true_len``. Codes and scales of an int8 buffer go in as
+    they are. In place; ``slot`` and ``true_len`` are ints or (1,) device
+    tensors, the page rows (max_pages,) device tensors, so one captured
+    step serves every hit shape (the reference's ``pages_insert_prefix``;
+    a chunked prompt without a hit takes it too, its pages then trash)."""
+    n = scatter_pages.shape[0]
+    for big, small in zip(paged_cache["layers"], linear["layers"]):
+        for name, pool in big.items():
+            ps = pool.shape[1]
+            pool[scatter_pages] = small[name][0, :n * ps].reshape(
+                n, ps, *pool.shape[2:]).to(pool.dtype)
+    table, pos = paged_cache["page_table"], paged_cache["pos"]
+    at = _dev_index(slot, pos.device)
+    table.index_copy_(0, at, table_pages.reshape(1, -1).to(table.dtype))
     pos.index_copy_(0, at, _dev_index(true_len, pos.device).to(pos.dtype))
 
 
@@ -282,29 +363,99 @@ def _padded_len(n: int, chunk: int) -> int:
 
 def _attn_only(cfg) -> bool:
     """Every block's decode cache is a KV ring (no recurrent state): the
-    precondition for end-padded bucketed prefill."""
+    precondition for end-padded bucketed prefill and chunked prefill."""
     return all(bt in KV_CACHE_BLOCKS for bt in layer_types(cfg))
 
 
 def _min_cache_window(cfg, window: int) -> int:
-    """The smallest KV ring of the model: a bucketed prefill must fit in
-    it."""
+    """The smallest KV ring of the model: a bucketed or chunked prefill
+    must fit in it."""
     if "local_attn" in layer_types(cfg):
         return min(window, cfg.local_window)
     return window
 
 
+@dataclass
+class _PrefillJob:
+    """A request mid-way through chunked prefill (slot and pages reserved).
+    Only the head job of the queue advances, in the engine's one working
+    buffer: a job takes the buffer when it becomes the head (``started``),
+    and a prefix hit's job gathers its page chain into it then, keeping
+    its copy-on-write tail source pinned until that gather."""
+
+    req: Request
+    slot: int
+    tokens: np.ndarray  # (1, padded_len) the end-padded prompt
+    true_len: int
+    next_off: int = 0
+    started: bool = False
+    restore: bool = False  # a preempted request's re-admission
+    # a prefix hit: the (max_pages,) gather chain (gathered from the
+    # restart offset, next_off, when the job starts) and the pinned tail
+    # source (-1 when none, or once gathered)
+    seed: Optional[np.ndarray] = None
+    tail_page: int = -1
+    # the first token's greedy pick and logits, from the chunk holding
+    # position true_len - 1 (trailing chunks can be pure padding)
+    tok: Optional[torch.Tensor] = None
+    logits: Optional[torch.Tensor] = None
+
+
+@dataclass
+class _HitAdmission:
+    """A prefix hit's page rows, staged between reservation and
+    activation: the scatter row (trash at aliased positions) and the
+    slot's full table row."""
+
+    scatter_pages: np.ndarray  # (max_pages,)
+    table_pages: np.ndarray  # (max_pages,)
+    n_tabled: int  # owned pages written into the row (decode tail too)
+
+
+# ---------------------------------------------------------------------------
+# preemption victim policies (name -> chooser), as the reference's
+# ---------------------------------------------------------------------------
+
+
+def _urgency(req: Request):
+    """Total order on urgency: higher priority beats any deadline, then the
+    earlier TTFT deadline. Smaller is more urgent."""
+    return (-req.priority, req.ttft_deadline)
+
+
+def _victim_latest_deadline(engine, eligible: List[int]) -> int:
+    """Evict the least urgent slot (ties: the most remaining budget)."""
+    return max(eligible,
+               key=lambda i: (_urgency(engine.active[i]),
+                              engine.active[i].remaining_tokens, i))
+
+
+def _victim_most_remaining(engine, eligible: List[int]) -> int:
+    """Evict the slot with the most budget left (ties: latest deadline)."""
+    return max(eligible,
+               key=lambda i: (engine.active[i].remaining_tokens,
+                              _urgency(engine.active[i]), i))
+
+
+PREEMPT_POLICIES = {
+    "latest-deadline": _victim_latest_deadline,
+    "most-remaining": _victim_most_remaining,
+}
+
+
 class ServingEngine:
     """Single-card engine with continuous batching over a paged KV cache,
-    or over rolling caches (the reference's ``ServingEngine`` main path;
-    see its docstring for the knobs). ``paged`` None serves from pages
-    whenever every block can, else from rolling caches; ``paged=True`` on
-    an arch that cannot page raises, as the reference. ``device`` defaults
-    to CUDA and raises when no card is present unless ``device="cpu"`` is
-    asked for. ``threefry_partitionable`` selects the
+    or over rolling caches (the reference's ``ServingEngine``; see its
+    docstring for the knobs). ``paged`` None serves from pages whenever
+    every block can, else from rolling caches; ``paged=True`` on an arch
+    that cannot page raises, as the reference. ``device`` defaults to CUDA
+    and raises when no card is present unless ``device="cpu"`` is asked
+    for. ``threefry_partitionable`` selects the
     ``jax_threefry_partitionable`` mode whose bits seeded streams
     reproduce. ``prefill_traces`` and ``decode_traces`` are the
-    reference's compile-count probes (``graphs.StepGraphs``)."""
+    reference's compile-count probes (``graphs.StepGraphs``), and
+    ``compile_events`` counts the captured steps under the reference's
+    key names."""
 
     def __init__(self, cfg, params, config: Optional[EngineConfig] = None,
                  *, device="cuda", threefry_partitionable: bool = True):
@@ -331,6 +482,23 @@ class ServingEngine:
         # validate() refused paged=True on an arch that cannot page
         self.paged = (paged_ok(cfg) if config.paged is None
                       else bool(config.paged))
+        # the reference's own refusals, with its messages
+        if config.prefix_cache and not self.paged:
+            raise ValueError(
+                f"{cfg.name}: prefix_cache requires the paged KV cache "
+                f"(rolling windows cannot alias another slot's KV)")
+        if config.preemption and not self.paged:
+            raise ValueError(
+                f"{cfg.name}: preemption requires the paged KV cache (a "
+                f"victim's pages must be releasable mid-stream)")
+        if config.preempt_policy not in PREEMPT_POLICIES:
+            raise ValueError(f"unknown preempt_policy "
+                             f"{config.preempt_policy!r} (want one of "
+                             f"{sorted(PREEMPT_POLICIES)})")
+        self.preemption = config.preemption
+        self.preempt_policy = config.preempt_policy
+        self._preempt_victim_fn = PREEMPT_POLICIES[config.preempt_policy]
+        self.shed_overdue = config.shed_overdue
         page_size = config.page_size
         if page_size <= 0 or page_size & (page_size - 1):
             raise ValueError(f"page_size must be a power of two, got "
@@ -354,27 +522,59 @@ class ServingEngine:
             kv_cache_dtype=self.kv_dtype)
         slots = config.slots or self.plan.slots
         self.slots = slots
-        self._tick_est_s = estimate_decode(cfg, slots, config.window).latency_s
+        self.n_chips = config.n_chips
+        self._tick_est_s = estimate_decode(cfg, slots, config.window,
+                                           n_chips=self.n_chips).latency_s
+        # collective seconds per mesh axis of a tick: none on one card
+        self._axis_collective_s = collective_s_per_axis(cfg, slots)
         self.eos_id = config.eos_id
         self.sync_every = 1 if config.eos_id >= 0 else max(1,
                                                            config.sync_every)
-        # end-padded buckets need KV rings only (a recurrent state would
-        # run over the pads); in rolling mode a bucket must fit the
-        # smallest ring
-        self.bucket_prompts = config.bucket_prompts and _attn_only(cfg)
+        # end-padded buckets and chunks need KV rings only (a recurrent
+        # state would run over the pads); in rolling mode a bucket or a
+        # chunked prompt must fit the smallest ring
+        self._attn_only = _attn_only(cfg)
+        self.bucket_prompts = config.bucket_prompts and self._attn_only
         self._min_window = _min_cache_window(cfg, config.window)
+        chunk = config.chunk_prefill
+        if config.prefill_policy is not None:  # the policy's chunk wins
+            chunk = config.prefill_policy.chunk
+        self.chunk = chunk if (chunk and self._attn_only) else 0
+        self.prefill_policy = config.prefill_policy or ChunkedPrefillPolicy(
+            chunk=self.chunk or 64)
+        # chunked-prefill buffers must be both chunk- and page-aligned
+        self._chunk_quantum = (math.lcm(self.chunk, page_size)
+                               if self.chunk else page_size)
         self.edf_backlog = config.edf_backlog
         self.metrics = ServeMetrics()
+        # span rollups for load_report (tracing itself is not ported yet:
+        # validate() refuses it, so this stays empty)
+        self.tracer = Tracer(enabled=False, ring=config.trace_ring)
         if self.paged:
             self.pool_pages = config.pool_pages or slots * self.max_pages + 1
             self.allocator = PageAllocator(self.pool_pages, page_size)
+            self.prefix_index = (PrefixIndex(self.allocator, page_size)
+                                 if config.prefix_cache else None)
             self.cache = init_paged_cache(
                 cfg, slots, self.pool_pages, page_size, self.max_pages,
                 device=self.device, kv_dtype=self.kv_dtype)
         else:
             self.pool_pages, self.allocator = 0, None
+            self.prefix_index = None
             self.cache = init_cache(cfg, slots, config.window,
                                     device=self.device)
+        # the B=1 working buffers: one for chunk jobs (only the head job
+        # advances), linear over max_seq (paged) or a ring of the window
+        # (rolling), and one for a prefix hit's synchronous suffix step,
+        # which may run while a chunk job holds the first; int8 codes and
+        # float32 scales under int8 pages
+        width = self.max_seq if self.paged else self.window
+        self._lin = (init_cache(cfg, 1, width, device=self.device,
+                                kv_dtype=self.kv_dtype)
+                     if self.chunk else None)
+        self._lin_sfx = (init_cache(cfg, 1, width, device=self.device,
+                                    kv_dtype=self.kv_dtype)
+                         if self.prefix_index is not None else None)
         self._pos_h: List[int] = [0] * slots  # host mirror of cache pos
         self._tabled: List[int] = [0] * slots  # table entries written
         # static buffers the captured steps read and write in place
@@ -385,15 +585,27 @@ class ServingEngine:
         # writes all sync_every rows
         self._hist = torch.zeros((self.sync_every, slots), dtype=torch.int32,
                                  device=self.device)
-        # per prompt bucket: its (1, L) token buffer and its int64
-        # (true_len, slot, pages...) arguments
+        # per prompt bucket (or suffix width): its (1, L) token buffer and
+        # its int64 arguments
         self._prefill_in: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._suffix_in: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        i64 = dict(dtype=torch.int64, device=self.device)
+        # the chunk step's tokens and true length; a seed's start and
+        # chain; an activation's true length, slot and page rows
+        self._chunk_in = (torch.zeros((1, max(1, self.chunk)),
+                                      dtype=torch.int32, device=self.device),
+                          torch.zeros((1,), **i64))
+        self._seed_in = torch.zeros((1 + self.max_pages,), **i64)
+        self._insert_in = torch.zeros((2 + 2 * self.max_pages,), **i64)
         self.graphs = StepGraphs(self.device)
         self._samp_greedy_h: List[bool] = [True] * slots
         self.active: List[Optional[Request]] = [None] * slots
         self.decoding: List[bool] = [False] * slots
         self._unsynced = 0  # deferred ticks whose tokens wait in _hist
         self._finished: List[Request] = []
+        self._jobs: Deque[_PrefillJob] = deque()
+        # staged prefix-hit admissions of chunk jobs, by slot
+        self._hit_pending: Dict[int, _HitAdmission] = {}
         self.backlog: Deque[Request] = deque()
         self.admission = BatchAccumulator(
             target_batch=slots, deadline_s=self.plan.flush_deadline_s)
@@ -406,6 +618,27 @@ class ServingEngine:
     @property
     def decode_traces(self) -> int:
         return self.graphs.decode_traces
+
+    @property
+    def compile_events(self) -> Dict[str, int]:
+        """Compiled steps by the reference's trace keys: ``decode/tick``,
+        ``decode/scan{n}``, ``prefill/paged{L}`` (or ``bucket{L}``),
+        ``prefill/suffix{W}`` and ``prefill/chunk{C}``; one per captured
+        graph (on the CPU, per key first run). The working buffer's gather
+        and the activations' scatters are captured too, uncounted, as the
+        reference's helper steps are."""
+        out: Dict[str, int] = {}
+        for kind, name, n in self.graphs.keys:
+            if kind == "decode":
+                key = "decode/tick" if name == "tick" else f"decode/scan{n}"
+            elif kind == "prefill":
+                key = f"prefill/{name}{n}"
+            elif name == "chunk":
+                key = f"prefill/chunk{n}"
+            else:
+                continue
+            out[key] = out.get(key, 0) + 1
+        return out
 
     # -- admission ---------------------------------------------------------
     def submit(self, req: Request, now: float) -> bool:
@@ -432,6 +665,8 @@ class ServingEngine:
         req.fail_reason = reason
         req.finish_time = now
         self.metrics.rejected += 1
+        if req.tenant:
+            self.metrics.tenant(req.tenant).rejected += 1
         self._finished.append(req)
 
     def _pump_admissions(self, now: float):
@@ -446,9 +681,68 @@ class ServingEngine:
             if self.edf_backlog:
                 idx = min(range(len(self.backlog)),
                           key=lambda k: (self.backlog[k].ttft_deadline, k))
-            if not self.try_admit(self.backlog[idx], now):
+            if not self._admit_or_preempt(self.backlog[idx], now):
                 break
             del self.backlog[idx]
+
+    def _admit_or_preempt(self, req: Request, now: float) -> bool:
+        """Admit ``req``; when admission backpressures and preemption is
+        on, evict strictly less urgent victims (policy-chosen) until it
+        fits or none is eligible. Victims requeue at the back of the
+        backlog."""
+        if self.try_admit(req, now):
+            return True
+        if not self.preemption:
+            return False
+        while True:
+            slot = self._choose_victim(req)
+            if slot is None:
+                return False
+            victim = self.preempt(slot, now)
+            if victim is not None:
+                self.backlog.append(victim)
+            if self.try_admit(req, now):
+                return True
+
+    def _choose_victim(self, cand: Request) -> Optional[int]:
+        """A decoding slot whose request is STRICTLY less urgent than
+        ``cand``, chosen by the policy; None: do not preempt."""
+        eligible = [i for i, (r, d) in enumerate(zip(self.active,
+                                                     self.decoding))
+                    if r is not None and d and _urgency(cand) < _urgency(r)]
+        if not eligible:
+            return None
+        return self._preempt_victim_fn(self, eligible)
+
+    def preempt(self, slot: int, now: float) -> Optional[Request]:
+        """Evict the decoding request in ``slot`` and return it, PREEMPTED,
+        for requeueing. Deferred tokens are flushed first; the generated
+        tokens fold into its prompt and, with the prefix cache on, every
+        full page of valid KV is registered before the slot's references
+        drop, so the restore prefills only the suffix. Seeded noise is
+        keyed by absolute position, so the restored stream equals an
+        unpreempted one. None when the flush finished the request. Touches
+        host state and the slot's table row and position only."""
+        if not self.paged:
+            raise ValueError("preemption requires the paged KV cache")
+        self._flush(now)
+        req = self.active[slot]
+        if req is None or not self.decoding[slot]:
+            return None
+        req.fold_output_into_prompt()
+        if self.prefix_index is not None:
+            # KV is valid through position pos - 1 (the newest token lives
+            # only in the carry): only pages wholly inside are indexable
+            ps = self.page_size
+            owned = self.allocator.owned(slot)
+            n = min(self._pos_h[slot] // ps, len(owned))
+            if n > 0:
+                self.prefix_index.register(req.prompt[:n * ps], owned[:n])
+        self.release_slot(slot)
+        req.state = RequestState.PREEMPTED
+        req.preemptions += 1
+        self.metrics.preempted += 1
+        return req
 
     def _check_servable(self, req: Request):
         if self.paged and req.prompt_len > self.max_seq:
@@ -458,16 +752,33 @@ class ServingEngine:
 
     def try_admit(self, req: Request, now: float) -> bool:
         """Claim a free slot and, in paged mode, the request's worst-case
-        pages (padded prompt + token budget, capped at max_seq), then
-        prefill. An exhausted pool refuses the admission (backpressure)."""
+        pages (padded prompt + token budget, capped at max_seq; a prefix
+        hit shares its cached pages), then prefill: a hit's suffix, a long
+        prompt's chunks (interleaved with decode), or single-shot. An
+        exhausted pool refuses the admission (backpressure)."""
         self._check_servable(req)
         for i, r in enumerate(self.active):
-            if r is None:
-                if self.paged and not self._reserve_pages(req, i):
+            if r is None and not any(j.slot == i for j in self._jobs):
+                hit = None
+                if self.prefix_index is not None:
+                    hit = self.prefix_index.lookup(req.prompt)
+                if self.paged and not self._reserve_pages(req, i, hit):
                     return False
-                self._admit_now(req, i, now)
+                if hit is not None:
+                    self._admit_prefix(req, i, hit, now)
+                elif self._chunkable(req):
+                    self._start_chunked(req, i, now)
+                else:
+                    self._admit_now(req, i, now)
                 return True
         return False
+
+    def _chunkable(self, req: Request) -> bool:
+        cap = self.max_seq if self.paged else self._min_window
+        quantum = self._chunk_quantum if self.paged else self.chunk
+        return (self.chunk > 0
+                and req.prompt_len > self.chunk
+                and _padded_len(req.prompt_len, quantum) <= cap)
 
     def _bucket_for(self, plen: int) -> Optional[int]:
         """The power-of-two bucket of a prompt when it fits max_seq (paged)
@@ -481,29 +792,87 @@ class ServingEngine:
         return b if b <= self._min_window else None
 
     def _prefill_len(self, req: Request) -> int:
-        """Padded prompt length: the bucket, else the page-rounded prompt
-        (paged) or the exact prompt (rolling)."""
+        """Padded prompt length: the chunk-aligned prompt when chunked,
+        else the bucket, else the page-rounded prompt (paged) or the exact
+        prompt (rolling)."""
         plen = req.prompt_len
+        if self._chunkable(req):
+            quantum = self._chunk_quantum if self.paged else self.chunk
+            return _padded_len(plen, quantum)
         bucket = self._bucket_for(plen)
         if bucket is not None:
             return bucket
         return _padded_len(plen, self.page_size) if self.paged else plen
 
-    def _reserve_pages(self, req: Request, slot: int) -> bool:
+    def _suffix_chunked(self, req: Request, hit: PrefixHit) -> bool:
+        """Whether a hit's suffix runs as interleaved chunks (long suffix)
+        instead of one synchronous bucketed suffix step."""
+        return (self.chunk > 0
+                and req.prompt_len - hit.tokens > self.chunk
+                and _padded_len(req.prompt_len, self._chunk_quantum)
+                <= self.max_seq)
+
+    def _suffix_plan(self, req: Request, hit: PrefixHit):
+        """(start, end) of a hit's suffix prefill in the linear buffer:
+        tokens [start, end) are (re)computed; start <= hit.tokens keeps the
+        span on the chunk grid or the bucket width, and end stays within
+        max_seq."""
+        plen, h = req.prompt_len, hit.tokens
+        if self._suffix_chunked(req, hit):
+            s = (h // self.chunk) * self.chunk
+            return s, _padded_len(plen, self._chunk_quantum)
+        c = min(prompt_bucket(plen - h, min_bucket=max(16, self.page_size)),
+                self.max_seq)
+        s = min(h, self.max_seq - c)
+        return s, s + c
+
+    def _alloc_evicting(self, slot: int, n: int) -> bool:
+        """All-or-nothing grant, evicting idle cached prefixes (oldest
+        first) to cover a shortfall before refusing."""
+        if (not self.allocator.can_alloc(n)
+                and self.prefix_index is not None):
+            self.prefix_index.evict(n - self.allocator.free_pages)
+        return self.allocator.alloc(slot, n) is not None
+
+    def _reserve_pages(self, req: Request, slot: int,
+                       hit: Optional[PrefixHit] = None) -> bool:
+        """Grant ``req``'s worst-case lifetime pages to ``slot``: the padded
+        prompt plus its remaining budget (capped at max_seq). With a prefix
+        ``hit`` its full pages are shared into the slot (a reference each,
+        no pool spend), its copy-on-write tail source is pinned, and only
+        the rest is allocated; under pool pressure idle cached prefixes are
+        evicted before the admission is refused."""
         if self.allocator.owned(slot):
             slot_release(self.cache, slot)
             self.allocator.free_slot(slot)
             self._pos_h[slot] = 0
             self._tabled[slot] = 0
+            self._hit_pending.pop(slot, None)
+        # restore-aware: a preempted request's folded tokens are inside
+        # both prompt_len and max_new_tokens
         lifetime = min(req.prompt_len + max(1, req.remaining_tokens) - 1,
                        self.max_seq)
-        n = self.allocator.pages_for(max(self._prefill_len(req), lifetime))
-        return self.allocator.alloc(slot, n) is not None
+        if hit is None:
+            n = self.allocator.pages_for(max(self._prefill_len(req),
+                                             lifetime))
+            return self._alloc_evicting(slot, n)
+        # share first: a shared page is no longer evictable
+        shared = self.allocator.share(slot, list(hit.full_pages))
+        if hit.tail_page >= 0:
+            self.allocator.retain(hit.tail_page)  # pin the COW source
+        _, end = self._suffix_plan(req, hit)
+        n_priv = self.allocator.pages_for(max(end, lifetime)) - len(shared)
+        if not self._alloc_evicting(slot, n_priv):
+            if hit.tail_page >= 0:
+                self.allocator.release(hit.tail_page)
+            self.allocator.free_slot(slot)  # drop the shares
+            return False
+        return True
 
     def _admit_now(self, req: Request, slot: int, now: float):
-        """Prefill: page-aligned linear prefill and page scatter (paged),
-        or a bucket or the exact prompt into fresh rolling caches copied
-        into the slot."""
+        """Single-shot prefill: page-aligned linear prefill and page
+        scatter (paged), or a bucket or the exact prompt into fresh
+        rolling caches copied into the slot."""
         plen = req.prompt_len
         padded = np.zeros((1, self._prefill_len(req)), np.int32)
         padded[0, :plen] = req.prompt
@@ -515,7 +884,9 @@ class ServingEngine:
                     self.device), plen, window=self.window)
             cache_insert(self.cache, single, slot)
         self.prefill_calls += 1
-        self._activate(req, slot, tok, last, now)
+        n_tabled = (self.allocator.pages_for(padded.shape[1]) if self.paged
+                    else 0)
+        self._activate(req, slot, tok, last, now, n_tabled)
 
     def _prefill_bucket(self, padded: np.ndarray, plen: int, slot: int):
         """The padded prompt's prefill step, with the page scatter (paged)
@@ -554,12 +925,197 @@ class ServingEngine:
             return self.graphs.run("prefill", "paged", length, paged)
         return self.graphs.run("prefill", "bucket", length, bucket)
 
-    def _activate(self, req: Request, slot: int, tok, last, now: float):
-        """Install a prefilled request (its cache rows already written):
-        sampling state, first token (drawn at position prompt_len for a
-        stochastic request), the table entries written, token carry.
-        Flushes deferred tokens first so a fused window only ever spans a
-        fixed slot membership."""
+    def _admit_prefix(self, req: Request, slot: int, hit: PrefixHit,
+                      now: float):
+        """Admit a request whose prefix is cached: its table row aliases
+        the matched full pages (no prefill for them), the chain is
+        gathered into the working buffer, and only the suffix is
+        prefilled from an offset: synchronously in one bucketed step
+        (gather, suffix, scatter: one captured step per suffix width), or
+        as interleaved chunks when the suffix is long. A partly matched
+        tail page is never aliased: its matched tokens ride the buffer
+        into a private page (copy-on-write)."""
+        plen = req.prompt_len
+        n_full = len(hit.full_pages)
+        owned = self.allocator.owned(slot)  # [shared full..., private...]
+        start, end = self._suffix_plan(req, hit)
+        chain = list(hit.full_pages)
+        if hit.tail_page >= 0:
+            chain.append(hit.tail_page)
+        gpages = np.zeros((self.max_pages,), np.int64)
+        gpages[:len(chain)] = chain
+        trow = np.zeros((self.max_pages,), np.int64)
+        trow[:len(owned)] = owned
+        srow = np.zeros((self.max_pages,), np.int64)
+        srow[n_full:len(owned)] = owned[n_full:]
+        info = _HitAdmission(srow, trow, len(owned))
+        req.prefix_hit_tokens = hit.tokens
+        self.metrics.prefix_hits += 1
+        self.metrics.prefix_hit_tokens += hit.tokens
+        padded = np.zeros((1, end), np.int32)
+        padded[0, :plen] = req.prompt
+        if self._suffix_chunked(req, hit):
+            self._hit_pending[slot] = info
+            self._jobs.append(_PrefillJob(
+                req=req, slot=slot, tokens=padded, true_len=plen,
+                next_off=start, restore=req.state is RequestState.PREEMPTED,
+                seed=gpages, tail_page=hit.tail_page))
+            req.state = RequestState.PREFILL
+            self.active[slot] = req  # reserved (decoding stays False)
+            return
+        tok, last = self._prefill_suffix(padded[:, start:], plen, start,
+                                         gpages, info, slot)
+        if hit.tail_page >= 0:
+            self.allocator.release(hit.tail_page)  # gathered: unpin
+        self.prefill_calls += 1
+        self._activate(req, slot, tok, last, now, info.n_tabled)
+
+    def _prefill_suffix(self, toks: np.ndarray, plen: int, start: int,
+                        gpages: np.ndarray, info: _HitAdmission, slot: int):
+        """A hit's synchronous suffix as one step keyed by its width: the
+        chain gathered into the suffix buffer, the suffix tokens run from
+        ``start``, the buffer scattered into the private pages and the
+        slot's table row written. Returns (first greedy token, logits)."""
+        width, p = toks.shape[1], self.max_pages
+        if width not in self._suffix_in:
+            self._suffix_in[width] = (
+                torch.zeros((1, width), dtype=torch.int32,
+                            device=self.device),
+                torch.zeros((3 + 3 * p,), dtype=torch.int64,
+                            device=self.device))
+        tokens, args = self._suffix_in[width]
+        tokens.copy_(torch.from_numpy(toks))
+        args.copy_(torch.from_numpy(np.concatenate([
+            np.array([start, plen, slot], np.int64), gpages,
+            info.scatter_pages, info.table_pages])))
+
+        def suffix():
+            lin = self._lin_sfx
+            prefix_seed_cache(self.cache, lin, args[3:3 + p], args[0:1])
+            tok, last = prefill_chunk_step(self.cfg, self.params, lin,
+                                           tokens, args[1:2])
+            pages_insert_prefix(self.cache, lin, args[3 + p:3 + 2 * p],
+                                args[3 + 2 * p:], args[2:3], args[1:2])
+            return tok, last
+
+        return self.graphs.run("prefill", "suffix", width, suffix)
+
+    def _start_chunked(self, req: Request, slot: int, now: float):
+        """Reserve the slot for chunked prefill: the prompt, padded to the
+        chunk quantum, waits in the job queue (its pages are reserved)."""
+        padded = np.zeros((1, self._prefill_len(req)), np.int32)
+        padded[0, :req.prompt_len] = req.prompt
+        self._jobs.append(_PrefillJob(
+            req=req, slot=slot, tokens=padded, true_len=req.prompt_len,
+            restore=req.state is RequestState.PREEMPTED))
+        req.state = RequestState.PREFILL
+        self.active[slot] = req  # reserved (decoding stays False)
+
+    def _run_prefill_chunks(self, now: float):
+        """Run as many chunks as the policy allots this tick, all of the
+        head job's (the one working buffer), activating each job whose
+        last chunk ran."""
+        if not self._jobs:
+            return
+        pending = sum((j.tokens.shape[1] - j.next_off) // self.chunk
+                      for j in self._jobs)
+        n = self.prefill_policy.chunks_this_tick(
+            self.cfg, n_decoding=self.n_decoding, pending_chunks=pending,
+            context=self.window)
+        tokens, args = self._chunk_in
+        for _ in range(n):
+            if not self._jobs:
+                break
+            job = self._jobs[0]
+            if not job.started:
+                self._take_buffer(job)
+            off = job.next_off
+            tokens.copy_(torch.from_numpy(job.tokens[:, off:off
+                                                     + self.chunk]))
+            args.copy_(torch.tensor([job.true_len], dtype=torch.int64))
+            tok, last = self.graphs.run("aux", "chunk", self.chunk,
+                                        self._chunk_step)
+            job.next_off += self.chunk
+            if off <= job.true_len - 1 < job.next_off:
+                # the first token's logits live in the chunk holding
+                # position true_len - 1; later chunks are pure padding
+                job.tok, job.logits = tok.clone(), last.clone()
+            self.metrics.prefill_chunks += 1
+            if job.next_off >= job.tokens.shape[1]:
+                self._jobs.popleft()
+                self._finish_job(job, now)
+
+    def _chunk_step(self):
+        tokens, args = self._chunk_in
+        return prefill_chunk_step(self.cfg, self.params, self._lin, tokens,
+                                  args)
+
+    def _take_buffer(self, job: _PrefillJob):
+        """The head job takes the working buffer: a prefix hit gathers its
+        chain into it (and unpins its tail source), any other job starts
+        it at position 0. What an earlier job left in rows past that
+        position is masked, and overwritten before it is read."""
+        job.started = True
+        if job.seed is None:
+            self._lin["pos"].zero_()
+            return
+        self._seed_in.copy_(torch.from_numpy(np.concatenate([
+            np.array([job.next_off], np.int64), job.seed])))
+        self.graphs.run("aux", "seed", self.max_pages, self._seed_step)
+        if job.tail_page >= 0:
+            self.allocator.release(job.tail_page)
+            job.tail_page = -1
+
+    def _seed_step(self):
+        prefix_seed_cache(self.cache, self._lin, self._seed_in[1:],
+                          self._seed_in[0:1])
+
+    def _finish_job(self, job: _PrefillJob, now: float):
+        """Install a job whose chunks all ran: scatter the working buffer
+        into its pages and write its table row (paged: one captured step
+        for every job, hit or not), or copy the ring into its slot
+        (rolling); then activate it."""
+        slot, n_tabled = job.slot, 0
+        if self.paged:
+            info = self._hit_pending.pop(slot, None)
+            if info is None:  # the prompt's pages; the rest is trash
+                n_pref = self.allocator.pages_for(job.tokens.shape[1])
+                row = np.zeros((self.max_pages,), np.int64)
+                row[:n_pref] = self.allocator.owned(slot)[:n_pref]
+                info = _HitAdmission(row, row, n_pref)
+            self._insert_in.copy_(torch.from_numpy(np.concatenate([
+                np.array([job.true_len, slot], np.int64),
+                info.scatter_pages, info.table_pages])))
+            self.graphs.run("aux", "insert", self.max_pages,
+                            self._insert_step)
+            n_tabled = info.n_tabled
+        else:
+            self._insert_in[1] = slot
+            self.graphs.run("aux", "ring", self.window, self._ring_step)
+        self.prefill_calls += 1
+        self._activate(job.req, slot, job.tok, job.logits, now, n_tabled,
+                       restore=job.restore)
+
+    def _insert_step(self):
+        p, args = self.max_pages, self._insert_in
+        pages_insert_prefix(self.cache, self._lin, args[2:2 + p],
+                            args[2 + p:], args[1:2], args[0:1])
+
+    def _ring_step(self):
+        cache_insert(self.cache, self._lin, self._insert_in[1:2])
+
+    def _activate(self, req: Request, slot: int, tok, last, now: float,
+                  n_tabled: int = 0, restore: bool = False):
+        """Install a prefilled request (its cache rows, table row and
+        position already written): sampling state, first token (drawn at
+        position prompt_len for a stochastic request, whatever path
+        prefilled it), ``n_tabled`` table entries, the prompt's full pages
+        into the prefix index, the budget cap, token carry. Flushes
+        deferred tokens first so a fused window only ever spans a fixed
+        slot membership. ``restore``: a preempted request re-admitted
+        through chunks (its state went PREFILL meanwhile), counted as a
+        restore like one prefilled at once (the reference counts only
+        the latter: ROADMAP.md queue 3)."""
         self._flush(now)
         sp = req.sampling or SamplingParams()
         row = sampling_row(sp)
@@ -574,9 +1130,16 @@ class ServingEngine:
             tok = draw_tokens(last, samp1, pos1,
                               partitionable=self.partitionable)
         if self.paged:
-            self._tabled[slot] = self.allocator.pages_for(
-                self._prefill_len(req))
-            # the page table caps a request's lifetime tokens at max_seq
+            self._tabled[slot] = n_tabled
+            if self.prefix_index is not None:
+                # the finished prompt's FULL pages only: an indexed page
+                # is never appended to again (the copy-on-write invariant)
+                n_full = req.prompt_len // self.page_size
+                if n_full:
+                    self.prefix_index.register(
+                        req.prompt, self.allocator.owned(slot)[:n_full])
+            # the page table caps a request's lifetime tokens at max_seq;
+            # restore-aware: only the remaining budget counts
             already = len(req.output)
             cap = max(1, self.max_seq - req.prompt_len)
             if req.max_new_tokens - already > cap:
@@ -588,6 +1151,17 @@ class ServingEngine:
         if req.prefill_done < 0:
             req.prefill_done = now
             self.metrics.ttfts.append(req.ttft)
+            if req.browned_out_tokens:
+                self.metrics.browned_out += 1
+            if req.tenant:
+                tm = self.metrics.tenant(req.tenant)
+                tm.admitted += 1
+                tm.ttfts.append(req.ttft)
+                if req.browned_out_tokens:
+                    tm.browned_out += 1
+                    tm.brownout_trimmed_tokens += req.browned_out_tokens
+        if restore or req.state is RequestState.PREEMPTED:
+            self.metrics.preempt_restores += 1
         req.state = RequestState.DECODE
         self.active[slot] = req
         self.decoding[slot] = True
@@ -596,22 +1170,26 @@ class ServingEngine:
 
     # -- decode --------------------------------------------------------------
     def step(self, now: float) -> List[Request]:
-        """One engine tick: pump queued admissions, then batched decode. In
-        steady state the whole ``sync_every`` window runs with one host
-        sync. Returns the requests that finished this tick."""
+        """One engine tick: abort doomed requests, pump queued admissions,
+        run prefill chunks per the interleave policy, then batched decode.
+        In steady state the whole ``sync_every`` window runs with one host
+        sync. Returns the requests that finished this tick, aborted ones
+        included (in a terminal state, with ``fail_reason``)."""
+        self._reap_doomed(now)
         self._pump_admissions(now)
+        self._run_prefill_chunks(now)
         if not any(self.decoding):
             return self._take_finished()
         if self._fusable():
             if self.paged:
-                self._ensure_headroom(self.sync_every)
+                self._ensure_headroom(self.sync_every, now)
             self.graphs.run("decode", "scan", self.sync_every, self._window)
             self.metrics.decode_ticks += self.sync_every
             self._advance_pos(self.sync_every)
             self._distribute(self._hist.cpu().numpy(), now)
             return self._take_finished()
         if self.paged:
-            self._ensure_headroom(1)
+            self._ensure_headroom(1, now)
         self.graphs.run("decode", "tick", 1, self._tick)
         # the carry is the tick's output: keep it before the next step
         self._hist[self._unsynced].copy_(self._tokens)
@@ -641,15 +1219,105 @@ class ServingEngine:
             partitionable=self.partitionable)
         self._tokens.copy_(toks)
 
+    # -- lifecycle: cancel / timeout / shed ----------------------------------
+    def _reap_doomed(self, now: float):
+        """Abort every doomed request (cancelled, past its whole-request
+        deadline, or, with ``shed_overdue``, still unprefilled past its
+        TTFT deadline) wherever it sits: the backlog, the admission
+        accumulator, a chunk job or a decode slot. Its slot and pages go
+        back the same tick."""
+
+        def doom(req: Request) -> Optional[RequestState]:
+            d = req.overdue(now)
+            if d is not None:
+                return d
+            if (self.shed_overdue and req.prefill_done < 0
+                    and now > req.ttft_deadline):
+                return RequestState.TIMED_OUT  # shed (counted apart)
+            return None
+
+        for queue in (self.backlog, self.admission.pending):
+            doomed = [r for r in queue if doom(r) is not None]
+            for req in doomed:
+                queue.remove(req)
+                self._abort(req, now, doom(req))
+        for job in [j for j in self._jobs if doom(j.req) is not None]:
+            self._jobs.remove(job)
+            state = doom(job.req)
+            if job.tail_page >= 0:  # never gathered: drop the pin
+                self.allocator.release(job.tail_page)
+            self.release_slot(job.slot)
+            self._abort(job.req, now, state)
+        # live slots: flush deferred tokens first, so the decision (and
+        # every other slot's stream) sees complete outputs
+        if any(r is not None and d and doom(r) is not None
+               for r, d in zip(self.active, self.decoding)):
+            self._flush(now)
+            for i, (r, d) in enumerate(zip(self.active, self.decoding)):
+                if r is None or not d:
+                    continue
+                state = doom(r)
+                if state is not None:
+                    self.release_slot(i)
+                    self._abort(r, now, state)
+
+    def _abort(self, req: Request, now: float, state: RequestState):
+        """Terminal bookkeeping of an aborted request (its slot and pages
+        already released by the caller)."""
+        shed = (state is RequestState.TIMED_OUT
+                and not req.cancel_requested and now <= req.jct_deadline)
+        req.state = state
+        req.finish_time = now
+        if state is RequestState.CANCELLED:
+            req.fail_reason = req.fail_reason or "cancelled by client"
+            self.metrics.cancelled += 1
+        elif shed:
+            req.fail_reason = (f"shed: TTFT deadline "
+                               f"{req.ttft_deadline:.4f} unreachable at "
+                               f"{now:.4f} (overload)")
+            self.metrics.shed += 1
+            if req.tenant:
+                self.metrics.tenant(req.tenant).shed += 1
+        else:
+            req.fail_reason = req.fail_reason or (
+                f"timed out: exceeded timeout_s={req.timeout_s:.4f} "
+                f"after arrival")
+            self.metrics.timed_out += 1
+        self._finished.append(req)
+
+    def _fail_slot(self, slot: int, now: float, reason: str):
+        """Fail ONLY the request in ``slot`` (mid-stream resource loss):
+        the engine and every other stream keep running."""
+        req = self.active[slot]
+        self.release_slot(slot)
+        req.state = RequestState.FAILED
+        req.fail_reason = reason
+        req.finish_time = now
+        self.metrics.failed += 1
+        self._finished.append(req)
+
+    def takeover_queue(self) -> List[Request]:
+        """Hand back every queued, unstarted request (backlog, then the
+        admission accumulator, in drain order): the migration primitive
+        of a retiring replica. Slots and chunk jobs stay and finish
+        here."""
+        out = list(self.backlog)
+        self.backlog.clear()
+        out.extend(self.admission.flush())
+        return out
+
     def _advance_pos(self, n: int):
         for i, d in enumerate(self.decoding):
             if d:
                 self._pos_h[i] += n
 
-    def _ensure_headroom(self, n: int):
+    def _ensure_headroom(self, n: int, now: float = 0.0):
         """Write every decoding slot's table entries for ``n`` more tokens
         before the window runs (table writes are host decisions). The
-        pages come from the admission-time reservation."""
+        pages come from the admission-time reservation; allocating here is
+        the fallback for a bypassed reservation. A shortfall, after idle
+        cached prefixes are evicted, fails ONLY the starved slot, with an
+        ``OutOfPagesError`` text naming the sizing fix."""
         for i, (r, d) in enumerate(zip(self.active, self.decoding)):
             if r is None or not d:
                 continue
@@ -658,13 +1326,25 @@ class ServingEngine:
             if need <= self._tabled[i]:
                 continue
             owned = self.allocator.owned(i)
-            for k in range(self._tabled[i], min(need, len(owned))):
+            if need > len(owned):
+                if not self._alloc_evicting(i, need - len(owned)):
+                    self._fail_slot(i, now, (
+                        f"OutOfPagesError: slot {i} needs "
+                        f"{need - len(owned)} page(s) mid-decode but the "
+                        f"pool is exhausted ({self.allocator.pages_in_use}/"
+                        f"{self.allocator.capacity} in use); size pool_pages "
+                        f"for decode headroom "
+                        f"(slots * max_seq / page_size + 1)"))
+                    continue
+                owned = self.allocator.owned(i)
+            for k in range(self._tabled[i], need):
                 page_table_append(self.cache, i, k, owned[k])
-            self._tabled[i] = min(need, len(owned))
+            self._tabled[i] = need
 
     def _fusable(self) -> bool:
         return (self.sync_every > 1
                 and not self._unsynced
+                and not self._jobs
                 and not self.backlog
                 and not self.admission.pending
                 and all(r.max_new_tokens - len(r.output) >= self.sync_every
@@ -705,6 +1385,10 @@ class ServingEngine:
         self.release_slot(slot)
         self.metrics.completed += 1
         self.metrics.total_tokens += len(req.output)
+        if req.tenant:
+            tm = self.metrics.tenant(req.tenant)
+            tm.completed += 1
+            tm.total_tokens += len(req.output)
         jct = now - req.arrival_time
         self.metrics.jcts.append(jct)
         self.metrics.latencies.append(jct)
@@ -715,9 +1399,11 @@ class ServingEngine:
     def release_slot(self, slot: int):
         """Retire ``slot``: reset a stochastic lane to greedy (so a vacated
         slot's garbage lane never draws), zero its position and, in paged
-        mode, return its pages and neutralize its table row."""
+        mode, return its pages (shared ones lose a reference) and point
+        its table row at the trash page."""
         self.active[slot] = None
         self.decoding[slot] = False
+        self._hit_pending.pop(slot, None)
         if not self._samp_greedy_h[slot]:
             sampling_set(self._samp, slot, sampling_row(None))
             self._samp_greedy_h[slot] = True
@@ -738,15 +1424,23 @@ class ServingEngine:
 
     def reset(self):
         """Return the engine to an empty state — every slot vacated (pages
-        reclaimed), queues and metrics cleared — while keeping its compiled
-        steps warm, so bench and test rounds reuse one engine without
-        paying captures again (the reference's ``reset``). State is zeroed
-        in place and no cache tensor is reallocated: the graphs hold their
-        addresses. In-flight requests are abandoned, not finished."""
+        reclaimed), chunk jobs, queues, the prefix index and metrics
+        cleared — while keeping its compiled steps warm, so bench and test
+        rounds reuse one engine without paying captures again (the
+        reference's ``reset``). State is zeroed in place and no cache
+        tensor is reallocated: the graphs hold their addresses. In-flight
+        requests are abandoned, not finished."""
         self.drain(0.0)
+        for job in self._jobs:
+            if job.tail_page >= 0:
+                self.allocator.release(job.tail_page)
         for i in range(self.slots):
             if self.active[i] is not None:
                 self.release_slot(i)
+        self._jobs.clear()
+        self._hit_pending.clear()
+        if self.prefix_index is not None:
+            self.prefix_index.clear()  # cached pages back to the pool
         # vacated slots went on riding the batch: every slot back to a
         # fresh engine's position, table row and carry
         self.cache["pos"].zero_()
@@ -758,10 +1452,93 @@ class ServingEngine:
         self._unsynced = 0
         self._finished = []
         self.metrics = ServeMetrics()
+        self.tracer = Tracer(enabled=False, ring=self.config.trace_ring)
+
+    # -- prefix cache --------------------------------------------------------
+    def prefix_match_len(self, tokens) -> int:
+        """Cached-prefix length a prompt would hit here (0 with the index
+        off): the router's affinity probe. Read-only."""
+        if self.prefix_index is None:
+            return 0
+        return self.prefix_index.match_len(tokens)
+
+    def clear_prefix_cache(self) -> int:
+        """Drop every cached prefix (pages no slot aliases return to the
+        pool at once). Returns the pages freed."""
+        if self.prefix_index is None:
+            return 0
+        return self.prefix_index.clear()
+
+    # -- telemetry -----------------------------------------------------------
+    def load_report(self) -> LoadReport:
+        """Snapshot of the engine's load for routing: free slots and pages,
+        queued prefill tokens, unfinished decode budgets (per slot and per
+        queued request too), and the cost model's seconds to drain it all.
+        Host-side arithmetic only: no device sync."""
+        queued = list(self.backlog) + list(self.admission.pending)
+        if self.edf_backlog:
+            queued.sort(key=lambda r: r.ttft_deadline)
+        chunks_left = {j.slot: -(-(j.tokens.shape[1] - j.next_off)
+                                 // max(1, self.chunk))
+                       for j in self._jobs}
+        remaining = []
+        for i, r in enumerate(self.active):
+            if r is None:
+                continue
+            rem = max(0, r.max_new_tokens - len(r.output))
+            remaining.append(rem + chunks_left.get(i, 0))
+        q_pref = sum(r.prompt_len for r in queued)
+        q_pref += sum(max(0, j.tokens.shape[1] - j.next_off)
+                      for j in self._jobs)
+        dec_rem = sum(remaining) + sum(r.max_new_tokens for r in queued)
+        pre_s = (estimate_prefill(self.cfg, 1, q_pref,
+                                  n_chips=self.n_chips).latency_s
+                 if q_pref > 0 else 0.0)
+        dec_s = estimate_backlog_s(
+            self.cfg, queued_prefill_tokens=0,
+            decode_tokens_remaining=dec_rem, slots=self.slots,
+            context=self.window, n_chips=self.n_chips)
+        idx = self.prefix_index
+        m = self.metrics
+        tick = self._tick_est_s
+        axis_cs = tuple(sorted(self._axis_collective_s.items()))
+        return LoadReport(
+            slots=self.slots,
+            free_slots=sum(r is None for r in self.active),
+            queued_requests=len(queued),
+            queued_prefill_tokens=q_pref,
+            decode_tokens_remaining=dec_rem,
+            free_pages=self.allocator.free_pages if self.paged else -1,
+            total_pages=self.allocator.capacity if self.paged else 0,
+            backlog_s=pre_s + dec_s,
+            tick_est_s=self._tick_est_s,
+            queued_prefill_s=pre_s,
+            active_remaining=tuple(remaining),
+            queued_budgets=tuple(r.max_new_tokens for r in queued),
+            prefix_cached_pages=idx.cached_pages if idx else 0,
+            prefix_cached_tokens=idx.cached_tokens if idx else 0,
+            prefix_hits=m.prefix_hits,
+            prefix_hit_tokens=m.prefix_hit_tokens,
+            rejected=m.rejected, cancelled=m.cancelled,
+            timed_out=m.timed_out, shed=m.shed, failed=m.failed,
+            preempted=m.preempted,
+            mesh_axes=self.config.topology.mesh_axes,
+            axis_collective_s=axis_cs,
+            axis_util=tuple((a, s / tick if tick > 0 else 0.0)
+                            for a, s in axis_cs),
+            histograms=m.histogram_wire(),
+            span_totals=self.tracer.totals_wire(),
+            compile_events=tuple(sorted(self.compile_events.items())),
+            browned_out=m.browned_out,
+            tenant_stats=m.tenant_wire(),
+            kv_bytes_per_token=kv_bytes_per_token(self.cfg, self.kv_dtype),
+            kv_cache_dtype=self.kv_dtype,
+            weight_dtype=self.config.precision.weight_dtype)
 
     @property
     def idle(self) -> bool:
-        return (self.n_active == 0 and not self.backlog
+        """No active, prefilling or queued work."""
+        return (self.n_active == 0 and not self._jobs and not self.backlog
                 and not self.admission.pending and not self._unsynced)
 
     @property
@@ -771,3 +1548,7 @@ class ServingEngine:
     @property
     def n_decoding(self) -> int:
         return sum(self.decoding)
+
+    @property
+    def n_prefilling(self) -> int:
+        return len(self._jobs)

@@ -7,7 +7,8 @@ buffers the engine owns (the caches, the page table, the token carry, the
 sampling state, a bucket's prompt buffer) and writes its results into
 them in place. ``StepGraphs.run`` keys a step the way the reference's
 trace key is keyed: its kind (a decode tick, a fused window of ``n``
-ticks, a prefill bucket of ``n`` tokens). On a CUDA device:
+ticks, a prefill bucket of ``n`` tokens, a chunk of prefill, a prefix
+hit's suffix of ``n`` tokens). On a CUDA device:
 
 - the first call of a key runs the step eagerly on a side stream: that run
   is the call's result, and also the warm-up that makes the first-use
@@ -20,8 +21,11 @@ ticks, a prefill bucket of ``n`` tokens). On a CUDA device:
 On the CPU every call runs the step eagerly. The probes ``prefill_traces``
 and ``decode_traces`` count the keys first seen, on either device (one per
 capture on the card; a key whose capture failed is not counted), so the
-CPU tests hold them to the reference's counts: one per prompt bucket, one
-single tick and one fused window for any sampling mix.
+CPU tests hold them to the reference's counts: one per prompt bucket or
+suffix width, one single tick and one fused window for any sampling mix.
+Keys of kind "aux" count into neither probe, as the reference counts none
+of those steps: the chunk step (a compile event only there), the working
+buffer's gather and the activations' scatters.
 
 All graphs of one engine share one memory pool. That is safe because the
 engine reads a replay's outputs before it replays any step again: a
@@ -42,8 +46,9 @@ import torch
 
 from repro_torch.kernels.build import LAUNCHES
 
-#: probe kinds: a key counts into ``decode_traces`` or ``prefill_traces``
-KINDS = ("decode", "prefill")
+#: step kinds: a key counts into ``decode_traces`` or ``prefill_traces``,
+#: or (``aux``) into neither
+KINDS = ("decode", "prefill", "aux")
 
 
 @dataclass
@@ -54,10 +59,11 @@ class _Graph:
 
 
 class StepGraphs:
-    """One engine's steps by key ``(kind, name, n)``: ``kind`` "decode" or
-    "prefill" (the probe it counts into), ``name`` the step ("tick",
-    "scan", "paged", "bucket") and ``n`` its static length (window ticks
-    or bucket tokens)."""
+    """One engine's steps by key ``(kind, name, n)``: ``kind`` "decode",
+    "prefill" (the probe it counts into) or "aux", ``name`` the step
+    ("tick", "scan", "paged", "bucket", "suffix", "chunk", "seed",
+    "insert", "ring") and ``n`` its static length (window ticks, bucket,
+    suffix or chunk tokens, pages of a row)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -103,7 +109,7 @@ class StepGraphs:
         self._steps[key] = self._capture(step) if self.capture else None
         if kind == "decode":
             self.decode_traces += 1
-        else:
+        elif kind == "prefill":
             self.prefill_traces += 1
         return out
 

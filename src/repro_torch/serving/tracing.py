@@ -1,8 +1,9 @@
 """Request span tracing: the ``Span`` and ``Trace`` types that
-``request.py`` carries (a copy of the JAX package's ``serving/tracing.py``
-without its engine-level ``Tracer``, which comes with the engine's
-tracing hooks, ROADMAP.md queue 1). The port's engine refuses
-``tracing=True`` so far, so a request's ``trace`` stays ``None``.
+``request.py`` carries and the engine-level ``Tracer`` whose per-kind
+rollups ``load_report`` ships (a copy of the JAX package's
+``serving/tracing.py``). The port's engine refuses ``tracing=True`` so far
+(its stamping hooks are ROADMAP.md queue 1 item 2), so a request's
+``trace`` stays ``None`` and the engine's ``Tracer`` stays empty.
 
 Every traced ``Request`` carries a ``Trace``: an append-only list of
 typed ``Span``s stamped at phase boundaries.  The span taxonomy (see
@@ -49,10 +50,11 @@ not need to know which spans a previous owner opened.
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["Span", "Trace"]
+__all__ = ["Span", "Trace", "Tracer"]
 
 
 @dataclass
@@ -156,3 +158,42 @@ class Trace:
 
     def __repr__(self) -> str:
         return f"Trace(rid={self.rid}, spans={len(self.spans)})"
+
+
+class Tracer:
+    """Engine-level trace sink: an engine-scoped trace (compile/profile
+    events) plus per-kind rollups folded in from terminal request traces.
+
+    ``span_totals`` is what ``LoadReport`` v3 ships — bounded per-kind
+    aggregates, not the spans themselves.  ``ring`` > 0 additionally
+    retains the last N finished request traces (a bounded deque) for
+    post-hoc inspection without unbounded memory growth.
+    """
+
+    __slots__ = ("enabled", "engine", "span_totals", "collected", "ring")
+
+    def __init__(self, enabled: bool = False, ring: int = 0):
+        self.enabled = enabled
+        self.engine = Trace(rid=-1)  # engine-scoped events (compile, profile)
+        self.span_totals: Dict[str, Tuple[int, float]] = {}
+        self.collected = 0
+        self.ring = deque(maxlen=ring) if ring > 0 else None
+
+    def event(self, kind: str, t: float, **meta) -> None:
+        self.engine.event(kind, t, **meta)
+
+    def collect(self, trace: Optional[Trace]) -> None:
+        """Fold a terminal request trace into the per-kind rollup."""
+        if trace is None:
+            return
+        self.collected += 1
+        for kind, (c, s) in trace.totals().items():
+            c0, s0 = self.span_totals.get(kind, (0, 0.0))
+            self.span_totals[kind] = (c0 + c, s0 + s)
+        if self.ring is not None:
+            self.ring.append(trace)
+
+    def totals_wire(self) -> tuple:
+        """Hashable, JSON-safe ((kind, count, seconds), ...) for LoadReport."""
+        return tuple((k, c, s)
+                     for k, (c, s) in sorted(self.span_totals.items()))

@@ -6,7 +6,8 @@ be token-identical, greedy and seeded; seeded streams use the port's
 threefry in the installed jax's ``jax_threefry_partitionable`` mode.
 
 Also: ``EngineConfig.validate`` refuses every option the port does not
-serve yet, naming its ROADMAP.md item, and the CPU run of the serve CLI."""
+serve yet, naming its ROADMAP.md item, accepts those it serves (keeping
+the reference's own refusals), and the CPU run of the serve CLI."""
 import copy
 import dataclasses
 
@@ -127,11 +128,6 @@ def test_prompt_bucket_and_table_helpers_match_jax():
 
 
 _NOT_PORTED = {
-    "chunk_prefill": (dict(chunk_prefill=32), "chunked prefill"),
-    # rolling caches are served; chunked prefill over them is not
-    "rolling": (dict(paged=False, chunk_prefill=32), "chunked prefill"),
-    "prefix_cache": (dict(prefix_cache=True), "prefix cache"),
-    "preemption": (dict(preemption=True), "preemption"),
     "sharded": (dict(topology=ts.DeviceTopology(tp=2)), "Multi-GPU"),
     "tracing": (dict(tracing=True), "span/metrics"),
 }
@@ -143,6 +139,42 @@ def test_validate_refuses_what_is_not_ported(option):
     with pytest.raises(ValueError, match="ROADMAP.md") as e:
         ts.EngineConfig(**kw).validate()
     assert item in str(e.value)
+
+
+#: options that the port serves since its remaining admission paths came
+#: (chunked prefill, on pages and on rolling caches; the prefix cache;
+#: preemption), each with the reference's own refusal where it has one
+_NOW_SERVED = {
+    "chunk_prefill": (dict(chunk_prefill=32), None),
+    "rolling": (dict(paged=False, chunk_prefill=32), None),
+    "prefix_cache": (dict(prefix_cache=True), "prefix_cache requires"),
+    "preemption": (dict(preemption=True, shed_overdue=True),
+                   "preemption requires"),
+}
+
+
+@pytest.mark.parametrize("option", sorted(_NOW_SERVED))
+def test_remaining_paths_are_accepted(setup, option):
+    """``validate()`` and the engine accept each option; a prefix cache or
+    preemption over rolling caches (``paged=False``) raises the JAX
+    engine's own message."""
+    jc, tc, jp, tp, _ = setup
+    kw, refusal = _NOW_SERVED[option]
+    config = ts.EngineConfig(slots=2, max_seq=64, **kw)
+    assert config.validate(tc) is config
+    eng = ts.ServingEngine(tc, tp, config, device="cpu")
+    assert eng.chunk == kw.get("chunk_prefill", 64)
+    assert eng.paged == kw.get("paged", True)
+    if refusal is None:
+        return
+    msgs = []
+    for pkg, cfg, params, extra in ((js, jc, jp, {}),
+                                    (ts, tc, tp, dict(device="cpu"))):
+        with pytest.raises(ValueError, match=refusal) as e:
+            pkg.ServingEngine(cfg, params, pkg.EngineConfig(
+                slots=2, paged=False, **kw), **extra)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
 
 
 def test_validate_refuses_non_dense_archs_and_other_configs():

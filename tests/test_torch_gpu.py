@@ -380,6 +380,66 @@ def test_bf16_rolling_decode_one_pass_matches_plain(dev, s, g, d, window):
                                rtol=2e-2)
 
 
+def _ring_units(got, want, q, k, v, pos):
+    """max |got - want| in units of 2^-8 x the decode attention of |v|."""
+    scale = plain.decode_attention(q.float(), k.float(), v.float().abs(),
+                                   pos)
+    return ((got.float() - want.float()).abs() / scale).max().item() \
+        / 2.0 ** -8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [16, 17, 64, 512])
+def test_rolling_decode_row_groups_match_plain(dev, s, dtype):
+    """Past 64 query rows, at granite's width (G 4 over 8 kv heads, D 128)
+    over two (1024-row) linear buffers: S queries ending at each slot's
+    pos, as a chunk or a suffix of prefill leaves them (S 16: one group;
+    17: two, the second of 4 rows; 64, a chunk: 4; 512, a suffix: 32).
+    bf16 within 4 units of 2^-8 sum p|v| and a repeat call bit-identical;
+    float32 within 2e-5."""
+    gen = torch.Generator(device=dev).manual_seed(7000 + s)
+    b, w, kvh, h, d = 2, 1024, 8, 32, 128
+    k = _rand(gen, (b, w, kvh, d), dtype, dev)
+    v = _rand(gen, (b, w, kvh, d), dtype, dev)
+    pos = torch.tensor([s, min(w, s + 300)], dtype=torch.int32, device=dev)
+    q = _rand(gen, (b, s, h, d), dtype, dev)
+    before = ops.LAUNCHES["decode_attention"]
+    got = ops.decode_attention(q, k, v, pos)
+    again = ops.decode_attention(q, k, v, pos)
+    assert ops.LAUNCHES["decode_attention"] == before + 2
+    want = plain.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    if dtype == torch.bfloat16:
+        assert _ring_units(got, want, q, k, v, pos) <= 4.0
+    else:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_a_row_group_computes_as_a_call_of_its_rows(dev):
+    """bf16, G 1 over 8 kv heads, 8 rings of 256 (4 splits for 8 and for
+    16 (slot, group) pairs): the second row group of a call of S 128 gives
+    the bits of a call of its 64 queries alone at the same pos (query s of
+    S sees pos - (S-1) + s rows either way); and at S 4, G 4 (decode's
+    shape, one group) the plan is the pairs' own."""
+    from repro_torch.kernels.decode_attention import n_splits_sm90, ring_plan
+
+    gen = torch.Generator(device=dev).manual_seed(71)
+    b, w, kvh, d = 8, 256, 8, 128
+    assert ring_plan(b, kvh, w, 128, True)[1] == n_splits_sm90(b, kvh, w)
+    assert ring_plan(b, kvh, w, 16, True) == (1, n_splits_sm90(b, kvh, w))
+    k = _rand(gen, (b, w, kvh, d), torch.bfloat16, dev)
+    v = _rand(gen, (b, w, kvh, d), torch.bfloat16, dev)
+    pos = torch.tensor([128, 130, 150, 190, 200, 255, 256, 256],
+                       dtype=torch.int32, device=dev)
+    q = _rand(gen, (b, 128, kvh, d), torch.bfloat16, dev)
+    whole = ops.decode_attention(q, k, v, pos)
+    part = ops.decode_attention(q[:, 64:].contiguous(), k, v, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(whole[:, 64:], part)
+
+
 @pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (4096, 14336),
                                  (14336, 4096), (4112, 1040)])
 @pytest.mark.parametrize("m", [1, 8, 16, 32])
@@ -878,6 +938,73 @@ def test_graphed_streams_match_the_cpu_under_staggered_arrivals(
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     assert outs[str(dev)] == outs["cpu"]
+
+
+def _prefix_round(ts, eng):
+    """A 64-token template (chunked), then, arriving together, a hit with
+    a 5-token suffix (one suffix step), a hit with a 40-token suffix
+    (chunks after the gather) and a cold 90-token prompt (chunks)."""
+    rng = np.random.default_rng(5)
+    tpl = rng.integers(0, 500, 64).astype(np.int32)
+    waves = [[tpl], [np.concatenate([tpl, rng.integers(0, 500, n)])
+                     .astype(np.int32) for n in (5, 40)]
+             + [rng.integers(0, 500, 90).astype(np.int32)]]
+    out, t, rid = [], 0.0, 0
+    for wave in waves:
+        reqs = []
+        for p in wave:
+            reqs.append(ts.Request(rid=rid, prompt=p, max_new_tokens=9,
+                                   sampling=(ts.SamplingParams(
+                                       temperature=0.8, top_k=20,
+                                       seed=300 + rid) if rid % 2
+                                       else ts.SamplingParams())))
+            eng.submit(reqs[-1], t)
+            rid += 1
+        while not all(r.done for r in reqs):
+            t += 1.0
+            eng.step(t)
+            assert t < 500
+        eng.drain(t)
+        out += [(r.output, r.prefix_hit_tokens) for r in reqs]
+    return out
+
+
+@pytest.mark.parametrize("kv_dtype", ["", "int8"])
+def test_chunk_and_suffix_graphs_match_the_cpu(dev, kv_dtype):
+    """Chunk steps, a hit's suffix step (gather, suffix and scatter in one
+    graph), a chunked hit's gather and the activations' scatters replay
+    captured graphs on the card: the float32 streams equal the CPU
+    engine's eager steps, model-dtype and int8 pages; after ``reset()`` a
+    second round captures nothing and gives the same streams."""
+    from repro_torch import serving as ts
+
+    cfg, p_cpu, p_gpu = _reduced_granite(dev)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = {}
+        for params, device in ((p_gpu, dev), (p_cpu, "cpu")):
+            eng = ts.ServingEngine(cfg, params, ts.EngineConfig(
+                slots=3, max_seq=256, sync_every=3, chunk_prefill=16,
+                prefix_cache=True, precision=ts.PrecisionConfig(
+                    kv_cache_dtype=kv_dtype)), device=device)
+            outs[str(device)] = _prefix_round(ts, eng)
+            if device == "cpu":
+                continue
+            keys = {(kind, name) for kind, name, _ in eng.graphs.keys}
+            assert {("aux", "chunk"), ("prefill", "suffix"), ("aux", "seed"),
+                    ("aux", "insert")} <= keys
+            assert eng.compile_events["prefill/chunk16"] == 1
+            captures = eng.graphs.captures
+            assert captures == len(eng.graphs.keys)
+            eng.reset()
+            assert _prefix_round(ts, eng) == outs[str(device)]
+            assert eng.graphs.captures == captures
+            assert eng.allocator.pages_in_use == eng.prefix_index.cached_pages
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert outs[str(dev)] == outs["cpu"]
+    assert [h for _, h in outs["cpu"]] == [0, 64, 64, 0]
 
 
 def test_replays_credit_one_eager_ticks_launches(dev):

@@ -220,13 +220,21 @@ def test_validate_keeps_the_reference_refusals_on_rolling_caches(hybrid):
         .validate(jgranite))
     assert got == want
     # served now: rolling caches on both archs, int8 weights on rolling
-    # dense; still refused: chunked prefill on rolling caches
+    # dense, chunked prefill on rolling caches (recurrentgemma never
+    # chunks: its recurrent state forbids end padding, as in the
+    # reference); still refused: tracing, naming its ROADMAP.md item
     ts.EngineConfig(paged=False).validate(granite)
     ts.EngineConfig().validate(tc)
     ts.EngineConfig(paged=False, precision=ts.PrecisionConfig(
         weight_dtype="int8")).validate(granite)
-    with pytest.raises(ValueError, match="chunked prefill"):
-        ts.EngineConfig(paged=False, chunk_prefill=32).validate(tc)
+    ts.EngineConfig(paged=False, chunk_prefill=32).validate(granite)
+    config = ts.EngineConfig(slots=1, chunk_prefill=32)
+    assert ts.ServingEngine(tc, tp, config.validate(tc),
+                            device="cpu").chunk == 0
+    assert js.ServingEngine(jc, jp, js.EngineConfig(
+        slots=1, chunk_prefill=32)).chunk == 0
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        ts.EngineConfig(paged=False, tracing=True).validate(tc)
 
 
 def test_serve_cli_serves_recurrentgemma_from_rolling_caches(capsys):

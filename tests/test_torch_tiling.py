@@ -147,6 +147,38 @@ def test_rolling_sm90_splits_at_the_served_shapes():
         assert 8 * 8 * da.n_splits_sm90(8, 8, window) >= im.SMS
 
 
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("rows", [1, 4, 16, 32, 64])
+@pytest.mark.parametrize("b,hkv,window", RING_SHAPES)
+def test_rolling_plan_of_one_row_group_is_unchanged(b, hkv, window, rows,
+                                                    bf16):
+    """Up to 64 query rows (decode's S <= 16 at G 4) are one row group,
+    whose splits are the pairs' own: the plan decode ran before row
+    groups existed."""
+    split = da.n_splits_sm90 if bf16 else da.n_splits
+    assert da.ring_plan(b, hkv, window, rows, bf16) == (
+        1, split(b, hkv, window))
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("s", [17, 64, 512, 1024])
+def test_rolling_plan_cuts_chunk_rows_into_groups(s, bf16):
+    """A chunk or a suffix at granite's width (G 4 over 8 kv heads) over
+    one (1, 1024) linear buffer: G * S rows in groups of 64, the splits
+    counted over (slot, group) pairs, one cluster of at most 8 in bf16;
+    S 64 (a chunk) fills the card with 4 groups x 8 kv heads x 8 splits."""
+    groups, nsplit = da.ring_plan(1, 8, 1024, 4 * s, bf16)
+    assert groups == -(-4 * s // da.MAX_ROWS)
+    assert (groups - 1) * da.MAX_ROWS < 4 * s <= groups * da.MAX_ROWS
+    split = da.n_splits_sm90 if bf16 else da.n_splits
+    assert nsplit == split(groups, 8, 1024)
+    if bf16:
+        assert 1 <= nsplit <= da.MAX_SPLITS_SM90
+        assert nsplit & (nsplit - 1) == 0
+    if s == 64:
+        assert groups == 4 and groups * 8 * nsplit >= im.SMS
+
+
 # paged decode: (slots, kv heads, pages of 16) of granite's served pools
 # (max_seq 1024 and 4096), of the GPU tests' small pools, and a long one
 PAGED_SHAPES = ((8, 8, 64), (8, 8, 256), (3, 2, 5), (1, 1, 1), (2, 1, 512),
