@@ -10,6 +10,7 @@ from repro_torch.core.costmodel import (
     estimate_prefill,
     kv_bytes_per_token,
     stream_occupancy,
+    suggest_health_timeout_s,
 )
 from repro_torch.core.hardware import H100_SXM, Chip
 from repro_torch.core.misd.batching import (
@@ -24,5 +25,5 @@ __all__ = [
     "adaptive_batch_size", "collective_bytes_per_axis",
     "collective_s_per_axis", "estimate_backlog_s", "estimate_decode",
     "estimate_prefill", "kv_bytes_per_token", "plan_admission",
-    "stream_occupancy",
+    "stream_occupancy", "suggest_health_timeout_s",
 ]

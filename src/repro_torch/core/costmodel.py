@@ -1,9 +1,10 @@
 """Analytic latency model for serving work: the roofline of the JAX
 package's ``core/costmodel.py``, restricted to what the engine needs (its
 admission plan, the chunked-prefill policy, ``load_report``), over the chip
-constants in ``repro_torch.core.hardware`` (default: one H100). The port
-serves one card, so the collective term is per mesh axis only
-(``collective_bytes_per_axis``) and no estimate carries it."""
+constants in ``repro_torch.core.hardware`` (default: one H100), with the
+reference's terms for a routed cluster: a prefix hit's discount, a mesh's
+collective bytes (``mesh_axes``; none on one card) and the health
+watchdog's budget (``suggest_health_timeout_s``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -17,6 +18,7 @@ class WorkEstimate:
 
     flops: float
     hbm_bytes: float
+    collective_bytes: float = 0.0
     chip: Chip = H100_SXM
     n_chips: int = 1
 
@@ -29,12 +31,26 @@ class WorkEstimate:
         return self.hbm_bytes / (self.chip.hbm_bw * self.n_chips)
 
     @property
+    def collective_s(self) -> float:
+        return self.collective_bytes / (self.chip.link_bw * self.n_chips)
+
+    @property
     def latency_s(self) -> float:
-        return max(self.compute_s, self.memory_s) + DISPATCH_OVERHEAD_S
+        return (max(self.compute_s, self.memory_s, self.collective_s)
+                + DISPATCH_OVERHEAD_S)
 
     @property
     def bottleneck(self) -> str:
-        return "compute" if self.compute_s >= self.memory_s else "memory"
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def demand(self) -> tuple:
+        """(compute, memory) fractions of the latency each resource class
+        is busy: the interference model's input."""
+        lat = self.latency_s
+        return (min(1.0, self.compute_s / lat), min(1.0, self.memory_s / lat))
 
 
 def stream_occupancy(batch: int, *, half_sat: float = 16.0,
@@ -86,31 +102,63 @@ def _attn_flops(cfg, batch: int, s_q: int, s_kv: int) -> float:
     return 4.0 * batch * _n_attn_layers(cfg) * cfg.num_heads * pairs * hd
 
 
+def _axes_chips(mesh_axes) -> int:
+    n = 1
+    for _, size in mesh_axes:
+        n *= int(size)
+    return n
+
+
 def estimate_prefill(cfg, batch: int, seq: int, *, chip: Chip = H100_SXM,
-                     n_chips: int = 1) -> WorkEstimate:
-    flops = (2.0 * cfg.active_param_count() * batch * seq
-             + _attn_flops(cfg, batch, seq, seq))
+                     n_chips: int = 1, collective_bytes: float = 0.0,
+                     prefix_hit: int = 0, mesh_axes=None) -> WorkEstimate:
+    """``prefix_hit`` > 0 prices a suffix prefill over a cached prefix:
+    only ``seq - prefix_hit`` tokens flow through the model (attending all
+    ``seq`` keys), and the prefix's KV is read instead of computed: the
+    discount the router's prefix affinity scores. ``mesh_axes`` sets the
+    card count and, unless ``collective_bytes`` is given, the per-axis
+    collective bytes."""
+    new = max(1, seq - prefix_hit) if prefix_hit > 0 else seq
+    flops = (2.0 * cfg.active_param_count() * batch * new
+             + _attn_flops(cfg, batch, new, seq))
     wb = _dtype_bytes(cfg)
-    hbm = cfg.param_count() * wb + 12.0 * batch * seq * cfg.d_model * wb
-    return WorkEstimate(flops, hbm, chip, n_chips)
+    hbm = cfg.param_count() * wb + 12.0 * batch * new * cfg.d_model * wb
+    if prefix_hit > 0:
+        hbm += kv_bytes_per_token(cfg) * min(prefix_hit, seq) * batch
+    if mesh_axes is not None:
+        n_chips = _axes_chips(mesh_axes)
+        if collective_bytes == 0.0:
+            collective_bytes = sum(collective_bytes_per_axis(
+                cfg, batch * new, mesh_axes=mesh_axes).values())
+    return WorkEstimate(flops, hbm, collective_bytes, chip, n_chips)
 
 
 def estimate_decode(cfg, batch: int, context: int, *, chip: Chip = H100_SXM,
-                    n_chips: int = 1) -> WorkEstimate:
-    flops = (2.0 * cfg.active_param_count() * batch
-             + _attn_flops(cfg, batch, 1, context))
+                    n_chips: int = 1, window: int = 0,
+                    collective_bytes: float = 0.0,
+                    mesh_axes=None) -> WorkEstimate:
+    """One decode tick of ``batch`` slots at ``context`` tokens (``window``
+    caps the attended keys); ``mesh_axes`` as in ``estimate_prefill``."""
     wb = _dtype_bytes(cfg)
+    kv_len = min(context, window) if window else context
+    flops = (2.0 * cfg.active_param_count() * batch
+             + _attn_flops(cfg, batch, 1, kv_len))
     kv_bytes = 0.0
     if cfg.has_attention:
-        kv_len = (min(context, cfg.local_window)
-                  if cfg.arch_type == "hybrid" else context)
+        if cfg.arch_type == "hybrid":
+            kv_len = min(kv_len, cfg.local_window)
         kv_bytes = (2.0 * batch * _n_attn_layers(cfg) * kv_len
                     * cfg.num_kv_heads * cfg.resolved_head_dim * wb)
     if cfg.arch_type in ("ssm", "hybrid"):
         # recurrent state read and write
         kv_bytes += batch * cfg.num_layers * cfg.d_model * 4 * 4.0
     hbm = cfg.param_count() * wb + kv_bytes
-    return WorkEstimate(flops, hbm, chip, n_chips)
+    if mesh_axes is not None:
+        n_chips = _axes_chips(mesh_axes)
+        if collective_bytes == 0.0:
+            collective_bytes = sum(collective_bytes_per_axis(
+                cfg, batch, mesh_axes=mesh_axes).values())
+    return WorkEstimate(flops, hbm, collective_bytes, chip, n_chips)
 
 
 def collective_bytes_per_axis(cfg, tokens: int, *, mesh_axes=None) -> dict:
@@ -149,7 +197,7 @@ def collective_s_per_axis(cfg, tokens: int, *, mesh_axes=None,
 def estimate_backlog_s(cfg, *, queued_prefill_tokens: int,
                        decode_tokens_remaining: int, slots: int,
                        context: int, chip: Chip = H100_SXM,
-                       n_chips: int = 1) -> float:
+                       n_chips: int = 1, mesh_axes=None) -> float:
     """Seconds to drain an engine's outstanding work, the scalar a router
     reads from ``ServingEngine.load_report``: every queued or unfinished
     prefill token flows through prefill once, and every remaining decode
@@ -158,10 +206,24 @@ def estimate_backlog_s(cfg, *, queued_prefill_tokens: int,
     s = 0.0
     if queued_prefill_tokens > 0:
         s += estimate_prefill(cfg, 1, queued_prefill_tokens, chip=chip,
-                              n_chips=n_chips).latency_s
+                              n_chips=n_chips, mesh_axes=mesh_axes).latency_s
     if decode_tokens_remaining > 0:
         b = max(1, slots)
         per_tick = estimate_decode(cfg, b, context, chip=chip,
-                                   n_chips=n_chips).latency_s
+                                   n_chips=n_chips,
+                                   mesh_axes=mesh_axes).latency_s
         s += per_tick * decode_tokens_remaining / b
     return s
+
+
+def suggest_health_timeout_s(cfg, *, slots: int, context: int,
+                             chip: Chip = H100_SXM, n_chips: int = 1,
+                             ticks: int = 8) -> float:
+    """The health watchdog's staleness budget for a replica of this shape:
+    the cost model's time for ``ticks`` full-batch decode ticks. A healthy
+    replica that holds work moves its progress signature at least once a
+    tick, so ``ticks`` missed in a row mark a wedge while a slow host (2-4x)
+    stays under the bar."""
+    per_tick = estimate_decode(cfg, max(1, slots), context, chip=chip,
+                               n_chips=n_chips).latency_s
+    return max(1, ticks) * per_tick

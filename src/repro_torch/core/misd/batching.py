@@ -17,19 +17,22 @@ from repro_torch.core.costmodel import (
     estimate_prefill,
     kv_bytes_per_token,
 )
+from repro_torch.core.hardware import H100_SXM, Chip
 
 
 def adaptive_batch_size(cfg, *, context: int, sla_s: float,
                         kind: str = "decode", n_chips: int = 1,
-                        max_batch: int = 512) -> Tuple[int, float]:
+                        max_batch: int = 512,
+                        chip: Chip = H100_SXM) -> Tuple[int, float]:
     """Largest batch whose step latency stays within the SLA budget.
     Returns (batch, latency_s). Batch 1 is returned even if it misses."""
     best, best_lat = 1, None
     b = 1
     while b <= max_batch:
-        est = (estimate_decode(cfg, b, context, n_chips=n_chips)
+        est = (estimate_decode(cfg, b, context, chip=chip, n_chips=n_chips)
                if kind == "decode"
-               else estimate_prefill(cfg, b, context, n_chips=n_chips))
+               else estimate_prefill(cfg, b, context, chip=chip,
+                                     n_chips=n_chips))
         if best_lat is None:
             best, best_lat = b, est.latency_s
         if est.latency_s <= sla_s:
@@ -56,7 +59,8 @@ def plan_admission(cfg, *, context: int, sla_s: float, n_chips: int = 1,
                    max_slots: int = 256,
                    kv_hbm_budget_bytes: Optional[float] = None,
                    mean_context: Optional[int] = None,
-                   kv_cache_dtype: str = "") -> AdmissionPlan:
+                   kv_cache_dtype: str = "",
+                   chip: Chip = H100_SXM) -> AdmissionPlan:
     """Derive (slot count, admission flush deadline) from the cost model:
     slots = largest decode batch meeting the per-step SLA budget; deadline =
     SLA headroom left after one decode step (floored at 10% of the SLA so a
@@ -71,10 +75,11 @@ def plan_admission(cfg, *, context: int, sla_s: float, n_chips: int = 1,
     ``kv_cache_dtype`` is the dtype THIS pool actually stores ("" = model
     dtype, "int8" = quantized pages) — the per-token byte cost is a
     per-pool property, not a global constant, and a mismatched estimate
-    over-admits (``kv_bytes_per_token`` asserts on unknown dtypes)."""
+    over-admits (``kv_bytes_per_token`` asserts on unknown dtypes).
+    ``chip``: the card the plan prices (the port's default, one H100)."""
     slots, lat = adaptive_batch_size(
         cfg, context=context, sla_s=sla_s, kind="decode", n_chips=n_chips,
-        max_batch=max_slots)
+        max_batch=max_slots, chip=chip)
     if kv_hbm_budget_bytes:
         per_tok = kv_bytes_per_token(cfg, kv_cache_dtype)
         resident = max(1, mean_context or context)

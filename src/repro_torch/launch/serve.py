@@ -1,6 +1,7 @@
-"""Serving CLI of the PyTorch port: one ``ServingEngine`` fed by a
-synthetic open-loop client, with the JAX package's report lines (QPS,
-tokens/s, latency and TTFT percentiles).
+"""Serving CLI of the PyTorch port: one ``ServingEngine``, or several
+behind the cluster frontend, fed by a synthetic open-loop client, with
+the JAX package's report lines (QPS, tokens/s, latency and TTFT
+percentiles, SLO goodput, per replica and per tenant).
 
     python -m repro_torch.launch.serve --arch granite-8b --requests 16 \
         --slots 8 --prompt-len 256 --max-new 64 --max-seq 1024
@@ -21,12 +22,34 @@ with ``--kv-dtype int8`` (int8 KV pages) and ``--weight-dtype int8``
 which cache serves. ``EngineConfig.validate`` names the ROADMAP.md item of
 every other option.
 
+``--replicas N`` (N > 1) serves the traffic through the cluster frontend:
+N engines built from one set of weights (held once) behind one SLO-aware
+frontend queue, routed by ``--route-policy`` (round-robin | least-loaded |
+p2c | predicted), with failover (``--max-retries``) and a health watchdog
+at the cost model's time for 8 ticks on the engine's card, floored at 1 s.
+``--ttft-slo-ms`` / ``--tpot-slo-ms`` tag every request with an SLO, so the
+report adds goodput. ``--tenants "gold=1:4,bulk=0:1:64:128"`` declares SLO
+classes (``name=tier:weight[:rate_tokens_s[:burst_tokens]]``): requests are
+tagged round-robin across them, the frontend queue turns weighted-fair and
+over-rate submissions are refused with a finite ``retry_after_s``;
+``--overload`` arms the degradation ladder and the circuit breaker.
+``--trace-out PATH`` turns on span tracing and writes the run as a Chrome
+trace (``--trace-sample-n N`` traces every Nth rid); ``--metrics-out
+PATH`` writes the metrics exposition and a JSON snapshot at ``PATH.json``;
+``--profile-dir DIR`` runs ``torch.profiler`` around the serving loop and
+writes its Chrome trace into DIR.
+
+    python -m repro_torch.launch.serve --arch granite-8b --reduced \
+        --device cpu --replicas 2 --route-policy predicted \
+        --trace-out /tmp/t.json --metrics-out /tmp/m.prom
+
     python -m repro_torch.launch.serve --arch recurrentgemma-9b \
         --requests 16 --slots 8 --window 2048 --prompt-len 256 --max-new 64
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -34,16 +57,44 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.costmodel import kv_bytes_per_token
+from repro_torch.core.costmodel import (
+    kv_bytes_per_token,
+    suggest_health_timeout_s,
+)
 from repro_torch.core.device import resolve_device
+from repro_torch.core.mimd.router import POLICIES
 from repro_torch.models import init_params
 from repro_torch.serving import (
+    CircuitBreaker,
+    ClusterFrontend,
     EngineConfig,
+    OverloadDetector,
     PrecisionConfig,
     Request,
     SamplingParams,
     ServingEngine,
+    TenantClass,
 )
+from repro_torch.serving.trace_export import (
+    request_traces,
+    write_chrome_trace,
+)
+
+
+def _parse_tenants(spec: str) -> dict:
+    """``gold=2:4,bulk=0:1:256:2048`` -> ``{name: TenantClass}``
+    (name=tier:weight[:rate_tokens_s[:burst]])."""
+    tenants = {}
+    for part in filter(None, spec.split(",")):
+        name, _, shape = part.partition("=")
+        f = shape.split(":") if shape else []
+        tenants[name] = TenantClass(
+            name,
+            tier=int(f[0]) if len(f) > 0 and f[0] else 0,
+            weight=float(f[1]) if len(f) > 1 and f[1] else 1.0,
+            rate_tokens_s=float(f[2]) if len(f) > 2 and f[2] else 0.0,
+            burst_tokens=float(f[3]) if len(f) > 3 and f[3] else 0.0)
+    return tenants
 
 
 def main(argv=None):
@@ -95,6 +146,42 @@ def main(argv=None):
                     help="nucleus sampling mass; 1 = no cut")
     ap.add_argument("--sample-seed", type=int, default=0,
                     help="base sampling seed; request i uses seed+i")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="ServingEngine replicas behind the cluster "
+                         "frontend; 1 = single-engine path")
+    ap.add_argument("--route-policy", default="predicted", choices=POLICIES,
+                    help="cluster routing policy (with --replicas > 1)")
+    ap.add_argument("--ttft-slo-ms", type=float, default=0.0,
+                    help="per-request TTFT deadline; 0 = untracked")
+    ap.add_argument("--tpot-slo-ms", type=float, default=0.0,
+                    help="per-request mean TPOT bound; 0 = untracked")
+    ap.add_argument("--request-timeout-s", type=float, default=0.0,
+                    help="per-request JCT deadline; overdue requests are "
+                         "aborted and their slot and pages freed (0 = none)")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="per-request failover budget at the cluster "
+                         "frontend (with --replicas > 1)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the metrics registry here as text "
+                         "exposition, plus a JSON snapshot at PATH.json")
+    ap.add_argument("--trace-out", default="",
+                    help="turn on request span tracing and write the run "
+                         "as a Chrome trace (ui.perfetto.dev)")
+    ap.add_argument("--trace-sample-n", type=int, default=1,
+                    help="with tracing on, trace only every Nth request "
+                         "(rid %% N == 0); 1 = all")
+    ap.add_argument("--tenants", default="",
+                    help="SLO classes as name=tier:weight[:rate_tokens_s"
+                         "[:burst_tokens]],...; requests are tagged "
+                         "round-robin and the frontend queue turns "
+                         "weighted-fair")
+    ap.add_argument("--overload", action="store_true",
+                    help="arm the degradation-ladder overload detector "
+                         "(--ttft-slo-ms as its p99 target) and the "
+                         "failover circuit breaker")
+    ap.add_argument("--profile-dir", default="",
+                    help="run torch.profiler around the serving loop and "
+                         "write its Chrome trace into this directory")
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand-written kernels) or cpu (plain "
                          "PyTorch versions)")
@@ -121,7 +208,10 @@ def main(argv=None):
                           pool_pages=args.pool_pages or None,
                           precision=PrecisionConfig(
                               kv_cache_dtype=args.kv_dtype,
-                              weight_dtype=args.weight_dtype))
+                              weight_dtype=args.weight_dtype),
+                          tracing=bool(args.trace_out),
+                          trace_sample_n=args.trace_sample_n,
+                          profile_dir=args.profile_dir or None)
     config.validate(cfg)
     rng = np.random.default_rng(args.seed)
     params = init_params(cfg, seed=args.seed, device=device)
@@ -150,37 +240,91 @@ def main(argv=None):
               f"kv_bytes/token="
               f"{kv_bytes_per_token(cfg, args.kv_dtype):.0f}")
 
+    tenants = _parse_tenants(args.tenants)
+    if args.overload and not tenants:
+        raise SystemExit("--overload needs --tenants: the degradation "
+                         "ladder defends SLO tiers")
+    cluster = None
+    engines = [eng]
+    if args.replicas > 1 or tenants:
+        # tenants take the cluster path even at one replica: the fair
+        # queue, admission and ladder live at the frontend. Every replica
+        # is built from the first engine's params: one set of weights
+        engines += [ServingEngine(cfg, eng.params, config, device=device)
+                    for _ in range(args.replicas - 1)]
+        # cost-model ticks price the card, not this host: floor the
+        # wall-clock watchdog so a slow host never trips on modeled speed
+        health_s = max(1.0, suggest_health_timeout_s(
+            cfg, slots=eng.slots, context=eng.window, chip=eng.chip,
+            n_chips=eng.n_chips))
+        detector = (OverloadDetector(
+            ttft_slo_s=(args.ttft_slo_ms / 1e3) or 1.0)
+            if args.overload else None)
+        cluster = ClusterFrontend(engines, policy=args.route_policy,
+                                  seed=args.seed, health_timeout_s=health_s,
+                                  max_retries=args.max_retries,
+                                  tracing=bool(args.trace_out),
+                                  tenants=tenants or None, overload=detector,
+                                  breaker=(CircuitBreaker()
+                                           if args.overload else None))
+        print(f"cluster frontend: {len(engines)} replicas, "
+              f"policy={args.route_policy}, "
+              f"{'weighted-fair (DRR)' if tenants else 'EDF'} frontend "
+              f"queue, health_timeout={health_s*1e3:.0f}ms "
+              f"max_retries={args.max_retries}")
+        if tenants:
+            print("tenants: " + "  ".join(
+                f"{tc.name}(tier={tc.tier} w={tc.weight:g}"
+                + (f" rate={tc.rate_tokens_s:g}tok/s" if tc.rate_tokens_s
+                   else "") + ")" for tc in tenants.values())
+                + ("  [overload ladder armed]" if args.overload else ""))
+
     arrivals = np.cumsum(rng.exponential(1.0 / args.rate, args.requests))
+    names = list(tenants)
     reqs = [
         Request(
             rid=i,
+            tenant=names[i % len(names)] if names else "",
             prompt=rng.integers(0, cfg.vocab_size,
                                 args.prompt_len).astype(np.int32),
             max_new_tokens=args.max_new,
             arrival_time=float(arrivals[i]),
+            ttft_slo_s=args.ttft_slo_ms / 1e3,
+            tpot_slo_s=args.tpot_slo_ms / 1e3,
+            timeout_s=args.request_timeout_s,
             sampling=SamplingParams(temperature=args.temperature,
                                     top_k=args.top_k, top_p=args.top_p,
                                     seed=args.sample_seed + i),
         )
         for i in range(args.requests)
     ]
+    server = cluster if cluster is not None else eng
     queue = list(reqs)
     t0 = time.time()
     done = 0
-    while done < args.requests:
-        now = time.time() - t0
-        while queue and queue[0].arrival_time <= now:
-            eng.submit(queue.pop(0), now)
-        done += len(eng.step(time.time() - t0))
-        busy = not eng.idle
-        if not busy and queue:
-            # idle until the next arrival
-            time.sleep(max(0.0, queue[0].arrival_time - (time.time() - t0)))
-    done += len(eng.drain(time.time() - t0))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    if args.profile_dir:
+        for e in engines:
+            e.start_profile()
+    try:
+        while done < args.requests:
+            now = time.time() - t0
+            while queue and queue[0].arrival_time <= now:
+                server.submit(queue.pop(0), now)
+            done += len(server.step(time.time() - t0))
+            busy = not server.idle
+            if not busy and queue:
+                # idle until the next arrival
+                time.sleep(max(0.0,
+                               queue[0].arrival_time - (time.time() - t0)))
+        done += len(server.drain(time.time() - t0))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    finally:
+        if args.profile_dir:
+            for e in engines:
+                e.stop_profile()
     wall = time.time() - t0
-    m = eng.metrics
+    m = cluster.merged_metrics() if cluster is not None else eng.metrics
     m.total_time = wall
     lats = [r.finish_time - r.arrival_time for r in reqs]
     ttfts = [r.ttft for r in reqs if r.ttft >= 0]
@@ -191,10 +335,11 @@ def main(argv=None):
     if m.prefix_hits:
         print(f"prefix cache: {m.prefix_hits} hits, "
               f"{m.prefix_hit_tokens} prompt tokens skipped")
-    g = eng.graphs
-    print(f"compiled steps: prefill_traces={eng.prefill_traces} "
-          f"decode_traces={eng.decode_traces} (CUDA graphs captured: "
-          f"{g.captures} in {g.capture_s:.2f}s, replays {g.replays})")
+    for e in engines:
+        g = e.graphs
+        print(f"compiled steps: prefill_traces={e.prefill_traces} "
+              f"decode_traces={e.decode_traces} (CUDA graphs captured: "
+              f"{g.captures} in {g.capture_s:.2f}s, replays {g.replays})")
     if m.sampled_requests:
         print(f"sampled decode: {m.sampled_requests} requests "
               f"(T={args.temperature} top_k={args.top_k} "
@@ -204,12 +349,44 @@ def main(argv=None):
           f"mean_jct={np.mean(lats)*1e3:.0f}ms  "
           f"ttft p50={np.percentile(ttfts,50)*1e3:.0f}ms "
           f"p95={np.percentile(ttfts,95)*1e3:.0f}ms")
+    if m.slo_tracked:
+        print(f"SLO goodput={m.goodput:.3f} "
+              f"({m.slo_met}/{m.slo_tracked} in SLO; "
+              f"ttft_misses={m.ttft_slo_misses} "
+              f"tpot_misses={m.tpot_slo_misses})")
     lifecycle = (m.rejected, m.cancelled, m.timed_out, m.shed, m.failed,
-                 m.preempted)
+                 m.preempted, m.retried, m.failed_over)
     if any(lifecycle):
         print(f"lifecycle: rejected={m.rejected} cancelled={m.cancelled} "
               f"timed_out={m.timed_out} shed={m.shed} failed={m.failed} "
-              f"preempted={m.preempted} (restored={m.preempt_restores})")
+              f"preempted={m.preempted} (restored={m.preempt_restores}) "
+              f"retried={m.retried} failed_over={m.failed_over}")
+    if cluster is not None:
+        for inst in cluster.instances:
+            print(f"  {inst.name}: routed={inst.routed} "
+                  f"utilization={inst.utilization:.2f} "
+                  f"residual={inst.corrector.correction:+.3f}")
+    for name, tm in sorted(m.tenants.items()):
+        goodput = (f" goodput={tm.slo_met / tm.slo_tracked:.3f}"
+                   if tm.slo_tracked else "")
+        print(f"  tenant {name}: admitted={tm.admitted} "
+              f"completed={tm.completed} tokens={tm.total_tokens} "
+              f"shed={tm.shed} rejected={tm.rejected} "
+              f"browned_out={tm.browned_out}"
+              f"(-{tm.brownout_trimmed_tokens}tok){goodput}")
+    if args.metrics_out:
+        reg = (cluster.metrics_registry() if cluster is not None
+               else eng.metrics_registry())
+        with open(args.metrics_out, "w") as f:
+            f.write(reg.exposition())
+        with open(args.metrics_out + ".json", "w") as f:
+            json.dump(reg.snapshot(), f, indent=2)
+        print(f"metrics: {args.metrics_out} (+ .json snapshot)")
+    if args.trace_out:
+        doc = write_chrome_trace(args.trace_out, request_traces(reqs))
+        print(f"trace: {args.trace_out} "
+              f"({len(doc['traceEvents'])} events; open in "
+              f"https://ui.perfetto.dev)")
     return reqs
 
 

@@ -158,14 +158,17 @@ def quantize_weights(cfg, params):
     """Weight-only int8 (the reference's ``model.quantize_weights``): each
     attention/MLP matmul weight of every layer becomes a ``{"w_q",
     "scale"}`` dict, which ``blocks.linear`` dispatches to the int8
-    matmul kernel. Returns new params; the input is left as it is."""
+    matmul kernel. Returns new params; the input is left as it is. Leaves
+    quantized already (another engine's params) are kept as they are, so
+    replicas share one set of int8 weights."""
     layers = []
     for p in params["layers"]:
         p = dict(p)
         for sub in ("attn", "mlp"):
             if sub in p:
                 p[sub] = {k: (_quantize_leaf(v) if k in QUANT_WEIGHT_KEYS
-                              else v) for k, v in p[sub].items()}
+                              and not isinstance(v, dict) else v)
+                          for k, v in p[sub].items()}
         layers.append(p)
     return {**params, "layers": layers}
 

@@ -6,12 +6,13 @@ The port serves one card: the paged KV cache on dense archs, rolling
 caches (``paged=False``, and recurrentgemma's rings and RG-LRU states),
 single-shot and chunked prefill (``chunk_prefill`` defaults to 64, as in
 the reference), the prefix cache, cancel, timeouts, shedding and
-preemption, model-dtype or int8 pools and weights. ``validate()`` refuses
-every option whose path is not ported yet (tracing and profiling, sharded
-replicas, other block families) and names the ``ROADMAP.md`` item that
-brings it, so nothing silently runs a different path than the one asked
-for; the engine keeps the reference's own refusals (a prefix cache or
-preemption without pages, an unknown ``preempt_policy``).
+preemption, model-dtype or int8 pools and weights, span tracing and the
+profiler hook. ``validate()`` refuses every option whose path is not
+ported yet (sharded replicas, other block families) and names the
+``ROADMAP.md`` item that brings it, so nothing silently runs a different
+path than the one asked for; the engine keeps the reference's own
+refusals (a prefix cache or preemption without pages, an unknown
+``preempt_policy``).
 """
 from __future__ import annotations
 
@@ -163,10 +164,6 @@ class EngineConfig:
             not_yet.append((f"topology dp={self.topology.dp} "
                             f"tp={self.topology.tp} (sharded replica)",
                             f"{q1}, 'Multi-GPU'"))
-        if self.tracing or self.profile_dir:
-            not_yet.append(("tracing / profile_dir", f"{q1}, 'Engine, "
-                            f"remaining paths': span/metrics hooks and a "
-                            f"torch.profiler stand-in"))
         if cfg is not None:
             from repro_torch.models import layer_types, ported
             from repro_torch.models.blocks import PORTED_BLOCKS

@@ -9,7 +9,9 @@ chunk by chunk between decode ticks, as ``ChunkedPrefillPolicy`` allots);
 the shared-prefix KV cache with copy-on-write (``prefix_cache``); cancel,
 timeouts, shedding and preemption with exact restore; ``load_report``;
 fused decode windows with one host sync per window, and device-resident
-sampling keyed by (seed, absolute position).
+sampling keyed by (seed, absolute position); request span tracing
+(``tracing``), ``metrics_registry`` and a ``torch.profiler`` hook
+(``profile_dir``), as the reference's.
 
 Where the reference jits pure functions and donates buffers, the port
 updates the page pools, page table, rings, recurrent states, positions,
@@ -20,10 +22,16 @@ fused ``sync_every`` window, the bucketed prefill with its page scatter
 (paged) or its copy into the slot (rolling), the chunk step over the
 engine's one (1, max_seq) working buffer, and a prefix hit's suffix step
 with its gather and its scatter. Exact-length prefill (recurrentgemma,
-whose recurrent state forbids end padding) runs eagerly and is not
-counted: the reference retraces it per prompt length. The probes
-``prefill_traces`` and ``decode_traces`` count the keys as the reference
-counts its traces; on the CPU the same steps run eagerly. Host-decided
+whose recurrent state forbids end padding) runs eagerly, on a key per
+prompt length that is counted as the reference counts its retrace
+(``prefill/exact{L}``) and never captured. The probes ``prefill_traces``
+and ``decode_traces`` count the keys as the reference counts its traces;
+on the CPU the same steps run eagerly.
+
+Tracing stamps host clocks the caller passes in, at the engine's existing
+sync points only: it adds no device sync and no step, and with it off a
+request's ``trace`` stays None and each stamp site is one attribute
+check. Host-decided
 writes (a page-table entry, a released slot's row and position) stay
 small eager writes in place. The kernels of the path (prefill attention,
 paged or rolling-cache decode attention, which also serves every chunk and
@@ -39,8 +47,11 @@ the engine is built with.
 """
 from __future__ import annotations
 
+import itertools
 import math
+import os
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass
 from typing import Deque, Dict, List, Optional, Tuple
@@ -56,6 +67,7 @@ from repro_torch.core.costmodel import (
     kv_bytes_per_token,
 )
 from repro_torch.core.device import resolve_device
+from repro_torch.core.hardware import H100_SXM, Chip
 from repro_torch.core.misd.batching import BatchAccumulator, plan_admission
 from repro_torch.core.misd.scheduler import ChunkedPrefillPolicy
 from repro_torch.kernels import ops
@@ -73,6 +85,7 @@ from repro_torch.models.blocks import KV_CACHE_BLOCKS, quantize_kv
 from repro_torch.serving import prng
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.graphs import StepGraphs
+from repro_torch.serving.metrics import MetricsRegistry, latency_histogram
 from repro_torch.serving.paging import PageAllocator, PrefixHit, PrefixIndex
 from repro_torch.serving.request import (
     Request,
@@ -82,7 +95,7 @@ from repro_torch.serving.request import (
     ServeMetrics,
 )
 from repro_torch.serving.telemetry import LoadReport
-from repro_torch.serving.tracing import Tracer
+from repro_torch.serving.tracing import Trace, Tracer
 
 __all__ = [
     "EngineConfig", "LoadReport", "PREEMPT_POLICIES", "ServingEngine",
@@ -356,6 +369,21 @@ def _padded_len(n: int, chunk: int) -> int:
     return ((n + chunk - 1) // chunk) * chunk
 
 
+def _compile_key(kind: str, name: str, n: int) -> Optional[str]:
+    """The reference's trace key of a step key: ``decode/tick``,
+    ``decode/scan{n}``, ``prefill/{paged,bucket,suffix,exact}{n}``,
+    ``prefill/chunk{n}``; None for the helper steps (the working buffer's
+    gather, the activations' scatters), which the reference does not
+    count."""
+    if kind == "decode":
+        return "decode/tick" if name == "tick" else f"decode/scan{n}"
+    if kind == "prefill":
+        return f"prefill/{name}{n}"
+    if name == "chunk":
+        return f"prefill/chunk{n}"
+    return None
+
+
 # ---------------------------------------------------------------------------
 # continuous-batching executor
 # ---------------------------------------------------------------------------
@@ -443,6 +471,40 @@ PREEMPT_POLICIES = {
 }
 
 
+class _Profiler:
+    """One ``torch.profiler`` run shared by every engine of the process
+    (the profiler is process-wide): the first ``start`` opens it, the last
+    ``stop`` closes it and writes its Chrome trace into that engine's
+    directory."""
+
+    prof = None
+    users = 0
+    _runs = itertools.count()
+
+    @classmethod
+    def start(cls, device: torch.device):
+        if cls.prof is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            cls.prof = torch.profiler.profile(activities=acts)
+            cls.prof.start()
+        cls.users += 1
+
+    @classmethod
+    def stop(cls, out_dir: str) -> Optional[str]:
+        cls.users -= 1
+        if cls.users > 0:
+            return None
+        prof, cls.prof = cls.prof, None
+        prof.stop()
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(
+            out_dir, f"torch_trace.{os.getpid()}.{next(cls._runs)}.json")
+        prof.export_chrome_trace(path)
+        return path
+
+
 class ServingEngine:
     """Single-card engine with continuous batching over a paged KV cache,
     or over rolling caches (the reference's ``ServingEngine``; see its
@@ -452,13 +514,20 @@ class ServingEngine:
     and raises when no card is present unless ``device="cpu"`` is asked
     for. ``threefry_partitionable`` selects the
     ``jax_threefry_partitionable`` mode whose bits seeded streams
-    reproduce. ``prefill_traces`` and ``decode_traces`` are the
-    reference's compile-count probes (``graphs.StepGraphs``), and
+    reproduce. ``chip`` is the card the cost model prices (admission
+    plan, chunk interleave, ``load_report``; the tests pass the
+    reference's TPU constants). ``prefill_traces`` and ``decode_traces``
+    are the reference's compile-count probes (``graphs.StepGraphs``), and
     ``compile_events`` counts the captured steps under the reference's
-    key names."""
+    key names.
+
+    ``params`` may already hold ``lm_head_f32`` and int8 weight leaves
+    (another engine's ``params``): they are kept, not made again, so
+    replicas built from one engine's params share every weight tensor."""
 
     def __init__(self, cfg, params, config: Optional[EngineConfig] = None,
-                 *, device="cuda", threefry_partitionable: bool = True):
+                 *, device="cuda", threefry_partitionable: bool = True,
+                 chip: Chip = H100_SXM):
         if config is None:
             config = EngineConfig()
         config.validate(cfg)
@@ -466,12 +535,14 @@ class ServingEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.partitionable = bool(threefry_partitionable)
+        self.chip = chip
         if config.precision.quantized_weights:
             # weight-only int8 at load: attention/MLP matmul weights
-            # become {"w_q", "scale"} dicts (blocks.linear dispatches)
+            # become {"w_q", "scale"} dicts (blocks.linear dispatches);
+            # leaves quantized already are kept
             params = quantize_weights(cfg, params)
         params = dict(params)
-        if dtype_of(cfg) != torch.float32:
+        if dtype_of(cfg) != torch.float32 and "lm_head_f32" not in params:
             # the lm head's float32 product (the reference's preferred
             # element type), kept once instead of upcast every tick
             head = params.get("lm_head")
@@ -519,14 +590,21 @@ class ServingEngine:
             n_chips=config.n_chips, kv_hbm_budget_bytes=config.kv_hbm_budget,
             mean_context=((config.expected_len or None) if self.paged
                           else config.window),
-            kv_cache_dtype=self.kv_dtype)
+            kv_cache_dtype=self.kv_dtype, chip=chip)
         slots = config.slots or self.plan.slots
         self.slots = slots
         self.n_chips = config.n_chips
-        self._tick_est_s = estimate_decode(cfg, slots, config.window,
-                                           n_chips=self.n_chips).latency_s
+        # the mesh of a sharded replica; None on one card (validate()
+        # refuses sharded topologies until multi-GPU serving is ported)
+        self._mesh_axes = (config.topology.mesh_axes
+                           if config.topology.sharded else None)
+        self._tick_est_s = estimate_decode(
+            cfg, slots, config.window, chip=chip, n_chips=self.n_chips,
+            mesh_axes=self._mesh_axes).latency_s
         # collective seconds per mesh axis of a tick: none on one card
-        self._axis_collective_s = collective_s_per_axis(cfg, slots)
+        self._axis_collective_s = (
+            collective_s_per_axis(cfg, slots, mesh_axes=self._mesh_axes,
+                                  chip=chip) if self._mesh_axes else {})
         self.eos_id = config.eos_id
         self.sync_every = 1 if config.eos_id >= 0 else max(1,
                                                            config.sync_every)
@@ -541,15 +619,22 @@ class ServingEngine:
             chunk = config.prefill_policy.chunk
         self.chunk = chunk if (chunk and self._attn_only) else 0
         self.prefill_policy = config.prefill_policy or ChunkedPrefillPolicy(
-            chunk=self.chunk or 64)
+            chunk=self.chunk or 64, chip=chip)
         # chunked-prefill buffers must be both chunk- and page-aligned
         self._chunk_quantum = (math.lcm(self.chunk, page_size)
                                if self.chunk else page_size)
         self.edf_backlog = config.edf_backlog
         self.metrics = ServeMetrics()
-        # span rollups for load_report (tracing itself is not ported yet:
-        # validate() refuses it, so this stays empty)
-        self.tracer = Tracer(enabled=False, ring=config.trace_ring)
+        # --- span tracing and profiling, as the reference's: host clocks
+        # the caller passes in, stamped at existing sync points only
+        self._trace_on = bool(config.tracing)
+        # head sampling: trace rids with rid % trace_sample_n == 0
+        self._trace_every = max(1, config.trace_sample_n)
+        self.tracer = Tracer(enabled=self._trace_on, ring=config.trace_ring)
+        self._win_t0 = 0.0  # caller clock at the open decode window's start
+        self._last_now = 0.0  # the latest caller clock (compile events)
+        self._tick_wall = latency_histogram()  # step() wall s (tracing on)
+        self._profiling = False
         if self.paged:
             self.pool_pages = config.pool_pages or slots * self.max_pages + 1
             self.allocator = PageAllocator(self.pool_pages, page_size)
@@ -598,6 +683,11 @@ class ServingEngine:
         self._seed_in = torch.zeros((1 + self.max_pages,), **i64)
         self._insert_in = torch.zeros((2 + 2 * self.max_pages,), **i64)
         self.graphs = StepGraphs(self.device)
+        # through a weak reference: a bound method would make the engine
+        # and its graphs a cycle, whose device memory only the garbage
+        # collector frees once the engine is dropped
+        note = weakref.WeakMethod(self._note_compile)
+        self.graphs.on_new_key = lambda *key: note()(*key)
         self._samp_greedy_h: List[bool] = [True] * slots
         self.active: List[Optional[Request]] = [None] * slots
         self.decoding: List[bool] = [False] * slots
@@ -629,16 +719,88 @@ class ServingEngine:
         reference's helper steps are."""
         out: Dict[str, int] = {}
         for kind, name, n in self.graphs.keys:
-            if kind == "decode":
-                key = "decode/tick" if name == "tick" else f"decode/scan{n}"
-            elif kind == "prefill":
-                key = f"prefill/{name}{n}"
-            elif name == "chunk":
-                key = f"prefill/chunk{n}"
-            else:
-                continue
-            out[key] = out.get(key, 0) + 1
+            key = _compile_key(kind, name, n)
+            if key is not None:
+                out[key] = out.get(key, 0) + 1
         return out
+
+    # -- observability -------------------------------------------------------
+    def _note_compile(self, kind: str, name: str, n: int):
+        """A step key seen for the first time: the reference's ``compile``
+        event, stamped at the latest caller clock."""
+        key = _compile_key(kind, name, n)
+        if self._trace_on and key is not None:
+            self.tracer.event("compile", self._last_now, key=key)
+
+    def _tr(self, req: Request) -> Optional[Trace]:
+        """The trace to stamp for ``req``: its own (a tracing frontend may
+        have made it), a new one when tracing is on and the rid is in the
+        sample (``rid % trace_sample_n == 0``), else None."""
+        t = req.trace
+        if (t is None and self._trace_on
+                and req.rid % self._trace_every == 0):
+            t = req.trace = Trace(req.rid)
+        return t
+
+    def _tr_admit(self, req: Request, now: float, path: str, slot: int):
+        """Close the queued span and open the prefill span at admission."""
+        t = self._tr(req)
+        if t is None:
+            return
+        if t.is_open("queued"):
+            t.end("queued", now)
+        t.begin("prefill", now, path=path, slot=slot)
+
+    def _tr_terminal(self, req: Request, now: float, kind: str, **meta):
+        """Stamp a terminal event (rejected, abort) and fold the trace into
+        the engine's rollup."""
+        t = req.trace
+        if t is None:
+            return
+        t.close_all(now)
+        t.event(kind, now, **meta)
+        self.tracer.collect(t)
+
+    def start_profile(self) -> bool:
+        """Arm ``torch.profiler`` (CPU, and CUDA on a card) into
+        ``config.profile_dir``; False (no-op) without a directory or when
+        this engine profiles already."""
+        if not self.config.profile_dir or self._profiling:
+            return False
+        _Profiler.start(self.device)
+        self._profiling = True
+        if self._trace_on:
+            self.tracer.event("profile_start", self._last_now,
+                              dir=self.config.profile_dir)
+        return True
+
+    def stop_profile(self) -> bool:
+        """Disarm the profiler; the last engine to stop writes the run's
+        Chrome trace into its ``profile_dir``."""
+        if not self._profiling:
+            return False
+        _Profiler.stop(self.config.profile_dir)
+        self._profiling = False
+        if self._trace_on:
+            self.tracer.event("profile_stop", self._last_now)
+        return True
+
+    def metrics_registry(self) -> MetricsRegistry:
+        """This engine's metrics as a registry (exposition-ready): the
+        ServeMetrics counters and histograms plus compile events per key,
+        span totals per kind and the step wall time."""
+        reg = self.metrics.registry()
+        reg.set_counter("serving_prefill_traces_total", self.prefill_traces)
+        reg.set_counter("serving_decode_traces_total", self.decode_traces)
+        for key, n in sorted(self.compile_events.items()):
+            reg.set_counter(
+                f"serving_compile_events_total{{key=\"{key}\"}}", n)
+        for kind, (c, s) in sorted(self.tracer.span_totals.items()):
+            reg.set_counter(f"serving_span_count_total{{kind=\"{kind}\"}}", c)
+            reg.set_gauge(f"serving_span_seconds{{kind=\"{kind}\"}}", s)
+        if self._tick_wall.count:
+            reg.register("serving_step_wall_seconds", self._tick_wall)
+        return reg
 
     # -- admission ---------------------------------------------------------
     def submit(self, req: Request, now: float) -> bool:
@@ -646,6 +808,10 @@ class ServingEngine:
         batch admissions up to the cost-model deadline. An unservable
         request comes back FAILED from the next ``step`` (and ``False`` is
         returned) instead of raising."""
+        self._last_now = now
+        t = self._tr(req)
+        if t is not None and not t.is_open("queued"):
+            t.begin("queued", now)
         try:
             self._check_servable(req)
         except RequestRejected as e:
@@ -667,6 +833,7 @@ class ServingEngine:
         self.metrics.rejected += 1
         if req.tenant:
             self.metrics.tenant(req.tenant).rejected += 1
+        self._tr_terminal(req, now, "rejected", reason=reason[:120])
         self._finished.append(req)
 
     def _pump_admissions(self, now: float):
@@ -742,6 +909,12 @@ class ServingEngine:
         req.state = RequestState.PREEMPTED
         req.preemptions += 1
         self.metrics.preempted += 1
+        t = req.trace
+        if t is not None:
+            if t.is_open("decode"):
+                t.end("decode", now, tokens=len(req.output))
+            t.event("preempt", now, slot=slot, policy=self.preempt_policy)
+            t.begin("queued", now)  # the victim requeues for its restore
         return req
 
     def _check_servable(self, req: Request):
@@ -872,17 +1045,24 @@ class ServingEngine:
     def _admit_now(self, req: Request, slot: int, now: float):
         """Single-shot prefill: page-aligned linear prefill and page
         scatter (paged), or a bucket or the exact prompt into fresh
-        rolling caches copied into the slot."""
+        rolling caches copied into the slot (an exact-length prompt: one
+        eager step per length, counted as the reference's retrace)."""
+        self._tr_admit(req, now, "full", slot)
         plen = req.prompt_len
         padded = np.zeros((1, self._prefill_len(req)), np.int32)
         padded[0, :plen] = req.prompt
         if self.paged or self._bucket_for(plen) is not None:
             tok, last = self._prefill_bucket(padded, plen, slot)
         else:
-            tok, last, single = rolling_prefill_step(
-                self.cfg, self.params, torch.from_numpy(padded).to(
-                    self.device), plen, window=self.window)
-            cache_insert(self.cache, single, slot)
+            def exact():
+                tok, last, single = rolling_prefill_step(
+                    self.cfg, self.params, torch.from_numpy(padded).to(
+                        self.device), plen, window=self.window)
+                cache_insert(self.cache, single, slot)
+                return tok, last
+
+            tok, last = self.graphs.run("prefill", "exact", plen, exact,
+                                        capture=False)
         self.prefill_calls += 1
         n_tabled = (self.allocator.pages_for(padded.shape[1]) if self.paged
                     else 0)
@@ -935,6 +1115,9 @@ class ServingEngine:
         as interleaved chunks when the suffix is long. A partly matched
         tail page is never aliased: its matched tokens ride the buffer
         into a private page (copy-on-write)."""
+        self._tr_admit(req, now, "prefix", slot)
+        if req.trace is not None:
+            req.trace.spans[-1].meta["prefix_hit"] = hit.tokens
         plen = req.prompt_len
         n_full = len(hit.full_pages)
         owned = self.allocator.owned(slot)  # [shared full..., private...]
@@ -1003,6 +1186,7 @@ class ServingEngine:
     def _start_chunked(self, req: Request, slot: int, now: float):
         """Reserve the slot for chunked prefill: the prompt, padded to the
         chunk quantum, waits in the job queue (its pages are reserved)."""
+        self._tr_admit(req, now, "chunked", slot)
         padded = np.zeros((1, self._prefill_len(req)), np.int32)
         padded[0, :req.prompt_len] = req.prompt
         self._jobs.append(_PrefillJob(
@@ -1041,6 +1225,9 @@ class ServingEngine:
                 # position true_len - 1; later chunks are pure padding
                 job.tok, job.logits = tok.clone(), last.clone()
             self.metrics.prefill_chunks += 1
+            if job.req.trace is not None:
+                job.req.trace.event("prefill_chunk", now, offset=off,
+                                    slot=job.slot)
             if job.next_off >= job.tokens.shape[1]:
                 self._jobs.popleft()
                 self._finish_job(job, now)
@@ -1160,8 +1347,21 @@ class ServingEngine:
                 if req.browned_out_tokens:
                     tm.browned_out += 1
                     tm.brownout_trimmed_tokens += req.browned_out_tokens
-        if restore or req.state is RequestState.PREEMPTED:
+        restored = restore or req.state is RequestState.PREEMPTED
+        if restored:
             self.metrics.preempt_restores += 1
+        t = req.trace
+        if t is not None:
+            if t.is_open("queued"):  # direct try_admit paths skip submit
+                t.end("queued", now)
+            if t.is_open("prefill"):
+                t.end("prefill", now, tokens=req.prompt_len)
+            if not sp.greedy:
+                t.event("sample", now, seed=sp.seed)
+            if restored:
+                t.event("restore", now, slot=slot,
+                        preemptions=req.preemptions)
+            t.begin("decode", now, slot=slot)
         req.state = RequestState.DECODE
         self.active[slot] = req
         self.decoding[slot] = True
@@ -1174,7 +1374,19 @@ class ServingEngine:
         run prefill chunks per the interleave policy, then batched decode.
         In steady state the whole ``sync_every`` window runs with one host
         sync. Returns the requests that finished this tick, aborted ones
-        included (in a terminal state, with ``fail_reason``)."""
+        included (in a terminal state, with ``fail_reason``). With tracing
+        on, the call's host wall time (``perf_counter``, no device sync)
+        goes into the step-wall histogram."""
+        self._last_now = now
+        if not self._trace_on:
+            return self._step(now)
+        w0 = time.perf_counter()
+        try:
+            return self._step(now)
+        finally:
+            self._tick_wall.observe(time.perf_counter() - w0)
+
+    def _step(self, now: float) -> List[Request]:
         self._reap_doomed(now)
         self._pump_admissions(now)
         self._run_prefill_chunks(now)
@@ -1283,6 +1495,8 @@ class ServingEngine:
                 f"timed out: exceeded timeout_s={req.timeout_s:.4f} "
                 f"after arrival")
             self.metrics.timed_out += 1
+        self._tr_terminal(req, now, "abort", state=state.value,
+                          reason=req.fail_reason[:120])
         self._finished.append(req)
 
     def _fail_slot(self, slot: int, now: float, reason: str):
@@ -1294,6 +1508,8 @@ class ServingEngine:
         req.fail_reason = reason
         req.finish_time = now
         self.metrics.failed += 1
+        self._tr_terminal(req, now, "abort", state="failed",
+                          reason=reason[:120])
         self._finished.append(req)
 
     def takeover_queue(self) -> List[Request]:
@@ -1366,6 +1582,8 @@ class ServingEngine:
         for i, r in enumerate(self.active):
             if r is None or not self.decoding[i]:
                 continue
+            tr = r.trace
+            n0 = len(r.output) if tr is not None else 0
             done = False
             for t in range(toks.shape[0]):
                 if r.done:
@@ -1375,8 +1593,19 @@ class ServingEngine:
                 if r.done or tok == self.eos_id:
                     done = True
                     break
+            if tr is not None and len(r.output) > n0:
+                # one span per window whose sync delivered tokens here; t0
+                # floors at the trace's latest span, so a request activated
+                # (or restored) mid-window never starts before its decode
+                # span; added before finalization so the collect sees it
+                t0 = max(self._win_t0, r.prefill_done)
+                if tr.spans:
+                    t0 = max(t0, tr.spans[-1].t0)
+                tr.add("decode_window", min(t0, t_now), t_now,
+                       tokens=len(r.output) - n0)
             if done:
                 self._finalize_request(r, i, t_now)
+        self._win_t0 = t_now
 
     def _finalize_request(self, req: Request, slot: int, now: float):
         req.state = RequestState.FINISHED
@@ -1395,6 +1624,11 @@ class ServingEngine:
         if req.tpot > 0:
             self.metrics.tpots.append(req.tpot)
         self.metrics.record_slo(req)
+        t = req.trace
+        if t is not None:
+            if t.is_open("decode"):
+                t.end("decode", now, tokens=len(req.output))
+            self.tracer.collect(t)
 
     def release_slot(self, slot: int):
         """Retire ``slot``: reset a stochastic lane to greedy (so a vacated
@@ -1452,7 +1686,12 @@ class ServingEngine:
         self._unsynced = 0
         self._finished = []
         self.metrics = ServeMetrics()
-        self.tracer = Tracer(enabled=False, ring=self.config.trace_ring)
+        # new span rollups and step walls; compile events persist, as the
+        # compiled steps they count do
+        self.tracer = Tracer(enabled=self._trace_on,
+                             ring=self.config.trace_ring)
+        self._tick_wall = latency_histogram()
+        self._win_t0 = 0.0
 
     # -- prefix cache --------------------------------------------------------
     def prefix_match_len(self, tokens) -> int:
@@ -1491,13 +1730,15 @@ class ServingEngine:
         q_pref += sum(max(0, j.tokens.shape[1] - j.next_off)
                       for j in self._jobs)
         dec_rem = sum(remaining) + sum(r.max_new_tokens for r in queued)
-        pre_s = (estimate_prefill(self.cfg, 1, q_pref,
-                                  n_chips=self.n_chips).latency_s
+        pre_s = (estimate_prefill(self.cfg, 1, q_pref, chip=self.chip,
+                                  n_chips=self.n_chips,
+                                  mesh_axes=self._mesh_axes).latency_s
                  if q_pref > 0 else 0.0)
         dec_s = estimate_backlog_s(
             self.cfg, queued_prefill_tokens=0,
             decode_tokens_remaining=dec_rem, slots=self.slots,
-            context=self.window, n_chips=self.n_chips)
+            context=self.window, chip=self.chip, n_chips=self.n_chips,
+            mesh_axes=self._mesh_axes)
         idx = self.prefix_index
         m = self.metrics
         tick = self._tick_est_s
@@ -1534,6 +1775,13 @@ class ServingEngine:
             kv_bytes_per_token=kv_bytes_per_token(self.cfg, self.kv_dtype),
             kv_cache_dtype=self.kv_dtype,
             weight_dtype=self.config.precision.weight_dtype)
+
+    @property
+    def mesh_axes(self):
+        """((name, size), ...) of a sharded replica's mesh; None on one
+        card, as the reference's: the cost model's key for collective
+        terms."""
+        return self._mesh_axes
 
     @property
     def idle(self) -> bool:

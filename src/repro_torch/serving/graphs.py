@@ -25,7 +25,11 @@ CPU tests hold them to the reference's counts: one per prompt bucket or
 suffix width, one single tick and one fused window for any sampling mix.
 Keys of kind "aux" count into neither probe, as the reference counts none
 of those steps: the chunk step (a compile event only there), the working
-buffer's gather and the activations' scatters.
+buffer's gather and the activations' scatters. A key run with
+``capture=False`` (exact-length prefill, one key per prompt length) counts
+into its probe like any other and always runs eagerly, on either device.
+``on_new_key`` (when set) is called with (kind, name, n) once a key is
+first seen: the engine's ``compile`` trace event.
 
 All graphs of one engine share one memory pool. That is safe because the
 engine reads a replay's outputs before it replays any step again: a
@@ -49,6 +53,20 @@ from repro_torch.kernels.build import LAUNCHES
 #: step kinds: a key counts into ``decode_traces`` or ``prefill_traces``,
 #: or (``aux``) into neither
 KINDS = ("decode", "prefill", "aux")
+
+#: the stream of every first (eager) run, one per card for all engines:
+#: cuBLAS keeps a workspace (32 MiB) for each stream it has run on, for the
+#: life of the process, so a stream per engine would leave one behind for
+#: every engine dropped (a retired or rebuilt replica)
+_SIDE: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _side_stream(device: torch.device):
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    if index not in _SIDE:
+        _SIDE[index] = torch.cuda.Stream(index)
+    return _SIDE[index]
 
 
 @dataclass
@@ -74,18 +92,22 @@ class StepGraphs:
         self.captures = 0
         self.capture_s = 0.0  # host seconds spent capturing
         self.replays = 0
+        self.eager = 0  # keys run with capture=False
+        self.on_new_key: Optional[Callable[[str, str, int], None]] = None
         self._pool = torch.cuda.graph_pool_handle() if self.capture else None
-        self._side = torch.cuda.Stream(self.device) if self.capture else None
+        self._side = _side_stream(self.device) if self.capture else None
 
     @property
     def keys(self):
         return list(self._steps)
 
-    def run(self, kind: str, name: str, n: int, step: Callable[[], Any]):
+    def run(self, kind: str, name: str, n: int, step: Callable[[], Any], *,
+            capture: bool = True):
         """The result of ``step()`` for key (kind, name, n): a replay of
         its graph once one is captured (CUDA), else ``step()`` itself.
         The outputs of a replay are the graph's static tensors: read them
-        before the next ``run`` of any key."""
+        before the next ``run`` of any key. ``capture=False`` counts the
+        key and runs it eagerly, always."""
         if kind not in KINDS:
             raise ValueError(f"step kind must be one of {KINDS}, got {kind!r}")
         key = (kind, name, n)
@@ -98,7 +120,10 @@ class StepGraphs:
             for k, v in g.credit.items():
                 LAUNCHES[k] += v
             return g.out
-        if not self.capture:
+        if not capture:
+            self.eager += 1
+        capture = capture and self.capture
+        if not capture:
             out = step()
         else:
             cur = torch.cuda.current_stream(self.device)
@@ -106,11 +131,13 @@ class StepGraphs:
             with torch.cuda.stream(self._side):
                 out = step()
             cur.wait_stream(self._side)
-        self._steps[key] = self._capture(step) if self.capture else None
+        self._steps[key] = self._capture(step) if capture else None
         if kind == "decode":
             self.decode_traces += 1
         elif kind == "prefill":
             self.prefill_traces += 1
+        if self.on_new_key is not None:
+            self.on_new_key(kind, name, n)
         return out
 
     def _capture(self, step) -> _Graph:

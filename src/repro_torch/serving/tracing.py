@@ -1,13 +1,11 @@
 """Request span tracing: the ``Span`` and ``Trace`` types that
 ``request.py`` carries and the engine-level ``Tracer`` whose per-kind
 rollups ``load_report`` ships (a copy of the JAX package's
-``serving/tracing.py``). The port's engine refuses ``tracing=True`` so far
-(its stamping hooks are ROADMAP.md queue 1 item 2), so a request's
-``trace`` stays ``None`` and the engine's ``Tracer`` stays empty.
+``serving/tracing.py``). The engine stamps with ``tracing=True``, the
+cluster frontend with its own ``tracing`` flag.
 
 Every traced ``Request`` carries a ``Trace``: an append-only list of
-typed ``Span``s stamped at phase boundaries.  The span taxonomy (see
-serving/README.md "Observability"):
+typed ``Span``s stamped at phase boundaries.  The span taxonomy:
 
 ==================  ========================================================
 kind                stamped at
@@ -33,7 +31,8 @@ kind                stamped at
                     token budget (meta: level, max_new_tokens before/
                     after)
 ``rejected``/``abort``  instant terminal events for non-completion paths
-``compile``         engine-level event per jit trace (meta: trace-cache key)
+``compile``         engine-level event per new compiled-step key (meta:
+                    the reference's trace-cache key)
 ==================  ========================================================
 
 Stamping discipline — the part that keeps tracing off the hot path:

@@ -129,7 +129,7 @@ def test_prompt_bucket_and_table_helpers_match_jax():
 
 _NOT_PORTED = {
     "sharded": (dict(topology=ts.DeviceTopology(tp=2)), "Multi-GPU"),
-    "tracing": (dict(tracing=True), "span/metrics"),
+    "data-parallel": (dict(topology=ts.DeviceTopology(dp=2)), "Multi-GPU"),
 }
 
 
@@ -143,8 +143,11 @@ def test_validate_refuses_what_is_not_ported(option):
 
 #: options that the port serves since its remaining admission paths came
 #: (chunked prefill, on pages and on rolling caches; the prefix cache;
-#: preemption), each with the reference's own refusal where it has one
+#: preemption) and its span tracing and profiler hook, each with the
+#: reference's own refusal where it has one
 _NOW_SERVED = {
+    "tracing": (dict(tracing=True, trace_sample_n=2), None),
+    "profile_dir": (dict(profile_dir="profile"), None),
     "chunk_prefill": (dict(chunk_prefill=32), None),
     "rolling": (dict(paged=False, chunk_prefill=32), None),
     "prefix_cache": (dict(prefix_cache=True), "prefix_cache requires"),

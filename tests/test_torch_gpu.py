@@ -1066,3 +1066,108 @@ def test_a_failed_capture_raises_and_never_serves_eagerly(dev):
     g.run("decode", "tick", 2, lambda: x.add_(1))
     torch.cuda.synchronize()
     assert x.tolist() == [4.0] * 4 and g.captures == 1 and g.replays == 1
+
+
+@pytest.mark.parametrize("policy", ["round-robin", "predicted"])
+def test_cluster_streams_on_cuda_match_the_cpu(dev, policy):
+    """Two reduced granite replicas from one set of weights behind the
+    cluster frontend, span tracing on, one replica killed mid-decode in
+    the second round: the card's streams, routes and failovers equal the
+    CPU's, each round's streams equal one engine's, no capture follows
+    the first round, and the traces export and validate."""
+    from repro_torch import serving as ts
+
+    cfg, p_cpu, p_gpu = _reduced_granite(dev)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 500, n).astype(np.int32)
+               for n in (5, 23, 40, 17, 64, 9)]
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def reqs():
+        return [ts.Request(rid=i, prompt=p, max_new_tokens=12,
+                           sampling=(ts.SamplingParams(
+                               temperature=0.8, top_k=20, top_p=0.9,
+                               seed=1000 + i) if i % 2
+                               else ts.SamplingParams()))
+                for i, p in enumerate(prompts)]
+
+    def drive(server, rs, inj=None):
+        for r in rs:
+            server.submit(r, 0.0)
+        t = 0.0
+        while not all(r.done for r in rs):
+            t += 1.0
+            if inj is not None:
+                inj.tick(t)
+            server.step(t)
+            assert t < 500
+        server.drain(t)
+        return [r.output for r in rs]
+
+    try:
+        seen = {}
+        for params, device in ((p_gpu, dev), (p_cpu, "cpu")):
+            config = ts.EngineConfig(slots=2, max_seq=128, sync_every=4,
+                                     tracing=True)
+            e0 = ts.ServingEngine(cfg, params, config, device=device)
+            e1 = ts.ServingEngine(cfg, e0.params, config, device=device)
+            single = drive(e0, reqs())
+            e1_warm = drive(e1, reqs())
+            captures = (e0.graphs.captures, e1.graphs.captures)
+            out = []
+            for kill in (False, True):
+                for e in (e0, e1):
+                    e.reset()
+                proxies = [ts.FaultyEngine(e) for e in (e0, e1)]
+                fe = ts.ClusterFrontend(proxies, policy=policy, seed=0,
+                                        tracing=True)
+                inj = ts.FaultInjector({fe.instances[1].name: proxies[1]})
+                if kill:
+                    inj.schedule(4.0, fe.instances[1].name, "kill")
+                rs = reqs()
+                streams = drive(fe, rs, inj)
+                assert streams == single == e1_warm
+                doc = ts.chrome_trace(ts.request_traces(rs))
+                assert ts.validate_chrome_trace(doc) == []
+                out.append((streams, [r.routed_to for r in rs],
+                            fe.merged_metrics().failed_over,
+                            [i.name for i in fe.failed]))
+            assert (e0.graphs.captures, e1.graphs.captures) == captures
+            assert out[1][2] > 0 and out[1][3] == ["pool/e1"]
+            seen[str(device)] = out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert seen[str(dev)] == seen["cpu"]
+
+
+def test_a_dropped_engine_gives_back_its_device_memory(dev):
+    """Every engine's first (eager) runs share one stream per card, since
+    cuBLAS keeps a workspace for each stream it has run on for the life of
+    the process: an engine that captured its steps and is then dropped (a
+    retired or rebuilt replica) leaves no device memory behind."""
+    import gc
+
+    from repro_torch import serving as ts
+
+    cfg, _, p_gpu = _reduced_granite(dev)
+
+    def served():
+        eng = ts.ServingEngine(cfg, p_gpu, ts.EngineConfig(
+            slots=2, max_seq=128, sync_every=4), device=dev)
+        _staggered_round(ts, eng)
+        return eng
+
+    first = served()  # pays the process's one-time allocations
+    side = first.graphs._side
+    del first
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = served()
+    assert eng.graphs._side is side
+    assert eng.graphs.captures > 0
+    del eng
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base

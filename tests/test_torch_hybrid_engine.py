@@ -222,7 +222,8 @@ def test_validate_keeps_the_reference_refusals_on_rolling_caches(hybrid):
     # served now: rolling caches on both archs, int8 weights on rolling
     # dense, chunked prefill on rolling caches (recurrentgemma never
     # chunks: its recurrent state forbids end padding, as in the
-    # reference); still refused: tracing, naming its ROADMAP.md item
+    # reference), tracing; still refused: a sharded replica, naming its
+    # ROADMAP.md item
     ts.EngineConfig(paged=False).validate(granite)
     ts.EngineConfig().validate(tc)
     ts.EngineConfig(paged=False, precision=ts.PrecisionConfig(
@@ -233,8 +234,10 @@ def test_validate_keeps_the_reference_refusals_on_rolling_caches(hybrid):
                             device="cpu").chunk == 0
     assert js.ServingEngine(jc, jp, js.EngineConfig(
         slots=1, chunk_prefill=32)).chunk == 0
+    ts.EngineConfig(paged=False, tracing=True).validate(tc)
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        ts.EngineConfig(paged=False, tracing=True).validate(tc)
+        ts.EngineConfig(paged=False, topology=ts.DeviceTopology(
+            tp=2)).validate(tc)
 
 
 def test_serve_cli_serves_recurrentgemma_from_rolling_caches(capsys):

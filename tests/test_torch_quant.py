@@ -517,12 +517,14 @@ def test_validate_accepts_dense_paged_int8_and_keeps_the_jax_rules():
         ts.EngineConfig(topology=ts.DeviceTopology(tp=2), **w8).validate(tc)
     # without an arch the reference's rules have nothing to check: rolling
     # caches are served, so both packages pass; so are chunks over int8
-    # pages; what is not ported stays refused with its ROADMAP.md item
+    # pages, and tracing; what is not ported stays refused with its
+    # ROADMAP.md item
     ts.EngineConfig(paged=False, **kv8).validate()
     js.EngineConfig(paged=False, **jkv8).validate()
     ts.EngineConfig(chunk_prefill=32, **kv8).validate(tc)
+    ts.EngineConfig(tracing=True, **kv8).validate(tc)
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        ts.EngineConfig(tracing=True, **kv8).validate()
+        ts.EngineConfig(topology=ts.DeviceTopology(dp=2), **kv8).validate()
 
 
 # -- engine streams -----------------------------------------------------------
