@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Phases, in order (phases 7 and 8 run after phase 5, on granite's
-weights, before phase 6; phase 8's profiled round (e) runs last); any
-failure exits non-zero:
+weights, before phase 6; phases 9 and 10 after phase 6; phase 8's
+profiled round (e) runs last); any failure exits non-zero:
 
 1. Print the card (``nvidia-smi``), build every CUDA kernel of the port
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
@@ -37,7 +37,14 @@ failure exits non-zero:
    tile is timed at M 8, 16 and 32. The sampler is timed at both
    vocabularies under two mixes (phase 2's, and the bursts': 4 greedy
    rows, 4 at T 0.8, top-k 50, top-p 0.95), with the rows each of its
-   paths served.
+   paths served. Then the shapes of phases 9 and 10 (head_dim 128):
+   prefill attention at S 512 over 40/10, 48/4 and 32/2 heads; paged
+   decode (float32 and bf16) at S 1 and 4 there, int8 paged decode (bf16,
+   page scales) at 48/4 (G 12) and 32/2 (G 16); the chunk step's rolling
+   decode at S 64 over a (1, 1024) buffer (G x 64 = 256, 768 and 1024
+   rows); the sampler at vocab 100352, 49152, 65024 and 50280 (ragged
+   last block) under both mixes; the int8 matmul (bf16) at M 8 and 64
+   over phi3's, starcoder2's and chatglm3's projections.
 3. Serve the same greedy and seeded requests through the port's
    ``ServingEngine`` on granite-8b ``reduced()`` (float32, 2 kv heads) on
    the card and on the CPU, in the model dtype, with int8 KV pages and
@@ -51,9 +58,12 @@ failure exits non-zero:
    granite replicas built from one set of weights behind the
    ``predicted`` policy with span tracing on, on a virtual clock, and
    the same cluster through ``FaultyEngine`` proxies with one replica
-   killed mid-decode (its ledger replayed on the survivor); the streams
-   must be token-identical (on the card, through the engine's CUDA
-   graphs), and the cluster's must equal one engine's.
+   killed mid-decode (its ledger replayed on the survivor); then
+   phi3-medium-14b, starcoder2-15b (also at 12/1 heads), chatglm3-6b
+   (also at 16/1 heads, in float32 and with int8 KV pages) and
+   mamba2-1.3b ``reduced()``; the streams must be token-identical (on
+   the card, through the engine's CUDA graphs), and the cluster's must
+   equal one engine's.
    Phases 4-6 pass ``chunk_prefill=0``: single-shot prefill, their cells
    as before chunked prefill was ported.
 4. Serve granite-8b at full width (36 layers, bfloat16, random weights
@@ -141,6 +151,27 @@ failure exits non-zero:
    per replica routed requests, utilization and residual, a wall-timed
    burst's tok/s and TTFT, span totals by kind, the step wall p50 and
    peak memory.
+
+9. After phase 6: phi3-medium-14b, starcoder2-15b and chatglm3-6b at
+   full width and depth (40, 40 and 28 layers; bf16, random weights from
+   seed 0), one after the other, each freed before the next, on the
+   default path (paged KV pages of 16, chunk 64, max_seq 1024): phase
+   4's 16 prompts, 64 new tokens, half seeded, 8 slots; chatglm3 also
+   with int8 KV pages. Each engine pays its captures in a warm-up round;
+   then ``reset()`` and a timed round (launch counts zeroed just before,
+   read just after), a rerun and the steady decode of 8 requests. Gates:
+   every request finishes with its budget, the streams repeat, prefill
+   attention, paged decode (int8 on the int8 round), the chunk step's
+   rolling decode and the sampler launched, no capture after the
+   warm-up. Prints TTFT p50 / p90, tok/s, peak memory, launches per
+   kernel, ms per decode tick at 8 slots beside the weight-read floor.
+10. mamba2-1.3b at full width and depth (48 layers, d 2048, d_inner
+   4096, 64 heads of 64, state 128, chunk 256; bf16, tied head) from
+   rolling caches (exact-length prefill, captured decode), phase 4's
+   prompts on 8 slots, with phase 9's prints and gates (the sampler
+   launched); then in float32 at full width, decode logits 1 and 16
+   ticks after the 584-token prompt (chunks of 256, 256 and 72) against
+   the full forward, within 1e-3 of the largest logit.
 
 ``--profile DIR`` repeats the steady-decode serve (8 requests on 8
 slots) of phases 4, 5 and 6, and recurrentgemma's 2500-token prompt
@@ -253,72 +284,72 @@ def bf16_units(got, want, q, k, v, *, causal=True, window=0):
         / BF16_UNIT
 
 
-def phase_kernels(torch, rec):
-    """Phase 2: every kernel against its plain version, full width."""
+def prefill_kernel(torch, gen, H, KVH, D, s, dt_name):
+    """Prefill attention (causal) at S tokens of H q heads over KVH kv
+    heads against its plain version and ``ref.ref_attention``; bf16 also
+    in units of 2^-8 sum p|v|. Prints the line; returns (ok, the row's
+    numbers)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import layers as L
 
     dev = "cuda"
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    H, KVH, D = 32, 8, 128
-    ok = True
+    dt = getattr(torch, dt_name)
+    q = torch.randn((1, s, H, D), generator=gen, device=dev).to(dt)
+    k = torch.randn((1, s, KVH, D), generator=gen, device=dev).to(dt)
+    v = torch.randn((1, s, KVH, D), generator=gen, device=dev).to(dt)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = L.dense_attention(q, k, v, causal=True)
+    oracle = ref.ref_attention(
+        q.transpose(1, 2).reshape(H, s, D),
+        k.repeat_interleave(H // KVH, 2).transpose(1, 2).reshape(H, s, D),
+        v.repeat_interleave(H // KVH, 2).transpose(1, 2).reshape(H, s, D)
+    ).reshape(1, H, s, D).transpose(1, 2)
+    err = (got.float() - want.float()).abs().max().item()
+    err_ref = (got.float() - oracle.float()).abs().max().item()
+    tol = TOL[dt_name]
+    good = err <= tol and err_ref <= tol
+    units = ""
+    if dt_name == "bfloat16":
+        u, u_ref = (bf16_units(got, x, q, k, v) for x in (want, oracle))
+        good &= max(u, u_ref) <= BF16_UNITS_TOL
+        units = (f" scaled {u:.3g} (vs ref {u_ref:.3g}) units of "
+                 f"2^-8 sum p|v| tol={BF16_UNITS_TOL:g}")
+    ms = time_ms(torch, lambda i: ops.flash_attention(q, k, v))
+    plain = time_ms(torch, lambda i: L.dense_attention(q, k, v,
+                                                       causal=True))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = time_ms(torch, lambda i: torch.nn.functional
+                  .scaled_dot_product_attention(
+                      qt, kt, vt, is_causal=True, enable_gqa=True))
+    esz = q.element_size()
+    nbytes = esz * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4.0 * H * D * s * (s + 1) / 2
+    b_ms, b_by = bound(nbytes, flops, dt_name)
+    print(f"prefill {dt_name} S={s} H={H}/{KVH} D={D}: max_abs_err="
+          f"{err:.3g} (vs ref.ref_attention {err_ref:.3g}) tol={tol}{units} "
+          f"{'ok' if good else 'FAIL'} ms={ms:.4f} "
+          f"({tflops(flops, ms)}) plain_ms={plain:.4f} "
+          f"({tflops(flops, plain)}) sdpa_ms={lib:.4f} "
+          f"({tflops(flops, lib)}) bound_ms={b_ms:.5f} ({b_by})",
+          flush=True)
+    return good, dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=lib)
 
-    # -- prefill attention --------------------------------------------------
-    for dt_name in ("float32", "bfloat16"):
-        dt = getattr(torch, dt_name)
-        for s in (16, 128, 512, 2048):
-            q = torch.randn((1, s, H, D), generator=gen, device=dev).to(dt)
-            k = torch.randn((1, s, KVH, D), generator=gen, device=dev).to(dt)
-            v = torch.randn((1, s, KVH, D), generator=gen, device=dev).to(dt)
-            got = ops.flash_attention(q, k, v, causal=True)
-            want = L.dense_attention(q, k, v, causal=True)
-            oracle = ref.ref_attention(
-                q.transpose(1, 2).reshape(H, s, D),
-                k.repeat_interleave(H // KVH, 2).transpose(1, 2).reshape(
-                    H, s, D),
-                v.repeat_interleave(H // KVH, 2).transpose(1, 2).reshape(
-                    H, s, D)).reshape(1, H, s, D).transpose(1, 2)
-            err = (got.float() - want.float()).abs().max().item()
-            err_ref = (got.float() - oracle.float()).abs().max().item()
-            tol = TOL[dt_name]
-            good = err <= tol and err_ref <= tol
-            units = ""
-            if dt_name == "bfloat16":
-                u, u_ref = (bf16_units(got, x, q, k, v)
-                            for x in (want, oracle))
-                good &= max(u, u_ref) <= BF16_UNITS_TOL
-                units = (f" scaled {u:.3g} (vs ref {u_ref:.3g}) units of "
-                         f"2^-8 sum p|v| tol={BF16_UNITS_TOL:g}")
-            ok &= good
-            ms = time_ms(torch, lambda i: ops.flash_attention(q, k, v))
-            plain = time_ms(torch, lambda i: L.dense_attention(q, k, v,
-                                                               causal=True))
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib = time_ms(torch, lambda i: torch.nn.functional
-                          .scaled_dot_product_attention(
-                              qt, kt, vt, is_causal=True, enable_gqa=True))
-            esz = q.element_size()
-            nbytes = esz * (2 * q.numel() + k.numel() + v.numel())
-            flops = 4.0 * H * D * s * (s + 1) / 2
-            b_ms, b_by = bound(nbytes, flops, dt_name)
-            print(f"prefill {dt_name} S={s}: max_abs_err={err:.3g} "
-                  f"(vs ref.ref_attention {err_ref:.3g}) tol={tol}{units} "
-                  f"{'ok' if good else 'FAIL'} ms={ms:.4f} "
-                  f"({tflops(flops, ms)}) plain_ms={plain:.4f} "
-                  f"({tflops(flops, plain)}) sdpa_ms={lib:.4f} "
-                  f"({tflops(flops, lib)}) bound_ms={b_ms:.5f} ({b_by})",
-                  flush=True)
-            key = {512: "flash_attention", 2048: "flash_attention_s2048"}
-            if dt_name == "bfloat16" and s in key:
-                rec[key[s]].update(
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=lib)
 
-    # -- paged decode attention ------------------------------------------------
+def paged_decode_kernel(torch, rec, gen, H, KVH, D, s_list, rec_key):
+    """Paged decode attention over model-dtype pools (8 slots of 1-1024
+    tokens, pages of 16, a released slot on the trash page) against its
+    plain version and the oracle, float32 and bf16 (bf16 also in units of
+    2^-8 sum p|v| and bit for bit on a repeat call), timed at S 1 and 4;
+    ``rec[rec_key]`` takes the bf16 S 1 row."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+
+    dev = "cuda"
     ps, n_pages, B = 16, 64, 8
     P = B * n_pages + 1
     ctx = [1, 15, 16, 17, 200, 513, 1000, 1024]  # partial and full pages
+    ok = True
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
         # 4 pool pairs (over 130 MB in bfloat16, more than the 50 MB L2):
@@ -332,7 +363,7 @@ def phase_kernels(torch, rec):
         table = perm[:B * n_pages].reshape(B, n_pages).to(torch.int32)
         table_rel = table.clone()
         table_rel[3] = 0  # a released slot: every entry the trash page
-        for s in (1, 4, 8):
+        for s in s_list:
             for name, tab, pos_list in (
                     ("live", table, [max(c, s) for c in ctx]),
                     ("released", table_rel,
@@ -358,9 +389,10 @@ def phase_kernels(torch, rec):
                     units = (f" scaled {u:.3g} units of 2^-8 sum p|v|, a "
                              f"second call bit-identical: {same}")
                 ok &= good
-                line = (f"paged decode {dt_name} S={s} {name}: "
-                        f"max_abs_err={err:.3g} (vs ref {err_ref:.3g}) "
-                        f"tol={tol}{units} {'ok' if good else 'FAIL'}")
+                line = (f"paged decode {dt_name} S={s} H={H}/{KVH} D={D} "
+                        f"{name}: max_abs_err={err:.3g} (vs ref "
+                        f"{err_ref:.3g}) tol={tol}{units} "
+                        f"{'ok' if good else 'FAIL'}")
                 if name == "live" and s in (1, 4):
                     ms = time_ms(torch, lambda i: ops.paged_decode_attention(
                         q, *pools[i % 4], tab, pos))
@@ -375,11 +407,38 @@ def phase_kernels(torch, rec):
                     line += (f" ms={ms:.4f} plain_ms={plain:.4f} "
                              f"bound_ms={b_ms:.5f} ({b_by})")
                     if dt_name == "bfloat16" and s == 1:
-                        rec["paged_decode_attention"].update(
+                        rec[rec_key].update(
                             max_abs_err=err, ms=ms, plain_ms=plain,
                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
                 print(line, flush=True)
+        del pools, kp, vp
+    return ok
 
+
+def phase_kernels(torch, rec):
+    """Phase 2: every kernel against its plain version, full width."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    H, KVH, D = 32, 8, 128
+    ok = True
+
+    # -- prefill attention --------------------------------------------------
+    key = {512: "flash_attention", 2048: "flash_attention_s2048"}
+    for dt_name in ("float32", "bfloat16"):
+        for s in (16, 128, 512, 2048):
+            good, row = prefill_kernel(torch, gen, H, KVH, D, s, dt_name)
+            ok &= good
+            if dt_name == "bfloat16" and s in key:
+                rec[key[s]].update(row)
+
+    # -- paged decode attention ------------------------------------------------
+    B = 8
+    ok &= paged_decode_kernel(torch, rec, gen, H, KVH, D, (1, 4, 8),
+                              "paged_decode_attention")
     ok &= chunk_decode_kernel(torch, rec, gen, H, KVH, D)
     ok &= int8_decode_kernel(torch, rec, gen, H, KVH, D)
     ok &= int8_matmul_kernel(torch, rec, gen)
@@ -411,6 +470,7 @@ def phase_kernels(torch, rec):
           f"ref.ref_topk_sample and plain: {'ok' if good else 'FAIL'} "
           f"ms={ms:.4f} plain_ms={plain:.4f}", flush=True)
     ok &= hybrid_kernels(torch, rec, gen)
+    ok &= dense_family_kernels(torch, rec, gen)
     return ok
 
 
@@ -688,13 +748,15 @@ def hybrid_kernels(torch, rec, gen):
     return ok
 
 
-def chunk_decode_kernel(torch, rec, gen, H, KVH, D):
+def chunk_decode_kernel(torch, rec, gen, H, KVH, D, sizes=(64, 512),
+                        rec_key="decode_attention_chunk"):
     """Rolling-cache decode attention at the chunk and suffix steps'
-    shapes: S queries of granite's width over one (1, 1024) linear buffer
-    (G * S query rows in groups of 64), S 64 (a chunk of prefill, the
-    buffer's last) and S 512 (a suffix of 512 from 512), held to the
-    plain version: bf16 in units of 2^-8 sum p|v| and bit for bit on a
-    repeat call, float32 to 2e-5."""
+    shapes: S queries of H q heads over KVH kv heads over one (1, 1024)
+    linear buffer (G * S query rows in groups of 64), S 64 (a chunk of
+    prefill, the buffer's last) and S 512 (a suffix of 512 from 512),
+    held to the plain version: bf16 in units of 2^-8 sum p|v| and bit for
+    bit on a repeat call, float32 to 2e-5; ``rec[rec_key]`` takes the
+    bf16 S 64 row."""
     from repro_torch.kernels import ops, plain
 
     dev, W = "cuda", 1024
@@ -707,7 +769,7 @@ def chunk_decode_kernel(torch, rec, gen, H, KVH, D):
                                   device=dev).to(dt) for _ in range(2))
                 for _ in range(4)]
         kc, vc = bufs[0]
-        for s in (64, 512):
+        for s in sizes:
             pos = torch.tensor([W], dtype=torch.int32, device=dev)
             q = torch.randn((1, s, H, D), generator=gen, device=dev).to(dt)
             got = ops.decode_attention(q, kc, vc, pos)
@@ -748,20 +810,25 @@ def chunk_decode_kernel(torch, rec, gen, H, KVH, D):
                   f"plain_ms={pl_ms:.4f} sdpa_mask_ms={lib:.4f} "
                   f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
             if dt_name == "bfloat16" and s == 64:
-                rec["decode_attention_chunk"].update(
+                rec[rec_key].update(
                     max_abs_err=err, ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib)
         del bufs, kc, vc
     return ok
 
 
-def int8_decode_kernel(torch, rec, gen, H, KVH, D):
+def int8_decode_kernel(torch, rec, gen, H, KVH, D,
+                       dtypes=("float32", "bfloat16"),
+                       grans=("page", "token"),
+                       rec_key="paged_decode_attention_int8"):
     """The int8 paged decode kernel against its plain version (the twin
     ``layers.paged_decode_attention_int8``), the oracle, the Pallas body's
     float32-dequant semantics (printed), and within
     ``int8_attention_output_bound`` (plus the type's tolerance, for the
     rounding of both outputs) of the model-dtype kernel on the unquantized
-    K/V."""
+    K/V; at H q heads over KVH kv heads, each of ``dtypes`` and scale
+    granularities ``grans``. ``rec[rec_key]`` (when given) takes the bf16
+    page-scale S 1 row."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import layers as L
     from repro_torch.models.blocks import dequantize_kv, quantize_kv
@@ -771,7 +838,7 @@ def int8_decode_kernel(torch, rec, gen, H, KVH, D):
     P = B * n_pages + 1
     ctx = [1, 15, 16, 17, 200, 513, 1000, 1024]  # partial and full pages
     ok = True
-    for dt_name in ("float32", "bfloat16"):
+    for dt_name in dtypes:
         dt = getattr(torch, dt_name)
         tol, tol_twin = TOL[dt_name], INT8_DECODE_TOL[dt_name]
         raw = [torch.randn((P * ps, KVH, D), generator=gen,
@@ -780,7 +847,7 @@ def int8_decode_kernel(torch, rec, gen, H, KVH, D):
         table = perm[:B * n_pages].reshape(B, n_pages).to(torch.int32)
         table_rel = table.clone()
         table_rel[3] = 0  # a released slot: every entry the trash page
-        for gran in ("page", "token"):
+        for gran in grans:
             group = ps if gran == "page" else 0
             # 4 pool sets (about 70 MB, more than the 50 MB L2) for the
             # timed launches, as the main path reads each layer's cold
@@ -838,7 +905,8 @@ def int8_decode_kernel(torch, rec, gen, H, KVH, D):
                                  f"{same}")
                     ok &= good
                     line = (f"paged decode int8 {dt_name} {gran} scales "
-                            f"S={s} {name}: max_abs_err={e:.3g} "
+                            f"S={s} H={H}/{KVH} {name}: "
+                            f"max_abs_err={e:.3g} "
                             f"tol={tol_twin} (vs ref {e_ref:.3g} "
                             f"tol={tol}); vs float32-dequant "
                             f"(Pallas body) {e_pal:.3g}; vs unquantized "
@@ -860,8 +928,8 @@ def int8_decode_kernel(torch, rec, gen, H, KVH, D):
                         line += (f" ms={ms:.4f} plain_ms={plain:.4f} "
                                  f"bound_ms={b_ms:.5f} ({b_by})")
                         if dt_name == "bfloat16" and s == 1 \
-                                and gran == "page":
-                            rec["paged_decode_attention_int8"].update(
+                                and gran == "page" and rec_key:
+                            rec[rec_key].update(
                                 max_abs_err=e, ms=ms, plain_ms=plain,
                                 bound_ms=b_ms, bound_by=b_by,
                                 library_ms=None)
@@ -870,21 +938,26 @@ def int8_decode_kernel(torch, rec, gen, H, KVH, D):
     return ok
 
 
-def int8_matmul_kernel(torch, rec, gen):
-    """The int8-weight matmul against its plain version at granite's
-    projection shapes, decode (M = 8) and prefill (M = 512); the library
-    yardstick is torch.matmul with the same weight held in x's dtype (the
-    projection the kernel replaces)."""
+GRANITE_PROJ = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+
+
+def int8_matmul_kernel(torch, rec, gen, shapes=GRANITE_PROJ,
+                       dtypes=("bfloat16", "float32"),
+                       bf16_rows=(8, 16, 32, 64, 512)):
+    """The int8-weight matmul against its plain version at projection
+    shapes (K, N) (granite's by default), decode (M = 8) and prefill (M =
+    512; the chunk steps' 64); the library yardstick is torch.matmul with
+    the same weight held in x's dtype (the projection the kernel
+    replaces)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import layers as L
 
     dev = "cuda"
     ok = True
-    for dt_name in ("bfloat16", "float32"):
+    for dt_name in dtypes:
         dt = getattr(torch, dt_name)
         tol = TOL[dt_name]
-        for k, n in ((4096, 4096), (4096, 1024), (4096, 14336),
-                     (14336, 4096)):
+        for k, n in shapes:
             # enough weight sets to exceed the 50 MB L2 between launches
             n_sets = max(1, -(-120_000_000 // (k * n)))
             ws = [ops.quantize_int8(torch.randn((k, n), generator=gen,
@@ -892,8 +965,7 @@ def int8_matmul_kernel(torch, rec, gen):
                   for _ in range(n_sets)]
             w_lib = [(q.to(torch.float32) * s).to(dt) for q, s in ws]
             w_q, scale = ws[0]
-            for m in ((8, 16, 32, 64, 512) if dt_name == "bfloat16"
-                      else (8, 512)):
+            for m in (bf16_rows if dt_name == "bfloat16" else (8, 512)):
                 x = torch.randn((m, k), generator=gen, device=dev).to(dt)
                 got = ops.int8_matmul(x, w_q, scale)
                 want = L.int8_matmul(x, w_q, scale)
@@ -930,6 +1002,61 @@ def int8_matmul_kernel(torch, rec, gen):
                         max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib)
             del ws, w_lib
+    return ok
+
+
+#: the dense families served at full width (phase 9): (arch, q heads, kv
+#: heads, vocabulary), head_dim 128 in all three
+DENSE_FAMILIES = {"phi3": ("phi3-medium-14b", 40, 10, 100352),
+                  "starcoder2": ("starcoder2-15b", 48, 4, 49152),
+                  "chatglm3": ("chatglm3-6b", 32, 2, 65024)}
+MAMBA2_VOCAB = 50280  # 8 blocks of 6288 logits, the last of 6264
+#: their projections (K, N): phi3's, starcoder2's and chatglm3's d x d_ff
+#: and d_ff x d, and chatglm3's K/V projection (2 kv heads of 128)
+DENSE_PROJ = ((5120, 17920), (17920, 5120), (6144, 24576), (24576, 6144),
+              (4096, 13696), (13696, 4096), (4096, 256))
+
+
+def dense_family_kernels(torch, rec, gen):
+    """The kernels at the shapes of phi3-medium-14b, starcoder2-15b,
+    chatglm3-6b and mamba2-1.3b: prefill attention at S 512 (float32 and
+    bf16), paged decode over model-dtype pools at S 1 and 4 (float32 and
+    bf16), int8 paged decode (bf16, page scales) at starcoder2's G 12 and
+    chatglm3's G 16, the chunk step's rolling decode at S 64 over a (1,
+    1024) buffer, the sampler at each vocabulary under both mixes, and
+    the int8 matmul (bf16) at M 8 and 64 over the new projections. Each
+    arch's bf16 rows go into its ``rec`` records."""
+    D = 128
+    ok = True
+    for arch, (_, H, KVH, _) in DENSE_FAMILIES.items():
+        for dt_name in ("float32", "bfloat16"):
+            good, row = prefill_kernel(torch, gen, H, KVH, D, 512, dt_name)
+            ok &= good
+            if dt_name == "bfloat16":
+                rec[f"flash_attention_{arch}"].update(row)
+        ok &= paged_decode_kernel(torch, rec, gen, H, KVH, D, (1, 4),
+                                  f"paged_decode_attention_{arch}")
+        ok &= chunk_decode_kernel(torch, rec, gen, H, KVH, D, sizes=(64,),
+                                  rec_key=f"decode_attention_chunk_{arch}")
+        if arch != "phi3":  # G 4, granite's group, is held above
+            ok &= int8_decode_kernel(
+                torch, rec, gen, H, KVH, D, dtypes=("bfloat16",),
+                grans=("page",),
+                rec_key=("paged_decode_attention_int8_chatglm3"
+                         if arch == "chatglm3" else None))
+    vocabs = [(a, f[3]) for a, f in DENSE_FAMILIES.items()]
+    for arch, V in vocabs + [("mamba2", MAMBA2_VOCAB)]:
+        logits = torch.randn((8, V), generator=gen, device="cuda") * 4.0
+        # an argmax tie, one of its ends in the last block
+        logits[0, 7] = logits[0, V - 2] = logits[0].max() + 1.0
+        good, res = sampler_check(torch, logits, 1000, 100, 7)
+        ok &= good
+        mism, _, ms, plain, b_ms, b_by = res["phase 2"]
+        rec[f"sample_tokens_{arch}"].update(
+            max_abs_err=float(mism), ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)
+    ok &= int8_matmul_kernel(torch, rec, gen, shapes=DENSE_PROJ,
+                             dtypes=("bfloat16",), bf16_rows=(8, 64))
     return ok
 
 
@@ -1077,7 +1204,9 @@ def _leaves(tree):
 def phase_reduced(torch):
     """Phase 3: reduced float32 streams, CUDA vs CPU: granite in the model
     dtype, with int8 KV pages and int8 weights, and from rolling caches;
-    recurrentgemma (5 layers, rings of 64) with prompts past the window."""
+    recurrentgemma (5 layers, rings of 64) with prompts past the window;
+    phi3, starcoder2 (also at 12/1 heads: G 12), chatglm3 (also at 16/1
+    heads: G 16, and with int8 KV pages there) and mamba2."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1087,6 +1216,12 @@ def phase_reduced(torch):
                               num_kv_heads=2)
     hybrid = dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
                                  num_layers=5)
+    new = {a.split("-")[0]: get_config(a).reduced() for a in (
+        "phi3-medium-14b", "starcoder2-15b", "chatglm3-6b", "mamba2-1.3b")}
+    sc12 = dataclasses.replace(new["starcoder2"], num_heads=12,
+                               num_kv_heads=1)
+    glm16 = dataclasses.replace(new["chatglm3"], num_heads=16,
+                                num_kv_heads=1)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (5, 23, 40, 17, 64, 9)]
@@ -1104,11 +1239,20 @@ def phase_reduced(torch):
              dict(paged=False, chunk_prefill=16)),
             ("granite int8 kv chunked 16", cfg,
              dict(kv_cache_dtype="int8"), dict(chunk_prefill=16)),
-            ("recurrentgemma 5 layers f32, rings of 64", hybrid, None, {})):
-        if arch.name not in weights:
+            ("recurrentgemma 5 layers f32, rings of 64", hybrid, None, {}),
+            ("phi3 f32", new["phi3"], None, {}),
+            ("starcoder2 f32 (LayerNorm, GELU)", new["starcoder2"], None,
+             {}),
+            ("starcoder2 12/1 heads f32 (G 12)", sc12, None, {}),
+            ("chatglm3 f32 (half RoPE)", new["chatglm3"], None, {}),
+            ("chatglm3 16/1 heads f32 (G 16)", glm16, None, {}),
+            ("chatglm3 16/1 heads int8 kv (G 16)", glm16,
+             dict(kv_cache_dtype="int8"), {}),
+            ("mamba2 f32 (SSD, rolling caches)", new["mamba2"], None, {})):
+        if arch not in weights:
             p_cpu = init_params(arch, seed=0, device="cpu")
-            weights[arch.name] = (p_cpu, _to(torch, p_cpu, "cuda"))
-        p_cpu, p_gpu = weights[arch.name]
+            weights[arch] = (p_cpu, _to(torch, p_cpu, "cuda"))
+        p_cpu, p_gpu = weights[arch]
         ps = long_prompts if arch is hybrid else prompts
         run = dict(max_new=24, slots=3, max_seq=128, precision=precision,
                    **engine)
@@ -1142,8 +1286,8 @@ def phase_reduced(torch):
         if engine.get("chunk_prefill") and not chunks:
             ok = False
             print(f"FAIL: reduced {label} ran no prefill chunk", flush=True)
-    ok &= reduced_prefix_and_preempt(torch, cfg, *weights[cfg.name])
-    ok &= reduced_cluster(torch, cfg, *weights[cfg.name])
+    ok &= reduced_prefix_and_preempt(torch, cfg, *weights[cfg])
+    ok &= reduced_cluster(torch, cfg, *weights[cfg])
     return ok
 
 
@@ -1329,6 +1473,17 @@ def _to(torch, tree, device):
     return tree.to(device)
 
 
+def burst_prompts():
+    """Phase 4's 16 prompts: 29-584 tokens (numpy seed 0), drawn below
+    granite's vocabulary of 49152, the smallest of the archs served at
+    full width. Returns (lengths, prompts)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(20, 601, 16)
+    return lens, [rng.integers(0, 49152, n).astype(np.int32) for n in lens]
+
+
 def phase_full(torch, rec, full, profile_dir=None):
     """Phase 4: granite-8b at full width through the engine. Leaves the
     weights, prompts, streams and steady tick in ``full`` for phase 5."""
@@ -1347,10 +1502,7 @@ def phase_full(torch, rec, full, profile_dir=None):
     n_par += params["embed"].numel() + params["lm_head"].numel()
     print(f"full width granite-8b: {n_par / 1e9:.3f} B params (bf16) "
           f"initialized in {time.perf_counter() - t0:.1f}s", flush=True)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(20, 601, 16)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in lens]
+    lens, prompts = burst_prompts()
     run = dict(device="cuda", max_new=64, slots=8, max_seq=1024,
                chunk_prefill=0)
     warm, st0 = warm_round(torch, "granite bf16", cfg, params, prompts, run)
@@ -2329,6 +2481,193 @@ def ring_check(torch, cfg, params, prompt, ticks):
     return placed, errs
 
 
+def full_width_engine(torch, rec, label, cfg, params, prompts, run,
+                      kernels):
+    """One engine at full width on ``prompts`` (64 new tokens each): a
+    warm-up round pays its captures; then ``reset()``, the launch counts
+    zeroed, a timed round, the counts read; a rerun; the steady decode of
+    the first 8 requests on the 8 slots. Gates: every request finishes
+    with its 64 tokens, the timed round and the rerun give the warm-up
+    round's streams, every kernel of ``kernels`` ({record: launch
+    counter}) launched in the timed round (its record takes the count),
+    and the graph rule (nothing captured after the warm-up round).
+    Prints the burst's TTFT and tok/s, peak memory, launches per kernel,
+    and ms per decode tick at 8 slots. Returns (ok, ms per tick)."""
+    from repro_torch.kernels import ops
+
+    warm, st0 = warm_round(torch, label, cfg, params, prompts, run)
+    run = dict(run, eng=st0["engine"])
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    reqs, st = serve(torch, cfg, params, prompts, **run)
+    launches, paths = dict(ops.LAUNCHES), ops.path_rows()
+    mem = memory(torch)
+    ok = True
+    unfinished = [r.rid for r in reqs
+                  if r.state.value != "finished" or len(r.output) != 64]
+    if unfinished:
+        ok = False
+        print(f"FAIL: {label} requests without their 64 tokens: "
+              f"{unfinished}", flush=True)
+    for key, name in kernels.items():
+        rec[key]["launches"] = launches[name]
+        if launches[name] <= 0:
+            ok = False
+            print(f"FAIL: kernel {name} never launched on the {label} "
+                  f"path", flush=True)
+    reqs2, _ = serve(torch, cfg, params, prompts, **run)
+    same = (all(a.output == b.output for a, b in zip(warm, reqs))
+            and all(a.output == b.output for a, b in zip(reqs, reqs2)))
+    ok &= same
+    print(burst_line(f"{label} burst (16 requests on 8 slots, 64 new, half "
+                     f"seeded)", reqs, st) + f", {mem}; timed round and "
+          f"rerun identical to the warm-up round: {same}", flush=True)
+    print(f"{label} kernels (launches in the timed round): "
+          + ", ".join(f"{k}={v}" for k, v in launches.items())
+          + "; sampler rows by path: "
+          + ", ".join(f"{k}={v}" for k, v in paths.items()), flush=True)
+    # steady decode: the first 8 requests on the 8 slots, every step
+    # synchronized; the steps that ran decode ticks alone (no chunk, no
+    # prefill beside them) give the tick
+    log = []
+    reqs3, st3 = serve(torch, cfg, params, prompts[:8], step_log=log, **run)
+    busy, n_busy, tick = tick_while(log, "chunks")
+    alone = sum(r[2] for r in log if r[2] > 0 and not r[1] and not r[3])
+    print(f"{label} decode at 8 slots: {tick:.2f} ms per tick of decode "
+          f"alone ({alone} of {st3['ticks']} ticks, "
+          f"{8000 / tick if tick else 0:.1f} tok/s)"
+          f"; {busy:.2f} ms per tick while chunks interleave ({n_busy} "
+          f"steps)", flush=True)
+    ok &= graphs_ok(label, warm, st0)
+    return ok, tick
+
+
+def phase_dense(torch, rec):
+    """Phase 9: phi3-medium-14b, starcoder2-15b and chatglm3-6b at full
+    width and depth in bf16 (random weights from seed 0), one after the
+    other, each freed before the next, on the default path (paged KV,
+    chunk 64): phase 4's 16 prompts, 8 slots, pages of 16, max_seq 1024;
+    chatglm3 also with int8 KV pages (G 16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    _, prompts = burst_prompts()
+    run = dict(device="cuda", max_new=64, slots=8, max_seq=1024)
+    ok = True
+    for arch, (name, H, KVH, V) in DENSE_FAMILIES.items():
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for t in _leaves(params))
+        floor = 2 * n_par / HBM_BW * 1e3
+        print(f"full width {name}: {cfg.num_layers} layers, d "
+              f"{cfg.d_model}, {H}/{KVH} heads (G {H // KVH}), vocab {V}, "
+              f"{n_par / 1e9:.3f} B params (bf16) initialized in "
+              f"{time.perf_counter() - t0:.1f}s; weight-read floor "
+              f"{floor:.2f} ms per tick at 3.35 TB/s", flush=True)
+        good, _ = full_width_engine(
+            torch, rec, f"{arch} bf16", cfg, params, prompts, run,
+            {f"flash_attention_{arch}": "flash_attention",
+             f"paged_decode_attention_{arch}": "paged_decode_attention",
+             f"decode_attention_chunk_{arch}": "decode_attention",
+             f"sample_tokens_{arch}": "sample_tokens"})
+        ok &= good
+        gc.collect()
+        if arch == "chatglm3":
+            good, _ = full_width_engine(
+                torch, rec, f"{arch} int8 kv", cfg, params, prompts,
+                dict(run, precision=dict(kv_cache_dtype="int8")),
+                {"paged_decode_attention_int8_chatglm3":
+                 "paged_decode_attention_int8"})
+            ok &= good
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok
+
+
+def phase_ssd(torch, rec):
+    """Phase 10: mamba2-1.3b at full width and depth in bf16 from rolling
+    caches (exact-length prefill, captured decode), phase 4's prompts on
+    8 slots; then, in float32 at full width, decode logits after the
+    584-token prompt (chunks of 256, 256 and a ragged 72) against the
+    full forward over the prompt and the decoded tokens."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config("mamba2-1.3b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    state_mb = (cfg.ssm_num_heads * cfg.ssm_head_dim * cfg.ssm_state_dim
+                * 4 / 1e6)
+    print(f"full width mamba2-1.3b: {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_num_heads} heads "
+          f"of {cfg.ssm_head_dim}, state {cfg.ssm_state_dim}, chunk "
+          f"{cfg.ssm_chunk}, {n_par / 1e9:.3f} B params (bf16, tied head) "
+          f"initialized in {time.perf_counter() - t0:.1f}s; floor per tick "
+          f"at 3.35 TB/s: weights {2 * n_par / HBM_BW * 1e3:.2f} ms, SSD "
+          f"state read and written at 8 slots "
+          f"{2 * 8 * cfg.num_layers * state_mb * 1e6 / HBM_BW * 1e3:.2f} "
+          f"ms ({state_mb:.2f} MB a slot a layer)", flush=True)
+    lens, prompts = burst_prompts()
+    run = dict(device="cuda", max_new=64, slots=8, max_seq=None)
+    ok, _ = full_width_engine(torch, rec, "mamba2 bf16", cfg, params,
+                              prompts, run,
+                              {"sample_tokens_mamba2": "sample_tokens"})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(cfg32, seed=0, device="cuda")
+    prompt = prompts[int(np.argmax(lens))]
+    errs = ssd_decode_check(torch, cfg32, params, prompt, ticks=(1, 16))
+    good = True
+    for t, (err, scale) in errs.items():
+        tol = F32_DECODE_TOL * scale
+        good &= err <= tol
+        print(f"mamba2 float32 decode tick {t} after the {len(prompt)}-"
+              f"token prompt vs the full forward: max_abs_err={err:.4g} "
+              f"tol={tol:.4g} ({F32_DECODE_TOL} x max|logit| {scale:.3g})",
+              flush=True)
+    print(f"mamba2 float32 decode vs forward {'ok' if good else 'FAIL'}",
+          flush=True)
+    del params
+    return ok and good
+
+
+def ssd_decode_check(torch, cfg, params, prompt, ticks):
+    """Prefill ``prompt`` into a fresh rolling cache, decode greedily and,
+    at each tick in ``ticks``, compare the logits with the full forward
+    over the prompt and the decoded tokens. Returns {tick: (max abs
+    error, max |logit|)}."""
+    from repro_torch.models import decode_step, forward, init_cache
+
+    toks = torch.from_numpy(prompt).to("cuda")[None]
+    cache = init_cache(cfg, 1, 512, device="cuda")
+    at = torch.full((1,), toks.shape[1] - 1, dtype=torch.int64,
+                    device="cuda")
+    last, _ = forward(cfg, params, toks, logits_at=at, cache=cache)
+    seq, nxt = toks, torch.argmax(last, dim=-1)[:, None]
+    errs = {}
+    for t in range(1, max(ticks) + 1):
+        seq = torch.cat([seq, nxt], 1)
+        dec = decode_step(cfg, params, cache, nxt)[:, 0]
+        if t in ticks:
+            at = torch.full((1,), seq.shape[1] - 1, dtype=torch.int64,
+                            device="cuda")
+            want, _ = forward(cfg, params, seq, logits_at=at)
+            errs[t] = ((dec - want).abs().max().item(),
+                       max(1.0, want.abs().max().item()))
+        nxt = torch.argmax(dec, dim=-1)[:, None]
+    return errs
+
+
 def write_profile(prof, out_dir, st, table_name,
                   label="decode at 8 slots"):
     """Device time by kernel name, and the device's busy share of the
@@ -2459,6 +2798,32 @@ def main() -> int:
             source=f"{csrc}/sampling.cu",
             replaces="src/repro/kernels/topk_sample.py:63"),
     }
+    # the same kernels at the shapes of phases 9 and 10
+    rows = {"flash_attention": ("flash_attention", "S 512",
+                                "flash_attention.py:74"),
+            "paged_decode_attention": ("paged_decode_attention", "S 1",
+                                       "decode_attention.py:167"),
+            "decode_attention_chunk": ("decode_attention", "chunk S 64, "
+                                       "(1, 1024) buffer",
+                                       "decode_attention.py:264"),
+            "sample_tokens": ("sampling", "", "topk_sample.py:63")}
+    for arch, (name, H, KVH, V) in DENSE_FAMILIES.items():
+        for key, (src, what, line) in rows.items():
+            shape = f"vocab {V}" if src == "sampling" else \
+                f"{H}/{KVH} heads, {what}"
+            rec[f"{key}_{arch}"] = dict(
+                name=f"{key.replace('_chunk', '')} ({name}, {shape})",
+                route="cuda", source=f"{csrc}/{src}.cu",
+                replaces=f"src/repro/kernels/{line}")
+    rec["paged_decode_attention_int8_chatglm3"] = dict(
+        name="paged_decode_attention_int8 (chatglm3-6b, 32/2 heads, page "
+             "scales, S 1)", route="cuda",
+        source=f"{csrc}/paged_decode_attention_int8.cu",
+        replaces="src/repro/kernels/decode_attention.py:216")
+    rec["sample_tokens_mamba2"] = dict(
+        name=f"sample_tokens (mamba2-1.3b, vocab {MAMBA2_VOCAB})",
+        route="cuda", source=f"{csrc}/sampling.cu",
+        replaces="src/repro/kernels/topk_sample.py:63")
     full = {}
     for phase, fn in (("kernels vs plain", lambda: phase_kernels(torch,
                                                                  rec)),
@@ -2474,6 +2839,10 @@ def main() -> int:
                        lambda: phase_cluster(torch, rec, full)),
                       ("full-width hybrid serving",
                        lambda: phase_hybrid(torch, rec, profile_dir)),
+                      ("full-width dense families",
+                       lambda: phase_dense(torch, rec)),
+                      ("full-width SSD serving",
+                       lambda: phase_ssd(torch, rec)),
                       ("full-width profiler hook",
                        lambda: phase_profile_hook(torch))):
         t0 = time.perf_counter()
@@ -2483,8 +2852,8 @@ def main() -> int:
               flush=True)
         if phase == "full-width cluster frontend":
             full.clear()  # granite's weights go before recurrentgemma's
-            gc.collect()
-            torch.cuda.empty_cache()
+        gc.collect()  # each model is freed before the next is built
+        torch.cuda.empty_cache()
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

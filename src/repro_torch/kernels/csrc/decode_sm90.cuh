@@ -4,7 +4,7 @@
 //     port of the Pallas TPU kernel
 //     ``repro/kernels/decode_attention.py::decode_attention`` (TPU kernel
 //     6) over bf16 rolling caches (``decode_attention.cu``, ``RingPool``);
-//   * ``twin_kernel``, the twins' softmax order in float32 FMAs, serves
+//   * ``twin_kernel``, the twins' roundings over float64 sums, serves
 //     ``::paged_decode_attention`` (TPU kernel 2) over bf16 pools
 //     (``paged_decode_attention.cu``, ``PlainPool``) and
 //     ``::paged_decode_attention_int8`` (TPU kernel 4) over int8 pools
@@ -52,10 +52,16 @@
 // registers, publishes (m, l, O), and block r merges output columns
 // [r D / nsplit, ...) of every block with the weights exp(m_j - M).
 //
-// The twin kernel keeps the twins' order of roundings
-// (``layers.paged_decode_attention``, ``_int8``), to which int8 decode is
-// held at 1e-3: the row's GLOBAL max M and sum L first, then p =
-// round_to<bf16>(exp(s - M) / L), then P V in float32. One launch:
+// The twin kernel keeps the twins' roundings (``layers.paged_decode_
+// attention``, ``_int8``, over bf16 caches), to which int8 decode is held
+// at 1e-3: scores as one float32 FMA chain over d, the row's GLOBAL max M
+// and sum L, then p = round_to<bf16>(exp(s - M) / L), P V, the output
+// rounded to float32 and then bf16. L and P V are float64 sums: their
+// terms (exp values, exact float32 products of bf16 values) summed in
+// float64 land where the twin's float64 sums do, whatever order either
+// side sums in; float32 sums in two orders put one output a bf16 step
+// apart now and then, which at |o| >= 0.25 is past 1e-3 (seen at
+// chatglm3's 32/2 heads, S 4). One launch:
 //   A. each split computes its scaled, masked scores S = Q K^T, keeps them
 //      in shared memory as float32 (``keep``) and its own (m, l);
 //   B. ``cluster.sync()``, then every block reads all ranks' (m, l)
@@ -65,18 +71,15 @@
 //      block r sums output columns [r D / nsplit, ...) of every block's O
 //      in rank order (p is already normalized: no rescaling) and writes
 //      bf16.
-// The scores never leave the SM. Both products are chains of float32 FMAs in
-// the twin's order (over d for S, over the split's keys for P V): bf16
-// products are exact, so within a split they are the twin's float32 sums bit
-// for bit. On ``mma.sync`` they are not: S differs in its last bits and p
-// then flips by one bf16 step, and the tensor cores' wider P V sums miss the
-// twin's float32 rounding onto a midpoint between two bf16 values (one
-// element 3.9e-3 off at S 4 in ``chip_smoke.py``); on the H100 both broke
-// the int8 kernel's 1e-3 gate now and then. A split whose scores do not fit
-// the shared memory (``keep`` 0: long contexts at many query rows) computes
-// Q K^T again in C from a second read of K. The ring's events are K tiles in
-// A, then V tiles (or K then V tiles) in C. ``expf`` (not ``ex2.approx``)
-// and a true division form p, as the twins do.
+// The scores never leave the SM. The score chains are the twin's float32
+// sums bit for bit: bf16 products are exact. On ``mma.sync`` they were
+// not: S differed in its last bits and p flipped by one bf16 step, and
+// the tensor cores' wider P V sums missed the twin's rounding (one element
+// 3.9e-3 off at S 4 in ``chip_smoke.py``). A split whose scores do not
+// fit the shared memory (``keep`` 0: long contexts at many query rows)
+// computes Q K^T again in C from a second read of K. The ring's events are
+// K tiles in A, then V tiles (or K then V tiles) in C. Double-precision
+// ``exp`` (the twin's, on the card) and a true division form p.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -566,6 +569,11 @@ decode_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
 
 // ---- the twin-order kernel -------------------------------------------
 
+__device__ __forceinline__ double warp_sum_f64(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 __device__ __forceinline__ void unpack_bf16x8(const uint4& w, float* f) {
   const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
@@ -638,13 +646,14 @@ __device__ __forceinline__ void scores_fma(const float* qf, const uint4* ks,
 
 // O += P V of one V tile for rows rg + RGC i (rg = t / (D / 2)) and
 // columns 2 c2, 2 c2 + 1 (c2 = t % (D / 2)) of thread t: P float32 (bf16
-// values) in pp[r * pitch + key], each output one chain of float32 FMAs
-// over the keys in order: over a split, the twin's float32 P V bit for
-// bit. Rows past R repeat row rg and are dropped.
+// values) in pp[r * pitch + key], each output a float64 sum over the keys
+// of the float32 products, which are exact (bf16 values): the order of
+// summation no longer shows in the rounded output. Rows past R repeat row
+// rg and are dropped.
 template <int D, int THREADS, int RPT>
 __device__ __forceinline__ void pv_rows(const float* pp, int pitch,
                                         const uint4* vs,
-                                        float (&acc)[RPT][2], int R) {
+                                        double (&acc)[RPT][2], int R) {
   constexpr int CPR = D / 8, RGC = THREADS / (D / 2);
   const int c2 = threadIdx.x % (D / 2), rg = threadIdx.x / (D / 2);
   int rr[RPT];
@@ -659,17 +668,19 @@ __device__ __forceinline__ void pv_rows(const float* pp, int pitch,
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const float pr = pp[rr[i] * pitch + t];
-      acc[i][0] = fmaf(pr, v0, acc[i][0]);
-      acc[i][1] = fmaf(pr, v1, acc[i][1]);
+      acc[i][0] += (double)(pr * v0);
+      acc[i][1] += (double)(pr * v1);
     }
   }
 }
 
-// Its shared-memory layout, in bytes: Q [RP][D] float32 | int8 only: the
-// converted K or V tile [64][D] bf16 | per-split m, l and global M, L
-// [RP] each | scores, then P in their place, [RP][64 per + 8] float32
-// (``keep``; else one tile's, [RP][72]) | the ring, ``stages`` slots of
-// one tile each (the published O [RP][D + 4] float32 after C).
+// Its shared-memory layout, in bytes: per-split l and global L [RP]
+// float64 each, per-split m and global M [RP] float32 each (which other
+// blocks of the cluster read) | Q [RP][D] float32 | int8 only: the
+// converted K or V tile [64][D] bf16 | scores, then P in their place,
+// [RP][64 per + 8] float32 (``keep``; else one tile's, [RP][72]) | the
+// ring, ``stages`` slots of one tile each. After C the published O [RP][D
+// + 2] float64 lies over everything past the statistics.
 // ``decode_attention.sm90_smem`` in Python mirrors it.
 __host__ __device__ constexpr int twin_rp(int rows) {
   return rows <= 16 ? 16 : rows <= 32 ? 32 : 64;
@@ -680,17 +691,21 @@ __host__ __device__ constexpr int twin_slot(bool codes, int d) {
 __host__ __device__ constexpr int twin_spitch(int per, int keep) {
   return (keep ? per : 1) * BKV + 8;  // floats; rows 8 banks apart
 }
+__host__ __device__ constexpr int twin_stats(int rp) {
+  return rp * (8 + 8 + 4 + 4);
+}
 __host__ __device__ constexpr int twin_ring_off(bool codes, int d, int rp,
                                                 int per, int keep) {
-  return rp * d * 4 + (codes ? BKV * d * 2 : 0) + 4 * rp * 4 +
+  return twin_stats(rp) + rp * d * 4 + (codes ? BKV * d * 2 : 0) +
          rp * twin_spitch(per, keep) * 4;
 }
 __host__ __device__ constexpr int twin_smem(bool codes, int d, int rows,
                                             int per, int keep, int stages) {
   const int rp = twin_rp(rows);
-  const int ring = stages * twin_slot(codes, d), obytes = rp * (d + 4) * 4;
-  return twin_ring_off(codes, d, rp, per, keep) +
-         (ring > obytes ? ring : obytes);
+  const int work = twin_ring_off(codes, d, rp, per, keep) - twin_stats(rp) +
+                   stages * twin_slot(codes, d);
+  const int obytes = rp * (d + 2) * 8;
+  return twin_stats(rp) + (work > obytes ? work : obytes);
 }
 
 // Blocks an SM the registers must allow: four at up to 16 query rows
@@ -713,17 +728,20 @@ twin_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
   constexpr int SLOT = twin_slot(CODES, D);
   extern __shared__ uint4 sm90_smem[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(sm90_smem);
-  float* qf = reinterpret_cast<float*>(sm);  // Q [RP][D]
-  uint4* conv = sm90_smem + RP * D / 4;  // int8: the converted K or V tile
-  float* pm = reinterpret_cast<float*>(
+  // [RP] float64: this split's row sum of exp(s - max), the row's sum
+  double* pl = reinterpret_cast<double*>(sm);
+  double* gl = pl + RP;
+  float* pm = reinterpret_cast<float*>(gl + RP);  // [RP] this split's max
+  float* gm = pm + RP;  // [RP] the row's global max
+  float* qf = gm + RP;  // Q [RP][D]
+  uint4* conv = reinterpret_cast<uint4*>(qf + RP * D);  // int8: K or V tile
+  float* scs = reinterpret_cast<float*>(
       reinterpret_cast<unsigned char*>(conv) + (CODES ? BKV * D * 2 : 0));
-  float* pl = pm + RP;  // [RP] this split's row max and sum of exp(s - max)
-  float* gm = pl + RP;  // [RP] the row's global max
-  float* gl = gm + RP;  // [RP] and sum
-  float* scs = gl + RP;  // [RP][spitch] scores, then P
-  const int spitch = twin_spitch(g.per, g.keep);
+  const int spitch = twin_spitch(g.per, g.keep);  // scores, then P
   unsigned char* ring = sm + twin_ring_off(CODES, D, RP, g.per, g.keep);
-  float* os = reinterpret_cast<float*>(ring);  // [RP][D + 4] after C
+  constexpr int OP = D + 2;  // doubles per published O row
+  // [RP][OP] after C, over Q and everything after it
+  double* os = reinterpret_cast<double*>(qf);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = blockIdx.x, b = blockIdx.y;
@@ -790,7 +808,7 @@ twin_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
   }
   for (int r = tid; r < RP; r += THREADS) {
     pm[r] = -INFINITY;
-    pl[r] = 0.0f;
+    pl[r] = 0.0;
   }
 
   // ---- A: scores, and this split's running (m, l) of each row, kept by
@@ -806,10 +824,11 @@ twin_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
       const float m_old = pm[r];
       const float mx = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
       // a row with every key masked so far keeps m = -inf; exp against 0
-      const float base = mx == -INFINITY ? 0.0f : mx;
-      const float sum = warp_sum(expf(x0 - base) + expf(x1 - base));
+      const double base = mx == -INFINITY ? 0.0 : (double)mx;
+      const double sum =
+          warp_sum_f64(exp((double)x0 - base) + exp((double)x1 - base));
       if (lane == 0) {
-        pl[r] = pl[r] * expf(m_old - base) + sum;
+        pl[r] = pl[r] * exp((double)m_old - base) + sum;
         pm[r] = mx;
       }
     }
@@ -822,19 +841,20 @@ twin_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
   const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
   cl.sync();
   for (int row = tid; row < g.R; row += THREADS) {
-    float mr[MAX_CLUSTER], lr[MAX_CLUSTER];
+    float mr[MAX_CLUSTER];
+    double lr[MAX_CLUSTER];
 #pragma unroll
     for (int r = 0; r < MAX_CLUSTER; ++r) {
       mr[r] = r < cs ? *cl.map_shared_rank(pm + row, r) : -INFINITY;
-      lr[r] = r < cs ? *cl.map_shared_rank(pl + row, r) : 0.0f;
+      lr[r] = r < cs ? *cl.map_shared_rank(pl + row, r) : 0.0;
     }
     float mx = -INFINITY;
 #pragma unroll
     for (int r = 0; r < MAX_CLUSTER; ++r) mx = fmaxf(mx, mr[r]);
-    float l = 0.0f;
+    double l = 0.0;
 #pragma unroll
     for (int r = 0; r < MAX_CLUSTER; ++r)
-      if (lr[r] > 0.0f) l += lr[r] * expf(mr[r] - mx);
+      if (lr[r] > 0.0) l += lr[r] * exp((double)mr[r] - (double)mx);
     gm[row] = mx;
     gl[row] = l;
   }
@@ -845,15 +865,17 @@ twin_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
   constexpr int RGC = THREADS / (D / 2), RPT = RP / RGC;
   const int rg = tid / (D / 2), c2 = tid % (D / 2);
   const bool one_row = g.R <= RGC;  // one row a thread (granite's S = 1)
-  float acc1[1][2] = {{0.0f, 0.0f}};
-  float acc[RPT][2];
+  double acc1[1][2] = {{0.0, 0.0}};
+  double acc[RPT][2];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i][0] = acc[i][1] = 0.0f;
+  for (int i = 0; i < RPT; ++i) acc[i][0] = acc[i][1] = 0.0;
   auto probs = [&](float* sj) {
     for (int idx = tid; idx < g.R * BKV; idx += THREADS) {
       float* x = sj + (idx / BKV) * spitch + idx % BKV;
-      const float m = gm[idx / BKV], l = gl[idx / BKV];
-      *x = *x == -INFINITY ? 0.0f : round_to<bf16>(expf(*x - m) / l);
+      const double m = gm[idx / BKV], l = gl[idx / BKV];
+      *x = *x == -INFINITY
+               ? 0.0f
+               : round_to<bf16>(__double2float_rn(exp((double)*x - m) / l));
     }
   };
   for (int j = 0; j < T; ++j) {
@@ -880,40 +902,40 @@ twin_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
     }
   }
   cp_async_wait<0>();
-  __syncthreads();  // the ring is free for the published O
+  __syncthreads();  // Q, the tiles, P and the ring are free for O
 
   // ---- merge: block ``rank`` sums output columns [rank D / cs, ...) of
   // every rank's O in rank order and writes them ----
   if (one_row) {
     if (rg < g.R)
-      *reinterpret_cast<float2*>(os + rg * C::OPITCH + 2 * c2) =
-          make_float2(acc1[0][0], acc1[0][1]);
+      *reinterpret_cast<double2*>(os + rg * OP + 2 * c2) =
+          make_double2(acc1[0][0], acc1[0][1]);
   } else {
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
       if (rg + RGC * i < g.R)
-        *reinterpret_cast<float2*>(os + (rg + RGC * i) * C::OPITCH +
-                                   2 * c2) = make_float2(acc[i][0],
-                                                         acc[i][1]);
+        *reinterpret_cast<double2*>(os + (rg + RGC * i) * OP + 2 * c2) =
+            make_double2(acc[i][0], acc[i][1]);
   }
   cl.sync();
   const int dcs = D / cs, d0 = rank * dcs;
-  const float* osr[MAX_CLUSTER];
+  const double* osr[MAX_CLUSTER];
 #pragma unroll
   for (int r = 0; r < MAX_CLUSTER; ++r)
     osr[r] = cl.map_shared_rank(os, r < cs ? r : 0);
   for (int idx = tid; idx < g.R * dcs; idx += THREADS) {
     const int row = idx / dcs, d = d0 + idx % dcs;
-    float v[MAX_CLUSTER];
+    double v[MAX_CLUSTER];
 #pragma unroll
     for (int r = 0; r < MAX_CLUSTER; ++r)
-      v[r] = r < cs ? osr[r][row * C::OPITCH + d] : 0.0f;
-    float sum = 0.0f;
+      v[r] = r < cs ? osr[r][row * OP + d] : 0.0;
+    double sum = 0.0;
 #pragma unroll
     for (int r = 0; r < MAX_CLUSTER; ++r) sum += v[r];
     const int gi = row / g.S, s = row % g.S;
+    // float64 -> float32 -> bf16, as the twin's conversions round
     o[((size_t)(b * g.S + s) * g.H + c * g.G + gi) * D + d] =
-        __float2bfloat16(sum);
+        __float2bfloat16(__double2float_rn(sum));
   }
   cl.sync();  // no block leaves while another reads its shared memory
 }

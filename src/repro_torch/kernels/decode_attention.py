@@ -7,10 +7,10 @@ kernel 6, ``::decode_attention``, over a rolling cache), beside their
 plain versions ``plain.paged_decode_attention``,
 ``plain.paged_decode_attention_int8`` and ``plain.decode_attention``.
 bfloat16 calls take one launch of ``csrc/decode_sm90.cuh`` and allocate
-only the output: bf16 and int8 pools the twin-order kernel (the row's
-global max and sum, then p rounded to bf16, then P V, in the twins'
-float32 FMA order), bf16 rings the online-softmax kernel on the tensor
-cores. float32 calls take the three launches of ``csrc/paged_decode.cuh``
+only the output: bf16 and int8 pools the twin-order kernel (float32
+score chains over d, the row's global max and float64 sum, p rounded to
+bf16, then P V summed in float64: the plain version's bits), bf16 rings
+the online-softmax kernel on the tensor cores. float32 calls take the three launches of ``csrc/paged_decode.cuh``
 and their float32 scratch.
 
 q (B, S, H, D); k/v_pool (P, ps, KVH, D) in the model layout, read through
@@ -82,15 +82,17 @@ def ring_plan(b: int, hkv: int, window: int, rows: int, bf16: bool):
 def sm90_smem(d: int, rows: int, per: int, keep: bool, stages: int,
               int8: bool) -> int:
     """Shared-memory bytes of the twin-order kernel (``csrc/decode_sm90.cuh``
-    ``twin_smem``): float32 Q, int8's converted tile, row statistics,
-    float32 scores, then P (the split's ``per`` 64-row tiles when
-    ``keep``, else one tile; rows padded by 8), and a ring of ``stages``
-    tiles, which then holds the published O."""
+    ``twin_smem``): row statistics (the sums float64, the maxima
+    float32), then float32 Q, int8's converted tile, float32 scores, then
+    P (the split's ``per`` 64-row tiles when ``keep``, else one tile; rows
+    padded by 8), and a ring of ``stages`` tiles; after them, over all
+    but the statistics, the published O in float64 (rows padded by 2)."""
     rp = 16 if rows <= 16 else 32 if rows <= 32 else 64
     slot = SM90_TILE * (d + 4) if int8 else SM90_TILE * d * 2
-    fixed = (rp * d * 4 + (SM90_TILE * d * 2 if int8 else 0) + 4 * rp * 4
-             + rp * ((per if keep else 1) * SM90_TILE + 8) * 4)
-    return fixed + max(stages * slot, rp * (d + 4) * 4)
+    work = (rp * d * 4 + (SM90_TILE * d * 2 if int8 else 0)
+            + rp * ((per if keep else 1) * SM90_TILE + 8) * 4
+            + stages * slot)
+    return rp * (8 + 8 + 4 + 4) + max(work, rp * (d + 2) * 8)
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,7 +11,8 @@ model layer.
 Arithmetic as in ``repro_torch.models.layers``: matmul products of the
 model dtype accumulate in float32, softmax statistics are float32, masked
 scores are ``-1e30`` (not ``-inf``) and probabilities are cast to the
-query dtype before the PV product.
+query dtype before the PV product. Decode attention over bf16 caches
+keeps those roundings over float64 sums (``decode_attention``).
 """
 from __future__ import annotations
 
@@ -79,13 +80,19 @@ def dense_attention(q, k, v, *, causal: bool, window: int = 0):
 def decode_attention(q, k_cache, v_cache, pos):
     """q (B,S,H,D); k/v_cache (B,W,Hkv,D); pos (B,) = tokens written
     INCLUDING the S queries: query i of S sees ``pos - S + 1 + i`` slots
-    (capped at W). Grouped-GQA contraction, as the reference."""
+    (capped at W). Grouped-GQA contraction, as the reference.
+
+    float32 q: float32 arithmetic throughout. A narrower q (bf16) keeps
+    the twin's roundings in orders any implementation can follow: each
+    score one float32 chain over d = 0, 1, ..., D - 1 (the products of
+    bf16 values are exact, so each step rounds once), then the softmax
+    sum and P V in float64 (exp values and exact products, whose float64
+    sums round alike in any order), probabilities rounded to q's dtype,
+    the output to float32 and then q's dtype. The bf16 paged kernel
+    (``csrc/decode_sm90.cuh`` ``twin_kernel``) computes the same."""
     b, w, hkv, d = k_cache.shape
     sq, h = q.shape[1], q.shape[2]
     g = h // hkv
-    qg = q.to(F32).reshape(b, sq, hkv, g, d)
-    scale = d ** -0.5
-    scores = torch.einsum("bqcgd,bwcd->bcgqw", qg, k_cache.to(F32)) * scale
     pos = torch.as_tensor(pos, device=q.device).to(torch.int64)
     pos = pos.reshape(-1).expand(b)
     n_valid = torch.clamp(
@@ -93,6 +100,23 @@ def decode_attention(q, k_cache, v_cache, pos):
         + torch.arange(sq, device=q.device)[None, :], max=w)  # (B, S)
     valid = (torch.arange(w, device=q.device)[None, None, None, None, :]
              < n_valid[:, None, None, :, None])
+    if q.dtype != F32:
+        # (B, kv, G, S, D) queries against (B, kv, 1, 1, W) keys, d by d
+        qd = q.to(F32).reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
+        kd = k_cache.to(F32).permute(0, 2, 3, 1)[:, :, None, None]
+        scores = torch.zeros((b, hkv, g, sq, w), dtype=F32, device=q.device)
+        for i in range(d):
+            scores.addcmul_(qd[..., i, None], kd[..., i, :])
+        scores = (scores * (d ** -0.5)).masked_fill(~valid, -math.inf)
+        e = torch.exp(scores.to(F64)
+                      - scores.amax(dim=-1, keepdim=True).to(F64))
+        probs = (e / e.sum(dim=-1, keepdim=True)).to(F32).to(q.dtype)
+        out = torch.einsum("bcgqw,bwcd->bqcgd", probs.to(F64),
+                           v_cache.to(F64))
+        return out.to(F32).to(q.dtype).reshape(b, sq, h, d)
+    qg = q.to(F32).reshape(b, sq, hkv, g, d)
+    scale = d ** -0.5
+    scores = torch.einsum("bqcgd,bwcd->bcgqw", qg, k_cache.to(F32)) * scale
     scores = scores.masked_fill(~valid, NEG)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bcgqw,bwcd->bqcgd", probs.to(q.dtype).to(F32),

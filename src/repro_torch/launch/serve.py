@@ -12,15 +12,20 @@ the CPU. Weights are random, from ``--seed``. ``--temperature`` > 0
 switches every request to seeded stochastic decode; request i samples with
 seed ``--sample-seed + i``, so a rerun reproduces every stream.
 
-Ported so far: the paged KV cache (dense archs), rolling caches
-(``--no-paged`` on dense archs; recurrentgemma-9b always, its KV rings
-and RG-LRU states), single-shot and chunked prefill (``--chunk-prefill``,
-64 by default as in the reference; 0 = single-shot), the shared-prefix
-KV cache (``--prefix-cache``) and preemption (``--preemption``), one card,
-with ``--kv-dtype int8`` (int8 KV pages) and ``--weight-dtype int8``
-(weight-only int8) as the paged path's quantized variant. The banner says
-which cache serves. ``EngineConfig.validate`` names the ROADMAP.md item of
-every other option.
+Archs served: granite-8b, phi3-medium-14b, starcoder2-15b and
+chatglm3-6b (dense; chatglm3's half-dim RoPE), recurrentgemma-9b (hybrid)
+and mamba2-1.3b (SSD). Ported so far: the paged KV cache (dense archs),
+rolling caches (``--no-paged`` on dense archs; recurrentgemma-9b and
+mamba2-1.3b always, their KV rings, RG-LRU and SSD states), single-shot
+and chunked prefill (``--chunk-prefill``, 64 by default as in the
+reference; 0 = single-shot), the shared-prefix KV cache
+(``--prefix-cache``) and preemption (``--preemption``), one card, with
+``--kv-dtype int8`` (int8 KV pages) and ``--weight-dtype int8``
+(weight-only int8) as the paged path's quantized variant, and
+``--sla-ms`` (the per-step SLA budget the admission plan sizes slots and
+the flush deadline by). The banner says which cache serves.
+``EngineConfig.validate`` names the ROADMAP.md item of every other
+option.
 
 ``--replicas N`` (N > 1) serves the traffic through the cluster frontend:
 N engines built from one set of weights (held once) behind one SLO-aware
@@ -97,7 +102,8 @@ def _parse_tenants(spec: str) -> dict:
     return tenants
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The serve CLI's flags, with the reference's names and defaults."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -112,6 +118,8 @@ def main(argv=None):
                     help="decode ticks per device->host token sync")
     ap.add_argument("--chunk-prefill", type=int, default=64,
                     help="chunked-prefill piece size; 0 = single-shot")
+    ap.add_argument("--sla-ms", type=float, default=50.0,
+                    help="per-step SLA budget for the admission plan")
     ap.add_argument("--no-paged", action="store_true",
                     help="serve from rolling KV windows instead of pages "
                          "(archs that cannot page always do)")
@@ -186,7 +194,32 @@ def main(argv=None):
                     help="cuda (hand-written kernels) or cpu (plain "
                          "PyTorch versions)")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def engine_config(args) -> EngineConfig:
+    """The ``EngineConfig`` of parsed flags (the reference's
+    ``_engine_config``; ``--sla-ms`` becomes ``sla_s``)."""
+    return EngineConfig(slots=args.slots, window=args.window,
+                        sync_every=args.sync_every,
+                        chunk_prefill=args.chunk_prefill,
+                        sla_s=args.sla_ms / 1e3,
+                        prefix_cache=args.prefix_cache,
+                        preemption=args.preemption,
+                        paged=False if args.no_paged else None,
+                        page_size=args.page_size,
+                        max_seq=args.max_seq or None,
+                        pool_pages=args.pool_pages or None,
+                        precision=PrecisionConfig(
+                            kv_cache_dtype=args.kv_dtype,
+                            weight_dtype=args.weight_dtype),
+                        tracing=bool(args.trace_out),
+                        trace_sample_n=args.trace_sample_n,
+                        profile_dir=args.profile_dir or None)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -197,21 +230,7 @@ def main(argv=None):
               "--temperature 0 (greedy decode); pass --temperature > 0 "
               "to sample", file=sys.stderr)
 
-    config = EngineConfig(slots=args.slots, window=args.window,
-                          sync_every=args.sync_every,
-                          chunk_prefill=args.chunk_prefill,
-                          prefix_cache=args.prefix_cache,
-                          preemption=args.preemption,
-                          paged=False if args.no_paged else None,
-                          page_size=args.page_size,
-                          max_seq=args.max_seq or None,
-                          pool_pages=args.pool_pages or None,
-                          precision=PrecisionConfig(
-                              kv_cache_dtype=args.kv_dtype,
-                              weight_dtype=args.weight_dtype),
-                          tracing=bool(args.trace_out),
-                          trace_sample_n=args.trace_sample_n,
-                          profile_dir=args.profile_dir or None)
+    config = engine_config(args)
     config.validate(cfg)
     rng = np.random.default_rng(args.seed)
     params = init_params(cfg, seed=args.seed, device=device)

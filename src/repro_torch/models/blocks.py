@@ -1,7 +1,7 @@
-"""Blocks of the PyTorch port (the ``dense``, ``local_attn`` and ``rglru``
-block types of ``repro.models.blocks``), with the attention, the RG-LRU
-scan and the int8 projections going through the kernels' dispatch points
-(``repro_torch.kernels.ops``).
+"""Blocks of the PyTorch port (the ``dense``, ``local_attn``, ``rglru``
+and ``ssd`` block types of ``repro.models.blocks``), with the attention,
+the RG-LRU scan and the int8 projections going through the kernels'
+dispatch points (``repro_torch.kernels.ops``).
 
 Params are plain dicts of tensors in the reference's (in, out) weight
 orientation. Paged pools, rolling rings and recurrent states are updated
@@ -20,11 +20,12 @@ from repro_torch.models.rglru import (
     init_rglru,
     init_rglru_cache,
 )
+from repro_torch.models.ssm import apply_ssd, init_ssd, init_ssd_cache
 
 F32 = torch.float32
 
 # Block types the port serves so far (ROADMAP.md queue 1 lists the rest).
-PORTED_BLOCKS = ("dense", "local_attn", "rglru")
+PORTED_BLOCKS = ("dense", "local_attn", "rglru", "ssd")
 
 # Block types whose decode cache is a KV ring (vs recurrent state); the
 # engine keys bucketed prefill off this (the reference's list).
@@ -142,6 +143,9 @@ def init_block(cfg, btype: str, gen, dtype, device):
                 "mixer": init_rglru(cfg, gen, dtype, device),
                 "norm2": init_norm(cfg, d, dtype, device),
                 "mlp": init_mlp(cfg, gen, d, cfg.d_ff, dtype, device)}
+    if btype == "ssd":  # the mixer alone: no norm2, no MLP
+        return {"norm1": init_norm(cfg, d, dtype, device),
+                "mixer": init_ssd(cfg, gen, dtype, device)}
     return {"norm1": init_norm(cfg, d, dtype, device),
             "attn": init_attn(cfg, gen, dtype, device),
             "norm2": init_norm(cfg, d, dtype, device),
@@ -152,8 +156,8 @@ def init_block(cfg, btype: str, gen, dtype, device):
 def init_block_cache(cfg, btype: str, batch: int, window: int, dtype,
                      device, kv_dtype: str = ""):
     """One block's rolling decode cache: a KV ring (B, W, kv, hd), with
-    W = min(window, local_window) for local attention, or the RG-LRU
-    conv window and float32 state. Zero-filled (a masked ring row still
+    W = min(window, local_window) for local attention, or the RG-LRU or
+    SSD conv window and float32 state. Zero-filled (a masked ring row still
     multiplies its V by 0). ``kv_dtype`` "int8": int8 rings with float32
     scales (B, W, kv, 1), the chunked-prefill buffer under int8 pages."""
     if btype in KV_CACHE_BLOCKS:
@@ -170,6 +174,8 @@ def init_block_cache(cfg, btype: str, batch: int, window: int, dtype,
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if btype == "rglru":
         return init_rglru_cache(cfg, batch, dtype, device)
+    if btype == "ssd":
+        return init_ssd_cache(cfg, batch, dtype, device)
     raise ValueError(f"block type {btype!r} has no rolling cache in the "
                      f"port yet")
 
@@ -303,7 +309,8 @@ def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,
 def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
                 pos=None, pages=None, write_at=None, n_valid=None):
     """Pre-norm residual block: attention (dense, or local over
-    ``cfg.local_window``) or the RG-LRU mixer, then the MLP. Returns
+    ``cfg.local_window``) or the RG-LRU mixer, then the MLP; or the SSD
+    mixer alone (``x + ssd(norm1(x))``, no MLP). Returns
     (x, new_kv): the prompt's (k, v) of an attention block in prefill
     mode, else None. ``cache`` is the block's paged pools (with
     ``pages``) or its rolling cache (ring or recurrent state, with the
@@ -311,6 +318,8 @@ def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
     if btype not in PORTED_BLOCKS:
         raise ValueError(f"block type {btype!r} is not ported yet")
     h = L.apply_norm(cfg, p["norm1"], x)
+    if btype == "ssd":
+        return x + apply_ssd(cfg, p["mixer"], h, cache=cache), None
     if btype == "rglru":
         a, new_kv = apply_rglru_block(cfg, p["mixer"], h, cache=cache), None
     else:

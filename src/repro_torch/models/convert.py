@@ -9,12 +9,15 @@ layer, in scan order. Weight matrices keep the reference's (in, out)
 orientation, so no transpose is needed. A quantized tree
 (``repro.models.quantize_weights``) converts the same way: its
 ``{"w_q", "scale"}`` leaves map leaf by leaf, and a body scale
-(n_repeat, 1, N) is unstacked like its weight. RG-LRU blocks carry their
-``mixer`` leaves (float32 ``Lambda``, ``b_a``, ``b_x``) the same way.
+(n_repeat, 1, N) is unstacked like its weight. RG-LRU and SSD blocks
+carry their ``mixer`` leaves the same way, float32 ones as float32
+(RG-LRU's ``Lambda``, ``b_a``, ``b_x``; SSD's ``A_log``, ``D``,
+``dt_bias``) under any model dtype.
 
 ``cache_from_jax(cfg, tree, device)`` does the same for the reference's
-rolling cache (``init_cache`` or a prefill's output: rings, RG-LRU conv
-windows and states, ``pos``), so tests can hold the port's caches to it.
+rolling cache (``init_cache`` or a prefill's output: rings, RG-LRU and
+SSD conv windows and states, ``pos``), so tests can hold the port's
+caches to it.
 """
 from __future__ import annotations
 

@@ -58,8 +58,12 @@ def apply_norm(cfg, p, x):
 
 
 # ---------------------------------------------------------------------------
-# RoPE (standard)
+# RoPE (standard and half)
 # ---------------------------------------------------------------------------
+
+#: RoPE variants the port serves; mrope (qwen2-vl) comes with its arch
+#: (ROADMAP.md queue 1).
+ROPE_VARIANTS = ("standard", "half", "none")
 
 
 def _rope_angles(positions, dim_half: int, theta: float):
@@ -82,30 +86,40 @@ def _table(angles):
 
 
 def rotate(x, table):
-    """Split-half rotation of x (..., 2*Dh) by a ``rope_table``, in
-    float32, back to x's dtype: ``[x1 cos - x2 sin, x2 cos + x1 sin]``
-    written as ``x * cos2 + roll(x, Dh) * sin2`` with cos2 = [cos, cos]
-    and sin2 = [-sin, sin], which rounds the same, in 6 launches."""
+    """Split-half rotation by a ``rope_table``, in float32, back to x's
+    dtype: ``[x1 cos - x2 sin, x2 cos + x1 sin]`` over the table's width
+    2*Dh, written as ``x * cos2 + roll(x, Dh) * sin2`` with cos2 = [cos,
+    cos] and sin2 = [-sin, sin], which rounds the same, in 6 launches.
+    A table narrower than x's last dim (the "half" variant) rotates the
+    first 2*Dh lanes and passes the rest through untouched: the roll runs
+    over the rotated lanes only, so lane i pairs with lane i + Dh there."""
     cos2, sin2 = table
+    d_rot = cos2.shape[-1]
+    if d_rot < x.shape[-1]:
+        return torch.cat([rotate(x[..., :d_rot], table), x[..., d_rot:]],
+                         dim=-1)
     xf = x.to(F32)
-    rolled = torch.roll(xf, cos2.shape[-1] // 2, dims=-1)
+    rolled = torch.roll(xf, d_rot // 2, dims=-1)
     return (xf * cos2 + rolled * sin2).to(x.dtype)
 
 
 def rope_table(cfg, positions):
     """The rotation table of positions (B, S) for q and k of every layer:
-    ``(cos2, sin2)``, each (B, S, 1, Dh) float32 (see ``rotate``); None
+    ``(cos2, sin2)``, each (B, S, 1, 2*Dh) float32 (see ``rotate``), with
+    Dh = D/2 ("standard") or D/4 ("half": ChatGLM's rotation of the first
+    half of each head, angles of width D/4 as the reference's); None
     without RoPE. The model builds it once per forward or decode step,
     where the reference's per-layer recomputation is fused away by XLA
     and eager PyTorch would pay ~10 launches per layer for it."""
     if cfg.rope_variant == "none":
         return None
-    if cfg.rope_variant != "standard":
+    if cfg.rope_variant not in ROPE_VARIANTS:
         raise ValueError(
             f"rope variant {cfg.rope_variant!r} is not ported yet "
             f"(ROADMAP.md queue 1, 'Other block families')")
-    ang = _rope_angles(positions, cfg.resolved_head_dim // 2,
-                       cfg.rope_theta)
+    d = cfg.resolved_head_dim
+    width = d // 2 if cfg.rope_variant == "standard" else d // 4
+    ang = _rope_angles(positions, width, cfg.rope_theta)
     return _table(ang[:, :, None, :])
 
 
@@ -113,3 +127,9 @@ def apply_rope(cfg, x, positions):
     """x: (B, S, H, D). positions: (B, S) integer."""
     table = rope_table(cfg, positions)
     return x if table is None else rotate(x, table)
+
+
+def softplus(x):
+    """JAX's ``softplus``: ``logaddexp(x, 0)`` (no threshold, unlike
+    ``F.softplus``)."""
+    return torch.logaddexp(x, torch.zeros_like(x))

@@ -6,7 +6,7 @@ Public API (device explicit everywhere):
   block_program(cfg)                          -> (pattern, n_repeat, tail)
   init_params(cfg, seed, device)              -> params dict (random weights)
   init_cache(cfg, batch, window, device)      -> rolling caches (rings,
-                                                 RG-LRU states, pos)
+                                                 RG-LRU / SSD states, pos)
   init_paged_cache(cfg, batch, n_pages, page_size, max_pages, device,
                    kv_dtype)
   quantize_weights(cfg, params)               -> params with int8 leaves
@@ -105,9 +105,9 @@ def init_params(cfg, seed: int = 0, device="cuda"):
 def init_cache(cfg, batch: int, window: int, device="cuda",
                kv_dtype: str = ""):
     """Rolling decode caches: per layer a KV ring (B, W, kv, hd) or the
-    RG-LRU conv window and state (``blocks.init_block_cache``), plus each
-    slot's position ``pos`` (B,) int32. ``kv_dtype`` "int8": int8 rings
-    with float32 scales."""
+    RG-LRU or SSD conv window and state (``blocks.init_block_cache``),
+    plus each slot's position ``pos`` (B,) int32. ``kv_dtype`` "int8":
+    int8 rings with float32 scales."""
     if not ported(cfg):
         raise ValueError(f"{cfg.name}: arch has blocks the port does not "
                          f"serve yet")
@@ -158,7 +158,9 @@ def quantize_weights(cfg, params):
     """Weight-only int8 (the reference's ``model.quantize_weights``): each
     attention/MLP matmul weight of every layer becomes a ``{"w_q",
     "scale"}`` dict, which ``blocks.linear`` dispatches to the int8
-    matmul kernel. Returns new params; the input is left as it is. Leaves
+    matmul kernel (``validate()`` refuses int8 weights on archs with other
+    blocks: an rglru or ssd mixer is never quantized). Returns new
+    params; the input is left as it is. Leaves
     quantized already (another engine's params) are kept as they are, so
     replicas share one set of int8 weights."""
     layers = []
@@ -201,7 +203,8 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
     positions ``logits_at`` (B,) when given; kv is the per-layer list of
     the prompt's (k, v), each (B, S, kv, hd), when ``want_kv``. A fresh
     rolling ``cache`` (``init_cache``) is filled in place: every ring with
-    the prompt's last keys, every RG-LRU state, and ``pos`` = S."""
+    the prompt's last keys, every RG-LRU and SSD conv window and state,
+    and ``pos`` = S."""
     b, s = tokens.shape
     x = _embed(params, tokens)
     rope_pos = torch.arange(s, device=tokens.device)[None].expand(b, s)

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.layers import softplus
 from repro_torch.models.ssm import causal_conv
 
 F32 = torch.float32
@@ -57,17 +58,11 @@ def init_rglru(cfg, gen, dtype, device):
     }
 
 
-def _softplus(x):
-    """JAX's ``softplus``: ``logaddexp(x, 0)`` (no threshold, unlike
-    ``F.softplus``)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
-
-
 def _rglru_gates(p, u):
     """u (B, S, L) -> (a, gated input), both float32 (B, S, L)."""
     r = torch.sigmoid(torch.matmul(u, p["w_a"]).to(F32) + p["b_a"])
     i = torch.sigmoid(torch.matmul(u, p["w_x"]).to(F32) + p["b_x"])
-    log_a = -_C * _softplus(p["Lambda"])[None, None, :] * r
+    log_a = -_C * softplus(p["Lambda"])[None, None, :] * r
     a = torch.exp(log_a)
     gated_in = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (
         i * u.to(F32))

@@ -1,10 +1,26 @@
 """State-space pieces of the PyTorch port (the JAX package's
-``repro/models/ssm.py``). So far only the depthwise causal convolution
-that the RG-LRU block shares with Mamba-2; the SSD mixer comes with the
-mamba2 slice (ROADMAP.md queue 1)."""
+``repro/models/ssm.py``): the depthwise causal convolution that the RG-LRU
+block shares with Mamba-2, and the Mamba-2 SSD (state-space duality)
+mixer [arXiv:2405.21060].
+
+Chunked SSD: within each chunk a quadratic (attention-like) intra-chunk
+term; chunk-to-chunk states propagate through a linear scan. Decode
+carries O(1) state: the conv window and a per-head SSM state (H, P, N).
+Shapes follow the paper: d_inner = expand * d_model, heads = d_inner /
+head_dim, a scalar A per head, B and C of state size N shared across
+heads. The reference computes it in plain JAX (no Pallas kernel); so does
+the port, in PyTorch ops, float32 throughout the scan as there. The
+decode step updates the cache IN PLACE: a captured CUDA graph keeps
+reading the tensors it was captured with.
+"""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+
+F32 = torch.float32
 
 
 def causal_conv(x, conv_w, conv_state=None, activation=None):
@@ -27,3 +43,151 @@ def causal_conv(x, conv_w, conv_state=None, activation=None):
     if activation is not None:
         out = activation(out)
     return out, new_state
+
+
+def init_ssd(cfg, gen, dtype, device):
+    """Random weights, scaled as the reference's init; ``A_log``, ``D``
+    and ``dt_bias`` are float32 under any model dtype, as there. Not the
+    reference's bits: parity tests convert its weights."""
+    d = cfg.d_model
+    di, ns, nh = cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_num_heads
+
+    def normal(shape, std):
+        w = torch.randn(shape, generator=gen, device=device,
+                        dtype=F32) * std
+        return w.to(dtype)
+
+    in_dim = 2 * di + 2 * ns + nh  # z, x, B, C, dt
+    return {
+        "in_proj": normal((d, in_dim), d ** -0.5),
+        "out_proj": normal((di, d), di ** -0.5),
+        "conv_w": normal((cfg.conv_kernel, di + 2 * ns), 0.2),
+        "A_log": torch.zeros((nh,), dtype=F32, device=device),
+        "D": torch.ones((nh,), dtype=F32, device=device),
+        "dt_bias": torch.zeros((nh,), dtype=F32, device=device),
+        "norm_scale": torch.zeros((di,), dtype=dtype, device=device),
+    }
+
+
+def _split_proj(cfg, xz):
+    """The in-projection's (z, xBC, dt) lanes."""
+    di, ns = cfg.d_inner, cfg.ssm_state_dim
+    e = 2 * di + 2 * ns
+    return xz[..., :di], xz[..., di:e], xz[..., e:]
+
+
+def ssd_chunked(x, dt, A, B, C, D, chunk: int):
+    """Chunked SSD from a zero state, as the reference's. x (b, S, H, P);
+    dt (b, S, H) >= 0 float32; A (H) < 0; B, C (b, S, N); D (H). Returns
+    y (b, S, H, P) in x's dtype and the final state (b, H, P, N) float32.
+
+    S is padded to a chunk multiple with dt = 0 (decay 1) and zero input
+    on the pad steps, so the state and the real outputs are unaffected.
+    The reference's three-operand einsums are written as an elementwise
+    product and a batched matmul over the contracted axis, so no (b, c,
+    i, j, h, p) temporary is ever built (about 4.3 GB at mamba2's full
+    width for a 1024-token prompt)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    chunk = min(chunk, s)
+    s_orig = s
+    if s % chunk:
+        pad = chunk - s % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+        s += pad
+    nc = s // chunk
+    xc = x.reshape(b, nc, chunk, h, p).to(F32)
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bc = B.reshape(b, nc, chunk, n).to(F32)
+    Cc = C.reshape(b, nc, chunk, n).to(F32)
+
+    # log-decay per step (< 0), cumulative within the chunk, heads first:
+    # (b, nc, h, c)
+    cums = torch.cumsum(dtc * A, dim=2).transpose(2, 3)
+    # weight each source token by dt, heads first: (b, nc, h, c, p)
+    xin = (xc * dtc[..., None]).permute(0, 1, 3, 2, 4)
+
+    # --- intra-chunk (quadratic): L[i, j] = exp(cums_i - cums_j), j <= i
+    seg = cums[..., :, None] - cums[..., None, :]  # (b, nc, h, i, j)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()
+    Lmat = torch.where(tri, torch.exp(seg), 0.0)
+    CB = torch.matmul(Cc, Bc.transpose(-1, -2))  # (b, nc, i, j)
+    y = torch.matmul(Lmat * CB[:, :, None], xin)  # (b, nc, h, i, p)
+
+    # --- chunk states: sum_j B_j decay(j..end) xin_j -> (b, nc, h, p, n)
+    decay_to_end = torch.exp(cums[..., -1:] - cums)  # (b, nc, h, c)
+    S_c = torch.matmul((xin * decay_to_end[..., None]).transpose(-1, -2),
+                       Bc[:, :, None])
+
+    # --- inter-chunk scan: the state entering each chunk
+    chunk_decay = torch.exp(cums[..., -1])  # (b, nc, h)
+    hstate = torch.zeros((b, h, p, n), dtype=F32, device=x.device)
+    h_enter = []
+    for c in range(nc):
+        h_enter.append(hstate)
+        hstate = hstate * chunk_decay[:, c, :, None, None] + S_c[:, c]
+    h_enter = torch.stack(h_enter, dim=1)  # (b, nc, h, p, n)
+
+    # --- inter-chunk output: y += C_i decay(0..i) h_enter
+    y_inter = torch.matmul(Cc[:, :, None], h_enter.transpose(-1, -2))
+    y = y + y_inter * torch.exp(cums)[..., None]
+
+    y = y.permute(0, 1, 3, 2, 4) + D[:, None] * xc  # (b, nc, c, h, p)
+    y = y.reshape(b, s, h, p)[:, :s_orig]
+    return y.to(x.dtype), hstate
+
+
+def apply_ssd(cfg, p, x, *, cache=None):
+    """The SSD mixer. x (B, S, d) -> y (B, S, d). ``cache`` {"conv": (B,
+    K-1, C), "state": (B, H, P, N) float32} or None (a prefill from
+    nothing); when given, its conv window is prepended, and it is then
+    overwritten in place with the new window and state. S = 1 with a
+    cache is one decode step from the cached state; otherwise the chunked
+    scan runs from a zero state, as the reference's does."""
+    di, ns = cfg.d_inner, cfg.ssm_state_dim
+    nh, hd = cfg.ssm_num_heads, cfg.ssm_head_dim
+    b, s, _ = x.shape
+    z, xbc, dt = _split_proj(cfg, torch.matmul(x, p["in_proj"]))
+    conv_state = cache["conv"] if cache is not None else None
+    xbc, new_conv = causal_conv(xbc, p["conv_w"], conv_state,
+                                activation=F.silu)
+    xs = xbc[..., :di].reshape(b, s, nh, hd)
+    B = xbc[..., di:di + ns]
+    C = xbc[..., di + ns:]
+    dt = L.softplus(dt.to(F32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+
+    if s == 1 and cache is not None:
+        # --- one decode step: h = h * exp(dt A) + B (x dt), y = C h + D x
+        dA = torch.exp(dt[:, 0] * A)  # (B, H)
+        x0 = xs[:, 0].to(F32)  # (B, H, P)
+        xin = x0 * dt[:, 0, :, None]
+        state = (cache["state"] * dA[..., None, None]
+                 + xin[..., None] * B[:, 0].to(F32)[:, None, None, :])
+        y = torch.matmul(state, C[:, 0].to(F32)[:, None, :, None])[..., 0]
+        y = (y + p["D"][:, None] * x0).reshape(b, 1, di)
+    else:
+        y4, state = ssd_chunked(xs, dt, A, B, C, p["D"], cfg.ssm_chunk)
+        y = y4.reshape(b, s, di)
+
+    y = L.rmsnorm(y.to(x.dtype) * F.silu(z), p["norm_scale"])
+    out = torch.matmul(y, p["out_proj"])
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["state"].copy_(state)
+    return out
+
+
+def init_ssd_cache(cfg, batch: int, dtype, device):
+    """Zeroed decode cache: the conv window (B, K-1, d_inner + 2N) in the
+    model dtype and the SSM state (B, H, P, N) float32."""
+    di, ns = cfg.d_inner, cfg.ssm_state_dim
+    return {"conv": torch.zeros((batch, cfg.conv_kernel - 1, di + 2 * ns),
+                                dtype=dtype, device=device),
+            "state": torch.zeros((batch, cfg.ssm_num_heads,
+                                  cfg.ssm_head_dim, ns), dtype=F32,
+                                 device=device)}

@@ -3,16 +3,16 @@
 fields (``repro/serving/config.py``).
 
 The port serves one card: the paged KV cache on dense archs, rolling
-caches (``paged=False``, and recurrentgemma's rings and RG-LRU states),
-single-shot and chunked prefill (``chunk_prefill`` defaults to 64, as in
-the reference), the prefix cache, cancel, timeouts, shedding and
-preemption, model-dtype or int8 pools and weights, span tracing and the
-profiler hook. ``validate()`` refuses every option whose path is not
-ported yet (sharded replicas, other block families) and names the
-``ROADMAP.md`` item that brings it, so nothing silently runs a different
-path than the one asked for; the engine keeps the reference's own
-refusals (a prefix cache or preemption without pages, an unknown
-``preempt_policy``).
+caches (``paged=False``, recurrentgemma's rings and RG-LRU states, and
+mamba2's SSD states), single-shot and chunked prefill (``chunk_prefill``
+defaults to 64, as in the reference), the prefix cache, cancel, timeouts,
+shedding and preemption, model-dtype or int8 pools and weights, span
+tracing and the profiler hook. ``validate()`` refuses every option whose
+path is not ported yet (sharded replicas, the moe and encoder blocks,
+mrope) and names the ``ROADMAP.md`` item that brings it, so nothing
+silently runs a different path than the one asked for; the engine keeps
+the reference's own refusals (a prefix cache or preemption without
+pages, an unknown ``preempt_policy``).
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ KV_SCALE_GRANULARITIES = ("page", "token")
 
 #: Block types whose attention/MLP matmul weights may quantize to int8
 #: (the reference's list): an arch with any other block, such as
-#: recurrentgemma's rglru, is refused int8 weights, as in the reference.
+#: recurrentgemma's rglru or mamba2's ssd, is refused int8 weights, as in
+#: the reference.
 WEIGHT_QUANT_BLOCKS = ("dense", "encoder", "local_attn")
 
 
@@ -167,10 +168,15 @@ class EngineConfig:
         if cfg is not None:
             from repro_torch.models import layer_types, ported
             from repro_torch.models.blocks import PORTED_BLOCKS
+            from repro_torch.models.layers import ROPE_VARIANTS
 
             if not ported(cfg):
                 bad = sorted(set(layer_types(cfg)) - set(PORTED_BLOCKS))
                 not_yet.append((f"arch {cfg.name} with {bad} blocks",
+                                f"{q1}, 'Other block families'"))
+            if cfg.rope_variant not in ROPE_VARIANTS:
+                not_yet.append((f"arch {cfg.name} with rope variant "
+                                f"{cfg.rope_variant!r}",
                                 f"{q1}, 'Other block families'"))
         if not_yet:
             what, item = not_yet[0]

@@ -183,11 +183,11 @@ def test_remaining_paths_are_accepted(setup, option):
 def test_validate_refuses_non_dense_archs_and_other_configs():
     cfg = torch_config("granite-8b").reduced()
     ts.EngineConfig().validate(cfg)  # the main path passes
-    ssm = dataclasses.replace(cfg, arch_type="ssm")
+    moe = dataclasses.replace(cfg, arch_type="moe")
     with pytest.raises(ValueError, match="Other block families"):
-        ts.EngineConfig().validate(ssm)
+        ts.EngineConfig().validate(moe)
     with pytest.raises(ValueError, match="not ported"):
-        torch_config("mamba2-1.3b")
+        torch_config("grok-1-314b")
 
 
 def test_entry_points_raise_without_a_card(setup):

@@ -1171,3 +1171,117 @@ def test_a_dropped_engine_gives_back_its_device_memory(dev):
     gc.collect()
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() == base
+
+
+# -- the GQA groups and vocabularies of phi3, starcoder2, chatglm3, mamba2 --
+
+
+@pytest.mark.parametrize("kind", ["float32", "bf16", "int8 page"])
+@pytest.mark.parametrize("h,kvh", [(48, 4), (32, 2)])
+@pytest.mark.parametrize("s", [1, 4])
+def test_paged_decode_at_groups_12_and_16_matches_plain(dev, s, h, kvh,
+                                                        kind):
+    """starcoder2's G 12 and chatglm3's G 16 at D 128 (48 and 64 query
+    rows per (slot, kv head) at S 4): a slot ending inside a page, a full
+    one, a released one."""
+    b, n_pages, d = 4, 8, 128
+    pos_list = [max(s, 21), 16 * n_pages, s, 100]
+    if kind != "float32":
+        _twin_order_call(dev, kind, s, b, n_pages, kvh, h, d, pos_list,
+                         released=(2,), seed=h * 10 + s)
+        return
+    gen = torch.Generator(device=dev).manual_seed(h + s)
+    pool = b * n_pages + 1
+    kp = _rand(gen, (pool, 16, kvh, d), torch.float32, dev)
+    vp = _rand(gen, (pool, 16, kvh, d), torch.float32, dev)
+    table = (torch.randperm(pool - 1, generator=gen, device=dev)[
+        :b * n_pages] + 1).reshape(b, n_pages).to(torch.int32)
+    table[2] = 0  # a released slot on trash page 0
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    q = _rand(gen, (b, s, h, d), torch.float32, dev)
+    got = ops.paged_decode_attention(q, kp, vp, table, pos)
+    want = L.paged_decode_attention(q, kp, vp, table, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh", [(48, 4), (32, 2)])
+def test_chunk_step_decode_at_groups_12_and_16_matches_plain(dev, h, kvh,
+                                                             dtype):
+    """The chunk step's rolling decode at G 12 and 16: 64 queries over a
+    (1, 1024) linear buffer, 768 and 1024 rows in row groups of 64."""
+    gen = torch.Generator(device=dev).manual_seed(h)
+    w, d, s = 1024, 128, 64
+    k = _rand(gen, (1, w, kvh, d), dtype, dev)
+    v = _rand(gen, (1, w, kvh, d), dtype, dev)
+    pos = torch.tensor([640], dtype=torch.int32, device=dev)
+    q = _rand(gen, (1, s, h, d), dtype, dev)
+    got = ops.decode_attention(q, k, v, pos)
+    again = ops.decode_attention(q, k, v, pos)
+    want = plain.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if dtype == torch.bfloat16:
+        assert _ring_units(got, want, q, k, v, pos) <= 4.0
+    else:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("v", [50280, 100352, 65024])
+def test_sampler_at_the_new_vocabularies(dev, v):
+    """mamba2's 50280 (8 blocks of 6288, the last of 6264), phi3's 100352
+    and chatglm3's 65024: every path exact, a repeat call bit-identical,
+    the last index and a tie at the end of the vocabulary."""
+    gen = torch.Generator(device=dev).manual_seed(v)
+    b = 8
+    logits = torch.randn((b, v), generator=gen, device=dev) * 4
+    logits[0, v - 3] = logits[0, 2] = logits[0].max() + 1.0  # tie
+    logits[3, v - 1] = logits[3].max() + 2.0  # the last index wins
+    greedy = torch.tensor([1, 0, 0, 1, 0, 0, 0, 1], dtype=torch.bool,
+                          device=dev)
+    temp = torch.tensor([1.0, 0.7, 1.3, 1.0, 0.9, 1.0, 0.5, 0.8],
+                        device=dev)
+    top_k = torch.tensor([0, 50, 0, 0, 200, 0, 1, 50], dtype=torch.int32,
+                         device=dev)
+    top_p = torch.tensor([1.0, 1.0, 0.9, 1.0, 0.95, 1.0, 1.0, 0.95],
+                         device=dev)
+    for _ in range(8):
+        u = torch.rand((b,), generator=gen, device=dev)
+        got = ops.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+        assert torch.equal(got, ops.sample_tokens(logits, greedy, temp,
+                                                  top_k, top_p, u))
+        want = L.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+        assert torch.equal(got, want)
+        assert int(got[0]) == 2 and int(got[3]) == v - 1
+
+
+def test_ssd_block_on_cuda_matches_the_cpu(dev):
+    """The SSD mixer of mamba2 ``reduced()`` (float32): a 45-token prefill
+    (chunks of 32, the second padded), then 4 steps from its cache,
+    written in place, on the card against the CPU within 2e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = get_config("mamba2-1.3b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    p_cpu = ssm.init_ssd(cfg, gen, torch.float32, "cpu")
+    p_cpu["A_log"] = torch.randn(cfg.ssm_num_heads, generator=gen) * 0.5
+    p_cpu["dt_bias"] = torch.randn(cfg.ssm_num_heads, generator=gen) * 0.5
+    p_gpu = _to(p_cpu, dev)
+    x = torch.randn((2, 49, cfg.d_model), generator=gen)
+    caches = {d: ssm.init_ssd_cache(cfg, 2, torch.float32, d)
+              for d in ("cpu", dev)}
+    leaves = {k: v for k, v in caches[dev].items()}
+    for sl in [slice(0, 45)] + [slice(t, t + 1) for t in range(45, 49)]:
+        want = ssm.apply_ssd(cfg, p_cpu, x[:, sl], cache=caches["cpu"])
+        got = ssm.apply_ssd(cfg, p_gpu, x[:, sl].to(dev),
+                            cache=caches[dev])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=2e-5)
+        for name in ("conv", "state"):
+            torch.testing.assert_close(caches[dev][name].cpu(),
+                                       caches["cpu"][name], atol=2e-5,
+                                       rtol=2e-5)
+    assert all(caches[dev][k] is leaves[k] for k in leaves)
