@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, in order (phases 7 and 8 run after phase 5, on granite's
-weights, before phase 6; phases 9 and 10 after phase 6; phase 8's
+weights, before phase 6; phases 9, 10 and 11 after phase 6; phase 8's
 profiled round (e) runs last); any failure exits non-zero:
 
 1. Print the card (``nvidia-smi``), build every CUDA kernel of the port
@@ -44,7 +44,13 @@ profiled round (e) runs last); any failure exits non-zero:
    decode at S 64 over a (1, 1024) buffer (G x 64 = 256, 768 and 1024
    rows); the sampler at vocab 100352, 49152, 65024 and 50280 (ragged
    last block) under both mixes; the int8 matmul (bf16) at M 8 and 64
-   over phi3's, starcoder2's and chatglm3's projections.
+   over phi3's, starcoder2's and chatglm3's projections. Then the shapes
+   of phase 11 (head_dim 128): prefill attention at S 512 over 48/8, 40/8
+   and 28/4 heads (G 6, 5, 7); paged decode (float32 and bf16) at S 1
+   and 4 there (G x S = 6 to 28 rows), int8 paged decode (bf16, page
+   scales) at grok's G 6; the chunk step's rolling decode at S 64 over a
+   (1, 1024) buffer (384, 320 and 448 rows); the sampler at vocab
+   131072, 202048 and 152064 under both mixes, a tie in the last block.
 3. Serve the same greedy and seeded requests through the port's
    ``ServingEngine`` on granite-8b ``reduced()`` (float32, 2 kv heads) on
    the card and on the CPU, in the model dtype, with int8 KV pages and
@@ -60,8 +66,11 @@ profiled round (e) runs last); any failure exits non-zero:
    the same cluster through ``FaultyEngine`` proxies with one replica
    killed mid-decode (its ledger replayed on the survivor); then
    phi3-medium-14b, starcoder2-15b (also at 12/1 heads), chatglm3-6b
-   (also at 16/1 heads, in float32 and with int8 KV pages) and
-   mamba2-1.3b ``reduced()``; the streams must be token-identical (on
+   (also at 16/1 heads, in float32 and with int8 KV pages),
+   mamba2-1.3b, grok-1-314b at 12/2 heads (G 6) with a capacity factor of
+   1.0 that drops tokens ("drop", also chunked, and "strict"),
+   llama4-maverick-400b-a17b at 10/2 heads (G 5) and qwen2-vl-7b at 14/2
+   heads (G 7, mrope) ``reduced()``; the streams must be token-identical (on
    the card, through the engine's CUDA graphs), and the cluster's must
    equal one engine's.
    Phases 4-6 pass ``chunk_prefill=0``: single-shot prefill, their cells
@@ -172,6 +181,22 @@ profiled round (e) runs last); any failure exits non-zero:
    launched); then in float32 at full width, decode logits 1 and 16
    ticks after the 584-token prompt (chunks of 256, 256 and 72) against
    the full forward, within 1e-3 of the largest logit.
+11. The MoE block family and mrope at full width in bf16 (random weights
+   from seed 0), each freed before the next, on the default path (paged
+   KV pages of 16, chunk 64, max_seq 1024, capacity policy "drop"):
+   grok-1-314b cut to 4 of its 64 layers (all 8 experts of width 32768,
+   top-2, 48/8 heads, vocab 131072), llama4-maverick-400b-a17b cut to 2
+   of 48 (one dense layer of 16384, one MoE layer of all 128 experts,
+   top-1, and the shared expert; 40/8 heads, vocab 202048) and
+   qwen2-vl-7b whole (28 layers, 28/4 heads, mrope sections (16, 24,
+   24), vocab 152064); phase 4's 16 prompts, 64 new tokens, half seeded,
+   8 slots, with phase 9's rounds, prints and gates, on phase 8's virtual
+   clock (one cost-model tick a step: a binding capacity makes a stream
+   depend on the tokens routed beside it, so admissions must fall at the
+   same steps in every round); grok also under the "strict" capacity
+   policy and with int8 KV pages (the int8 paged decode launched). Prints each weight-read floor per tick (every expert is
+   read each tick, as in the reference's products; llama4 also the floor
+   of its 8 routed experts).
 
 ``--profile DIR`` repeats the steady-decode serve (8 requests on 8
 slots) of phases 4, 5 and 6, and recurrentgemma's 2500-token prompt
@@ -471,6 +496,7 @@ def phase_kernels(torch, rec):
           f"ms={ms:.4f} plain_ms={plain:.4f}", flush=True)
     ok &= hybrid_kernels(torch, rec, gen)
     ok &= dense_family_kernels(torch, rec, gen)
+    ok &= moe_family_kernels(torch, rec, gen)
     return ok
 
 
@@ -1060,11 +1086,62 @@ def dense_family_kernels(torch, rec, gen):
     return ok
 
 
+#: the MoE and mrope archs served at full width (phase 11): (arch, q heads,
+#: kv heads, vocabulary, layers served), head_dim 128 in all three; grok-1
+#: cut to 4 of its 64 layers and llama4 to 2 of 48 (one dense layer, one
+#: MoE layer), qwen2-vl whole
+MOE_FAMILIES = {"grok": ("grok-1-314b", 48, 8, 131072, 4),
+                "llama4": ("llama4-maverick-400b-a17b", 40, 8, 202048, 2),
+                "qwen2vl": ("qwen2-vl-7b", 28, 4, 152064, 28)}
+
+
+def moe_family_kernels(torch, rec, gen):
+    """The kernels at the shapes of grok-1-314b (G 6), llama4 (G 5) and
+    qwen2-vl-7b (G 7), D 128: prefill attention at S 512 (float32 and
+    bf16), paged decode over model-dtype pools at S 1 and 4 (float32 and
+    bf16), int8 paged decode (bf16, page scales) at grok's G 6, the chunk
+    step's rolling decode at S 64 over a (1, 1024) buffer (384, 320 and
+    448 rows in row groups of 64), and the sampler at vocab 131072,
+    202048 and 152064 under both mixes with a tie in the last block. Each
+    arch's bf16 rows go into its ``rec`` records."""
+    D = 128
+    ok = True
+    for arch, (_, H, KVH, V, _) in MOE_FAMILIES.items():
+        for dt_name in ("float32", "bfloat16"):
+            good, row = prefill_kernel(torch, gen, H, KVH, D, 512, dt_name)
+            ok &= good
+            if dt_name == "bfloat16":
+                rec[f"flash_attention_{arch}"].update(row)
+        ok &= paged_decode_kernel(torch, rec, gen, H, KVH, D, (1, 4),
+                                  f"paged_decode_attention_{arch}")
+        ok &= chunk_decode_kernel(torch, rec, gen, H, KVH, D, sizes=(64,),
+                                  rec_key=f"decode_attention_chunk_{arch}")
+        if arch == "grok":
+            ok &= int8_decode_kernel(
+                torch, rec, gen, H, KVH, D, dtypes=("bfloat16",),
+                grans=("page",), rec_key="paged_decode_attention_int8_grok")
+        logits = torch.randn((8, V), generator=gen, device="cuda") * 4.0
+        # an argmax tie, one of its ends in the last block
+        logits[0, 7] = logits[0, V - 2] = logits[0].max() + 1.0
+        good, res = sampler_check(torch, logits, 1000, 100, 7)
+        ok &= good
+        mism, _, ms, plain, b_ms, b_by = res["phase 2"]
+        rec[f"sample_tokens_{arch}"].update(
+            max_abs_err=float(mism), ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)
+    return ok
+
+
 def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
           sync_every=8, seeded=lambda i: i % 2 == 1, precision=None,
-          eng=None, reset=True, step_log=None, **engine):
+          eng=None, reset=True, step_log=None, virtual=False, **engine):
     """Serve ``prompts`` at once; ``engine`` holds further EngineConfig
-    fields (``paged``, ``window``, ``chunk_prefill``, ``prefix_cache``).
+    fields (``paged``, ``window``, ``chunk_prefill``, ``prefix_cache``,
+    ``moe_capacity_policy``). ``virtual``: the engine's clock advances one
+    cost-model tick a step (phase 8's clock) instead of the host's, so the
+    queued requests are admitted at the same steps in every round: on a
+    MoE arch whose capacity binds, a token's stream depends on the tokens
+    routed beside it (TTFT and tok/s stay on the host clock).
     ``eng``: an engine of an earlier round, served on again after its
     ``reset()`` (its CUDA graphs captured; ``reset=False`` keeps its
     state, a prefix cache's index with it), in place of a new one. With
@@ -1106,8 +1183,15 @@ def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
                 ttft[r.rid] = now
 
     t0 = time.perf_counter()
+    n_steps = 0
+
+    def clock():
+        if virtual:
+            return n_steps * eng._tick_est_s
+        return time.perf_counter() - t0
+
     for r in reqs:
-        eng.submit(r, time.perf_counter() - t0)
+        eng.submit(r, clock())
         stamp()
     t_admitted = time.perf_counter() - t0
     done = 0
@@ -1115,7 +1199,8 @@ def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
         m = eng.metrics
         before = (m.prefill_chunks, m.decode_ticks, eng.prefill_calls)
         t_step = time.perf_counter()
-        done += len(eng.step(time.perf_counter() - t0))
+        n_steps += 1
+        done += len(eng.step(clock()))
         if step_log is not None:
             torch.cuda.synchronize()
             step_log.append((time.perf_counter() - t_step,
@@ -1123,7 +1208,7 @@ def serve(torch, cfg, params, prompts, *, device, max_new, slots, max_seq,
                              m.decode_ticks - before[1],
                              eng.prefill_calls - before[2]))
         stamp()
-    done += len(eng.drain(time.perf_counter() - t0))
+    done += len(eng.drain(clock()))
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1206,7 +1291,11 @@ def phase_reduced(torch):
     dtype, with int8 KV pages and int8 weights, and from rolling caches;
     recurrentgemma (5 layers, rings of 64) with prompts past the window;
     phi3, starcoder2 (also at 12/1 heads: G 12), chatglm3 (also at 16/1
-    heads: G 16, and with int8 KV pages there) and mamba2."""
+    heads: G 16, and with int8 KV pages there) and mamba2; grok-1 at 12/2
+    heads (G 6) with a binding capacity factor of 1.0 (tokens drop),
+    under "drop" (also chunked, 16) and "strict", llama4 at 10/2 heads (G
+    5, its shared expert and dense layer) and qwen2-vl at 14/2 heads (G 7,
+    mrope)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1222,6 +1311,14 @@ def phase_reduced(torch):
                                num_kv_heads=1)
     glm16 = dataclasses.replace(new["chatglm3"], num_heads=16,
                                 num_kv_heads=1)
+    grok6 = dataclasses.replace(get_config("grok-1-314b").reduced(),
+                                num_heads=12, num_kv_heads=2,
+                                moe_capacity_factor=1.0)
+    llama5 = dataclasses.replace(
+        get_config("llama4-maverick-400b-a17b").reduced(), num_heads=10,
+        num_kv_heads=2)
+    qwen7 = dataclasses.replace(get_config("qwen2-vl-7b").reduced(),
+                                num_heads=14, num_kv_heads=2)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (5, 23, 40, 17, 64, 9)]
@@ -1248,7 +1345,16 @@ def phase_reduced(torch):
             ("chatglm3 16/1 heads f32 (G 16)", glm16, None, {}),
             ("chatglm3 16/1 heads int8 kv (G 16)", glm16,
              dict(kv_cache_dtype="int8"), {}),
-            ("mamba2 f32 (SSD, rolling caches)", new["mamba2"], None, {})):
+            ("mamba2 f32 (SSD, rolling caches)", new["mamba2"], None, {}),
+            ("grok 12/2 heads f32 (G 6), capacity factor 1.0, drop",
+             grok6, None, {}),
+            ("grok 12/2 heads f32 (G 6), capacity factor 1.0, drop, "
+             "chunked 16", grok6, None, dict(chunk_prefill=16)),
+            ("grok 12/2 heads f32 (G 6), capacity factor 1.0, strict",
+             grok6, None, dict(moe_capacity_policy="strict")),
+            ("llama4 10/2 heads f32 (G 5, shared expert)", llama5, None,
+             {}),
+            ("qwen2-vl 14/2 heads f32 (G 7, mrope)", qwen7, None, {})):
         if arch not in weights:
             p_cpu = init_params(arch, seed=0, device="cpu")
             weights[arch] = (p_cpu, _to(torch, p_cpu, "cuda"))
@@ -2641,6 +2747,92 @@ def phase_ssd(torch, rec):
     return ok and good
 
 
+def phase_moe(torch, rec):
+    """Phase 11: grok-1-314b (depth 4 of 64: all 8 experts of 32768, 48/8
+    heads, vocab 131072), llama4-maverick-400b-a17b (depth 2 of 48: one
+    dense layer of 16384 and one MoE layer of all 128 experts and the
+    shared expert; 40/8 heads, vocab 202048) and qwen2-vl-7b (nothing
+    cut: 28 layers, 28/4 heads, mrope sections (16, 24, 24), vocab
+    152064), at full width in bf16 (random weights from seed 0), one
+    after the other, each freed before the next, on the default path
+    (paged KV pages of 16, chunk 64, max_seq 1024, capacity policy
+    "drop"): phase 4's 16 prompts, 64 new tokens, half seeded, 8 slots,
+    with phase 9's rounds, prints and gates, on phase 8's virtual clock
+    (one cost-model tick a step: admissions at the same steps in every
+    round, which a binding capacity needs for its streams to repeat);
+    grok also under "strict" and with int8 KV pages. Prints each arch's
+    weight-read floor per tick
+    (the reference's all-experts products read every expert each tick;
+    llama4 also the floor if only the routed experts were read)."""
+    from collections import defaultdict
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    _, prompts = burst_prompts()
+    run = dict(device="cuda", max_new=64, slots=8, max_seq=1024,
+               virtual=True)
+    ok = True
+    for arch, (name, H, KVH, V, depth) in MOE_FAMILIES.items():
+        full = get_config(name)
+        cfg = dataclasses.replace(full, num_layers=depth)
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for t in _leaves(params))
+        floor = 2 * n_par / HBM_BW * 1e3
+        cut = (f"depth {depth} of {full.num_layers}" if depth <
+               full.num_layers else "nothing cut")
+        line = (f"full width {name} ({cut}): {depth} layers, d "
+                f"{cfg.d_model}, {H}/{KVH} heads (G {H // KVH}), vocab {V}")
+        if cfg.num_experts:
+            e, k = cfg.num_experts, cfg.experts_per_token
+            per_expert = 3 * cfg.d_model * cfg.d_ff
+            n_moe = depth // cfg.moe_layer_period
+            routed = n_par - n_moe * (e - min(e, 8 * k)) * per_expert
+            line += (f", {n_moe} MoE layer(s) of {e} experts of "
+                     f"{cfg.d_ff} (top-{k}"
+                     + (", shared expert" if cfg.moe_shared_expert else "")
+                     + ")")
+        line += (f", {n_par / 1e9:.3f} B params (bf16) initialized in "
+                 f"{time.perf_counter() - t0:.1f}s; weight-read floor "
+                 f"{floor:.2f} ms per tick at 3.35 TB/s ({2 * n_par / 1e9:.1f}"
+                 f" GB" + (", every expert read)" if cfg.num_experts
+                           else ")"))
+        if cfg.num_experts and routed < n_par:
+            line += (f"; {2 * routed / HBM_BW * 1e3:.2f} ms "
+                     f"({2 * routed / 1e9:.1f} GB) if only the 8 slots' "
+                     f"{min(e, 8 * k)} routed experts were read")
+        print(line, flush=True)
+        kernels = {f"flash_attention_{arch}": "flash_attention",
+                   f"paged_decode_attention_{arch}": "paged_decode_attention",
+                   f"decode_attention_chunk_{arch}": "decode_attention",
+                   f"sample_tokens_{arch}": "sample_tokens"}
+        good, _ = full_width_engine(torch, rec, f"{arch} bf16", cfg, params,
+                                    prompts, run, kernels)
+        ok &= good
+        gc.collect()
+        if arch == "grok":
+            # the strict round's launches gate it but stay out of the
+            # kernel records, which keep the default path's
+            good, _ = full_width_engine(
+                torch, defaultdict(dict), f"{arch} bf16 strict", cfg,
+                params, prompts, dict(run, moe_capacity_policy="strict"),
+                kernels)
+            ok &= good
+            gc.collect()
+            good, _ = full_width_engine(
+                torch, rec, f"{arch} int8 kv", cfg, params, prompts,
+                dict(run, precision=dict(kv_cache_dtype="int8")),
+                {"paged_decode_attention_int8_grok":
+                 "paged_decode_attention_int8"})
+            ok &= good
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok
+
+
 def ssd_decode_check(torch, cfg, params, prompt, ticks):
     """Prefill ``prompt`` into a fresh rolling cache, decode greedily and,
     at each tick in ``ticks``, compare the logits with the full forward
@@ -2807,7 +2999,9 @@ def main() -> int:
                                        "(1, 1024) buffer",
                                        "decode_attention.py:264"),
             "sample_tokens": ("sampling", "", "topk_sample.py:63")}
-    for arch, (name, H, KVH, V) in DENSE_FAMILIES.items():
+    families = [(a, f[:4]) for a, f in DENSE_FAMILIES.items()]
+    families += [(a, f[:4]) for a, f in MOE_FAMILIES.items()]
+    for arch, (name, H, KVH, V) in families:
         for key, (src, what, line) in rows.items():
             shape = f"vocab {V}" if src == "sampling" else \
                 f"{H}/{KVH} heads, {what}"
@@ -2817,6 +3011,11 @@ def main() -> int:
                 replaces=f"src/repro/kernels/{line}")
     rec["paged_decode_attention_int8_chatglm3"] = dict(
         name="paged_decode_attention_int8 (chatglm3-6b, 32/2 heads, page "
+             "scales, S 1)", route="cuda",
+        source=f"{csrc}/paged_decode_attention_int8.cu",
+        replaces="src/repro/kernels/decode_attention.py:216")
+    rec["paged_decode_attention_int8_grok"] = dict(
+        name="paged_decode_attention_int8 (grok-1-314b, 48/8 heads, page "
              "scales, S 1)", route="cuda",
         source=f"{csrc}/paged_decode_attention_int8.cu",
         replaces="src/repro/kernels/decode_attention.py:216")
@@ -2843,6 +3042,8 @@ def main() -> int:
                        lambda: phase_dense(torch, rec)),
                       ("full-width SSD serving",
                        lambda: phase_ssd(torch, rec)),
+                      ("full-width MoE and mrope serving",
+                       lambda: phase_moe(torch, rec)),
                       ("full-width profiler hook",
                        lambda: phase_profile_hook(torch))):
         t0 = time.perf_counter()

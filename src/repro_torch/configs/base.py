@@ -277,7 +277,8 @@ _ALIAS = {
 #: Architectures whose config module the port carries so far; the others
 #: come with their block families (ROADMAP.md queue 1).
 PORTED_ARCHS = ("granite_8b", "recurrentgemma_9b", "phi3_medium_14b",
-                "starcoder2_15b", "chatglm3_6b", "mamba2_1_3b")
+                "starcoder2_15b", "chatglm3_6b", "mamba2_1_3b",
+                "grok_1_314b", "llama4_maverick_400b", "qwen2_vl_7b")
 
 
 def get_config(name: str) -> ArchConfig:

@@ -13,8 +13,12 @@ switches every request to seeded stochastic decode; request i samples with
 seed ``--sample-seed + i``, so a rerun reproduces every stream.
 
 Archs served: granite-8b, phi3-medium-14b, starcoder2-15b and
-chatglm3-6b (dense; chatglm3's half-dim RoPE), recurrentgemma-9b (hybrid)
-and mamba2-1.3b (SSD). Ported so far: the paged KV cache (dense archs),
+chatglm3-6b (dense; chatglm3's half-dim RoPE), qwen2-vl-7b (dense blocks
+under mrope), grok-1-314b and llama4-maverick-400b-a17b (MoE; their
+capacity policy from ``--moe-capacity``: strict | backpressure | drop,
+"drop" by default on one card), recurrentgemma-9b (hybrid) and
+mamba2-1.3b (SSD). Ported so far: the paged KV cache (dense and MoE
+archs),
 rolling caches (``--no-paged`` on dense archs; recurrentgemma-9b and
 mamba2-1.3b always, their KV rings, RG-LRU and SSD states), single-shot
 and chunked prefill (``--chunk-prefill``, 64 by default as in the
@@ -120,6 +124,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="chunked-prefill piece size; 0 = single-shot")
     ap.add_argument("--sla-ms", type=float, default=50.0,
                     help="per-step SLA budget for the admission plan")
+    ap.add_argument("--moe-capacity", default="",
+                    choices=("", "strict", "backpressure", "drop"),
+                    help="MoE capacity-overflow policy; empty = strict on "
+                         "sharded MoE replicas, drop otherwise")
     ap.add_argument("--no-paged", action="store_true",
                     help="serve from rolling KV windows instead of pages "
                          "(archs that cannot page always do)")
@@ -199,7 +207,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def engine_config(args) -> EngineConfig:
     """The ``EngineConfig`` of parsed flags (the reference's
-    ``_engine_config``; ``--sla-ms`` becomes ``sla_s``)."""
+    ``_engine_config``; ``--sla-ms`` becomes ``sla_s``, ``--moe-capacity``
+    ``moe_capacity_policy``)."""
     return EngineConfig(slots=args.slots, window=args.window,
                         sync_every=args.sync_every,
                         chunk_prefill=args.chunk_prefill,
@@ -210,6 +219,7 @@ def engine_config(args) -> EngineConfig:
                         page_size=args.page_size,
                         max_seq=args.max_seq or None,
                         pool_pages=args.pool_pages or None,
+                        moe_capacity_policy=args.moe_capacity or None,
                         precision=PrecisionConfig(
                             kv_cache_dtype=args.kv_dtype,
                             weight_dtype=args.weight_dtype),
@@ -246,7 +256,11 @@ def main(argv=None):
     if eng.paged:
         print(f"paged KV: page_size={eng.page_size} max_seq={eng.max_seq} "
               f"pool={eng.pool_pages} pages "
-              f"({eng.allocator.capacity} usable + trash)")
+              f"({eng.allocator.capacity} usable + trash)"
+              + (f", moe_capacity_policy={eng.moe_capacity_policy}"
+                 if eng.moe_capacity_policy else "")
+              + (f" (drop-free group {eng._moe_gmax}, slots {eng.slots})"
+                 if eng._moe_gmax else ""))
     else:
         rings = sorted({c["k"].shape[1] for c in eng.cache["layers"]
                         if "k" in c})

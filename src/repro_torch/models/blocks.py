@@ -1,7 +1,7 @@
-"""Blocks of the PyTorch port (the ``dense``, ``local_attn``, ``rglru``
-and ``ssd`` block types of ``repro.models.blocks``), with the attention,
-the RG-LRU scan and the int8 projections going through the kernels'
-dispatch points (``repro_torch.kernels.ops``).
+"""Blocks of the PyTorch port (the ``dense``, ``moe``, ``local_attn``,
+``rglru`` and ``ssd`` block types of ``repro.models.blocks``), with the
+attention, the RG-LRU scan and the int8 projections going through the
+kernels' dispatch points (``repro_torch.kernels.ops``).
 
 Params are plain dicts of tensors in the reference's (in, out) weight
 orientation. Paged pools, rolling rings and recurrent states are updated
@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.rglru import (
     apply_rglru_block,
     init_rglru,
@@ -25,7 +26,7 @@ from repro_torch.models.ssm import apply_ssd, init_ssd, init_ssd_cache
 F32 = torch.float32
 
 # Block types the port serves so far (ROADMAP.md queue 1 lists the rest).
-PORTED_BLOCKS = ("dense", "local_attn", "rglru", "ssd")
+PORTED_BLOCKS = ("dense", "moe", "local_attn", "rglru", "ssd")
 
 # Block types whose decode cache is a KV ring (vs recurrent state); the
 # engine keys bucketed prefill off this (the reference's list).
@@ -146,6 +147,11 @@ def init_block(cfg, btype: str, gen, dtype, device):
     if btype == "ssd":  # the mixer alone: no norm2, no MLP
         return {"norm1": init_norm(cfg, d, dtype, device),
                 "mixer": init_ssd(cfg, gen, dtype, device)}
+    if btype == "moe":
+        return {"norm1": init_norm(cfg, d, dtype, device),
+                "attn": init_attn(cfg, gen, dtype, device),
+                "norm2": init_norm(cfg, d, dtype, device),
+                "moe": init_moe(cfg, gen, dtype, device)}
     return {"norm1": init_norm(cfg, d, dtype, device),
             "attn": init_attn(cfg, gen, dtype, device),
             "norm2": init_norm(cfg, d, dtype, device),
@@ -200,27 +206,50 @@ def init_paged_block_cache(cfg, n_pages: int, page_size: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def paged_write_index(pages, pos, s: int, page_size: int):
+def last_writer(keys):
+    """For n write targets ``keys`` (n,) int64, the index of the last
+    write to each one's target. A CUDA scatter applies writes to one
+    target in no fixed order, the CPU's in order (the last one wins):
+    writes that all carry their last writer's values land alike on
+    both."""
+    n = keys.shape[0]
+    idx = torch.arange(n, device=keys.device)
+    same = keys[:, None] == keys[None, :]
+    return torch.where(same, idx[None, :], -1).amax(dim=1)
+
+
+def paged_write_index(pages, pos, s: int, page_size: int, *,
+                      resolve_duplicates: bool = False):
     """Where the S new tokens of each slot land, the same for every layer:
     token t of slot b goes to page ``pages[b, t // ps]`` at offset
-    ``t % ps``; released slots point every entry at trash page 0. The page
-    index is clamped to the table so a vacated slot whose position runs
-    past ``max_seq`` keeps writing into the trash page. Returns (page ids,
-    offsets), each (B, S) int64."""
+    ``t % ps``; released slots point every entry at trash page 0, where
+    two idle lanes at positions equal modulo ps write the same row. The
+    page index is clamped to the table so a vacated slot whose position
+    runs past ``max_seq`` keeps writing into the trash page. Returns (page
+    ids, offsets), each (B, S) int64, and, with ``resolve_duplicates``,
+    the (B*S,) last writer of each write's row (``last_writer``), else
+    None."""
     n_pages = pages.shape[1]
     t = pos.to(torch.int64)[:, None] + torch.arange(s, device=pos.device)
     idx = torch.clamp(t // page_size, max=n_pages - 1)
-    return torch.gather(pages.to(torch.int64), 1, idx), t % page_size
+    phys, off = torch.gather(pages.to(torch.int64), 1, idx), t % page_size
+    win = (last_writer((phys * page_size + off).reshape(-1))
+           if resolve_duplicates else None)
+    return phys, off, win
 
 
 def _paged_attn_decode(q, k, v, cache, pages, write_at, n_valid):
     """Write the chunk's K/V at ``write_at`` (``paged_write_index``), in
     place, and attend through the page table; ``n_valid`` (B,) int32 is
-    each slot's token count including the S new ones. Over int8 pools
-    the values and their per-token scales are written at the same
-    addresses (decode-time writes are always per token, whatever the
+    each slot's token count including the S new ones. Writes to one row
+    carry their last writer's K/V when ``write_at`` resolves them. Over
+    int8 pools the values and their per-token scales are written at the
+    same addresses (decode-time writes are always per token, whatever the
     prefill's scale granularity)."""
-    phys, off = write_at
+    phys, off, win = write_at
+    if win is not None:
+        k, v = (t.reshape(-1, *t.shape[2:])[win].reshape(t.shape)
+                for t in (k, v))
     if "k_scale" in cache:
         for name, t in (("k", k), ("v", v)):
             q8, scale = quantize_kv(t)
@@ -307,14 +336,17 @@ def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,
 
 
 def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
-                pos=None, pages=None, write_at=None, n_valid=None):
+                pos=None, pages=None, write_at=None, n_valid=None,
+                moe_full_cap: bool = False):
     """Pre-norm residual block: attention (dense, or local over
-    ``cfg.local_window``) or the RG-LRU mixer, then the MLP; or the SSD
-    mixer alone (``x + ssd(norm1(x))``, no MLP). Returns
-    (x, new_kv): the prompt's (k, v) of an attention block in prefill
-    mode, else None. ``cache`` is the block's paged pools (with
-    ``pages``) or its rolling cache (ring or recurrent state, with the
-    slots' positions ``pos`` in decode mode), updated in place."""
+    ``cfg.local_window``) or the RG-LRU mixer, then the MLP (the MoE MLP
+    in a ``moe`` block, at the whole group's capacity when
+    ``moe_full_cap``: the engine's "strict" policy); or the SSD mixer
+    alone (``x + ssd(norm1(x))``, no MLP). Returns (x, new_kv): the
+    prompt's (k, v) of an attention block in prefill mode, else None.
+    ``cache`` is the block's paged pools (with ``pages``) or its rolling
+    cache (ring or recurrent state, with the slots' positions ``pos`` in
+    decode mode), updated in place."""
     if btype not in PORTED_BLOCKS:
         raise ValueError(f"block type {btype!r} is not ported yet")
     h = L.apply_norm(cfg, p["norm1"], x)
@@ -330,5 +362,8 @@ def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
                                 n_valid=n_valid)
     x = x + a
     h = L.apply_norm(cfg, p["norm2"], x)
-    x = x + apply_mlp(cfg, p["mlp"], h)
-    return x, new_kv
+    if btype == "moe":
+        m, _ = apply_moe(cfg, p["moe"], h, full_cap=moe_full_cap)
+    else:
+        m = apply_mlp(cfg, p["mlp"], h)
+    return x + m, new_kv

@@ -12,7 +12,9 @@ orientation, so no transpose is needed. A quantized tree
 (n_repeat, 1, N) is unstacked like its weight. RG-LRU and SSD blocks
 carry their ``mixer`` leaves the same way, float32 ones as float32
 (RG-LRU's ``Lambda``, ``b_a``, ``b_x``; SSD's ``A_log``, ``D``,
-``dt_bias``) under any model dtype.
+``dt_bias``) under any model dtype, and MoE blocks their ``moe`` leaves:
+the float32 ``router`` (d, E), the expert stacks ``w_gate`` / ``w_up``
+(E, d, ff) and ``w_down`` (E, ff, d), and a ``shared`` expert's MLP.
 
 ``cache_from_jax(cfg, tree, device)`` does the same for the reference's
 rolling cache (``init_cache`` or a prefill's output: rings, RG-LRU and

@@ -1,6 +1,7 @@
-"""Primitive layers of the PyTorch port: norms, RoPE, and the plain
-versions of the kernels (attention, the int8 matmul, the sampler) — the
-torch twins of ``repro.models.layers`` on the main path.
+"""Primitive layers of the PyTorch port: norms, RoPE (standard, half and
+Qwen2-VL's three-stream mrope), and the plain versions of the kernels
+(attention, the int8 matmul, the sampler) — the torch twins of
+``repro.models.layers`` on the main path.
 
 All functions take tensors in the JAX package's layouts ((B, S, H, D)
 activations, (P, ps, Hkv, D) page pools, (B, n_pages) page tables) and
@@ -58,12 +59,11 @@ def apply_norm(cfg, p, x):
 
 
 # ---------------------------------------------------------------------------
-# RoPE (standard and half)
+# RoPE (standard, half and mrope)
 # ---------------------------------------------------------------------------
 
-#: RoPE variants the port serves; mrope (qwen2-vl) comes with its arch
-#: (ROADMAP.md queue 1).
-ROPE_VARIANTS = ("standard", "half", "none")
+#: RoPE variants the port serves.
+ROPE_VARIANTS = ("standard", "half", "mrope", "none")
 
 
 def _rope_angles(positions, dim_half: int, theta: float):
@@ -103,28 +103,55 @@ def rotate(x, table):
     return (xf * cos2 + rolled * sin2).to(x.dtype)
 
 
+def _mrope_angles(positions, sections, dim_half: int, theta: float):
+    """Qwen2-VL's M-RoPE: positions (3, B, S), one stream per section of
+    the D/2 frequencies (temporal, height, width). Section i takes the
+    frequencies ``exp(-log(theta) * (j + off_i) / dim_half)``, j < its
+    width, of stream i; the sections concatenate into (B, S, dim_half).
+    Three equal streams give the standard variant's angles bit for bit
+    (the same frequency, the same product)."""
+    if positions.dim() != 3 or positions.shape[0] != 3:
+        raise ValueError(f"mrope needs (3, B, S) positions, got "
+                         f"{tuple(positions.shape)}")
+    if sum(sections) != dim_half:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to "
+                         f"head_dim / 2 = {dim_half}")
+    angs, off = [], 0
+    for i, sec in enumerate(sections):
+        j = torch.arange(sec, dtype=F32, device=positions.device) + off
+        freqs = torch.exp(torch.tensor(-math.log(theta), dtype=F32) * j
+                          / dim_half)
+        angs.append(positions[i].to(F32)[..., None] * freqs)
+        off += sec
+    return torch.cat(angs, dim=-1)
+
+
 def rope_table(cfg, positions):
     """The rotation table of positions (B, S) for q and k of every layer:
     ``(cos2, sin2)``, each (B, S, 1, 2*Dh) float32 (see ``rotate``), with
-    Dh = D/2 ("standard") or D/4 ("half": ChatGLM's rotation of the first
-    half of each head, angles of width D/4 as the reference's); None
-    without RoPE. The model builds it once per forward or decode step,
-    where the reference's per-layer recomputation is fused away by XLA
-    and eager PyTorch would pay ~10 launches per layer for it."""
+    Dh = D/2 ("standard", and "mrope" over positions (3, B, S): one stream
+    per frequency section) or D/4 ("half": ChatGLM's rotation of the
+    first half of each head, angles of width D/4 as the reference's);
+    None without RoPE. The model builds it once per forward or decode
+    step, where the reference's per-layer recomputation is fused away by
+    XLA and eager PyTorch would pay ~10 launches per layer for it."""
     if cfg.rope_variant == "none":
         return None
     if cfg.rope_variant not in ROPE_VARIANTS:
-        raise ValueError(
-            f"rope variant {cfg.rope_variant!r} is not ported yet "
-            f"(ROADMAP.md queue 1, 'Other block families')")
+        raise ValueError(f"unknown rope variant {cfg.rope_variant!r}")
     d = cfg.resolved_head_dim
+    if cfg.rope_variant == "mrope":
+        ang = _mrope_angles(positions, cfg.mrope_sections, d // 2,
+                            cfg.rope_theta)
+        return _table(ang[:, :, None, :])
     width = d // 2 if cfg.rope_variant == "standard" else d // 4
     ang = _rope_angles(positions, width, cfg.rope_theta)
     return _table(ang[:, :, None, :])
 
 
 def apply_rope(cfg, x, positions):
-    """x: (B, S, H, D). positions: (B, S) integer."""
+    """x: (B, S, H, D). positions: (B, S) integer, or (3, B, S) for
+    mrope."""
     table = rope_table(cfg, positions)
     return x if table is None else rotate(x, table)
 

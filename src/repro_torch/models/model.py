@@ -15,6 +15,14 @@ Public API (device explicit everywhere):
   decode_step(cfg, params, cache, tokens)     -> logits (B, S, V); cache
                                                  (paged or rolling) updated
                                                  in place
+
+Both steps take ``positions`` (3, B, S) for mrope (qwen2-vl: the stubbed
+vision frontend's three position streams; the reference's
+``batch["positions"]``) and ``moe_full_cap`` (MoE blocks at the whole
+group's capacity: the serving engine's "strict" policy, which the
+reference passes as a trace hint); ``forward`` also takes ``patches``
+(B, P, d), precomputed patch embeddings fused ahead of the text tokens
+(``vision_text`` archs).
 """
 from __future__ import annotations
 
@@ -196,24 +204,41 @@ def _logits(cfg, params, x):
     return torch.matmul(x.to(F32), head_f32(params))
 
 
+def _rope(cfg, positions, default):
+    """The step's rotation table: mrope from the caller's (3, B, S)
+    ``positions`` (required, as the reference's), any other variant from
+    ``positions`` or, when None, the (B, S) ``default()``."""
+    if cfg.rope_variant == "mrope" and positions is None:
+        raise ValueError(f"{cfg.name}: mrope needs (3, B, S) positions")
+    return L.rope_table(cfg, default() if positions is None else positions)
+
+
 def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
-            want_kv: bool = False, cache: Optional[dict] = None):
-    """Full-sequence causal forward (prefill). tokens (B, S) integer.
-    Returns (logits, kv): logits (B, S, V) float32, or (B, V) at the
-    positions ``logits_at`` (B,) when given; kv is the per-layer list of
-    the prompt's (k, v), each (B, S, kv, hd), when ``want_kv``. A fresh
-    rolling ``cache`` (``init_cache``) is filled in place: every ring with
-    the prompt's last keys, every RG-LRU and SSD conv window and state,
-    and ``pos`` = S."""
-    b, s = tokens.shape
+            want_kv: bool = False, cache: Optional[dict] = None,
+            patches: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
+            moe_full_cap: bool = False):
+    """Full-sequence causal forward (prefill). tokens (B, S) integer;
+    ``patches`` (B, P, d) go ahead of them on a ``vision_text`` arch
+    (early fusion: the sequence is then P + S long). Returns (logits, kv):
+    logits (B, S, V) float32, or (B, V) at the positions ``logits_at``
+    (B,) when given; kv is the per-layer list of the prompt's (k, v),
+    each (B, S, kv, hd), when ``want_kv``. A fresh rolling ``cache``
+    (``init_cache``) is filled in place: every ring with the prompt's last
+    keys, every RG-LRU and SSD conv window and state, and ``pos`` = the
+    sequence's length."""
     x = _embed(params, tokens)
-    rope_pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    rope = L.rope_table(cfg, rope_pos)
+    if cfg.modality == "vision_text" and patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    b, s = x.shape[:2]
+    rope = _rope(cfg, positions, lambda: torch.arange(
+        s, device=tokens.device)[None].expand(b, s))
     kvs = []
     layer_caches = (cache["layers"] if cache is not None
                     else [None] * cfg.num_layers)
     for bt, p, c in zip(layer_types(cfg), params["layers"], layer_caches):
-        x, kv = apply_block(cfg, bt, p, x, rope, mode="prefill", cache=c)
+        x, kv = apply_block(cfg, bt, p, x, rope, mode="prefill", cache=c,
+                            moe_full_cap=moe_full_cap)
         if want_kv:
             kvs.append(kv)
     if cache is not None:
@@ -224,7 +249,9 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
 
 
 def decode_step(cfg, params, cache, tokens, *,
-                logits_at: Optional[torch.Tensor] = None):
+                logits_at: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None,
+                moe_full_cap: bool = False):
     """Incremental decode against the paged cache (``init_paged_cache``)
     or the rolling one (``init_cache``). tokens (B, S): S=1 is the
     one-token decode step, S > 1 a chunk of prefill (recurrent blocks
@@ -237,17 +264,20 @@ def decode_step(cfg, params, cache, tokens, *,
     pos = cache["pos"]
     pages = cache.get("page_table")
     x = _embed(params, tokens)
-    rope_pos = pos.to(torch.int64)[:, None] + torch.arange(
-        s, device=tokens.device)[None, :]
     # what every layer shares, built once per step
-    rope = L.rope_table(cfg, rope_pos)
+    rope = _rope(cfg, positions, lambda: pos.to(torch.int64)[:, None]
+                 + torch.arange(s, device=tokens.device)[None, :])
+    # idle lanes share the trash page's rows; on a MoE arch their state
+    # routes beside live tokens, so their writes must land alike on any
+    # device (the last writer wins, as on the CPU)
     write_at = (None if pages is None else paged_write_index(
-        pages, pos, s, cache["layers"][0]["k"].shape[1]))
+        pages, pos, s, cache["layers"][0]["k"].shape[1],
+        resolve_duplicates=cfg.arch_type == "moe"))
     n_valid = (pos + s).to(torch.int32)
     for bt, p, c in zip(layer_types(cfg), params["layers"], cache["layers"]):
         x, _ = apply_block(cfg, bt, p, x, rope, mode="decode", cache=c,
                            pos=pos, pages=pages, write_at=write_at,
-                           n_valid=n_valid)
+                           n_valid=n_valid, moe_full_cap=moe_full_cap)
     cache["pos"].add_(s)  # after the layers' last read of the old value
     if logits_at is not None:
         x = x[torch.arange(b, device=x.device), logits_at.to(torch.int64)]

@@ -1,0 +1,165 @@
+"""Mixture-of-Experts MLP of the PyTorch port (the reference's
+``repro.models.moe``): grouped, capacity-based top-k dispatch.
+
+Tokens are split into groups of ``g`` (``min(2048, t)``, halved until it
+divides the token count t). Each group routes its tokens to experts with
+a per-expert capacity ``c = max(int(g * k * capacity_factor / E) + 1,
+k)``, or ``c = g`` under the serving engine's "strict" policy
+(``full_cap``), which no routing pattern can overflow. A token past its
+expert's capacity is dropped: its residual passes through untouched.
+
+The routing is the reference's integer logic, step for step, so the same
+tokens are kept and dropped in both packages: float32 router logits and
+softmax; k rounds of argmax (the first index on ties, in both
+``torch.argmax`` and ``jnp.argmax``); each token's slot in its expert's
+buffer is the cumulative count of earlier tokens choosing that expert,
+plus the slots the earlier rounds filled; ``keep = slot < c``. The
+combine weights round to the activation dtype before ``dispatch =
+combine > 0`` is taken from the rounded values. One-hots are comparisons
+with an ``arange``, never ``F.one_hot`` (which checks its values on the
+host), and nothing reads a value back: the routing runs inside a
+captured CUDA graph at the fixed shape (N, g, E, C).
+
+The expert products are batched matmuls over the (E, C) buffer of every
+expert, as the reference's einsums: each expert's weights are read
+whatever the routing. The reference's sharding hints have no
+counterpart on one card.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+
+
+def init_moe(cfg, gen, dtype, device):
+    """Random router (d, E) float32 and expert stacks (E, d, ff) /
+    (E, ff, d) in ``dtype``, scaled as the reference's init, plus the
+    shared expert's MLP when the arch has one. Each expert is drawn on its
+    own, so no float32 copy of a whole stack is ever made (llama4's
+    (128, 5120, 8192) stack is 21.5 GB in float32)."""
+    from repro_torch.models.blocks import init_mlp
+
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+
+    def stack(shape, std):
+        w = torch.empty((e,) + shape, dtype=dtype, device=device)
+        for i in range(e):
+            w[i] = (torch.randn(shape, generator=gen, device=device,
+                                dtype=F32) * std).to(dtype)
+        return w
+
+    p = {"router": torch.randn((d, e), generator=gen, device=device,
+                               dtype=F32) * d ** -0.5}
+    if cfg.mlp_variant != "gelu":
+        p["w_gate"] = stack((d, ff), d ** -0.5)
+    p["w_up"] = stack((d, ff), d ** -0.5)
+    p["w_down"] = stack((ff, d), ff ** -0.5)
+    if cfg.moe_shared_expert:
+        p["shared"] = init_mlp(cfg, gen, d, ff, dtype, device)
+    return p
+
+
+def _capacity(cfg, g: int, *, full: bool = False) -> int:
+    """Per-expert capacity slots for a token group of ``g``; ``full``
+    sizes the buffer to the whole group, which no routing can overflow
+    (an expert receives at most one slot per token)."""
+    if full:
+        return g
+    e, k = cfg.num_experts, cfg.experts_per_token
+    c = int(g * k * cfg.moe_capacity_factor / e) + 1
+    return max(c, k)
+
+
+def drop_free_group(cfg, *, cap: int = 1 << 20) -> int:
+    """Largest token group that can never drop a token under the
+    configured ``moe_capacity_factor``, even if every token picks the same
+    expert (which then needs capacity >= g); ``cap`` when the factor
+    covers every group (k * capacity_factor >= E). The engine's
+    "backpressure" policy clamps its slots to this bound and rejects
+    prompts whose prefill group exceeds it."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    if not e or k * cfg.moe_capacity_factor >= e:
+        return cap
+    g = 1
+    while g < cap and _capacity(cfg, g + 1) >= g + 1:
+        g += 1
+    return g
+
+
+def group_shape(t: int, group_size: int = 2048):
+    """(groups, group size) of ``t`` tokens: g = min(group_size, t),
+    halved until it divides t."""
+    g = min(group_size, t)
+    while t % g:
+        g //= 2
+    return t // g, g
+
+
+def route(cfg, probs, c: int):
+    """Top-k routing of router probabilities (N, g, E) float32 into
+    capacity slots: returns (combine (N, g, E, C) float32 with each kept
+    choice's gate at its expert and slot, keep (N, g, k) bool per round,
+    the Switch aux loss's routed fraction (N, E))."""
+    n, g, e = probs.shape
+    k = cfg.experts_per_token
+    experts = torch.arange(e, device=probs.device)
+    slots = torch.arange(c, device=probs.device)
+    combine = torch.zeros((n, g, e, c), dtype=F32, device=probs.device)
+    gates = probs
+    base = torch.zeros((n, e), dtype=torch.int32, device=probs.device)
+    routed = torch.zeros((n, e), dtype=F32, device=probs.device)
+    keeps = []
+    for _ in range(k):
+        idx = torch.argmax(gates, dim=-1)  # (N, g): first index on ties
+        onehot = (idx[..., None] == experts).to(F32)  # (N, g, E)
+        gate = (gates * onehot).sum(-1)
+        # the token's slot in its expert's buffer
+        pos_in_e = (torch.cumsum(onehot, dim=1) - onehot) + base[:, None, :]
+        pos = (pos_in_e * onehot).sum(-1).to(torch.int32)  # (N, g)
+        keep = pos < c
+        pos_oh = (pos[..., None] == slots).to(F32) * keep[..., None]
+        combine = combine + (gate[..., None, None] * onehot[..., None]
+                             * pos_oh[:, :, None, :])
+        base = base + onehot.sum(dim=1).to(torch.int32)
+        routed = routed + onehot.mean(dim=1)
+        gates = gates * (1.0 - onehot)
+        keeps.append(keep)
+    return combine, torch.stack(keeps, dim=-1), routed
+
+
+def apply_moe(cfg, p, x, *, group_size: int = 2048, full_cap: bool = False):
+    """x (B, S, d) -> (y (B, S, d), aux loss, a float32 scalar).
+    ``full_cap``: capacity of the whole group (the "strict" policy)."""
+    b, s, d = x.shape
+    e = cfg.num_experts
+    n, g = group_shape(b * s, group_size)
+    c = _capacity(cfg, g, full=full_cap)
+    xg = x.reshape(n, g, d)
+    logits = torch.matmul(xg.to(F32), p["router"].to(F32))  # (N, g, E)
+    probs = torch.softmax(logits, dim=-1)
+    combine, _, routed = route(cfg, probs, c)
+    combine = combine.to(x.dtype)  # the gates, rounded, then the dispatch
+    dispatch = (combine > 0).to(x.dtype)
+    # (N, g, E*C)^T @ (N, g, d): each expert slot holds one token or none
+    xe = torch.matmul(dispatch.reshape(n, g, e * c).transpose(1, 2), xg)
+    xe = xe.reshape(n, e, c, d).transpose(0, 1).reshape(e, n * c, d)
+    if cfg.mlp_variant in ("swiglu", "geglu"):
+        gt = torch.bmm(xe, p["w_gate"])
+        up = torch.bmm(xe, p["w_up"])
+        act = (F.silu(gt) if cfg.mlp_variant == "swiglu"
+               else F.gelu(gt, approximate="tanh"))
+        h = act * up
+    else:
+        h = F.gelu(torch.bmm(xe, p["w_up"]), approximate="tanh")
+    ye = torch.bmm(h, p["w_down"])  # (E, N*C, d)
+    ye = ye.reshape(e, n, c, d).transpose(0, 1).reshape(n, e * c, d)
+    y = torch.matmul(combine.reshape(n, g, e * c), ye).reshape(b, s, d)
+    if cfg.moe_shared_expert:
+        from repro_torch.models.blocks import apply_mlp
+
+        y = y + apply_mlp(cfg, p["shared"], x)
+    k = cfg.experts_per_token
+    aux = (e * (routed / k) * probs.mean(dim=1)).sum(-1).mean()
+    return y, aux

@@ -2,17 +2,18 @@
 ``DeviceTopology`` and the frozen ``EngineConfig``, with the JAX package's
 fields (``repro/serving/config.py``).
 
-The port serves one card: the paged KV cache on dense archs, rolling
-caches (``paged=False``, recurrentgemma's rings and RG-LRU states, and
-mamba2's SSD states), single-shot and chunked prefill (``chunk_prefill``
-defaults to 64, as in the reference), the prefix cache, cancel, timeouts,
-shedding and preemption, model-dtype or int8 pools and weights, span
-tracing and the profiler hook. ``validate()`` refuses every option whose
-path is not ported yet (sharded replicas, the moe and encoder blocks,
-mrope) and names the ``ROADMAP.md`` item that brings it, so nothing
-silently runs a different path than the one asked for; the engine keeps
-the reference's own refusals (a prefix cache or preemption without
-pages, an unknown ``preempt_policy``).
+The port serves one card: the paged KV cache on dense and MoE archs,
+rolling caches (``paged=False``, recurrentgemma's rings and RG-LRU
+states, and mamba2's SSD states), single-shot and chunked prefill
+(``chunk_prefill`` defaults to 64, as in the reference), the prefix
+cache, cancel, timeouts, shedding and preemption, model-dtype or int8
+pools and weights, the three MoE capacity policies, span tracing and the
+profiler hook. ``validate()`` refuses every option whose path is not
+ported yet (sharded replicas, the encoder block) and names the
+``ROADMAP.md`` item that brings it, so nothing silently runs a different
+path than the one asked for; the engine keeps the reference's own
+refusals (a prefix cache or preemption without pages, an unknown
+``preempt_policy``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,12 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
+#: MoE capacity-overflow handling (moe archs only), as the reference's:
+#: "strict" sizes every step's per-expert capacity to the whole token
+#: group (no token can drop); "backpressure" keeps the configured factor
+#: but clamps the slots to the drop-free group and rejects prompts whose
+#: prefill group exceeds it (``RequestRejected``); "drop" lets overflow
+#: tokens pass through the residual.
 MOE_CAPACITY_POLICIES = ("strict", "backpressure", "drop")
 KV_CACHE_DTYPES = ("", "int8")
 WEIGHT_DTYPES = ("", "int8")
@@ -222,6 +229,16 @@ class EngineConfig:
                     f"supported on sharded replicas yet (int8 weight "
                     f"leaves have no GSPMD profile) — serve quantized "
                     f"weights on 1-chip replicas or clear weight_dtype")
+
+    def resolved_moe_policy(self, cfg) -> str:
+        """The capacity policy once the None default resolves: "strict"
+        for a moe arch on a sharded topology, else "drop" (the
+        reference's rule)."""
+        if self.moe_capacity_policy is not None:
+            return self.moe_capacity_policy
+        if cfg.arch_type == "moe" and self.topology.sharded:
+            return "strict"
+        return "drop"
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)

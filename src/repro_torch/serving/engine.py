@@ -9,7 +9,12 @@ chunk by chunk between decode ticks, as ``ChunkedPrefillPolicy`` allots);
 the shared-prefix KV cache with copy-on-write (``prefix_cache``); cancel,
 timeouts, shedding and preemption with exact restore; ``load_report``;
 fused decode windows with one host sync per window, and device-resident
-sampling keyed by (seed, absolute position); request span tracing
+sampling keyed by (seed, absolute position); MoE archs under the
+reference's three capacity policies ("strict": every step at the whole
+group's capacity; "backpressure": slots clamped to the drop-free group,
+longer prefill groups rejected; "drop"), and mrope archs with their
+(3, B, S) positions built on the device from the cache's positions;
+request span tracing
 (``tracing``), ``metrics_registry`` and a ``torch.profiler`` hook
 (``profile_dir``), as the reference's.
 
@@ -81,7 +86,12 @@ from repro_torch.models import (
     paged_ok,
     quantize_weights,
 )
-from repro_torch.models.blocks import KV_CACHE_BLOCKS, quantize_kv
+from repro_torch.models.blocks import (
+    KV_CACHE_BLOCKS,
+    last_writer,
+    quantize_kv,
+)
+from repro_torch.models.moe import drop_free_group
 from repro_torch.serving import prng
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.graphs import StepGraphs
@@ -101,8 +111,9 @@ __all__ = [
     "EngineConfig", "LoadReport", "PREEMPT_POLICIES", "ServingEngine",
     "cache_insert", "decode_scan_step", "decode_tick", "init_sampling_state",
     "page_table_append", "paged_prefill_step", "pages_insert",
-    "pages_insert_prefix", "prefill_chunk_step", "prefix_seed_cache",
-    "prompt_bucket", "resolve_device", "rolling_prefill_step",
+    "mrope_positions", "pages_insert_prefix", "prefill_chunk_step",
+    "prefix_seed_cache", "prompt_bucket", "resolve_device",
+    "rolling_prefill_step",
     "sampling_row", "sampling_set", "slot_release",
 ]
 
@@ -124,7 +135,19 @@ def _dev_index(x, device):
     return torch.as_tensor(x, device=device).to(torch.int64).reshape(1)
 
 
-def rolling_prefill_step(cfg, params, tokens, true_len, *, window: int):
+def mrope_positions(cfg, start, s: int):
+    """The (3, B, S) positions of S tokens from each slot's ``start`` (B,)
+    on an mrope arch, the three streams equal (text tokens; the
+    reference's engine builds the same), on the device with no host round
+    trip; None on any other arch, whose steps build their own."""
+    if cfg.rope_variant != "mrope":
+        return None
+    p = start.to(torch.int64)[:, None] + torch.arange(s, device=start.device)
+    return p[None].expand(3, *p.shape)
+
+
+def rolling_prefill_step(cfg, params, tokens, true_len, *, window: int,
+                         moe_full_cap: bool = False):
     """Prefill a prompt into a fresh rolling cache (``init_cache``, rings
     of ``window``): tokens (B, L) is the prompt at its exact length
     (L = ``true_len``, the reference's ``prefill_step``: archs with
@@ -134,13 +157,16 @@ def rolling_prefill_step(cfg, params, tokens, true_len, *, window: int):
     tokens' keys; ``pos`` is clamped to ``true_len``, so decode's validity
     mask hides the pad rows until its writes replace them. ``true_len`` is
     an int or a (1,) device tensor (the engine's captured buckets).
-    Returns (first greedy token (B,) int32, last-true-position logits
-    (B, V), cache)."""
+    ``moe_full_cap``: MoE blocks at the whole group's capacity (the
+    "strict" policy), in this and every step below. Returns (first greedy
+    token (B,) int32, last-true-position logits (B, V), cache)."""
     b = tokens.shape[0]
     cache = init_cache(cfg, b, window, device=tokens.device)
     n = _dev_index(true_len, tokens.device)
     last, _ = forward(cfg, params, tokens, logits_at=(n - 1).expand(b),
-                      cache=cache)
+                      cache=cache, moe_full_cap=moe_full_cap,
+                      positions=mrope_positions(cfg, cache["pos"],
+                                                tokens.shape[1]))
     cache["pos"].copy_(n.expand(b))
     return torch.argmax(last, dim=-1).to(torch.int32), last, cache
 
@@ -158,7 +184,8 @@ def cache_insert(cache, single, slot):
     cache["pos"].index_copy_(0, at, single["pos"])
 
 
-def paged_prefill_step(cfg, params, tokens, true_len):
+def paged_prefill_step(cfg, params, tokens, true_len, *,
+                       moe_full_cap: bool = False):
     """Prefill a prompt padded at the end to a bucket: tokens (1, L). The
     pad keys are hidden from the true tokens by causality. ``true_len`` is
     an int or a (1,) device tensor, so one captured bucket serves every
@@ -166,9 +193,12 @@ def paged_prefill_step(cfg, params, tokens, true_len):
     (first greedy token (1,) int32, last-true-position logits (1, V),
     per-layer (k, v) of all L positions for the page scatter)."""
     n = _dev_index(true_len, tokens.device)
-    last, kv = forward(cfg, params, tokens,
-                       logits_at=(n - 1).expand(tokens.shape[0]),
-                       want_kv=True)
+    b, s = tokens.shape
+    last, kv = forward(cfg, params, tokens, logits_at=(n - 1).expand(b),
+                       want_kv=True, moe_full_cap=moe_full_cap,
+                       positions=mrope_positions(
+                           cfg, torch.zeros((b,), dtype=torch.int64,
+                                            device=tokens.device), s))
     return torch.argmax(last, dim=-1).to(torch.int32), last, kv
 
 
@@ -202,7 +232,8 @@ def pages_insert(cache, kv, pages, slot, true_len, *, scale_group: int = 0):
     pos.index_copy_(0, at, _dev_index(true_len, pos.device).to(pos.dtype))
 
 
-def prefill_chunk_step(cfg, params, cache, tokens, true_len):
+def prefill_chunk_step(cfg, params, cache, tokens, true_len, *,
+                       moe_full_cap: bool = False):
     """One chunk of incremental prefill into a B=1 linear buffer (or a
     ring the padded prompt fits in) through the multi-token decode path:
     tokens (1, C) may carry end padding on the final chunks; the advanced
@@ -214,7 +245,9 @@ def prefill_chunk_step(cfg, params, cache, tokens, true_len):
     start = cache["pos"].to(torch.int64)  # a copy: decode_step advances pos
     n = _dev_index(true_len, tokens.device)
     at = torch.clamp(n - 1 - start, 0, c - 1)
-    last = decode_step(cfg, params, cache, tokens, logits_at=at)
+    last = decode_step(cfg, params, cache, tokens, logits_at=at,
+                       positions=mrope_positions(cfg, start, c),
+                       moe_full_cap=moe_full_cap)
     cache["pos"].copy_(torch.minimum(cache["pos"],
                                      n.to(cache["pos"].dtype)))
     return torch.argmax(last, dim=-1).to(torch.int32), last
@@ -249,13 +282,17 @@ def pages_insert_prefix(paged_cache, linear, scatter_pages, table_pages,
     they are. In place; ``slot`` and ``true_len`` are ints or (1,) device
     tensors, the page rows (max_pages,) device tensors, so one captured
     step serves every hit shape (the reference's ``pages_insert_prefix``;
-    a chunked prompt without a hit takes it too, its pages then trash)."""
+    a chunked prompt without a hit takes it too, its pages then trash).
+    The buffer pages bound for one pool page (the trash page) all carry
+    the last one's rows, so the trash page ends the same on any device
+    (idle lanes attend it)."""
     n = scatter_pages.shape[0]
+    win = last_writer(scatter_pages.to(torch.int64))
     for big, small in zip(paged_cache["layers"], linear["layers"]):
         for name, pool in big.items():
             ps = pool.shape[1]
             pool[scatter_pages] = small[name][0, :n * ps].reshape(
-                n, ps, *pool.shape[2:]).to(pool.dtype)
+                n, ps, *pool.shape[2:])[win].to(pool.dtype)
     table, pos = paged_cache["page_table"], paged_cache["pos"]
     at = _dev_index(slot, pos.device)
     table.index_copy_(0, at, table_pages.reshape(1, -1).to(table.dtype))
@@ -338,18 +375,24 @@ def draw_tokens(last, samp, pos, *, partitionable: bool = True,
 
 
 def decode_tick(cfg, params, cache, tokens, samp, *,
-                partitionable: bool = True, uniform=None):
+                partitionable: bool = True, uniform=None,
+                moe_full_cap: bool = False):
     """One decode step for every slot: ``tokens`` (B,) is the device-
-    resident last-token carry. The token drawn lands at the post-step
-    position, the same fold key the first token uses (pos = prompt_len).
-    Returns next tokens (B,) int32; the cache advances in place."""
-    logits = decode_step(cfg, params, cache, tokens[:, None])
+    resident last-token carry (an idle slot's lane decodes on, as the
+    reference's: on a MoE arch its token routes and takes capacity too).
+    The token drawn lands at the post-step position, the same fold key
+    the first token uses (pos = prompt_len). Returns next tokens (B,)
+    int32; the cache advances in place."""
+    logits = decode_step(cfg, params, cache, tokens[:, None],
+                         positions=mrope_positions(cfg, cache["pos"], 1),
+                         moe_full_cap=moe_full_cap)
     return draw_tokens(logits[:, -1], samp, cache["pos"],
                        partitionable=partitionable, uniform=uniform)
 
 
 def decode_scan_step(cfg, params, cache, tokens, samp, *, n: int,
-                     out=None, partitionable: bool = True):
+                     out=None, partitionable: bool = True,
+                     moe_full_cap: bool = False):
     """``n`` decode ticks back to back with no host sync between them (the
     reference's fused ``lax.scan`` window). Returns (final tokens (B,),
     token history (n, B) int32) — the caller syncs the history once. The
@@ -360,7 +403,8 @@ def decode_scan_step(cfg, params, cache, tokens, samp, *, n: int,
         (n, tokens.shape[0]), dtype=torch.int32, device=tokens.device)
     for i in range(n):
         tokens = decode_tick(cfg, params, cache, tokens, samp,
-                             partitionable=partitionable, uniform=us[i])
+                             partitionable=partitionable, uniform=us[i],
+                             moe_full_cap=moe_full_cap)
         hist[i].copy_(tokens)
     return tokens, hist
 
@@ -592,6 +636,17 @@ class ServingEngine:
                           else config.window),
             kv_cache_dtype=self.kv_dtype, chip=chip)
         slots = config.slots or self.plan.slots
+        # MoE capacity policy: overflow as typed backpressure, or none
+        self.moe_capacity_policy = (config.resolved_moe_policy(cfg)
+                                    if cfg.arch_type == "moe" else "")
+        # "strict": every model step at the whole group's capacity
+        self._moe_full_cap = self.moe_capacity_policy == "strict"
+        self._moe_gmax = 0  # drop-free group bound (backpressure only)
+        if self.moe_capacity_policy == "backpressure":
+            self._moe_gmax = drop_free_group(cfg)
+            # the decode group is the slot count (idle lanes route too):
+            # clamped, every decode tick is drop-free
+            slots = min(slots, self._moe_gmax)
         self.slots = slots
         self.n_chips = config.n_chips
         # the mesh of a sharded replica; None on one card (validate()
@@ -922,6 +977,21 @@ class ServingEngine:
             raise RequestRejected(
                 f"prompt of {req.prompt_len} tokens exceeds max_seq="
                 f"{self.max_seq}; raise EngineConfig(max_seq=...)")
+        if self._moe_gmax and self._moe_prefill_group(req) > self._moe_gmax:
+            raise RequestRejected(
+                f"prefill group of {self._moe_prefill_group(req)} tokens "
+                f"exceeds the drop-free MoE bound {self._moe_gmax} "
+                f"(capacity_factor={self.cfg.moe_capacity_factor}): routing "
+                f"could silently drop tokens; raise moe_capacity_factor, "
+                f"use moe_capacity_policy='strict', or shorten the prompt")
+
+    def _moe_prefill_group(self, req: Request) -> int:
+        """The largest MoE routing group a prefill of ``req`` can see: a
+        chunk when chunked, else the padded prompt (``apply_moe`` caps
+        groups at 2048 and only shrinks them to divide the token
+        count)."""
+        g = self.chunk if self._chunkable(req) else self._prefill_len(req)
+        return min(2048, g)
 
     def try_admit(self, req: Request, now: float) -> bool:
         """Claim a free slot and, in paged mode, the request's worst-case
@@ -1057,7 +1127,8 @@ class ServingEngine:
             def exact():
                 tok, last, single = rolling_prefill_step(
                     self.cfg, self.params, torch.from_numpy(padded).to(
-                        self.device), plen, window=self.window)
+                        self.device), plen, window=self.window,
+                    moe_full_cap=self._moe_full_cap)
                 cache_insert(self.cache, single, slot)
                 return tok, last
 
@@ -1089,15 +1160,17 @@ class ServingEngine:
         true_len, at = args[0:1], args[1:2]
 
         def paged():
-            tok, last, kv = paged_prefill_step(self.cfg, self.params, tokens,
-                                               true_len)
+            tok, last, kv = paged_prefill_step(
+                self.cfg, self.params, tokens, true_len,
+                moe_full_cap=self._moe_full_cap)
             pages_insert(self.cache, kv, args[2:], at, true_len,
                          scale_group=self.kv_scale_group)
             return tok, last
 
         def bucket():
             tok, last, single = rolling_prefill_step(
-                self.cfg, self.params, tokens, true_len, window=self.window)
+                self.cfg, self.params, tokens, true_len, window=self.window,
+                moe_full_cap=self._moe_full_cap)
             cache_insert(self.cache, single, at)
             return tok, last
 
@@ -1175,8 +1248,9 @@ class ServingEngine:
         def suffix():
             lin = self._lin_sfx
             prefix_seed_cache(self.cache, lin, args[3:3 + p], args[0:1])
-            tok, last = prefill_chunk_step(self.cfg, self.params, lin,
-                                           tokens, args[1:2])
+            tok, last = prefill_chunk_step(
+                self.cfg, self.params, lin, tokens, args[1:2],
+                moe_full_cap=self._moe_full_cap)
             pages_insert_prefix(self.cache, lin, args[3 + p:3 + 2 * p],
                                 args[3 + 2 * p:], args[2:3], args[1:2])
             return tok, last
@@ -1235,7 +1309,7 @@ class ServingEngine:
     def _chunk_step(self):
         tokens, args = self._chunk_in
         return prefill_chunk_step(self.cfg, self.params, self._lin, tokens,
-                                  args)
+                                  args, moe_full_cap=self._moe_full_cap)
 
     def _take_buffer(self, job: _PrefillJob):
         """The head job takes the working buffer: a prefix hit gathers its
@@ -1419,7 +1493,8 @@ class ServingEngine:
     def _tick(self):
         """The single decode tick, as a step: the carry in, the carry out."""
         nxt = decode_tick(self.cfg, self.params, self.cache, self._tokens,
-                          self._samp, partitionable=self.partitionable)
+                          self._samp, partitionable=self.partitionable,
+                          moe_full_cap=self._moe_full_cap)
         self._tokens.copy_(nxt)
 
     def _window(self):
@@ -1428,7 +1503,8 @@ class ServingEngine:
         toks, _ = decode_scan_step(
             self.cfg, self.params, self.cache, self._tokens, self._samp,
             n=self.sync_every, out=self._hist,
-            partitionable=self.partitionable)
+            partitionable=self.partitionable,
+            moe_full_cap=self._moe_full_cap)
         self._tokens.copy_(toks)
 
     # -- lifecycle: cancel / timeout / shed ----------------------------------
@@ -1634,14 +1710,19 @@ class ServingEngine:
         """Retire ``slot``: reset a stochastic lane to greedy (so a vacated
         slot's garbage lane never draws), zero its position and, in paged
         mode, return its pages (shared ones lose a reference) and point
-        its table row at the trash page."""
+        its table row at the trash page. A rolling slot of a MoE arch keeps
+        its position, as the reference's rolling slots do: its idle lane
+        decodes on from there and routes beside the live tokens, taking
+        capacity (on other archs the lane reaches no live stream, and
+        position 0 keeps its ring read short)."""
         self.active[slot] = None
         self.decoding[slot] = False
         self._hit_pending.pop(slot, None)
         if not self._samp_greedy_h[slot]:
             sampling_set(self._samp, slot, sampling_row(None))
             self._samp_greedy_h[slot] = True
-        slot_release(self.cache, slot)
+        if self.paged or self.cfg.arch_type != "moe":
+            slot_release(self.cache, slot)
         if self.paged:
             self.allocator.free_slot(slot)
         self._pos_h[slot] = 0
@@ -1680,6 +1761,12 @@ class ServingEngine:
         self.cache["pos"].zero_()
         if self.paged:
             self.cache["page_table"].zero_()
+            # the trash page, which every idle lane writes and attends
+            # (on a MoE arch idle lanes route beside live tokens and take
+            # capacity), back to a fresh engine's zeros
+            for layer in self.cache["layers"]:
+                for leaf in layer.values():
+                    leaf[0].zero_()
         self._tokens.zero_()
         self.backlog.clear()
         self.admission.flush()
@@ -1774,7 +1861,9 @@ class ServingEngine:
             tenant_stats=m.tenant_wire(),
             kv_bytes_per_token=kv_bytes_per_token(self.cfg, self.kv_dtype),
             kv_cache_dtype=self.kv_dtype,
-            weight_dtype=self.config.precision.weight_dtype)
+            weight_dtype=self.config.precision.weight_dtype,
+            moe_capacity_policy=self.moe_capacity_policy,
+            moe_drop_free_group=self._moe_gmax)
 
     @property
     def mesh_axes(self):

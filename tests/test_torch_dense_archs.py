@@ -10,8 +10,8 @@ kernels); prefill and paged decode logits (1e-4 absolute, as
 ``tests/test_torch_model.py``: float32 on both sides, sums in another
 order through 2 blocks); engine streams, greedy and seeded, single-shot
 and chunked, token-identical to the JAX engine; ``validate()``'s
-refusals of what stays unported (moe, mrope); ``--sla-ms`` against the
-reference CLI's ``sla_s`` and admission plan."""
+refusals of what stays unported (the encoder block); ``--sla-ms``
+against the reference CLI's ``sla_s`` and admission plan."""
 import argparse
 import dataclasses
 
@@ -76,16 +76,15 @@ def test_configs_equal_the_references_and_the_rest_stay_refused():
         ts.EngineConfig().validate(tc)
     counts = [torch_config(n).param_count() / 1e9 for n in NEW_ARCHS[:3]]
     assert [round(c, 2) for c in counts] == [14.66, 15.96, 6.24]
-    for name in ("grok-1-314b", "llama4-maverick-400b-a17b", "qwen2-vl-7b",
-                 "hubert-xlarge", "dlrm"):
+    for name in ("hubert-xlarge", "dlrm"):
         with pytest.raises(ValueError, match="ROADMAP.md queue 1"):
             torch_config(name)
-    # an mrope arch (qwen2-vl's rope on dense blocks) is refused before
-    # any work, naming its ROADMAP.md item
-    mrope = dataclasses.replace(torch_config("granite-8b").reduced(),
-                                rope_variant="mrope")
+    # an encoder arch (hubert's blocks) is refused before any work,
+    # naming its ROADMAP.md item
+    encoder = dataclasses.replace(torch_config("granite-8b").reduced(),
+                                  arch_type="audio")
     with pytest.raises(ValueError, match="'Other block families'"):
-        ts.EngineConfig().validate(mrope)
+        ts.EngineConfig().validate(encoder)
 
 
 @pytest.mark.parametrize("d", [32, 128])
@@ -210,11 +209,9 @@ def test_streams_match_the_jax_engine(arch, chunk):
 
 def _cli_args(argv):
     """The port's parsed flags, with the reference's flags the port does
-    not have yet at their defaults (``--tp``, ``--dp``,
-    ``--moe-capacity``)."""
+    not have yet at their defaults (``--tp``, ``--dp``)."""
     args = tserve.build_parser().parse_args(argv)
-    return args, argparse.Namespace(**vars(args), tp=1, dp=1,
-                                    moe_capacity="")
+    return args, argparse.Namespace(**vars(args), tp=1, dp=1)
 
 
 def test_sla_ms_gives_the_references_sla_and_admission_plan():

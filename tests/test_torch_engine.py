@@ -183,11 +183,11 @@ def test_remaining_paths_are_accepted(setup, option):
 def test_validate_refuses_non_dense_archs_and_other_configs():
     cfg = torch_config("granite-8b").reduced()
     ts.EngineConfig().validate(cfg)  # the main path passes
-    moe = dataclasses.replace(cfg, arch_type="moe")
+    encoder = dataclasses.replace(cfg, arch_type="audio")
     with pytest.raises(ValueError, match="Other block families"):
-        ts.EngineConfig().validate(moe)
+        ts.EngineConfig().validate(encoder)
     with pytest.raises(ValueError, match="not ported"):
-        torch_config("grok-1-314b")
+        torch_config("hubert-xlarge")
 
 
 def test_entry_points_raise_without_a_card(setup):

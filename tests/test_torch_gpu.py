@@ -1285,3 +1285,228 @@ def test_ssd_block_on_cuda_matches_the_cpu(dev):
                                        caches["cpu"][name], atol=2e-5,
                                        rtol=2e-5)
     assert all(caches[dev][k] is leaves[k] for k in leaves)
+
+
+# -- the GQA groups and vocabularies of grok-1, llama4 and qwen2-vl ----------
+
+
+MOE_GROUPS = [(48, 8), (40, 8), (28, 4)]  # G 6, 5, 7
+
+
+@pytest.mark.parametrize("kind", ["float32", "bf16", "int8 page"])
+@pytest.mark.parametrize("h,kvh", MOE_GROUPS)
+@pytest.mark.parametrize("s", [1, 4])
+def test_paged_decode_at_groups_5_6_7_matches_plain(dev, s, h, kvh, kind):
+    """grok-1's G 6, llama4's G 5 and qwen2-vl's G 7 at D 128 (6 to 28
+    query rows per (slot, kv head)): a slot ending inside a page, a full
+    one, a released one; the twin-order kernel equals its plain version
+    bit for bit."""
+    b, n_pages, d = 4, 8, 128
+    pos_list = [max(s, 21), 16 * n_pages, s, 100]
+    if kind != "float32":
+        _twin_order_call(dev, kind, s, b, n_pages, kvh, h, d, pos_list,
+                         released=(2,), seed=h * 10 + s)
+        gen = torch.Generator(device=dev).manual_seed(h * 10 + s)
+        name, pools = _paged_kinds(gen, kind, b * n_pages + 1, 16, kvh, d,
+                                   dev)
+        table = (torch.randperm(b * n_pages, generator=gen, device=dev)
+                 + 1).reshape(b, n_pages).to(torch.int32)
+        table[2] = 0
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        q = _rand(gen, (b, s, h, d), torch.bfloat16, dev)
+        got = getattr(ops, name)(q, *pools, table, pos)
+        want = getattr(L, name)(q, *pools, table, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        return
+    gen = torch.Generator(device=dev).manual_seed(h + s)
+    pool = b * n_pages + 1
+    kp = _rand(gen, (pool, 16, kvh, d), torch.float32, dev)
+    vp = _rand(gen, (pool, 16, kvh, d), torch.float32, dev)
+    table = (torch.randperm(pool - 1, generator=gen, device=dev)[
+        :b * n_pages] + 1).reshape(b, n_pages).to(torch.int32)
+    table[2] = 0  # a released slot on trash page 0
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    q = _rand(gen, (b, s, h, d), torch.float32, dev)
+    got = ops.paged_decode_attention(q, kp, vp, table, pos)
+    want = L.paged_decode_attention(q, kp, vp, table, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh", MOE_GROUPS)
+def test_chunk_step_decode_at_groups_5_6_7_matches_plain(dev, h, kvh,
+                                                         dtype):
+    """The chunk step's rolling decode at G 6, 5 and 7: 64 queries over a
+    (1, 1024) linear buffer, 384, 320 and 448 rows in row groups of 64
+    (the last one ragged at G 5 and 7)."""
+    gen = torch.Generator(device=dev).manual_seed(h)
+    w, d, s = 1024, 128, 64
+    k = _rand(gen, (1, w, kvh, d), dtype, dev)
+    v = _rand(gen, (1, w, kvh, d), dtype, dev)
+    pos = torch.tensor([640], dtype=torch.int32, device=dev)
+    q = _rand(gen, (1, s, h, d), dtype, dev)
+    got = ops.decode_attention(q, k, v, pos)
+    again = ops.decode_attention(q, k, v, pos)
+    want = plain.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if dtype == torch.bfloat16:
+        assert _ring_units(got, want, q, k, v, pos) <= 4.0
+    else:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh", MOE_GROUPS)
+@pytest.mark.parametrize("s", [37, 200])
+def test_prefill_at_groups_5_6_7_matches_plain(dev, s, h, kvh, dtype):
+    gen = torch.Generator(device=dev).manual_seed(h + s)
+    d = 128
+    q = _rand(gen, (1, s, h, d), dtype, dev)
+    k = _rand(gen, (1, s, kvh, d), dtype, dev)
+    v = _rand(gen, (1, s, kvh, d), dtype, dev)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = L.dense_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("v", [131072, 202048, 152064])
+def test_sampler_at_the_moe_and_mrope_vocabularies(dev, v):
+    """grok-1's 131072, llama4's 202048 and qwen2-vl's 152064: every path
+    exact, a repeat call bit-identical, the last index and a tie at the
+    end of the vocabulary."""
+    gen = torch.Generator(device=dev).manual_seed(v)
+    b = 8
+    logits = torch.randn((b, v), generator=gen, device=dev) * 4
+    logits[0, v - 3] = logits[0, 2] = logits[0].max() + 1.0  # tie
+    logits[3, v - 1] = logits[3].max() + 2.0  # the last index wins
+    greedy = torch.tensor([1, 0, 0, 1, 0, 0, 0, 1], dtype=torch.bool,
+                          device=dev)
+    temp = torch.tensor([1.0, 0.7, 1.3, 1.0, 0.9, 1.0, 0.5, 0.8],
+                        device=dev)
+    top_k = torch.tensor([0, 50, 0, 0, 200, 0, 1, 50], dtype=torch.int32,
+                         device=dev)
+    top_p = torch.tensor([1.0, 1.0, 0.9, 1.0, 0.95, 1.0, 1.0, 0.95],
+                         device=dev)
+    for _ in range(8):
+        u = torch.rand((b,), generator=gen, device=dev)
+        got = ops.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+        assert torch.equal(got, ops.sample_tokens(logits, greedy, temp,
+                                                  top_k, top_p, u))
+        want = L.sample_tokens(logits, greedy, temp, top_k, top_p, u)
+        assert torch.equal(got, want)
+        assert int(got[0]) == 2 and int(got[3]) == v - 1
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b"])
+def test_moe_routing_on_cuda_matches_the_cpu_and_captures(dev, arch,
+                                                          monkeypatch):
+    """``apply_moe`` of the reduced arch (float32, capacity factor 1.0:
+    tokens drop) on the card against the CPU: the same choices kept, the
+    outputs within 2e-5; and captured into a CUDA graph (nothing in the
+    routing reads a value back), whose replay gives the same output."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              moe_capacity_factor=1.0)
+    gen = torch.Generator().manual_seed(0)
+    p_cpu = moe.init_moe(cfg, gen, torch.float32, "cpu")
+    p_gpu = _to(p_cpu, dev)
+    x = torch.randn((8, 8, cfg.d_model), generator=gen)
+    keeps = []
+    route = moe.route
+
+    def probe(cfg, probs, c):
+        out = route(cfg, probs, c)
+        keeps.append(out[1].cpu())
+        return out
+
+    monkeypatch.setattr(moe, "route", probe)
+    want, _ = moe.apply_moe(cfg, p_cpu, x)
+    xg = x.to(dev)
+    got, _ = moe.apply_moe(cfg, p_gpu, xg)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(moe, "route", route)
+    assert not keeps[0].all()
+    assert torch.equal(keeps[1], keeps[0])
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=2e-5)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe.apply_moe(cfg, p_gpu, xg)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out, _ = moe.apply_moe(cfg, p_gpu, xg)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+def test_mrope_table_on_cuda_matches_the_cpu(dev):
+    """qwen2-vl's full-width table from three distinct streams, below 128
+    (a one-ulp difference between two ``exp`` of a frequency grows with
+    the position, as against the reference: tests/test_torch_mrope.py)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2-vl-7b")
+    pos = torch.randint(0, 128, (3, 2, 17), generator=torch.Generator()
+                        .manual_seed(0))
+    want = L.rope_table(cfg, pos)
+    got = L.rope_table(cfg, pos.to(dev))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-5, rtol=0)
+
+
+
+def test_duplicate_page_writes_land_as_on_the_cpu(dev):
+    """Idle lanes at equal positions write one row of the trash page, and
+    a chunked job's trash-bound buffer pages all go to the trash page: on
+    a MoE arch (reduced grok, a binding capacity factor), where idle
+    lanes route beside live tokens, the writes carry their last writer's
+    values, so the trash page and the logits repeat call after call and
+    equal the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (
+        decode_step,
+        init_cache,
+        init_paged_cache,
+        init_params,
+    )
+    from repro_torch.serving.engine import pages_insert_prefix
+
+    cfg = dataclasses.replace(get_config("grok-1-314b").reduced(),
+                              moe_capacity_factor=1.0)
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    lin_cpu = init_cache(cfg, 1, 64, device="cpu")
+    for layer in lin_cpu["layers"]:
+        for leaf in layer.values():
+            leaf.copy_(torch.randn(leaf.shape, generator=gen))
+    toks = (torch.arange(8)[:, None] * 7) % cfg.vocab_size
+
+    def run(d, params, lin):
+        cache = init_paged_cache(cfg, 8, 9, 16, 4, device=d)
+        scatter = torch.tensor([3, 0, 0, 0], device=d)  # 3 pages to trash
+        pages_insert_prefix(cache, lin, scatter, scatter, 0, 20)
+        logits = torch.stack([decode_step(cfg, params, cache, toks.to(d))
+                              for _ in range(3)])
+        return logits.cpu(), cache["layers"][0]["k"][0].cpu()
+
+    want = run("cpu", p_cpu, lin_cpu)
+    got = [run(dev, _to(p_cpu, dev), _to(lin_cpu, dev)) for _ in range(3)]
+    for g in got[1:]:
+        assert torch.equal(g[0], got[0][0]) and torch.equal(g[1], got[0][1])
+    for g, w in zip(got[0], want):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
