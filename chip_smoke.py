@@ -25,7 +25,10 @@ profiled round (e) runs last); any failure exits non-zero:
    S 512 queries of granite's width over one (1, 1024) linear buffer (256
    and 2048 query rows per kv head, in groups of 64), bf16 in units of
    2^-8 sum p|v| and bit for bit on a repeat call, float32 to 2e-5, with
-   its time and bound. bf16 paged decode over model-dtype
+   its time and bound; and at phase 12's ``serve_step`` shape (8 rings of
+   1024 at the static batch's positions, S 1), the same way; bf16
+   prefill attention also at phase 12's exact prompt lengths (S 514 and
+   121, off the tile, 32/8 heads). bf16 paged decode over model-dtype
    and int8 pools (the one-launch twin-order kernel) also prints its
    error in units of 2^-8 sum p|v| and must repeat bit for bit. Then recurrentgemma-9b's
    shapes: windowed prefill attention (S 2560, 16 q heads over 1 kv head,
@@ -72,7 +75,10 @@ profiled round (e) runs last); any failure exits non-zero:
    llama4-maverick-400b-a17b at 10/2 heads (G 5) and qwen2-vl-7b at 14/2
    heads (G 7, mrope) ``reduced()``; the streams must be token-identical (on
    the card, through the engine's CUDA graphs), and the cluster's must
-   equal one engine's.
+   equal one engine's. Last, phase 12's module-level steps on reduced
+   granite (``prefill_step`` into a 3-slot rolling cache, 12
+   ``serve_step`` ticks, ``bucketed_prefill_step``, ``generate`` greedy
+   and seeded), card == CPU token for token.
    Phases 4-6 pass ``chunk_prefill=0``: single-shot prefill, their cells
    as before chunked prefill was ported.
 4. Serve granite-8b at full width (36 layers, bfloat16, random weights
@@ -197,6 +203,24 @@ profiled round (e) runs last); any failure exits non-zero:
    policy and with int8 KV pages (the int8 paged decode launched). Prints each weight-read floor per tick (every expert is
    read each tick, as in the reference's products; llama4 also the floor
    of its 8 routed experts).
+12. After phase 8, on phase 4's granite-8b weights in bf16, uncut: the
+   engine's module-level steps outside the engine. A static batch (phase
+   4's first 8 prompts through ``prefill_step``, rings of 1024, and
+   ``cache_insert``, then 64 ``serve_step`` ticks at 8 slots; prefill
+   attention and rolling decode must launch), ``bucketed_prefill_step`` at
+   buckets 128 and 512 (first token equal to ``prefill_step``'s argmax,
+   logit gap printed) and ``generate`` on phase 4's greedy prompt 2 (64
+   tokens, repeated on a second call; agreement with phase 4's stream
+   printed, not gated). Prints ms per ``serve_step`` at 8 slots (eager,
+   ``util.timeit`` on CUDA events) and its tok/s beside phase 4's
+   captured tick, and ms per ``prefill_step`` at S 512.
+13. After phase 11: DLRM at the reference's widths (26 tables of embed
+   128, MLPs (512, 256, 128) and (1024, 1024, 512, 256, 1), multi-hot 8,
+   float32) with its tables cut from 10M to 4M rows (133.1 -> 53.2 GB):
+   a batch of 128 within 1e-4 relative of float64 from its gathered rows;
+   ms per batch at B 128 and 2048, queries/s, lookup bytes and their
+   time at 3.35 TB/s, peak memory, and ``plan_offload`` for the uncut
+   tables.
 
 ``--profile DIR`` repeats the steady-decode serve (8 requests on 8
 slots) of phases 4, 5 and 6, and recurrentgemma's 2500-token prompt
@@ -459,12 +483,30 @@ def phase_kernels(torch, rec):
             ok &= good
             if dt_name == "bfloat16" and s in key:
                 rec[key[s]].update(row)
+    # phase 12's prefill_step at its exact prompt lengths, off the tile:
+    # the static batch's longest and (b)'s bucket-128 prompt; drawn from
+    # a generator of its own, so every later check's inputs stay
+    lens = burst_prompts()[0]
+    gen12 = torch.Generator(device=dev).manual_seed(13)
+    for s in (int(max(lens[:8])), int(lens[8])):
+        good, row = prefill_kernel(torch, gen12, H, KVH, D, s, "bfloat16")
+        ok &= good
+        if s == int(max(lens[:8])):
+            rec["flash_attention_phase12"].update(row)
 
     # -- paged decode attention ------------------------------------------------
     B = 8
     ok &= paged_decode_kernel(torch, rec, gen, H, KVH, D, (1, 4, 8),
                               "paged_decode_attention")
     ok &= chunk_decode_kernel(torch, rec, gen, H, KVH, D)
+    # phase 12's serve_step: 8 rings of 1024 at the static batch's
+    # positions mid-run (phase 4's first 8 prompts, 32 ticks on); drawn
+    # from a generator of its own, so every later check's inputs stay
+    ok &= ring_decode_kernel(
+        torch, rec, torch.Generator(device=dev).manual_seed(12), B, 1024,
+        H, KVH, D,
+        [int(n) + 32 for n in burst_prompts()[0][:B]], (1,),
+        "decode_attention_phase12")
     ok &= int8_decode_kernel(torch, rec, gen, H, KVH, D)
     ok &= int8_matmul_kernel(torch, rec, gen)
 
@@ -594,6 +636,88 @@ def ring_units(got, want, q, k, v, pos):
         / BF16_UNIT
 
 
+def ring_decode_kernel(torch, rec, gen, B, W, H, KVH, D, ctx, s_list,
+                       rec_key):
+    """Rolling-cache decode attention over B rings of W tokens (slot b at
+    ``ctx[b]`` tokens, wrapped past W) for S in ``s_list`` queries of H q
+    heads over KVH kv heads, float32 and bf16, against its plain version
+    (and the oracle at S 1): bf16 also in units of 2^-8 sum p|v| and bit
+    for bit on a repeat call; timed beside the plain version and masked
+    SDPA. ``rec[rec_key]`` takes the bf16 S 1 row."""
+    from repro_torch.kernels import ops, plain, ref
+
+    dev = "cuda"
+    ok = True
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        # 4 ring pairs (67 MB in bfloat16 at recurrentgemma's shape, 134
+        # MB at granite's, more than the 50 MB L2), cycled by the timed
+        # launches as the main path reads each layer's cold
+        rings = [tuple(torch.randn((B, W, KVH, D), generator=gen,
+                                   device=dev).to(dt) for _ in range(2))
+                 for _ in range(4)]
+        kc, vc = rings[0]
+        for s in s_list:
+            pos = torch.tensor([max(c, s) for c in ctx], dtype=torch.int32,
+                               device=dev)
+            q = torch.randn((B, s, H, D), generator=gen, device=dev).to(dt)
+            got = ops.decode_attention(q, kc, vc, pos)
+            want = plain.decode_attention(q, kc, vc, pos)
+            err = (got.float() - want.float()).abs().max().item()
+            line = ""
+            if s == 1:  # the oracle takes one query row per (slot, head)
+                oracle = ref.ref_decode_attention(
+                    q.transpose(1, 2).reshape(B * H, s, D),
+                    kc.repeat_interleave(H // KVH, 2).transpose(1, 2)
+                    .reshape(B * H, W, D),
+                    vc.repeat_interleave(H // KVH, 2).transpose(1, 2)
+                    .reshape(B * H, W, D),
+                    torch.clamp(pos, max=W).repeat_interleave(H))
+                e_ref = (got.float() - oracle.reshape(B, H, s, D)
+                         .transpose(1, 2).float()).abs().max().item()
+                line = f" (vs ref {e_ref:.3g})"
+                err = max(err, e_ref)
+            tol = TOL[dt_name]
+            good = err <= tol
+            units = ""
+            if dt_name == "bfloat16":
+                u = ring_units(got, want, q, kc, vc, pos)
+                same = bool(torch.equal(
+                    got, ops.decode_attention(q, kc, vc, pos)))
+                good &= u <= BF16_UNITS_TOL and same
+                units = (f" scaled {u:.3g} units of 2^-8 sum p|v| "
+                         f"tol={BF16_UNITS_TOL:g}, a second call "
+                         f"bit-identical: {same}")
+            ok &= good
+            ms = time_ms(torch, lambda i: ops.decode_attention(
+                q, *rings[i % 4], pos))
+            pl_ms = time_ms(torch, lambda i: plain.decode_attention(
+                q, *rings[i % 4], pos))
+            n_s = torch.arange(s, device=dev)
+            valid = torch.clamp(pos[:, None] - (s - 1) + n_s, max=W)
+            mask = (torch.arange(W, device=dev)[None, None, None, :]
+                    < valid[:, None, :, None])  # (B, 1, S, W)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
+            lib = time_ms(torch, lambda i: torch.nn.functional
+                          .scaled_dot_product_attention(
+                              qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            rows = int(torch.clamp(pos, max=W).sum())
+            esz = q.element_size()
+            nbytes = esz * (2 * rows * KVH * D + 2 * q.numel()) + 4 * B
+            b_ms, b_by = bound(nbytes, 4.0 * rows * H * D * s, dt_name)
+            print(f"rolling decode {dt_name} B={B} W={W} S={s} H={H}/{KVH} "
+                  f"D={D} pos {ctx[0]}..{ctx[-1]}: max_abs_err={err:.3g}"
+                  f"{line} tol={tol}{units} {'ok' if good else 'FAIL'} "
+                  f"ms={ms:.4f} plain_ms={pl_ms:.4f} sdpa_mask_ms={lib:.4f}"
+                  f" bound_ms={b_ms:.5f} ({b_by})", flush=True)
+            if dt_name == "bfloat16" and s == 1:
+                rec[rec_key].update(
+                    max_abs_err=err, ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib)
+        del rings, kc, vc
+    return ok
+
+
 def hybrid_kernels(torch, rec, gen):
     """recurrentgemma-9b's kernel shapes: windowed prefill attention at
     head_dim 256, rolling-cache decode attention, the RG-LRU scan and the
@@ -652,74 +776,11 @@ def hybrid_kernels(torch, rec, gen):
         del q, k, v, got, want, band
 
     # -- decode attention over rolling caches --------------------------------
-    B, W = 8, 2048
-    ctx = [1, 100, 777, 2047, 2048, 2049, 3000, 5000]  # up to wrapped rings
-    for dt_name in ("float32", "bfloat16"):
-        dt = getattr(torch, dt_name)
-        # 4 ring pairs (67 MB in bfloat16, more than the 50 MB L2), cycled
-        # by the timed launches as the main path reads each layer's cold
-        rings = [tuple(torch.randn((B, W, KVH, D), generator=gen,
-                                   device=dev).to(dt) for _ in range(2))
-                 for _ in range(4)]
-        kc, vc = rings[0]
-        for s in (1, 4):
-            pos = torch.tensor([max(c, s) for c in ctx], dtype=torch.int32,
-                               device=dev)
-            q = torch.randn((B, s, H, D), generator=gen, device=dev).to(dt)
-            got = ops.decode_attention(q, kc, vc, pos)
-            want = plain.decode_attention(q, kc, vc, pos)
-            err = (got.float() - want.float()).abs().max().item()
-            line = ""
-            if s == 1:  # the oracle takes one query row per (slot, head)
-                oracle = ref.ref_decode_attention(
-                    q.transpose(1, 2).reshape(B * H, s, D),
-                    kc.expand(B, W, H, D).transpose(1, 2).reshape(
-                        B * H, W, D),
-                    vc.expand(B, W, H, D).transpose(1, 2).reshape(
-                        B * H, W, D),
-                    torch.clamp(pos, max=W).repeat_interleave(H))
-                e_ref = (got.float() - oracle.reshape(B, H, s, D)
-                         .transpose(1, 2).float()).abs().max().item()
-                line = f" (vs ref {e_ref:.3g})"
-                err = max(err, e_ref)
-            tol = TOL[dt_name]
-            good = err <= tol
-            units = ""
-            if dt_name == "bfloat16":
-                u = ring_units(got, want, q, kc, vc, pos)
-                same = bool(torch.equal(
-                    got, ops.decode_attention(q, kc, vc, pos)))
-                good &= u <= BF16_UNITS_TOL and same
-                units = (f" scaled {u:.3g} units of 2^-8 sum p|v| "
-                         f"tol={BF16_UNITS_TOL:g}, a second call "
-                         f"bit-identical: {same}")
-            ok &= good
-            ms = time_ms(torch, lambda i: ops.decode_attention(
-                q, *rings[i % 4], pos))
-            pl_ms = time_ms(torch, lambda i: plain.decode_attention(
-                q, *rings[i % 4], pos))
-            n_s = torch.arange(s, device=dev)
-            valid = torch.clamp(pos[:, None] - (s - 1) + n_s, max=W)
-            mask = (torch.arange(W, device=dev)[None, None, None, :]
-                    < valid[:, None, :, None])  # (B, 1, S, W)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
-            lib = time_ms(torch, lambda i: torch.nn.functional
-                          .scaled_dot_product_attention(
-                              qt, kt, vt, attn_mask=mask, enable_gqa=True))
-            rows = int(torch.clamp(pos, max=W).sum())
-            esz = q.element_size()
-            nbytes = esz * (2 * rows * KVH * D + 2 * q.numel()) + 4 * B
-            b_ms, b_by = bound(nbytes, 4.0 * rows * H * D * s, dt_name)
-            print(f"rolling decode {dt_name} B={B} W={W} S={s} H={H}/{KVH} "
-                  f"D={D} pos {ctx[0]}..{ctx[-1]}: max_abs_err={err:.3g}"
-                  f"{line} tol={tol}{units} {'ok' if good else 'FAIL'} "
-                  f"ms={ms:.4f} plain_ms={pl_ms:.4f} sdpa_mask_ms={lib:.4f}"
-                  f" bound_ms={b_ms:.5f} ({b_by})", flush=True)
-            if dt_name == "bfloat16" and s == 1:
-                rec["decode_attention"].update(
-                    max_abs_err=err, ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=lib)
-        del rings, kc, vc
+    B = 8
+    ok &= ring_decode_kernel(
+        torch, rec, gen, B, 2048, H, KVH, D,
+        [1, 100, 777, 2047, 2048, 2049, 3000, 5000],  # up to wrapped rings
+        (1, 4), "decode_attention")
 
     # -- the RG-LRU scan -----------------------------------------------------
     for b, s, l in ((1, 2560, 4096), (2, 384, 4096)):
@@ -1394,7 +1455,81 @@ def phase_reduced(torch):
             print(f"FAIL: reduced {label} ran no prefill chunk", flush=True)
     ok &= reduced_prefix_and_preempt(torch, cfg, *weights[cfg])
     ok &= reduced_cluster(torch, cfg, *weights[cfg])
+    ok &= reduced_steps(torch, cfg, *weights[cfg])
     return ok
+
+
+def reduced_steps(torch, cfg, p_cpu, p_gpu):
+    """Phase 3's check of phase 12's path: the engine's module-level steps
+    on reduced granite in float32, card == CPU token for token:
+    ``prefill_step`` of 3 prompts (window 64) inserted into a 3-slot
+    rolling cache, 12 greedy ``serve_step`` ticks, ``bucketed_prefill_step``
+    of a 23-token prompt in bucket 32 (its first token equal to
+    ``prefill_step``'s argmax on each device), and ``generate`` greedy and
+    seeded (12 tokens; a 70-token prompt, chunked)."""
+    import numpy as np
+
+    from repro_torch.models import init_cache
+    from repro_torch.serving import (
+        SamplingParams,
+        bucketed_prefill_step,
+        cache_insert,
+        generate,
+        prefill_step,
+        serve_step,
+    )
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 23, 30, 70)]
+    padded = np.zeros((1, 32), np.int32)
+    padded[0, :23] = prompts[1]
+
+    def run(params, dev):
+        cache = init_cache(cfg, 3, 64, device=dev)
+        first, exact = [], None
+        for slot, p in enumerate(prompts[:3]):
+            last, single = prefill_step(
+                cfg, params, torch.from_numpy(p)[None].to(dev), window=64)
+            cache_insert(cache, single, slot)
+            first.append(torch.argmax(last, dim=-1).to(torch.int32))
+            if slot == 1:
+                exact = last
+        toks = torch.cat(first)
+        streams, logits = [toks.tolist()], []
+        for _ in range(12):
+            toks, last, _ = serve_step(cfg, params, cache, toks[:, None])
+            streams.append(toks.tolist())
+            logits.append(last.cpu())
+        tok, last_b, cache_b = bucketed_prefill_step(
+            cfg, params, torch.from_numpy(padded).to(dev), 23, window=64)
+        bucket_ok = (int(tok[0]) == int(torch.argmax(exact[0]))
+                     and int(cache_b["pos"][0]) == 23)
+        gens = [generate(cfg, params, prompts[3], 12, window=128,
+                         sampling=sp, device=dev)
+                for sp in (None, SamplingParams(temperature=0.8, top_k=20,
+                                                top_p=0.9, seed=3))]
+        return dict(streams=streams, logits=torch.stack(logits),
+                    bucket_tok=int(tok[0]), bucket_ok=bucket_ok,
+                    bucket_gap=(last_b - exact).abs().max().item(),
+                    generate=gens)
+
+    gpu, cpu = run(p_gpu, "cuda"), run(p_cpu, "cpu")
+    same = {k: gpu[k] == cpu[k] for k in ("streams", "bucket_tok",
+                                          "generate")}
+    gap = (gpu["logits"] - cpu["logits"]).abs().max().item()
+    good = (all(same.values()) and gpu["bucket_ok"] and cpu["bucket_ok"]
+            and all(len(g) == 12 for g in gpu["generate"]))
+    print(f"reduced granite f32 module-level steps: serve_step streams (3 "
+          f"slots, 12 ticks) cuda == cpu: {same['streams']} (max abs logit "
+          f"gap {gap:.3g}); bucketed_prefill_step first token == "
+          f"prefill_step's argmax: cuda {gpu['bucket_ok']} cpu "
+          f"{cpu['bucket_ok']} (max abs logit gap cuda "
+          f"{gpu['bucket_gap']:.3g} cpu {cpu['bucket_gap']:.3g}), cuda == "
+          f"cpu: {same['bucket_tok']}; generate greedy and seeded cuda == "
+          f"cpu: {same['generate']} {'ok' if good else 'FAIL'}",
+          flush=True)
+    return good
 
 
 def cluster_round(ts, cfg, params, device, prompts, *, replicas=2,
@@ -2860,6 +2995,246 @@ def ssd_decode_check(torch, cfg, params, prompt, ticks):
     return errs
 
 
+def phase_steps(torch, rec, full):
+    """Phase 12: the engine's module-level steps at full width in bf16 on
+    phase 4's granite-8b weights, uncut, outside the engine and its CUDA
+    graphs. (a) A static batch: phase 4's first 8 prompts, each through
+    ``prefill_step`` (rings of 1024) and ``cache_insert``, then 64
+    ``serve_step`` ticks at 8 slots (launch counts zeroed just before,
+    read just after: prefill attention and rolling decode must have
+    launched). (b) ``bucketed_prefill_step`` at buckets 128 and 512 against
+    ``prefill_step`` on the same prompt: the first token must equal the
+    argmax (max abs logit gap printed). (c) ``generate`` (the engine's
+    default path, window 512) on a greedy prompt of phase 4, 64 new
+    tokens: 64 tokens, repeated on a second call; the leading tokens that
+    agree with phase 4's stream are printed (1 slot and 8 round bf16
+    products differently: no gate). Prints, with ``util.timeit`` (CUDA
+    events), ms per ``serve_step`` at 8 slots and its tok/s beside phase
+    4's captured engine tick, and ms per ``prefill_step`` at S 512."""
+    import numpy as np
+
+    from repro_torch import util
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache
+    from repro_torch.serving import (
+        bucketed_prefill_step,
+        cache_insert,
+        generate,
+        prefill_step,
+        prompt_bucket,
+        serve_step,
+    )
+
+    cfg, params, prompts = full["cfg"], full["params"], full["prompts"]
+    W, B, TICKS = 1024, 8, 64
+    ok = True
+
+    def tokens(p):
+        return torch.from_numpy(np.asarray(p, np.int32))[None].to("cuda")
+
+    # (a) the static batch (the reference's serving_bench baseline)
+    ops.reset_launches()
+    cache = init_cache(cfg, B, W, device="cuda")
+    first = []
+    for slot, p in enumerate(prompts[:B]):
+        last, single = prefill_step(cfg, params, tokens(p), window=W)
+        cache_insert(cache, single, slot)
+        first.append(torch.argmax(last, dim=-1).to(torch.int32))
+    toks = torch.cat(first)[:, None]
+    for _ in range(TICKS):
+        nxt, _, _ = serve_step(cfg, params, cache, toks)
+        toks = nxt[:, None]
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    pos = cache["pos"].tolist()
+    want_pos = [len(p) + TICKS for p in prompts[:B]]
+    for name in ("flash_attention", "decode_attention"):
+        if launches[name] <= 0:
+            ok = False
+            print(f"FAIL: kernel {name} never launched on phase 12's path")
+    ok &= pos == want_pos
+    print(f"phase 12 (a) static batch: {B} prompts "
+          f"({min(map(len, prompts[:B]))}-{max(map(len, prompts[:B]))} "
+          f"tokens) through prefill_step and cache_insert, {TICKS} "
+          f"serve_step ticks: positions {pos} (want {want_pos}); launches "
+          + ", ".join(f"{k}={v}" for k, v in launches.items() if v),
+          flush=True)
+    rec["decode_attention_phase12"]["launches"] = launches["decode_attention"]
+    rec["flash_attention_phase12"]["launches"] = launches["flash_attention"]
+
+    t_tick = util.timeit(serve_step, cfg, params, cache, toks, iters=20,
+                         warmup=2)
+    p512 = tokens(np.concatenate(prompts)[:512])
+    assert p512.shape[1] == 512
+    t512 = util.timeit(lambda: prefill_step(cfg, params, p512, window=W),
+                       iters=5, warmup=1)
+    print(f"phase 12 serve_step at {B} slots (eager, uncaptured; "
+          f"util.timeit, CUDA events): {t_tick * 1e3:.3f} ms mean, "
+          f"{t_tick.median * 1e3:.3f} ms median -> {B / t_tick:.1f} tok/s; "
+          f"phase 4's engine tick (captured): {full['tick_ms']:.2f} ms; "
+          f"prefill_step at S {p512.shape[1]}: {t512 * 1e3:.3f} ms mean, "
+          f"{t512.median * 1e3:.3f} ms median", flush=True)
+    del cache, single
+
+    # (b) bucketed prefill against the exact prompt
+    for i in (8, 9):  # 121 and 492 tokens: buckets 128 and 512
+        p = prompts[i]
+        bucket = prompt_bucket(len(p))
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :len(p)] = p
+        exact, _ = prefill_step(cfg, params, tokens(p), window=W)
+        tok, last, c = bucketed_prefill_step(
+            cfg, params, torch.from_numpy(padded).to("cuda"), len(p),
+            window=W)
+        gap = (last - exact).abs().max().item()
+        good = (int(tok[0]) == int(torch.argmax(exact[0]))
+                and int(c["pos"][0]) == len(p))
+        ok &= good
+        print(f"phase 12 (b) bucketed_prefill_step, {len(p)} tokens in "
+              f"bucket {bucket}: first token {int(tok[0])}, prefill_step's "
+              f"argmax {int(torch.argmax(exact[0]))}, max abs logit gap "
+              f"{gap:.4g} {'ok' if good else 'FAIL'}", flush=True)
+        del c
+
+    # (c) generate: phase 4's rid 2 (greedy there), 316 tokens
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = generate(cfg, params, prompts[2], 64)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    again = generate(cfg, params, prompts[2], 64)
+    phase4 = full["outputs"][2]
+    agree = next((i for i, (a, b) in enumerate(zip(out, phase4)) if a != b),
+                 min(len(out), len(phase4)))
+    good = len(out) == 64 and again == out
+    ok &= good
+    print(f"phase 12 (c) generate ({len(prompts[2])}-token prompt, window "
+          f"512, 64 new): {len(out)} tokens in {t_gen:.3f}s (engine "
+          f"built, graphs captured), a second call identical: "
+          f"{again == out}; leading tokens equal to phase 4's stream: "
+          f"{agree}/64; launches "
+          + ", ".join(f"{k}={v}" for k, v in launches.items() if v)
+          + f" {'ok' if good else 'FAIL'}", flush=True)
+    return ok
+
+
+#: DLRM's rows per table on one card: the largest round count whose 26
+#: tables of 128 float32 fit fig7's rule of 0.8 of an H100's 80 GB
+DLRM_ROWS = 4_000_000
+
+
+def dlrm_reference(torch, cfg, params, batch):
+    """DLRM's logits in float64 on the CPU from the batch's gathered rows
+    (gathered on the card: the full tables never go to the host) and the
+    same MLP weights, written out in numpy."""
+    import numpy as np
+
+    t_idx = torch.arange(cfg.num_tables, device="cuda")[None, :, None]
+    rows = params["tables"][t_idx, batch["sparse"]]  # (B, T, M, E)
+    emb = rows.double().cpu().numpy().sum(axis=2)  # (B, T, E)
+
+    def mlp(layers, x, final_act):
+        for i, layer in enumerate(layers):
+            x = x @ layer["w"].double().cpu().numpy() \
+                + layer["b"].double().cpu().numpy()
+            if i < len(layers) - 1 or final_act:
+                x = np.maximum(x, 0.0)
+        return x
+
+    bot = mlp(params["bottom"], batch["dense"].double().cpu().numpy(), True)
+    z = np.concatenate([bot[:, None, :], emb], axis=1)
+    inter = np.einsum("bte,bse->bts", z, z)
+    iu, ju = np.triu_indices(z.shape[1], k=1)
+    top_in = np.concatenate([bot, inter[:, iu, ju]], axis=-1)
+    return mlp(params["top"], top_in, False)[:, 0]
+
+
+def phase_dlrm(torch):
+    """Phase 13: DLRM at one card's size, after every phase that holds an
+    LLM's weights: the reference's ``DLRMConfig`` widths (26 tables of
+    embed 128, 13 dense features, MLPs (512, 256, 128) and (1024, 1024,
+    512, 256, 1), multi-hot 8, float32) with ``rows_per_table`` cut from
+    10,000,000 (133.1 GB) to 4,000,000 (53.2 GB). Dense features and row
+    ids from numpy seed 13, ids uniform over the rows. Gate: a batch of 128
+    queries within 1e-4 relative (to the largest logit) of a float64 CPU
+    computation from its gathered rows. Prints, with ``util.timeit``, ms
+    per batch at B 128 and 2048, queries/s, each batch's lookup bytes and
+    their time at 3.35 TB/s, peak allocated GiB, and ``plan_offload`` at
+    the H100's numbers for the uncut tables."""
+    import numpy as np
+
+    from repro_torch import util
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.simd import (
+        dlrm_forward,
+        init_dlrm,
+        lookup_traffic_bytes,
+        plan_offload,
+    )
+
+    full_cfg = get_config("dlrm")
+    cfg = dataclasses.replace(full_cfg, rows_per_table=DLRM_ROWS)
+    print(f"DLRM: rows_per_table cut from {full_cfg.rows_per_table:,} "
+          f"({full_cfg.embedding_params() * 4 / 1e9:.1f} GB of tables, "
+          f"more than one card holds) to {cfg.rows_per_table:,} "
+          f"({cfg.embedding_params() * 4 / 1e9:.1f} GB), the largest round "
+          f"count under 0.8 x {H100_SXM.hbm_bytes / 1e9:.0f} GB "
+          f"(benchmarks/fig7_dlrm.py's fit rule); {cfg.num_tables} tables "
+          f"x embed {cfg.embed_dim}, multi-hot {cfg.multi_hot}, MLPs "
+          f"{cfg.bottom_mlp} and {cfg.top_mlp}, float32", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_dlrm(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    print(f"DLRM weights ({cfg.param_count() / 1e9:.3f} B params) drawn "
+          f"on the card in {time.perf_counter() - t0:.1f}s", flush=True)
+    rng = np.random.default_rng(13)
+
+    def make_batch(b):
+        return {"dense": torch.from_numpy(rng.standard_normal(
+                    (b, cfg.num_dense_features)).astype(np.float32)).cuda(),
+                "sparse": torch.from_numpy(rng.integers(
+                    0, cfg.rows_per_table,
+                    (b, cfg.num_tables, cfg.multi_hot))).cuda()}
+
+    batch = make_batch(128)
+    got = dlrm_forward(cfg, params, batch).double().cpu().numpy()
+    want = dlrm_reference(torch, cfg, params, batch)
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    ok = (got.shape == (128,) and bool(np.isfinite(got).all())
+          and rel <= 1e-4)
+    print(f"DLRM B=128: logits {got.shape}, mean {got.mean():.6f}, max abs "
+          f"error against float64 from the gathered rows "
+          f"{np.abs(got - want).max():.3g} = {rel:.3g} of the largest "
+          f"logit (tol 1e-4) {'ok' if ok else 'FAIL'}", flush=True)
+    for b in (128, 2048):
+        batch = make_batch(b)
+        t = util.timeit(dlrm_forward, cfg, params, batch, iters=20,
+                        warmup=3)
+        nbytes = lookup_traffic_bytes(cfg, b)
+        print(f"DLRM B={b}: {t * 1e3:.4f} ms mean, {t.median * 1e3:.4f} ms "
+              f"median per batch (util.timeit, CUDA events) -> "
+              f"{b / t:.0f} queries/s; lookups read {nbytes / 1e6:.1f} MB "
+              f"of rows = {nbytes / H100_SXM.hbm_bw * 1e3:.4f} ms at 3.35 "
+              f"TB/s", flush=True)
+    print(f"DLRM peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    plan = plan_offload(full_cfg.num_tables * full_cfg.rows_per_table,
+                        full_cfg.embed_dim * 4, 0.5 * H100_SXM.hbm_bytes,
+                        alpha=1.05)
+    print(f"DLRM plan_offload (uncut {full_cfg.rows_per_table:,}-row tables,"
+          f" half of an H100's 80 GB for hot rows, Zipf 1.05, host link 32 "
+          f"GB/s): {plan.hbm_rows:,} rows on the card, {plan.host_rows:,} "
+          f"on the host, hit rate {plan.hit_rate:.4f}, effective "
+          f"{plan.effective_bw / 1e9:.1f} GB/s, {plan.slowdown_vs_hbm:.2f}x "
+          f"slower than all rows on the card", flush=True)
+    del params, batch
+    return ok
+
+
 def write_profile(prof, out_dir, st, table_name,
                   label="decode at 8 slots"):
     """Device time by kernel name, and the device's busy share of the
@@ -2989,6 +3364,16 @@ def main() -> int:
             name="sample_tokens (vocab 256000)", route="cuda",
             source=f"{csrc}/sampling.cu",
             replaces="src/repro/kernels/topk_sample.py:63"),
+        "decode_attention_phase12": dict(
+            name="decode_attention (phase 12 serve_step: 8 rings of 1024, "
+                 "S 1, 32/8 heads)", route="cuda",
+            source=f"{csrc}/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:264"),
+        "flash_attention_phase12": dict(
+            name=f"flash_attention (phase 12 prefill_step: S "
+                 f"{int(max(burst_prompts()[0][:8]))}, 32/8 heads)",
+            route="cuda", source=f"{csrc}/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:74"),
     }
     # the same kernels at the shapes of phases 9 and 10
     rows = {"flash_attention": ("flash_attention", "S 512",
@@ -3036,6 +3421,8 @@ def main() -> int:
                        lambda: phase_admission(torch, rec, full)),
                       ("full-width cluster frontend",
                        lambda: phase_cluster(torch, rec, full)),
+                      ("full-width engine steps",
+                       lambda: phase_steps(torch, rec, full)),
                       ("full-width hybrid serving",
                        lambda: phase_hybrid(torch, rec, profile_dir)),
                       ("full-width dense families",
@@ -3044,6 +3431,8 @@ def main() -> int:
                        lambda: phase_ssd(torch, rec)),
                       ("full-width MoE and mrope serving",
                        lambda: phase_moe(torch, rec)),
+                      ("DLRM at one card's size",
+                       lambda: phase_dlrm(torch)),
                       ("full-width profiler hook",
                        lambda: phase_profile_hook(torch))):
         t0 = time.perf_counter()
@@ -3051,7 +3440,7 @@ def main() -> int:
             return fail(f"phase '{phase}'")
         print(f"phase '{phase}' ok in {time.perf_counter() - t0:.1f}s",
               flush=True)
-        if phase == "full-width cluster frontend":
+        if phase == "full-width engine steps":
             full.clear()  # granite's weights go before recurrentgemma's
         gc.collect()  # each model is freed before the next is built
         torch.cuda.empty_cache()

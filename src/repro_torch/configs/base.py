@@ -2,7 +2,8 @@
 ``configs/base.py``; the port imports nothing of ``repro``).
 
 Every assigned architecture is an ``ArchConfig`` (one module per arch under
-``repro_torch.configs``); configs are hashable, frozen dataclasses.
+``repro_torch.configs``); input shapes are ``ShapeConfig``s. Both are
+hashable, frozen dataclasses.
 """
 from __future__ import annotations
 
@@ -10,6 +11,29 @@ import dataclasses
 import importlib
 from dataclasses import dataclass
 from typing import Tuple
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (seq_len, global_batch) workload shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
 
 # ---------------------------------------------------------------------------
 # Architecture config
@@ -274,11 +298,13 @@ _ALIAS = {
 }
 
 
-#: Architectures whose config module the port carries so far; the others
-#: come with their block families (ROADMAP.md queue 1).
+#: Architectures whose config module the port carries so far (and DLRM,
+#: the survey's SIMD workload); the others come with their block families
+#: (ROADMAP.md queue 1).
 PORTED_ARCHS = ("granite_8b", "recurrentgemma_9b", "phi3_medium_14b",
                 "starcoder2_15b", "chatglm3_6b", "mamba2_1_3b",
-                "grok_1_314b", "llama4_maverick_400b", "qwen2_vl_7b")
+                "grok_1_314b", "llama4_maverick_400b", "qwen2_vl_7b",
+                "dlrm")
 
 
 def get_config(name: str) -> ArchConfig:
@@ -290,3 +316,13 @@ def get_config(name: str) -> ArchConfig:
             f"families'")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return INPUT_SHAPES[name]
+
+
+def applicable_shapes(cfg: ArchConfig) -> list:
+    """Shapes that apply to an arch (encoder-only archs have no decode)."""
+    return [s for s in INPUT_SHAPES.values()
+            if s.kind != "decode" or cfg.supports_decode]

@@ -1,10 +1,12 @@
-"""Analytic latency model for serving work: the roofline of the JAX
-package's ``core/costmodel.py``, restricted to what the engine needs (its
-admission plan, the chunked-prefill policy, ``load_report``), over the chip
-constants in ``repro_torch.core.hardware`` (default: one H100), with the
-reference's terms for a routed cluster: a prefix hit's discount, a mesh's
-collective bytes (``mesh_axes``; none on one card) and the health
-watchdog's budget (``suggest_health_timeout_s``)."""
+"""Analytic latency model for inference and training work: the roofline of
+the JAX package's ``core/costmodel.py`` over the chip constants in
+``repro_torch.core.hardware`` (default: one H100). The engine reads it for
+its admission plan, the chunked-prefill policy and ``load_report``; a
+routed cluster for a prefix hit's discount, a mesh's collective bytes
+(``mesh_axes``; none on one card) and the health watchdog's budget
+(``suggest_health_timeout_s``); the taxonomy (``estimate`` on an assigned
+shape, ``model_flops``, the MISD partitioner and simulator) for its
+estimates."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -51,6 +53,13 @@ class WorkEstimate:
         is busy: the interference model's input."""
         lat = self.latency_s
         return (min(1.0, self.compute_s / lat), min(1.0, self.memory_s / lat))
+
+    def demand_at(self, occupancy: float) -> tuple:
+        """``demand`` scaled by a single stream's occupancy: a lone small
+        query cannot fill a large accelerator (the survey's §3 premise);
+        co-tenants fill the idle ``1 - occupancy``."""
+        c, m = self.demand
+        return (c * occupancy, m * occupancy)
 
 
 def stream_occupancy(batch: int, *, half_sat: float = 16.0,
@@ -159,6 +168,47 @@ def estimate_decode(cfg, batch: int, context: int, *, chip: Chip = H100_SXM,
             collective_bytes = sum(collective_bytes_per_axis(
                 cfg, batch, mesh_axes=mesh_axes).values())
     return WorkEstimate(flops, hbm, collective_bytes, chip, n_chips)
+
+
+def estimate_train(cfg, batch: int, seq: int, *, chip: Chip = H100_SXM,
+                   n_chips: int = 1,
+                   collective_bytes: float = 0.0) -> WorkEstimate:
+    """One training step of ``batch`` sequences of ``seq`` tokens: forward
+    and backward (6 N D plus three attention passes), weights, gradients
+    and optimizer state read and written, and the gradient all-reduce
+    across ``n_chips`` > 1."""
+    flops = (6.0 * cfg.active_param_count() * batch * seq
+             + 3.0 * _attn_flops(cfg, batch, seq, seq))
+    wb = _dtype_bytes(cfg)
+    hbm = (3.0 * cfg.param_count() * (wb + 12)
+           + 24.0 * batch * seq * cfg.d_model * wb)
+    if collective_bytes == 0.0 and n_chips > 1:
+        collective_bytes = 2.0 * cfg.param_count() * 4  # grad all-reduce
+    return WorkEstimate(flops, hbm, collective_bytes, chip, n_chips)
+
+
+def estimate(cfg, shape, *, chip: Chip = H100_SXM,
+             n_chips: int = 1) -> WorkEstimate:
+    """Estimate for an assigned ``ShapeConfig`` (decode past 100k tokens
+    attends the arch's sliding window)."""
+    if shape.kind == "train":
+        return estimate_train(cfg, shape.global_batch, shape.seq_len,
+                              chip=chip, n_chips=n_chips)
+    if shape.kind == "prefill":
+        return estimate_prefill(cfg, shape.global_batch, shape.seq_len,
+                                chip=chip, n_chips=n_chips)
+    window = cfg.sliding_window_decode if shape.seq_len > 100_000 else 0
+    return estimate_decode(cfg, shape.global_batch, shape.seq_len,
+                           chip=chip, n_chips=n_chips, window=window)
+
+
+def model_flops(cfg, shape) -> float:
+    """MODEL_FLOPS of the roofline report: 6 N D to train, 2 N D to serve
+    (N active params, D tokens processed)."""
+    mult = 6.0 if shape.kind == "train" else 2.0
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    return mult * cfg.active_param_count() * tokens
 
 
 def collective_bytes_per_axis(cfg, tokens: int, *, mesh_axes=None) -> dict:

@@ -9,6 +9,11 @@ from repro_torch.core.misd.interference import (
     pairwise_degradation,
     progress_rates,
 )
+from repro_torch.core.misd.partition import (
+    MeshPartitioner,
+    Meshlet,
+    PartitionPlan,
+)
 from repro_torch.core.misd.scheduler import (
     SCHEDULERS,
     ChunkedPrefillPolicy,
@@ -25,6 +30,7 @@ from repro_torch.core.misd.scheduler import (
 __all__ = ["SCHEDULERS", "AdmissionPlan", "BatchAccumulator",
            "ChunkedPrefillPolicy", "Device", "FIFOScheduler",
            "InterferenceAwareScheduler", "InterferencePredictor", "Job",
-           "MISDSimulator", "PremaScheduler", "SJFScheduler", "SimResult",
+           "MISDSimulator", "MeshPartitioner", "Meshlet", "PartitionPlan",
+           "PremaScheduler", "SJFScheduler", "SimResult",
            "adaptive_batch_size", "pairwise_degradation", "plan_admission",
            "progress_rates"]

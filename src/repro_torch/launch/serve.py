@@ -65,7 +65,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ArchConfig, get_config
 from repro_torch.core.costmodel import (
     kv_bytes_per_token,
     suggest_health_timeout_s,
@@ -229,10 +229,15 @@ def engine_config(args) -> EngineConfig:
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if not isinstance(cfg, ArchConfig):
+        parser.error(f"--arch {args.arch}: not a language model; DLRM runs "
+                     f"through repro_torch.core.simd.dlrm_forward (python -m "
+                     f"repro_torch.examples.distributed_inference)")
     if args.reduced:
         cfg = cfg.reduced()
     if args.temperature <= 0 and (args.top_k > 0 or args.top_p < 1.0):

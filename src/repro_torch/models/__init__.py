@@ -1,4 +1,8 @@
-from repro_torch.models.convert import cache_from_jax, params_from_jax
+from repro_torch.models.convert import (
+    cache_from_jax,
+    dlrm_params_from_jax,
+    params_from_jax,
+)
 from repro_torch.models.model import (
     QUANT_WEIGHT_KEYS,
     block_program,
@@ -15,6 +19,6 @@ from repro_torch.models.model import (
 )
 
 __all__ = ["QUANT_WEIGHT_KEYS", "block_program", "cache_from_jax",
-           "decode_step", "dtype_of", "forward", "init_cache",
+           "decode_step", "dlrm_params_from_jax", "dtype_of", "forward", "init_cache",
            "init_paged_cache", "init_params", "layer_types", "paged_ok",
            "params_from_jax", "ported", "quantize_weights"]

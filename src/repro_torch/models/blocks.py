@@ -269,12 +269,17 @@ def ring_fill(cache, k, v):
     the last min(S, W) tokens, token t at ring row ``t % W``, which is
     where decode's writes (row ``pos % W``) assume them. (The reference
     stores the last W at rows 0..W-1, which its decode misreads after a
-    prompt with S > W and S % W != 0: ROADMAP.md queue 3.)"""
+    prompt with S > W and S % W != 0: ROADMAP.md queue 3.) An int8 ring
+    takes the tokens' per-token codes and scales, as the reference's
+    prefill quantizes outside a page-scale hint."""
     s, w = k.shape[1], cache["k"].shape[1]
     n = min(s, w)
     rows = torch.arange(s - n, s, device=k.device) % w
-    cache["k"][:, rows] = k[:, s - n:].to(cache["k"].dtype)
-    cache["v"][:, rows] = v[:, s - n:].to(cache["v"].dtype)
+    for name, t in (("k", k[:, s - n:]), ("v", v[:, s - n:])):
+        if name + "_scale" in cache:
+            t, scale = quantize_kv(t)
+            cache[name + "_scale"][:, rows] = scale
+        cache[name][:, rows] = t.to(cache[name].dtype)
 
 
 def _ring_attn_decode(q, k, v, cache, pos):

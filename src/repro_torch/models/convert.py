@@ -19,7 +19,8 @@ the float32 ``router`` (d, E), the expert stacks ``w_gate`` / ``w_up``
 ``cache_from_jax(cfg, tree, device)`` does the same for the reference's
 rolling cache (``init_cache`` or a prefill's output: rings, RG-LRU and
 SSD conv windows and states, ``pos``), so tests can hold the port's
-caches to it.
+caches to it; ``dlrm_params_from_jax(tree, device)`` for the reference's
+DLRM weights (``core/simd/embedding.py``'s ``init_dlrm``).
 """
 from __future__ import annotations
 
@@ -75,3 +76,11 @@ def cache_from_jax(cfg, tree, device="cuda"):
     device = resolve_device(device)
     return {"layers": _layers(cfg, tree, device),
             "pos": _tensor(tree["pos"], device).to(torch.int32)}
+
+
+def dlrm_params_from_jax(tree, device="cuda"):
+    """The reference's ``init_dlrm`` tree (tables (T, R, E), ``bottom`` and
+    ``top`` lists of {"w", "b"}) as the port's (``core/simd/embedding.py``:
+    the same layout, float32)."""
+    device = resolve_device(device)
+    return _map(tree, lambda a: _tensor(a, device))

@@ -15,16 +15,20 @@ from repro_torch.serving.config import (
 from repro_torch.serving.engine import (
     PREEMPT_POLICIES,
     ServingEngine,
+    bucketed_prefill_step,
     cache_insert,
     decode_scan_step,
     decode_tick,
+    generate,
     page_table_append,
     paged_prefill_step,
     pages_insert,
     pages_insert_prefix,
     prefill_chunk_step,
+    prefill_step,
     prefix_seed_cache,
     prompt_bucket,
+    serve_step,
     slot_release,
 )
 from repro_torch.serving.faults import (
@@ -91,10 +95,11 @@ __all__ = [
     "RequestRejected", "RequestState", "SamplingParams", "ServeMetrics",
     "ServingEngine", "Span", "TenantAdmission", "TenantClass",
     "TenantMetrics", "TokenBucket", "Trace", "Tracer", "WeightedFairQueue",
-    "cache_insert", "chrome_trace", "decode_scan_step", "decode_tick",
-    "latency_histogram", "page_table_append", "paged_prefill_step",
-    "pages_insert", "pages_insert_prefix", "prefill_chunk_step",
+    "bucketed_prefill_step", "cache_insert", "chrome_trace",
+    "decode_scan_step", "decode_tick", "generate", "latency_histogram",
+    "page_table_append", "paged_prefill_step", "pages_insert",
+    "pages_insert_prefix", "prefill_chunk_step", "prefill_step",
     "prefix_seed_cache", "prompt_bucket", "request_cost", "request_traces",
-    "residual_histogram", "slot_release", "validate_chrome_trace",
-    "write_chrome_trace",
+    "residual_histogram", "serve_step", "slot_release",
+    "validate_chrome_trace", "write_chrome_trace",
 ]

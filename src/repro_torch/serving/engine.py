@@ -109,12 +109,13 @@ from repro_torch.serving.tracing import Trace, Tracer
 
 __all__ = [
     "EngineConfig", "LoadReport", "PREEMPT_POLICIES", "ServingEngine",
-    "cache_insert", "decode_scan_step", "decode_tick", "init_sampling_state",
+    "bucketed_prefill_step", "cache_insert", "decode_scan_step",
+    "decode_tick", "generate", "init_sampling_state", "mrope_positions",
     "page_table_append", "paged_prefill_step", "pages_insert",
-    "mrope_positions", "pages_insert_prefix", "prefill_chunk_step",
+    "pages_insert_prefix", "prefill_chunk_step", "prefill_step",
     "prefix_seed_cache", "prompt_bucket", "resolve_device",
-    "rolling_prefill_step",
-    "sampling_row", "sampling_set", "slot_release",
+    "rolling_prefill_step", "sampling_row", "sampling_set", "serve_step",
+    "slot_release",
 ]
 
 
@@ -147,27 +148,55 @@ def mrope_positions(cfg, start, s: int):
 
 
 def rolling_prefill_step(cfg, params, tokens, true_len, *, window: int,
-                         moe_full_cap: bool = False):
+                         kv_dtype: str = "", moe_full_cap: bool = False):
     """Prefill a prompt into a fresh rolling cache (``init_cache``, rings
-    of ``window``): tokens (B, L) is the prompt at its exact length
-    (L = ``true_len``, the reference's ``prefill_step``: archs with
-    recurrent state, which end padding would corrupt) or padded at the end
-    to a bucket no larger than the smallest ring (its
-    ``bucketed_prefill_step``). Causality keeps the pads out of the true
-    tokens' keys; ``pos`` is clamped to ``true_len``, so decode's validity
-    mask hides the pad rows until its writes replace them. ``true_len`` is
-    an int or a (1,) device tensor (the engine's captured buckets).
-    ``moe_full_cap``: MoE blocks at the whole group's capacity (the
-    "strict" policy), in this and every step below. Returns (first greedy
-    token (B,) int32, last-true-position logits (B, V), cache)."""
+    of ``window``; ``kv_dtype`` "int8": int8 rings with per-token scales):
+    tokens (B, L) is the prompt at its exact length (L = ``true_len``,
+    the reference's ``prefill_step``: archs with recurrent state, which
+    end padding would corrupt) or padded at the end to a bucket no larger
+    than the smallest ring (its ``bucketed_prefill_step``). Causality
+    keeps the pads out of the true tokens' keys; ``pos`` is clamped to
+    ``true_len``, so decode's validity mask hides the pad rows until its
+    writes replace them. ``true_len`` is an int or a (1,) device tensor
+    (the engine's captured buckets). ``moe_full_cap``: MoE blocks at the
+    whole group's capacity (the "strict" policy), in this and every step
+    below. Returns (first greedy token (B,) int32, last-true-position
+    logits (B, V), cache)."""
     b = tokens.shape[0]
-    cache = init_cache(cfg, b, window, device=tokens.device)
+    cache = init_cache(cfg, b, window, device=tokens.device,
+                       kv_dtype=kv_dtype)
     n = _dev_index(true_len, tokens.device)
     last, _ = forward(cfg, params, tokens, logits_at=(n - 1).expand(b),
                       cache=cache, moe_full_cap=moe_full_cap,
                       positions=mrope_positions(cfg, cache["pos"],
                                                 tokens.shape[1]))
     cache["pos"].copy_(n.expand(b))
+    return torch.argmax(last, dim=-1).to(torch.int32), last, cache
+
+
+#: the reference's name for a prefill padded at the end to a bucket
+#: (true_len traced there, an int or a (1,) device tensor here)
+bucketed_prefill_step = rolling_prefill_step
+
+
+def prefill_step(cfg, params, tokens, *, window: int, kv_dtype: str = ""):
+    """Full-prompt forward filling a fresh rolling cache: tokens (B, L),
+    every position true. Returns (last-position logits (B, V) float32,
+    cache with ``pos`` = L)."""
+    _, last, cache = rolling_prefill_step(cfg, params, tokens,
+                                          tokens.shape[1], window=window,
+                                          kv_dtype=kv_dtype)
+    return last, cache
+
+
+def serve_step(cfg, params, cache, tokens):
+    """One decode step for every slot of a rolling cache: tokens (B, 1),
+    each slot's next token, against the cache (advanced in place). Returns
+    (greedy next tokens (B,) int32, logits (B, V) float32, cache)."""
+    logits = decode_step(cfg, params, cache, tokens,
+                         positions=mrope_positions(cfg, cache["pos"],
+                                                   tokens.shape[1]))
+    last = logits[:, -1]
     return torch.argmax(last, dim=-1).to(torch.int32), last, cache
 
 
@@ -1889,3 +1918,23 @@ class ServingEngine:
     @property
     def n_prefilling(self) -> int:
         return len(self._jobs)
+
+
+def generate(cfg, params, prompt: np.ndarray, max_new_tokens: int, *,
+             window: int = 512, sampling: Optional[SamplingParams] = None,
+             device="cuda") -> List[int]:
+    """One request served alone on a one-slot engine with the reference's
+    defaults (``EngineConfig(slots=1, window=window)``), one step a
+    virtual second. Returns the generated tokens."""
+    eng = ServingEngine(cfg, params, EngineConfig(slots=1, window=window),
+                        device=device)
+    req = Request(rid=0, prompt=prompt, max_new_tokens=max_new_tokens,
+                  sampling=sampling or SamplingParams())
+    if not eng.try_admit(req, now=0.0):
+        raise RuntimeError(f"generate: a {len(prompt)}-token prompt was "
+                           f"not admitted to an idle one-slot engine")
+    t = 0.0
+    while not req.done:
+        t += 1.0
+        eng.step(t)
+    return req.output

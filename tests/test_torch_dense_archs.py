@@ -76,9 +76,12 @@ def test_configs_equal_the_references_and_the_rest_stay_refused():
         ts.EngineConfig().validate(tc)
     counts = [torch_config(n).param_count() / 1e9 for n in NEW_ARCHS[:3]]
     assert [round(c, 2) for c in counts] == [14.66, 15.96, 6.24]
-    for name in ("hubert-xlarge", "dlrm"):
-        with pytest.raises(ValueError, match="ROADMAP.md queue 1"):
-            torch_config(name)
+    with pytest.raises(ValueError, match="ROADMAP.md queue 1"):
+        torch_config("hubert-xlarge")
+    # DLRM, the survey's SIMD workload, is carried field for field
+    dlrm, jdlrm = torch_config("dlrm"), jax_config("dlrm")
+    assert dataclasses.asdict(dlrm) == dataclasses.asdict(jdlrm)
+    assert dlrm.param_count() == jdlrm.param_count()
     # an encoder arch (hubert's blocks) is refused before any work,
     # naming its ROADMAP.md item
     encoder = dataclasses.replace(torch_config("granite-8b").reduced(),

@@ -1510,3 +1510,20 @@ def test_duplicate_page_writes_land_as_on_the_cpu(dev):
         assert torch.equal(g[0], got[0][0]) and torch.equal(g[1], got[0][1])
     for g, w in zip(got[0], want):
         torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
+
+
+def test_timeit_times_the_device_on_cuda_events(dev):
+    """``util.timeit`` on the card: each sample spans the device's work
+    (a kernel that spins about 10 ms returns to the host at once, so a
+    host clock without a synchronize would read its launch only), and
+    the result is the samples' mean."""
+    from repro_torch import util
+
+    def spin():
+        torch.cuda._sleep(20_000_000)  # about 10 ms at 2 GHz
+
+    t = util.timeit(spin, iters=4, warmup=1)
+    assert isinstance(t, util.TimedSamples) and len(t.samples) == 4
+    assert min(t.samples) > 2e-3
+    assert float(t) == pytest.approx(sum(t.samples) / 4)
+    assert min(t.samples) <= t.median <= max(t.samples)
