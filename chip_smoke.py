@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases, in order (phases 7 and 8 run after phase 5, on granite's
-weights, before phase 6; phases 9, 10 and 11 after phase 6; phase 8's
-profiled round (e) runs last); any failure exits non-zero:
+weights, before phase 6; phases 9, 10 and 11 after phase 6; phase 14
+after phase 13; phase 8's profiled round (e) runs last); any failure
+exits non-zero:
 
 1. Print the card (``nvidia-smi``), build every CUDA kernel of the port
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
@@ -54,6 +55,16 @@ profiled round (e) runs last); any failure exits non-zero:
    scales) at grok's G 6; the chunk step's rolling decode at S 64 over a
    (1, 1024) buffer (384, 320 and 448 rows); the sampler at vocab
    131072, 202048 and 152064 under both mixes, a tie in the last block.
+   Last, the training path's shapes, each from a generator of its own
+   (every earlier check keeps its inputs): prefill attention at
+   hubert-xlarge's head_dim 80, non-causal (B 1, S 4096 and 4095 off the
+   tile, 16/16 heads, bf16 and float32; B 4, S 4096 in bf16, phase 14's
+   shape) and at granite's causal train shape (B 2, S 4096, 32/8, bf16),
+   each with its error (bf16 also in units of 2^-8 sum p|v|), time,
+   bound, plain and SDPA time; the autograd ``Function``s' q, k, v
+   gradients against the plain version's autograd at hubert's shape
+   (bf16 and float32) and granite's (bf16), with the backward's time;
+   the RG-LRU ``Function``'s a, x, h0 gradients at L 4096 (B 2, S 384).
 3. Serve the same greedy and seeded requests through the port's
    ``ServingEngine`` on granite-8b ``reduced()`` (float32, 2 kv heads) on
    the card and on the CPU, in the model dtype, with int8 KV pages and
@@ -221,6 +232,26 @@ profiled round (e) runs last); any failure exits non-zero:
    ms per batch at B 128 and 2048, queries/s, lookup bytes and their
    time at 3.35 TB/s, peak memory, and ``plan_offload`` for the uncut
    tables.
+
+14. After phase 13, training (``repro_torch.training.train_step``,
+   AdamW with float32 master weights; every layer recomputed in
+   backward, kernels 1 and 7 through their autograd ``Function``s). (a)
+   Two float32 steps of granite-8b, hubert-xlarge (also at 4 heads of
+   80) and recurrentgemma-9b (3 layers: both kernels) ``reduced()``,
+   card == CPU within 1e-4 (loss, grad norm, params), kernel launches 2
+   a layer a step; chatglm3-6b ``reduced()``'s loss falls over 30 steps
+   on the card (the reference suite's test). (b) hubert-xlarge whole (48
+   layers, bf16 weights) on B 4 x S 4096 frames from ``synthetic_batch``
+   at ``train_4k``'s sequence (its batch cut from 256 to 4 to fit one
+   card), 8 steps; (c) granite-8b at full width, 2 of its 36 layers (the
+   whole needs ~115 GB of weights and AdamW state), B 2 x S 4096 from
+   ``TokenPipeline``, 8 steps. Gates for (b) and (c): finite losses and
+   grad norms; every parameter's gradient nonzero somewhere; kernel 1
+   launched exactly 2 x layers a step; step 0's loss within 1e-2 and
+   grad norm within 5e-2 (relative) of the same step with attention in
+   plain float32 (the kernel rounds P to bf16, 2^-8, over 48 layers).
+   Prints ms a step (CUDA events), tokens/s, MFU (6 N T over 989 TF/s)
+   and peak memory.
 
 ``--profile DIR`` repeats the steady-decode serve (8 requests on 8
 slots) of phases 4, 5 and 6, and recurrentgemma's 2500-token prompt
@@ -539,6 +570,7 @@ def phase_kernels(torch, rec):
     ok &= hybrid_kernels(torch, rec, gen)
     ok &= dense_family_kernels(torch, rec, gen)
     ok &= moe_family_kernels(torch, rec, gen)
+    ok &= train_kernels(torch, rec)
     return ok
 
 
@@ -1190,6 +1222,168 @@ def moe_family_kernels(torch, rec, gen):
         rec[f"sample_tokens_{arch}"].update(
             max_abs_err=float(mism), ms=ms, plain_ms=plain, bound_ms=b_ms,
             bound_by=b_by, library_ms=None)
+    return ok
+
+
+#: the training path's attention shapes (phase 14): (record key, B, S, q
+#: heads, kv heads, head_dim, causal)
+TRAIN_ATTN = {"flash_attention_hubert": (4, 4096, 16, 16, 80, False),
+              "flash_attention_granite_train": (2, 4096, 32, 8, 128, True)}
+#: the autograd Functions' gradients against the plain version's autograd,
+#: relative to the largest gradient: float order only (the Function's
+#: backward runs the plain version chunk by chunk); bf16 one step at the
+#: top of the range
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+
+
+def train_attention_kernel(torch, gen, B, S, H, KVH, D, causal, dt_name):
+    """Prefill attention at a training shape (any mode) against its plain
+    version: error (bf16 also in units of 2^-8 sum p|v|), device time,
+    bound, plain and SDPA time. Returns (ok, the row's numbers)."""
+    from repro_torch.kernels import ops, plain
+
+    dev = "cuda"
+    dt = getattr(torch, dt_name)
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
+    k = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(dt)
+    v = torch.randn((B, S, KVH, D), generator=gen, device=dev).to(dt)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = plain.dense_attention(q, k, v, causal=causal)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[dt_name]
+    good = err <= tol
+    units = ""
+    if dt_name == "bfloat16":
+        u = bf16_units(got, want, q, k, v, causal=causal)
+        good &= u <= BF16_UNITS_TOL
+        units = (f" scaled {u:.3g} units of 2^-8 sum p|v| "
+                 f"tol={BF16_UNITS_TOL:g}")
+    del got, want
+    ms = time_ms(torch, lambda i: ops.flash_attention(q, k, v,
+                                                      causal=causal))
+    pl_ms = time_ms(torch, lambda i: plain.dense_attention(
+        q, k, v, causal=causal), iters=2, warm=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = time_ms(torch, lambda i: torch.nn.functional
+                  .scaled_dot_product_attention(
+                      qt, kt, vt, is_causal=causal, enable_gqa=True))
+    pairs = S * (S + 1) / 2 if causal else S * S
+    flops = 4.0 * B * H * D * pairs
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound(nbytes, flops, dt_name)
+    print(f"prefill {dt_name} B={B} S={S} H={H}/{KVH} D={D} "
+          f"{'causal' if causal else 'non-causal'}: max_abs_err={err:.3g} "
+          f"tol={tol}{units} {'ok' if good else 'FAIL'} ms={ms:.4f} "
+          f"({tflops(flops, ms)}) plain_ms={pl_ms:.4f} sdpa_ms={lib:.4f} "
+          f"({tflops(flops, lib)}) bound_ms={b_ms:.5f} ({b_by})",
+          flush=True)
+    return good, dict(max_abs_err=err, ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=lib)
+
+
+def attention_grads(torch, gen, B, S, H, KVH, D, causal, dt_name):
+    """The flash ``Function``'s q, k, v gradients (kernel forward, plain
+    recompute backward) against the plain version's autograd, relative to
+    the largest gradient, with the backward's device time."""
+    from repro_torch import util
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, plain
+
+    dev = "cuda"
+    dt = getattr(torch, dt_name)
+    q, k, v = (torch.randn((B, S, n, D), generator=gen, device=dev).to(dt)
+               .requires_grad_() for n in (H, KVH, KVH))
+    grad = torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
+    n0 = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    good = ops.LAUNCHES["flash_attention"] == n0 + 1 \
+        and out.grad_fn is not None
+
+    def backward():
+        return torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)
+
+    got = backward()
+    want = torch.autograd.grad(plain.dense_attention(q, k, v,
+                                                     causal=causal),
+                               (q, k, v), grad)
+    err = max(((g.float() - w.float()).abs().max()
+               / w.float().abs().max()).item() for g, w in zip(got, want))
+    del got, want
+    bwd = util.timeit(backward, iters=3, warmup=1)
+    good &= err <= GRAD_TOL[dt_name]
+    chunks = len(fa.backward_chunks(B, S, H, KVH))
+    print(f"flash attention Function gradients {dt_name} B={B} S={S} "
+          f"H={H}/{KVH} D={D} {'causal' if causal else 'non-causal'}: "
+          f"max |dq, dk, dv - plain autograd| / max |plain| = {err:.3g} "
+          f"tol={GRAD_TOL[dt_name]:.3g} {'ok' if good else 'FAIL'}; "
+          f"backward (plain recompute, {chunks} chunks) "
+          f"{bwd.median * 1e3:.2f} ms", flush=True)
+    return good
+
+
+def train_kernels(torch, rec):
+    """Phase 2's checks at the training path's shapes (phase 14), each
+    from a generator of its own: hubert's non-causal head_dim 80 and
+    granite's causal train shape, the autograd ``Function``s' gradients."""
+    from repro_torch import util
+    from repro_torch.kernels import ops, plain
+
+    dev = "cuda"
+    ok = True
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for dt_name in ("bfloat16", "float32"):
+        for s in (4096, 4095):
+            good, _ = train_attention_kernel(torch, gen, 1, s, 16, 16, 80,
+                                             False, dt_name)
+            ok &= good
+    for key, (B, S, H, KVH, D, causal) in TRAIN_ATTN.items():
+        good, row = train_attention_kernel(
+            torch, torch.Generator(device=dev).manual_seed(15), B, S, H,
+            KVH, D, causal, "bfloat16")
+        ok &= good
+        rec[key].update(row)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for dt_name in ("bfloat16", "float32"):
+        ok &= attention_grads(torch, gen, 1, 4096, 16, 16, 80, False,
+                              dt_name)
+    ok &= attention_grads(torch, gen, 1, 4096, 32, 8, 128, True, "bfloat16")
+
+    # the RG-LRU scan's Function at L 4096
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b, s, l = 2, 384, 4096
+    a = (torch.rand((b, s, l), generator=gen, device=dev) * 0.2
+         + 0.79).requires_grad_()
+    x = torch.randn((b, s, l), generator=gen, device=dev, requires_grad=True)
+    h0 = torch.randn((b, l), generator=gen, device=dev, requires_grad=True)
+    y, h = ops.rglru_scan(a, x, h0)
+    gy, gh = torch.randn_like(y), torch.randn_like(h)
+
+    def backward():
+        return torch.autograd.grad((y, h), (a, x, h0), (gy, gh),
+                                   retain_graph=True)
+
+    got = backward()
+    want = torch.autograd.grad(plain.rglru_scan(a, x, h0), (a, x, h0),
+                               (gy, gh))
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    good = err == 0.0 and y.grad_fn is not None
+    ok &= good
+    bwd = util.timeit(backward, iters=2, warmup=1)
+    ad, xd, hd = (t.detach() for t in (a, x, h0))
+    ms = time_ms(torch, lambda i: ops.rglru_scan(ad, xd, hd))
+    pl_ms = time_ms(torch, lambda i: plain.rglru_scan(ad, xd, hd), iters=2,
+                    warm=1)
+    b_ms, b_by = bound(3.0 * b * s * l * 4 + 2 * b * l * 4, 2.0 * b * s * l,
+                       "float32")
+    print(f"rglru_scan Function gradients B={b} S={s} L={l}: max |da, dx, "
+          f"dh0 - plain autograd| = {err:.3g} (exactly 0 required: the "
+          f"same plain computation) {'ok' if good else 'FAIL'}; backward "
+          f"(plain recompute) {bwd.median * 1e3:.2f} ms; forward kernel "
+          f"ms={ms:.4f} plain_ms={pl_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
+          flush=True)
+    rec["rglru_scan_train"].update(max_abs_err=err, ms=ms, plain_ms=pl_ms,
+                                   bound_ms=b_ms, bound_by=b_by,
+                                   library_ms=None)
     return ok
 
 
@@ -3275,6 +3469,223 @@ def write_profile(prof, out_dir, st, table_name,
         print(line, flush=True)
 
 
+#: phase 14 (a): reduced train steps card == CPU (arch, config change)
+TRAIN_REDUCED = (("granite-8b", {}), ("hubert-xlarge", {}),
+                 ("hubert-xlarge", dict(num_heads=4, num_kv_heads=4,
+                                        head_dim=80)),
+                 ("recurrentgemma-9b", dict(num_layers=3)))
+#: step 0 with the kernel against the same step with attention in plain
+#: float32, relative: the kernel rounds P to bf16 (2^-8) in each of up to
+#: 48 layers' forward and recompute
+TRAIN_LOSS_REL, TRAIN_GNORM_REL = 1e-2, 5e-2
+
+
+def _tree_to(tree, device):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def train_reduced(torch, rec):
+    """Phase 14 (a): two float32 ``train_step``s of each reduced config on
+    the card and on the CPU (loss, grad norm and params within 1e-4),
+    kernel launches 2 a layer a step; chatglm3's loss falls over 30 steps
+    on the card."""
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, layer_types
+    from repro_torch.training import (
+        TokenPipeline,
+        init_adamw,
+        synthetic_batch,
+        train_step,
+    )
+    from repro_torch.tree import flatten
+
+    ok = True
+    for arch, change in TRAIN_REDUCED:
+        cfg = dataclasses.replace(get_config(arch).reduced(), **change)
+        nb = synthetic_batch(cfg, ShapeConfig("t", 64, 4, "train"),
+                             np.random.default_rng(0))
+        p_cpu = init_params(cfg, seed=0, device="cpu")
+        runs = {}
+        for d in ("cpu", "cuda"):
+            params = _tree_to(p_cpu, d)
+            batch = {k: torch.from_numpy(v).to(d) for k, v in nb.items()}
+            opt, metrics = init_adamw(params), []
+            ops.reset_launches()
+            for _ in range(2):
+                params, opt, m = train_step(cfg, params, opt, batch)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[d] = (metrics, params, dict(ops.LAUNCHES))
+        (want, p_want, _), (got, p_got, launches) = runs["cpu"], runs["cuda"]
+        err = max(abs(g - w) / max(1.0, abs(w)) for gm, wm in zip(got, want)
+                  for g, w in zip(gm, wm))
+        p_err = max((a.cpu() - b).abs().max().item()
+                    for (_, a), (_, b) in zip(flatten(p_got),
+                                              flatten(p_want)))
+        types = layer_types(cfg)
+        attn = sum(t in ("dense", "encoder", "local_attn") for t in types)
+        want_l = {"flash_attention": 4 * attn,
+                  "rglru_scan": 4 * types.count("rglru")}
+        fired = {k: launches[k] for k in want_l}
+        good = err <= 1e-4 and p_err <= 1e-4 and fired == want_l
+        ok &= good
+        if arch == "recurrentgemma-9b":
+            rec["rglru_scan_train"]["launches"] = launches["rglru_scan"]
+        print(f"phase 14 (a) {cfg.name} reduced {change or ''}: 2 float32 "
+              f"steps card (loss, grad norm) {got} vs CPU {want}: max "
+              f"error {err:.3g}, params {p_err:.3g} (tol 1e-4); launches "
+              f"{fired} (want {want_l}) {'ok' if good else 'FAIL'}",
+              flush=True)
+
+    cfg = get_config("chatglm3-6b").reduced()
+    params = init_params(cfg, seed=0, device="cuda")
+    opt = init_adamw(params)
+    losses = []
+    pipe = TokenPipeline(cfg.vocab_size, 32, 8, seed=1)
+    for i, batch in enumerate(pipe.batches()):
+        if i >= 30:
+            break
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+        params, opt, m = train_step(cfg, params, opt, batch, peak_lr=1e-3,
+                                    total_steps=40)
+        losses.append(float(m["ce"]))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    good = last < first - 0.1
+    ok &= good
+    print(f"phase 14 (a) chatglm3-6b reduced, 30 steps on the card "
+          f"(TokenPipeline seed 1, lr 1e-3): ce {first:.4f} -> {last:.4f} "
+          f"(a fall of more than 0.1 required) {'ok' if good else 'FAIL'}",
+          flush=True)
+    return ok
+
+
+def train_full(torch, label, cfg, batch, steps: int = 8):
+    """Phase 14 (b) and (c): ``steps`` ``train_step``s of ``cfg`` at full
+    width on ``batch`` (tensors on the card), after (1) the same step's
+    gradients with attention in plain float32 and (2) with the kernel (no
+    leaf's gradient all zero); returns (ok, kernel 1's launches)."""
+    import math
+
+    from repro_torch import util
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.costmodel import model_flops
+    from repro_torch.kernels import ops, plain
+    from repro_torch.models import init_params
+    from repro_torch.training import grads_fn, init_adamw, train_step
+    from repro_torch.tree import flatten
+
+    params = init_params(cfg, seed=0, device="cuda")
+    b, s = batch["labels"].shape
+
+    def gnorm(grads):
+        return math.sqrt(sum(float(torch.sum(torch.square(g.float())))
+                             for _, g in flatten(grads)))
+
+    # (1) attention in plain float32 (not a kernel path: not counted)
+    kernel = ops.flash_attention
+
+    def plain_f32(q, k, v, *, causal=True, window=0):
+        return plain.dense_attention(q.float(), k.float(), v.float(),
+                                     causal=causal, window=window) \
+            .to(q.dtype)
+
+    ops.flash_attention = plain_f32
+    try:
+        loss_ref, _, grads = grads_fn(cfg, params, batch)
+    finally:
+        ops.flash_attention = kernel
+    loss_ref, gn_ref = float(loss_ref), gnorm(grads)
+    del grads
+    # (2) the kernel path: every leaf on the graph
+    _, _, grads = grads_fn(cfg, params, batch)
+    dead = [k for k, g in flatten(grads) if not bool((g != 0).any())]
+    n_leaves = len(flatten(grads))
+    del grads
+
+    opt = init_adamw(params)
+    metrics = []
+    state = {"params": params, "opt": opt}
+    del params, opt
+
+    def step():
+        state["params"], state["opt"], m = train_step(
+            cfg, state["params"], state["opt"], batch)
+        metrics.append(m)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t = util.timeit(step, iters=steps, warmup=0)
+    launches = ops.LAUNCHES["flash_attention"]
+    losses = [float(m["loss"]) for m in metrics]
+    gns = [float(m["grad_norm"]) for m in metrics]
+    finite = all(math.isfinite(x) for x in losses + gns)
+    d_loss = abs(losses[0] - loss_ref) / abs(loss_ref)
+    d_gn = abs(gns[0] - gn_ref) / gn_ref
+    want_l = 2 * cfg.num_layers * steps
+    ok = (finite and not dead and launches == want_l
+          and d_loss <= TRAIN_LOSS_REL and d_gn <= TRAIN_GNORM_REL)
+    step_s = sorted(t.samples[1:])[len(t.samples[1:]) // 2]
+    tokens = b * s
+    mfu = model_flops(cfg, ShapeConfig("train", s, b, "train")) \
+        / (step_s * PEAK["bfloat16"])
+    print(f"phase 14 {label}: {cfg.name}, {cfg.num_layers} layers, "
+          f"{cfg.param_count() / 1e9:.3f} B params ({cfg.dtype} weights, "
+          f"float32 AdamW), B {b} x S {s}, {steps} steps: losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in gns]} (finite: {finite})", flush=True)
+    print(f"phase 14 {label}: step 0 against attention in plain float32: "
+          f"loss {losses[0]:.6f} vs {loss_ref:.6f} (rel {d_loss:.3g}, tol "
+          f"{TRAIN_LOSS_REL:g}), grad norm {gns[0]:.6f} vs {gn_ref:.6f} "
+          f"(rel {d_gn:.3g}, tol {TRAIN_GNORM_REL:g}); leaves with an all-"
+          f"zero gradient {len(dead)} of {n_leaves} {dead[:4]}; kernel 1 "
+          f"launched {launches} (want 2 x {cfg.num_layers} x {steps} = "
+          f"{want_l}) {'ok' if ok else 'FAIL'}", flush=True)
+    print(f"phase 14 {label}: ms a step (CUDA events) "
+          f"{[round(x * 1e3, 2) for x in t.samples]}, median of steps "
+          f"1-{steps - 1} {step_s * 1e3:.2f} ms, {tokens / step_s:.1f} "
+          f"tokens/s, MFU {mfu * 100:.2f}% (6 N T at 989 TF/s); "
+          f"{memory(torch)}", flush=True)
+    state.clear()
+    return ok, launches
+
+
+def phase_training(torch, rec):
+    """Phase 14: the training path (see the module's note)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.training import TokenPipeline, synthetic_batch
+
+    ok = train_reduced(torch, rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) hubert-xlarge whole; train_4k's batch cut from 256 to 4
+    cfg = get_config("hubert-xlarge")
+    shape = dataclasses.replace(get_shape("train_4k"), global_batch=4)
+    nb = synthetic_batch(cfg, shape, np.random.default_rng(0))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in nb.items()}
+    good, n = train_full(torch, "(b)", cfg, batch)
+    ok &= good
+    rec["flash_attention_hubert"]["launches"] = n
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) granite-8b at full width, 2 of its 36 layers
+    cfg = dataclasses.replace(get_config("granite-8b"), num_layers=2)
+    nb = next(TokenPipeline(cfg.vocab_size, 4096, 2, seed=0).batches())
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in nb.items()}
+    good, n = train_full(torch, "(c)", cfg, batch)
+    ok &= good
+    rec["flash_attention_granite_train"]["launches"] = n
+    return ok
+
+
 def main() -> int:
     try:
         import torch
@@ -3404,6 +3815,21 @@ def main() -> int:
              "scales, S 1)", route="cuda",
         source=f"{csrc}/paged_decode_attention_int8.cu",
         replaces="src/repro/kernels/decode_attention.py:216")
+    rec["flash_attention_hubert"] = dict(
+        name="flash_attention (hubert-xlarge train: B 4, S 4096, 16/16 "
+             "heads, D 80, non-causal, bf16)", route="cuda",
+        source=f"{csrc}/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:74")
+    rec["flash_attention_granite_train"] = dict(
+        name="flash_attention (granite-8b train: B 2, S 4096, 32/8 heads, "
+             "causal, bf16)", route="cuda",
+        source=f"{csrc}/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:74")
+    rec["rglru_scan_train"] = dict(
+        name="rglru_scan (train Function forward: timed at B 2, S 384, L "
+             "4096; launches in phase 14 (a)'s reduced recurrentgemma)",
+        route="cuda", source=f"{csrc}/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:48")
     rec["sample_tokens_mamba2"] = dict(
         name=f"sample_tokens (mamba2-1.3b, vocab {MAMBA2_VOCAB})",
         route="cuda", source=f"{csrc}/sampling.cu",
@@ -3433,6 +3859,7 @@ def main() -> int:
                        lambda: phase_moe(torch, rec)),
                       ("DLRM at one card's size",
                        lambda: phase_dlrm(torch)),
+                      ("training", lambda: phase_training(torch, rec)),
                       ("full-width profiler hook",
                        lambda: phase_profile_hook(torch))):
         t0 = time.perf_counter()

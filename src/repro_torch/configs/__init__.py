@@ -4,6 +4,7 @@ from repro_torch.configs.base import (
     PORTED_ARCHS,
     ArchConfig,
     ShapeConfig,
+    all_configs,
     applicable_shapes,
     get_config,
     get_shape,
@@ -15,6 +16,7 @@ __all__ = [
     "PORTED_ARCHS",
     "ArchConfig",
     "ShapeConfig",
+    "all_configs",
     "applicable_shapes",
     "get_config",
     "get_shape",

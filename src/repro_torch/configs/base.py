@@ -298,13 +298,12 @@ _ALIAS = {
 }
 
 
-#: Architectures whose config module the port carries so far (and DLRM,
-#: the survey's SIMD workload); the others come with their block families
-#: (ROADMAP.md queue 1).
+#: Architectures whose config module the port carries: every assigned
+#: arch, and DLRM, the survey's SIMD workload.
 PORTED_ARCHS = ("granite_8b", "recurrentgemma_9b", "phi3_medium_14b",
                 "starcoder2_15b", "chatglm3_6b", "mamba2_1_3b",
                 "grok_1_314b", "llama4_maverick_400b", "qwen2_vl_7b",
-                "dlrm")
+                "hubert_xlarge", "dlrm")
 
 
 def get_config(name: str) -> ArchConfig:
@@ -316,6 +315,12 @@ def get_config(name: str) -> ArchConfig:
             f"families'")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
+
+
+def all_configs() -> dict:
+    """Every assigned arch's config, keyed by its module name (the
+    reference's ``all_configs``)."""
+    return {n: get_config(n) for n in ASSIGNED_ARCHS}
 
 
 def get_shape(name: str) -> ShapeConfig:

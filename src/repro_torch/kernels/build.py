@@ -19,6 +19,8 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_attention", "paged_decode_attention",
@@ -85,6 +87,17 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0,
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def refuse_grad(name: str, *tensors):
+    """Raise when grad mode is on and an input requires grad: a kernel
+    with no backward would return a result cut from the graph (only
+    prefill attention and the RG-LRU scan carry an autograd
+    ``Function``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it "
+                           f"under torch.no_grad() or on inputs that do "
+                           f"not require grad")
 
 
 class KernelLibrary:

@@ -5,8 +5,9 @@
 // k/v (B, S, KVH, D) in their model layout, optionally over a local
 // window (``window`` > 0: query s sees keys t > s - window, as the
 // reference's ``layers.dense_attention``; the local-attention blocks of
-// hybrid archs, window 2048 at head_dim 256); q head h reads kv head h / G
-// inside the kernel (no repeated K/V is ever materialized, unlike the
+// hybrid archs, window 2048 at head_dim 256), or bidirectional (``causal``
+// 0: an encoder's attention, hubert-xlarge at head_dim 80); q head h reads
+// kv head h / G inside the kernel (no repeated K/V is ever materialized, unlike the
 // reference wrapper's jnp.repeat). S may be any length: the engine's
 // buckets (16, 32, 64, ...) are smaller than one tile and the ragged edge
 // is masked here; a bucket's end padding is hidden by causality alone.
@@ -34,7 +35,12 @@
 // grid. WARPS and STAGES are fixed per head_dim (``flash_attention_bf16``
 // below): at head_dim 256 8 warps and 2 stages, 2 * 256 * (128 + 2 * 64 *
 // 2) = 196,608 B of the 232,448 a block may have; at head_dim 128 and
-// below 4 warps and 3 stages (two or more blocks per SM).
+// below 4 warps and 3 stages (two or more blocks per SM). head_dim 80
+// (hubert-xlarge, 10 chunks of 16 bytes a row) pads each shared-memory row
+// to 16 chunks (256 B), so the XOR swizzle of 8 chunks holds; the padding
+// chunks are never written nor read (the k-steps of Q K^T and the column
+// tiles of O cover the 10 real chunks only), and the shared memory is
+// head_dim 128's.
 //
 // float32 (``flash_attention_f32``) keeps the first FMA kernel: two passes,
 // float32 FMAs from shared memory. Float32 inputs are not exact in bf16
@@ -43,7 +49,9 @@
 // where float32 engine streams on the card must equal the CPU's token for
 // token. Its numerics follow the twin ``layers.dense_attention``: pass 1
 // finds each row's max and sum over all keys, pass 2 forms the NORMALIZED
-// probability, rounds it to the input type and accumulates P V.
+// probability, rounds it to the input type and accumulates P V. Each lane
+// owns columns lane + 32 e of O; at head_dim 80 the third (e = 2) exists
+// for lanes 0-15 only.
 #include "common.cuh"
 #include "tensor_core.cuh"
 
@@ -69,7 +77,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int S,
                        int H, int KVH, float scale, int causal, int window) {
-  constexpr int E = D / 32;  // output columns per lane
+  constexpr int E = (D + 31) / 32;  // output columns per lane (or fewer)
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][D]
   float* ks = qs + BQ * D;           // [BK][D + 1]
@@ -179,7 +187,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < BK; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[i][e] += pj * vs[j * D + lane + 32 * e];
+        for (int e = 0; e < E; ++e)
+          if (D % 32 == 0 || lane + 32 * e < D)
+            acc[i][e] += pj * vs[j * D + lane + 32 * e];
       }
     }
   }
@@ -190,8 +200,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (s >= S) continue;
 #pragma unroll
     for (int e = 0; e < E; ++e)
-      o[((size_t)(b * S + s) * H + h) * D + lane + 32 * e] =
-          from_f32<T>(acc[i][e]);
+      if (D % 32 == 0 || lane + 32 * e < D)
+        o[((size_t)(b * S + s) * H + h) * D + lane + 32 * e] =
+            from_f32<T>(acc[i][e]);
   }
 }
 
@@ -235,13 +246,16 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             int causal, int window) {
   constexpr int BQ = 16 * WARPS;   // query rows per block
   constexpr int THREADS = WARPS * 32;
-  constexpr int CPR = D / 8;       // 16-byte chunks per row
-  constexpr int DT = D / 8;        // 8-column tiles of O
-  constexpr int KT = BKV / 8;      // 8-key tiles of S
-  constexpr int TILE = BKV * CPR;  // chunks of one K or V tile
+  static_assert(D % 16 == 0, "whole k-steps of Q K^T, O tile pairs");
+  constexpr int CPR = D / 8;       // 16-byte chunks of a row
+  // chunks of a shared-memory row: the swizzle takes 4 or a multiple of 8
+  constexpr int PITCH = CPR == 4 ? 4 : (CPR + 7) / 8 * 8;
+  constexpr int DT = D / 8;          // 8-column tiles of O
+  constexpr int KT = BKV / 8;        // 8-key tiles of S
+  constexpr int TILE = BKV * PITCH;  // chunks of one K or V tile
   extern __shared__ uint4 ring_smem[];
-  uint4* qs = ring_smem;        // [BQ][CPR], swizzled
-  uint4* ring = qs + BQ * CPR;  // STAGES x (K tile, V tile)
+  uint4* qs = ring_smem;          // [BQ][PITCH], swizzled
+  uint4* ring = qs + BQ * PITCH;  // STAGES x (K tile, V tile)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -270,7 +284,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
       if (ROWS * CPR % THREADS == 0 || idx < ROWS * CPR) {
         const int r = idx / CPR, ch = idx % CPR, s = r0 + r;
         const bool ok = s < S;
-        cp_async16(dst + swizzle<CPR>(r, ch),
+        cp_async16(dst + swizzle<PITCH>(r, ch),
                    src + (size_t)(ok ? s : 0) * stride + ch * 8, ok);
       }
     }
@@ -315,12 +329,12 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t a[4];
-      ldmatrix_x4(a, qs + swizzle<CPR>(warp * 16 + (lane & 15),
-                                       2 * kk + (lane >> 4)));
+      ldmatrix_x4(a, qs + swizzle<PITCH>(warp * 16 + (lane & 15),
+                                         2 * kk + (lane >> 4)));
 #pragma unroll
       for (int np = 0; np < KT / 2; ++np) {
         uint32_t bk[4];
-        ldmatrix_x4(bk, ks + swizzle<CPR>(
+        ldmatrix_x4(bk, ks + swizzle<PITCH>(
                                  np * 16 + (lane & 7) + ((lane >> 4) << 3),
                                  2 * kk + ((lane >> 3) & 1)));
         mma_bf16(sc[2 * np], a, bk);
@@ -387,9 +401,9 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
       for (int dp = 0; dp < DT / 2; ++dp) {
         uint32_t bv[4];
         ldmatrix_x4_trans(
-            bv, vs + swizzle<CPR>(16 * kk + (lane & 7) +
-                                      (((lane >> 3) & 1) << 3),
-                                  2 * dp + (lane >> 4)));
+            bv, vs + swizzle<PITCH>(16 * kk + (lane & 7) +
+                                        (((lane >> 3) & 1) << 3),
+                                    2 * dp + (lane >> 4)));
         mma_bf16(acc[2 * dp], pa[kk], bv);
         mma_bf16(acc[2 * dp + 1], pa[kk], bv + 2);
       }
@@ -417,7 +431,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int S, int H, int KVH, float scale, int causal, int window,
                 cudaStream_t stream) {
   constexpr int BQ = 16 * WARPS;
-  constexpr size_t smem = sizeof(bf16) * D * (BQ + 2 * BKV * STAGES);
+  constexpr int CPR = D / 8;
+  constexpr int PITCH = CPR == 4 ? 4 : (CPR + 7) / 8 * 8;
+  constexpr size_t smem = sizeof(uint4) * PITCH * (BQ + 2 * BKV * STAGES);
   static_assert(smem <= 232448, "a block's shared memory");
   auto* kernel = flash_attention_bf16_kernel<D, WARPS, STAGES>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -445,6 +461,9 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
     case 64:
       return f32path::launch<64>(q, k, v, o, B, S, H, KVH, scale, causal,
                                  window, st);
+    case 80:
+      return f32path::launch<80>(q, k, v, o, B, S, H, KVH, scale, causal,
+                                 window, st);
     case 128:
       return f32path::launch<128>(q, k, v, o, B, S, H, KVH, scale, causal,
                                   window, st);
@@ -457,7 +476,8 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
 
 // WARPS (16 query rows each) and STAGES (K/V tiles in flight) per head_dim:
 // 8 x 2 at 256 (a third stage of 8 warps would pass the 232,448 B, and
-// 4 x 3 measured slower at recurrentgemma's band), 4 x 3 below.
+// 4 x 3 measured slower at recurrentgemma's band), 4 x 3 below (head_dim 80
+// in rows padded to 128's).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int B, int S,
                                     int H, int KVH, int D, float scale,
@@ -469,6 +489,9 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                    window, st);
     case 64:
       return launch_bf16<64, 4, 3>(q, k, v, o, B, S, H, KVH, scale, causal,
+                                   window, st);
+    case 80:
+      return launch_bf16<80, 4, 3>(q, k, v, o, B, S, H, KVH, scale, causal,
                                    window, st);
     case 128:
       return launch_bf16<128, 4, 3>(q, k, v, o, B, S, H, KVH, scale, causal,

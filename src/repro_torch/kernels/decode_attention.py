@@ -162,6 +162,7 @@ def _launch(name, entry, q, pools, scale_pools, page_table, pos):
     ``entry`` (three kernels on the current stream in float32; one in
     bf16). ``page_table`` None: the pools are rolling caches (B, W, KVH,
     D), one page of W rows per slot, and the entry takes no table."""
+    build.refuse_grad(name, q, *pools, *scale_pools)
     b, s, h, d = q.shape
     ring = page_table is None
     _, ps, hkv, _ = pools[0].shape

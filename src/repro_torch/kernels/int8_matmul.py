@@ -111,6 +111,7 @@ def int8_matmul(x, w_q, scale):
         return plain.int8_matmul(x, w_q, scale)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x.device}")
+    build.refuse_grad(name, x, scale)
     if x.dtype not in _ENTRY or w_q.dtype != torch.int8 \
             or scale.dtype != F32:
         raise ValueError(f"{name}: float32 or bfloat16 x, int8 w_q and "

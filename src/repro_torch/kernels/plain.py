@@ -167,14 +167,16 @@ def rglru_scan(a, x, h0):
     """``h_t = a_t * h_{t-1} + x_t`` in float32, walked in time order as
     the Pallas kernel walks it (the semantics of the reference's
     ``ref_rglru_scan``, whose associative scan sums in another order).
-    a, x (B, S, L); h0 (B, L). Returns (y (B, S, L), h_S (B, L)), float32."""
+    a, x (B, S, L); h0 (B, L). Returns (y (B, S, L), h_S (B, L)), float32.
+    No step writes in place, so autograd differentiates it in O(S) (the
+    backward of the scan kernel's autograd ``Function``)."""
     af, xf = a.to(F32), x.to(F32)
     h = h0.to(F32)
-    y = torch.empty_like(af)
+    ys = []
     for t in range(af.shape[1]):
         h = af[:, t] * h + xf[:, t]
-        y[:, t] = h
-    return y, h
+        ys.append(h)
+    return torch.stack(ys, dim=1), h
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,14 @@ version ``plain.rglru_scan``.
 float32, any S >= 1; returns (y (B, S, L), h_S (B, L)), both float32. A
 CPU tensor goes to the plain version; a CUDA tensor launches the kernel or
 raises. ``scan_plan`` is the launch plan, in Python so that it can be
-tested without a card."""
+tested without a card.
+
+``RGLRUScan`` carries gradients: its forward launches the kernel and keeps
+a, x, h0; its backward recomputes ``plain.rglru_scan`` under autograd
+(the reference trains through the jnp twin with XLA autodiff: the Pallas
+kernel has no backward) and returns its gradients. ``ops.rglru_scan``
+routes through it whenever grad mode is on and an input requires grad;
+the kernel wrapper refuses such inputs."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -59,6 +66,7 @@ def rglru_scan(a, x, h0):
         return plain.rglru_scan(a, x, h0)
     if a.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {a.device}")
+    build.refuse_grad(name, a, x, h0)
     if not (a.dtype == x.dtype == h0.dtype == torch.float32):
         raise ValueError(f"{name}: float32 a, x, h0 required, got "
                          f"{a.dtype}/{x.dtype}/{h0.dtype}")
@@ -74,3 +82,19 @@ def rglru_scan(a, x, h0):
              torch.cuda.current_stream(a.device).cuda_stream)
     build.LAUNCHES[name] += 1
     return y, h_last
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The scan kernel forward, the plain version's gradients backward."""
+
+    @staticmethod
+    def forward(ctx, a, x, h0):
+        ctx.save_for_backward(a, x, h0)
+        return rglru_scan(a, x, h0)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            y, h = plain.rglru_scan(*inputs)
+            return torch.autograd.grad((y, h), inputs, (grad_y, grad_h))

@@ -132,6 +132,7 @@ def _check_rows(name, logits, *rows):
 def _check_cuda(name, logits, typed, plan):
     if logits.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {logits.device}")
+    build.refuse_grad(name, *(t for t, _ in typed))
     if plan.smem > SMEM_LIMIT:
         raise ValueError(f"{name}: a vocabulary of {logits.shape[1]} does "
                          f"not fit in {plan.cluster} blocks' shared memory "

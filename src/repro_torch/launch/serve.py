@@ -17,10 +17,11 @@ chatglm3-6b (dense; chatglm3's half-dim RoPE), qwen2-vl-7b (dense blocks
 under mrope), grok-1-314b and llama4-maverick-400b-a17b (MoE; their
 capacity policy from ``--moe-capacity``: strict | backpressure | drop,
 "drop" by default on one card), recurrentgemma-9b (hybrid) and
-mamba2-1.3b (SSD). Ported so far: the paged KV cache (dense and MoE
-archs),
-rolling caches (``--no-paged`` on dense archs; recurrentgemma-9b and
-mamba2-1.3b always, their KV rings, RG-LRU and SSD states), single-shot
+mamba2-1.3b (SSD); hubert-xlarge, an encoder, exits with the
+reference's "encoder-only arch: no autoregressive serving". Ported so
+far: the paged KV cache (dense and MoE archs), rolling caches
+(``--no-paged`` on dense archs; recurrentgemma-9b and mamba2-1.3b
+always, their KV rings, RG-LRU and SSD states), single-shot
 and chunked prefill (``--chunk-prefill``, 64 by default as in the
 reference; 0 = single-shot), the shared-prefix KV cache
 (``--prefix-cache``) and preemption (``--preemption``), one card, with
@@ -232,7 +233,6 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if not isinstance(cfg, ArchConfig):
         parser.error(f"--arch {args.arch}: not a language model; DLRM runs "
@@ -240,6 +240,9 @@ def main(argv=None):
                      f"repro_torch.examples.distributed_inference)")
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encoder:
+        raise SystemExit("encoder-only arch: no autoregressive serving")
+    device = resolve_device(args.device)
     if args.temperature <= 0 and (args.top_k > 0 or args.top_p < 1.0):
         print("warning: --top-k/--top-p have no effect with "
               "--temperature 0 (greedy decode); pass --temperature > 0 "

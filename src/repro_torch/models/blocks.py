@@ -1,7 +1,9 @@
-"""Blocks of the PyTorch port (the ``dense``, ``moe``, ``local_attn``,
-``rglru`` and ``ssd`` block types of ``repro.models.blocks``), with the
-attention, the RG-LRU scan and the int8 projections going through the
-kernels' dispatch points (``repro_torch.kernels.ops``).
+"""Blocks of the PyTorch port (the ``dense``, ``encoder``, ``moe``,
+``local_attn``, ``rglru`` and ``ssd`` block types of
+``repro.models.blocks``), with the attention, the RG-LRU scan and the int8
+projections going through the kernels' dispatch points
+(``repro_torch.kernels.ops``). An ``encoder`` block is the dense block
+with bidirectional attention.
 
 Params are plain dicts of tensors in the reference's (in, out) weight
 orientation. Paged pools, rolling rings and recurrent states are updated
@@ -25,8 +27,8 @@ from repro_torch.models.ssm import apply_ssd, init_ssd, init_ssd_cache
 
 F32 = torch.float32
 
-# Block types the port serves so far (ROADMAP.md queue 1 lists the rest).
-PORTED_BLOCKS = ("dense", "moe", "local_attn", "rglru", "ssd")
+# Block types the port carries (every block type of the reference).
+PORTED_BLOCKS = ("dense", "encoder", "moe", "local_attn", "rglru", "ssd")
 
 # Block types whose decode cache is a KV ring (vs recurrent state); the
 # engine keys bucketed prefill off this (the reference's list).
@@ -309,12 +311,14 @@ def _ring_attn_decode(q, k, v, cache, pos):
 
 
 def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,
-                pos=None, pages=None, write_at=None, n_valid=None):
+                pos=None, pages=None, write_at=None, n_valid=None,
+                causal: bool = True):
     """Attention sub-block. ``rope`` is the step's ``L.rope_table``;
-    ``window`` > 0 is local attention. mode "prefill": causal attention
-    over the whole sequence (the prefill kernel), then, given a rolling
-    ``cache``, the ring fill; returns (out, (k, v)) so the caller can
-    scatter the prompt's K/V into pages. mode "decode": K/V of the S new
+    ``window`` > 0 is local attention. mode "prefill" or "train":
+    attention over the whole sequence (the prefill kernel; bidirectional
+    unless ``causal``), then, given a rolling ``cache``, the ring fill;
+    returns (out, (k, v)) so the caller can scatter the prompt's K/V into
+    pages. mode "decode": K/V of the S new
     tokens go through the page table (``pages``) and paged attention, or
     into the ring at ``pos`` and rolling-cache attention; returns (out,
     None)."""
@@ -332,7 +336,7 @@ def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,
     elif mode == "decode":
         out = _ring_attn_decode(q, k, v, cache, pos)
     else:
-        out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
         if cache is not None:
             ring_fill(cache, k, v)
         new_kv = (k, v)
@@ -343,20 +347,23 @@ def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,
 def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
                 pos=None, pages=None, write_at=None, n_valid=None,
                 moe_full_cap: bool = False):
-    """Pre-norm residual block: attention (dense, or local over
-    ``cfg.local_window``) or the RG-LRU mixer, then the MLP (the MoE MLP
-    in a ``moe`` block, at the whole group's capacity when
-    ``moe_full_cap``: the engine's "strict" policy); or the SSD mixer
-    alone (``x + ssd(norm1(x))``, no MLP). Returns (x, new_kv): the
-    prompt's (k, v) of an attention block in prefill mode, else None.
+    """Pre-norm residual block: attention (dense, bidirectional in an
+    ``encoder`` block, or local over ``cfg.local_window``) or the RG-LRU
+    mixer, then the MLP (the MoE MLP in a ``moe`` block, at the whole
+    group's capacity when ``moe_full_cap``: the engine's "strict" policy);
+    or the SSD mixer alone (``x + ssd(norm1(x))``, no MLP). Returns (x,
+    new_kv, aux): the prompt's (k, v) of an attention block in prefill
+    mode, else None, and the block's aux loss (the MoE block's Switch
+    load-balance term, a float32 scalar; 0.0 for any other block).
     ``cache`` is the block's paged pools (with ``pages``) or its rolling
     cache (ring or recurrent state, with the slots' positions ``pos`` in
     decode mode), updated in place."""
     if btype not in PORTED_BLOCKS:
         raise ValueError(f"block type {btype!r} is not ported yet")
+    aux = 0.0
     h = L.apply_norm(cfg, p["norm1"], x)
     if btype == "ssd":
-        return x + apply_ssd(cfg, p["mixer"], h, cache=cache), None
+        return x + apply_ssd(cfg, p["mixer"], h, cache=cache), None, aux
     if btype == "rglru":
         a, new_kv = apply_rglru_block(cfg, p["mixer"], h, cache=cache), None
     else:
@@ -364,11 +371,12 @@ def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
         a, new_kv = _attn_apply(cfg, p["attn"], h, rope, mode=mode,
                                 window=window, cache=cache, pos=pos,
                                 pages=pages, write_at=write_at,
-                                n_valid=n_valid)
+                                n_valid=n_valid,
+                                causal=cfg.causal and btype != "encoder")
     x = x + a
     h = L.apply_norm(cfg, p["norm2"], x)
     if btype == "moe":
-        m, _ = apply_moe(cfg, p["moe"], h, full_cap=moe_full_cap)
+        m, aux = apply_moe(cfg, p["moe"], h, full_cap=moe_full_cap)
     else:
         m = apply_mlp(cfg, p["mlp"], h)
-    return x + m, new_kv
+    return x + m, new_kv, aux

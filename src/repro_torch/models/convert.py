@@ -15,6 +15,8 @@ carry their ``mixer`` leaves the same way, float32 ones as float32
 ``dt_bias``) under any model dtype, and MoE blocks their ``moe`` leaves:
 the float32 ``router`` (d, E), the expert stacks ``w_gate`` / ``w_up``
 (E, d, ff) and ``w_down`` (E, ff, d), and a ``shared`` expert's MLP.
+An audio arch's tree has no ``embed`` (hubert-xlarge), and a tree of
+gradients (``jax.grad`` of a loss) converts like its params.
 
 ``cache_from_jax(cfg, tree, device)`` does the same for the reference's
 rolling cache (``init_cache`` or a prefill's output: rings, RG-LRU and
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models.model import block_program
+from repro_torch.tree import tree_map
 
 
 def _tensor(a, device):
@@ -39,33 +42,24 @@ def _tensor(a, device):
     return torch.from_numpy(np.array(a)).to(device)  # a writable copy
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
-
-
 def _layers(cfg, tree, device):
     """The per-layer list, in scan order, of a {"body", "tail"} tree."""
     pattern, n_repeat, _ = block_program(cfg)
     layers = []
     for r in range(n_repeat):
         for j in range(len(pattern)):
-            layers.append(_map(tree["body"][j],
-                               lambda a, r=r: _tensor(np.asarray(a)[r],
-                                                      device)))
+            layers.append(tree_map(lambda a, r=r: _tensor(
+                np.asarray(a)[r], device), tree["body"][j]))
     for blk in tree["tail"]:
-        layers.append(_map(blk, lambda a: _tensor(a, device)))
+        layers.append(tree_map(lambda a: _tensor(a, device), blk))
     return layers
 
 
 def params_from_jax(cfg, tree, device="cuda"):
     device = resolve_device(device)
     out = {"layers": _layers(cfg, tree, device),
-           "final_norm": _map(tree["final_norm"],
-                              lambda a: _tensor(a, device))}
+           "final_norm": tree_map(lambda a: _tensor(a, device),
+                                  tree["final_norm"])}
     for name in ("embed", "lm_head"):
         if name in tree:
             out[name] = _tensor(tree[name], device)
@@ -83,4 +77,4 @@ def dlrm_params_from_jax(tree, device="cuda"):
     ``top`` lists of {"w", "b"}) as the port's (``core/simd/embedding.py``:
     the same layout, float32)."""
     device = resolve_device(device)
-    return _map(tree, lambda a: _tensor(a, device))
+    return tree_map(lambda a: _tensor(a, device), tree)

@@ -11,7 +11,8 @@ Public API (device explicit everywhere):
                    kv_dtype)
   quantize_weights(cfg, params)               -> params with int8 leaves
   forward(cfg, params, tokens, ...)           -> (logits, per-layer (k, v));
-                                                 fills a rolling cache
+                                                 fills a rolling cache;
+                                                 mode="train": (logits, aux)
   decode_step(cfg, params, cache, tokens)     -> logits (B, S, V); cache
                                                  (paged or rolling) updated
                                                  in place
@@ -22,13 +23,16 @@ vision frontend's three position streams; the reference's
 group's capacity: the serving engine's "strict" policy, which the
 reference passes as a trace hint); ``forward`` also takes ``patches``
 (B, P, d), precomputed patch embeddings fused ahead of the text tokens
-(``vision_text`` archs).
+(``vision_text`` archs). An audio arch (hubert-xlarge) has no token
+embedding: ``forward`` takes its precomputed frame embeddings (B, S, d)
+in place of tokens (the reference's ``batch["frames"]``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ops
@@ -90,7 +94,9 @@ def paged_ok(cfg) -> bool:
 def init_params(cfg, seed: int = 0, device="cuda"):
     """Random weights from a ``torch.Generator`` on ``device`` (normal,
     scaled as the reference's init). Not the reference's bits: parity tests
-    convert the JAX package's weights with ``convert.params_from_jax``."""
+    convert the JAX package's weights with ``convert.params_from_jax``.
+    An audio arch has no ``embed`` (its frontend is stubbed: frames come
+    in as embeddings), as in the reference."""
     device = resolve_device(device)
     dtype = dtype_of(cfg)
     gen = torch.Generator(device=device)
@@ -100,9 +106,10 @@ def init_params(cfg, seed: int = 0, device="cuda"):
         "layers": [init_block(cfg, bt, gen, dtype, device)
                    for bt in layer_types(cfg)],
         "final_norm": init_norm(cfg, d, dtype, device),
-        "embed": (torch.randn((v, d), generator=gen, device=device)
-                  * d ** -0.5).to(dtype),
     }
+    if cfg.modality != "audio":
+        params["embed"] = (torch.randn((v, d), generator=gen, device=device)
+                           * d ** -0.5).to(dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = (torch.randn((d, v), generator=gen,
                                          device=device)
@@ -187,6 +194,19 @@ def _embed(params, tokens):
     return params["embed"][tokens.to(torch.int64)]
 
 
+def _embed_inputs(cfg, params, tokens, patches):
+    """The sequence's input embeddings (B, S, d): an audio arch's frames
+    (``tokens`` is then (B, S, d)) cast to the model dtype; else the token
+    embeddings, after ``patches`` on a ``vision_text`` arch (early
+    fusion)."""
+    if cfg.modality == "audio":
+        return tokens.to(dtype_of(cfg))
+    x = _embed(params, tokens)
+    if cfg.modality == "vision_text" and patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    return x
+
+
 def head_f32(params):
     """The lm head in float32 (the reference's ``preferred_element_type``
     product): a cached float32 copy when the caller made one, else an
@@ -213,32 +233,77 @@ def _rope(cfg, positions, default):
     return L.rope_table(cfg, default() if positions is None else positions)
 
 
+def _train_layers(cfg, params, x, rope, moe_full_cap):
+    """The layers in train mode: the body's repeats of the block pattern
+    each recomputed in backward (``torch.utils.checkpoint``, non-
+    reentrant: the reference's ``jax.checkpoint`` of each blockset with
+    ``nothing_saveable``), the tail's blocks not. Returns (x, aux summed
+    over the layers)."""
+    pattern, n_repeat, _ = block_program(cfg)
+    types = layer_types(cfg)
+
+    def run(x, lo, hi):
+        aux = 0.0
+        for bt, p in zip(types[lo:hi], params["layers"][lo:hi]):
+            x, _, a = apply_block(cfg, bt, p, x, rope, mode="train",
+                                  moe_full_cap=moe_full_cap)
+            aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    n = len(pattern)
+    for r in range(n_repeat):
+        if torch.is_grad_enabled():
+            x, a = checkpoint(run, x, r * n, (r + 1) * n,
+                              use_reentrant=False)
+        else:
+            x, a = run(x, r * n, (r + 1) * n)
+        aux = aux + a
+    x, a = run(x, n_repeat * n, len(types))
+    return x, aux + a
+
+
 def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
             want_kv: bool = False, cache: Optional[dict] = None,
             patches: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
-            moe_full_cap: bool = False):
-    """Full-sequence causal forward (prefill). tokens (B, S) integer;
-    ``patches`` (B, P, d) go ahead of them on a ``vision_text`` arch
-    (early fusion: the sequence is then P + S long). Returns (logits, kv):
-    logits (B, S, V) float32, or (B, V) at the positions ``logits_at``
-    (B,) when given; kv is the per-layer list of the prompt's (k, v),
-    each (B, S, kv, hd), when ``want_kv``. A fresh rolling ``cache``
-    (``init_cache``) is filled in place: every ring with the prompt's last
-    keys, every RG-LRU and SSD conv window and state, and ``pos`` = the
-    sequence's length."""
-    x = _embed(params, tokens)
-    if cfg.modality == "vision_text" and patches is not None:
-        x = torch.cat([patches.to(x.dtype), x], dim=1)
+            moe_full_cap: bool = False, mode: str = "prefill"):
+    """Full-sequence forward, causal unless the arch is an encoder.
+    tokens (B, S) integer, or an audio arch's frames (B, S, d);
+    ``patches`` (B, P, d) go ahead of the tokens on a ``vision_text`` arch
+    (early fusion: the sequence is then P + S long).
+
+    mode "prefill" returns (logits, kv): logits (B, S, V) float32, or
+    (B, V) at the positions ``logits_at`` (B,) when given; kv is the
+    per-layer list of the prompt's (k, v), each (B, S, kv, hd), when
+    ``want_kv``. A fresh rolling ``cache`` (``init_cache``) is filled in
+    place: every ring with the prompt's last keys, every RG-LRU and SSD
+    conv window and state, and ``pos`` = the sequence's length.
+
+    mode "train" (the reference's ``forward(mode="train")``) returns
+    (logits (B, S, V) float32, aux): aux is the float32 sum of the MoE
+    blocks' Switch load-balance terms (0 on other archs). Under grad mode
+    each repeat of the block pattern is recomputed in backward; nothing
+    is cached."""
+    if mode not in ("prefill", "train"):
+        raise ValueError(f"forward: mode {mode!r} not in ('prefill', "
+                         f"'train')")
+    x = _embed_inputs(cfg, params, tokens, patches)
     b, s = x.shape[:2]
     rope = _rope(cfg, positions, lambda: torch.arange(
         s, device=tokens.device)[None].expand(b, s))
+    if mode == "train":
+        if cache is not None or want_kv or logits_at is not None:
+            raise ValueError("forward: mode 'train' takes no cache, "
+                             "want_kv or logits_at")
+        x, aux = _train_layers(cfg, params, x, rope, moe_full_cap)
+        return _logits(cfg, params, x), aux
     kvs = []
     layer_caches = (cache["layers"] if cache is not None
                     else [None] * cfg.num_layers)
     for bt, p, c in zip(layer_types(cfg), params["layers"], layer_caches):
-        x, kv = apply_block(cfg, bt, p, x, rope, mode="prefill", cache=c,
-                            moe_full_cap=moe_full_cap)
+        x, kv, _ = apply_block(cfg, bt, p, x, rope, mode="prefill",
+                               cache=c, moe_full_cap=moe_full_cap)
         if want_kv:
             kvs.append(kv)
     if cache is not None:
@@ -275,9 +340,9 @@ def decode_step(cfg, params, cache, tokens, *,
         resolve_duplicates=cfg.arch_type == "moe"))
     n_valid = (pos + s).to(torch.int32)
     for bt, p, c in zip(layer_types(cfg), params["layers"], cache["layers"]):
-        x, _ = apply_block(cfg, bt, p, x, rope, mode="decode", cache=c,
-                           pos=pos, pages=pages, write_at=write_at,
-                           n_valid=n_valid, moe_full_cap=moe_full_cap)
+        x, _, _ = apply_block(cfg, bt, p, x, rope, mode="decode", cache=c,
+                              pos=pos, pages=pages, write_at=write_at,
+                              n_valid=n_valid, moe_full_cap=moe_full_cap)
     cache["pos"].add_(s)  # after the layers' last read of the old value
     if logits_at is not None:
         x = x[torch.arange(b, device=x.device), logits_at.to(torch.int64)]

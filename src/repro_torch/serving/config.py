@@ -9,11 +9,13 @@ states, and mamba2's SSD states), single-shot and chunked prefill
 cache, cancel, timeouts, shedding and preemption, model-dtype or int8
 pools and weights, the three MoE capacity policies, span tracing and the
 profiler hook. ``validate()`` refuses every option whose path is not
-ported yet (sharded replicas, the encoder block) and names the
-``ROADMAP.md`` item that brings it, so nothing silently runs a different
-path than the one asked for; the engine keeps the reference's own
-refusals (a prefix cache or preemption without pages, an unknown
-``preempt_policy``).
+ported yet (sharded replicas) and names the ``ROADMAP.md`` item that
+brings it, so nothing silently runs a different path than the one asked
+for; it refuses an encoder-only arch (hubert-xlarge: bidirectional
+``encoder`` blocks, trained through ``repro_torch.training``) with the
+reference serve CLI's "encoder-only arch: no autoregressive serving"; the
+engine keeps the reference's own refusals (a prefix cache or preemption
+without pages, an unknown ``preempt_policy``).
 """
 from __future__ import annotations
 
@@ -177,6 +179,9 @@ class EngineConfig:
             from repro_torch.models.blocks import PORTED_BLOCKS
             from repro_torch.models.layers import ROPE_VARIANTS
 
+            if cfg.is_encoder or "encoder" in layer_types(cfg):
+                raise ValueError(f"{cfg.name}: encoder-only arch: no "
+                                 f"autoregressive serving")
             if not ported(cfg):
                 bad = sorted(set(layer_types(cfg)) - set(PORTED_BLOCKS))
                 not_yet.append((f"arch {cfg.name} with {bad} blocks",

@@ -76,17 +76,17 @@ def test_configs_equal_the_references_and_the_rest_stay_refused():
         ts.EngineConfig().validate(tc)
     counts = [torch_config(n).param_count() / 1e9 for n in NEW_ARCHS[:3]]
     assert [round(c, 2) for c in counts] == [14.66, 15.96, 6.24]
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1"):
-        torch_config("hubert-xlarge")
+    with pytest.raises(ValueError, match="encoder-only arch"):
+        ts.EngineConfig().validate(torch_config("hubert-xlarge"))
     # DLRM, the survey's SIMD workload, is carried field for field
     dlrm, jdlrm = torch_config("dlrm"), jax_config("dlrm")
     assert dataclasses.asdict(dlrm) == dataclasses.asdict(jdlrm)
     assert dlrm.param_count() == jdlrm.param_count()
-    # an encoder arch (hubert's blocks) is refused before any work,
-    # naming its ROADMAP.md item
+    # an encoder arch (hubert's blocks) is refused before any work: it
+    # has no autoregressive serving, as in the reference's serve CLI
     encoder = dataclasses.replace(torch_config("granite-8b").reduced(),
                                   arch_type="audio")
-    with pytest.raises(ValueError, match="'Other block families'"):
+    with pytest.raises(ValueError, match="encoder-only arch"):
         ts.EngineConfig().validate(encoder)
 
 

@@ -184,10 +184,12 @@ def test_validate_refuses_non_dense_archs_and_other_configs():
     cfg = torch_config("granite-8b").reduced()
     ts.EngineConfig().validate(cfg)  # the main path passes
     encoder = dataclasses.replace(cfg, arch_type="audio")
-    with pytest.raises(ValueError, match="Other block families"):
+    with pytest.raises(ValueError, match="encoder-only arch"):
         ts.EngineConfig().validate(encoder)
+    with pytest.raises(ValueError, match="encoder-only arch"):
+        ts.EngineConfig().validate(torch_config("hubert-xlarge"))
     with pytest.raises(ValueError, match="not ported"):
-        torch_config("hubert-xlarge")
+        torch_config("bert-base")
 
 
 def test_entry_points_raise_without_a_card(setup):

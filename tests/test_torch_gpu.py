@@ -1527,3 +1527,153 @@ def test_timeit_times_the_device_on_cuda_events(dev):
     assert min(t.samples) > 2e-3
     assert float(t) == pytest.approx(sum(t.samples) / 4)
     assert min(t.samples) <= t.median <= max(t.samples)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [16, 77, 130, 1000])
+def test_flash_attention_head_dim_80_matches_plain(dev, s, causal, dtype):
+    """hubert-xlarge's head_dim: the float32 kernel's lanes own 2.5
+    columns (the third masked), the bf16 one pads rows to 16 chunks;
+    below, at and past one tile, both modes, groups of 1 and 4."""
+    for h, kvh in ((16, 16), (8, 2)):
+        gen = torch.Generator(device=dev).manual_seed(s + h)
+        q = _rand(gen, (2, s, h, 80), dtype, dev)
+        k = _rand(gen, (2, s, kvh, 80), dtype, dev)
+        v = _rand(gen, (2, s, kvh, 80), dtype, dev)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = L.dense_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 100, 8, 2, 80, False, 0),
+                                   (2, 130, 8, 2, 128, True, 0),
+                                   (1, 200, 4, 1, 256, True, 64)])
+def test_autograd_functions_match_plain_autograd(dev, shape, dtype):
+    """Under grad mode ``ops.flash_attention`` launches the kernel once
+    and returns a result on the graph whose q, k, v gradients are the
+    plain version's (the Function's backward recomputes it)."""
+    b, s, h, kvh, d, causal, window = shape
+    gen = torch.Generator(device=dev).manual_seed(s + d)
+    q, k, v = (_rand(gen, (b, s, n, d), dtype, dev).requires_grad_()
+               for n in (h, kvh, kvh))
+    grad = _rand(gen, (b, s, h, d), dtype, dev)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), grad)
+    want = torch.autograd.grad(
+        L.dense_attention(q, k, v, causal=causal, window=window),
+        (q, k, v), grad)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+
+
+def test_rglru_scan_function_matches_plain_autograd(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a = (torch.rand((2, 70, 96), generator=gen, device=dev) * 0.2
+         + 0.79).requires_grad_()
+    x = torch.randn((2, 70, 96), generator=gen, device=dev,
+                    requires_grad=True)
+    h0 = torch.randn((2, 96), generator=gen, device=dev, requires_grad=True)
+    before = ops.LAUNCHES["rglru_scan"]
+    y, h = ops.rglru_scan(a, x, h0)
+    assert ops.LAUNCHES["rglru_scan"] == before + 1 and y.grad_fn is not None
+    gy, gh = torch.randn_like(y), torch.randn_like(h)
+    got = torch.autograd.grad((y, h), (a, x, h0), (gy, gh))
+    want = torch.autograd.grad(plain.rglru_scan(a, x, h0), (a, x, h0),
+                               (gy, gh))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_wrappers_without_a_backward_refuse_inputs_that_require_grad(dev):
+    """No kernel cuts the graph silently: every wrapper whose kernel has
+    no backward raises on an input that requires grad under grad mode,
+    and runs under ``torch.no_grad()``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as scan
+
+    pos = torch.ones((1,), dtype=torch.int32, device=dev)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    q = torch.zeros((1, 1, 4, 64), device=dev, requires_grad=True)
+    ring = torch.zeros((1, 16, 1, 64), device=dev)
+    pool = torch.zeros((3, 16, 1, 64), device=dev)
+    pool8 = torch.zeros((3, 16, 1, 64), dtype=torch.int8, device=dev)
+    scales = torch.ones((3, 16, 1, 1), device=dev)
+    logits = torch.zeros((2, 64), device=dev, requires_grad=True)
+    rows = dict(greedy=torch.zeros(2, dtype=torch.bool, device=dev),
+                temperature=torch.ones(2, device=dev),
+                top_k=torch.zeros(2, dtype=torch.int32, device=dev),
+                top_p=torch.ones(2, device=dev),
+                uniform=torch.full((2,), 0.5, device=dev))
+    x = torch.zeros((8, 64), device=dev, requires_grad=True)
+    w8 = torch.zeros((64, 64), dtype=torch.int8, device=dev)
+    qkv = torch.zeros((1, 16, 2, 64), device=dev, requires_grad=True)
+    a = torch.zeros((1, 8, 64), device=dev, requires_grad=True)
+    calls = [
+        lambda: ops.decode_attention(q, ring, ring, pos),
+        lambda: ops.paged_decode_attention(q, pool, pool, table, pos),
+        lambda: ops.paged_decode_attention_int8(q, pool8, pool8, scales,
+                                                scales, table, pos),
+        lambda: ops.int8_matmul(x, w8, torch.ones(64, device=dev)),
+        lambda: ops.sample_tokens(logits, **rows),
+        lambda: ops.topk_sample(logits, rows["top_k"] + 1,
+                                rows["temperature"],
+                                torch.rand((2, 64), device=dev)),
+        lambda: fa.flash_attention(qkv, qkv, qkv),
+        lambda: scan.rglru_scan(a, a, a[:, 0]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("arch,change", [
+    ("granite-8b", {}), ("hubert-xlarge", {}),
+    ("hubert-xlarge", dict(num_heads=4, num_kv_heads=4, head_dim=80)),
+    ("recurrentgemma-9b", dict(num_layers=3))])
+def test_reduced_train_steps_on_the_card_equal_the_cpus(dev, arch, change):
+    """Two float32 ``train_step``s of a reduced config: loss, grad norm and
+    params on the card within 1e-4 of the CPU's (float order only), with
+    each attention layer's kernel launched twice a step (forward and
+    recompute) and recurrentgemma's scan likewise."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.models import init_params, layer_types
+    from repro_torch.training import init_adamw, synthetic_batch, train_step
+    from repro_torch.tree import flatten
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), **change)
+    nb = synthetic_batch(cfg, ShapeConfig("t", 48, 4, "train"),
+                         np.random.default_rng(0))
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    runs = {}
+    for d in ("cpu", dev):
+        params, batch = _to(p_cpu, d), {k: torch.from_numpy(v).to(d)
+                                        for k, v in nb.items()}
+        opt, metrics = init_adamw(params), []
+        ops.reset_launches()
+        for _ in range(2):
+            params, opt, m = train_step(cfg, params, opt, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[d] = (metrics, params, dict(ops.LAUNCHES))
+    (want, p_want, _), (got, p_got, launches) = runs["cpu"], runs[dev]
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    for (k, a), (_, b) in zip(flatten(p_got), flatten(p_want)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4,
+                                   msg=k)
+    types = layer_types(cfg)
+    attn = sum(t in ("dense", "encoder", "local_attn") for t in types)
+    assert launches["flash_attention"] == 2 * 2 * attn
+    assert launches["rglru_scan"] == 2 * 2 * types.count("rglru")

@@ -187,8 +187,8 @@ def test_blocks_prefill_and_decode_match_jax(btype, s):
     trope, jpos = _rope(tc, 0, b, s)
     jy, jcache, _ = jb.apply_block(jc, btype, jp, jnp.asarray(x), jpos,
                                    mode="prefill", cache=jcache, pos=0)
-    ty, _ = tb.apply_block(tc, btype, tp, torch.from_numpy(x), trope,
-                           mode="prefill", cache=tcache)
+    ty, _, _ = tb.apply_block(tc, btype, tp, torch.from_numpy(x), trope,
+                              mode="prefill", cache=tcache)
     _close(ty, jy, 1e-5)
     pos = np.full((b,), s, np.int32)
     for _ in range(3):
@@ -197,9 +197,9 @@ def test_blocks_prefill_and_decode_match_jax(btype, s):
         jy, jcache, _ = jb.apply_block(jc, btype, jp, jnp.asarray(x1), jpos,
                                        mode="decode", cache=jcache,
                                        pos=jnp.asarray(pos))
-        ty, _ = tb.apply_block(tc, btype, tp, torch.from_numpy(x1), trope,
-                               mode="decode", cache=tcache,
-                               pos=torch.from_numpy(pos))
+        ty, _, _ = tb.apply_block(tc, btype, tp, torch.from_numpy(x1),
+                                  trope, mode="decode", cache=tcache,
+                                  pos=torch.from_numpy(pos))
         _close(ty, jy, 1e-5)
         pos = pos + 1
     for name in tcache:

@@ -76,9 +76,9 @@ def test_configs_equal_the_references_and_hubert_stays_refused():
     assert torch_config("llama4-maverick-400b-a17b").reduced().num_experts \
         == 4
     assert torch_config("qwen2-vl-7b").reduced().mrope_sections == (4, 6, 6)
-    with pytest.raises(ValueError,
-                       match="ROADMAP.md queue 1, 'Other block families'"):
-        torch_config("hubert-xlarge")
+    with pytest.raises(ValueError, match="encoder-only arch: no "
+                       "autoregressive serving"):
+        ts.EngineConfig().validate(torch_config("hubert-xlarge"))
 
 
 def test_int8_weights_are_refused_on_moe_as_in_the_reference():
