@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases, in order (phases 7 and 8 run after phase 5, on granite's
-weights, before phase 6; phases 9, 10 and 11 after phase 6; phase 14
-after phase 13; phase 8's profiled round (e) runs last); any failure
-exits non-zero:
+weights, before phase 6; phases 9, 10 and 11 after phase 6; phase 15
+after phase 13, on its tables, and phase 14 after phase 15; phase 8's
+profiled round (e) runs last); any failure exits non-zero:
 
 1. Print the card (``nvidia-smi``), build every CUDA kernel of the port
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
@@ -233,7 +233,7 @@ exits non-zero:
    time at 3.35 TB/s, peak memory, and ``plan_offload`` for the uncut
    tables.
 
-14. After phase 13, training (``repro_torch.training.train_step``,
+14. After phase 15, training (``repro_torch.training.train_step``,
    AdamW with float32 master weights; every layer recomputed in
    backward, kernels 1 and 7 through their autograd ``Function``s). (a)
    Two float32 steps of granite-8b, hubert-xlarge (also at 4 heads of
@@ -252,6 +252,38 @@ exits non-zero:
    plain float32 (the kernel rounds P to bf16, 2^-8, over 48 layers).
    Prints ms a step (CUDA events), tokens/s, MFU (6 N T over 989 TF/s)
    and peak memory.
+
+15. After phase 13, sharded serving: one replica over tp shards
+   (``DeviceTopology(tp=N)``), shard j on ``cuda:{j % device_count}``
+   (every shard on cuda:0 on a one-card host; a line prints the grid).
+   (a) The column-block probe (torch seed 15): granite's seven
+   projections (bf16, the column block read in place) and its lm head
+   (float32) at M 1, 8 and 64, and llama4's expert products (16 experts,
+   bf16) at M 8 and 64, each block at tp 2 and 4 against the same block
+   of the whole product, bit for bit; where any block differs the
+   streams below are gated by the bf16 tolerance instead of equality. (b)
+   Phase 13's tables row-split over 2 shards (views, nothing copied): B
+   128 through ``dlrm_forward`` against one table's pooled sums within
+   1e-5 of the largest logit (the partial sums add in another order); ms
+   a batch at B 128 and 2048 beside one table (numpy seed 1315). (c)
+   granite-8b at full width in bf16 at tp 2 and 4, and at tp 4 over int8
+   KV pages; llama4-maverick cut to 2 of 48 layers at tp 4, expert
+   parallel, "strict" pinned on it and on its one-card engine; chatglm3-6b
+   at tp 4 (pools split on head_dim); each on the default path (pages of
+   16, chunk 64, max_seq 1024), phase 4's 16 prompts, 32 new tokens,
+   half seeded, 8 slots, after the same arch's one-card engine (served
+   first, then freed). Gates: streams equal to the one-card engine's
+   (or, where the probe found blocks that differ, every greedy stream's
+   first divergence at a near-tie: the one-card top-2 gap within 2e-2 of
+   the largest logit; seeded divergences printed), the trace probes
+   equal to the one-card engine's, a measured round after ``reset()``
+   that repeats the warm-up round's streams with no capture (shards on
+   one card; over several cards every step runs eagerly), every request
+   finished and every page back, ``load_report()``'s axis fields, and
+   the path's kernels launched in the measured round. Prints TTFT p50 /
+   p90, burst tok/s, peak memory per device and ms per decode tick at 8
+   slots, each beside the one-card engine's (a warm-up round, then a
+   measured one).
 
 ``--profile DIR`` repeats the steady-decode serve (8 requests on 8
 slots) of phases 4, 5 and 6, and recurrentgemma's 2500-token prompt
@@ -3344,7 +3376,7 @@ def dlrm_reference(torch, cfg, params, batch):
     return mlp(params["top"], top_in, False)[:, 0]
 
 
-def phase_dlrm(torch):
+def phase_dlrm(torch, keep):
     """Phase 13: DLRM at one card's size, after every phase that holds an
     LLM's weights: the reference's ``DLRMConfig`` widths (26 tables of
     embed 128, 13 dense features, MLPs (512, 256, 128) and (1024, 1024,
@@ -3425,8 +3457,368 @@ def phase_dlrm(torch):
           f"on the host, hit rate {plan.hit_rate:.4f}, effective "
           f"{plan.effective_bw / 1e9:.1f} GB/s, {plan.slowdown_vs_hbm:.2f}x "
           f"slower than all rows on the card", flush=True)
+    keep["dlrm"] = (cfg, params)  # phase 15 splits these tables' rows
     del params, batch
     return ok
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: sharded serving (tensor and expert parallel)
+# ---------------------------------------------------------------------------
+
+#: granite-8b's seven projections (in, out) and its lm head: the widths of
+#: phase 15's bit-identity probe
+GRANITE_MATMULS = (("wq", 4096, 4096), ("wk", 4096, 1024),
+                   ("wv", 4096, 1024), ("wo", 4096, 4096),
+                   ("w_gate", 4096, 14336), ("w_up", 4096, 14336),
+                   ("w_down", 14336, 4096), ("lm_head", 4096, 49152))
+#: llama4-maverick's expert stacks (d 5120, ff 8192), 16 of its 128
+#: experts: the probe's batched product over expert-axis blocks
+LLAMA4_EXPERTS = (16, 5120, 8192)
+
+
+def shard_grid(torch, n: int) -> list:
+    """The grid of an n-way replica: shard j on ``cuda:{j % count}``, so a
+    one-card host stacks every shard on cuda:0."""
+    count = torch.cuda.device_count()
+    return [f"cuda:{j % count}" for j in range(n)]
+
+
+def column_probe(torch, gen):
+    """Phase 15 (a): whether a shard's product equals its block of the
+    single-card product, bit for bit, on this card. Granite's seven
+    projections (bf16, the model's ``torch.matmul`` of a column block read
+    in place, as shards stacked on one card hold it) and its lm head
+    (float32 copy of the block, TF32 off, as ``_logits``) at M 1, 8 and
+    64, each column block at tp 2 and 4 against the same block of the
+    whole product; and
+    llama4's expert products (``torch.bmm`` of 16 experts, bf16) at M 8
+    and 64 per expert, each expert-axis block against the whole batch's.
+    Returns (every block equal, the worst max abs difference)."""
+    rows, worst, equal = [], 0.0, True
+    dev = "cuda"
+
+    def check(name, m, tp, blocks, whole_blocks):
+        nonlocal worst, equal
+        same = all(torch.equal(a, b) for a, b in zip(blocks, whole_blocks))
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(blocks, whole_blocks))
+        worst, equal = max(worst, err), equal and same
+        rows.append(f"{name} M{m} tp{tp} {'=' if same else f'{err:.3g}'}")
+
+    for name, k, n in GRANITE_MATMULS:
+        dt = torch.float32 if name == "lm_head" else torch.bfloat16
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             * k ** -0.5).to(dt)
+        for m in (1, 8, 64):
+            x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+            whole = torch.matmul(x, w)
+            for tp in (2, 4):
+                b = n // tp
+                blk = ((lambda t: t.contiguous()) if name == "lm_head"
+                       else (lambda t: t))
+                check(name, m, tp,
+                      [torch.matmul(x, blk(w[:, j * b:(j + 1) * b]))
+                       for j in range(tp)],
+                      [whole[:, j * b:(j + 1) * b] for j in range(tp)])
+        del w
+    e, d, ff = LLAMA4_EXPERTS
+    w = (torch.randn((e, d, ff), generator=gen, device=dev)
+         * d ** -0.5).to(torch.bfloat16)
+    for m in (8, 64):
+        x = torch.randn((e, m, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        whole = torch.bmm(x, w)
+        for tp in (2, 4):
+            b = e // tp
+            check("llama4 experts", m, tp,
+                  [torch.bmm(x[j * b:(j + 1) * b], w[j * b:(j + 1) * b])
+                   for j in range(tp)],
+                  [whole[j * b:(j + 1) * b] for j in range(tp)])
+    del w
+    print("phase 15 (a) column-block probe (block product vs block of the "
+          "whole product; '=' bit for bit, else max abs difference): "
+          + ", ".join(rows), flush=True)
+    print(f"phase 15 (a) every block bit for bit: {equal} (worst max abs "
+          f"difference {worst:.3g}); the streams' gate: "
+          + ("equality with the one-card engine's" if equal else
+             "a near-tie of the one-card logits at each greedy stream's "
+             "first divergence"), flush=True)
+    return equal, worst
+
+
+def sharded_dlrm(torch, keep) -> bool:
+    """Phase 15 (b): phase 13's tables (26 x 4M rows x 128, float32) row-
+    split over 2 shards of ``shard_grid`` (``shard_specs``; on one card the
+    row blocks are views, nothing is copied): a batch of 128 queries
+    through ``sharded_lookup`` and ``dlrm_forward`` against one table's
+    pooled sums, within 1e-5 relative to the largest logit (the pooled
+    partial sums add in another order); ms per batch at B 128 and 2048
+    beside the one-table forward."""
+    import numpy as np
+
+    from repro_torch import util
+    from repro_torch.core.simd import dlrm_forward, shard_specs
+    from repro_torch.core.simd.sharding import Shards, place
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cfg, params = keep.pop("dlrm")
+    mesh = make_local_mesh(model=2, devices=shard_grid(torch, 2))
+    shards = Shards(place(params, shard_specs(cfg), mesh), mesh)
+    rng = np.random.default_rng(1315)
+
+    def make_batch(b):
+        return {"dense": torch.from_numpy(rng.standard_normal(
+                    (b, cfg.num_dense_features)).astype(np.float32)).cuda(),
+                "sparse": torch.from_numpy(rng.integers(
+                    0, cfg.rows_per_table,
+                    (b, cfg.num_tables, cfg.multi_hot))).cuda()}
+
+    batch = make_batch(128)
+    got = dlrm_forward(cfg, shards, batch).double().cpu().numpy()
+    want = dlrm_forward(cfg, params, batch).double().cpu().numpy()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    ok = got.shape == (128,) and bool(np.isfinite(got).all()) and rel <= 1e-5
+    print(f"phase 15 (b) DLRM tables row-split over {mesh.flat} "
+          f"(blocks {tuple(shards[0]['tables'].shape)}): B 128 against one "
+          f"table's pooled sums, max abs difference "
+          f"{np.abs(got - want).max():.3g} = {rel:.3g} of the largest logit "
+          f"(tol 1e-5) {'ok' if ok else 'FAIL'}", flush=True)
+    for b in (128, 2048):
+        batch = make_batch(b)
+        t2 = util.timeit(dlrm_forward, cfg, shards, batch, iters=20,
+                         warmup=3)
+        t1 = util.timeit(dlrm_forward, cfg, params, batch, iters=20,
+                         warmup=3)
+        print(f"phase 15 (b) DLRM B={b}: {t2 * 1e3:.4f} ms a batch over 2 "
+              f"row shards vs {t1 * 1e3:.4f} ms over one table (util.timeit,"
+              f" CUDA events)", flush=True)
+    del shards, params, batch
+    return ok
+
+
+def sharded_case(torch, label, cfg, params, prompts, run, tp, base, kernels,
+                 exact):
+    """One sharded replica of phase 15 on ``shard_grid(tp)``: a warm-up
+    round (captures) whose streams must equal the one-card engine's
+    (``base``: its requests and trace probes) when the probe found every
+    block bit for bit, else diverge only as ``stream_gap`` allows; its
+    trace probes
+    must equal the one-card engine's; then ``reset()``, the launch counts
+    zeroed, a measured round that repeats the warm-up's streams, captures
+    nothing (on one card), launches every kernel of ``kernels`` and gives
+    every page back; ``load_report()``'s axis fields; the decode of 8
+    requests on the 8 slots (ms per tick). Prints TTFT, tok/s and peak
+    memory per device. Returns (ok, ms per tick)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import DeviceTopology
+
+    grid = shard_grid(torch, tp)
+    run = dict(run, device=grid, topology=DeviceTopology(tp=tp))
+    warm, st0 = warm_round(torch, label, cfg, params, prompts, run)
+    eng = st0["engine"]
+    base_reqs, want = base
+    ok = True
+    same = [r.output for r in warm] == [r.output for r in base_reqs]
+    if not same:
+        ok &= not exact and stream_gap(torch, label, cfg, params, eng, warm,
+                                       base_reqs)
+    probes = (eng.prefill_traces, eng.decode_traces)
+    ok &= probes == want
+    print(f"{label} over {grid}: streams equal to the one-card engine's: "
+          f"{same}; trace probes {probes} (one card {want})", flush=True)
+    run = dict(run, eng=eng)
+    for d in {torch.device(g) for g in grid}:
+        torch.cuda.reset_peak_memory_stats(d)
+    ops.reset_launches()
+    reqs, st = serve(torch, cfg, params, prompts, **run)
+    launches = dict(ops.LAUNCHES)
+    repeat = [r.output for r in reqs] == [r.output for r in warm]
+    unfinished = [r.rid for r in reqs if r.state.value != "finished"]
+    drained = eng.allocator.pages_in_use == 0
+    missing = [k for k in kernels if launches[k] <= 0]
+    rep = eng.load_report()
+    cs, util = dict(rep.axis_collective_s), dict(rep.axis_util)
+    axes_ok = (rep.n_chips == tp
+               and dict(rep.mesh_axes) == {"data": 1, "model": tp}
+               and cs["model"] > 0.0 and cs["data"] == 0.0
+               and 0.0 < util["model"] < 1.0)
+    if eng.graphs.capture:
+        ok &= graphs_ok(label, warm, st0)
+    else:  # shards on several cards: every step eager, nothing captured
+        ok &= eng.graphs.captures == 0
+        print(f"{label}: steps eager over {eng.mesh.distinct} cards, "
+              f"captures {eng.graphs.captures}", flush=True)
+    ok &= (repeat and not unfinished and drained and not missing
+           and axes_ok)
+    mem = ", ".join(
+        f"{d}: {torch.cuda.max_memory_allocated(d) / 2 ** 30:.2f} GiB"
+        for d in sorted({str(torch.device(g)) for g in grid}))
+    print(burst_line(f"{label} burst (16 requests on 8 slots, "
+                     f"{run['max_new']} new, half seeded)", reqs, st)
+          + f"; peak allocated per device {mem}; measured round repeats "
+          f"the warm-up's streams: {repeat}; unfinished {unfinished}; "
+          f"pages back: {drained}", flush=True)
+    print(f"{label} kernels (launches in the measured round): "
+          + ", ".join(f"{k}={v}" for k, v in launches.items())
+          + (f"; FAIL: never launched {missing}" if missing else ""),
+          flush=True)
+    print(f"{label} load_report: n_chips {rep.n_chips}, mesh_axes "
+          f"{dict(rep.mesh_axes)}, axis_collective_s {cs}, axis_util "
+          f"{util} {'ok' if axes_ok else 'FAIL'}", flush=True)
+    log = []
+    serve(torch, cfg, params, prompts[:8], step_log=log, **run)
+    tick = tick_while(log, "chunks")[2]
+    print(f"{label}: {tick:.2f} ms per tick of decode alone at 8 slots",
+          flush=True)
+    return ok, tick
+
+
+def phase_sharded(torch, keep):
+    """Phase 15: one replica over tp shards (``DeviceTopology(tp=N)``) at
+    full width in bf16, on ``shard_grid`` (every shard on cuda:0 on a
+    one-card host), on the default path (paged KV pages of 16, chunk 64,
+    max_seq 1024), phase 4's 16 prompts, 32 new tokens, half seeded, 8
+    slots, each arch's one-card engine served first and dropped before its
+    sharded engines are built. (a) ``column_probe``; (b) ``sharded_dlrm``
+    over phase 13's tables; (c) granite-8b at tp 2 and 4 (8/2 heads and a
+    quarter of the MLP a shard at tp 4), and at tp 4 over int8 KV pages;
+    (d) llama4-maverick cut to 2 of 48 layers at tp 4, expert parallel (32
+    of 128 experts a shard), "strict" pinned on it and on its one-card
+    engine; (e) chatglm3-6b at tp 4 (its 2 kv heads: pools split on
+    head_dim). Gates: ``sharded_case``'s. Prints ms per decode tick at 8
+    slots for granite at tp 1, 2 and 4. Every random input comes from
+    generators of this phase (torch seed 15, numpy seed 1315)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    count = torch.cuda.device_count()
+    print(f"phase 15 grid: {count} CUDA device(s); shards of tp 2 on "
+          f"{shard_grid(torch, 2)}, of tp 4 on {shard_grid(torch, 4)}",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    exact, _ = column_probe(torch, gen)
+    ok = sharded_dlrm(torch, keep)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, prompts = burst_prompts()
+    run = dict(max_new=32, slots=8, max_seq=1024)
+    kernels = ("flash_attention", "paged_decode_attention",
+               "decode_attention", "sample_tokens")
+
+    def one_card(label, cfg, params, run):
+        """The one-card engine: a warm-up round (its streams and probes),
+        a measured round, the steady decode at 8 slots."""
+        reqs, st = serve(torch, cfg, params, prompts, device="cuda", **run)
+        eng = st["engine"]
+        probes = (eng.prefill_traces, eng.decode_traces)
+        torch.cuda.reset_peak_memory_stats()
+        again, st = serve(torch, cfg, params, prompts, device="cuda",
+                          eng=eng, **run)
+        log = []
+        serve(torch, cfg, params, prompts[:8], device="cuda", step_log=log,
+              eng=eng, **run)
+        tick = tick_while(log, "chunks")[2]
+        print(burst_line(f"{label} one card (measured round)", again, st)
+              + f"; peak allocated cuda:0: "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"{tick:.2f} ms per tick of decode alone at 8 slots",
+              flush=True)
+        del eng, st
+        gc.collect()
+        torch.cuda.empty_cache()
+        return (reqs, probes), tick
+
+    ticks = {}
+    granite = get_config("granite-8b")
+    params = init_params(granite, seed=0, device="cuda")
+    base, ticks[1] = one_card("granite bf16", granite, params, run)
+    for tp in (2, 4):
+        good, ticks[tp] = sharded_case(
+            torch, f"granite bf16 tp {tp}", granite, params, prompts, run,
+            tp, base, kernels, exact)
+        ok &= good
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("phase 15 granite-8b decode at 8 slots, ms per tick of decode "
+          "alone: " + ", ".join(f"tp {tp} {t:.2f}" for tp, t in
+                                ticks.items())
+          + " (floors at 3.35 TB/s: 4.9, 6.5, 9.8: the ROW weights read "
+          "tp times on one card)", flush=True)
+    run8 = dict(run, precision=dict(kv_cache_dtype="int8"))
+    base, _ = one_card("granite int8 kv", granite, params, run8)
+    good, _ = sharded_case(
+        torch, "granite int8 kv tp 4", granite, params, prompts, run8, 4,
+        base, ("flash_attention", "paged_decode_attention_int8",
+               "decode_attention", "sample_tokens"), exact)
+    ok &= good
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, name, depth, extra in (
+            ("llama4 strict", "llama4-maverick-400b-a17b", 2,
+             dict(moe_capacity_policy="strict")),
+            ("chatglm3 bf16", "chatglm3-6b", None, {})):
+        cfg = get_config(name)
+        if depth:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        params = init_params(cfg, seed=0, device="cuda")
+        r = dict(run, **extra)
+        base, _ = one_card(label, cfg, params, r)
+        good, _ = sharded_case(torch, f"{label} tp 4", cfg, params, prompts,
+                               r, 4, base, kernels, exact)
+        ok &= good
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok
+
+
+def stream_gap(torch, label, cfg, params, eng, got, want) -> bool:
+    """For each stream that differs from the one-card engine's: its first
+    divergent token, the top-2 gap of the one-card logits there (forward
+    over the one-card stream's tokens, ``params``) and their largest
+    difference from the sharded forward's (``eng``'s params) at the same
+    place. The streams' gate where the probe found blocks that differ: a
+    greedy stream may leave the one-card stream only at a near-tie, its
+    top-2 gap within the bf16 tolerance (phase 2's 2e-2) of the largest
+    logit there; a seeded stream's draw may flip on any rounding of its
+    logits, so its divergence is printed, not gated."""
+    import numpy as np
+
+    from repro_torch.models import forward
+
+    good = True
+    for r, w in zip(got, want):
+        if r.output == w.output:
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(r.output, w.output))
+                  if x != y), min(len(r.output), len(w.output)))
+        toks = torch.from_numpy(np.concatenate([
+            w.prompt, np.asarray(w.output[:i], np.int32)])).cuda()[None]
+        full_cap = eng._moe_full_cap
+        with torch.no_grad():
+            a, _ = forward(cfg, params, toks, moe_full_cap=full_cap)
+            b, _ = forward(cfg, eng.params, toks, moe_full_cap=full_cap)
+        a, b = a[0, -1].float(), b[0, -1].float().to(a.device)
+        diff, scale = float((a - b).abs().max()), float(a.abs().max())
+        top2 = torch.topk(a, 2).values
+        gap = float(top2[0] - top2[1])
+        greedy = w.sampling.greedy
+        tie = gap <= TOL["bfloat16"] * scale
+        good &= tie or not greedy
+        verdict = (("ok" if tie else "FAIL") if greedy
+                   else "seeded: not gated")
+        print(f"{label} rid={r.rid} ({'greedy' if greedy else 'seeded'}): "
+              f"first divergent token #{i}: "
+              f"{r.output[i] if i < len(r.output) else None} vs "
+              f"{w.output[i] if i < len(w.output) else None}; one-card "
+              f"top-2 gap {gap:.3g} = {gap / scale:.3g} of the largest "
+              f"logit (a greedy stream's tie within {TOL['bfloat16']}: "
+              f"{verdict}); sharded forward's logits there {diff:.3g} = "
+              f"{diff / scale:.3g} of the largest from the one-card's",
+              flush=True)
+    return good
 
 
 def write_profile(prof, out_dir, st, table_name,
@@ -3834,7 +4226,7 @@ def main() -> int:
         name=f"sample_tokens (mamba2-1.3b, vocab {MAMBA2_VOCAB})",
         route="cuda", source=f"{csrc}/sampling.cu",
         replaces="src/repro/kernels/topk_sample.py:63")
-    full = {}
+    full, keep = {}, {}
     for phase, fn in (("kernels vs plain", lambda: phase_kernels(torch,
                                                                  rec)),
                       ("reduced streams cuda == cpu",
@@ -3858,7 +4250,8 @@ def main() -> int:
                       ("full-width MoE and mrope serving",
                        lambda: phase_moe(torch, rec)),
                       ("DLRM at one card's size",
-                       lambda: phase_dlrm(torch)),
+                       lambda: phase_dlrm(torch, keep)),
+                      ("sharded serving", lambda: phase_sharded(torch, keep)),
                       ("training", lambda: phase_training(torch, rec)),
                       ("full-width profiler hook",
                        lambda: phase_profile_hook(torch))):

@@ -1,11 +1,14 @@
-"""The SIMD quadrant of the port on one card: DLRM embedding inference and
-the heterogeneous-memory offload plan. The reference's sharding rules
-(``core/simd/sharding.py``, DLRM's ``shard_specs`` / ``batch_specs``) wait
-for the multi-GPU slice (ROADMAP.md queue 1)."""
+"""The SIMD quadrant of the port: DLRM embedding inference (row-split
+tables over a mesh: ``shard_specs``, ``batch_specs``), the
+heterogeneous-memory offload plan, and the sharding rules of a sharded
+replica (``sharding``)."""
 from repro_torch.core.simd.embedding import (
+    batch_specs,
     dlrm_forward,
     init_dlrm,
     lookup_traffic_bytes,
+    shard_specs,
+    sharded_lookup,
 )
 from repro_torch.core.simd.offload import (
     OffloadPlan,
@@ -14,6 +17,7 @@ from repro_torch.core.simd.offload import (
     zipf_hit_rate,
 )
 
-__all__ = ["OffloadPlan", "dlrm_forward", "effective_bandwidth",
-           "init_dlrm", "lookup_traffic_bytes", "plan_offload",
+__all__ = ["OffloadPlan", "batch_specs", "dlrm_forward",
+           "effective_bandwidth", "init_dlrm", "lookup_traffic_bytes",
+           "plan_offload", "shard_specs", "sharded_lookup",
            "zipf_hit_rate"]

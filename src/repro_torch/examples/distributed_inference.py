@@ -1,12 +1,15 @@
 """SIMD example: inference of a model too large for one host (survey §4),
 the twin of ``examples/distributed_inference.py``: DLRM embedding
-inference (Fig. 7) run for real on one card (the reference's local mesh
-is one device by default, so this is the same computation), plus the
-capacity and latency scale-out sweep at production size from the cost
-model at H100 numbers.
+inference (Fig. 7) run for real with its tables row-split over a device
+grid (``shard_specs``; the reference's local mesh is one device by
+default, and so is ``--tp``), plus the capacity and latency scale-out
+sweep at production size from the cost model at H100 numbers.
 
     PYTHONPATH=src python -m repro_torch.examples.distributed_inference \
-        [--device cpu]
+        [--device cpu] [--tp 2 --devices cpu,cpu]
+
+``--tp N`` takes the host's first N cards, or the ``--devices`` grid (a
+device may repeat); on the CPU the grid is ``--device`` N times.
 """
 import argparse
 import dataclasses
@@ -17,7 +20,14 @@ import torch
 from repro_torch.configs.dlrm import CONFIG as DLRM
 from repro_torch.core.costmodel import WorkEstimate
 from repro_torch.core.hardware import H100_SXM, Chip
-from repro_torch.core.simd import dlrm_forward, init_dlrm, lookup_traffic_bytes
+from repro_torch.core.simd import (
+    dlrm_forward,
+    init_dlrm,
+    lookup_traffic_bytes,
+    shard_specs,
+)
+from repro_torch.core.simd.sharding import Shards, place
+from repro_torch.launch.mesh import make_local_mesh
 
 BATCH = 256
 
@@ -51,25 +61,34 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="shards the tables' rows are split over")
+    ap.add_argument("--devices", default="",
+                    help="the grid, comma-separated (a device may repeat)")
     args = ap.parse_args(argv)
+    grid = (args.devices.split(",") if args.devices
+            else [args.device] * args.tp if args.device == "cpu" else None)
+    mesh = make_local_mesh(model=args.tp, devices=grid)
 
     # --- real execution (scaled-down tables, one card) ---------------------
     cfg = dataclasses.replace(DLRM, num_tables=8, rows_per_table=4096,
                               embed_dim=32, bottom_mlp=(64, 32),
                               top_mlp=(64, 1))
-    params = init_dlrm(cfg, 0, args.device)
+    params = init_dlrm(cfg, 0, mesh.flat[0])
+    params = Shards(place(params, shard_specs(cfg), mesh), mesh)
     rng = np.random.default_rng(0)
     batch = {
         "dense": torch.from_numpy(
             rng.standard_normal((64, 13)).astype(np.float32)).to(
-                args.device),
+                mesh.flat[0]),
         "sparse": torch.from_numpy(
             rng.integers(0, cfg.rows_per_table,
                          (64, cfg.num_tables, cfg.multi_hot))).to(
-                args.device),
+                mesh.flat[0]),
     }
     out = dlrm_forward(cfg, params, batch)
-    print(f"DLRM inference on one {args.device} device: batch=64 -> "
+    print(f"sharded DLRM inference, tables row-split over "
+          f"[{', '.join(str(d) for d in mesh.flat)}]: batch=64 -> "
           f"logits {tuple(out.shape)}, mean={float(out.mean()):.4f}")
 
     # --- production-size capacity sweep (cost model) -----------------------

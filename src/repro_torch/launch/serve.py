@@ -24,11 +24,22 @@ far: the paged KV cache (dense and MoE archs), rolling caches
 always, their KV rings, RG-LRU and SSD states), single-shot
 and chunked prefill (``--chunk-prefill``, 64 by default as in the
 reference; 0 = single-shot), the shared-prefix KV cache
-(``--prefix-cache``) and preemption (``--preemption``), one card, with
+(``--prefix-cache``) and preemption (``--preemption``), with
 ``--kv-dtype int8`` (int8 KV pages) and ``--weight-dtype int8``
 (weight-only int8) as the paged path's quantized variant, and
 ``--sla-ms`` (the per-step SLA budget the admission plan sizes slots and
 the flush deadline by). The banner says which cache serves.
+
+``--tp N`` serves one replica over N shards (tensor parallel, expert
+parallel on MoE archs whose config asks for it; dense and MoE archs,
+paged or rolling caches, model-dtype or int8 KV) over the host's first N
+cards, or over ``--devices``, an explicit comma-separated grid where a
+device may repeat (``cuda:0,cuda:0`` on one card, ``cpu,cpu,cpu,cpu``
+with ``--device cpu``); the banner prints the grid. ``--dp`` > 1 is
+refused by ``validate()`` with its ROADMAP.md item.
+
+    python -m repro_torch.launch.serve --arch granite-8b --reduced \
+        --device cpu --tp 4 --devices cpu,cpu,cpu,cpu
 ``EngineConfig.validate`` names the ROADMAP.md item of every other
 option.
 
@@ -77,6 +88,7 @@ from repro_torch.models import init_params
 from repro_torch.serving import (
     CircuitBreaker,
     ClusterFrontend,
+    DeviceTopology,
     EngineConfig,
     OverloadDetector,
     PrecisionConfig,
@@ -125,6 +137,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="chunked-prefill piece size; 0 = single-shot")
     ap.add_argument("--sla-ms", type=float, default=50.0,
                     help="per-step SLA budget for the admission plan")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor/expert-parallel ways per replica (the "
+                         "mesh 'model' axis); needs tp*dp cards, or "
+                         "--devices")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel ways per replica (the mesh 'data' "
+                         "axis)")
+    ap.add_argument("--devices", default="",
+                    help="the replica's device grid, comma-separated, "
+                         "tp*dp entries (a device may repeat: "
+                         "cuda:0,cuda:0); empty = the first tp*dp cards")
     ap.add_argument("--moe-capacity", default="",
                     choices=("", "strict", "backpressure", "drop"),
                     help="MoE capacity-overflow policy; empty = strict on "
@@ -220,6 +243,7 @@ def engine_config(args) -> EngineConfig:
                         page_size=args.page_size,
                         max_seq=args.max_seq or None,
                         pool_pages=args.pool_pages or None,
+                        topology=DeviceTopology(dp=args.dp, tp=args.tp),
                         moe_capacity_policy=args.moe_capacity or None,
                         precision=PrecisionConfig(
                             kv_cache_dtype=args.kv_dtype,
@@ -249,14 +273,26 @@ def main(argv=None):
               "to sample", file=sys.stderr)
 
     config = engine_config(args)
-    config.validate(cfg)
+    grid = args.devices.split(",") if args.devices else None
+    config.validate(cfg, devices=grid)
+    if grid is not None:
+        device = resolve_device(grid[0])
     rng = np.random.default_rng(args.seed)
     params = init_params(cfg, seed=args.seed, device=device)
-    eng = ServingEngine(cfg, params, config, device=device)
+    eng = ServingEngine(cfg, params, config, device=grid or device)
+    device = eng.device
     card = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device: {card}  arch={cfg.name} layers={cfg.num_layers} "
           f"d_model={cfg.d_model} dtype={cfg.dtype}")
+    if eng.mesh is not None:
+        rep = eng.load_report()
+        print(f"sharded replica: mesh {eng.mesh.shape} over "
+              f"[{', '.join(str(d) for d in eng.mesh.flat)}] "
+              f"({eng.mesh.distinct} distinct device(s)), per-axis "
+              f"collective s/tick {dict(rep.axis_collective_s)}"
+              + (f", moe_capacity_policy={eng.moe_capacity_policy}"
+                 if eng.moe_capacity_policy else ""))
     if not args.slots:
         print(f"admission plan: slots={eng.slots} "
               f"flush_deadline={eng.plan.flush_deadline_s*1e3:.2f}ms "
@@ -270,9 +306,10 @@ def main(argv=None):
               + (f" (drop-free group {eng._moe_gmax}, slots {eng.slots})"
                  if eng._moe_gmax else ""))
     else:
-        rings = sorted({c["k"].shape[1] for c in eng.cache["layers"]
-                        if "k" in c})
-        n_rec = sum("state" in c for c in eng.cache["layers"])
+        layers = (eng.cache[0] if eng.mesh is not None
+                  else eng.cache)["layers"]
+        rings = sorted({c["k"].shape[1] for c in layers if "k" in c})
+        n_rec = sum("state" in c for c in layers)
         print(f"rolling caches: window={eng.window} KV rings of {rings} "
               f"tokens, {n_rec} recurrent states, {eng.slots} slots")
     if args.kv_dtype or args.weight_dtype:
@@ -291,7 +328,8 @@ def main(argv=None):
         # tenants take the cluster path even at one replica: the fair
         # queue, admission and ladder live at the frontend. Every replica
         # is built from the first engine's params: one set of weights
-        engines += [ServingEngine(cfg, eng.params, config, device=device)
+        engines += [ServingEngine(cfg, eng.params, config,
+                                  device=grid or device)
                     for _ in range(args.replicas - 1)]
         # cost-model ticks price the card, not this host: floor the
         # wall-clock watchdog so a slow host never trips on modeled speed

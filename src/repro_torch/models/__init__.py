@@ -6,6 +6,7 @@ from repro_torch.models.convert import (
 from repro_torch.models.model import (
     QUANT_WEIGHT_KEYS,
     block_program,
+    cache_specs,
     decode_step,
     dtype_of,
     forward,
@@ -14,11 +15,15 @@ from repro_torch.models.model import (
     init_params,
     layer_types,
     paged_ok,
+    param_specs,
     ported,
     quantize_weights,
+    shard_cache,
+    shard_params,
 )
 
 __all__ = ["QUANT_WEIGHT_KEYS", "block_program", "cache_from_jax",
-           "decode_step", "dlrm_params_from_jax", "dtype_of", "forward", "init_cache",
-           "init_paged_cache", "init_params", "layer_types", "paged_ok",
-           "params_from_jax", "ported", "quantize_weights"]
+           "cache_specs", "decode_step", "dlrm_params_from_jax", "dtype_of",
+           "forward", "init_cache", "init_paged_cache", "init_params",
+           "layer_types", "paged_ok", "param_specs", "params_from_jax",
+           "ported", "quantize_weights", "shard_cache", "shard_params"]

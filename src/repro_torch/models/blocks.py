@@ -5,6 +5,10 @@ projections going through the kernels' dispatch points
 (``repro_torch.kernels.ops``). An ``encoder`` block is the dense block
 with bidirectional attention.
 
+``apply_block_sharded`` runs a ``dense`` or ``moe`` block over the shards
+of a sharded replica (tensor and expert parallel, only concatenation
+between shards).
+
 Params are plain dicts of tensors in the reference's (in, out) weight
 orientation. Paged pools, rolling rings and recurrent states are updated
 IN PLACE, where the JAX package returns a new pytree: the engine owns one
@@ -17,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.moe import apply_moe, apply_moe_sharded, init_moe
 from repro_torch.models.rglru import (
     apply_rglru_block,
     init_rglru,
@@ -85,16 +89,20 @@ def linear(x, w):
     return torch.matmul(x, w)
 
 
-def apply_mlp(cfg, p, x):
+def mlp_hidden(cfg, p, x, mm=linear):
+    """The MLP's hidden activations, ``act(x w_gate) * (x w_up)`` (swiglu,
+    geglu) or ``gelu(x w_up)``, with the products of ``mm`` (``bmm`` over
+    a MoE block's expert stacks)."""
     if cfg.mlp_variant in ("swiglu", "geglu"):
-        g = linear(x, p["w_gate"])
-        u = linear(x, p["w_up"])
+        g = mm(x, p["w_gate"])
         act = (F.silu(g) if cfg.mlp_variant == "swiglu"
                else F.gelu(g, approximate="tanh"))
-        h = act * u
-    else:
-        h = F.gelu(linear(x, p["w_up"]), approximate="tanh")
-    return linear(h, p["w_down"])
+        return act * mm(x, p["w_up"])
+    return F.gelu(mm(x, p["w_up"]), approximate="tanh")
+
+
+def apply_mlp(cfg, p, x):
+    return linear(mlp_hidden(cfg, p, x), p["w_down"])
 
 
 def init_attn(cfg, gen, dtype, device):
@@ -240,30 +248,67 @@ def paged_write_index(pages, pos, s: int, page_size: int, *,
     return phys, off, win
 
 
-def _paged_attn_decode(q, k, v, cache, pages, write_at, n_valid):
-    """Write the chunk's K/V at ``write_at`` (``paged_write_index``), in
-    place, and attend through the page table; ``n_valid`` (B,) int32 is
-    each slot's token count including the S new ones. Writes to one row
-    carry their last writer's K/V when ``write_at`` resolves them. Over
-    int8 pools the values and their per-token scales are written at the
-    same addresses (decode-time writes are always per token, whatever the
-    prefill's scale granularity)."""
-    phys, off, win = write_at
-    if win is not None:
-        k, v = (t.reshape(-1, *t.shape[2:])[win].reshape(t.shape)
-                for t in (k, v))
+def kv_codes(cache, t, hd_part=None):
+    """What a cache stores for K or V ``t`` (..., kv, hd) of whole heads:
+    (values, per-vector scales or None), the int8 codes and their scales
+    when the cache is int8 (quantized over the whole vector), the values
+    narrowed to block j of n of head_dim when ``hd_part`` = (j, n) (a
+    sharded replica's head_dim-split pools)."""
+    scale = None
     if "k_scale" in cache:
-        for name, t in (("k", k), ("v", v)):
-            q8, scale = quantize_kv(t)
-            cache[name].index_put_((phys, off), q8)
-            cache[name + "_scale"].index_put_((phys, off), scale)
-        return ops.paged_decode_attention_int8(
-            q, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
-            pages, n_valid)
-    cache["k"].index_put_((phys, off), k.to(cache["k"].dtype))
-    cache["v"].index_put_((phys, off), v.to(cache["v"].dtype))
-    return ops.paged_decode_attention(q, cache["k"], cache["v"], pages,
-                                      n_valid)
+        t, scale = quantize_kv(t)
+    if hd_part is not None:
+        j, n = hd_part
+        w = t.shape[-1] // n
+        t = t[..., j * w:(j + 1) * w]
+    return t, scale
+
+
+def decode_rows(k, v, pos, write_at, ring: int):
+    """Where the S new tokens' K/V land in decode mode, and the K/V to
+    write there: pool rows ``write_at`` (``paged_write_index``; writes to
+    one row carry their last writer's K/V when it resolves them), or,
+    with no ``write_at``, ring rows ``(pos + i) % ring`` of each slot
+    (``pos`` (B,) the slots' token counts before the S new ones)."""
+    if write_at is not None:
+        phys, off, win = write_at
+        if win is not None:
+            k, v = (t.reshape(-1, *t.shape[2:])[win].reshape(t.shape)
+                    for t in (k, v))
+        return (phys, off), k, v
+    b, s = k.shape[:2]
+    rows = (pos.to(torch.int64)[:, None]
+            + torch.arange(s, device=k.device)[None, :]) % ring
+    return (torch.arange(b, device=k.device)[:, None], rows), k, v
+
+
+def store_kv(cache, at, k, v, hd_part=None):
+    """Write K/V at ``at`` into a pool or ring, in place: int8 caches take
+    the per-token codes and scales at the same addresses (decode-time
+    writes are always per token, whatever the prefill's scale
+    granularity); ``hd_part`` as ``kv_codes``."""
+    for name, t in (("k", k), ("v", v)):
+        vals, scale = kv_codes(cache, t, hd_part)
+        cache[name].index_put_(at, vals.to(cache[name].dtype))
+        if scale is not None:
+            cache[name + "_scale"].index_put_(at, scale)
+
+
+def attend_cache(q, k, v, scales, pages, n_valid):
+    """Decode attention of q (B, S, H, D) over pools (through the page
+    table ``pages``) or rings, ``n_valid`` (B,) int32 each slot's token
+    count including the S new ones: over int8 pools the int8 kernel with
+    their ``scales`` (k, v), an int8 ring dequantized to q's dtype, whole,
+    as the reference does, else the model dtype's kernel."""
+    if pages is not None and scales is not None:
+        return ops.paged_decode_attention_int8(q, k, v, *scales, pages,
+                                               n_valid)
+    if pages is not None:
+        return ops.paged_decode_attention(q, k, v, pages, n_valid)
+    if scales is not None:
+        k, v = (dequantize_kv(t, sc, q.dtype) for t, sc in zip((k, v),
+                                                                scales))
+    return ops.decode_attention(q, k, v, n_valid)
 
 
 def ring_fill(cache, k, v):
@@ -282,32 +327,6 @@ def ring_fill(cache, k, v):
             t, scale = quantize_kv(t)
             cache[name + "_scale"][:, rows] = scale
         cache[name][:, rows] = t.to(cache[name].dtype)
-
-
-def _ring_attn_decode(q, k, v, cache, pos):
-    """Write the S new tokens' K/V at ring rows ``(pos + i) % W`` of each
-    slot, in place, and attend the ring; ``pos`` (B,) int32 is each slot's
-    token count before the S new ones. An int8 ring (the chunked-prefill
-    buffer under int8 pages) takes the tokens' per-token codes and scales,
-    and is attended dequantized to q's dtype, whole, as the reference
-    does."""
-    b, s = q.shape[:2]
-    w = cache["k"].shape[1]
-    rows = (pos.to(torch.int64)[:, None]
-            + torch.arange(s, device=q.device)[None, :]) % w
-    slots = torch.arange(b, device=q.device)[:, None]
-    n_valid = (pos + s).to(torch.int32)
-    if "k_scale" in cache:
-        for name, t in (("k", k), ("v", v)):
-            q8, scale = quantize_kv(t)
-            cache[name].index_put_((slots, rows), q8)
-            cache[name + "_scale"].index_put_((slots, rows), scale)
-        return ops.decode_attention(
-            q, dequantize_kv(cache["k"], cache["k_scale"], q.dtype),
-            dequantize_kv(cache["v"], cache["v_scale"], q.dtype), n_valid)
-    cache["k"].index_put_((slots, rows), k.to(cache["k"].dtype))
-    cache["v"].index_put_((slots, rows), v.to(cache["v"].dtype))
-    return ops.decode_attention(q, cache["k"], cache["v"], n_valid)
 
 
 def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,
@@ -331,10 +350,15 @@ def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,
     if rope is not None:
         q, k = L.rotate(q, rope), L.rotate(k, rope)
     new_kv = None
-    if mode == "decode" and pages is not None:
-        out = _paged_attn_decode(q, k, v, cache, pages, write_at, n_valid)
-    elif mode == "decode":
-        out = _ring_attn_decode(q, k, v, cache, pos)
+    if mode == "decode":
+        at, k, v = decode_rows(k, v, pos, write_at, cache["k"].shape[1])
+        store_kv(cache, at, k, v)
+        scales = ((cache["k_scale"], cache["v_scale"])
+                  if "k_scale" in cache else None)
+        if n_valid is None:  # a ring's count from its positions
+            n_valid = (pos + s).to(torch.int32)
+        out = attend_cache(q, cache["k"], cache["v"], scales, pages,
+                           n_valid)
     else:
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
         if cache is not None:
@@ -380,3 +404,191 @@ def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
     else:
         m = apply_mlp(cfg, p["mlp"], h)
     return x + m, new_kv, aux
+
+
+# ---------------------------------------------------------------------------
+# Sharded blocks: one replica over the shards of a mesh (tensor and expert
+# parallel, the reference's bit-exact serving profile)
+# ---------------------------------------------------------------------------
+#
+# Every argument that is a list holds one entry per shard, shard j's on its
+# device: the activations ``xs`` (each shard holds the whole of them), the
+# shards' params (``core.simd.sharding.place`` under ``serving_policy``),
+# caches, page tables and positions. A shard computes only what its block
+# of a weight determines with the whole contraction; blocks cross shards
+# only by concatenation (``gather``), never by adding partial products, so
+# each shard's result is the single-card one, bit for bit, wherever a
+# block's product is the block of the whole product.
+
+
+def gather(parts, device, dim: int = -1):
+    """Concatenation of every shard's block of a tensor, on ``device``: the
+    shards' all-gather (a peer copy from another card, none on the same
+    device)."""
+    return torch.cat([t.to(device) for t in parts], dim=dim)
+
+
+def kv_layout(cfg, n: int, cache=None):
+    """How a replica of ``n`` shards splits its K/V storage: "kv" (each
+    shard keeps kv_heads / n whole heads, whenever n divides them), "hd"
+    (each keeps a head_dim block of every head: ``cache``'s leaves are
+    narrower than the head) or None (whole on every shard)."""
+    if cfg.num_kv_heads % n == 0:
+        return "kv"
+    if cache is not None and cache["k"].shape[-1] < cfg.resolved_head_dim:
+        return "hd"
+    return None
+
+
+def _head_plan(h: int, kv: int, n: int, j: int):
+    """Shard j's query heads [a, e) (h / n each when n divides h, else the
+    nearest split), the kv heads [ka, ke) they read, and whether those
+    group evenly (h / kv queries each, in order); when they do not, each
+    query head reads its own copy of its kv head (``_kv_index``)."""
+    a, e = j * h // n, (j + 1) * h // n
+    g = h // kv
+    ka, ke = a // g, (e - 1) // g + 1 if e > a else a // g
+    even = (a % g == 0 and e % g == 0) or ke - ka <= 1
+    return a, e, ka, ke, even
+
+
+def _kv_index(h: int, kv: int, plan, device):
+    """The kv head within [ka, ke) of each of a plan's query heads, built
+    on ``device`` (no host copy inside a captured step); None when they
+    group evenly."""
+    a, e, ka, _, even = plan
+    if even:
+        return None
+    return torch.arange(a, e, device=device) // (h // kv) - ka
+
+
+def _kv_read(caches, j, name, layout, ka, ke, idx):
+    """Shard j's K/V (or scale) leaf ``name`` for kv heads [ka, ke) with
+    whole head_dim, on its device: its own leaf under "kv" (which holds
+    exactly those heads), the head_dim blocks of every shard concatenated
+    under "hd" (scales are whole there), else a slice of its whole
+    leaf."""
+    dev = caches[j][name].device
+    if layout == "hd" and not name.endswith("_scale"):
+        t = gather([c[name][:, :, ka:ke] for c in caches], dev)
+    elif layout == "kv":
+        t = caches[j][name]
+    else:
+        t = caches[j][name]
+        if (ka, ke) != (0, t.shape[2]):
+            t = t[:, :, ka:ke].contiguous()
+    if idx is not None:
+        t = t[:, :, idx].contiguous()
+    return t
+
+
+def _attn_sharded(cfg, ps, hs, ropes, *, mode, caches=None, poss=None,
+                  pagess=None, write_ats=None, n_valids=None, causal=True):
+    """``_attn_apply`` over n shards: each projects its column blocks of q,
+    k, v; takes the whole heads it needs (its own blocks under the "kv"
+    layout, else the blocks of every shard concatenated); rotates them;
+    writes its part of the K/V into its cache (every shard before any
+    reads); attends its query heads (``_head_plan``) through the kernels;
+    and the heads' outputs are concatenated on every shard for the whole
+    ``wo``. Returns (outs, new_kvs): new_kvs[j] the (k, v) of the heads
+    shard j stores, whole head_dim, in prefill mode, else None."""
+    n = len(ps)
+    b, s, _ = hs[0].shape
+    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    layout = kv_layout(cfg, n, caches[0] if caches is not None else None)
+    kvs = kv // n if layout == "kv" else kv
+    q_bl = [linear(x, p["wq"]) for x, p in zip(hs, ps)]
+    k_bl = [linear(x, p["wk"]) for x, p in zip(hs, ps)]
+    v_bl = [linear(x, p["wv"]) for x, p in zip(hs, ps)]
+    split_q = q_bl[0].shape[-1] < h * hd
+    split_kv = k_bl[0].shape[-1] < kv * hd
+    qs, ks, vs, plans = [], [], [], []
+    for j in range(n):
+        dev = hs[j].device
+        plan = _head_plan(h, kv, n, j)
+        a, e = plan[:2]
+        if split_q and h % n == 0:  # the block is the shard's heads
+            q = q_bl[j].reshape(b, s, e - a, hd)
+        else:
+            q = (gather(q_bl, dev) if split_q else q_bl[j]).reshape(
+                b, s, h, hd)[:, :, a:e]
+        if layout == "kv" or not split_kv:
+            k, v = k_bl[j], v_bl[j]
+        else:
+            k, v = gather(k_bl, dev), gather(v_bl, dev)
+        k, v = k.reshape(b, s, kvs, hd), v.reshape(b, s, kvs, hd)
+        if ropes[j] is not None:
+            q, k = L.rotate(q, ropes[j]), L.rotate(k, ropes[j])
+        qs.append(q.contiguous())
+        ks.append(k)
+        vs.append(v)
+        plans.append(plan)
+    if mode == "decode":  # the new tokens' K/V into every shard first
+        for j, c in enumerate(caches):
+            at, k, v = decode_rows(ks[j], vs[j], poss[j], write_ats[j],
+                                   c["k"].shape[1])
+            store_kv(c, at, k, v, (j, n) if layout == "hd" else None)
+    elif caches is not None:  # a fresh rolling cache (never head_dim-split)
+        for c, k, v in zip(caches, ks, vs):
+            ring_fill(c, k, v)
+    outs = []
+    c0 = [j * kvs if layout == "kv" else 0 for j in range(n)]
+    for j in range(n):
+        a, e, ka, ke, _ = plans[j]
+        q = qs[j]
+        idx = _kv_index(h, kv, plans[j], q.device)
+        if e == a:  # more shards than query heads: nothing to attend
+            outs.append(q.reshape(b, s, 0))
+            continue
+        if mode != "decode":
+            sel = slice(ka - c0[j], ke - c0[j])
+            k, v = ks[j][:, :, sel], vs[j][:, :, sel]
+            if idx is not None:
+                k, v = k[:, :, idx], v[:, :, idx]
+            out = ops.flash_attention(q, k.contiguous(), v.contiguous(),
+                                      causal=causal)
+        else:
+            k, v = (_kv_read(caches, j, name, layout, ka, ke, idx)
+                    for name in ("k", "v"))
+            scales = (tuple(_kv_read(caches, j, name, layout, ka, ke, idx)
+                            for name in ("k_scale", "v_scale"))
+                      if "k_scale" in caches[j] else None)
+            out = attend_cache(q, k, v, scales, pagess[j], n_valids[j])
+        outs.append(out.reshape(b, s, (e - a) * hd))
+    ys = [linear(gather(outs, x.device), p["wo"]) for x, p in zip(hs, ps)]
+    return ys, (None if mode == "decode" else list(zip(ks, vs)))
+
+
+def _mlp_sharded(cfg, ps, xs):
+    """``apply_mlp`` over n shards: each its column block of the hidden
+    (``w_gate`` / ``w_up`` split on ff, or whole), the blocks concatenated
+    on every shard for the whole ``w_down``."""
+    hb = [mlp_hidden(cfg, p, x) for x, p in zip(xs, ps)]
+    split = hb[0].shape[-1] < ps[0]["w_down"].shape[0]
+    return [linear(gather(hb, x.device) if split else h, p["w_down"])
+            for x, h, p in zip(xs, hb, ps)]
+
+
+def apply_block_sharded(cfg, btype: str, ps, xs, ropes, *, mode: str,
+                        caches=None, poss=None, pagess=None, write_ats=None,
+                        n_valids=None, moe_full_cap: bool = False):
+    """``apply_block`` of a ``dense`` or ``moe`` block over n shards (lists,
+    one entry per shard; ``caches`` and the rest as the single-card
+    block's, per shard). Returns (xs, new_kvs): new_kvs[j] the prompt's
+    (k, v) of the heads shard j stores, in prefill mode."""
+    if btype not in ("dense", "moe"):
+        raise ValueError(f"block type {btype!r} has no sharded form yet "
+                         f"(ROADMAP.md queue 1, 'Multi-GPU')")
+    hs = [L.apply_norm(cfg, p["norm1"], x) for x, p in zip(xs, ps)]
+    a, new_kvs = _attn_sharded(
+        cfg, [p["attn"] for p in ps], hs, ropes, mode=mode, caches=caches,
+        poss=poss, pagess=pagess, write_ats=write_ats, n_valids=n_valids,
+        causal=cfg.causal)
+    xs = [x + y for x, y in zip(xs, a)]
+    hs = [L.apply_norm(cfg, p["norm2"], x) for x, p in zip(xs, ps)]
+    if btype == "moe":
+        m = apply_moe_sharded(cfg, [p["moe"] for p in ps], hs,
+                              full_cap=moe_full_cap)
+    else:
+        m = _mlp_sharded(cfg, [p["mlp"] for p in ps], hs)
+    return [x + y for x, y in zip(xs, m)], new_kvs

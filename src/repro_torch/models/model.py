@@ -16,6 +16,18 @@ Public API (device explicit everywhere):
   decode_step(cfg, params, cache, tokens)     -> logits (B, S, V); cache
                                                  (paged or rolling) updated
                                                  in place
+  param_specs(cfg), cache_specs(cfg, batch, window)
+                                              -> the same trees on the
+                                                 meta device (shapes only)
+  shard_params(cfg, params, mesh), shard_cache(cfg, cache, mesh, paged=)
+                                              -> one tree per shard
+                                                 (``Shards``) under
+                                                 ``serving_policy``
+
+``forward`` and ``decode_step`` also take a sharded replica: params and
+caches as ``Shards`` (tensor and expert parallel over the mesh's
+``model`` axis, ``blocks.apply_block_sharded``). The logits come back
+whole on the first shard's device, where the sampler runs.
 
 Both steps take ``positions`` (3, B, S) for mrope (qwen2-vl: the stubbed
 vision frontend's three position streams; the reference's
@@ -35,12 +47,22 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.simd.sharding import (
+    Shards,
+    cache_pspecs,
+    paged_cache_pspecs,
+    param_pspecs,
+    place,
+    serving_policy,
+)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import (
     PAGED_BLOCKS,
     PORTED_BLOCKS,
     apply_block,
+    apply_block_sharded,
+    gather,
     init_block,
     init_block_cache,
     init_norm,
@@ -99,7 +121,8 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     in as embeddings), as in the reference."""
     device = resolve_device(device)
     dtype = dtype_of(cfg)
-    gen = torch.Generator(device=device)
+    # the meta device (``param_specs``) draws nothing: a CPU generator
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
     gen.manual_seed(seed)
     d, v = cfg.d_model, cfg.vocab_size
     params = {
@@ -115,6 +138,17 @@ def init_params(cfg, seed: int = 0, device="cuda"):
                                          device=device)
                              * d ** -0.5).to(dtype)
     return params
+
+
+def param_specs(cfg):
+    """The params' shapes and dtypes, on the meta device (nothing is
+    allocated): the reference's ``param_specs``, one entry per layer."""
+    return init_params(cfg, 0, device="meta")
+
+
+def cache_specs(cfg, batch: int, window: int, kv_dtype: str = ""):
+    """The rolling cache's shapes and dtypes, on the meta device."""
+    return init_cache(cfg, batch, window, device="meta", kv_dtype=kv_dtype)
 
 
 def init_cache(cfg, batch: int, window: int, device="cuda",
@@ -192,6 +226,132 @@ def quantize_weights(cfg, params):
 
 def _embed(params, tokens):
     return params["embed"][tokens.to(torch.int64)]
+
+
+# ---------------------------------------------------------------------------
+# sharded replicas
+# ---------------------------------------------------------------------------
+
+
+def shard_params(cfg, params, mesh) -> Shards:
+    """Shard j's params on ``mesh.flat[j]``, laid out by ``param_pspecs``
+    under ``serving_policy``: column blocks of the _COL projections, vocab
+    blocks of ``embed`` / ``lm_head``, expert or ff blocks of the MoE
+    stacks, every other leaf whole (``sharding.place``: a whole leaf
+    already on a shard's device is shared, not copied). A float32 copy of
+    the shard's lm-head block (``lm_head_f32``) is added under a narrower
+    model dtype; a copy the caller made of the whole head is not used."""
+    base = {k: v for k, v in params.items() if k != "lm_head_f32"}
+    trees = place(base, param_pspecs(cfg, base, serving_policy(cfg, mesh)),
+                  mesh)
+    if dtype_of(cfg) != F32:
+        for p in trees:
+            p["lm_head_f32"] = head_f32(p)
+    return Shards(trees, mesh)
+
+
+def shard_cache(cfg, cache, mesh, *, paged: bool) -> Shards:
+    """Shard j's cache on ``mesh.flat[j]`` from ``cache`` (meta tensors
+    give zeros): page pools, and the B=1 working buffers gathered from and
+    scattered into them, by ``paged_cache_pspecs``; rolling caches by
+    ``cache_pspecs``. Positions and page tables are whole on every
+    shard."""
+    pol = serving_policy(cfg, mesh)
+    specs = (paged_cache_pspecs if paged else cache_pspecs)(
+        cfg, cache, pol, mesh)
+    return Shards(place(cache, specs, mesh), mesh)
+
+
+def _embed_sharded(cfg, shards, toks):
+    """Every shard's token embeddings (B, S, d), whole: under a vocab
+    split each shard looks up the tokens its block owns (clamped
+    elsewhere), and each token's row is taken from its owner's
+    concatenated rows."""
+    vb = shards[0]["embed"].shape[0]
+    if vb == cfg.vocab_size:
+        return [_embed(p, t) for p, t in zip(shards, toks)]
+    rows = [p["embed"][torch.clamp(t.to(torch.int64) - j * vb, 0, vb - 1)]
+            for j, (p, t) in enumerate(zip(shards, toks))]
+    xs = []
+    for t in toks:
+        owner = (t.to(torch.int64) // vb)[None, :, :, None]
+        xs.append(torch.take_along_dim(
+            gather([r[None] for r in rows], t.device, dim=0), owner,
+            dim=0)[0])
+    return xs
+
+
+def _logits_sharded(cfg, shards, xs):
+    """The logits (B, ..., V) float32 on the first shard's device: each
+    shard's vocab block, concatenated (the reference replicates them
+    before its sampler), or the first shard's whole product when the
+    head is not split."""
+    if head_f32(shards[0]).shape[-1] == cfg.vocab_size:
+        return _logits(cfg, shards[0], xs[0])
+    return gather([_logits(cfg, p, x) for p, x in zip(shards, xs)],
+                  xs[0].device)
+
+
+def _at(xs, logits_at):
+    if logits_at is None:
+        return xs
+    return [x[torch.arange(x.shape[0], device=x.device),
+              logits_at.to(x.device, torch.int64)] for x in xs]
+
+
+def _forward_sharded(cfg, shards, tokens, *, logits_at, want_kv, cache,
+                     positions, moe_full_cap):
+    """``forward`` (prefill mode) over a sharded replica. kv, when
+    wanted, is per shard the per-layer (k, v) of the heads it stores."""
+    devs = shards.mesh.flat
+    b, s = tokens.shape
+    xs = _embed_sharded(cfg, shards, [tokens.to(d) for d in devs])
+    ropes = [_rope(cfg, None if positions is None else positions.to(d),
+                   lambda d=d: torch.arange(s, device=d)[None].expand(b, s))
+             for d in devs]
+    kvs = [[] for _ in devs]
+    for i, bt in enumerate(layer_types(cfg)):
+        xs, kv = apply_block_sharded(
+            cfg, bt, [p["layers"][i] for p in shards], xs, ropes,
+            mode="prefill", moe_full_cap=moe_full_cap,
+            caches=None if cache is None else [c["layers"][i]
+                                               for c in cache])
+        for j in range(len(devs)):
+            kvs[j].append(kv[j] if want_kv else None)
+    if cache is not None:
+        for c in cache:
+            c["pos"].fill_(s)
+    return (_logits_sharded(cfg, shards, _at(xs, logits_at)),
+            kvs if want_kv else None)
+
+
+def _decode_sharded(cfg, shards, cache, tokens, *, logits_at, positions,
+                    moe_full_cap):
+    """``decode_step`` over a sharded replica: every shard's cache holds
+    its own position and page-table copies, advanced alike."""
+    devs = shards.mesh.flat
+    b, s = tokens.shape
+    xs = _embed_sharded(cfg, shards, [tokens.to(d) for d in devs])
+    poss = [c["pos"] for c in cache]
+    pagess = [c.get("page_table") for c in cache]
+    ropes = [_rope(cfg, None if positions is None else positions.to(d),
+                   lambda p=p, d=d: p.to(torch.int64)[:, None]
+                   + torch.arange(s, device=d)[None, :])
+             for p, d in zip(poss, devs)]
+    write_ats = [None if pages is None else paged_write_index(
+        pages, pos, s, c["layers"][0]["k"].shape[1],
+        resolve_duplicates=cfg.arch_type == "moe")
+        for pages, pos, c in zip(pagess, poss, cache)]
+    n_valids = [(pos + s).to(torch.int32) for pos in poss]
+    for i, bt in enumerate(layer_types(cfg)):
+        xs, _ = apply_block_sharded(
+            cfg, bt, [p["layers"][i] for p in shards], xs, ropes,
+            mode="decode", caches=[c["layers"][i] for c in cache],
+            poss=poss, pagess=pagess, write_ats=write_ats,
+            n_valids=n_valids, moe_full_cap=moe_full_cap)
+    for pos in poss:
+        pos.add_(s)
+    return _logits_sharded(cfg, shards, _at(xs, logits_at))
 
 
 def _embed_inputs(cfg, params, tokens, patches):
@@ -288,6 +448,14 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
     if mode not in ("prefill", "train"):
         raise ValueError(f"forward: mode {mode!r} not in ('prefill', "
                          f"'train')")
+    if isinstance(params, Shards):
+        if mode != "prefill" or patches is not None:
+            raise ValueError("forward: a sharded replica serves token "
+                             "prefill only (no train mode, no patches)")
+        return _forward_sharded(cfg, params, tokens, logits_at=logits_at,
+                                want_kv=want_kv, cache=cache,
+                                positions=positions,
+                                moe_full_cap=moe_full_cap)
     x = _embed_inputs(cfg, params, tokens, patches)
     b, s = x.shape[:2]
     rope = _rope(cfg, positions, lambda: torch.arange(
@@ -325,6 +493,10 @@ def decode_step(cfg, params, cache, tokens, *,
     place (never rebinding it: a captured CUDA graph keeps reading the
     tensor it was captured with). Returns logits (B, S, V) float32, or
     (B, V) at the chunk offsets ``logits_at`` (B,) when given."""
+    if isinstance(params, Shards):
+        return _decode_sharded(cfg, params, cache, tokens,
+                               logits_at=logits_at, positions=positions,
+                               moe_full_cap=moe_full_cap)
     b, s = tokens.shape
     pos = cache["pos"]
     pages = cache.get("page_table")

@@ -28,7 +28,6 @@ counterpart on one card.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 F32 = torch.float32
 
@@ -129,9 +128,10 @@ def route(cfg, probs, c: int):
     return combine, torch.stack(keeps, dim=-1), routed
 
 
-def apply_moe(cfg, p, x, *, group_size: int = 2048, full_cap: bool = False):
-    """x (B, S, d) -> (y (B, S, d), aux loss, a float32 scalar).
-    ``full_cap``: capacity of the whole group (the "strict" policy)."""
+def _dispatch(cfg, p, x, group_size: int, full_cap: bool):
+    """Route x (B, S, d) in groups and gather each expert's capacity
+    buffer: (combine (N, g, E*C) in x's dtype, the buffers xe (E, N*C, d),
+    probs (N, g, E) float32, the routed fraction (N, E))."""
     b, s, d = x.shape
     e = cfg.num_experts
     n, g = group_shape(b * s, group_size)
@@ -145,21 +145,67 @@ def apply_moe(cfg, p, x, *, group_size: int = 2048, full_cap: bool = False):
     # (N, g, E*C)^T @ (N, g, d): each expert slot holds one token or none
     xe = torch.matmul(dispatch.reshape(n, g, e * c).transpose(1, 2), xg)
     xe = xe.reshape(n, e, c, d).transpose(0, 1).reshape(e, n * c, d)
-    if cfg.mlp_variant in ("swiglu", "geglu"):
-        gt = torch.bmm(xe, p["w_gate"])
-        up = torch.bmm(xe, p["w_up"])
-        act = (F.silu(gt) if cfg.mlp_variant == "swiglu"
-               else F.gelu(gt, approximate="tanh"))
-        h = act * up
-    else:
-        h = F.gelu(torch.bmm(xe, p["w_up"]), approximate="tanh")
-    ye = torch.bmm(h, p["w_down"])  # (E, N*C, d)
-    ye = ye.reshape(e, n, c, d).transpose(0, 1).reshape(n, e * c, d)
-    y = torch.matmul(combine.reshape(n, g, e * c), ye).reshape(b, s, d)
-    if cfg.moe_shared_expert:
-        from repro_torch.models.blocks import apply_mlp
+    return combine.reshape(n, g, e * c), xe, probs, routed
 
+
+def _combine(combine, ye, shape):
+    """Each token's gated sum of its experts' outputs ye (E, N*C, d), by
+    the (N, g, E*C) combine weights, shaped ``shape`` (B, S, d)."""
+    n, g, ec = combine.shape
+    e, _, d = ye.shape
+    ye = ye.reshape(e, n, ec // e, d).transpose(0, 1).reshape(n, ec, d)
+    return torch.matmul(combine, ye).reshape(shape)
+
+
+def apply_moe(cfg, p, x, *, group_size: int = 2048, full_cap: bool = False):
+    """x (B, S, d) -> (y (B, S, d), aux loss, a float32 scalar).
+    ``full_cap``: capacity of the whole group (the "strict" policy)."""
+    from repro_torch.models.blocks import apply_mlp, mlp_hidden
+
+    combine, xe, probs, routed = _dispatch(cfg, p, x, group_size, full_cap)
+    ye = torch.bmm(mlp_hidden(cfg, p, xe, torch.bmm), p["w_down"])
+    y = _combine(combine, ye, x.shape)
+    if cfg.moe_shared_expert:
         y = y + apply_mlp(cfg, p["shared"], x)
-    k = cfg.experts_per_token
+    e, k = cfg.num_experts, cfg.experts_per_token
     aux = (e * (routed / k) * probs.mean(dim=1)).sum(-1).mean()
     return y, aux
+
+
+def apply_moe_sharded(cfg, ps, xs, *, group_size: int = 2048,
+                      full_cap: bool = False):
+    """``apply_moe`` over n shards (lists, one entry per shard, ``xs``
+    whole on every shard). Every shard routes all tokens with the whole
+    router (the same routing on each), then runs its block of the
+    experts: under expert parallelism (``w_up`` holds E / n experts) its
+    experts' outputs, concatenated over the expert axis on every shard;
+    with the experts split on ff, its block of their hidden,
+    concatenated for the whole ``w_down``. Each shard then combines the
+    whole (E, C) buffer with the single-card product: no shard adds
+    another's partial sums. Returns the outputs (B, S, d) per shard."""
+    from repro_torch.models.blocks import _mlp_sharded, gather, mlp_hidden
+
+    e = cfg.num_experts
+    combs, parts = [], []
+    for j, (x, p) in enumerate(zip(xs, ps)):
+        combine, xe, _, _ = _dispatch(cfg, p, x, group_size, full_cap)
+        e_loc = p["w_up"].shape[0]
+        if e_loc < e:  # expert parallel: this shard's experts
+            xe = xe[j * e_loc:(j + 1) * e_loc]
+        h = mlp_hidden(cfg, p, xe, torch.bmm)
+        parts.append(torch.bmm(h, p["w_down"]) if e_loc < e else h)
+        combs.append(combine)
+    ys = []
+    for j, (x, p) in enumerate(zip(xs, ps)):
+        if p["w_up"].shape[0] < e:
+            ye = gather(parts, x.device, dim=0)  # (E, N*C, d)
+        else:
+            h = parts[j]
+            if h.shape[-1] < p["w_down"].shape[1]:  # ff-split experts
+                h = gather(parts, x.device)
+            ye = torch.bmm(h, p["w_down"])
+        ys.append(_combine(combs[j], ye, x.shape))
+    if cfg.moe_shared_expert:
+        ys = [y + m for y, m in zip(ys, _mlp_sharded(
+            cfg, [p["shared"] for p in ps], xs))]
+    return ys

@@ -1,6 +1,7 @@
 """Serving stack of the PyTorch port: the JAX package's ``repro.serving``
-on one card (the engine and the cluster frontend over its replicas), with
-the same exports for the modules ported so far."""
+(the engine, on one card or as one replica over the shards of a device
+grid, and the cluster frontend over its replicas), with the same exports
+for the modules ported so far."""
 from repro_torch.serving.cluster import ClusterFrontend, EngineInstance
 from repro_torch.serving.config import (
     KV_CACHE_DTYPES,

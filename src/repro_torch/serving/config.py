@@ -2,17 +2,23 @@
 ``DeviceTopology`` and the frozen ``EngineConfig``, with the JAX package's
 fields (``repro/serving/config.py``).
 
-The port serves one card: the paged KV cache on dense and MoE archs,
-rolling caches (``paged=False``, recurrentgemma's rings and RG-LRU
-states, and mamba2's SSD states), single-shot and chunked prefill
-(``chunk_prefill`` defaults to 64, as in the reference), the prefix
-cache, cancel, timeouts, shedding and preemption, model-dtype or int8
-pools and weights, the three MoE capacity policies, span tracing and the
-profiler hook. ``validate()`` refuses every option whose path is not
-ported yet (sharded replicas) and names the ``ROADMAP.md`` item that
-brings it, so nothing silently runs a different path than the one asked
-for; it refuses an encoder-only arch (hubert-xlarge: bidirectional
-``encoder`` blocks, trained through ``repro_torch.training``) with the
+The port serves the paged KV cache on dense and MoE archs, rolling
+caches (``paged=False``, recurrentgemma's rings and RG-LRU states, and
+mamba2's SSD states), single-shot and chunked prefill (``chunk_prefill``
+defaults to 64, as in the reference), the prefix cache, cancel,
+timeouts, shedding and preemption, model-dtype or int8 pools and
+weights, the three MoE capacity policies, span tracing and the profiler
+hook, on one card or, under ``DeviceTopology(tp=N)``, as one replica
+over N shards (tensor parallel, and expert parallel on MoE archs whose
+config asks for it) on archs whose blocks are all ``dense`` or ``moe``,
+on paged or rolling caches with model-dtype or int8 KV. ``validate()``
+refuses every option whose path is not ported yet (``dp`` > 1; sharded
+``rglru``, ``ssd`` or ``local_attn`` blocks) and names the
+``ROADMAP.md`` item that brings it, so nothing silently runs a different
+path than the one asked for; with the reference it refuses int8 weights
+on a sharded replica. It refuses an encoder-only arch (hubert-xlarge:
+bidirectional ``encoder`` blocks, trained through
+``repro_torch.training``) with the
 reference serve CLI's "encoder-only arch: no autoregressive serving"; the
 engine keeps the reference's own refusals (a prefix cache or preemption
 without pages, an unknown ``preempt_policy``).
@@ -154,11 +160,13 @@ class EngineConfig:
     def n_chips(self) -> int:
         return self.modeled_chips or self.topology.n_chips
 
-    def validate(self, cfg=None) -> "EngineConfig":
+    def validate(self, cfg=None, devices=None) -> "EngineConfig":
         """Refuse, before any work, a paged cache or a precision the
-        reference refuses (with its message), then every option whose path
-        the port does not serve yet; that message names the ROADMAP.md
-        item."""
+        reference refuses (with its message), a sharded topology that
+        needs more cards than the host has when no device grid
+        (``devices``) is given (as the reference refuses more devices than
+        the host exposes), then every option whose path the port does not
+        serve yet; that message names the ROADMAP.md item."""
         if cfg is not None and self.paged:
             from repro_torch.models import paged_ok
 
@@ -169,11 +177,24 @@ class EngineConfig:
                     f"back to rolling windows")
         self._validate_precision(cfg)
         q1 = "ROADMAP.md queue 1"
+        need = self.topology.n_chips
+        if need > 1 and devices is None:
+            import torch
+
+            have = torch.cuda.device_count()
+            if need > have:
+                raise ValueError(
+                    f"EngineConfig.topology (dp={self.topology.dp} x "
+                    f"tp={self.topology.tp}) needs {need} devices but this "
+                    f"host has {have} CUDA device(s); pass the device grid "
+                    f"(ServingEngine(device=[...]), make_serving_mesh("
+                    f"devices=[...]) or the serve CLI's --devices; a device "
+                    f"may repeat), or shrink the topology ({q1}, "
+                    f"'Multi-GPU')")
         not_yet = []
-        if self.topology.sharded:
-            not_yet.append((f"topology dp={self.topology.dp} "
-                            f"tp={self.topology.tp} (sharded replica)",
-                            f"{q1}, 'Multi-GPU'"))
+        if self.topology.dp > 1:
+            not_yet.append((f"topology dp={self.topology.dp} (a data axis "
+                            f"inside one replica)", f"{q1}, 'Multi-GPU'"))
         if cfg is not None:
             from repro_torch.models import layer_types, ported
             from repro_torch.models.blocks import PORTED_BLOCKS
@@ -186,6 +207,11 @@ class EngineConfig:
                 bad = sorted(set(layer_types(cfg)) - set(PORTED_BLOCKS))
                 not_yet.append((f"arch {cfg.name} with {bad} blocks",
                                 f"{q1}, 'Other block families'"))
+            hybrid = sorted(set(layer_types(cfg)) - {"dense", "moe"})
+            if self.topology.sharded and hybrid:
+                not_yet.append((f"arch {cfg.name} with {hybrid} blocks on "
+                                f"a sharded topology (tp="
+                                f"{self.topology.tp})", f"{q1}, 'Multi-GPU'"))
             if cfg.rope_variant not in ROPE_VARIANTS:
                 not_yet.append((f"arch {cfg.name} with rope variant "
                                 f"{cfg.rope_variant!r}",

@@ -1,5 +1,7 @@
 """Serving engine of the PyTorch port: the JAX package's
-``repro/serving/engine.py`` on one card — continuous batching over a paged
+``repro/serving/engine.py`` on one card, or as one replica over the tp
+shards of a device grid (``DeviceTopology(tp=N)``; see ``ServingEngine``)
+— continuous batching over a paged
 KV cache on dense archs, or over rolling caches (KV rings and recurrent
 states) on archs that cannot page (recurrentgemma) and on dense archs with
 ``paged=False``; single-shot prefill (bucketed, or at the exact prompt
@@ -75,7 +77,9 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.hardware import H100_SXM, Chip
 from repro_torch.core.misd.batching import BatchAccumulator, plan_admission
 from repro_torch.core.misd.scheduler import ChunkedPrefillPolicy
+from repro_torch.core.simd.sharding import Shards
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import (
     decode_step,
     dtype_of,
@@ -85,6 +89,8 @@ from repro_torch.models import (
     layer_types,
     paged_ok,
     quantize_weights,
+    shard_cache,
+    shard_params,
 )
 from repro_torch.models.blocks import (
     KV_CACHE_BLOCKS,
@@ -130,10 +136,23 @@ def prompt_bucket(n: int, *, min_bucket: int = 16) -> int:
 
 
 def _dev_index(x, device):
-    """A host int, or a tensor already on ``device``, as a (1,) int64
-    tensor there: slot ids and lengths that live on the device let one
-    captured step serve every value."""
+    """A host int, or a device tensor (copied to ``device`` when it lies
+    elsewhere), as a (1,) int64 tensor there: slot ids and lengths that
+    live on the device let one captured step serve every value."""
     return torch.as_tensor(x, device=device).to(torch.int64).reshape(1)
+
+
+def _shards(cache) -> list:
+    """The caches of a sharded replica's shards (``Shards``), or
+    ``[cache]`` on one card: host-decided writes go to every shard's
+    copy of the page table and positions."""
+    return cache if isinstance(cache, Shards) else [cache]
+
+
+def _pos(cache):
+    """The slots' positions (B,), the first shard's copy on a sharded
+    replica (its device is the sampler's)."""
+    return _shards(cache)[0]["pos"]
 
 
 def mrope_positions(cfg, start, s: int):
@@ -163,14 +182,20 @@ def rolling_prefill_step(cfg, params, tokens, true_len, *, window: int,
     below. Returns (first greedy token (B,) int32, last-true-position
     logits (B, V), cache)."""
     b = tokens.shape[0]
-    cache = init_cache(cfg, b, window, device=tokens.device,
-                       kv_dtype=kv_dtype)
+    if isinstance(params, Shards):  # a sharded replica's layout
+        cache = shard_cache(cfg, init_cache(cfg, b, window, device="meta",
+                                            kv_dtype=kv_dtype),
+                            params.mesh, paged=False)
+    else:
+        cache = init_cache(cfg, b, window, device=tokens.device,
+                           kv_dtype=kv_dtype)
     n = _dev_index(true_len, tokens.device)
     last, _ = forward(cfg, params, tokens, logits_at=(n - 1).expand(b),
                       cache=cache, moe_full_cap=moe_full_cap,
-                      positions=mrope_positions(cfg, cache["pos"],
+                      positions=mrope_positions(cfg, _pos(cache),
                                                 tokens.shape[1]))
-    cache["pos"].copy_(n.expand(b))
+    for c in _shards(cache):
+        c["pos"].copy_(n.to(c["pos"].device).expand(b))
     return torch.argmax(last, dim=-1).to(torch.int32), last, cache
 
 
@@ -206,11 +231,12 @@ def cache_insert(cache, single, slot):
     ``slot`` (an int or a (1,) device tensor), in place (every leaf of the
     slot is overwritten, so nothing of the slot's previous request
     survives)."""
-    at = _dev_index(slot, cache["pos"].device)
-    for big, small in zip(cache["layers"], single["layers"]):
-        for name, leaf in big.items():
-            leaf.index_copy_(0, at, small[name])
-    cache["pos"].index_copy_(0, at, single["pos"])
+    for cache, single in zip(_shards(cache), _shards(single)):
+        at = _dev_index(slot, cache["pos"].device)
+        for big, small in zip(cache["layers"], single["layers"]):
+            for name, leaf in big.items():
+                leaf.index_copy_(0, at, small[name])
+        cache["pos"].index_copy_(0, at, single["pos"])
 
 
 def paged_prefill_step(cfg, params, tokens, true_len, *,
@@ -231,7 +257,8 @@ def paged_prefill_step(cfg, params, tokens, true_len, *,
     return torch.argmax(last, dim=-1).to(torch.int32), last, kv
 
 
-def pages_insert(cache, kv, pages, slot, true_len, *, scale_group: int = 0):
+def pages_insert(cache, kv, pages, slot, true_len, *, scale_group: int = 0,
+                 hd_part=None):
     """Admit a prefilled request: scatter its K/V (the n pages' worth of
     positions) into the pool pages ``pages`` (n,), point the table row of
     ``slot`` at them (trash page 0 after) and set its position to
@@ -241,7 +268,21 @@ def pages_insert(cache, kv, pages, slot, true_len, *, scale_group: int = 0):
     quantized over all n pages' positions pads included (as the
     reference's prefill quantizes its whole padded window): one scale per
     ``scale_group`` tokens (the page, under the "page" granularity) or,
-    with 0, per token."""
+    with 0, per token.
+
+    A sharded replica (``Shards`` caches, ``kv`` per shard: the heads each
+    stores, whole head_dim) scatters on every shard; pools split on
+    head_dim take block j of n (``hd_part`` = (j, n)) of each vector, after
+    int8 quantizes the whole vector."""
+    if isinstance(cache, Shards):
+        n_sh = len(cache)
+        for j, (c, kv_j) in enumerate(zip(cache, kv)):
+            narrow = c["layers"][0]["k"].shape[-1] < kv_j[0][0].shape[-1]
+            dev = c["pos"].device
+            pages_insert(c, kv_j, pages.to(dev), slot, true_len,
+                         scale_group=scale_group,
+                         hd_part=(j, n_sh) if narrow else None)
+        return
     n = pages.shape[0]
     for layer, (k, v) in zip(cache["layers"], kv):
         ps = layer["k"].shape[1]
@@ -251,6 +292,9 @@ def pages_insert(cache, kv, pages, slot, true_len, *, scale_group: int = 0):
                 t, scale = quantize_kv(t, group=scale_group)
                 layer[name + "_scale"][pages] = scale.reshape(
                     n, ps, *scale.shape[1:])
+            if hd_part is not None:
+                w = t.shape[-1] // hd_part[1]
+                t = t[..., hd_part[0] * w:(hd_part[0] + 1) * w]
             layer[name][pages] = t.reshape(n, ps, *t.shape[1:]).to(
                 layer[name].dtype)
     table, pos = cache["page_table"], cache["pos"]
@@ -271,14 +315,15 @@ def prefill_chunk_step(cfg, params, cache, tokens, true_len, *,
     logits (1, V) at the last true position, clamped into the chunk); the
     cache advances in place (the reference's ``prefill_chunk_step``)."""
     b, c = tokens.shape
-    start = cache["pos"].to(torch.int64)  # a copy: decode_step advances pos
+    start = _pos(cache).to(torch.int64)  # a copy: decode_step advances pos
     n = _dev_index(true_len, tokens.device)
     at = torch.clamp(n - 1 - start, 0, c - 1)
     last = decode_step(cfg, params, cache, tokens, logits_at=at,
                        positions=mrope_positions(cfg, start, c),
                        moe_full_cap=moe_full_cap)
-    cache["pos"].copy_(torch.minimum(cache["pos"],
-                                     n.to(cache["pos"].dtype)))
+    for sh in _shards(cache):
+        pos = sh["pos"]
+        pos.copy_(torch.minimum(pos, n.to(pos.device, pos.dtype)))
     return torch.argmax(last, dim=-1).to(torch.int32), last
 
 
@@ -290,13 +335,17 @@ def prefix_seed_cache(paged_cache, linear, pages, start):
     (i+1) ps); int8 pools bring their codes and scales as they are. The
     buffer's position becomes ``start`` (an int or a (1,) device tensor),
     which masks the trash rows and the donor's tokens past the restart.
-    Reads the pools only (the reference's ``prefix_seed_cache``)."""
-    for big, small in zip(paged_cache["layers"], linear["layers"]):
-        for name, pool in big.items():
-            chain = pool[pages]  # (n, ps, kv, d)
-            small[name][0].copy_(chain.reshape(-1, *chain.shape[2:]))
-    pos = linear["pos"]
-    pos.copy_(_dev_index(start, pos.device).to(pos.dtype))
+    Reads the pools only (the reference's ``prefix_seed_cache``). On a
+    sharded replica every shard gathers its own pools into its own buffer
+    (the buffers share the pools' layout)."""
+    for paged_cache, linear in zip(_shards(paged_cache), _shards(linear)):
+        at = pages.to(linear["pos"].device)
+        for big, small in zip(paged_cache["layers"], linear["layers"]):
+            for name, pool in big.items():
+                chain = pool[at]  # (n, ps, kv, d)
+                small[name][0].copy_(chain.reshape(-1, *chain.shape[2:]))
+        pos = linear["pos"]
+        pos.copy_(_dev_index(start, pos.device).to(pos.dtype))
 
 
 def pages_insert_prefix(paged_cache, linear, scatter_pages, table_pages,
@@ -316,21 +365,27 @@ def pages_insert_prefix(paged_cache, linear, scatter_pages, table_pages,
     the last one's rows, so the trash page ends the same on any device
     (idle lanes attend it)."""
     n = scatter_pages.shape[0]
-    win = last_writer(scatter_pages.to(torch.int64))
-    for big, small in zip(paged_cache["layers"], linear["layers"]):
-        for name, pool in big.items():
-            ps = pool.shape[1]
-            pool[scatter_pages] = small[name][0, :n * ps].reshape(
-                n, ps, *pool.shape[2:])[win].to(pool.dtype)
-    table, pos = paged_cache["page_table"], paged_cache["pos"]
-    at = _dev_index(slot, pos.device)
-    table.index_copy_(0, at, table_pages.reshape(1, -1).to(table.dtype))
-    pos.index_copy_(0, at, _dev_index(true_len, pos.device).to(pos.dtype))
+    for paged_cache, linear in zip(_shards(paged_cache), _shards(linear)):
+        dev = linear["pos"].device
+        scatter = scatter_pages.to(dev)
+        win = last_writer(scatter.to(torch.int64))
+        for big, small in zip(paged_cache["layers"], linear["layers"]):
+            for name, pool in big.items():
+                ps = pool.shape[1]
+                pool[scatter] = small[name][0, :n * ps].reshape(
+                    n, ps, *pool.shape[2:])[win].to(pool.dtype)
+        table, pos = paged_cache["page_table"], paged_cache["pos"]
+        at = _dev_index(slot, dev)
+        table.index_copy_(0, at, table_pages.reshape(1, -1).to(
+            dev, table.dtype))
+        pos.index_copy_(0, at, _dev_index(true_len, dev).to(pos.dtype))
 
 
 def page_table_append(cache, slot: int, idx: int, page: int):
-    """Grant one more page to a slot mid-decode: table[slot, idx] = page."""
-    cache["page_table"][slot, idx] = page
+    """Grant one more page to a slot mid-decode: table[slot, idx] = page
+    (in every shard's copy of the table)."""
+    for c in _shards(cache):
+        c["page_table"][slot, idx] = page
 
 
 def slot_release(cache, slot: int):
@@ -338,9 +393,10 @@ def slot_release(cache, slot: int):
     whole table row at the trash page: it keeps riding in the decode
     batch, but its writes can no longer land in a reclaimed page, and its
     decode attention reads one row instead of a whole ring."""
-    if "page_table" in cache:
-        cache["page_table"][slot].zero_()
-    cache["pos"][slot] = 0
+    for c in _shards(cache):
+        if "page_table" in c:
+            c["page_table"][slot].zero_()
+        c["pos"][slot] = 0
 
 
 def init_sampling_state(slots: int, device) -> dict:
@@ -413,9 +469,9 @@ def decode_tick(cfg, params, cache, tokens, samp, *,
     the first token uses (pos = prompt_len). Returns next tokens (B,)
     int32; the cache advances in place."""
     logits = decode_step(cfg, params, cache, tokens[:, None],
-                         positions=mrope_positions(cfg, cache["pos"], 1),
+                         positions=mrope_positions(cfg, _pos(cache), 1),
                          moe_full_cap=moe_full_cap)
-    return draw_tokens(logits[:, -1], samp, cache["pos"],
+    return draw_tokens(logits[:, -1], samp, _pos(cache),
                        partitionable=partitionable, uniform=uniform)
 
 
@@ -427,7 +483,7 @@ def decode_scan_step(cfg, params, cache, tokens, samp, *, n: int,
     token history (n, B) int32) — the caller syncs the history once. The
     history is written into ``out`` when given (the engine's static
     buffer, which a captured window overwrites in place)."""
-    us = window_uniforms(samp, cache["pos"], n, partitionable=partitionable)
+    us = window_uniforms(samp, _pos(cache), n, partitionable=partitionable)
     hist = out if out is not None else torch.empty(
         (n, tokens.shape[0]), dtype=torch.int32, device=tokens.device)
     for i in range(n):
@@ -579,13 +635,31 @@ class _Profiler:
 
 
 class ServingEngine:
-    """Single-card engine with continuous batching over a paged KV cache,
-    or over rolling caches (the reference's ``ServingEngine``; see its
-    docstring for the knobs). ``paged`` None serves from pages whenever
-    every block can, else from rolling caches; ``paged=True`` on an arch
-    that cannot page raises, as the reference. ``device`` defaults to CUDA
-    and raises when no card is present unless ``device="cpu"`` is asked
-    for. ``threefry_partitionable`` selects the
+    """Engine with continuous batching over a paged KV cache, or over
+    rolling caches (the reference's ``ServingEngine``; see its docstring
+    for the knobs). ``paged`` None serves from pages whenever every block
+    can, else from rolling caches; ``paged=True`` on an arch that cannot
+    page raises, as the reference. ``device`` defaults to CUDA and raises
+    when no card is present unless ``device="cpu"`` is asked for.
+
+    Under ``EngineConfig(topology=DeviceTopology(tp=N))`` one replica
+    spans the N shards of ``self.mesh`` (``launch.mesh``), with the
+    reference's bit-exact layout (``core.simd.sharding.serving_policy``):
+    ``device`` is then the grid, a list of N devices (the same one may
+    repeat: ``["cpu"] * 4``, ``["cuda:0"] * 2``), or "cuda" for the
+    host's first N cards, refused before any weight is placed when the
+    host has fewer. ``self.params`` and ``self.cache`` hold one tree per
+    shard (``Shards``); the page table, positions, token carry and
+    sampling state stay whole (the first shard's device runs the sampler,
+    and every shard keeps its own copy of the table and positions), and
+    the host-side allocator, prefix index and preemption are
+    topology-blind. Steps over shards on one device are captured as on
+    one card; a replica over several cards runs its steps eagerly
+    (``StepGraphs(capture=False)``): whether one CUDA graph may hold work
+    and peer copies of several cards is not assumed. ``self.mesh`` is
+    None on one card.
+
+    ``threefry_partitionable`` selects the
     ``jax_threefry_partitionable`` mode whose bits seeded streams
     reproduce. ``chip`` is the card the cost model prices (admission
     plan, chunk interleave, ``load_report``; the tests pass the
@@ -603,10 +677,27 @@ class ServingEngine:
                  chip: Chip = H100_SXM):
         if config is None:
             config = EngineConfig()
-        config.validate(cfg)
+        grid = (list(device) if isinstance(device, (list, tuple))
+                else None)
+        config.validate(cfg, devices=grid)
         self.config = config
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = None
+        if config.topology.sharded:
+            if grid is None and torch.device(device).type != "cuda":
+                raise ValueError(
+                    f"a sharded topology (tp={config.topology.tp}) on "
+                    f"{device} needs an explicit device grid: pass "
+                    f"device=[{str(device)!r}] * {config.topology.n_chips}")
+            self.mesh = make_serving_mesh(config.topology, devices=grid)
+            self.device = self.mesh.flat[0]
+        elif grid is not None:
+            if len(grid) != 1:
+                raise ValueError(f"{len(grid)} devices given for a "
+                                 f"one-card topology")
+            self.device = resolve_device(grid[0])
+        else:
+            self.device = resolve_device(device)
         self.partitionable = bool(threefry_partitionable)
         self.chip = chip
         if config.precision.quantized_weights:
@@ -614,10 +705,20 @@ class ServingEngine:
             # become {"w_q", "scale"} dicts (blocks.linear dispatches);
             # leaves quantized already are kept
             params = quantize_weights(cfg, params)
-        params = dict(params)
-        if dtype_of(cfg) != torch.float32 and "lm_head_f32" not in params:
+        if isinstance(params, Shards):
+            # another sharded engine's params: shared, on its grid
+            if self.mesh is None or [str(d) for d in params.mesh.flat] != [
+                    str(d) for d in self.mesh.flat]:
+                raise ValueError("sharded params need an engine on the "
+                                 "same device grid")
+        elif self.mesh is not None:
+            # each shard's blocks on its device (its own lm_head_f32)
+            params = shard_params(cfg, params, self.mesh)
+        elif (dtype_of(cfg) != torch.float32
+              and "lm_head_f32" not in params):
             # the lm head's float32 product (the reference's preferred
             # element type), kept once instead of upcast every tick
+            params = dict(params)
             head = params.get("lm_head")
             if head is None:
                 head = params["embed"].T
@@ -678,8 +779,8 @@ class ServingEngine:
             slots = min(slots, self._moe_gmax)
         self.slots = slots
         self.n_chips = config.n_chips
-        # the mesh of a sharded replica; None on one card (validate()
-        # refuses sharded topologies until multi-GPU serving is ported)
+        # the mesh axes of a sharded replica (the cost model's collective
+        # terms); None on one card
         self._mesh_axes = (config.topology.mesh_axes
                            if config.topology.sharded else None)
         self._tick_est_s = estimate_decode(
@@ -724,26 +825,27 @@ class ServingEngine:
             self.allocator = PageAllocator(self.pool_pages, page_size)
             self.prefix_index = (PrefixIndex(self.allocator, page_size)
                                  if config.prefix_cache else None)
-            self.cache = init_paged_cache(
+            self.cache = self._new_cache(init_paged_cache(
                 cfg, slots, self.pool_pages, page_size, self.max_pages,
-                device=self.device, kv_dtype=self.kv_dtype)
+                device=self._alloc_device, kv_dtype=self.kv_dtype))
         else:
             self.pool_pages, self.allocator = 0, None
             self.prefix_index = None
-            self.cache = init_cache(cfg, slots, config.window,
-                                    device=self.device)
+            self.cache = self._new_cache(init_cache(
+                cfg, slots, config.window, device=self._alloc_device))
         # the B=1 working buffers: one for chunk jobs (only the head job
         # advances), linear over max_seq (paged) or a ring of the window
         # (rolling), and one for a prefix hit's synchronous suffix step,
         # which may run while a chunk job holds the first; int8 codes and
         # float32 scales under int8 pages
         width = self.max_seq if self.paged else self.window
-        self._lin = (init_cache(cfg, 1, width, device=self.device,
-                                kv_dtype=self.kv_dtype)
-                     if self.chunk else None)
-        self._lin_sfx = (init_cache(cfg, 1, width, device=self.device,
-                                    kv_dtype=self.kv_dtype)
-                         if self.prefix_index is not None else None)
+        self._lin = (self._new_cache(init_cache(
+            cfg, 1, width, device=self._alloc_device,
+            kv_dtype=self.kv_dtype)) if self.chunk else None)
+        self._lin_sfx = (self._new_cache(init_cache(
+            cfg, 1, width, device=self._alloc_device,
+            kv_dtype=self.kv_dtype))
+            if self.prefix_index is not None else None)
         self._pos_h: List[int] = [0] * slots  # host mirror of cache pos
         self._tabled: List[int] = [0] * slots  # table entries written
         # static buffers the captured steps read and write in place
@@ -766,7 +868,8 @@ class ServingEngine:
                           torch.zeros((1,), **i64))
         self._seed_in = torch.zeros((1 + self.max_pages,), **i64)
         self._insert_in = torch.zeros((2 + 2 * self.max_pages,), **i64)
-        self.graphs = StepGraphs(self.device)
+        self.graphs = StepGraphs(self.device, capture=(
+            self.mesh is None or self.mesh.distinct == 1))
         # through a weak reference: a bound method would make the engine
         # and its graphs a cycle, whose device memory only the garbage
         # collector frees once the engine is dropped
@@ -784,6 +887,21 @@ class ServingEngine:
         self.admission = BatchAccumulator(
             target_batch=slots, deadline_s=self.plan.flush_deadline_s)
         self.prefill_calls = 0
+
+    @property
+    def _alloc_device(self):
+        """Where a cache is built: the engine's device, or the meta device
+        of a sharded replica's shapes (``_new_cache`` places them)."""
+        return self.device if self.mesh is None else torch.device("meta")
+
+    def _new_cache(self, cache):
+        """``cache`` as this engine holds it: as built on one card; a
+        sharded replica's zeros on every shard, laid out by
+        ``paged_cache_pspecs`` (paged pools, and the working buffers
+        copied to and from them) or ``cache_pspecs`` (rolling caches)."""
+        if self.mesh is None:
+            return cache
+        return shard_cache(self.cfg, cache, self.mesh, paged=self.paged)
 
     @property
     def prefill_traces(self) -> int:
@@ -1347,7 +1465,8 @@ class ServingEngine:
         position is masked, and overwritten before it is read."""
         job.started = True
         if job.seed is None:
-            self._lin["pos"].zero_()
+            for c in _shards(self._lin):
+                c["pos"].zero_()
             return
         self._seed_in.copy_(torch.from_numpy(np.concatenate([
             np.array([job.next_off], np.int64), job.seed])))
@@ -1787,15 +1906,17 @@ class ServingEngine:
             self.prefix_index.clear()  # cached pages back to the pool
         # vacated slots went on riding the batch: every slot back to a
         # fresh engine's position, table row and carry
-        self.cache["pos"].zero_()
-        if self.paged:
-            self.cache["page_table"].zero_()
-            # the trash page, which every idle lane writes and attends
-            # (on a MoE arch idle lanes route beside live tokens and take
-            # capacity), back to a fresh engine's zeros
-            for layer in self.cache["layers"]:
-                for leaf in layer.values():
-                    leaf[0].zero_()
+        for cache in _shards(self.cache):
+            cache["pos"].zero_()
+            if self.paged:
+                cache["page_table"].zero_()
+                # the trash page, which every idle lane writes and
+                # attends (on a MoE arch idle lanes route beside live
+                # tokens and take capacity), back to a fresh engine's
+                # zeros
+                for layer in cache["layers"]:
+                    for leaf in layer.values():
+                        leaf[0].zero_()
         self._tokens.zero_()
         self.backlog.clear()
         self.admission.flush()

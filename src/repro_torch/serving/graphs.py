@@ -18,7 +18,12 @@ hit's suffix of ``n`` tokens). On a CUDA device:
 - every later call replays the graph. Nothing falls back to eager: a
   capture that fails raises.
 
-On the CPU every call runs the step eagerly. The probes ``prefill_traces``
+On the CPU every call runs the step eagerly, and so it does on the card
+for an engine built with ``capture=False``: a sharded replica whose
+shards lie on several cards, whose steps hold work and peer copies of
+every card (whether one ``torch.cuda.CUDAGraph`` may capture those is
+not assumed; shards stacked on one card capture as one card does). The
+probes ``prefill_traces``
 and ``decode_traces`` count the keys first seen, on either device (one per
 capture on the card; a key whose capture failed is not counted), so the
 CPU tests hold them to the reference's counts: one per prompt bucket or
@@ -83,9 +88,9 @@ class StepGraphs:
     "insert", "ring") and ``n`` its static length (window ticks, bucket,
     suffix or chunk tokens, pages of a row)."""
 
-    def __init__(self, device):
+    def __init__(self, device, *, capture: bool = True):
         self.device = torch.device(device)
-        self.capture = self.device.type == "cuda"
+        self.capture = capture and self.device.type == "cuda"
         self._steps: Dict[Tuple[str, str, int], Optional[_Graph]] = {}
         self.prefill_traces = 0
         self.decode_traces = 0

@@ -211,10 +211,10 @@ def test_streams_match_the_jax_engine(arch, chunk):
 
 
 def _cli_args(argv):
-    """The port's parsed flags, with the reference's flags the port does
-    not have yet at their defaults (``--tp``, ``--dp``)."""
+    """The port's parsed flags, and the same as the reference's
+    ``_engine_config`` reads them."""
     args = tserve.build_parser().parse_args(argv)
-    return args, argparse.Namespace(**vars(args), tp=1, dp=1)
+    return args, argparse.Namespace(**vars(args))
 
 
 def test_sla_ms_gives_the_references_sla_and_admission_plan():

@@ -1677,3 +1677,100 @@ def test_reduced_train_steps_on_the_card_equal_the_cpus(dev, arch, change):
     attn = sum(t in ("dense", "encoder", "local_attn") for t in types)
     assert launches["flash_attention"] == 2 * 2 * attn
     assert launches["rglru_scan"] == 2 * 2 * types.count("rglru")
+
+
+@pytest.mark.parametrize("arch,change,config", [
+    ("granite-8b", dict(num_kv_heads=2), dict()),
+    ("granite-8b", dict(num_kv_heads=2),
+     dict(precision=dict(kv_cache_dtype="int8"), prefix_cache=True)),
+    ("granite-8b", dict(num_heads=6, num_kv_heads=3), dict(paged=False)),
+    ("grok-1-314b", dict(num_heads=4, num_kv_heads=4,
+                         moe_expert_parallel=True),
+     dict(moe_capacity_policy="strict")),
+], ids=["kv_heads", "int8_prefix", "mid_head_rolling", "expert_parallel"])
+def test_sharded_engine_streams_on_cuda_match_the_cpu(dev, arch, change,
+                                                       config):
+    """A replica over two shards stacked on one card (``["cuda:0"] * 2``),
+    float32 with its steps captured, against the same sharded engine on
+    the CPU (``["cpu"] * 2``): the same streams, greedy and seeded, chunked
+    (16) and, with the prefix cache, hits; every page back."""
+    import dataclasses
+
+    from repro_torch import serving as ts
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), **change)
+    p_cpu = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, 500, 32).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, 500, n).astype(
+        np.int32)]) for n in (5, 23, 40, 17)]
+    prec = ts.PrecisionConfig(**config.pop("precision", {}))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = []
+        for grid in ([str(dev)] * 2, ["cpu"] * 2):
+            eng = ts.ServingEngine(cfg, _to(p_cpu, grid[0]), ts.EngineConfig(
+                slots=2, max_seq=128, window=128, chunk_prefill=16,
+                precision=prec, topology=ts.DeviceTopology(tp=2), **config),
+                device=grid)
+            reqs = [ts.Request(rid=i, prompt=p, max_new_tokens=10,
+                               sampling=(ts.SamplingParams(
+                                   temperature=0.8, top_k=20, top_p=0.9,
+                                   seed=1000 + i) if i % 2
+                                   else ts.SamplingParams()))
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r, 0.0)
+            t = 0.0
+            while not all(r.done for r in reqs) and t < 500:
+                t += 1.0
+                eng.step(t)
+            eng.drain(t)
+            outs.append([r.output for r in reqs])
+            if eng.paged:
+                assert eng.allocator.pages_in_use == (
+                    eng.prefix_index.cached_pages if eng.prefix_index
+                    else 0)
+        assert eng.graphs.captures == 0  # the CPU engine: eager
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_column_block_products_round_like_blocks_of_the_product(dev, dtype):
+    """The sharded layout on the card: the product of a column block of a
+    weight, read in place as shards on one card hold it, against that
+    block of the whole product, at M 1, 8 and 64 and blocks of 1/2 and 1/4
+    of granite-like widths. cuBLAS may pick another reduction for a
+    narrower product (``chip_smoke.py`` phase 15 (a) finds bf16 blocks a
+    bf16 step apart at some shapes), so each element is held, not bit for
+    bit, within one rounding step of the output dtype at its magnitude
+    (2^-7 relative in bf16, 2^-23 in float32 with TF32 off) plus the
+    float32 sum's order bound, K 2^-24 sum |x w| <= 2^-12 sum |x w| at
+    K <= 4096."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}[dtype]
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for k, n in ((1024, 1024), (1024, 256), (1024, 3584), (3584, 1024)):
+            w = _rand(gen, (k, n), dtype, dev) * k ** -0.5
+            for m in (1, 8, 64):
+                x = _rand(gen, (m, k), dtype, dev)
+                whole = torch.matmul(x, w).float()
+                mag = torch.matmul(x.float().abs(), w.float().abs())
+                for tp in (2, 4):
+                    b = n // tp
+                    for j in range(tp):
+                        ref = whole[:, j * b:(j + 1) * b]
+                        blk = torch.matmul(x, w[:, j * b:(j + 1) * b])
+                        err = (blk.float() - ref).abs()
+                        bound = (step * ref.abs() + 2.0 ** -12
+                                 * mag[:, j * b:(j + 1) * b])
+                        assert bool((err <= bound).all()), (k, n, m, tp, j)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

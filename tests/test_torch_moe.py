@@ -264,8 +264,7 @@ def test_resolved_moe_policy_matches_jax():
 def test_moe_capacity_flag_gives_the_references_policy(flag):
     argv = ["--arch", "grok-1-314b", "--moe-capacity", flag]
     args = tserve.build_parser().parse_args(argv)
-    want = jserve._engine_config(argparse.Namespace(**vars(args), tp=1,
-                                                    dp=1))
+    want = jserve._engine_config(argparse.Namespace(**vars(args)))
     got = tserve.engine_config(args)
     assert got.moe_capacity_policy == want.moe_capacity_policy
     assert got.resolved_moe_policy(torch_config("grok-1-314b")) == \
