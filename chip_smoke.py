@@ -5,8 +5,9 @@
 
 Phases, in order (phases 7 and 8 run after phase 5, on granite's
 weights, before phase 6; phases 9, 10 and 11 after phase 6; phase 15
-after phase 13, on its tables, and phase 14 after phase 15; phase 8's
-profiled round (e) runs last); any failure exits non-zero:
+after phase 13, on its tables, and phase 14 after phase 15; phase 15
+(e)'s cells run at the end of phases 6 and 10, on their weights; phase
+8's profiled round (e) runs last); any failure exits non-zero:
 
 1. Print the card (``nvidia-smi``), build every CUDA kernel of the port
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
@@ -65,6 +66,18 @@ profiled round (e) runs last); any failure exits non-zero:
    gradients against the plain version's autograd at hubert's shape
    (bf16 and float32) and granite's (bf16), with the backward's time;
    the RG-LRU ``Function``'s a, x, h0 gradients at L 4096 (B 2, S 384).
+   Then, on a generator of their own (torch seed 26), phase 15 (d) and
+   (e)'s per-shard shapes, at the lengths the cells serve (phase 4's
+   prompts, the longest 584 tokens): windowed prefill attention at
+   recurrentgemma's tp 2 (S 584, 8/1 heads of 256, window 2048, which no
+   key of the burst falls outside), rolling-cache decode over 8 rings of
+   2048 (tp 2) and a data row's 4 (dp 2 x tp 2) at 8/1 heads, slot b at
+   its prompt's length plus 16, the RG-LRU scan at a tp-2 channel block
+   (S 584, L 2048, bit for bit),
+   paged decode over a data row's 4 slots at granite's 32/8 (dp 2) and
+   16/4 heads a shard (dp 2 x tp 2), and the sampler over two rows'
+   concatenated logits (B 8, V 49152), each against its plain version
+   with its time, bound and library time.
 3. Serve the same greedy and seeded requests through the port's
    ``ServingEngine`` on granite-8b ``reduced()`` (float32, 2 kv heads) on
    the card and on the CPU, in the model dtype, with int8 KV pages and
@@ -84,7 +97,10 @@ profiled round (e) runs last); any failure exits non-zero:
    mamba2-1.3b, grok-1-314b at 12/2 heads (G 6) with a capacity factor of
    1.0 that drops tokens ("drop", also chunked, and "strict"),
    llama4-maverick-400b-a17b at 10/2 heads (G 5) and qwen2-vl-7b at 14/2
-   heads (G 7, mrope) ``reduced()``; the streams must be token-identical (on
+   heads (G 7, mrope) ``reduced()``, and phase 15 (e)'s sharded hybrids
+   as a grid stacked on the card against the same grid on the CPU
+   (recurrentgemma at dp 2 x tp 2 on 4 slots, mamba2 at tp 2); the
+   streams must be token-identical (on
    the card, through the engine's CUDA graphs), and the cluster's must
    equal one engine's. Last, phase 12's module-level steps on reduced
    granite (``prefill_step`` into a 3-slot rolling cache, 12
@@ -283,7 +299,19 @@ profiled round (e) runs last); any failure exits non-zero:
    the path's kernels launched in the measured round. Prints TTFT p50 /
    p90, burst tok/s, peak memory per device and ms per decode tick at 8
    slots, each beside the one-card engine's (a warm-up round, then a
-   measured one).
+   measured one). (d) The data axis: granite-8b at dp 2 and at dp 2 x
+   tp 2 (each data row decodes 4 of the 8 slots; the rows of a model
+   shard share its pools), on (c)'s path beside (c)'s one-card engine.
+   (e) At the end of phase 6, on its weights: recurrentgemma-9b whole
+   (38 layers) from rolling caches (rings of 2048, exact-length prefill)
+   at tp 2 (its RG-LRU column blocks scanned on each shard, its one kv
+   head's ring whole) and at dp 2 x tp 2 (rings and states split by slot
+   over the rows); at the end of phase 10: mamba2-1.3b whole at tp 2
+   (in_proj's column blocks); each beside a one-card engine of the same
+   run (phase 4's prompts, 32 new, half seeded, 8 slots). (d) and (e)
+   keep (c)'s gates, print the same numbers and each sub-phase's
+   seconds; their kernels' measured launches go into the per-shard
+   records that phase 2 checked.
 
 ``--profile DIR`` repeats the steady-decode serve (8 requests on 8
 slots) of phases 4, 5 and 6, and recurrentgemma's 2500-token prompt
@@ -448,19 +476,20 @@ def prefill_kernel(torch, gen, H, KVH, D, s, dt_name):
                       bound_by=b_by, library_ms=lib)
 
 
-def paged_decode_kernel(torch, rec, gen, H, KVH, D, s_list, rec_key):
-    """Paged decode attention over model-dtype pools (8 slots of 1-1024
-    tokens, pages of 16, a released slot on the trash page) against its
-    plain version and the oracle, float32 and bf16 (bf16 also in units of
-    2^-8 sum p|v| and bit for bit on a repeat call), timed at S 1 and 4;
-    ``rec[rec_key]`` takes the bf16 S 1 row."""
+def paged_decode_kernel(torch, rec, gen, H, KVH, D, s_list, rec_key, B=8):
+    """Paged decode attention over model-dtype pools (B slots of 1-1024
+    tokens, 8 by default, pages of 16, a released slot on the trash page)
+    against its plain version and the oracle, float32 and bf16 (bf16 also
+    in units of 2^-8 sum p|v| and bit for bit on a repeat call), timed at
+    S 1 and 4; ``rec[rec_key]`` takes the bf16 S 1 row."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import layers as L
 
     dev = "cuda"
-    ps, n_pages, B = 16, 64, 8
+    ps, n_pages = 16, 64
     P = B * n_pages + 1
-    ctx = [1, 15, 16, 17, 200, 513, 1000, 1024]  # partial and full pages
+    # partial and full pages
+    ctx = [1, 15, 16, 17, 200, 513, 1000, 1024][8 - B:]
     ok = True
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
@@ -603,6 +632,7 @@ def phase_kernels(torch, rec):
     ok &= dense_family_kernels(torch, rec, gen)
     ok &= moe_family_kernels(torch, rec, gen)
     ok &= train_kernels(torch, rec)
+    ok &= shard_kernels(torch, rec)
     return ok
 
 
@@ -793,51 +823,12 @@ def hybrid_kernels(torch, rec, gen):
     ok = True
 
     # -- prefill attention over the local window ---------------------------
-    S = 2560
     for dt_name in ("float32", "bfloat16"):
-        dt = getattr(torch, dt_name)
-        q = torch.randn((1, S, H, D), generator=gen, device=dev).to(dt)
-        k = torch.randn((1, S, KVH, D), generator=gen, device=dev).to(dt)
-        v = torch.randn((1, S, KVH, D), generator=gen, device=dev).to(dt)
-        got = ops.flash_attention(q, k, v, causal=True, window=WIN)
-        want = plain.dense_attention(q, k, v, causal=True, window=WIN)
-        err = (got.float() - want.float()).abs().max().item()
-        tol = TOL[dt_name]
-        good = err <= tol
-        units = ""
-        if dt_name == "bfloat16":
-            u = bf16_units(got, want, q, k, v, window=WIN)
-            good &= u <= BF16_UNITS_TOL
-            units = (f" scaled {u:.3g} units of 2^-8 sum p|v| "
-                     f"tol={BF16_UNITS_TOL:g}")
+        good, row = local_prefill_kernel(torch, gen, 2560, H, KVH, D, WIN,
+                                         dt_name)
         ok &= good
-        ms = time_ms(torch, lambda i: ops.flash_attention(
-            q, k, v, causal=True, window=WIN))
-        pl_ms = time_ms(torch, lambda i: plain.dense_attention(
-            q, k, v, causal=True, window=WIN), iters=4)
-        pos = torch.arange(S, device=dev)
-        band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
-                                                 > pos[:, None] - WIN)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = time_ms(torch, lambda i: torch.nn.functional
-                      .scaled_dot_product_attention(
-                          qt, kt, vt, attn_mask=band, enable_gqa=True))
-        pairs = sum(min(t + 1, WIN) for t in range(S))
-        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        flops = 4.0 * H * D * pairs
-        b_ms, b_by = bound(nbytes, flops, dt_name)
-        print(f"prefill local {dt_name} S={S} H={H}/{KVH} D={D} "
-              f"window={WIN}: max_abs_err={err:.3g} tol={tol}{units} "
-              f"{'ok' if good else 'FAIL'} ms={ms:.4f} "
-              f"({tflops(flops, ms)}) plain_ms={pl_ms:.4f} "
-              f"({tflops(flops, pl_ms)}) sdpa_mask_ms={lib:.4f} "
-              f"({tflops(flops, lib)}) bound_ms={b_ms:.5f} ({b_by})",
-              flush=True)
         if dt_name == "bfloat16":
-            rec["flash_attention_local"].update(
-                max_abs_err=err, ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib)
-        del q, k, v, got, want, band
+            rec["flash_attention_local"].update(row)
 
     # -- decode attention over rolling caches --------------------------------
     B = 8
@@ -848,32 +839,10 @@ def hybrid_kernels(torch, rec, gen):
 
     # -- the RG-LRU scan -----------------------------------------------------
     for b, s, l in ((1, 2560, 4096), (2, 384, 4096)):
-        sets = [(torch.rand((b, s, l), generator=gen, device=dev) * 0.2
-                 + 0.79, torch.randn((b, s, l), generator=gen, device=dev),
-                 torch.randn((b, l), generator=gen, device=dev))
-                for _ in range(2)]
-        a, x, h0 = sets[0]
-        y, h = ops.rglru_scan(a, x, h0)
-        y_want, h_want = plain.rglru_scan(a, x, h0)
-        err = max((y - y_want).abs().max().item(),
-                  (h - h_want).abs().max().item())
-        good = err == 0.0
+        good, row = scan_kernel(torch, gen, b, s, l)
         ok &= good
-        ms = time_ms(torch, lambda i: ops.rglru_scan(*sets[i % 2]))
-        pl_ms = time_ms(torch, lambda i: plain.rglru_scan(*sets[i % 2]),
-                        iters=2, warm=1)
-        b_ms, b_by = bound(3.0 * b * s * l * 4 + 2 * b * l * 4,
-                           2.0 * b * s * l, "float32")
-        print(f"rglru_scan B={b} S={s} L={l}: max_abs_err={err:.3g} "
-              f"(exactly 0 required; the reference's tolerance {SCAN_TOL}) "
-              f"{'ok' if good else 'FAIL'} ms={ms:.4f} "
-              f"plain_ms={pl_ms:.4f} bound_ms={b_ms:.5f} ({b_by}); no "
-              f"library call computes this recurrence", flush=True)
         if s == 2560:
-            rec["rglru_scan"].update(
-                max_abs_err=err, ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
-        del sets, a, x, h0, y, h, y_want, h_want
+            rec["rglru_scan"].update(row)
 
     # -- the sampler at vocab 256000 -----------------------------------------
     V = 256000
@@ -896,6 +865,166 @@ def hybrid_kernels(torch, rec, gen):
     rec["sample_tokens_v256k"].update(
         max_abs_err=float(mismatches), ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
+    return ok
+
+
+def local_prefill_kernel(torch, gen, S, H, KVH, D, WIN, dt_name):
+    """Windowed prefill attention (causal, keys within ``WIN`` of the
+    query) at S tokens of H q heads over KVH kv heads against its plain
+    version (bf16 also in units of 2^-8 sum p|v|), timed beside the plain
+    version and SDPA with a band mask. Prints the line; returns (ok, the
+    row's numbers)."""
+    from repro_torch.kernels import ops, plain
+
+    dev = "cuda"
+    dt = getattr(torch, dt_name)
+    q = torch.randn((1, S, H, D), generator=gen, device=dev).to(dt)
+    k = torch.randn((1, S, KVH, D), generator=gen, device=dev).to(dt)
+    v = torch.randn((1, S, KVH, D), generator=gen, device=dev).to(dt)
+    got = ops.flash_attention(q, k, v, causal=True, window=WIN)
+    want = plain.dense_attention(q, k, v, causal=True, window=WIN)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[dt_name]
+    good = err <= tol
+    units = ""
+    if dt_name == "bfloat16":
+        u = bf16_units(got, want, q, k, v, window=WIN)
+        good &= u <= BF16_UNITS_TOL
+        units = (f" scaled {u:.3g} units of 2^-8 sum p|v| "
+                 f"tol={BF16_UNITS_TOL:g}")
+    ms = time_ms(torch, lambda i: ops.flash_attention(
+        q, k, v, causal=True, window=WIN))
+    pl_ms = time_ms(torch, lambda i: plain.dense_attention(
+        q, k, v, causal=True, window=WIN), iters=4)
+    pos = torch.arange(S, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - WIN)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = time_ms(torch, lambda i: torch.nn.functional
+                  .scaled_dot_product_attention(
+                      qt, kt, vt, attn_mask=band, enable_gqa=True))
+    pairs = sum(min(t + 1, WIN) for t in range(S))
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4.0 * H * D * pairs
+    b_ms, b_by = bound(nbytes, flops, dt_name)
+    print(f"prefill local {dt_name} S={S} H={H}/{KVH} D={D} "
+          f"window={WIN}: max_abs_err={err:.3g} tol={tol}{units} "
+          f"{'ok' if good else 'FAIL'} ms={ms:.4f} "
+          f"({tflops(flops, ms)}) plain_ms={pl_ms:.4f} "
+          f"({tflops(flops, pl_ms)}) sdpa_mask_ms={lib:.4f} "
+          f"({tflops(flops, lib)}) bound_ms={b_ms:.5f} ({b_by})",
+          flush=True)
+    return good, dict(max_abs_err=err, ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=lib)
+
+
+def scan_kernel(torch, gen, b, s, l):
+    """The RG-LRU scan at (B, S, L) against its plain version, bit for
+    bit, timed beside it. Prints the line; returns (ok, the row's
+    numbers)."""
+    from repro_torch.kernels import ops, plain
+
+    dev = "cuda"
+    sets = [(torch.rand((b, s, l), generator=gen, device=dev) * 0.2
+             + 0.79, torch.randn((b, s, l), generator=gen, device=dev),
+             torch.randn((b, l), generator=gen, device=dev))
+            for _ in range(2)]
+    a, x, h0 = sets[0]
+    y, h = ops.rglru_scan(a, x, h0)
+    y_want, h_want = plain.rglru_scan(a, x, h0)
+    err = max((y - y_want).abs().max().item(),
+              (h - h_want).abs().max().item())
+    good = err == 0.0
+    ms = time_ms(torch, lambda i: ops.rglru_scan(*sets[i % 2]))
+    pl_ms = time_ms(torch, lambda i: plain.rglru_scan(*sets[i % 2]),
+                    iters=2, warm=1)
+    b_ms, b_by = bound(3.0 * b * s * l * 4 + 2 * b * l * 4,
+                       2.0 * b * s * l, "float32")
+    print(f"rglru_scan B={b} S={s} L={l}: max_abs_err={err:.3g} "
+          f"(exactly 0 required; the reference's tolerance {SCAN_TOL}) "
+          f"{'ok' if good else 'FAIL'} ms={ms:.4f} "
+          f"plain_ms={pl_ms:.4f} bound_ms={b_ms:.5f} ({b_by}); no "
+          f"library call computes this recurrence", flush=True)
+    return good, dict(max_abs_err=err, ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=None)
+
+
+#: phase 15 (d) and (e)'s per-shard kernel shapes, checked in phase 2 on a
+#: generator of their own (torch seed 26): recurrentgemma at tp 2 (8 of
+#: its 16 query heads a shard over its one kv head of 256, RG-LRU
+#: channel blocks of 2048) and at dp 2 x tp 2 (a data row's 4 slots);
+#: granite's paged decode over a data row's 4 slots at dp 2 (32/8 heads)
+#: and dp 2 x tp 2 (16/4 heads a shard); the sampler over the rows'
+#: concatenated logits (B 8)
+SHARD_RECORDS = {
+    "flash_attention_rg_tp2": (
+        "flash_attention (phase 15 (e): recurrentgemma tp 2, S 584 (the "
+        "burst's longest prompt), 8/1 heads, D 256, window 2048)", "flash_attention.cu",
+        "flash_attention.py:74"),
+    "decode_attention_rg_tp2": (
+        "decode_attention (phase 15 (e): recurrentgemma tp 2, 8 rings of "
+        "2048 at the burst's first 8 prompts + 16 tokens, S 1, 8/1 heads, "
+        "D 256)", "decode_attention.cu",
+        "decode_attention.py:264"),
+    "decode_attention_rg_dp2tp2": (
+        "decode_attention (phase 15 (e): recurrentgemma dp 2 x tp 2, a "
+        "row's 4 rings of 2048 at its prompts + 16 tokens, S 1, 8/1 heads, "
+        "D 256)",
+        "decode_attention.cu", "decode_attention.py:264"),
+    "rglru_scan_tp2": (
+        "rglru_scan (phase 15 (e): recurrentgemma tp 2, B 1, S 584 (the "
+        "burst's longest prompt), L 2048)", "rglru_scan.cu", "rglru_scan.py:48"),
+    "paged_decode_attention_dp2": (
+        "paged_decode_attention (phase 15 (d): granite dp 2, a row's 4 "
+        "slots, S 1, 32/8 heads)", "paged_decode_attention.cu",
+        "decode_attention.py:167"),
+    "paged_decode_attention_dp2tp2": (
+        "paged_decode_attention (phase 15 (d): granite dp 2 x tp 2, a "
+        "row's 4 slots, S 1, 16/4 heads a shard)",
+        "paged_decode_attention.cu", "decode_attention.py:167"),
+    "sample_tokens_dp2": (
+        "sample_tokens (phase 15 (d): granite dp 2, the two rows' logits "
+        "concatenated, B 8, V 49152)", "sampling.cu", "topk_sample.py:63"),
+}
+
+
+def shard_kernels(torch, rec):
+    """Phase 2's checks at phase 15 (d) and (e)'s per-shard shapes
+    (``SHARD_RECORDS``), each against its plain version, on a generator
+    of their own: recurrentgemma's prefill at the burst's longest prompt
+    (each prompt is prefilled at its own length), its decode with slot b
+    at prompt b's length plus 16 new tokens."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(26)
+    ok = True
+    lens, _ = burst_prompts()
+    s_max = int(lens.max())
+    good, row = local_prefill_kernel(torch, gen, s_max, 8, 1, 256, 2048,
+                                     "bfloat16")
+    ok &= good
+    rec["flash_attention_rg_tp2"].update(row)
+    ctx = [int(n) + 16 for n in lens[:8]]
+    ok &= ring_decode_kernel(torch, rec, gen, 8, 2048, 8, 1, 256, ctx,
+                             (1,), "decode_attention_rg_tp2")
+    ok &= ring_decode_kernel(torch, rec, gen, 4, 2048, 8, 1, 256, ctx[4:],
+                             (1,), "decode_attention_rg_dp2tp2")
+    good, row = scan_kernel(torch, gen, 1, s_max, 2048)
+    ok &= good
+    rec["rglru_scan_tp2"].update(row)
+    ok &= paged_decode_kernel(torch, rec, gen, 32, 8, 128, (1,),
+                              "paged_decode_attention_dp2", B=4)
+    ok &= paged_decode_kernel(torch, rec, gen, 16, 4, 128, (1,),
+                              "paged_decode_attention_dp2tp2", B=4)
+    V = 49152
+    logits = torch.cat([torch.randn((4, V), generator=gen, device=dev) * 4.0
+                        for _ in range(2)])
+    logits[0, 5] = logits[0, 11] = logits[0].max() + 1.0  # an argmax tie
+    good, res = sampler_check(torch, logits, 2600, 700, 5)
+    ok &= good
+    mism, _, ms, plain_ms, b_ms, b_by = res["burst"]
+    rec["sample_tokens_dp2"].update(max_abs_err=float(mism), ms=ms,
+                                    plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=None)
     return ok
 
 
@@ -1582,11 +1711,15 @@ def phase_reduced(torch):
     heads (G 6) with a binding capacity factor of 1.0 (tokens drop),
     under "drop" (also chunked, 16) and "strict", llama4 at 10/2 heads (G
     5, its shared expert and dense layer) and qwen2-vl at 14/2 heads (G 7,
-    mrope)."""
+    mrope); the sharded hybrids of phase 15 (e), each grid stacked on the
+    card against the same grid on the CPU: recurrentgemma at dp 2 x tp 2
+    (rings and states split by slot, column blocks of the RG-LRU branches
+    and gates) and mamba2 at tp 2 (``in_proj`` blocks)."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_params, quantize_weights
+    from repro_torch.serving import DeviceTopology
 
     cfg = dataclasses.replace(get_config("granite-8b").reduced(),
                               num_kv_heads=2)
@@ -1641,16 +1774,23 @@ def phase_reduced(torch):
              grok6, None, dict(moe_capacity_policy="strict")),
             ("llama4 10/2 heads f32 (G 5, shared expert)", llama5, None,
              {}),
-            ("qwen2-vl 14/2 heads f32 (G 7, mrope)", qwen7, None, {})):
+            ("qwen2-vl 14/2 heads f32 (G 7, mrope)", qwen7, None, {}),
+            ("recurrentgemma 5 layers f32 dp 2 x tp 2", hybrid, None,
+             dict(topology=DeviceTopology(dp=2, tp=2), slots=4)),
+            ("mamba2 f32 tp 2", new["mamba2"], None,
+             dict(topology=DeviceTopology(tp=2)))):
         if arch not in weights:
             p_cpu = init_params(arch, seed=0, device="cpu")
             weights[arch] = (p_cpu, _to(torch, p_cpu, "cuda"))
         p_cpu, p_gpu = weights[arch]
         ps = long_prompts if arch is hybrid else prompts
-        run = dict(max_new=24, slots=3, max_seq=128, precision=precision,
-                   **engine)
-        a, st_a = serve(torch, arch, p_gpu, ps, device="cuda", **run)
-        b, _ = serve(torch, arch, p_cpu, ps, device="cpu", **run)
+        run = dict(dict(max_new=24, slots=3, max_seq=128,
+                        precision=precision), **engine)
+        n = engine["topology"].n_chips if "topology" in engine else 0
+        a, st_a = serve(torch, arch, p_gpu, ps,
+                        device=["cuda:0"] * n if n else "cuda", **run)
+        b, _ = serve(torch, arch, p_cpu, ps,
+                     device=["cpu"] * n if n else "cpu", **run)
         p_ref = (quantize_weights(arch, p_cpu) if precision else p_cpu)
         for ra, rb in zip(a, b):
             if ra.output == rb.output:
@@ -2869,11 +3009,24 @@ def phase_hybrid(torch, rec, profile_dir=None):
         write_profile(prof, profile_dir, st5, "prefill_2500_hybrid.txt",
                       label=f"{len(prompts[-1])}-token prefill + 1 tick")
     ok &= graphs_ok("recurrentgemma bf16", warm, st0)
+    del reqs, reqs2, reqs3, run, st, st0, st3
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 15 (e) on these weights: tp 2 and dp 2 x tp 2
+    ok &= sharded_rolling(
+        torch, rec, "recurrentgemma bf16", cfg, params,
+        dict(max_seq=None, window=win, chunk_prefill=0),
+        ((1, 2, {"flash_attention_rg_tp2": "flash_attention",
+                 "decode_attention_rg_tp2": "decode_attention",
+                 "rglru_scan_tp2": "rglru_scan"}),
+         (2, 2, {"decode_attention_rg_dp2tp2": "decode_attention"})),
+        ("flash_attention", "decode_attention", "rglru_scan",
+         "sample_tokens"))
 
     # the decode path against the full forward, end to end, in float32
     # (the same architecture at full width, 38 layers, weights from the
     # same seed): after 1 and 16 decode ticks past the 2500-token prompt
-    del params, reqs, reqs2, reqs3, run, st, st0, st3
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -3086,6 +3239,12 @@ def phase_ssd(torch, rec):
     ok, _ = full_width_engine(torch, rec, "mamba2 bf16", cfg, params,
                               prompts, run,
                               {"sample_tokens_mamba2": "sample_tokens"})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 15 (e) on these weights: tp 2 (in_proj's column blocks)
+    ok &= sharded_rolling(torch, rec, "mamba2 bf16", cfg, params,
+                          dict(max_seq=None), ((1, 2, {}),),
+                          ("sample_tokens",))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3477,11 +3636,14 @@ GRANITE_MATMULS = (("wq", 4096, 4096), ("wk", 4096, 1024),
 LLAMA4_EXPERTS = (16, 5120, 8192)
 
 
-def shard_grid(torch, n: int) -> list:
-    """The grid of an n-way replica: shard j on ``cuda:{j % count}``, so a
-    one-card host stacks every shard on cuda:0."""
+def shard_grid(torch, n: int, tp: int = 0) -> list:
+    """The grid of an n-shard replica whose data rows are ``tp`` wide
+    (``tp`` 0: one row): shard j on ``cuda:{(j % tp) % count}``, so the
+    data rows of a model shard share its card (their paged pools are one
+    tensor) and a one-card host stacks every shard on cuda:0."""
     count = torch.cuda.device_count()
-    return [f"cuda:{j % count}" for j in range(n)]
+    tp = tp or n
+    return [f"cuda:{(j % tp) % count}" for j in range(n)]
 
 
 def column_probe(torch, gen):
@@ -3598,8 +3760,9 @@ def sharded_dlrm(torch, keep) -> bool:
 
 
 def sharded_case(torch, label, cfg, params, prompts, run, tp, base, kernels,
-                 exact):
-    """One sharded replica of phase 15 on ``shard_grid(tp)``: a warm-up
+                 exact, dp=1, rec=None, records=None):
+    """One sharded replica of phase 15 on ``shard_grid(dp * tp, tp)``
+    (``DeviceTopology(dp=dp, tp=tp)``): a warm-up
     round (captures) whose streams must equal the one-card engine's
     (``base``: its requests and trace probes) when the probe found every
     block bit for bit, else diverge only as ``stream_gap`` allows; its
@@ -3609,12 +3772,14 @@ def sharded_case(torch, label, cfg, params, prompts, run, tp, base, kernels,
     nothing (on one card), launches every kernel of ``kernels`` and gives
     every page back; ``load_report()``'s axis fields; the decode of 8
     requests on the 8 slots (ms per tick). Prints TTFT, tok/s and peak
-    memory per device. Returns (ok, ms per tick)."""
+    memory per device. ``records`` {record: launch counter}: the kernel
+    records of ``rec`` that take the measured round's launches. Returns
+    (ok, ms per tick)."""
     from repro_torch.kernels import ops
     from repro_torch.serving import DeviceTopology
 
-    grid = shard_grid(torch, tp)
-    run = dict(run, device=grid, topology=DeviceTopology(tp=tp))
+    grid = shard_grid(torch, dp * tp, tp)
+    run = dict(run, device=grid, topology=DeviceTopology(dp=dp, tp=tp))
     warm, st0 = warm_round(torch, label, cfg, params, prompts, run)
     eng = st0["engine"]
     base_reqs, want = base
@@ -3635,14 +3800,17 @@ def sharded_case(torch, label, cfg, params, prompts, run, tp, base, kernels,
     launches = dict(ops.LAUNCHES)
     repeat = [r.output for r in reqs] == [r.output for r in warm]
     unfinished = [r.rid for r in reqs if r.state.value != "finished"]
-    drained = eng.allocator.pages_in_use == 0
+    drained = not eng.paged or eng.allocator.pages_in_use == 0
     missing = [k for k in kernels if launches[k] <= 0]
     rep = eng.load_report()
     cs, util = dict(rep.axis_collective_s), dict(rep.axis_util)
-    axes_ok = (rep.n_chips == tp
-               and dict(rep.mesh_axes) == {"data": 1, "model": tp}
-               and cs["model"] > 0.0 and cs["data"] == 0.0
-               and 0.0 < util["model"] < 1.0)
+    axes_ok = (rep.n_chips == dp * tp
+               and dict(rep.mesh_axes) == {"data": dp, "model": tp}
+               and cs["data"] == 0.0
+               and (cs["model"] > 0.0 and 0.0 < util["model"] < 1.0
+                    if tp > 1 else cs["model"] == 0.0))
+    for key, name in (records or {}).items():
+        rec[key]["launches"] = launches[name]
     if eng.graphs.capture:
         ok &= graphs_ok(label, warm, st0)
     else:  # shards on several cards: every step eager, nothing captured
@@ -3674,21 +3842,91 @@ def sharded_case(torch, label, cfg, params, prompts, run, tp, base, kernels,
     return ok, tick
 
 
-def phase_sharded(torch, keep):
-    """Phase 15: one replica over tp shards (``DeviceTopology(tp=N)``) at
-    full width in bf16, on ``shard_grid`` (every shard on cuda:0 on a
-    one-card host), on the default path (paged KV pages of 16, chunk 64,
-    max_seq 1024), phase 4's 16 prompts, 32 new tokens, half seeded, 8
-    slots, each arch's one-card engine served first and dropped before its
-    sharded engines are built. (a) ``column_probe``; (b) ``sharded_dlrm``
-    over phase 13's tables; (c) granite-8b at tp 2 and 4 (8/2 heads and a
-    quarter of the MLP a shard at tp 4), and at tp 4 over int8 KV pages;
-    (d) llama4-maverick cut to 2 of 48 layers at tp 4, expert parallel (32
-    of 128 experts a shard), "strict" pinned on it and on its one-card
-    engine; (e) chatglm3-6b at tp 4 (its 2 kv heads: pools split on
-    head_dim). Gates: ``sharded_case``'s. Prints ms per decode tick at 8
-    slots for granite at tp 1, 2 and 4. Every random input comes from
-    generators of this phase (torch seed 15, numpy seed 1315)."""
+def one_card_case(torch, label, cfg, params, prompts, run):
+    """The one-card engine beside a phase 15 cell: a warm-up round (its
+    streams and probes), a measured round, the steady decode at 8 slots.
+    Returns ((requests, probes), ms per tick)."""
+    reqs, st = serve(torch, cfg, params, prompts, device="cuda", **run)
+    eng = st["engine"]
+    probes = (eng.prefill_traces, eng.decode_traces)
+    torch.cuda.reset_peak_memory_stats()
+    again, st = serve(torch, cfg, params, prompts, device="cuda", eng=eng,
+                      **run)
+    log = []
+    serve(torch, cfg, params, prompts[:8], device="cuda", step_log=log,
+          eng=eng, **run)
+    tick = tick_while(log, "chunks")[2]
+    print(burst_line(f"{label} one card (measured round)", again, st)
+          + f"; peak allocated cuda:0: "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"{tick:.2f} ms per tick of decode alone at 8 slots", flush=True)
+    del eng, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (reqs, probes), tick
+
+
+_PROBE = []
+
+
+def probe_verdict(torch):
+    """Phase 15 (a)'s column-block probe, run once on its own generator
+    (torch seed 15) whichever cell asks first; returns (every block bit
+    for bit, the worst max abs difference)."""
+    if not _PROBE:
+        _PROBE.append(column_probe(
+            torch, torch.Generator(device="cuda").manual_seed(15)))
+    return _PROBE[0]
+
+
+def sharded_rolling(torch, rec, label, cfg, params, run, cells, kernels):
+    """Phase 15 (e) on the weights of the phase that holds them (6 or
+    10): phase 4's 16 prompts, 32 new, half seeded, 8 slots from rolling
+    caches, the one-card engine first, then each (dp, tp, records) of
+    ``cells`` through ``sharded_case``'s gates. Prints the sub-phase's
+    seconds."""
+    t0 = time.perf_counter()
+    exact, _ = probe_verdict(torch)
+    _, prompts = burst_prompts()
+    run = dict(run, max_new=32, slots=8)
+    base, ticks = one_card_case(torch, f"{label}", cfg, params, prompts,
+                                run)
+    ok = True
+    out = {(1, 1): ticks}
+    for dp, tp, records in cells:
+        good, out[(dp, tp)] = sharded_case(
+            torch, f"{label} dp {dp} x tp {tp}", cfg, params, prompts, run,
+            tp, base, kernels, exact, dp=dp, rec=rec, records=records)
+        ok &= good
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 15 (e) {label}: ms per tick of decode alone at 8 slots "
+          + ", ".join(f"dp {dp} x tp {tp} {t:.2f}" for (dp, tp), t in
+                      out.items())
+          + f"; {time.perf_counter() - t0:.1f}s {'ok' if ok else 'FAIL'}",
+          flush=True)
+    return ok
+
+
+def phase_sharded(torch, rec, keep):
+    """Phase 15: one replica over a grid of shards
+    (``DeviceTopology(dp=M, tp=N)``) at full width in bf16, on
+    ``shard_grid`` (every shard on cuda:0 on a one-card host), on the
+    default path (paged KV pages of 16, chunk 64, max_seq 1024), phase
+    4's 16 prompts, 32 new tokens, half seeded, 8 slots, each arch's
+    one-card engine served first and dropped before its sharded engines
+    are built. (a) ``column_probe`` (``probe_verdict``: run once); (b)
+    ``sharded_dlrm`` over phase 13's tables; (c) granite-8b at tp 2 and 4
+    (8/2 heads and a quarter of the MLP a shard at tp 4), and at tp 4
+    over int8 KV pages; llama4-maverick cut to 2 of 48 layers at tp 4,
+    expert parallel (32 of 128 experts a shard), "strict" pinned on it
+    and on its one-card engine; chatglm3-6b at tp 4 (its 2 kv heads:
+    pools split on head_dim); (d) granite-8b at dp 2 and dp 2 x tp 2
+    beside (c)'s one-card engine. (e) runs in phases 6 and 10
+    (``sharded_rolling``). Gates: ``sharded_case``'s. Prints ms per
+    decode tick at 8 slots for granite at every grid. Every random input
+    comes from generators of this phase (torch seed 15, numpy seed
+    1315)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
@@ -3696,8 +3934,7 @@ def phase_sharded(torch, keep):
     print(f"phase 15 grid: {count} CUDA device(s); shards of tp 2 on "
           f"{shard_grid(torch, 2)}, of tp 4 on {shard_grid(torch, 4)}",
           flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(15)
-    exact, _ = column_probe(torch, gen)
+    exact, _ = probe_verdict(torch)
     ok = sharded_dlrm(torch, keep)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3706,33 +3943,11 @@ def phase_sharded(torch, keep):
     kernels = ("flash_attention", "paged_decode_attention",
                "decode_attention", "sample_tokens")
 
-    def one_card(label, cfg, params, run):
-        """The one-card engine: a warm-up round (its streams and probes),
-        a measured round, the steady decode at 8 slots."""
-        reqs, st = serve(torch, cfg, params, prompts, device="cuda", **run)
-        eng = st["engine"]
-        probes = (eng.prefill_traces, eng.decode_traces)
-        torch.cuda.reset_peak_memory_stats()
-        again, st = serve(torch, cfg, params, prompts, device="cuda",
-                          eng=eng, **run)
-        log = []
-        serve(torch, cfg, params, prompts[:8], device="cuda", step_log=log,
-              eng=eng, **run)
-        tick = tick_while(log, "chunks")[2]
-        print(burst_line(f"{label} one card (measured round)", again, st)
-              + f"; peak allocated cuda:0: "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
-              f"{tick:.2f} ms per tick of decode alone at 8 slots",
-              flush=True)
-        del eng, st
-        gc.collect()
-        torch.cuda.empty_cache()
-        return (reqs, probes), tick
-
     ticks = {}
     granite = get_config("granite-8b")
     params = init_params(granite, seed=0, device="cuda")
-    base, ticks[1] = one_card("granite bf16", granite, params, run)
+    base, ticks[1] = one_card_case(torch, "granite bf16", granite, params,
+                                   prompts, run)
     for tp in (2, 4):
         good, ticks[tp] = sharded_case(
             torch, f"granite bf16 tp {tp}", granite, params, prompts, run,
@@ -3745,8 +3960,28 @@ def phase_sharded(torch, keep):
                                 ticks.items())
           + " (floors at 3.35 TB/s: 4.9, 6.5, 9.8: the ROW weights read "
           "tp times on one card)", flush=True)
+    # (d) the data axis: each row decodes 4 of the 8 slots, the rows of a
+    # model shard share its pools on the card
+    t0 = time.perf_counter()
+    for dp, tp, records in (
+            (2, 1, {"paged_decode_attention_dp2": "paged_decode_attention",
+                    "sample_tokens_dp2": "sample_tokens"}),
+            (2, 2, {"paged_decode_attention_dp2tp2":
+                    "paged_decode_attention"})):
+        good, ticks[(dp, tp)] = sharded_case(
+            torch, f"granite bf16 dp {dp} x tp {tp}", granite, params,
+            prompts, run, tp, base, kernels, exact, dp=dp, rec=rec,
+            records=records)
+        ok &= good
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 15 (d) granite-8b ms per tick of decode alone at 8 "
+          f"slots: one card {ticks[1]:.2f}, dp 2 {ticks[(2, 1)]:.2f}, dp 2 "
+          f"x tp 2 {ticks[(2, 2)]:.2f}; {time.perf_counter() - t0:.1f}s",
+          flush=True)
     run8 = dict(run, precision=dict(kv_cache_dtype="int8"))
-    base, _ = one_card("granite int8 kv", granite, params, run8)
+    base, _ = one_card_case(torch, "granite int8 kv", granite, params,
+                            prompts, run8)
     good, _ = sharded_case(
         torch, "granite int8 kv tp 4", granite, params, prompts, run8, 4,
         base, ("flash_attention", "paged_decode_attention_int8",
@@ -3764,7 +3999,7 @@ def phase_sharded(torch, keep):
             cfg = dataclasses.replace(cfg, num_layers=depth)
         params = init_params(cfg, seed=0, device="cuda")
         r = dict(run, **extra)
-        base, _ = one_card(label, cfg, params, r)
+        base, _ = one_card_case(torch, label, cfg, params, prompts, r)
         good, _ = sharded_case(torch, f"{label} tp 4", cfg, params, prompts,
                                r, 4, base, kernels, exact)
         ok &= good
@@ -4226,6 +4461,9 @@ def main() -> int:
         name=f"sample_tokens (mamba2-1.3b, vocab {MAMBA2_VOCAB})",
         route="cuda", source=f"{csrc}/sampling.cu",
         replaces="src/repro/kernels/topk_sample.py:63")
+    for key, (name, src, line) in SHARD_RECORDS.items():
+        rec[key] = dict(name=name, route="cuda", source=f"{csrc}/{src}",
+                        replaces=f"src/repro/kernels/{line}")
     full, keep = {}, {}
     for phase, fn in (("kernels vs plain", lambda: phase_kernels(torch,
                                                                  rec)),
@@ -4251,7 +4489,8 @@ def main() -> int:
                        lambda: phase_moe(torch, rec)),
                       ("DLRM at one card's size",
                        lambda: phase_dlrm(torch, keep)),
-                      ("sharded serving", lambda: phase_sharded(torch, keep)),
+                      ("sharded serving",
+                       lambda: phase_sharded(torch, rec, keep)),
                       ("training", lambda: phase_training(torch, rec)),
                       ("full-width profiler hook",
                        lambda: phase_profile_hook(torch))):

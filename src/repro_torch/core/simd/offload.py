@@ -47,6 +47,18 @@ def effective_bandwidth(hbm_frac: float, total_rows: int,
 
 
 @dataclass
+class TierSpec:
+    """One memory tier of the heterogeneous store: its name, its read
+    bandwidth (bytes/s) and its capacity (bytes). Nothing in the port
+    reads it: it is kept for parity with the JAX package's
+    ``core/simd/offload.py``, whose ``TierSpec`` is unused there too."""
+
+    name: str
+    bandwidth: float
+    capacity_bytes: float
+
+
+@dataclass
 class OffloadPlan:
     hbm_rows: int
     host_rows: int

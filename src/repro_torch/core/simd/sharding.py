@@ -319,39 +319,64 @@ class Shards(list):
         self.mesh = mesh
 
 
+def _block_coords(spec, mesh, j: int) -> list:
+    """Shard j's (coordinate, block count) along each dimension of
+    ``spec`` that splits: (0, 1) for a dimension kept whole."""
+    coords, sizes = mesh.coords(j), mesh.shape
+    out = []
+    for entry in spec:
+        n, c = 1, 0
+        if entry is not None:
+            for a in (entry if isinstance(entry, tuple) else (entry,)):
+                n, c = n * sizes[a], c * sizes[a] + coords[a]
+        out.append((c, n))
+    return out
+
+
 def shard_block(t, spec, mesh, j: int):
     """Shard j's block of ``t`` under ``spec``: every split dimension
     narrowed to the block at shard j's coordinate along its axis (a view
     of ``t``)."""
-    coords, sizes = mesh.coords(j), mesh.shape
-    for dim, entry in enumerate(spec):
-        if entry is None:
-            continue
-        n, c = 1, 0
-        for a in (entry if isinstance(entry, tuple) else (entry,)):
-            n, c = n * sizes[a], c * sizes[a] + coords[a]
-        w = t.shape[dim] // n
-        t = t.narrow(dim, c * w, w)
+    for dim, (c, n) in enumerate(_block_coords(spec, mesh, j)):
+        if n > 1:
+            w = t.shape[dim] // n
+            t = t.narrow(dim, c * w, w)
     return t
 
 
-def place(tree, spec_tree, mesh) -> list:
+def place(tree, spec_tree, mesh, *, shared=None) -> list:
     """One tree per shard: shard j's block (``shard_block``) of every leaf
     on ``mesh.flat[j]``. A leaf already on a shard's device gives that
     shard a view of its block (shards stacked on one device share the
     leaf's memory: a whole leaf is not copied, a column block is read in
     place with the whole leaf's row stride); a leaf elsewhere is copied to
     the shard's device, its block only, contiguous; a leaf on the meta
-    device becomes zeros of the block's shape."""
+    device becomes zeros of the block's shape. ``shared``, a predicate on
+    a leaf's path ("layers/0/k"), marks leaves whose shards on one device
+    that hold the same block get one tensor between them (a replica's
+    page pools, which its data rows hold whole and must all see every
+    write to)."""
+    paths = [path for path, _ in flatten(tree)]
+    memo = {}
     shards = []
     for j, dev in enumerate(mesh.flat):
+        at = iter(paths)
+
         def one(leaf, spec, j=j, dev=dev):
+            path = next(at)
+            key = None
+            if shared is not None and shared(path):
+                key = (path, str(dev), tuple(_block_coords(spec, mesh, j)))
+                if key in memo:
+                    return memo[key]
             blk = shard_block(leaf, spec, mesh, j)
             if leaf.device.type == "meta":
-                return torch.zeros(blk.shape, dtype=blk.dtype, device=dev)
-            if blk.device == dev:
-                return blk
-            return torch.empty(blk.shape, dtype=blk.dtype,
-                               device=dev).copy_(blk)
+                blk = torch.zeros(blk.shape, dtype=blk.dtype, device=dev)
+            elif blk.device != dev:
+                blk = torch.empty(blk.shape, dtype=blk.dtype,
+                                  device=dev).copy_(blk)
+            if key is not None:
+                memo[key] = blk
+            return blk
         shards.append(tree_map(one, tree, spec_tree))
     return shards

@@ -89,6 +89,12 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
+#: devices whose tensors take a kernel's plain version: the CPU, and the
+#: meta device, whose tensors carry shapes only (the dry run counts the
+#: plain path's work on them); a CUDA tensor launches the kernel
+PLAIN_DEVICES = ("cpu", "meta")
+
+
 def refuse_grad(name: str, *tensors):
     """Raise when grad mode is on and an input requires grad: a kernel
     with no backward would return a result cut from the graph (only

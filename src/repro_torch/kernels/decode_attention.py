@@ -242,7 +242,7 @@ def decode_attention(q, k_cache, v_cache, pos):
     linear buffer)."""
     name = "decode_attention"
     _check_shapes(name, q, k_cache, v_cache, None, pos)
-    if q.device.type == "cpu":
+    if q.device.type in build.PLAIN_DEVICES:
         return plain.decode_attention(q, k_cache, v_cache, pos)
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {q.device}")
@@ -257,7 +257,7 @@ def decode_attention(q, k_cache, v_cache, pos):
 def paged_decode_attention(q, k_pool, v_pool, page_table, pos):
     name = "paged_decode_attention"
     _check_shapes(name, q, k_pool, v_pool, page_table, pos)
-    if q.device.type == "cpu":
+    if q.device.type in build.PLAIN_DEVICES:
         return plain.paged_decode_attention(q, k_pool, v_pool, page_table, pos)
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {q.device}")
@@ -282,7 +282,7 @@ def paged_decode_attention_int8(q, k_pool, v_pool, k_scale, v_scale,
                          f"got {tuple(k_scale.shape)}, "
                          f"{tuple(v_scale.shape)} for pools "
                          f"{tuple(k_pool.shape)}")
-    if q.device.type == "cpu":
+    if q.device.type in build.PLAIN_DEVICES:
         return plain.paged_decode_attention_int8(q, k_pool, v_pool, k_scale,
                                              v_scale, page_table, pos)
     if q.device.type != "cuda":

@@ -56,7 +56,7 @@ def _check(q, k, v):
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     _check(q, k, v)
     b, s, h, d = q.shape
-    if q.device.type == "cpu":
+    if q.device.type in build.PLAIN_DEVICES:
         return plain.dense_attention(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")

@@ -107,7 +107,7 @@ def int8_matmul(x, w_q, scale):
                          f"{tuple(scale.shape)}")
     if not (x.device == w_q.device == scale.device):
         raise ValueError(f"{name}: x, w_q, scale on different devices")
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return plain.int8_matmul(x, w_q, scale)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x.device}")

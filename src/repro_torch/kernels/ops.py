@@ -1,6 +1,7 @@
 """The one dispatch point per kernel (the port's counterpart of the JAX
 package's ``kernels/ops.py``). Each takes the model layout; a CPU tensor
-runs the plain PyTorch version, a CUDA tensor the hand-written kernel.
+runs the plain PyTorch version, a CUDA tensor the hand-written kernel (a
+meta tensor, shapes only, the plain version's shapes: the dry run).
 Prefill attention and the RG-LRU scan go through their autograd
 ``Function`` on the card whenever grad mode is on and an input requires
 grad (the kernel forward, the plain version's gradients backward); every

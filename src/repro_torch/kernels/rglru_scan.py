@@ -62,7 +62,7 @@ def rglru_scan(a, x, h0):
                          f"{tuple(h0.shape)}")
     if not (a.device == x.device == h0.device):
         raise ValueError(f"{name}: a, x, h0 on different devices")
-    if a.device.type == "cpu":
+    if a.device.type in build.PLAIN_DEVICES:
         return plain.rglru_scan(a, x, h0)
     if a.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {a.device}")

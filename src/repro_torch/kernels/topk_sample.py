@@ -153,7 +153,7 @@ def sample_tokens(logits, greedy, temperature, top_k, top_p, uniform,
     ``sample_plan``'s."""
     _check_rows("sample_tokens", logits, greedy, temperature, top_k, top_p,
                 uniform)
-    if logits.device.type == "cpu":
+    if logits.device.type in build.PLAIN_DEVICES:
         return plain.sample_tokens(logits, greedy, temperature, top_k, top_p,
                                    uniform)
     b, v = logits.shape
@@ -179,7 +179,7 @@ def topk_sample(logits, k, temperature, uniform, _cluster=None):
     uniform (B, V) in [0, 1). Returns (B,) int32. ``_cluster`` (tests
     only): 8 or 16 blocks a row instead of ``sample_plan``'s."""
     _check_rows("topk_sample", logits, k, temperature, uniform)
-    if logits.device.type == "cpu":
+    if logits.device.type in build.PLAIN_DEVICES:
         return plain.topk_sample(logits, k, temperature, uniform)
     b, v = logits.shape
     plan = _slices(v, _cluster or sample_plan(b, v).cluster,

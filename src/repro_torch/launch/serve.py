@@ -31,15 +31,19 @@ reference; 0 = single-shot), the shared-prefix KV cache
 the flush deadline by). The banner says which cache serves.
 
 ``--tp N`` serves one replica over N shards (tensor parallel, expert
-parallel on MoE archs whose config asks for it; dense and MoE archs,
-paged or rolling caches, model-dtype or int8 KV) over the host's first N
-cards, or over ``--devices``, an explicit comma-separated grid where a
-device may repeat (``cuda:0,cuda:0`` on one card, ``cpu,cpu,cpu,cpu``
-with ``--device cpu``); the banner prints the grid. ``--dp`` > 1 is
-refused by ``validate()`` with its ROADMAP.md item.
+parallel on MoE archs whose config asks for it; every serving arch,
+paged or rolling caches, model-dtype or int8 KV) and ``--dp M`` over M
+data rows of them (the slots split over the rows), on the host's first
+M x N cards, or over ``--devices``, an explicit comma-separated grid,
+row-major, where a device may repeat (``cuda:0,cuda:0`` on one card,
+``cpu,cpu,cpu,cpu`` with ``--device cpu``); the banner prints the
+(data, model) grid and its rows. Paged pools stay whole over the data
+rows, so a paged replica stacks each model shard's rows on one device.
 
     python -m repro_torch.launch.serve --arch granite-8b --reduced \
         --device cpu --tp 4 --devices cpu,cpu,cpu,cpu
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --reduced \
+        --device cpu --dp 2 --tp 2 --devices cpu,cpu,cpu,cpu
 ``EngineConfig.validate`` names the ROADMAP.md item of every other
 option.
 
@@ -143,7 +147,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "--devices")
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel ways per replica (the mesh 'data' "
-                         "axis)")
+                         "axis): each row decodes its block of the slots")
     ap.add_argument("--devices", default="",
                     help="the replica's device grid, comma-separated, "
                          "tp*dp entries (a device may repeat: "
@@ -287,9 +291,12 @@ def main(argv=None):
           f"d_model={cfg.d_model} dtype={cfg.dtype}")
     if eng.mesh is not None:
         rep = eng.load_report()
+        rows = "; ".join(", ".join(str(d) for d in row)
+                         for row in eng.mesh.devices)
         print(f"sharded replica: mesh {eng.mesh.shape} over "
               f"[{', '.join(str(d) for d in eng.mesh.flat)}] "
-              f"({eng.mesh.distinct} distinct device(s)), per-axis "
+              f"(data rows [{rows}]; {eng.mesh.distinct} distinct "
+              f"device(s)), per-axis "
               f"collective s/tick {dict(rep.axis_collective_s)}"
               + (f", moe_capacity_policy={eng.moe_capacity_policy}"
                  if eng.moe_capacity_policy else ""))

@@ -15,6 +15,7 @@ from repro_torch.models.model import (
     init_params,
     layer_types,
     paged_ok,
+    param_count_tree,
     param_specs,
     ported,
     quantize_weights,
@@ -25,5 +26,6 @@ from repro_torch.models.model import (
 __all__ = ["QUANT_WEIGHT_KEYS", "block_program", "cache_from_jax",
            "cache_specs", "decode_step", "dlrm_params_from_jax", "dtype_of",
            "forward", "init_cache", "init_paged_cache", "init_params",
-           "layer_types", "paged_ok", "param_specs", "params_from_jax",
-           "ported", "quantize_weights", "shard_cache", "shard_params"]
+           "layer_types", "paged_ok", "param_count_tree", "param_specs",
+           "params_from_jax", "ported", "quantize_weights", "shard_cache",
+           "shard_params"]

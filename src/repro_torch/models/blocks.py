@@ -5,9 +5,14 @@ projections going through the kernels' dispatch points
 (``repro_torch.kernels.ops``). An ``encoder`` block is the dense block
 with bidirectional attention.
 
-``apply_block_sharded`` runs a ``dense`` or ``moe`` block over the shards
-of a sharded replica (tensor and expert parallel, only concatenation
-between shards).
+``apply_block_sharded`` runs a serving block (``dense``, ``moe``,
+``local_attn``, ``rglru``, ``ssd``) over the shards of a sharded replica:
+a grid of data rows, each a model group of tensor- (and expert-) parallel
+shards, with only concatenation between shards.
+
+``apply_block(..., parallel_block=True)`` is the reference's
+``parallel_block`` lever as an explicit option: PaLM-style attention and
+MLP side by side with one fused ``wo`` / ``w_down`` product.
 
 Params are plain dicts of tensors in the reference's (in, out) weight
 orientation. Paged pools, rolling rings and recurrent states are updated
@@ -15,6 +20,8 @@ IN PLACE, where the JAX package returns a new pytree: the engine owns one
 cache per layer and nothing else holds a reference to it.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -24,10 +31,16 @@ from repro_torch.models import layers as L
 from repro_torch.models.moe import apply_moe, apply_moe_sharded, init_moe
 from repro_torch.models.rglru import (
     apply_rglru_block,
+    apply_rglru_block_sharded,
     init_rglru,
     init_rglru_cache,
 )
-from repro_torch.models.ssm import apply_ssd, init_ssd, init_ssd_cache
+from repro_torch.models.ssm import (
+    apply_ssd,
+    apply_ssd_sharded,
+    init_ssd,
+    init_ssd_cache,
+)
 
 F32 = torch.float32
 
@@ -169,6 +182,15 @@ def init_block(cfg, btype: str, gen, dtype, device):
                             device)}
 
 
+def attn_cache_window(cfg, btype: str, seq_len: int) -> int:
+    """KV window of a block's decode cache for a ``seq_len`` context (the
+    reference's): a local-attention block's own window, else the whole
+    sequence."""
+    if btype == "local_attn":
+        return min(cfg.local_window, seq_len)
+    return seq_len
+
+
 def init_block_cache(cfg, btype: str, batch: int, window: int, dtype,
                      device, kv_dtype: str = ""):
     """One block's rolling decode cache: a KV ring (B, W, kv, hd), with
@@ -177,9 +199,7 @@ def init_block_cache(cfg, btype: str, batch: int, window: int, dtype,
     multiplies its V by 0). ``kv_dtype`` "int8": int8 rings with float32
     scales (B, W, kv, 1), the chunked-prefill buffer under int8 pages."""
     if btype in KV_CACHE_BLOCKS:
-        w = min(window, cfg.local_window) if btype == "local_attn" \
-            else window
-        shape = (batch, w, cfg.num_kv_heads, cfg.resolved_head_dim)
+        shape = (batch, attn_cache_window(cfg, btype, window), cfg.num_kv_heads, cfg.resolved_head_dim)
         if kv_dtype == "int8":
             scales = shape[:3] + (1,)
             return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -331,7 +351,7 @@ def ring_fill(cache, k, v):
 
 def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,
                 pos=None, pages=None, write_at=None, n_valid=None,
-                causal: bool = True):
+                causal: bool = True, project: bool = True):
     """Attention sub-block. ``rope`` is the step's ``L.rope_table``;
     ``window`` > 0 is local attention. mode "prefill" or "train":
     attention over the whole sequence (the prefill kernel; bidirectional
@@ -340,7 +360,8 @@ def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,
     pages. mode "decode": K/V of the S new
     tokens go through the page table (``pages``) and paged attention, or
     into the ring at ``pos`` and rolling-cache attention; returns (out,
-    None)."""
+    None). ``project`` False returns the heads' outputs (B, S, H * hd)
+    before ``wo`` (the parallel block fuses it)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
@@ -365,12 +386,14 @@ def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,
             ring_fill(cache, k, v)
         new_kv = (k, v)
     out = out.reshape(b, s, h * hd)
+    if not project:
+        return out, new_kv
     return linear(out, p["wo"]), new_kv
 
 
 def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
                 pos=None, pages=None, write_at=None, n_valid=None,
-                moe_full_cap: bool = False):
+                moe_full_cap: bool = False, parallel_block: bool = False):
     """Pre-norm residual block: attention (dense, bidirectional in an
     ``encoder`` block, or local over ``cfg.local_window``) or the RG-LRU
     mixer, then the MLP (the MoE MLP in a ``moe`` block, at the whole
@@ -381,10 +404,23 @@ def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
     load-balance term, a float32 scalar; 0.0 for any other block).
     ``cache`` is the block's paged pools (with ``pages``) or its rolling
     cache (ring or recurrent state, with the slots' positions ``pos`` in
-    decode mode), updated in place."""
+    decode mode), updated in place.
+
+    ``parallel_block`` (the reference's lever of that name, off by
+    default) computes an attention block as ``x + [attn(norm1(x)),
+    mlp_hidden(norm2(x))] @ [wo; w_down]``: both norms read x, and the
+    heads' outputs and the MLP hidden go through one fused product. A
+    ``moe`` block and int8 weight leaves take the unfused path, as in the
+    reference."""
     if btype not in PORTED_BLOCKS:
         raise ValueError(f"block type {btype!r} is not ported yet")
     aux = 0.0
+    if (parallel_block and btype in KV_CACHE_BLOCKS and btype != "moe"
+            and not isinstance(p["attn"]["wo"], dict)):
+        x, new_kv = _parallel_block(cfg, btype, p, x, rope, mode=mode,
+                                    cache=cache, pos=pos, pages=pages,
+                                    write_at=write_at, n_valid=n_valid)
+        return x, new_kv, aux
     h = L.apply_norm(cfg, p["norm1"], x)
     if btype == "ssd":
         return x + apply_ssd(cfg, p["mixer"], h, cache=cache), None, aux
@@ -406,15 +442,32 @@ def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
     return x + m, new_kv, aux
 
 
+def _parallel_block(cfg, btype, p, x, rope, *, mode, **cache_kw):
+    """The parallel attention + MLP block of ``apply_block``; returns (x,
+    new_kv)."""
+    window = cfg.local_window if btype == "local_attn" else 0
+    ctx, new_kv = _attn_apply(cfg, p["attn"], L.apply_norm(cfg, p["norm1"],
+                                                           x), rope,
+                              mode=mode, window=window,
+                              causal=cfg.causal and btype != "encoder",
+                              project=False, **cache_kw)
+    hid = mlp_hidden(cfg, p["mlp"], L.apply_norm(cfg, p["norm2"], x))
+    w_cat = torch.cat([p["attn"]["wo"], p["mlp"]["w_down"]], dim=0)
+    return x + torch.matmul(torch.cat([ctx, hid], dim=-1), w_cat), new_kv
+
+
 # ---------------------------------------------------------------------------
-# Sharded blocks: one replica over the shards of a mesh (tensor and expert
-# parallel, the reference's bit-exact serving profile)
+# Sharded blocks: one replica over the shards of a mesh (data rows of
+# tensor- and expert-parallel shards, the reference's bit-exact serving
+# profile)
 # ---------------------------------------------------------------------------
 #
 # Every argument that is a list holds one entry per shard, shard j's on its
-# device: the activations ``xs`` (each shard holds the whole of them), the
-# shards' params (``core.simd.sharding.place`` under ``serving_policy``),
-# caches, page tables and positions. A shard computes only what its block
+# device, row-major over the data rows: the activations ``xs`` (each shard
+# holds the whole of its row's: its block of the batch, or the whole
+# batch when the rows do not divide it), the shards' params
+# (``core.simd.sharding.place`` under ``serving_policy``), caches, page
+# tables and positions. A shard computes only what its block
 # of a weight determines with the whole contraction; blocks cross shards
 # only by concatenation (``gather``), never by adding partial products, so
 # each shard's result is the single-card one, bit for bit, wherever a
@@ -424,8 +477,44 @@ def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
 def gather(parts, device, dim: int = -1):
     """Concatenation of every shard's block of a tensor, on ``device``: the
     shards' all-gather (a peer copy from another card, none on the same
-    device)."""
+    device). Inside ``count_gathers()`` the bytes the destination
+    receives from the other blocks are added to its count."""
+    if _GATHERED is not None and len(parts) > 1:
+        nbytes = sum(t.numel() * t.element_size() for t in parts)
+        _GATHERED["bytes"] += nbytes - nbytes // len(parts)
+        _GATHERED["calls"] += 1
     return torch.cat([t.to(device) for t in parts], dim=dim)
+
+
+_GATHERED = None
+
+
+@contextlib.contextmanager
+def count_gathers():
+    """Count what ``gather`` moves between shards while the block runs:
+    yields {"bytes", "calls"}, each destination's incoming bytes (all but
+    one equal block of each concatenation) summed over the calls (the
+    dry run's counterpart of the reference's HLO collective bytes)."""
+    global _GATHERED
+    prev, _GATHERED = _GATHERED, {"bytes": 0, "calls": 0}
+    try:
+        yield _GATHERED
+    finally:
+        _GATHERED = prev
+
+
+def rows_of(lst, tp: int) -> list:
+    """A grid's per-shard list cut into its data rows of ``tp`` shards
+    (shard j = row j // tp, model coordinate j % tp)."""
+    return [lst[r:r + tp] for r in range(0, len(lst), tp)]
+
+
+def by_rows(fn, tp: int, *lists):
+    """``fn(*row)`` on each data row's slices of ``lists`` (None passes
+    through), the results concatenated back into one per-shard list."""
+    n = len(lists[0]) // tp
+    rows = [[None] * n if x is None else rows_of(x, tp) for x in lists]
+    return [y for r in zip(*rows) for y in fn(*r)]
 
 
 def kv_layout(cfg, n: int, cache=None):
@@ -464,10 +553,11 @@ def _kv_index(h: int, kv: int, plan, device):
 
 def _kv_read(caches, j, name, layout, ka, ke, idx):
     """Shard j's K/V (or scale) leaf ``name`` for kv heads [ka, ke) with
-    whole head_dim, on its device: its own leaf under "kv" (which holds
-    exactly those heads), the head_dim blocks of every shard concatenated
-    under "hd" (scales are whole there), else a slice of its whole
-    leaf."""
+    whole head_dim, on its device (``caches`` the caches of shard j's data
+    row, j its model coordinate): its own leaf under "kv" (which holds
+    exactly those heads), the head_dim blocks of every shard of the row
+    concatenated under "hd" (scales are whole there), else a slice of its
+    whole leaf."""
     dev = caches[j][name].device
     if layout == "hd" and not name.endswith("_scale"):
         t = gather([c[name][:, :, ka:ke] for c in caches], dev)
@@ -482,40 +572,50 @@ def _kv_read(caches, j, name, layout, ka, ke, idx):
     return t
 
 
-def _attn_sharded(cfg, ps, hs, ropes, *, mode, caches=None, poss=None,
-                  pagess=None, write_ats=None, n_valids=None, causal=True):
-    """``_attn_apply`` over n shards: each projects its column blocks of q,
-    k, v; takes the whole heads it needs (its own blocks under the "kv"
-    layout, else the blocks of every shard concatenated); rotates them;
-    writes its part of the K/V into its cache (every shard before any
-    reads); attends its query heads (``_head_plan``) through the kernels;
-    and the heads' outputs are concatenated on every shard for the whole
-    ``wo``. Returns (outs, new_kvs): new_kvs[j] the (k, v) of the heads
-    shard j stores, whole head_dim, in prefill mode, else None."""
+def _attn_sharded(cfg, ps, hs, ropes, *, tp: int, mode, window: int = 0,
+                  caches=None, poss=None, pagess=None, write_ats=None,
+                  n_valids=None, causal=True):
+    """``_attn_apply`` over a grid of data rows of ``tp`` shards each (the
+    lists hold one entry per shard, row-major): each shard projects its
+    column blocks of q, k, v for its row's batch; takes the whole heads it
+    needs (its own blocks under the "kv" layout, else the blocks of every
+    shard of its row concatenated); rotates them; writes its part of the
+    K/V into its cache (every shard of every row before any shard reads:
+    the rows of a paged replica share their pools); attends its query
+    heads (``_head_plan``) through the kernels; and the heads' outputs
+    are concatenated on every shard of the row for the whole ``wo``.
+    ``window`` > 0 is local attention (its ring, whole on every shard,
+    when one kv head cannot split). Returns (outs, new_kvs): new_kvs[j]
+    the (k, v) of the heads shard j stores, whole head_dim, in prefill
+    mode, else None."""
     n = len(ps)
-    b, s, _ = hs[0].shape
     hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
-    layout = kv_layout(cfg, n, caches[0] if caches is not None else None)
-    kvs = kv // n if layout == "kv" else kv
+    layout = kv_layout(cfg, tp, caches[0] if caches is not None else None)
+    kvs = kv // tp if layout == "kv" else kv
     q_bl = [linear(x, p["wq"]) for x, p in zip(hs, ps)]
     k_bl = [linear(x, p["wk"]) for x, p in zip(hs, ps)]
     v_bl = [linear(x, p["wv"]) for x, p in zip(hs, ps)]
     split_q = q_bl[0].shape[-1] < h * hd
     split_kv = k_bl[0].shape[-1] < kv * hd
+
+    def row(lst, j):
+        return rows_of(lst, tp)[j // tp]
+
     qs, ks, vs, plans = [], [], [], []
     for j in range(n):
-        dev = hs[j].device
-        plan = _head_plan(h, kv, n, j)
+        dev, m = hs[j].device, j % tp
+        b, s = hs[j].shape[:2]
+        plan = _head_plan(h, kv, tp, m)
         a, e = plan[:2]
-        if split_q and h % n == 0:  # the block is the shard's heads
+        if split_q and h % tp == 0:  # the block is the shard's heads
             q = q_bl[j].reshape(b, s, e - a, hd)
         else:
-            q = (gather(q_bl, dev) if split_q else q_bl[j]).reshape(
+            q = (gather(row(q_bl, j), dev) if split_q else q_bl[j]).reshape(
                 b, s, h, hd)[:, :, a:e]
         if layout == "kv" or not split_kv:
             k, v = k_bl[j], v_bl[j]
         else:
-            k, v = gather(k_bl, dev), gather(v_bl, dev)
+            k, v = gather(row(k_bl, j), dev), gather(row(v_bl, j), dev)
         k, v = k.reshape(b, s, kvs, hd), v.reshape(b, s, kvs, hd)
         if ropes[j] is not None:
             q, k = L.rotate(q, ropes[j]), L.rotate(k, ropes[j])
@@ -527,68 +627,111 @@ def _attn_sharded(cfg, ps, hs, ropes, *, mode, caches=None, poss=None,
         for j, c in enumerate(caches):
             at, k, v = decode_rows(ks[j], vs[j], poss[j], write_ats[j],
                                    c["k"].shape[1])
-            store_kv(c, at, k, v, (j, n) if layout == "hd" else None)
+            store_kv(c, at, k, v, (j % tp, tp) if layout == "hd" else None)
     elif caches is not None:  # a fresh rolling cache (never head_dim-split)
         for c, k, v in zip(caches, ks, vs):
             ring_fill(c, k, v)
     outs = []
-    c0 = [j * kvs if layout == "kv" else 0 for j in range(n)]
     for j in range(n):
         a, e, ka, ke, _ = plans[j]
         q = qs[j]
+        b, s = q.shape[:2]
         idx = _kv_index(h, kv, plans[j], q.device)
         if e == a:  # more shards than query heads: nothing to attend
             outs.append(q.reshape(b, s, 0))
             continue
         if mode != "decode":
-            sel = slice(ka - c0[j], ke - c0[j])
+            c0 = (j % tp) * kvs if layout == "kv" else 0
+            sel = slice(ka - c0, ke - c0)
             k, v = ks[j][:, :, sel], vs[j][:, :, sel]
             if idx is not None:
                 k, v = k[:, :, idx], v[:, :, idx]
             out = ops.flash_attention(q, k.contiguous(), v.contiguous(),
-                                      causal=causal)
+                                      causal=causal, window=window)
         else:
-            k, v = (_kv_read(caches, j, name, layout, ka, ke, idx)
+            cs = row(caches, j)
+            k, v = (_kv_read(cs, j % tp, name, layout, ka, ke, idx)
                     for name in ("k", "v"))
-            scales = (tuple(_kv_read(caches, j, name, layout, ka, ke, idx)
+            scales = (tuple(_kv_read(cs, j % tp, name, layout, ka, ke, idx)
                             for name in ("k_scale", "v_scale"))
                       if "k_scale" in caches[j] else None)
             out = attend_cache(q, k, v, scales, pagess[j], n_valids[j])
         outs.append(out.reshape(b, s, (e - a) * hd))
-    ys = [linear(gather(outs, x.device), p["wo"]) for x, p in zip(hs, ps)]
+    ys = [linear(gather(row(outs, j), x.device), p["wo"])
+          for j, (x, p) in enumerate(zip(hs, ps))]
     return ys, (None if mode == "decode" else list(zip(ks, vs)))
 
 
 def _mlp_sharded(cfg, ps, xs):
-    """``apply_mlp`` over n shards: each its column block of the hidden
-    (``w_gate`` / ``w_up`` split on ff, or whole), the blocks concatenated
-    on every shard for the whole ``w_down``."""
+    """``apply_mlp`` over the n shards of one data row: each its column
+    block of the hidden (``w_gate`` / ``w_up`` split on ff, or whole), the
+    blocks concatenated on every shard for the whole ``w_down``."""
     hb = [mlp_hidden(cfg, p, x) for x, p in zip(xs, ps)]
     split = hb[0].shape[-1] < ps[0]["w_down"].shape[0]
     return [linear(gather(hb, x.device) if split else h, p["w_down"])
             for x, h, p in zip(xs, hb, ps)]
 
 
+def _moe_grid(cfg, ps, hs, tp: int, split: bool, full_cap: bool):
+    """The MoE MLP over a grid: the reference routes and sizes capacity
+    over the whole batch's token group, so the rows' blocks of the batch
+    (``split``) are concatenated at each model coordinate, the first row's
+    shards run ``apply_moe_sharded`` on the whole batch, and every row
+    takes its block of the output (its own under a whole batch)."""
+    if len(ps) == tp:
+        return apply_moe_sharded(cfg, ps, hs, full_cap=full_cap)
+    whole = [gather(hs[m::tp], hs[m].device, dim=0) if split else hs[m]
+             for m in range(tp)]
+    ys = apply_moe_sharded(cfg, ps[:tp], whole, full_cap=full_cap)
+    out = []
+    for j, h in enumerate(hs):
+        y = ys[j % tp]
+        if split:
+            b = h.shape[0]
+            y = y[(j // tp) * b:(j // tp + 1) * b]
+        out.append(y.to(h.device))
+    return out
+
+
 def apply_block_sharded(cfg, btype: str, ps, xs, ropes, *, mode: str,
-                        caches=None, poss=None, pagess=None, write_ats=None,
+                        tp: int = 0, split: bool = False, caches=None,
+                        poss=None, pagess=None, write_ats=None,
                         n_valids=None, moe_full_cap: bool = False):
-    """``apply_block`` of a ``dense`` or ``moe`` block over n shards (lists,
-    one entry per shard; ``caches`` and the rest as the single-card
-    block's, per shard). Returns (xs, new_kvs): new_kvs[j] the prompt's
-    (k, v) of the heads shard j stores, in prefill mode."""
-    if btype not in ("dense", "moe"):
-        raise ValueError(f"block type {btype!r} has no sharded form yet "
-                         f"(ROADMAP.md queue 1, 'Multi-GPU')")
+    """``apply_block`` over a grid of shards: lists with one entry per
+    shard, row-major over data rows of ``tp`` shards (``tp`` 0: one row
+    of all of them); ``split`` when each row holds its block of the batch
+    (else every row the whole batch); ``caches`` and the rest as the
+    single-card block's, per shard. Only concatenation crosses shards.
+    The attention (``dense``, ``moe``, ``local_attn``), RG-LRU
+    (``rglru``) and SSD (``ssd``) mixers each run their sharded form; a
+    MoE block routes the whole batch (``_moe_grid``). Returns (xs,
+    new_kvs): new_kvs[j] the prompt's (k, v) of the heads shard j stores,
+    in prefill mode."""
+    if btype not in ("dense", "moe", "local_attn", "rglru", "ssd"):
+        raise ValueError(f"block type {btype!r} has no sharded form "
+                         f"(serving blocks only)")
+    tp = tp or len(ps)
     hs = [L.apply_norm(cfg, p["norm1"], x) for x, p in zip(xs, ps)]
-    a, new_kvs = _attn_sharded(
-        cfg, [p["attn"] for p in ps], hs, ropes, mode=mode, caches=caches,
-        poss=poss, pagess=pagess, write_ats=write_ats, n_valids=n_valids,
-        causal=cfg.causal)
+    new_kvs = None
+    if btype == "ssd":
+        m = by_rows(lambda p, h, c: apply_ssd_sharded(
+            cfg, [q["mixer"] for q in p], h, caches=c), tp, ps, hs, caches)
+        return [x + y for x, y in zip(xs, m)], None
+    if btype == "rglru":
+        a = by_rows(lambda p, h, c: apply_rglru_block_sharded(
+            cfg, [q["mixer"] for q in p], h, caches=c), tp, ps, hs, caches)
+    else:
+        a, new_kvs = _attn_sharded(
+            cfg, [p["attn"] for p in ps], hs, ropes, tp=tp, mode=mode,
+            window=cfg.local_window if btype == "local_attn" else 0,
+            caches=caches, poss=poss, pagess=pagess, write_ats=write_ats,
+            n_valids=n_valids, causal=cfg.causal)
     xs = [x + y for x, y in zip(xs, a)]
     hs = [L.apply_norm(cfg, p["norm2"], x) for x, p in zip(xs, ps)]
     if btype == "moe":
-        m = apply_moe_sharded(cfg, [p["moe"] for p in ps], hs,
-                              full_cap=moe_full_cap)
+        m = _moe_grid(cfg, [p["moe"] for p in ps], hs, tp, split,
+                      moe_full_cap)
     else:
-        m = _mlp_sharded(cfg, [p["mlp"] for p in ps], hs)
+        m = by_rows(lambda p, h: _mlp_sharded(cfg, [q["mlp"] for q in p], h),
+                    tp, ps, hs)
     return [x + y for x, y in zip(xs, m)], new_kvs

@@ -19,15 +19,18 @@ Public API (device explicit everywhere):
   param_specs(cfg), cache_specs(cfg, batch, window)
                                               -> the same trees on the
                                                  meta device (shapes only)
+  param_count_tree(params)                    -> elements of a params tree
   shard_params(cfg, params, mesh), shard_cache(cfg, cache, mesh, paged=)
                                               -> one tree per shard
                                                  (``Shards``) under
                                                  ``serving_policy``
 
 ``forward`` and ``decode_step`` also take a sharded replica: params and
-caches as ``Shards`` (tensor and expert parallel over the mesh's
-``model`` axis, ``blocks.apply_block_sharded``). The logits come back
-whole on the first shard's device, where the sampler runs.
+caches as ``Shards`` over a (data, model) grid (each data row runs its
+block of the batch, or all of it when the rows do not divide it; its
+model group is tensor and expert parallel, ``blocks.apply_block_sharded``).
+The logits of all rows come back whole, in slot order, on the first
+shard's device, where the sampler runs.
 
 Both steps take ``positions`` (3, B, S) for mrope (qwen2-vl: the stubbed
 vision frontend's three position streams; the reference's
@@ -62,13 +65,16 @@ from repro_torch.models.blocks import (
     PORTED_BLOCKS,
     apply_block,
     apply_block_sharded,
+    by_rows,
     gather,
     init_block,
     init_block_cache,
     init_norm,
     init_paged_block_cache,
     paged_write_index,
+    rows_of,
 )
+from repro_torch.tree import leaves
 
 F32 = torch.float32
 
@@ -144,6 +150,11 @@ def param_specs(cfg):
     """The params' shapes and dtypes, on the meta device (nothing is
     allocated): the reference's ``param_specs``, one entry per layer."""
     return init_params(cfg, 0, device="meta")
+
+
+def param_count_tree(params) -> int:
+    """Elements over every leaf of a params tree (meta tensors count)."""
+    return sum(t.numel() for t in leaves(params))
 
 
 def cache_specs(cfg, batch: int, window: int, kv_dtype: str = ""):
@@ -238,35 +249,73 @@ def shard_params(cfg, params, mesh) -> Shards:
     under ``serving_policy``: column blocks of the _COL projections, vocab
     blocks of ``embed`` / ``lm_head``, expert or ff blocks of the MoE
     stacks, every other leaf whole (``sharding.place``: a whole leaf
-    already on a shard's device is shared, not copied). A float32 copy of
-    the shard's lm-head block (``lm_head_f32``) is added under a narrower
-    model dtype; a copy the caller made of the whole head is not used."""
+    already on a shard's device is shared, not copied); the data rows hold
+    the same blocks. A float32 copy of the shard's lm-head block
+    (``lm_head_f32``) is added under a narrower model dtype; a copy the
+    caller made of the whole head is not used."""
     base = {k: v for k, v in params.items() if k != "lm_head_f32"}
     trees = place(base, param_pspecs(cfg, base, serving_policy(cfg, mesh)),
                   mesh)
     if dtype_of(cfg) != F32:
+        made = {}  # the data rows' shards on a device share one copy
         for p in trees:
-            p["lm_head_f32"] = head_f32(p)
+            src = p.get("lm_head", p["embed"])
+            key = (src.data_ptr(), tuple(src.shape), str(src.device))
+            if key not in made:
+                made[key] = head_f32(p)
+            p["lm_head_f32"] = made[key]
     return Shards(trees, mesh)
+
+
+def _pool_leaf(path: str) -> bool:
+    return path.startswith("layers/")
 
 
 def shard_cache(cfg, cache, mesh, *, paged: bool) -> Shards:
     """Shard j's cache on ``mesh.flat[j]`` from ``cache`` (meta tensors
     give zeros): page pools, and the B=1 working buffers gathered from and
-    scattered into them, by ``paged_cache_pspecs``; rolling caches by
-    ``cache_pspecs``. Positions and page tables are whole on every
-    shard."""
+    scattered into them, by ``paged_cache_pspecs``, each pool one tensor
+    for the data rows on a device (they hold it whole and write into it
+    alike); rolling caches by ``cache_pspecs`` (the slots split over the
+    data rows when they divide). Positions and page tables are whole on
+    every shard. Paged pools of data rows on different devices would need
+    every write broadcast to each row's copy, which the port does not do:
+    refused."""
     pol = serving_policy(cfg, mesh)
     specs = (paged_cache_pspecs if paged else cache_pspecs)(
         cfg, cache, pol, mesh)
-    return Shards(place(cache, specs, mesh), mesh)
+    if paged and mesh.shape.get("data", 1) > 1:
+        cols = mesh.devices.T
+        if any(len({str(d) for d in col}) > 1 for col in cols):
+            raise ValueError(
+                f"paged pools over data rows on different devices "
+                f"({[str(d) for d in mesh.flat]}): every row would hold "
+                f"its own copy and miss the other rows' writes; stack each "
+                f"model shard's rows on one device, serve rolling caches "
+                f"(paged=False), or see ROADMAP.md queue 1, 'Multi-GPU' "
+                f"item 4c")
+    return Shards(place(cache, specs, mesh,
+                        shared=_pool_leaf if paged else None), mesh)
+
+
+def _grid(mesh, b: int):
+    """(tp, split, slices): the model group's width, whether the data rows
+    split the batch of ``b`` (when they divide it: the reference's
+    ``_batch_dim_spec``; else every row runs the whole batch), and each
+    shard's slice of the batch."""
+    dp, tp = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+    split = dp > 1 and b % dp == 0
+    w = b // dp if split else b
+    rows = [slice(r * w, r * w + w) if split else slice(None)
+            for r in range(dp)]
+    return tp, split, [sl for sl in rows for _ in range(tp)]
 
 
 def _embed_sharded(cfg, shards, toks):
-    """Every shard's token embeddings (B, S, d), whole: under a vocab
-    split each shard looks up the tokens its block owns (clamped
-    elsewhere), and each token's row is taken from its owner's
-    concatenated rows."""
+    """Every shard's token embeddings (B, S, d), whole, within one model
+    group: under a vocab split each shard looks up the tokens its block
+    owns (clamped elsewhere), and each token's row is taken from its
+    owner's concatenated rows."""
     vb = shards[0]["embed"].shape[0]
     if vb == cfg.vocab_size:
         return [_embed(p, t) for p, t in zip(shards, toks)]
@@ -282,62 +331,85 @@ def _embed_sharded(cfg, shards, toks):
 
 
 def _logits_sharded(cfg, shards, xs):
-    """The logits (B, ..., V) float32 on the first shard's device: each
-    shard's vocab block, concatenated (the reference replicates them
-    before its sampler), or the first shard's whole product when the
-    head is not split."""
+    """The logits (B, ..., V) float32 on the first shard's device of one
+    model group: each shard's vocab block, concatenated (the reference
+    replicates them before its sampler), or the first shard's whole
+    product when the head is not split."""
     if head_f32(shards[0]).shape[-1] == cfg.vocab_size:
         return _logits(cfg, shards[0], xs[0])
     return gather([_logits(cfg, p, x) for p, x in zip(shards, xs)],
                   xs[0].device)
 
 
+def _logits_grid(cfg, shards, xs, tp: int, split: bool):
+    """The logits of every data row, concatenated in slot order on the
+    first shard's device (the first row's alone when every row ran the
+    whole batch)."""
+    if not split:
+        return _logits_sharded(cfg, shards[:tp], xs[:tp])
+    return gather([_logits_sharded(cfg, p, x) for p, x in zip(
+        rows_of(shards, tp), rows_of(xs, tp))], xs[0].device, dim=0)
+
+
 def _at(xs, logits_at):
     if logits_at is None:
         return xs
     return [x[torch.arange(x.shape[0], device=x.device),
-              logits_at.to(x.device, torch.int64)] for x in xs]
+              at.to(x.device, torch.int64)] for x, at in zip(xs, logits_at)]
 
 
 def _forward_sharded(cfg, shards, tokens, *, logits_at, want_kv, cache,
                      positions, moe_full_cap):
-    """``forward`` (prefill mode) over a sharded replica. kv, when
-    wanted, is per shard the per-layer (k, v) of the heads it stores."""
+    """``forward`` (prefill mode) over a sharded replica: each data row
+    over its block of the batch (or all of it), its model group
+    tensor-parallel. kv, when wanted, is per shard the per-layer (k, v)
+    of the heads it stores, for its row's batch."""
     devs = shards.mesh.flat
     b, s = tokens.shape
-    xs = _embed_sharded(cfg, shards, [tokens.to(d) for d in devs])
-    ropes = [_rope(cfg, None if positions is None else positions.to(d),
-                   lambda d=d: torch.arange(s, device=d)[None].expand(b, s))
-             for d in devs]
+    tp, split, sl = _grid(shards.mesh, b)
+    toks = [tokens[sl[j]].to(d) for j, d in enumerate(devs)]
+    xs = by_rows(lambda p, t: _embed_sharded(cfg, p, t), tp, shards, toks)
+    ropes = [_rope(cfg, None if positions is None
+                   else positions[:, sl[j]].to(d),
+                   lambda t=t, d=d: torch.arange(s, device=d)[None].expand(
+                       t.shape[0], s))
+             for j, (t, d) in enumerate(zip(toks, devs))]
     kvs = [[] for _ in devs]
     for i, bt in enumerate(layer_types(cfg)):
         xs, kv = apply_block_sharded(
             cfg, bt, [p["layers"][i] for p in shards], xs, ropes,
-            mode="prefill", moe_full_cap=moe_full_cap,
+            mode="prefill", tp=tp, split=split, moe_full_cap=moe_full_cap,
             caches=None if cache is None else [c["layers"][i]
                                                for c in cache])
         for j in range(len(devs)):
-            kvs[j].append(kv[j] if want_kv else None)
+            kvs[j].append(kv[j] if want_kv and kv is not None else None)
     if cache is not None:
         for c in cache:
             c["pos"].fill_(s)
-    return (_logits_sharded(cfg, shards, _at(xs, logits_at)),
+    ats = None if logits_at is None else [logits_at[x] for x in sl]
+    return (_logits_grid(cfg, shards, _at(xs, ats), tp, split),
             kvs if want_kv else None)
 
 
 def _decode_sharded(cfg, shards, cache, tokens, *, logits_at, positions,
                     moe_full_cap):
-    """``decode_step`` over a sharded replica: every shard's cache holds
-    its own position and page-table copies, advanced alike."""
+    """``decode_step`` over a sharded replica: each data row over its
+    block of the slots (or all of them) from its shards' caches (its
+    block of the rings and states; the pools whole and shared), every
+    shard's copy of the positions and page table advanced alike."""
     devs = shards.mesh.flat
     b, s = tokens.shape
-    xs = _embed_sharded(cfg, shards, [tokens.to(d) for d in devs])
-    poss = [c["pos"] for c in cache]
-    pagess = [c.get("page_table") for c in cache]
-    ropes = [_rope(cfg, None if positions is None else positions.to(d),
+    tp, split, sl = _grid(shards.mesh, b)
+    toks = [tokens[sl[j]].to(d) for j, d in enumerate(devs)]
+    xs = by_rows(lambda p, t: _embed_sharded(cfg, p, t), tp, shards, toks)
+    poss = [c["pos"][sl[j]] for j, c in enumerate(cache)]
+    pagess = [None if c.get("page_table") is None else
+              c["page_table"][sl[j]] for j, c in enumerate(cache)]
+    ropes = [_rope(cfg, None if positions is None
+                   else positions[:, sl[j]].to(d),
                    lambda p=p, d=d: p.to(torch.int64)[:, None]
                    + torch.arange(s, device=d)[None, :])
-             for p, d in zip(poss, devs)]
+             for j, (p, d) in enumerate(zip(poss, devs))]
     write_ats = [None if pages is None else paged_write_index(
         pages, pos, s, c["layers"][0]["k"].shape[1],
         resolve_duplicates=cfg.arch_type == "moe")
@@ -346,12 +418,14 @@ def _decode_sharded(cfg, shards, cache, tokens, *, logits_at, positions,
     for i, bt in enumerate(layer_types(cfg)):
         xs, _ = apply_block_sharded(
             cfg, bt, [p["layers"][i] for p in shards], xs, ropes,
-            mode="decode", caches=[c["layers"][i] for c in cache],
-            poss=poss, pagess=pagess, write_ats=write_ats,
-            n_valids=n_valids, moe_full_cap=moe_full_cap)
-    for pos in poss:
-        pos.add_(s)
-    return _logits_sharded(cfg, shards, _at(xs, logits_at))
+            mode="decode", tp=tp, split=split,
+            caches=[c["layers"][i] for c in cache], poss=poss,
+            pagess=pagess, write_ats=write_ats, n_valids=n_valids,
+            moe_full_cap=moe_full_cap)
+    for c in cache:
+        c["pos"].add_(s)
+    ats = None if logits_at is None else [logits_at[x] for x in sl]
+    return _logits_grid(cfg, shards, _at(xs, ats), tp, split)
 
 
 def _embed_inputs(cfg, params, tokens, patches):
@@ -393,7 +467,7 @@ def _rope(cfg, positions, default):
     return L.rope_table(cfg, default() if positions is None else positions)
 
 
-def _train_layers(cfg, params, x, rope, moe_full_cap):
+def _train_layers(cfg, params, x, rope, moe_full_cap, parallel_block):
     """The layers in train mode: the body's repeats of the block pattern
     each recomputed in backward (``torch.utils.checkpoint``, non-
     reentrant: the reference's ``jax.checkpoint`` of each blockset with
@@ -406,7 +480,8 @@ def _train_layers(cfg, params, x, rope, moe_full_cap):
         aux = 0.0
         for bt, p in zip(types[lo:hi], params["layers"][lo:hi]):
             x, _, a = apply_block(cfg, bt, p, x, rope, mode="train",
-                                  moe_full_cap=moe_full_cap)
+                                  moe_full_cap=moe_full_cap,
+                                  parallel_block=parallel_block)
             aux = aux + a
         return x, aux
 
@@ -427,7 +502,8 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
             want_kv: bool = False, cache: Optional[dict] = None,
             patches: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
-            moe_full_cap: bool = False, mode: str = "prefill"):
+            moe_full_cap: bool = False, mode: str = "prefill",
+            parallel_block: bool = False):
     """Full-sequence forward, causal unless the arch is an encoder.
     tokens (B, S) integer, or an audio arch's frames (B, S, d);
     ``patches`` (B, P, d) go ahead of the tokens on a ``vision_text`` arch
@@ -449,9 +525,10 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
         raise ValueError(f"forward: mode {mode!r} not in ('prefill', "
                          f"'train')")
     if isinstance(params, Shards):
-        if mode != "prefill" or patches is not None:
+        if mode != "prefill" or patches is not None or parallel_block:
             raise ValueError("forward: a sharded replica serves token "
-                             "prefill only (no train mode, no patches)")
+                             "prefill only (no train mode, no patches, no "
+                             "parallel_block)")
         return _forward_sharded(cfg, params, tokens, logits_at=logits_at,
                                 want_kv=want_kv, cache=cache,
                                 positions=positions,
@@ -464,14 +541,16 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
         if cache is not None or want_kv or logits_at is not None:
             raise ValueError("forward: mode 'train' takes no cache, "
                              "want_kv or logits_at")
-        x, aux = _train_layers(cfg, params, x, rope, moe_full_cap)
+        x, aux = _train_layers(cfg, params, x, rope, moe_full_cap,
+                               parallel_block)
         return _logits(cfg, params, x), aux
     kvs = []
     layer_caches = (cache["layers"] if cache is not None
                     else [None] * cfg.num_layers)
     for bt, p, c in zip(layer_types(cfg), params["layers"], layer_caches):
         x, kv, _ = apply_block(cfg, bt, p, x, rope, mode="prefill",
-                               cache=c, moe_full_cap=moe_full_cap)
+                               cache=c, moe_full_cap=moe_full_cap,
+                               parallel_block=parallel_block)
         if want_kv:
             kvs.append(kv)
     if cache is not None:
@@ -484,7 +563,7 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
 def decode_step(cfg, params, cache, tokens, *,
                 logits_at: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None,
-                moe_full_cap: bool = False):
+                moe_full_cap: bool = False, parallel_block: bool = False):
     """Incremental decode against the paged cache (``init_paged_cache``)
     or the rolling one (``init_cache``). tokens (B, S): S=1 is the
     one-token decode step, S > 1 a chunk of prefill (recurrent blocks
@@ -492,8 +571,12 @@ def decode_step(cfg, params, cache, tokens, *,
     steps every recurrent state and advances ``cache["pos"]`` by S, in
     place (never rebinding it: a captured CUDA graph keeps reading the
     tensor it was captured with). Returns logits (B, S, V) float32, or
-    (B, V) at the chunk offsets ``logits_at`` (B,) when given."""
+    (B, V) at the chunk offsets ``logits_at`` (B,) when given.
+    ``parallel_block`` as in ``forward``."""
     if isinstance(params, Shards):
+        if parallel_block:
+            raise ValueError("decode_step: parallel_block is a one-card "
+                             "option")
         return _decode_sharded(cfg, params, cache, tokens,
                                logits_at=logits_at, positions=positions,
                                moe_full_cap=moe_full_cap)
@@ -514,7 +597,8 @@ def decode_step(cfg, params, cache, tokens, *,
     for bt, p, c in zip(layer_types(cfg), params["layers"], cache["layers"]):
         x, _, _ = apply_block(cfg, bt, p, x, rope, mode="decode", cache=c,
                               pos=pos, pages=pages, write_at=write_at,
-                              n_valid=n_valid, moe_full_cap=moe_full_cap)
+                              n_valid=n_valid, moe_full_cap=moe_full_cap,
+                              parallel_block=parallel_block)
     cache["pos"].add_(s)  # after the layers' last read of the old value
     if logits_at is not None:
         x = x[torch.arange(b, device=x.device), logits_at.to(torch.int64)]

@@ -12,6 +12,11 @@ heads. The reference computes it in plain JAX (no Pallas kernel); so does
 the port, in PyTorch ops, float32 throughout the scan as there. The
 decode step updates the cache IN PLACE: a captured CUDA graph keeps
 reading the tensors it was captured with.
+
+``apply_ssd_sharded`` runs the mixer over the shards of a tensor-parallel
+group under the reference's bit-exact serving layout: ``in_proj`` split
+by output column, everything else (conv, the SSD scan and step, the
+gated norm, ``out_proj``) whole on every shard, over the whole state.
 """
 from __future__ import annotations
 
@@ -141,17 +146,14 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
     return y.to(x.dtype), hstate
 
 
-def apply_ssd(cfg, p, x, *, cache=None):
-    """The SSD mixer. x (B, S, d) -> y (B, S, d). ``cache`` {"conv": (B,
-    K-1, C), "state": (B, H, P, N) float32} or None (a prefill from
-    nothing); when given, its conv window is prepended, and it is then
-    overwritten in place with the new window and state. S = 1 with a
-    cache is one decode step from the cached state; otherwise the chunked
-    scan runs from a zero state, as the reference's does."""
+def _ssd_mix(cfg, p, x, xz, cache):
+    """The SSD mixer's output from the in-projection ``xz`` without
+    touching ``cache``: (out (B, S, d), the new conv window, the new
+    state)."""
     di, ns = cfg.d_inner, cfg.ssm_state_dim
     nh, hd = cfg.ssm_num_heads, cfg.ssm_head_dim
     b, s, _ = x.shape
-    z, xbc, dt = _split_proj(cfg, torch.matmul(x, p["in_proj"]))
+    z, xbc, dt = _split_proj(cfg, xz)
     conv_state = cache["conv"] if cache is not None else None
     xbc, new_conv = causal_conv(xbc, p["conv_w"], conv_state,
                                 activation=F.silu)
@@ -175,11 +177,44 @@ def apply_ssd(cfg, p, x, *, cache=None):
         y = y4.reshape(b, s, di)
 
     y = L.rmsnorm(y.to(x.dtype) * F.silu(z), p["norm_scale"])
-    out = torch.matmul(y, p["out_proj"])
-    if cache is not None:
-        cache["conv"].copy_(new_conv)
-        cache["state"].copy_(state)
-    return out
+    return torch.matmul(y, p["out_proj"]), new_conv, state
+
+
+def apply_ssd(cfg, p, x, *, cache=None):
+    """The SSD mixer. x (B, S, d) -> y (B, S, d). ``cache`` {"conv": (B,
+    K-1, C), "state": (B, H, P, N) float32} or None (a prefill from
+    nothing); when given, its conv window is prepended, and it is then
+    overwritten in place with the new window and state. S = 1 with a
+    cache is one decode step from the cached state; otherwise the chunked
+    scan runs from a zero state, as the reference's does. The one-shard
+    case of ``apply_ssd_sharded``."""
+    return apply_ssd_sharded(
+        cfg, [p], [x], caches=None if cache is None else [cache])[0]
+
+
+def apply_ssd_sharded(cfg, ps, xs, *, caches=None):
+    """``apply_ssd`` over the n shards of a tensor-parallel group (lists,
+    one entry per shard; ``xs`` and ``caches`` whole on every shard): each
+    shard projects its column block of ``in_proj``; the blocks are
+    concatenated on every shard before ``_split_proj`` (a block may span
+    the z / xBC / dt boundaries), and the rest of the mixer runs whole
+    from the shard's whole conv window and state. Every shard reads its
+    cache before any shard writes, so shards may share one cache tensor.
+    Returns the outputs (B, S, d) per shard."""
+    from repro_torch.models.blocks import gather
+
+    blks = [torch.matmul(x, p["in_proj"]) for x, p in zip(xs, ps)]
+    split = blks[0].shape[-1] < ps[0]["conv_w"].shape[1] + cfg.d_inner \
+        + cfg.ssm_num_heads
+    mixed = [_ssd_mix(cfg, p, x,
+                      gather(blks, x.device) if split else blks[j],
+                      None if caches is None else caches[j])
+             for j, (x, p) in enumerate(zip(xs, ps))]
+    if caches is not None:
+        for c, (_, new_conv, state) in zip(caches, mixed):
+            c["conv"].copy_(new_conv)
+            c["state"].copy_(state)
+    return [out for out, _, _ in mixed]
 
 
 def init_ssd_cache(cfg, batch: int, dtype, device):

@@ -8,15 +8,15 @@ mamba2's SSD states), single-shot and chunked prefill (``chunk_prefill``
 defaults to 64, as in the reference), the prefix cache, cancel,
 timeouts, shedding and preemption, model-dtype or int8 pools and
 weights, the three MoE capacity policies, span tracing and the profiler
-hook, on one card or, under ``DeviceTopology(tp=N)``, as one replica
-over N shards (tensor parallel, and expert parallel on MoE archs whose
-config asks for it) on archs whose blocks are all ``dense`` or ``moe``,
-on paged or rolling caches with model-dtype or int8 KV. ``validate()``
-refuses every option whose path is not ported yet (``dp`` > 1; sharded
-``rglru``, ``ssd`` or ``local_attn`` blocks) and names the
-``ROADMAP.md`` item that brings it, so nothing silently runs a different
-path than the one asked for; with the reference it refuses int8 weights
-on a sharded replica. It refuses an encoder-only arch (hubert-xlarge:
+hook, on one card or, under ``DeviceTopology(dp=M, tp=N)``, as one
+replica over a grid of M data rows of N shards each (the batch split
+over the rows; tensor parallel, and expert parallel on MoE archs whose
+config asks for it, within a row) on every serving arch, on paged or
+rolling caches with model-dtype or int8 KV. ``validate()`` refuses every
+option whose path is not ported and names the ``ROADMAP.md`` item that
+would bring it, so nothing silently runs a different path than the one
+asked for; with the reference it refuses int8 weights on a sharded
+replica. It refuses an encoder-only arch (hubert-xlarge:
 bidirectional ``encoder`` blocks, trained through
 ``repro_torch.training``) with the
 reference serve CLI's "encoder-only arch: no autoregressive serving"; the
@@ -190,11 +190,8 @@ class EngineConfig:
                     f"(ServingEngine(device=[...]), make_serving_mesh("
                     f"devices=[...]) or the serve CLI's --devices; a device "
                     f"may repeat), or shrink the topology ({q1}, "
-                    f"'Multi-GPU')")
+                    f"'Multi-GPU' item 4c)")
         not_yet = []
-        if self.topology.dp > 1:
-            not_yet.append((f"topology dp={self.topology.dp} (a data axis "
-                            f"inside one replica)", f"{q1}, 'Multi-GPU'"))
         if cfg is not None:
             from repro_torch.models import layer_types, ported
             from repro_torch.models.blocks import PORTED_BLOCKS
@@ -207,11 +204,6 @@ class EngineConfig:
                 bad = sorted(set(layer_types(cfg)) - set(PORTED_BLOCKS))
                 not_yet.append((f"arch {cfg.name} with {bad} blocks",
                                 f"{q1}, 'Other block families'"))
-            hybrid = sorted(set(layer_types(cfg)) - {"dense", "moe"})
-            if self.topology.sharded and hybrid:
-                not_yet.append((f"arch {cfg.name} with {hybrid} blocks on "
-                                f"a sharded topology (tp="
-                                f"{self.topology.tp})", f"{q1}, 'Multi-GPU'"))
             if cfg.rope_variant not in ROPE_VARIANTS:
                 not_yet.append((f"arch {cfg.name} with rope variant "
                                 f"{cfg.rope_variant!r}",
@@ -263,8 +255,8 @@ class EngineConfig:
 
     def resolved_moe_policy(self, cfg) -> str:
         """The capacity policy once the None default resolves: "strict"
-        for a moe arch on a sharded topology, else "drop" (the
-        reference's rule)."""
+        for a moe arch on a sharded topology (a data axis included), else
+        "drop" (the reference's rule)."""
         if self.moe_capacity_policy is not None:
             return self.moe_capacity_policy
         if cfg.arch_type == "moe" and self.topology.sharded:

@@ -1,6 +1,7 @@
 """Serving engine of the PyTorch port: the JAX package's
-``repro/serving/engine.py`` on one card, or as one replica over the tp
-shards of a device grid (``DeviceTopology(tp=N)``; see ``ServingEngine``)
+``repro/serving/engine.py`` on one card, or as one replica over the dp x
+tp shards of a device grid (``DeviceTopology(dp=M, tp=N)``; see
+``ServingEngine``)
 — continuous batching over a paged
 KV cache on dense archs, or over rolling caches (KV rings and recurrent
 states) on archs that cannot page (recurrentgemma) and on dense archs with
@@ -219,7 +220,7 @@ def serve_step(cfg, params, cache, tokens):
     each slot's next token, against the cache (advanced in place). Returns
     (greedy next tokens (B,) int32, logits (B, V) float32, cache)."""
     logits = decode_step(cfg, params, cache, tokens,
-                         positions=mrope_positions(cfg, cache["pos"],
+                         positions=mrope_positions(cfg, _pos(cache),
                                                    tokens.shape[1]))
     last = logits[:, -1]
     return torch.argmax(last, dim=-1).to(torch.int32), last, cache
@@ -230,13 +231,29 @@ def cache_insert(cache, single, slot):
     RG-LRU conv windows and states and its position into the rows of
     ``slot`` (an int or a (1,) device tensor), in place (every leaf of the
     slot is overwritten, so nothing of the slot's previous request
-    survives)."""
-    for cache, single in zip(_shards(cache), _shards(single)):
-        at = _dev_index(slot, cache["pos"].device)
-        for big, small in zip(cache["layers"], single["layers"]):
+    survives). On a sharded replica whose data rows split the slots, a
+    shard holds its row's block of them: the owning row writes the
+    request at its local row, every other row rewrites one of its own
+    rows as it is (chosen on the device, so one captured step serves
+    every slot)."""
+    shards = _shards(cache)
+    tp = cache.mesh.shape.get("model", 1) if isinstance(cache, Shards) \
+        else 1
+    for j, (c, one) in enumerate(zip(shards, _shards(single))):
+        at = _dev_index(slot, c["pos"].device)
+        for big, small in zip(c["layers"], one["layers"]):
             for name, leaf in big.items():
-                leaf.index_copy_(0, at, small[name])
-        cache["pos"].index_copy_(0, at, single["pos"])
+                nb = leaf.shape[0]
+                if nb == c["pos"].shape[0]:
+                    leaf.index_copy_(0, at, small[name])
+                    continue
+                local = at - (j // tp) * nb
+                own = ((local >= 0) & (local < nb)).reshape(
+                    (1,) * leaf.dim())
+                local = torch.clamp(local, 0, nb - 1)
+                leaf.index_copy_(0, local, torch.where(
+                    own, small[name], leaf.index_select(0, local)))
+        c["pos"].index_copy_(0, at, one["pos"])
 
 
 def paged_prefill_step(cfg, params, tokens, true_len, *,
@@ -272,16 +289,17 @@ def pages_insert(cache, kv, pages, slot, true_len, *, scale_group: int = 0,
 
     A sharded replica (``Shards`` caches, ``kv`` per shard: the heads each
     stores, whole head_dim) scatters on every shard; pools split on
-    head_dim take block j of n (``hd_part`` = (j, n)) of each vector, after
-    int8 quantizes the whole vector."""
+    head_dim take block m of tp (``hd_part`` = (m, tp), m the shard's
+    model coordinate) of each vector, after int8 quantizes the whole
+    vector."""
     if isinstance(cache, Shards):
-        n_sh = len(cache)
+        tp = cache.mesh.shape.get("model", 1)
         for j, (c, kv_j) in enumerate(zip(cache, kv)):
             narrow = c["layers"][0]["k"].shape[-1] < kv_j[0][0].shape[-1]
             dev = c["pos"].device
             pages_insert(c, kv_j, pages.to(dev), slot, true_len,
                          scale_group=scale_group,
-                         hd_part=(j, n_sh) if narrow else None)
+                         hd_part=(j % tp, tp) if narrow else None)
         return
     n = pages.shape[0]
     for layer, (k, v) in zip(cache["layers"], kv):
@@ -642,21 +660,30 @@ class ServingEngine:
     page raises, as the reference. ``device`` defaults to CUDA and raises
     when no card is present unless ``device="cpu"`` is asked for.
 
-    Under ``EngineConfig(topology=DeviceTopology(tp=N))`` one replica
-    spans the N shards of ``self.mesh`` (``launch.mesh``), with the
-    reference's bit-exact layout (``core.simd.sharding.serving_policy``):
-    ``device`` is then the grid, a list of N devices (the same one may
-    repeat: ``["cpu"] * 4``, ``["cuda:0"] * 2``), or "cuda" for the
-    host's first N cards, refused before any weight is placed when the
-    host has fewer. ``self.params`` and ``self.cache`` hold one tree per
-    shard (``Shards``); the page table, positions, token carry and
-    sampling state stay whole (the first shard's device runs the sampler,
-    and every shard keeps its own copy of the table and positions), and
-    the host-side allocator, prefix index and preemption are
-    topology-blind. Steps over shards on one device are captured as on
-    one card; a replica over several cards runs its steps eagerly
-    (``StepGraphs(capture=False)``): whether one CUDA graph may hold work
-    and peer copies of several cards is not assumed. ``self.mesh`` is
+    Under ``EngineConfig(topology=DeviceTopology(dp=M, tp=N))`` one
+    replica spans the M x N shards of ``self.mesh`` (``launch.mesh``): M
+    data rows, each a model group of N tensor- (and expert-) parallel
+    shards, with the reference's bit-exact layout
+    (``core.simd.sharding.serving_policy``): ``device`` is then the grid,
+    a list of M x N devices, row-major (the same one may repeat:
+    ``["cpu"] * 4``, ``["cuda:0"] * 2``), or "cuda" for the host's first
+    M x N cards, refused before any weight is placed when the host has
+    fewer. ``self.params`` and ``self.cache`` hold one tree per shard
+    (``Shards``). A decode tick runs each row over its block of the slots
+    (all of them when M does not divide the slots, as the reference keeps
+    such a batch whole); rolling rings and states split by slot over the
+    rows, paged pools stay whole, one tensor per model shard shared by
+    the rows on a device (rows on different devices would each need every
+    write: refused); a MoE block routes the whole batch's tokens
+    together, as the reference's group does. The page table, positions,
+    token carry and sampling state stay whole (the first shard's device
+    runs the sampler, and every shard keeps its own copy of the table
+    and positions), and the host-side allocator, prefix index and
+    preemption are topology-blind. Steps over shards on one device are
+    captured as on one card; a replica over several cards runs its steps
+    eagerly (``StepGraphs(capture=False)``): whether one CUDA graph may
+    hold work and peer copies of several cards is not assumed.
+    ``self.mesh`` is
     None on one card.
 
     ``threefry_partitionable`` selects the
@@ -686,7 +713,8 @@ class ServingEngine:
         if config.topology.sharded:
             if grid is None and torch.device(device).type != "cuda":
                 raise ValueError(
-                    f"a sharded topology (tp={config.topology.tp}) on "
+                    f"a sharded topology (dp={config.topology.dp} x "
+                    f"tp={config.topology.tp}) on "
                     f"{device} needs an explicit device grid: pass "
                     f"device=[{str(device)!r}] * {config.topology.n_chips}")
             self.mesh = make_serving_mesh(config.topology, devices=grid)

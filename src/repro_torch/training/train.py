@@ -8,7 +8,9 @@ P + S). The forward runs in train mode (``models.forward``): each layer
 recomputed in backward, the attention and the RG-LRU scan through their
 kernels' autograd ``Function``s on the card. Gradients come from
 ``torch.autograd.grad`` on detached copies of the params, which stay
-plain tensors, as the reference's params stay arrays.
+plain tensors, as the reference's params stay arrays. ``parallel_block``
+trains every attention block as the reference's lever of that name
+(``blocks.apply_block``).
 """
 from __future__ import annotations
 
@@ -25,13 +27,15 @@ from repro_torch.tree import flatten, unflatten
 F32 = torch.float32
 
 
-def loss_fn(cfg, params, batch, *, aux_weight: float = 0.01):
+def loss_fn(cfg, params, batch, *, aux_weight: float = 0.01,
+            parallel_block: bool = False):
     """Next-token (or frame-label) cross entropy. labels == -100 are
     masked. Returns (ce + aux_weight * aux, (ce, aux))."""
     inputs = batch["frames"] if cfg.modality == "audio" else batch["tokens"]
     logits, aux = forward(cfg, params, inputs, mode="train",
                           patches=batch.get("patches"),
-                          positions=batch.get("positions"))
+                          positions=batch.get("positions"),
+                          parallel_block=parallel_block)
     labels = batch["labels"]
     if not cfg.is_encoder and cfg.modality == "text":
         logits = logits[:, :-1]
@@ -60,7 +64,8 @@ def _split(batch, accum: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(accum)]
 
 
-def grads_fn(cfg, params, batch, *, accum: int = 1):
+def grads_fn(cfg, params, batch, *, accum: int = 1,
+             parallel_block: bool = False):
     """(loss, ce, grads): grads mirror params, in each param's dtype
     (float32 under ``accum`` > 1: the microbatches' mean, accumulated in
     float32)."""
@@ -74,7 +79,8 @@ def grads_fn(cfg, params, batch, *, accum: int = 1):
 
     def value_and_grad(b):
         with torch.enable_grad():
-            loss, (ce, _) = loss_fn(cfg, live, b)
+            loss, (ce, _) = loss_fn(cfg, live, b,
+                                    parallel_block=parallel_block)
             gs = torch.autograd.grad(loss, flat, allow_unused=True)
         gs = [torch.zeros_like(p) if g is None else g
               for p, g in zip(flat, gs)]
@@ -94,10 +100,12 @@ def grads_fn(cfg, params, batch, *, accum: int = 1):
 
 
 def train_step(cfg, params, opt_state: AdamWState, batch, *, accum: int = 1,
-               peak_lr: float = 3e-4, total_steps: int = 10_000):
+               peak_lr: float = 3e-4, total_steps: int = 10_000,
+               parallel_block: bool = False):
     """One optimizer step. Returns (params, opt_state, metrics), metrics
     {"loss", "ce", "grad_norm"} as 0-d tensors."""
-    loss, ce, grads = grads_fn(cfg, params, batch, accum=accum)
+    loss, ce, grads = grads_fn(cfg, params, batch, accum=accum,
+                               parallel_block=parallel_block)
     opt_state, gnorm = adamw_update(opt_state, grads, peak_lr=peak_lr,
                                     total=total_steps)
     params = cast_params(opt_state, params)

@@ -5,6 +5,28 @@ On a CUDA device each timed call is bracketed by two CUDA events and a
 synchronize, so a sample is the call's wall time on the device's clock,
 launches and all; on ``device="cpu"``, which the caller asks for, each
 sample is ``time.perf_counter`` around the call.
+
+The reference's ``util.py`` also holds its trace hints
+(``sharding_hints``, ``hints``, ``hint_opt``, ``hint_val``). The two
+that change results are explicit options here: ``parallel_block`` is
+``apply_block`` / ``forward`` / ``decode_step`` / ``train_step``'s
+``parallel_block=``, and ``kv_seq`` is the dry run's ``--opt kv_seq``
+(``launch/dryrun.py``, the policy's ``kv_shard="seq"``); so are
+``moe_full_cap`` (``models/moe.py``'s ``full_cap``) and
+``kv_scale_page`` (the engine's ``kv_scale_group``). The rest have no
+PyTorch counterpart, one line each:
+
+- ``attn_carry``: pins the GSPMD sharding of the attention scan's carry.
+- ``decode_pin``: pins the GSPMD sharding of decode attention's scores.
+- ``moe_pin``: pins the GSPMD sharding of the MoE dispatch buffers.
+- ``bf16_ar``: asks XLA for bfloat16 all-reduces (the port adds no
+  partial sums: its shards only concatenate).
+- ``wsc``: ``with_sharding_constraint`` under the hinted axis names.
+- ``unrolled_scans`` / ``scan``: unroll ``lax.scan`` so XLA's
+  ``cost_analysis`` counts every trip (the port's layers are a Python
+  loop, which ``FlopCounterMode`` counts in full).
+- ``attn_chunk_default``: the chunk of the reference's unrolled
+  attention scan (the port's attention is one kernel call).
 """
 from __future__ import annotations
 

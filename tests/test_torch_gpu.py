@@ -1687,13 +1687,17 @@ def test_reduced_train_steps_on_the_card_equal_the_cpus(dev, arch, change):
     ("grok-1-314b", dict(num_heads=4, num_kv_heads=4,
                          moe_expert_parallel=True),
      dict(moe_capacity_policy="strict")),
-], ids=["kv_heads", "int8_prefix", "mid_head_rolling", "expert_parallel"])
+    ("recurrentgemma-9b", dict(num_layers=5), dict(dp=2, slots=4)),
+    ("mamba2-1.3b", dict(), dict()),
+], ids=["kv_heads", "int8_prefix", "mid_head_rolling", "expert_parallel",
+        "recurrentgemma_dp2_tp2", "mamba2_tp2"])
 def test_sharded_engine_streams_on_cuda_match_the_cpu(dev, arch, change,
                                                        config):
-    """A replica over two shards stacked on one card (``["cuda:0"] * 2``),
-    float32 with its steps captured, against the same sharded engine on
-    the CPU (``["cpu"] * 2``): the same streams, greedy and seeded, chunked
-    (16) and, with the prefix cache, hits; every page back."""
+    """A replica over two shards stacked on one card (``["cuda:0"] * 2``;
+    four, dp 2 x tp 2, where ``config`` asks for ``dp``), float32 with its
+    steps captured, against the same sharded engine on the CPU (``["cpu"]
+    * 2``): the same streams, greedy and seeded, chunked (16) and, with
+    the prefix cache, hits; every page back."""
     import dataclasses
 
     from repro_torch import serving as ts
@@ -1706,16 +1710,19 @@ def test_sharded_engine_streams_on_cuda_match_the_cpu(dev, arch, change,
     shared = rng.integers(0, 500, 32).astype(np.int32)
     prompts = [np.concatenate([shared, rng.integers(0, 500, n).astype(
         np.int32)]) for n in (5, 23, 40, 17)]
+    config = dict(config)
     prec = ts.PrecisionConfig(**config.pop("precision", {}))
+    dp = config.pop("dp", 1)
+    engine = dict(dict(slots=2, max_seq=128, window=128, chunk_prefill=16),
+                  **config)
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         outs = []
-        for grid in ([str(dev)] * 2, ["cpu"] * 2):
+        for grid in ([str(dev)] * 2 * dp, ["cpu"] * 2 * dp):
             eng = ts.ServingEngine(cfg, _to(p_cpu, grid[0]), ts.EngineConfig(
-                slots=2, max_seq=128, window=128, chunk_prefill=16,
-                precision=prec, topology=ts.DeviceTopology(tp=2), **config),
-                device=grid)
+                precision=prec, topology=ts.DeviceTopology(dp=dp, tp=2),
+                **engine), device=grid)
             reqs = [ts.Request(rid=i, prompt=p, max_new_tokens=10,
                                sampling=(ts.SamplingParams(
                                    temperature=0.8, top_k=20, top_p=0.9,

@@ -17,8 +17,11 @@ evenly on a shard); grok's experts split on the expert axis (tp 8) and
 on ff (tp 4) under "strict"; the trace probes; preempt / restore with
 every page back; ``load_report``'s axis fields; the strict default;
 each shard's leaves laid out by ``serving_policy``'s specs;
-``validate()``'s refusals; ``--tp`` through the serve CLI; the sharded
-DLRM lookup against ``repro.core.simd.dlrm_forward``."""
+``validate()`` on every serving arch over a (2, 2) grid and its refusal
+of sharded int8 weights; ``--tp`` and ``--dp`` through the serve CLI;
+the sharded DLRM lookup against ``repro.core.simd.dlrm_forward``. The
+data axis and the sharded hybrid and SSD blocks have their own files
+(``test_torch_dp.py``, ``test_torch_sharded_hybrid.py``)."""
 import dataclasses
 
 import jax
@@ -354,32 +357,31 @@ def test_each_shards_leaves_follow_serving_policy(name, tp, kw):
 
 
 def test_validate_refuses_what_the_slice_does_not_serve():
-    """Given a grid: dp > 1 and sharded hybrids and SSMs are refused, each
-    naming its ROADMAP.md item, and sharded int8 weights with the
-    reference's own message; the dense, MoE and M-RoPE archs validate."""
+    """Given a grid, every serving arch validates at tp 4 and at dp 2 x
+    tp 2, each on its default cache (rolling for recurrentgemma and
+    mamba2) and on rolling caches (a data axis, and sharded hybrids and
+    SSMs, are served since the data-axis slice), and sharded int8 weights
+    are refused with the reference's own message."""
     dense_cfg = torch_config("granite-8b").reduced()
     grid = ["cpu"] * 4
-    with pytest.raises(ValueError, match="a data axis inside one replica"
-                                         ".*Multi-GPU"):
-        ts.EngineConfig(topology=ts.DeviceTopology(dp=2)).validate(
-            dense_cfg, devices=grid[:2])
-    for name in ("recurrentgemma-9b", "mamba2-1.3b"):
-        with pytest.raises(ValueError, match="sharded topology.*ROADMAP.md"
-                                             ".*Multi-GPU"):
-            ts.EngineConfig(paged=False, topology=ts.DeviceTopology(
-                tp=2)).validate(torch_config(name).reduced(),
-                                devices=grid[:2])
     w8 = ts.PrecisionConfig(weight_dtype="int8")
     with pytest.raises(ValueError, match="is not supported on sharded "
                                          "replicas yet"):
         ts.EngineConfig(topology=ts.DeviceTopology(tp=2),
                         precision=w8).validate(dense_cfg, devices=grid[:2])
+    with pytest.raises(ValueError, match="is not supported on sharded "
+                                         "replicas yet"):
+        ts.EngineConfig(topology=ts.DeviceTopology(dp=2),
+                        precision=w8).validate(dense_cfg, devices=grid[:2])
     for name in ("granite-8b", "grok-1-314b", "qwen2-vl-7b", "chatglm3-6b",
                  "phi3-medium-14b", "starcoder2-15b",
-                 "llama4-maverick-400b-a17b"):
+                 "llama4-maverick-400b-a17b", "recurrentgemma-9b",
+                 "mamba2-1.3b"):
         for paged in (None, False):
-            ts.EngineConfig(paged=paged, topology=ts.DeviceTopology(
-                tp=4)).validate(torch_config(name), devices=grid)
+            for topo in (ts.DeviceTopology(tp=4),
+                         ts.DeviceTopology(dp=2, tp=2)):
+                ts.EngineConfig(paged=paged, topology=topo).validate(
+                    torch_config(name), devices=grid)
 
 
 def test_topology_beyond_the_host_is_refused_before_placement(dense):
@@ -401,7 +403,7 @@ def test_topology_beyond_the_host_is_refused_before_placement(dense):
 def test_serve_cli_tp(capsys):
     """``--tp 4 --devices cpu,cpu,cpu,cpu`` serves one sharded replica
     whose streams equal ``--tp 1``'s; the banner prints the grid; ``--dp
-    2`` is refused with the ``validate()`` message."""
+    2 --devices cpu,cpu`` (a data axis) serves the same streams too."""
     common = ["--arch", "granite-8b", "--reduced", "--device", "cpu",
               "--requests", "3", "--slots", "2", "--rate", "1000",
               "--max-new", "4", "--temperature", "0.8", "--top-k", "20"]
@@ -413,9 +415,10 @@ def test_serve_cli_tp(capsys):
     assert "sharded replica: mesh {'data': 1, 'model': 4} over [cpu, cpu, " \
         "cpu, cpu]" in out
     assert [r.output for r in four] == [r.output for r in one]
-    with pytest.raises(ValueError, match="a data axis inside one replica"
-                                         ".*Multi-GPU"):
-        tserve.main(common + ["--dp", "2", "--devices", "cpu,cpu"])
+    two = tserve.main(common + ["--dp", "2", "--devices", "cpu,cpu"])
+    out = capsys.readouterr().out
+    assert "sharded replica: mesh {'data': 2, 'model': 1}" in out
+    assert [r.output for r in two] == [r.output for r in one]
 
 
 def test_sharded_dlrm_lookup_matches_the_reference():
