@@ -62,7 +62,10 @@ over-rate submissions are refused with a finite ``retry_after_s``;
 trace (``--trace-sample-n N`` traces every Nth rid); ``--metrics-out
 PATH`` writes the metrics exposition and a JSON snapshot at ``PATH.json``;
 ``--profile-dir DIR`` runs ``torch.profiler`` around the serving loop and
-writes its Chrome trace into DIR.
+writes its Chrome trace into DIR; the engine's own ``repro_torch/...``
+ranges (each ``submit`` / ``step`` / ``drain`` call, each step as ``run
+<kind>/<name><n>``, each host sync as ``wait <site>``) sit there beside the
+kernels they launched, on the profiler's clock.
 
     python -m repro_torch.launch.serve --arch granite-8b --reduced \
         --device cpu --replicas 2 --route-policy predicted \
@@ -225,7 +228,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "failover circuit breaker")
     ap.add_argument("--profile-dir", default="",
                     help="run torch.profiler around the serving loop and "
-                         "write its Chrome trace into this directory")
+                         "write its Chrome trace into this directory; the "
+                         "engine's repro_torch/... ranges (its calls, "
+                         "steps and host-sync waits) appear in the trace "
+                         "beside the kernels they launched")
     ap.add_argument("--device", default="cuda",
                     help="cuda (hand-written kernels) or cpu (plain "
                          "PyTorch versions)")

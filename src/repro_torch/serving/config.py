@@ -137,7 +137,6 @@ class EngineConfig:
     precision: PrecisionConfig = PrecisionConfig()
     tracing: bool = False
     trace_sample_n: int = 1
-    trace_ring: int = 0
     profile_dir: Optional[str] = None
 
     def __post_init__(self):
@@ -152,9 +151,6 @@ class EngineConfig:
         if self.trace_sample_n < 1:
             raise ValueError(f"trace_sample_n must be >= 1, got "
                              f"{self.trace_sample_n}")
-        if self.trace_ring < 0:
-            raise ValueError(f"trace_ring must be >= 0, got "
-                             f"{self.trace_ring}")
 
     @property
     def n_chips(self) -> int:

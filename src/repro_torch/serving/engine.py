@@ -39,7 +39,21 @@ on the CPU the same steps run eagerly.
 Tracing stamps host clocks the caller passes in, at the engine's existing
 sync points only: it adds no device sync and no step, and with it off a
 request's ``trace`` stays None and each stamp site is one attribute
-check. Host-decided
+check. With it on, the engine also keeps a step timeline
+(``graphs.StepTimeline``; the ``timing`` of its ``decode_window`` and
+``prefill`` spans, ``serving/tracing.py``): each step call's host seconds
+and, on one card, a pair of CUDA events around it; each host sync, timed
+and counted by site through ``_wait`` (the sites: ``window`` and
+``flush``, the delivery syncs; ``first_token``; the host-to-card copies
+of a step's inputs, named ``<step>.<buffer>``; ``sampling``,
+``page_table`` and ``release``, the host's single-value writes into the
+sampling state, the page table and a released slot's position). The events
+are read only in ``_distribute``, right after a delivery sync has passed
+them all (``StepTimeline.deliver``): never before the device reached
+them, and never with a sync of their own. With the profiler hook armed
+(``start_profile``) the engine's calls, steps and waits open
+``repro_torch/...`` ranges in the profiler's trace, and with it disarmed
+none. Host-decided
 writes (a page-table entry, a released slot's row and position) stay
 small eager writes in place. The kernels of the path (prefill attention,
 paged or rolling-cache decode attention, which also serves every chunk and
@@ -101,7 +115,7 @@ from repro_torch.models.blocks import (
 from repro_torch.models.moe import drop_free_group
 from repro_torch.serving import prng
 from repro_torch.serving.config import EngineConfig
-from repro_torch.serving.graphs import StepGraphs
+from repro_torch.serving.graphs import StepGraphs, StepTimeline
 from repro_torch.serving.metrics import MetricsRegistry, latency_histogram
 from repro_torch.serving.paging import PageAllocator, PrefixHit, PrefixIndex
 from repro_torch.serving.request import (
@@ -843,7 +857,7 @@ class ServingEngine:
         self._trace_on = bool(config.tracing)
         # head sampling: trace rids with rid % trace_sample_n == 0
         self._trace_every = max(1, config.trace_sample_n)
-        self.tracer = Tracer(enabled=self._trace_on, ring=config.trace_ring)
+        self.tracer = Tracer(enabled=self._trace_on)
         self._win_t0 = 0.0  # caller clock at the open decode window's start
         self._last_now = 0.0  # the latest caller clock (compile events)
         self._tick_wall = latency_histogram()  # step() wall s (tracing on)
@@ -896,8 +910,14 @@ class ServingEngine:
                           torch.zeros((1,), **i64))
         self._seed_in = torch.zeros((1 + self.max_pages,), **i64)
         self._insert_in = torch.zeros((2 + 2 * self.max_pages,), **i64)
-        self.graphs = StepGraphs(self.device, capture=(
-            self.mesh is None or self.mesh.distinct == 1))
+        one_card = self.mesh is None or self.mesh.distinct == 1
+        self.graphs = StepGraphs(self.device, capture=one_card)
+        # the step timeline: on with tracing (events on one card), or
+        # ranges only while the profiler hook is armed; else None
+        self._tl: Optional[StepTimeline] = (
+            StepTimeline(self.device, timing=True, events=one_card)
+            if self._trace_on else None)
+        self.graphs.timeline = self._tl
         # through a weak reference: a bound method would make the engine
         # and its graphs a cycle, whose device memory only the garbage
         # collector frees once the engine is dropped
@@ -979,7 +999,30 @@ class ServingEngine:
             return
         if t.is_open("queued"):
             t.end("queued", now)
-        t.begin("prefill", now, path=path, slot=slot)
+        sp = t.begin("prefill", now, path=path, slot=slot)
+        if self._trace_on:
+            sp.timing = self._tl.record()
+
+    def _claim(self, req: Optional[Request]):
+        """Charge the steps and syncs that follow to ``req``'s open
+        prefill span as well (None: to no request's)."""
+        tl = self._tl
+        if tl is None or not tl.timing:
+            return
+        tl.owner = None
+        if req is not None and req.trace is not None:
+            for sp in reversed(req.trace.spans):
+                if sp.kind == "prefill":
+                    tl.owner = sp.timing
+                    break
+
+    def _wait(self, site: str, fn, *args, delivery: bool = False):
+        """``fn(*args)``, a host sync: through the step timeline (timed
+        and counted under ``site``) when there is one."""
+        tl = self._tl
+        if tl is None:
+            return fn(*args)
+        return tl.wait(site, fn, *args, delivery=delivery)
 
     def _tr_terminal(self, req: Request, now: float, kind: str, **meta):
         """Stamp a terminal event (rejected, abort) and fold the trace into
@@ -999,6 +1042,10 @@ class ServingEngine:
             return False
         _Profiler.start(self.device)
         self._profiling = True
+        if self._tl is None:
+            self._tl = self.graphs.timeline = StepTimeline(self.device,
+                                                           timing=False)
+        self._tl.ranges = True
         if self._trace_on:
             self.tracer.event("profile_start", self._last_now,
                               dir=self.config.profile_dir)
@@ -1009,6 +1056,9 @@ class ServingEngine:
         Chrome trace into its ``profile_dir``."""
         if not self._profiling:
             return False
+        self._tl.ranges = False
+        if not self._tl.timing:
+            self._tl = self.graphs.timeline = None
         _Profiler.stop(self.config.profile_dir)
         self._profiling = False
         if self._trace_on:
@@ -1038,6 +1088,13 @@ class ServingEngine:
         batch admissions up to the cost-model deadline. An unservable
         request comes back FAILED from the next ``step`` (and ``False`` is
         returned) instead of raising."""
+        tl = self._tl
+        if tl is None:
+            return self._submit(req, now)
+        with tl.enter("submit", self.idle):
+            return self._submit(req, now)
+
+    def _submit(self, req: Request, now: float) -> bool:
         self._last_now = now
         t = self._tr(req)
         if t is not None and not t.is_open("queued"):
@@ -1261,7 +1318,7 @@ class ServingEngine:
         the rest is allocated; under pool pressure idle cached prefixes are
         evicted before the admission is refused."""
         if self.allocator.owned(slot):
-            slot_release(self.cache, slot)
+            self._wait("release", slot_release, self.cache, slot)
             self.allocator.free_slot(slot)
             self._pos_h[slot] = 0
             self._tabled[slot] = 0
@@ -1293,18 +1350,24 @@ class ServingEngine:
         rolling caches copied into the slot (an exact-length prompt: one
         eager step per length, counted as the reference's retrace)."""
         self._tr_admit(req, now, "full", slot)
+        self._claim(req)
         plen = req.prompt_len
         padded = np.zeros((1, self._prefill_len(req)), np.int32)
         padded[0, :plen] = req.prompt
         if self.paged or self._bucket_for(plen) is not None:
             tok, last = self._prefill_bucket(padded, plen, slot)
         else:
+            # the step's host values, copied to the card before it runs
+            tokens = self._wait("exact.tokens", torch.from_numpy(padded).to,
+                                self.device)
+            true_len = self._wait("exact.len", _dev_index, plen, self.device)
+            at = self._wait("exact.slot", _dev_index, slot, self.device)
+
             def exact():
                 tok, last, single = rolling_prefill_step(
-                    self.cfg, self.params, torch.from_numpy(padded).to(
-                        self.device), plen, window=self.window,
-                    moe_full_cap=self._moe_full_cap)
-                cache_insert(self.cache, single, slot)
+                    self.cfg, self.params, tokens, true_len,
+                    window=self.window, moe_full_cap=self._moe_full_cap)
+                cache_insert(self.cache, single, at)
                 return tok, last
 
             tok, last = self.graphs.run("prefill", "exact", plen, exact,
@@ -1329,9 +1392,10 @@ class ServingEngine:
                 torch.zeros((2 + n_pages,), dtype=torch.int64,
                             device=self.device))
         tokens, args = self._prefill_in[length]
-        tokens.copy_(torch.from_numpy(padded))
+        self._wait("bucket.tokens", tokens.copy_, torch.from_numpy(padded))
         pages = self.allocator.owned(slot)[:n_pages] if self.paged else []
-        args.copy_(torch.tensor([plen, slot, *pages], dtype=torch.int64))
+        self._wait("bucket.args", args.copy_,
+                   torch.tensor([plen, slot, *pages], dtype=torch.int64))
         true_len, at = args[0:1], args[1:2]
 
         def paged():
@@ -1394,6 +1458,7 @@ class ServingEngine:
             req.state = RequestState.PREFILL
             self.active[slot] = req  # reserved (decoding stays False)
             return
+        self._claim(req)
         tok, last = self._prefill_suffix(padded[:, start:], plen, start,
                                          gpages, info, slot)
         if hit.tail_page >= 0:
@@ -1415,8 +1480,8 @@ class ServingEngine:
                 torch.zeros((3 + 3 * p,), dtype=torch.int64,
                             device=self.device))
         tokens, args = self._suffix_in[width]
-        tokens.copy_(torch.from_numpy(toks))
-        args.copy_(torch.from_numpy(np.concatenate([
+        self._wait("suffix.tokens", tokens.copy_, torch.from_numpy(toks))
+        self._wait("suffix.args", args.copy_, torch.from_numpy(np.concatenate([
             np.array([start, plen, slot], np.int64), gpages,
             info.scatter_pages, info.table_pages])))
 
@@ -1460,12 +1525,14 @@ class ServingEngine:
             if not self._jobs:
                 break
             job = self._jobs[0]
+            self._claim(job.req)
             if not job.started:
                 self._take_buffer(job)
             off = job.next_off
-            tokens.copy_(torch.from_numpy(job.tokens[:, off:off
-                                                     + self.chunk]))
-            args.copy_(torch.tensor([job.true_len], dtype=torch.int64))
+            self._wait("chunk.tokens", tokens.copy_, torch.from_numpy(
+                job.tokens[:, off:off + self.chunk]))
+            self._wait("chunk.args", args.copy_,
+                       torch.tensor([job.true_len], dtype=torch.int64))
             tok, last = self.graphs.run("aux", "chunk", self.chunk,
                                         self._chunk_step)
             job.next_off += self.chunk
@@ -1480,6 +1547,7 @@ class ServingEngine:
             if job.next_off >= job.tokens.shape[1]:
                 self._jobs.popleft()
                 self._finish_job(job, now)
+        self._claim(None)
 
     def _chunk_step(self):
         tokens, args = self._chunk_in
@@ -1496,8 +1564,9 @@ class ServingEngine:
             for c in _shards(self._lin):
                 c["pos"].zero_()
             return
-        self._seed_in.copy_(torch.from_numpy(np.concatenate([
-            np.array([job.next_off], np.int64), job.seed])))
+        self._wait("seed.args", self._seed_in.copy_,
+                   torch.from_numpy(np.concatenate([
+                       np.array([job.next_off], np.int64), job.seed])))
         self.graphs.run("aux", "seed", self.max_pages, self._seed_step)
         if job.tail_page >= 0:
             self.allocator.release(job.tail_page)
@@ -1520,14 +1589,15 @@ class ServingEngine:
                 row = np.zeros((self.max_pages,), np.int64)
                 row[:n_pref] = self.allocator.owned(slot)[:n_pref]
                 info = _HitAdmission(row, row, n_pref)
-            self._insert_in.copy_(torch.from_numpy(np.concatenate([
-                np.array([job.true_len, slot], np.int64),
-                info.scatter_pages, info.table_pages])))
+            self._wait("insert.args", self._insert_in.copy_,
+                       torch.from_numpy(np.concatenate([
+                           np.array([job.true_len, slot], np.int64),
+                           info.scatter_pages, info.table_pages])))
             self.graphs.run("aux", "insert", self.max_pages,
                             self._insert_step)
             n_tabled = info.n_tabled
         else:
-            self._insert_in[1] = slot
+            self._wait("ring.args", self._insert_in.__setitem__, 1, slot)
             self.graphs.run("aux", "ring", self.window, self._ring_step)
         self.prefill_calls += 1
         self._activate(job.req, slot, job.tok, job.logits, now, n_tabled,
@@ -1557,7 +1627,7 @@ class ServingEngine:
         sp = req.sampling or SamplingParams()
         row = sampling_row(sp)
         if not (sp.greedy and self._samp_greedy_h[slot]):
-            sampling_set(self._samp, slot, row)
+            self._sampling_set(slot, row)
         self._samp_greedy_h[slot] = sp.greedy
         if not sp.greedy:
             self.metrics.sampled_requests += 1
@@ -1584,7 +1654,8 @@ class ServingEngine:
                 req.budget_capped = True
         self._pos_h[slot] = req.prompt_len
         self._tokens[slot] = tok[0]
-        req.output.append(int(tok[0]))
+        req.output.append(self._wait("first_token", int, tok[0]))
+        self._claim(None)
         if req.prefill_done < 0:
             req.prefill_done = now
             self.metrics.ttfts.append(req.ttft)
@@ -1626,15 +1697,20 @@ class ServingEngine:
         sync. Returns the requests that finished this tick, aborted ones
         included (in a terminal state, with ``fail_reason``). With tracing
         on, the call's host wall time (``perf_counter``, no device sync)
-        goes into the step-wall histogram."""
+        goes into the step-wall histogram; the step timeline splits it
+        (``timing``)."""
         self._last_now = now
-        if not self._trace_on:
+        tl = self._tl
+        if tl is None:
             return self._step(now)
-        w0 = time.perf_counter()
-        try:
-            return self._step(now)
-        finally:
-            self._tick_wall.observe(time.perf_counter() - w0)
+        with tl.enter("step", self.idle):
+            if not self._trace_on:
+                return self._step(now)
+            w0 = time.perf_counter()
+            try:
+                return self._step(now)
+            finally:
+                self._tick_wall.observe(time.perf_counter() - w0)
 
     def _step(self, now: float) -> List[Request]:
         self._reap_doomed(now)
@@ -1648,7 +1724,8 @@ class ServingEngine:
             self.graphs.run("decode", "scan", self.sync_every, self._window)
             self.metrics.decode_ticks += self.sync_every
             self._advance_pos(self.sync_every)
-            self._distribute(self._hist.cpu().numpy(), now)
+            self._distribute(self._wait("window", self._hist.cpu,
+                                        delivery=True).numpy(), now)
             return self._take_finished()
         if self.paged:
             self._ensure_headroom(1, now)
@@ -1806,7 +1883,8 @@ class ServingEngine:
                     continue
                 owned = self.allocator.owned(i)
             for k in range(self._tabled[i], need):
-                page_table_append(self.cache, i, k, owned[k])
+                self._wait("page_table", page_table_append, self.cache, i, k,
+                           owned[k])
             self._tabled[i] = need
 
     def _fusable(self) -> bool:
@@ -1823,14 +1901,19 @@ class ServingEngine:
         """One host sync for the deferred ticks' tokens."""
         if not self._unsynced:
             return
-        toks = self._hist[:self._unsynced].cpu().numpy()
+        toks = self._wait("flush", self._hist[:self._unsynced].cpu,
+                          delivery=True).numpy()
         self._unsynced = 0
         self._distribute(toks, now)
 
     def _distribute(self, toks: np.ndarray, now: float = None):
-        """Hand a (T, B) host token block to the per-slot requests."""
+        """Hand a (T, B) host token block to the per-slot requests; with
+        tracing on, its delivery period's ``timing`` closes here (the
+        block's sync has just passed every event of the period) and
+        rides every ``decode_window`` span this block stamps."""
         self.metrics.host_syncs += 1
         t_now = time.time() if now is None else now
+        period = self._tl.deliver(toks.shape[0]) if self._trace_on else None
         for i, r in enumerate(self.active):
             if r is None or not self.decoding[i]:
                 continue
@@ -1854,7 +1937,7 @@ class ServingEngine:
                 if tr.spans:
                     t0 = max(t0, tr.spans[-1].t0)
                 tr.add("decode_window", min(t0, t_now), t_now,
-                       tokens=len(r.output) - n0)
+                       tokens=len(r.output) - n0).timing = period
             if done:
                 self._finalize_request(r, i, t_now)
         self._win_t0 = t_now
@@ -1895,14 +1978,20 @@ class ServingEngine:
         self.decoding[slot] = False
         self._hit_pending.pop(slot, None)
         if not self._samp_greedy_h[slot]:
-            sampling_set(self._samp, slot, sampling_row(None))
+            self._sampling_set(slot, sampling_row(None))
             self._samp_greedy_h[slot] = True
         if self.paged or self.cfg.arch_type != "moe":
-            slot_release(self.cache, slot)
+            self._wait("release", slot_release, self.cache, slot)
         if self.paged:
             self.allocator.free_slot(slot)
         self._pos_h[slot] = 0
         self._tabled[slot] = 0
+
+    def _sampling_set(self, slot: int, row: dict):
+        """``sampling_set`` leaf by leaf: each leaf's write is a blocking
+        host-to-card copy, a ``sampling`` sync."""
+        for name, leaf in self._samp.items():
+            self._wait("sampling", sampling_set, {name: leaf}, slot, row)
 
     def _take_finished(self) -> List[Request]:
         out, self._finished = self._finished, []
@@ -1910,7 +1999,12 @@ class ServingEngine:
 
     def drain(self, now: float):
         """Flush any deferred tokens (end-of-run bookkeeping)."""
-        self._flush(now)
+        tl = self._tl
+        if tl is None:
+            self._flush(now)
+        else:
+            with tl.enter("drain", self.idle):
+                self._flush(now)
         return self._take_finished()
 
     def reset(self):
@@ -1951,11 +2045,12 @@ class ServingEngine:
         self._unsynced = 0
         self._finished = []
         self.metrics = ServeMetrics()
-        # new span rollups and step walls; compile events persist, as the
-        # compiled steps they count do
-        self.tracer = Tracer(enabled=self._trace_on,
-                             ring=self.config.trace_ring)
+        # new span rollups, step walls and timeline period; compile events
+        # persist, as the compiled steps they count do
+        self.tracer = Tracer(enabled=self._trace_on)
         self._tick_wall = latency_histogram()
+        if self._tl is not None:
+            self._tl.reset()
         self._win_t0 = 0.0
 
     # -- prefix cache --------------------------------------------------------

@@ -44,16 +44,25 @@ A replay calls no Python wrapper, so ``kernels.build.LAUNCHES`` would not
 see its kernels: the capture's wrapper calls launched nothing, so their
 counts are taken back out of ``LAUNCHES`` and kept as the graph's credit,
 which every replay adds.
+
+``timeline`` (None unless the engine traces or its profiler hook is
+armed) is the engine's ``StepTimeline``: every ``run`` then goes through
+it, which times the call on the host, brackets it with CUDA events on the
+current stream and, with the hook armed, opens a ``record_function``
+range named after the key.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.build import LAUNCHES
+from repro_torch.serving.tracing import Timing
 
 #: step kinds: a key counts into ``decode_traces`` or ``prefill_traces``,
 #: or (``aux``) into neither
@@ -72,6 +81,129 @@ def _side_stream(device: torch.device):
     if index not in _SIDE:
         _SIDE[index] = torch.cuda.Stream(index)
     return _SIDE[index]
+
+
+#: the prefix of the engine's ``torch.profiler`` ranges
+RANGE = "repro_torch/"
+_NO_RANGE = contextlib.nullcontext()
+
+
+class StepTimeline:
+    """An engine's step timeline (``serving/tracing.py``, ``Timing``).
+
+    ``timing`` (the engine traces): every step call's host seconds and,
+    with ``events`` (one card), a start / end ``torch.cuda.Event`` pair
+    recorded around it on the current stream, from a pool; every host sync
+    the engine routes through ``wait``, its seconds and count under its
+    site's name. All of it goes into the open delivery period
+    (``period``) and, while the engine works on one request's prefill,
+    into that request's record too (``owner``; delivery syncs excepted).
+    ``deliver`` closes the period right after a delivery sync: only then
+    are the period's events read (``elapsed_time``), since that sync has
+    passed them all; the timeline adds no sync of its own.
+
+    ``ranges`` (the engine's profiler hook armed): a
+    ``torch.profiler.record_function`` range around each engine call
+    (``enter``), step (``run <kind>/<name><n>``) and sync (``wait
+    <site>``), all named ``repro_torch/...``; none while it is off,
+    whatever other profiler runs."""
+
+    def __init__(self, device, *, timing: bool, events: bool = False):
+        self.device = torch.device(device)
+        self.timing = timing
+        self.events = timing and events and self.device.type == "cuda"
+        self.ranges = False
+        self._kinds = KINDS if self.events else None
+        self._serial = itertools.count()
+        self._free: List[tuple] = []  # event pairs ready for reuse
+        self.reset()
+
+    def reset(self):
+        """A new period; events not yet passed by a sync are dropped."""
+        self.owner: Optional[Timing] = None
+        self.period = self.record(next(self._serial)) if self.timing else None
+        self.period_t0: Optional[float] = None  # perf_counter: it opened
+        self._pending: List[tuple] = []  # (kind, events, owner)
+
+    def record(self, serial: Optional[int] = None) -> Timing:
+        return Timing(serial, self._kinds)
+
+    def _range(self, label: str):
+        if self.ranges:
+            return torch.profiler.record_function(RANGE + label)
+        return _NO_RANGE
+
+    def enter(self, name: str, idle: bool):
+        """An engine call (``submit``, ``step``, ``drain``) begins; an idle
+        engine's period opens here, so the caller's time while nothing
+        was in flight does not count (unless a step still awaits its
+        reading: its device time lies before this call). Returns the
+        call's range."""
+        if self.timing and (self.period_t0 is None
+                            or (idle and not self._pending)):
+            self.period_t0 = time.perf_counter()
+        return self._range(name)
+
+    def step(self, run, kind: str, name: str, n: int, step, capture: bool):
+        with self._range(f"run {kind}/{name}{n}"):
+            if not self.timing:
+                return run(kind, name, n, step, capture)
+            pair = None
+            if self.events:
+                pair = self._free.pop() if self._free else (
+                    torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+                stream = torch.cuda.current_stream(self.device)
+                pair[0].record(stream)
+            t0 = time.perf_counter()
+            out = run(kind, name, n, step, capture)
+            dt = time.perf_counter() - t0
+            if pair is not None:
+                pair[1].record(stream)
+                self._pending.append((kind, pair, self.owner))
+            if self.period_t0 is None:
+                self.period_t0 = t0
+            self.period.launch_s += dt
+            if self.owner is not None:
+                self.owner.launch_s += dt
+            return out
+
+    def wait(self, site: str, fn, *args, delivery: bool = False):
+        """``fn(*args)``, a host sync, timed and counted under ``site``;
+        a ``delivery`` sync (tokens to the host) is charged to the period
+        alone."""
+        with self._range("wait " + site):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            dt = time.perf_counter() - t0
+        if self.timing:
+            if self.period_t0 is None:
+                self.period_t0 = t0
+            for rec in (self.period, None if delivery else self.owner):
+                if rec is not None:
+                    rec.wait_s[site] = rec.wait_s.get(site, 0.0) + dt
+                    rec.syncs[site] = rec.syncs.get(site, 0) + 1
+        return out
+
+    def deliver(self, ticks: int) -> Timing:
+        """Close the period right after a delivery sync of ``ticks``
+        decode ticks: its events are read now (the sync passed them) and
+        its record returned; the next period opens."""
+        now = time.perf_counter()
+        rec = self.period
+        for kind, pair, owner in self._pending:
+            s = pair[0].elapsed_time(pair[1]) * 1e-3
+            rec.device_s[kind] += s
+            if owner is not None:
+                owner.device_s[kind] += s
+            self._free.append(pair)
+        self._pending.clear()
+        rec.ticks = ticks
+        rec.wall_s = now - (now if self.period_t0 is None
+                            else self.period_t0)
+        self.period = self.record(next(self._serial))
+        self.period_t0 = now
+        return rec
 
 
 @dataclass
@@ -101,6 +233,7 @@ class StepGraphs:
         self.on_new_key: Optional[Callable[[str, str, int], None]] = None
         self._pool = torch.cuda.graph_pool_handle() if self.capture else None
         self._side = _side_stream(self.device) if self.capture else None
+        self.timeline: Optional[StepTimeline] = None
 
     @property
     def keys(self):
@@ -115,6 +248,12 @@ class StepGraphs:
         key and runs it eagerly, always."""
         if kind not in KINDS:
             raise ValueError(f"step kind must be one of {KINDS}, got {kind!r}")
+        tl = self.timeline
+        if tl is not None:
+            return tl.step(self._run, kind, name, n, step, capture)
+        return self._run(kind, name, n, step, capture)
+
+    def _run(self, kind: str, name: str, n: int, step, capture: bool):
         key = (kind, name, n)
         if key in self._steps:
             g = self._steps[key]

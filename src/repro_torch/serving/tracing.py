@@ -35,6 +35,37 @@ kind                stamped at
                     the reference's trace-cache key)
 ==================  ========================================================
 
+Each span may also carry ``timing`` (port-only, held outside ``meta``, so
+the reference-parity comparisons of ``(kind, t0, t1, meta)``, the
+rollups and the Chrome export are the reference's): a ``Timing`` record
+of the engine's step timeline, on the engine's spans only:
+
+===================  ======================================================
+span                 its ``timing``
+===================  ======================================================
+``decode_window``    the delivery period that ended at this window's sync:
+                     everything the engine ran from the end of the
+                     previous delivery sync to the end of this one, eager
+                     prefills inside ``submit`` included. Every request
+                     the sync delivered to shares the one record
+                     (``serial``)
+``prefill``          the request's own prefill steps (its bucket, suffix
+                     or exact step, or all its chunk, seed and insert
+                     steps) and the sync waits spent on its behalf (its
+                     buffers' copies, its sampling row, its first token)
+===================  ======================================================
+
+``Timing`` fields: ``launch_s`` host seconds inside step calls (a graph
+replay or an eager step run); ``wait_s`` / ``syncs`` host seconds blocked
+at host syncs and their count, per site name; ``device_s`` device seconds
+by step kind (``graphs.KINDS``) from CUDA events around each step, None on
+the CPU and on a grid whose shards lie on several cards (for an eager
+step the events span the device's waits for the host's launches too);
+and, on a delivery period, ``ticks`` (decode ticks the sync delivered),
+``wall_s`` (host seconds from the end of the previous delivery sync, or
+from the first engine call after the engine stood idle, to the end of
+this one) and ``serial``.
+
 Stamping discipline — the part that keeps tracing off the hot path:
 timestamps are *host* clocks the engine already has in hand (the ``now``
 argument threaded through every engine entry point), recorded only at
@@ -49,11 +80,36 @@ not need to know which spans a previous owner opened.
 """
 from __future__ import annotations
 
-from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["Span", "Trace", "Tracer"]
+__all__ = ["Span", "Timing", "Trace", "Tracer"]
+
+
+class Timing:
+    """Where a span's host and device time went (see the module's
+    docstring). ``device_s`` is a dict by step kind when the engine times
+    the device, else None."""
+
+    __slots__ = ("launch_s", "wait_s", "syncs", "device_s", "ticks",
+                 "wall_s", "serial")
+
+    def __init__(self, serial: Optional[int] = None,
+                 device_kinds: Optional[Tuple[str, ...]] = None):
+        self.launch_s = 0.0
+        self.wait_s: Dict[str, float] = {}
+        self.syncs: Dict[str, int] = {}
+        self.device_s: Optional[Dict[str, float]] = (
+            None if device_kinds is None else dict.fromkeys(device_kinds,
+                                                            0.0))
+        self.ticks = 0
+        self.wall_s: Optional[float] = None
+        self.serial = serial
+
+    def __repr__(self) -> str:
+        return (f"Timing(serial={self.serial}, launch_s={self.launch_s:.6f}, "
+                f"syncs={self.syncs}, device_s={self.device_s}, "
+                f"ticks={self.ticks}, wall_s={self.wall_s})")
 
 
 @dataclass
@@ -62,6 +118,8 @@ class Span:
     t0: float
     t1: Optional[float] = None  # None while open
     meta: dict = field(default_factory=dict)
+    timing: Optional[Timing] = field(default=None, compare=False,
+                                     repr=False)
 
     @property
     def open(self) -> bool:
@@ -164,19 +222,16 @@ class Tracer:
     events) plus per-kind rollups folded in from terminal request traces.
 
     ``span_totals`` is what ``LoadReport`` v3 ships — bounded per-kind
-    aggregates, not the spans themselves.  ``ring`` > 0 additionally
-    retains the last N finished request traces (a bounded deque) for
-    post-hoc inspection without unbounded memory growth.
+    aggregates, not the spans themselves.
     """
 
-    __slots__ = ("enabled", "engine", "span_totals", "collected", "ring")
+    __slots__ = ("enabled", "engine", "span_totals", "collected")
 
-    def __init__(self, enabled: bool = False, ring: int = 0):
+    def __init__(self, enabled: bool = False):
         self.enabled = enabled
         self.engine = Trace(rid=-1)  # engine-scoped events (compile, profile)
         self.span_totals: Dict[str, Tuple[int, float]] = {}
         self.collected = 0
-        self.ring = deque(maxlen=ring) if ring > 0 else None
 
     def event(self, kind: str, t: float, **meta) -> None:
         self.engine.event(kind, t, **meta)
@@ -189,8 +244,6 @@ class Tracer:
         for kind, (c, s) in trace.totals().items():
             c0, s0 = self.span_totals.get(kind, (0, 0.0))
             self.span_totals[kind] = (c0 + c, s0 + s)
-        if self.ring is not None:
-            self.ring.append(trace)
 
     def totals_wire(self) -> tuple:
         """Hashable, JSON-safe ((kind, count, seconds), ...) for LoadReport."""

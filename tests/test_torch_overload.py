@@ -14,7 +14,7 @@ detector's levels and transitions, the circuit breaker's states, and
 ``TenantMetrics`` / ``LoadReport`` wire round trips read across packages.
 In the cluster: shed, brownout and reject counts per tenant with the same
 ``retry_after_s``, per-tenant stats on the wire, the single-tenant path,
-the brownout-prefix property, and the engine's trace sampling and ring."""
+the brownout-prefix property, and the engine's trace sampling."""
 import dataclasses
 import math
 
@@ -509,16 +509,13 @@ def test_brownout_prefix_property_matches_jax(setup, pools, seed):
     assert got["torch"] == got["jax"]
 
 
-@pytest.mark.parametrize("knob", ["sample_n", "ring"])
-def test_trace_sampling_and_ring_match_jax(setup, knob):
-    """test_trace_sampling_every_nth_rid and test_trace_ring_bounded."""
-    kw = dict(trace_sample_n=3) if knob == "sample_n" else dict(trace_ring=2)
-    n = 6 if knob == "sample_n" else 5
+def test_trace_sampling_matches_jax(setup):
+    """test_trace_sampling_every_nth_rid."""
     got = {}
     for w, (pkg, cfg, p, x) in setup.items():
         eng = pkg.ServingEngine(cfg, p, pkg.EngineConfig(
-            tracing=True, **ENGINE, **kw), **x)
-        reqs = [_req(pkg, i, plen=8, budget=4) for i in range(n)]
+            tracing=True, trace_sample_n=3, **ENGINE), **x)
+        reqs = [_req(pkg, i, plen=8, budget=4) for i in range(6)]
         for r in reqs:
             eng.submit(r, 0.0)
         now = 0.0
@@ -526,18 +523,9 @@ def test_trace_sampling_and_ring_match_jax(setup, knob):
             now += 1.0
             eng.step(now)
             assert now < 300
-        ring = eng.tracer.ring
-        seen = ({r.rid for r in reqs if r.trace is not None},
-                eng.tracer.collected,
-                None if ring is None else sorted(t.rid for t in ring))
-        eng.reset()
-        got[w] = seen + (None if eng.tracer.ring is None
-                         else len(eng.tracer.ring),)
+        got[w] = ({r.rid for r in reqs if r.trace is not None},
+                  eng.tracer.collected)
     assert got["torch"] == got["jax"]
-    if knob == "sample_n":
-        assert got["torch"][:2] == ({0, 3}, 2)
-    else:
-        assert got["torch"][1] == 5 and len(got["torch"][2]) == 2
-    for bad in (dict(trace_sample_n=0), dict(trace_ring=-1)):
-        with pytest.raises(ValueError):
-            ts.EngineConfig(**bad)
+    assert got["torch"] == ({0, 3}, 2)
+    with pytest.raises(ValueError):
+        ts.EngineConfig(trace_sample_n=0)
