@@ -208,10 +208,14 @@ after phase 13, on its tables, and phase 14 after phase 15; phase 15
    warm-up. Prints TTFT p50 / p90, tok/s, peak memory, launches per
    kernel, ms per decode tick at 8 slots beside the weight-read floor.
 10. mamba2-1.3b at full width and depth (48 layers, d 2048, d_inner
-   4096, 64 heads of 64, state 128, chunk 256; bf16, tied head) from
-   rolling caches (exact-length prefill, captured decode), phase 4's
-   prompts on 8 slots, with phase 9's prints and gates (the sampler
-   launched); then in float32 at full width, decode logits 1 and 16
+   4096, 64 heads of 64, state 128, chunk 256; bf16, tied head): first
+   the SSD decode step's kernel at B 8 (this phase's slots) and B 64
+   (the benchmark cell's), bf16 lanes strided as the mixer passes them,
+   against its plain version (state within 2e-5, y within bf16's 2e-2),
+   in place, timed beside its byte bound and the plain version; then
+   from rolling caches (exact-length prefill, captured decode), phase
+   4's prompts on 8 slots, with phase 9's prints and gates (the sampler
+   and the SSD step launched); then in float32 at full width, decode logits 1 and 16
    ticks after the 584-token prompt (chunks of 256, 256 and 72) against
    the full forward, within 1e-3 of the largest logit.
 11. The MoE block family and mrope at full width in bf16 (random weights
@@ -3101,6 +3105,71 @@ def ring_check(torch, cfg, params, prompt, ticks):
     return placed, errs
 
 
+def ssd_step_kernel(torch, gen, b):
+    """The SSD decode step at mamba2-1.3b's widths (64 heads of 64, state
+    128) over ``b`` slots: bf16 lanes cut out of a conv output and an
+    in-projection row as the mixer passes them, against the plain version
+    (state within 2e-5, y within bf16's 2e-2); the in-place write equal to
+    the fresh one bit for bit; timed in place, as served, cycling through
+    enough states to keep them out of the 50 MB L2 (each layer's state is
+    cold on the main path). Prints the line; returns (ok, the row's
+    numbers)."""
+    import math
+
+    from repro_torch.kernels import ops, plain
+
+    dev, bf16 = "cuda", torch.bfloat16
+    h, p, n = 64, 64, 128
+    di = h * p
+    state_bytes = b * h * p * n * 4
+    n_sets = max(2, -(-120_000_000 // state_bytes))
+
+    def lanes():
+        xbc = torch.randn((b, 1, di + 2 * n), generator=gen,
+                          device=dev).to(bf16)
+        xz = torch.randn((b, 1, 2 * di + 2 * n + h), generator=gen,
+                         device=dev).to(bf16)
+        return (torch.randn((b, h, p, n), generator=gen, device=dev),
+                xbc[:, 0, :di].reshape(b, h, p), xbc[:, 0, di:di + n],
+                xbc[:, 0, di + n:], xz[:, 0, 2 * di + 2 * n:])
+
+    sets = [lanes() for _ in range(n_sets)]
+    # the family's initialisation: A in [1, 16], dt around 1e-3 .. 1e-1
+    A_log = torch.log(1 + 15 * torch.rand(h, generator=gen, device=dev))
+    dt_bias = math.log(0.01) + torch.randn(h, generator=gen, device=dev)
+    D = torch.ones(h, device=dev)
+    w = (dt_bias, A_log, D)
+    state = sets[0][0]
+    y, out = ops.ssd_step(*sets[0], *w, in_place=False)
+    y_want, s_want = plain.ssd_step(*sets[0], *w, in_place=False)
+    kept = state.clone()
+    y2, out2 = ops.ssd_step(kept, *sets[0][1:], *w, in_place=True)
+    torch.cuda.synchronize()
+    err = (out - s_want).abs().max().item()
+    y_err = (y.float() - y_want.float()).abs().max().item()
+    good = (torch.allclose(out, s_want, atol=2e-5, rtol=2e-5)
+            and torch.allclose(y.float(), y_want.float(), atol=2e-2,
+                               rtol=2e-2)
+            and out2 is kept and torch.equal(out2, out)
+            and torch.equal(y2, y))
+    ms = time_ms(torch, lambda i: ops.ssd_step(*sets[i % n_sets], *w,
+                                               in_place=True))
+    pl_ms = time_ms(torch, lambda i: plain.ssd_step(*sets[i % n_sets], *w,
+                                                    in_place=True),
+                    iters=2, warm=1)
+    nbytes = 2 * state_bytes + 2 * b * (2 * di + 2 * n + h) + 3 * h * 4
+    b_ms, b_by = bound(nbytes, 5.0 * b * h * p * n, "float32")
+    print(f"ssd_step B={b} H={h} P={p} N={n} (bf16 lanes, in place, "
+          f"{n_sets} states cycled): state max_abs_err={err:.3g} (2e-5), "
+          f"y max_abs_err={y_err:.3g} (bf16, 2e-2), in place == fresh bit "
+          f"for bit {'ok' if good else 'FAIL'} ms={ms:.4f} "
+          f"plain_ms={pl_ms:.4f} bound_ms={b_ms:.5f} ({b_by}, "
+          f"{nbytes / 1e6:.1f} MB): {100 * b_ms / ms:.1f}% of the bound; "
+          f"no library call computes this step", flush=True)
+    return good, dict(max_abs_err=err, ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=None, launches=None)
+
+
 def full_width_engine(torch, rec, label, cfg, params, prompts, run,
                       kernels):
     """One engine at full width on ``prompts`` (64 new tokens each): a
@@ -3208,15 +3277,25 @@ def phase_dense(torch, rec):
 
 
 def phase_ssd(torch, rec):
-    """Phase 10: mamba2-1.3b at full width and depth in bf16 from rolling
-    caches (exact-length prefill, captured decode), phase 4's prompts on
-    8 slots; then, in float32 at full width, decode logits after the
+    """Phase 10: the SSD decode step's kernel at B 8 and 64
+    (``ssd_step_kernel``); mamba2-1.3b at full width and depth in bf16
+    from rolling caches (exact-length prefill, captured decode), phase 4's
+    prompts on 8 slots; then, in float32 at full width, decode logits after the
     584-token prompt (chunks of 256, 256 and a ragged 72) against the
     full forward over the prompt and the decoded tokens."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
+
+    ok = True
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    for b in (8, 64):
+        good, row = ssd_step_kernel(torch, gen, b)
+        ok &= good
+        rec[f"ssd_step_b{b}"].update(row)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     cfg = get_config("mamba2-1.3b")
     t0 = time.perf_counter()
@@ -3236,9 +3315,11 @@ def phase_ssd(torch, rec):
           f"ms ({state_mb:.2f} MB a slot a layer)", flush=True)
     lens, prompts = burst_prompts()
     run = dict(device="cuda", max_new=64, slots=8, max_seq=None)
-    ok, _ = full_width_engine(torch, rec, "mamba2 bf16", cfg, params,
-                              prompts, run,
-                              {"sample_tokens_mamba2": "sample_tokens"})
+    good, _ = full_width_engine(torch, rec, "mamba2 bf16", cfg, params,
+                                prompts, run,
+                                {"sample_tokens_mamba2": "sample_tokens",
+                                 "ssd_step_b8": "ssd_step"})
+    ok &= good
     gc.collect()
     torch.cuda.empty_cache()
     # phase 15 (e) on these weights: tp 2 (in_proj's column blocks)
@@ -4464,6 +4545,13 @@ def main() -> int:
     for key, (name, src, line) in SHARD_RECORDS.items():
         rec[key] = dict(name=name, route="cuda", source=f"{csrc}/{src}",
                         replaces=f"src/repro/kernels/{line}")
+    for b in (8, 64):
+        rec[f"ssd_step_b{b}"] = dict(
+            name=f"ssd_step (mamba2-1.3b decode step, B {b}, 64 heads of "
+                 f"64, state 128, bf16 lanes, in place)", route="cuda",
+            source=f"{csrc}/ssd_step.cu",
+            replaces="none: the reference's step is plain jnp "
+                     "(src/repro/models/ssm.py apply_ssd)")
     full, keep = {}, {}
     for phase, fn in (("kernels vs plain", lambda: phase_kernels(torch,
                                                                  rec)),

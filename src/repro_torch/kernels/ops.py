@@ -20,6 +20,7 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention_int8,
 )
 from repro_torch.kernels.int8_matmul import int8_matmul, quantize_int8
+from repro_torch.kernels.ssd_step import ssd_step
 from repro_torch.kernels.topk_sample import (
     path_rows,
     reset_path_rows,
@@ -30,7 +31,7 @@ from repro_torch.kernels.topk_sample import (
 __all__ = ["LAUNCHES", "decode_attention", "flash_attention", "int8_matmul",
            "paged_decode_attention", "paged_decode_attention_int8",
            "path_rows", "quantize_int8", "reset_launches", "rglru_scan",
-           "sample_tokens", "topk_sample"]
+           "sample_tokens", "ssd_step", "topk_sample"]
 
 
 def reset_launches():

@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the port's hand-written kernels: the int8
 matmul, prefill (optionally windowed) and (rolling, paged, int8) decode
-attention, the RG-LRU scan, and the sampler. They
-are the torch twins of the JAX package's ``repro.models.layers`` functions
-of the same names, and ``repro_torch.models.layers`` re-exports them. Each
+attention, the RG-LRU scan, the Mamba-2 SSD decode step and the sampler.
+They are the torch twins of the JAX package's ``repro.models.layers``
+functions of the same names, and ``repro_torch.models.layers`` re-exports
+them; the SSD step is the ``s == 1`` branch of the reference's
+``repro.models.ssm.apply_ssd``, used by ``repro_torch.models.ssm``. Each
 kernel wrapper calls its plain version for CPU tensors, and
 ``chip_smoke.py`` holds each kernel against it on the card. This module
 imports nothing of the port, so the kernel layer does not depend on the
@@ -177,6 +179,33 @@ def rglru_scan(a, x, h0):
         h = af[:, t] * h + xf[:, t]
         ys.append(h)
     return torch.stack(ys, dim=1), h
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD decode step (plain version of kernels/ssd_step)
+# ---------------------------------------------------------------------------
+
+
+def ssd_step(state, x, B, C, dt, dt_bias, A_log, D, *, in_place: bool):
+    """One SSD decode step, the reference's ``s == 1`` branch of
+    ``apply_ssd``: ``h = h * exp(dt A) + B (x dt)``, ``y = C h + D x``,
+    float32 throughout. state (b, H, P, N) float32; x (b, H, P), B, C (b,
+    N), dt (b, H) in the model dtype (dt before its softplus); dt_bias,
+    A_log, D (H,) float32. Returns (y (b, H, P) rounded to x's dtype, the
+    new state): ``in_place`` copies it into ``state`` and returns that."""
+    dt = dt.to(F32) + dt_bias
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))  # jax.nn.softplus
+    A = -torch.exp(A_log)
+    dA = torch.exp(dt * A)  # (b, H)
+    x0 = x.to(F32)  # (b, H, P)
+    xin = x0 * dt[..., None]
+    new = (state * dA[..., None, None]
+           + xin[..., None] * B.to(F32)[:, None, None, :])
+    y = torch.matmul(new, C.to(F32)[:, None, :, None])[..., 0]
+    y = y + D[:, None] * x0
+    if in_place:
+        new = state.copy_(new)
+    return y.to(x.dtype), new
 
 
 # ---------------------------------------------------------------------------

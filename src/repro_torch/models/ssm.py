@@ -9,9 +9,11 @@ carries O(1) state: the conv window and a per-head SSM state (H, P, N).
 Shapes follow the paper: d_inner = expand * d_model, heads = d_inner /
 head_dim, a scalar A per head, B and C of state size N shared across
 heads. The reference computes it in plain JAX (no Pallas kernel); so does
-the port, in PyTorch ops, float32 throughout the scan as there. The
-decode step updates the cache IN PLACE: a captured CUDA graph keeps
-reading the tensors it was captured with.
+the port's chunked scan, in PyTorch ops, float32 throughout as there. The
+decode step goes through ``ops.ssd_step`` (on the card one hand-written
+kernel that reads and writes each float32 state element once; on the CPU
+its plain version). The cache is updated IN PLACE: a captured CUDA graph
+keeps reading the tensors it was captured with.
 
 ``apply_ssd_sharded`` runs the mixer over the shards of a tensor-parallel
 group under the reference's bit-exact serving layout: ``in_proj`` split
@@ -20,9 +22,12 @@ gated norm, ``out_proj``) whole on every shard, over the whole state.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -146,10 +151,12 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
     return y.to(x.dtype), hstate
 
 
-def _ssd_mix(cfg, p, x, xz, cache):
-    """The SSD mixer's output from the in-projection ``xz`` without
-    touching ``cache``: (out (B, S, d), the new conv window, the new
-    state)."""
+def _ssd_mix(cfg, p, x, xz, cache, in_place: bool = True):
+    """The SSD mixer's output from the in-projection ``xz``: (out (B, S,
+    d), the new conv window, the new state). ``cache`` is read, and
+    written only by a decode step with ``in_place``, which puts the new
+    state into ``cache["state"]`` and returns that tensor; without, the
+    step's state is a fresh tensor."""
     di, ns = cfg.d_inner, cfg.ssm_state_dim
     nh, hd = cfg.ssm_num_heads, cfg.ssm_head_dim
     b, s, _ = x.shape
@@ -160,19 +167,16 @@ def _ssd_mix(cfg, p, x, xz, cache):
     xs = xbc[..., :di].reshape(b, s, nh, hd)
     B = xbc[..., di:di + ns]
     C = xbc[..., di + ns:]
-    dt = L.softplus(dt.to(F32) + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
 
     if s == 1 and cache is not None:
         # --- one decode step: h = h * exp(dt A) + B (x dt), y = C h + D x
-        dA = torch.exp(dt[:, 0] * A)  # (B, H)
-        x0 = xs[:, 0].to(F32)  # (B, H, P)
-        xin = x0 * dt[:, 0, :, None]
-        state = (cache["state"] * dA[..., None, None]
-                 + xin[..., None] * B[:, 0].to(F32)[:, None, None, :])
-        y = torch.matmul(state, C[:, 0].to(F32)[:, None, :, None])[..., 0]
-        y = (y + p["D"][:, None] * x0).reshape(b, 1, di)
+        y, state = ops.ssd_step(cache["state"], xs[:, 0], B[:, 0], C[:, 0],
+                                dt[:, 0], p["dt_bias"], p["A_log"], p["D"],
+                                in_place=in_place)
+        y = y.reshape(b, 1, di)
     else:
+        dt = L.softplus(dt.to(F32) + p["dt_bias"])
+        A = -torch.exp(p["A_log"])
         y4, state = ssd_chunked(xs, dt, A, B, C, p["D"], cfg.ssm_chunk)
         y = y4.reshape(b, s, di)
 
@@ -199,21 +203,25 @@ def apply_ssd_sharded(cfg, ps, xs, *, caches=None):
     concatenated on every shard before ``_split_proj`` (a block may span
     the z / xBC / dt boundaries), and the rest of the mixer runs whole
     from the shard's whole conv window and state. Every shard reads its
-    cache before any shard writes, so shards may share one cache tensor.
-    Returns the outputs (B, S, d) per shard."""
+    cache before any shard writes, so shards may share one cache tensor:
+    with more than one shard a decode step writes its state into a fresh
+    tensor, copied into the cache after every shard has run; with one, it
+    writes the cache's state in place. Returns the outputs (B, S, d) per
+    shard."""
     from repro_torch.models.blocks import gather
 
     blks = [torch.matmul(x, p["in_proj"]) for x, p in zip(xs, ps)]
     split = blks[0].shape[-1] < ps[0]["conv_w"].shape[1] + cfg.d_inner \
         + cfg.ssm_num_heads
-    mixed = [_ssd_mix(cfg, p, x,
-                      gather(blks, x.device) if split else blks[j],
-                      None if caches is None else caches[j])
+    mix = _ssd_mix if len(ps) == 1 else partial(_ssd_mix, in_place=False)
+    mixed = [mix(cfg, p, x, gather(blks, x.device) if split else blks[j],
+                 None if caches is None else caches[j])
              for j, (x, p) in enumerate(zip(xs, ps))]
     if caches is not None:
         for c, (_, new_conv, state) in zip(caches, mixed):
             c["conv"].copy_(new_conv)
-            c["state"].copy_(state)
+            if state is not c["state"]:
+                c["state"].copy_(state)
     return [out for out, _, _ in mixed]
 
 

@@ -11,7 +11,8 @@ that machine does not have.)
 Tolerances: float32 2e-5 (the reference suite's); bfloat16 2e-2, and 1e-3
 absolute for the int8 paged decode kernel; the RG-LRU scan bit for bit
 (it rounds as its plain version does, in the same order); sampled tokens
-exact, and a repeat call bit-identical."""
+exact, and a repeat call bit-identical; the SSD decode step's state
+2e-5 (float32 throughout, the sum over N in another order)."""
 import numpy as np
 import pytest
 import torch
@@ -1285,6 +1286,139 @@ def test_ssd_block_on_cuda_matches_the_cpu(dev):
                                        caches["cpu"][name], atol=2e-5,
                                        rtol=2e-5)
     assert all(caches[dev][k] is leaves[k] for k in leaves)
+
+
+# -- the SSD decode step's kernel at mamba2's widths -------------------------
+
+SSD_H, SSD_P, SSD_N = 64, 64, 128  # mamba2-1.3b: 64 heads of 64, state 128
+
+
+def _ssd_step_args(gen, b, dtype, dev, h=SSD_H, p=SSD_P, n=SSD_N):
+    """(state, x, B, C, dt, dt_bias, A_log, D): the lanes cut out of a
+    conv output (b, 1, H P + 2 N) and an in-projection row as the mixer
+    passes them (row strides of the whole rows, not contiguous)."""
+    di = h * p
+    xbc = _rand(gen, (b, 1, di + 2 * n), dtype, dev)
+    xz = _rand(gen, (b, 1, 2 * di + 2 * n + h), dtype, dev)
+    return (torch.randn((b, h, p, n), generator=gen, device=dev),
+            xbc[:, 0, :di].reshape(b, h, p), xbc[:, 0, di:di + n],
+            xbc[:, 0, di + n:], xz[:, 0, 2 * di + 2 * n:],
+            torch.randn(h, generator=gen, device=dev) * 0.5 - 4.0,
+            torch.log(1 + 15 * torch.rand(h, generator=gen, device=dev)),
+            torch.randn(h, generator=gen, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3, 64])
+def test_ssd_step_kernel_matches_plain(dev, b, dtype):
+    """The state within 2e-5 of the plain version's, y within the lanes'
+    dtype's tolerance (float32 2e-5), from strided lanes; in place the
+    same bits as into a fresh state, and the cache's tensor kept."""
+    gen = torch.Generator(device=dev).manual_seed(b)
+    args = _ssd_step_args(gen, b, dtype, dev)
+    assert b == 1 or not (args[1].is_contiguous()
+                          or args[4].is_contiguous())
+    state = args[0]
+    kept = state.clone()
+    ptr = kept.data_ptr()
+    y, new = ops.ssd_step(*args, in_place=False)
+    y_want, want = plain.ssd_step(*args, in_place=False)
+    y2, same = ops.ssd_step(kept, *args[1:], in_place=True)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and new is not state
+    torch.testing.assert_close(new, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(y.float(), y_want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert same is kept and kept.data_ptr() == ptr
+    assert torch.equal(kept, new) and torch.equal(y2, y)
+
+
+def test_ssd_step_kernel_replays_in_a_cuda_graph(dev):
+    """The in-place step captured once and replayed twice equals two eager
+    steps from the same state, bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    args = _ssd_step_args(gen, 3, torch.bfloat16, dev)
+    eager = args[0].clone()
+    for _ in range(2):
+        y_eager, _ = ops.ssd_step(eager, *args[1:], in_place=True)
+    state = args[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        ops.ssd_step(state.clone(), *args[1:], in_place=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_graph, _ = ops.ssd_step(state, *args[1:], in_place=True)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(state, eager) and torch.equal(y_graph, y_eager)
+
+
+def _ssd_mixer(dev, b):
+    """mamba2's mixer at its widths (d 2048, 64 heads of 64, state 128)
+    in float32 on the card, a cache after a 20-token prefill, and the
+    step's input."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), dtype="float32")
+    gen = torch.Generator().manual_seed(b)
+    p = ssm.init_ssd(cfg, gen, torch.float32, "cpu")
+    p["A_log"] = torch.log(1 + 15 * torch.rand(cfg.ssm_num_heads,
+                                               generator=gen))
+    p["dt_bias"] = torch.randn(cfg.ssm_num_heads, generator=gen) - 4.0
+    p = _to(p, dev)
+    x = torch.randn((b, 21, cfg.d_model), generator=gen).to(dev)
+    cache = ssm.init_ssd_cache(cfg, b, torch.float32, dev)
+    ssm.apply_ssd(cfg, p, x[:, :20], cache=cache)
+    return cfg, p, x[:, 20:], cache
+
+
+@pytest.mark.parametrize("b", [1, 3, 64])
+def test_ssd_mixer_step_launches_the_kernel_once(dev, b):
+    """One eager decode step of the mixer is one launch of the kernel,
+    written into the cache's own state; a prefill launches none."""
+    from repro_torch.models import ssm
+
+    cfg, p, x, cache = _ssd_mixer(dev, b)
+    leaves = dict(cache)
+    before = ops.LAUNCHES["ssd_step"]
+    ssm.apply_ssd(cfg, p, x, cache=cache)
+    assert ops.LAUNCHES["ssd_step"] == before + 1
+    ssm.apply_ssd(cfg, p, torch.cat([x, x], 1), cache=None)
+    assert ops.LAUNCHES["ssd_step"] == before + 1
+    assert all(cache[k] is leaves[k] for k in leaves)
+
+
+@pytest.mark.parametrize("b", [1, 3, 64])
+def test_ssd_tp2_shards_sharing_one_cache_match_one_shard(dev, b):
+    """Two shards of ``in_proj``'s columns over ONE cache tensor (each
+    step into a fresh state, copied in after both) against one shard over
+    a copy of the cache: outputs and cache leaves within 2e-5."""
+    from repro_torch.models import ssm
+
+    cfg, p, x, cache = _ssd_mixer(dev, b)
+    one = {k: v.clone() for k, v in cache.items()}
+    half = p["in_proj"].shape[1] // 2
+    shards = [dict(p, in_proj=p["in_proj"][:, :half].contiguous()),
+              dict(p, in_proj=p["in_proj"][:, half:].contiguous())]
+    state = cache["state"]
+    before = ops.LAUNCHES["ssd_step"]
+    got = ssm.apply_ssd_sharded(cfg, shards, [x, x],
+                                caches=[cache, cache])
+    assert ops.LAUNCHES["ssd_step"] == before + 2
+    want = ssm.apply_ssd(cfg, p, x, cache=one)
+    torch.cuda.synchronize()
+    assert cache["state"] is state
+    for out in got:
+        torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    for name in ("conv", "state"):
+        torch.testing.assert_close(cache[name], one[name], atol=2e-5,
+                                   rtol=2e-5)
 
 
 # -- the GQA groups and vocabularies of grok-1, llama4 and qwen2-vl ----------

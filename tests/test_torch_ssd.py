@@ -1,7 +1,10 @@
 """The PyTorch port's Mamba-2 SSD family against the JAX package's:
 ``ssd_chunked`` (chunks 16, 40 and 64 over 70 steps: whole chunks, the
-padding path and a single chunk), the SSD mixer (a prefill, then single
-steps from its cache), mamba2-1.3b ``reduced()`` end to end (converted
+padding path and a single chunk), the decode step's plain version
+(``plain.ssd_step``, the kernel's twin) against the reference's step, the
+SSD mixer (a prefill, then single steps from its cache; the step through
+``ops.ssd_step`` keeps the bits of the mixer's inline arithmetic),
+mamba2-1.3b ``reduced()`` end to end (converted
 weights with their float32 leaves, prefill and decode logits and caches,
 engine streams from rolling caches, greedy and seeded), and the
 reference's refusals on an attention-free arch (int8 KV, int8 weights, a
@@ -18,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro import models as jm
 from repro import serving as js
@@ -26,7 +30,9 @@ from repro.models import ssm as jssm
 from repro_torch import models as tm
 from repro_torch import serving as ts
 from repro_torch.configs import get_config as torch_config
+from repro_torch.kernels import ops, plain
 from repro_torch.launch import serve as tserve
+from repro_torch.models import layers as TL
 from repro_torch.models import ssm as tssm
 
 torch.set_num_threads(2)
@@ -109,6 +115,123 @@ def test_apply_ssd_prefill_then_steps_match_jax(mamba):
                                        atol=SSD_TOL, rtol=SSD_TOL)
     # the leaves the engine's graphs captured are the ones written
     assert tcache["conv"] is conv and tcache["state"] is state
+
+
+def _step_lanes(tc, p, x, conv):
+    """The step's inputs as the mixer cuts them: (z, x (b, H, P), B, C,
+    raw dt (b, H)) from the in-projection of x (b, 1, d) after the conv
+    over the cached window."""
+    di, ns = tc.d_inner, tc.ssm_state_dim
+    b = x.shape[0]
+    z, xbc, dt = tssm._split_proj(tc, torch.matmul(x, p["in_proj"]))
+    xbc, _ = tssm.causal_conv(xbc, p["conv_w"], conv, activation=F.silu)
+    xs = xbc[:, 0, :di].reshape(b, tc.ssm_num_heads, tc.ssm_head_dim)
+    return z, xs, xbc[:, 0, di:di + ns], xbc[:, 0, di + ns:], dt[:, 0]
+
+
+def test_plain_ssd_step_matches_the_jax_step(mamba):
+    """Layer 0's mixer of mamba2 ``reduced()`` with converted weights,
+    after a 37-token prefill by the reference: the plain step's new state
+    against the reference's cache, and its y, through the mixer's gated
+    norm and out-projection, against the reference's output; in place and
+    fresh alike, bit for bit."""
+    jc, tc, jp, tp = mamba
+    jpm = {k: v[0] for k, v in jp["body"][0]["mixer"].items()}
+    p = tp["layers"][0]["mixer"]
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((3, 38, jc.d_model)).astype(np.float32)
+    _, jcache = jssm.apply_ssd(jc, jpm, jnp.asarray(x[:, :37]))
+    want, jnew = jssm.apply_ssd(jc, jpm, jnp.asarray(x[:, 37:]),
+                                cache=jcache)
+    state = torch.from_numpy(np.array(jcache["state"]))
+    z, xs, B, C, dt = _step_lanes(tc, p, torch.from_numpy(x[:, 37:]),
+                                  torch.from_numpy(np.array(jcache["conv"])))
+    w = (p["dt_bias"], p["A_log"], p["D"])
+    y, new = plain.ssd_step(state, xs, B, C, dt, *w, in_place=False)
+    assert new is not state and y.shape == xs.shape
+    np.testing.assert_allclose(_np(new), np.asarray(jnew["state"]),
+                               atol=SSD_TOL, rtol=SSD_TOL)
+    out = TL.rmsnorm(y.reshape(3, 1, tc.d_inner) * F.silu(z),
+                     p["norm_scale"]) @ p["out_proj"]
+    np.testing.assert_allclose(_np(out), np.asarray(want), atol=SSD_TOL,
+                               rtol=SSD_TOL)
+    y2, same = plain.ssd_step(state, xs, B, C, dt, *w, in_place=True)
+    assert same is state and torch.equal(state, new) and torch.equal(y2, y)
+
+
+def _mixer_step_inline(tc, p, x, cache):
+    """The mixer's decode step with its arithmetic written out inline:
+    (out, new conv window, new state), the cache untouched."""
+    di, ns = tc.d_inner, tc.ssm_state_dim
+    b = x.shape[0]
+    z, xbc, dt = tssm._split_proj(tc, torch.matmul(x, p["in_proj"]))
+    xbc, new_conv = tssm.causal_conv(xbc, p["conv_w"], cache["conv"],
+                                     activation=F.silu)
+    xs = xbc[..., :di].reshape(b, 1, tc.ssm_num_heads, tc.ssm_head_dim)
+    B, C = xbc[..., di:di + ns], xbc[..., di + ns:]
+    dt = TL.softplus(dt.to(torch.float32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt[:, 0] * A)
+    x0 = xs[:, 0].to(torch.float32)
+    xin = x0 * dt[:, 0, :, None]
+    state = (cache["state"] * dA[..., None, None]
+             + xin[..., None] * B[:, 0].to(torch.float32)[:, None, None, :])
+    y = torch.matmul(state, C[:, 0].to(torch.float32)[:, None, :, None])
+    y = (y[..., 0] + p["D"][:, None] * x0).reshape(b, 1, di)
+    y = TL.rmsnorm(y.to(x.dtype) * F.silu(z), p["norm_scale"])
+    return torch.matmul(y, p["out_proj"]), new_conv, state
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_ssd_steps_through_ops_keep_the_bits(mamba, dtype):
+    """A 37-token prefill, then 4 steps through ``apply_ssd`` (the step
+    in ``ops.ssd_step``, in place) against the inline arithmetic from the
+    same cache: outputs and both cache leaves bit for bit, the leaves
+    still the tensors the cache was made with, and no kernel launched on
+    the CPU. bf16 also takes y's rounding to the model dtype."""
+    jc, tc = mamba[:2]
+    tc = dataclasses.replace(tc, dtype="bfloat16" if dtype ==
+                             torch.bfloat16 else "float32")
+    gen = torch.Generator().manual_seed(4)
+    p = tssm.init_ssd(tc, gen, dtype, "cpu")
+    p["A_log"] = torch.randn(tc.ssm_num_heads, generator=gen) * 0.5
+    p["dt_bias"] = torch.randn(tc.ssm_num_heads, generator=gen) * 0.5
+    x = torch.randn((2, 41, tc.d_model), generator=gen).to(dtype)
+    cache = tssm.init_ssd_cache(tc, 2, dtype, "cpu")
+    leaves = dict(cache)
+    tssm.apply_ssd(tc, p, x[:, :37], cache=cache)
+    before = dict(ops.LAUNCHES)
+    for t in range(37, 41):
+        want, conv, state = _mixer_step_inline(tc, p, x[:, t:t + 1], cache)
+        got = tssm.apply_ssd(tc, p, x[:, t:t + 1], cache=cache)
+        assert torch.equal(got, want)
+        assert torch.equal(cache["conv"], conv)
+        assert torch.equal(cache["state"], state)
+    assert all(cache[k] is leaves[k] for k in leaves)
+    assert ops.LAUNCHES == before
+
+
+def test_ssd_step_route_on_cpu_and_meta_and_refusals():
+    """A CPU tensor takes the plain version, a meta tensor its shapes (the
+    dry run); shapes that do not match the state are refused."""
+    b, h, p, n = 2, 3, 4, 8
+    gen = torch.Generator().manual_seed(0)
+    args = [torch.randn(s, generator=gen) for s in
+            ((b, h, p, n), (b, h, p), (b, n), (b, n), (b, h), (h,), (h,),
+             (h,))]
+    before = dict(ops.LAUNCHES)
+    y, new = ops.ssd_step(*args, in_place=False)
+    want_y, want = plain.ssd_step(*args, in_place=False)
+    assert torch.equal(y, want_y) and torch.equal(new, want)
+    assert ops.LAUNCHES == before
+    meta = [a.to("meta") for a in args]
+    y, new = ops.ssd_step(*meta, in_place=True)
+    assert new is meta[0] and y.shape == (b, h, p) and y.device.type == \
+        "meta"
+    with pytest.raises(ValueError, match="do not match"):
+        ops.ssd_step(args[0], args[1][:, :2], *args[2:], in_place=False)
+    with pytest.raises(ValueError, match="want state"):
+        ops.ssd_step(args[0][0], *args[1:], in_place=False)
 
 
 def test_converted_weights_keep_the_float32_leaves(mamba):

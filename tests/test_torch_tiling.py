@@ -3,14 +3,16 @@ the int8 matmul's tile for each M and dtype and its K splits at granite's
 projection shapes (wq/wo, wk/wv, w1/w3, w2), for the float32, bf16 decode
 and bf16 prefill tiles; the one-pass bf16 rolling decode kernel's
 context splits (one thread-block cluster per slot and kv head); the RG-LRU
-scan's channel and time tiles; and the sampler's slices of a row over its
-thread-block cluster."""
+scan's channel and time tiles; the SSD decode step's tiles of the
+state; and the sampler's slices of a row over its thread-block
+cluster."""
 import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import int8_matmul as im
 from repro_torch.kernels import rglru_scan as rs
+from repro_torch.kernels import ssd_step as ss
 from repro_torch.kernels import topk_sample as ts
 
 GRANITE_KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
@@ -309,6 +311,54 @@ def test_scan_plan_fills_the_card_at_batch_one(s):
     plan = rs.scan_plan(1, s, 4096)
     blocks = plan.grid[0] * plan.grid[1]
     assert 120 <= blocks <= rs.SMS
+
+
+# (b, H, P, N): mamba2's widths at 1, 8 and 64 slots, its reduced()
+# widths, a P of two row blocks, and ragged P and small N
+SSD_SHAPES = [(1, 64, 64, 128), (8, 64, 64, 128), (64, 64, 64, 128),
+              (3, 32, 16, 16), (2, 4, 128, 128), (2, 3, 24, 8),
+              (1, 2, 5, 4), (1, 2, 100, 64)]
+
+
+@pytest.mark.parametrize("b,h,p,n", SSD_SHAPES)
+def test_ssd_step_plan_covers_the_state_once(b, h, p, n):
+    """A (b, h) tile's row blocks and their threads own every 16-byte
+    chunk of the state exactly once, within the kernel's limits; a
+    thread keeps one column chunk in all its rows, and each row's N / 4
+    chunks sit in adjacent lanes of one warp, aligned, so the shuffle
+    tree over them sums that row alone."""
+    plan = ss.step_plan(b, h, p, n)
+    g = n // 4
+    assert plan.grid == (b * h, -(-p // plan.rows))
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= ss.THREADS
+    assert plan.per in ss.PER and plan.rows * g <= plan.threads * plan.per
+    covered = [[0] * g for _ in range(p)]
+    for by in range(plan.grid[1]):
+        for t in range(plan.threads):
+            for row, col in plan.chunks(by, t, p, n):
+                assert col == t % g
+                covered[row][col] += 1
+            for i in range(plan.per):
+                idx = t + i * plan.threads
+                for o in range(1, g):  # the lanes the tree sums with t
+                    u = t ^ o
+                    assert u // 32 == t // 32
+                    assert (u + i * plan.threads) // g == idx // g
+    assert covered == [[1] * g for _ in range(p)]
+
+
+def test_ssd_step_plan_at_mamba2_width():
+    """mamba2-1.3b at the cell's 64 slots: one block of 256 threads per
+    (slot, head) tile of 32 KiB, 8 chunks a thread: 4096 blocks."""
+    plan = ss.step_plan(64, 64, 64, 128)
+    assert plan == ss.StepPlan(rows=64, threads=256, per=8, grid=(4096, 1))
+    assert plan.rows * 128 * 4 == 32768
+
+
+@pytest.mark.parametrize("n", [2, 6, 12, 256])
+def test_ssd_step_plan_refuses_rows_a_warp_cannot_hold(n):
+    with pytest.raises(ValueError, match="power of two"):
+        ss.step_plan(1, 2, 64, n)
 
 
 @pytest.mark.parametrize("cluster", [8, 16])
