@@ -1,6 +1,8 @@
 from repro_torch.configs.base import (
     ASSIGNED_ARCHS,
     INPUT_SHAPES,
+    PORT_ONLY_ARCHS,
+    PORT_ONLY_FIELDS,
     PORTED_ARCHS,
     ArchConfig,
     ShapeConfig,
@@ -8,11 +10,14 @@ from repro_torch.configs.base import (
     applicable_shapes,
     get_config,
     get_shape,
+    reference_view,
 )
 
 __all__ = [
     "ASSIGNED_ARCHS",
     "INPUT_SHAPES",
+    "PORT_ONLY_ARCHS",
+    "PORT_ONLY_FIELDS",
     "PORTED_ARCHS",
     "ArchConfig",
     "ShapeConfig",
@@ -20,4 +25,5 @@ __all__ = [
     "applicable_shapes",
     "get_config",
     "get_shape",
+    "reference_view",
 ]

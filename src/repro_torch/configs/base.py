@@ -48,7 +48,10 @@ class ArchConfig:
       dense   — standard decoder (GQA attention + MLP)
       moe     — decoder with MoE MLPs (capacity-based top-k dispatch)
       ssm     — Mamba-2 SSD blocks (attention-free)
-      hybrid  — RG-LRU recurrent blocks : local-attention blocks (ratio 2:1)
+      hybrid  — the layers of ``block_pattern``: RG-LRU recurrent blocks :
+                local-attention blocks (ratio 2:1) by default, or SSD blocks
+                beside attention blocks, each with a MoE MLP ("ssd_moe",
+                "moe": granite-4.0-h-small)
       audio   — encoder-only transformer over precomputed frame embeddings
       vlm     — decoder with M-RoPE over precomputed patch+text embeddings
     """
@@ -71,6 +74,11 @@ class ArchConfig:
     moe_shared_expert: bool = False
     moe_layer_period: int = 1  # every k-th layer is MoE (llama4: 2)
     dense_d_ff: int = 0  # ff width of interleaved dense layers; 0 -> d_ff
+    moe_shared_d_ff: int = 0  # the shared expert's ff width; 0 -> d_ff
+    # "softmax_topk": softmax over all E, then k argmax rounds (gates not
+    # renormalised); "topk_softmax": the top k of the logits, then the
+    # softmax over those k (gates sum to 1; Granite's TopKGating)
+    moe_router: str = "softmax_topk"
 
     # --- SSM (Mamba-2 SSD) ---
     ssm_state_dim: int = 0
@@ -78,6 +86,7 @@ class ArchConfig:
     ssm_head_dim: int = 64
     ssm_chunk: int = 256
     conv_kernel: int = 4
+    ssm_conv_bias: bool = False  # a bias on the SSD mixer's causal conv
 
     # --- hybrid (RG-LRU) ---
     block_pattern: Tuple[str, ...] = ()  # e.g. ("rglru", "rglru", "local_attn")
@@ -91,9 +100,16 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     mrope_sections: Tuple[int, int, int] = (16, 24, 24)
 
+    # --- scalar multipliers (Granite's; the defaults leave a model as is) ---
+    embedding_multiplier: float = 1.0  # x0 = multiplier * embed[ids]
+    residual_multiplier: float = 1.0  # x + multiplier * sublayer(norm(x))
+    attention_multiplier: float = 0.0  # softmax scale; 0 -> head_dim^-0.5
+    logits_scaling: float = 1.0  # logits = head(x) / logits_scaling
+
     # --- MLP / norm ---
     mlp_variant: str = "swiglu"  # swiglu | geglu | gelu
     norm: str = "rmsnorm"  # rmsnorm | layernorm
+    norm_eps: float = 1e-6  # RMSNorm's (layernorm keeps 1e-5)
 
     # --- modality / mode ---
     is_encoder: bool = False
@@ -157,7 +173,7 @@ class ArchConfig:
             p = d * self.num_experts  # router
             p += self.num_experts * mlp_params(ff) // 1
             if self.moe_shared_expert:
-                p += mlp_params(ff)
+                p += mlp_params(self.moe_shared_d_ff or ff)
             return p
 
         norm = 2 * d if self.norm == "layernorm" else d
@@ -170,13 +186,18 @@ class ArchConfig:
                 return attn_params() + mlp_params(width) + 2 * norm
             if btype == "moe":
                 return attn_params() + moe_params() + 2 * norm
-            if btype == "ssd":
+            if btype in ("ssd", "ssd_moe"):
                 di, ns = self.d_inner, self.ssm_state_dim
                 nh = self.ssm_num_heads
                 # in_proj (z,x,B,C,dt) ; out_proj ; conv ; A,D,dt_bias ; norms
-                return (d * (2 * di + 2 * ns + nh) + di * d
-                        + self.conv_kernel * (di + 2 * ns) + 3 * nh
-                        + di + norm)
+                p = (d * (2 * di + 2 * ns + nh) + di * d
+                     + self.conv_kernel * (di + 2 * ns) + 3 * nh
+                     + di + norm)
+                if self.ssm_conv_bias:
+                    p += di + 2 * ns
+                if btype == "ssd_moe":  # norm2 and the MoE MLP
+                    p += moe_params() + norm
+                return p
             if btype == "rglru":
                 lw = self.resolved_lru_width
                 rec = (d * 2 * lw + lw * d + 2 * lw * lw + 3 * lw
@@ -185,6 +206,17 @@ class ArchConfig:
             raise ValueError(btype)
 
         # exact block counts from the block program (handles tails)
+        counts = self.block_counts()
+        total = sum(block_params(bt) * n for bt, n in counts.items())
+        total += norm  # final norm
+        if self.modality != "audio":
+            total += v * d  # embedding
+        if not self.tie_embeddings:
+            total += v * d  # lm head / classifier
+        return total
+
+    def block_counts(self) -> dict:
+        """{block type: layers} from the block program (handles tails)."""
         from collections import Counter
 
         if self.arch_type in ("dense", "vlm"):
@@ -203,30 +235,32 @@ class ArchConfig:
             counts[bt] += n_rep
         for bt in pattern[:rem]:
             counts[bt] += 1
+        return counts
 
-        total = sum(block_params(bt) * n for bt, n in counts.items())
-        total += norm  # final norm
-        if self.modality != "audio":
-            total += v * d  # embedding
-        if not self.tie_embeddings:
-            total += v * d  # lm head / classifier
-        return total
+    @property
+    def num_moe_layers(self) -> int:
+        """Layers with a MoE MLP (``moe`` and ``ssd_moe`` blocks)."""
+        counts = self.block_counts()
+        return counts["moe"] + counts["ssd_moe"]
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: only routed experts)."""
-        if self.arch_type != "moe":
+        if not self.num_moe_layers:
             return self.param_count()
         full = self.param_count()
         d, ff = self.d_model, self.d_ff
         per_expert = (3 if self.mlp_variant in ("swiglu", "geglu") else 2) * d * ff
         inactive = (self.num_experts - self.experts_per_token) * per_expert
-        num_moe_layers = self.num_layers // self.moe_layer_period
-        return full - num_moe_layers * inactive
+        return full - self.num_moe_layers * inactive
 
     # ------------------------------------------------------------------
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant of the same family: 2 layers, d_model<=512,
-        <=4 experts, tiny vocab. Used by per-arch CPU smoke tests."""
+        <=4 experts, tiny vocab. Used by per-arch CPU smoke tests. A
+        pattern of SSD and attention blocks with MoE MLPs (``ssd_moe``)
+        keeps two periods of its shortest form ("ssd_moe", "moe"), 8
+        experts top 2 of width 64 and a shared expert of 128, GQA 4/2, the
+        softmax scale at the same multiple of 1 / head_dim."""
         d = min(self.d_model, 256)
         hd = 32
         heads = max(2, min(4, self.num_heads))
@@ -259,6 +293,12 @@ class ArchConfig:
             changes["lru_width"] = d
         if self.block_pattern:
             changes["block_pattern"] = self.block_pattern
+        if "ssd_moe" in self.block_pattern:
+            changes.update(block_pattern=("ssd_moe", "moe"), num_layers=4,
+                           num_kv_heads=2, num_experts=8,
+                           experts_per_token=2, d_ff=64, moe_shared_d_ff=128)
+            changes["attention_multiplier"] = (
+                self.attention_multiplier * self.resolved_head_dim / hd)
         if self.rope_variant == "mrope":
             half = hd // 2
             t = half // 4
@@ -295,6 +335,7 @@ _ALIAS = {
     "hubert-xlarge": "hubert_xlarge",
     "qwen2-vl-7b": "qwen2_vl_7b",
     "dlrm": "dlrm",
+    "granite-4.0-h-small": "granite_4_0_h_small",
 }
 
 
@@ -306,13 +347,36 @@ PORTED_ARCHS = ("granite_8b", "recurrentgemma_9b", "phi3_medium_14b",
                 "hubert_xlarge", "dlrm")
 
 
+#: Architectures the port alone serves: the JAX package has no twin to
+#: hold them to (their CPU tests hold the port to ldsbench's plain
+#: reference instead).
+PORT_ONLY_ARCHS = ("granite_4_0_h_small",)
+
+#: ``ArchConfig`` fields the JAX package's lacks; their defaults leave a
+#: model as that package builds it.
+PORT_ONLY_FIELDS = ("moe_shared_d_ff", "moe_router", "ssm_conv_bias",
+                    "embedding_multiplier", "residual_multiplier",
+                    "attention_multiplier", "logits_scaling", "norm_eps")
+
+
+def reference_view(cfg: ArchConfig) -> dict:
+    """``cfg`` as the JAX package's ``ArchConfig`` holds it: every field
+    but ``PORT_ONLY_FIELDS``, which must hold their defaults (a config
+    that needs them has no reference twin)."""
+    d = dataclasses.asdict(cfg)
+    for f in dataclasses.fields(ArchConfig):
+        if f.name in PORT_ONLY_FIELDS and d.pop(f.name) != f.default:
+            raise ValueError(f"{cfg.name}: {f.name} is port-only")
+    return d
+
+
 def get_config(name: str) -> ArchConfig:
     mod_name = _ALIAS.get(name, name).replace("-", "_").replace(".", "_")
-    if mod_name not in PORTED_ARCHS:
+    if mod_name not in PORTED_ARCHS + PORT_ONLY_ARCHS:
         raise ValueError(
             f"arch {name!r} is not ported to repro_torch yet (ported: "
-            f"{PORTED_ARCHS}); see ROADMAP.md queue 1, 'Other block "
-            f"families'")
+            f"{PORTED_ARCHS + PORT_ONLY_ARCHS}); see ROADMAP.md queue 1, "
+            f"'Other block families'")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
 

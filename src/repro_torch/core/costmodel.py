@@ -78,7 +78,16 @@ def _n_attn_layers(cfg) -> int:
     if cfg.arch_type != "hybrid":
         return cfg.num_layers
     pat = cfg.block_pattern or ("rglru", "rglru", "local_attn")
-    return cfg.num_layers * sum(b == "local_attn" for b in pat) // len(pat)
+    return cfg.num_layers * sum(b in ("local_attn", "moe")
+                                for b in pat) // len(pat)
+
+
+def _local_attn(cfg) -> bool:
+    """A hybrid whose attention is local (recurrentgemma's); a pattern of
+    SSD and full-attention blocks (granite-4.0-h-small's) attends its
+    whole context."""
+    return cfg.arch_type == "hybrid" and "local_attn" in (
+        cfg.block_pattern or ("local_attn",))
 
 
 def kv_bytes_per_token(cfg, kv_cache_dtype: str = "") -> float:
@@ -106,7 +115,7 @@ def _attn_flops(cfg, batch: int, s_q: int, s_kv: int) -> float:
         return 0.0
     hd = cfg.resolved_head_dim
     pairs = s_q * s_kv * (0.5 if (cfg.causal and s_q == s_kv) else 1.0)
-    if cfg.arch_type == "hybrid":
+    if _local_attn(cfg):
         pairs = min(pairs, s_q * cfg.local_window)
     return 4.0 * batch * _n_attn_layers(cfg) * cfg.num_heads * pairs * hd
 
@@ -154,7 +163,7 @@ def estimate_decode(cfg, batch: int, context: int, *, chip: Chip = H100_SXM,
              + _attn_flops(cfg, batch, 1, kv_len))
     kv_bytes = 0.0
     if cfg.has_attention:
-        if cfg.arch_type == "hybrid":
+        if _local_attn(cfg):
             kv_len = min(kv_len, cfg.local_window)
         kv_bytes = (2.0 * batch * _n_attn_layers(cfg) * kv_len
                     * cfg.num_kv_heads * cfg.resolved_head_dim * wb)

@@ -3,7 +3,11 @@
 ``repro.models.blocks``), with the attention, the RG-LRU scan and the int8
 projections going through the kernels' dispatch points
 (``repro_torch.kernels.ops``). An ``encoder`` block is the dense block
-with bidirectional attention.
+with bidirectional attention. ``ssd_moe`` (port-only: granite-4.0-h-small)
+is the SSD mixer followed by a pre-norm MoE MLP; it serves on one card.
+Granite's scalars: each sublayer's output times ``residual_multiplier``
+into the residual, and q times ``attention_multiplier * sqrt(head_dim)``
+before the kernels (which scale by 1 / sqrt(head_dim)), when set.
 
 ``apply_block_sharded`` runs a serving block (``dense``, ``moe``,
 ``local_attn``, ``rglru``, ``ssd``) over the shards of a sharded replica:
@@ -44,8 +48,10 @@ from repro_torch.models.ssm import (
 
 F32 = torch.float32
 
-# Block types the port carries (every block type of the reference).
-PORTED_BLOCKS = ("dense", "encoder", "moe", "local_attn", "rglru", "ssd")
+# Block types the port carries (every block type of the reference, and
+# the port-only ``ssd_moe``).
+PORTED_BLOCKS = ("dense", "encoder", "moe", "local_attn", "rglru", "ssd",
+                 "ssd_moe")
 
 # Block types whose decode cache is a KV ring (vs recurrent state); the
 # engine keys bucketed prefill off this (the reference's list).
@@ -170,6 +176,11 @@ def init_block(cfg, btype: str, gen, dtype, device):
     if btype == "ssd":  # the mixer alone: no norm2, no MLP
         return {"norm1": init_norm(cfg, d, dtype, device),
                 "mixer": init_ssd(cfg, gen, dtype, device)}
+    if btype == "ssd_moe":
+        return {"norm1": init_norm(cfg, d, dtype, device),
+                "mixer": init_ssd(cfg, gen, dtype, device),
+                "norm2": init_norm(cfg, d, dtype, device),
+                "moe": init_moe(cfg, gen, dtype, device)}
     if btype == "moe":
         return {"norm1": init_norm(cfg, d, dtype, device),
                 "attn": init_attn(cfg, gen, dtype, device),
@@ -210,7 +221,7 @@ def init_block_cache(cfg, btype: str, batch: int, window: int, dtype,
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if btype == "rglru":
         return init_rglru_cache(cfg, batch, dtype, device)
-    if btype == "ssd":
+    if btype in ("ssd", "ssd_moe"):
         return init_ssd_cache(cfg, batch, dtype, device)
     raise ValueError(f"block type {btype!r} has no rolling cache in the "
                      f"port yet")
@@ -370,6 +381,8 @@ def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,
     v = linear(x, p["wv"]).reshape(b, s, kv, hd)
     if rope is not None:
         q, k = L.rotate(q, rope), L.rotate(k, rope)
+    if cfg.attention_multiplier:
+        q = q * (cfg.attention_multiplier * hd ** 0.5)
     new_kv = None
     if mode == "decode":
         at, k, v = decode_rows(k, v, pos, write_at, cache["k"].shape[1])
@@ -393,12 +406,15 @@ def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,
 
 def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
                 pos=None, pages=None, write_at=None, n_valid=None,
-                moe_full_cap: bool = False, parallel_block: bool = False):
+                moe_full_cap: bool = False, parallel_block: bool = False,
+                moe_sorted=None):
     """Pre-norm residual block: attention (dense, bidirectional in an
-    ``encoder`` block, or local over ``cfg.local_window``) or the RG-LRU
-    mixer, then the MLP (the MoE MLP in a ``moe`` block, at the whole
-    group's capacity when ``moe_full_cap``: the engine's "strict" policy);
-    or the SSD mixer alone (``x + ssd(norm1(x))``, no MLP). Returns (x,
+    ``encoder`` block, or local over ``cfg.local_window``), the RG-LRU
+    mixer or the SSD mixer (``ssd_moe``), then the MLP (the MoE MLP in a
+    ``moe`` or ``ssd_moe`` block, at the whole group's capacity when
+    ``moe_full_cap``: the engine's "strict" policy; token-sorted given
+    ``moe_sorted``, a ``moe.SortedDispatch``); or the SSD mixer
+    alone (``x + ssd(norm1(x))``, no MLP). Returns (x,
     new_kv, aux): the prompt's (k, v) of an attention block in prefill
     mode, else None, and the block's aux loss (the MoE block's Switch
     load-balance term, a float32 scalar; 0.0 for any other block).
@@ -426,6 +442,8 @@ def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
         return x + apply_ssd(cfg, p["mixer"], h, cache=cache), None, aux
     if btype == "rglru":
         a, new_kv = apply_rglru_block(cfg, p["mixer"], h, cache=cache), None
+    elif btype == "ssd_moe":
+        a, new_kv = apply_ssd(cfg, p["mixer"], h, cache=cache), None
     else:
         window = cfg.local_window if btype == "local_attn" else 0
         a, new_kv = _attn_apply(cfg, p["attn"], h, rope, mode=mode,
@@ -433,13 +451,20 @@ def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
                                 pages=pages, write_at=write_at,
                                 n_valid=n_valid,
                                 causal=cfg.causal and btype != "encoder")
-    x = x + a
+    x = _residual(cfg, x, a)
     h = L.apply_norm(cfg, p["norm2"], x)
-    if btype == "moe":
-        m, aux = apply_moe(cfg, p["moe"], h, full_cap=moe_full_cap)
+    if "moe" in p:
+        m, aux = apply_moe(cfg, p["moe"], h, full_cap=moe_full_cap,
+                           sorted_by=moe_sorted)
     else:
         m = apply_mlp(cfg, p["mlp"], h)
-    return x + m, new_kv, aux
+    return _residual(cfg, x, m), new_kv, aux
+
+
+def _residual(cfg, x, a):
+    """``x + residual_multiplier * a`` (just ``x + a`` at 1)."""
+    r = cfg.residual_multiplier
+    return x + a if r == 1.0 else x + a * r
 
 
 def _parallel_block(cfg, btype, p, x, rope, *, mode, **cache_kw):

@@ -55,7 +55,7 @@ def layernorm(x, scale, bias, eps: float = 1e-5):
 def apply_norm(cfg, p, x):
     if cfg.norm == "layernorm":
         return layernorm(x, p["scale"], p["bias"])
-    return rmsnorm(x, p["scale"])
+    return rmsnorm(x, p["scale"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------

@@ -239,6 +239,14 @@ def _embed(params, tokens):
     return params["embed"][tokens.to(torch.int64)]
 
 
+def _embed_scaled(cfg, params, tokens):
+    """The token embeddings times ``cfg.embedding_multiplier`` (when not
+    1: Granite's x 12)."""
+    x = _embed(params, tokens)
+    m = cfg.embedding_multiplier
+    return x if m == 1.0 else x * m
+
+
 # ---------------------------------------------------------------------------
 # sharded replicas
 # ---------------------------------------------------------------------------
@@ -435,7 +443,7 @@ def _embed_inputs(cfg, params, tokens, patches):
     fusion)."""
     if cfg.modality == "audio":
         return tokens.to(dtype_of(cfg))
-    x = _embed(params, tokens)
+    x = _embed_scaled(cfg, params, tokens)
     if cfg.modality == "vision_text" and patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
     return x
@@ -455,7 +463,9 @@ def head_f32(params):
 
 def _logits(cfg, params, x):
     x = L.apply_norm(cfg, params["final_norm"], x)
-    return torch.matmul(x.to(F32), head_f32(params))
+    logits = torch.matmul(x.to(F32), head_f32(params))
+    s = cfg.logits_scaling
+    return logits if s == 1.0 else logits / s
 
 
 def _rope(cfg, positions, default):
@@ -503,7 +513,7 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
             patches: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             moe_full_cap: bool = False, mode: str = "prefill",
-            parallel_block: bool = False):
+            parallel_block: bool = False, moe_sorted=None):
     """Full-sequence forward, causal unless the arch is an encoder.
     tokens (B, S) integer, or an audio arch's frames (B, S, d);
     ``patches`` (B, P, d) go ahead of the tokens on a ``vision_text`` arch
@@ -520,7 +530,8 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
     (logits (B, S, V) float32, aux): aux is the float32 sum of the MoE
     blocks' Switch load-balance terms (0 on other archs). Under grad mode
     each repeat of the block pattern is recomputed in backward; nothing
-    is cached."""
+    is cached. ``moe_sorted`` (prefill on one card: a
+    ``moe.SortedDispatch``) routes the MoE MLPs token-sorted."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"forward: mode {mode!r} not in ('prefill', "
                          f"'train')")
@@ -550,7 +561,8 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
     for bt, p, c in zip(layer_types(cfg), params["layers"], layer_caches):
         x, kv, _ = apply_block(cfg, bt, p, x, rope, mode="prefill",
                                cache=c, moe_full_cap=moe_full_cap,
-                               parallel_block=parallel_block)
+                               parallel_block=parallel_block,
+                               moe_sorted=moe_sorted)
         if want_kv:
             kvs.append(kv)
     if cache is not None:
@@ -583,7 +595,7 @@ def decode_step(cfg, params, cache, tokens, *,
     b, s = tokens.shape
     pos = cache["pos"]
     pages = cache.get("page_table")
-    x = _embed(params, tokens)
+    x = _embed_scaled(cfg, params, tokens)
     # what every layer shares, built once per step
     rope = _rope(cfg, positions, lambda: pos.to(torch.int64)[:, None]
                  + torch.arange(s, device=tokens.device)[None, :])

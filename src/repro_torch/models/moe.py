@@ -24,8 +24,25 @@ The expert products are batched matmuls over the (E, C) buffer of every
 expert, as the reference's einsums: each expert's weights are read
 whatever the routing. The reference's sharding hints have no
 counterpart on one card.
+
+``cfg.moe_router`` "topk_softmax" (Granite's ``TopKGating``, no JAX
+twin) takes the top k of the float32 logits and the softmax over those
+k: the gates sum to 1. It enters the same capacity routing as the k
+picked gates, zeros elsewhere, so the k argmax rounds take the picks in
+descending order.
+
+Given a ``SortedDispatch`` (an eager step: the engine's exact-length
+prefill under the "strict" policy), a MoE MLP routes token-sorted
+instead: each token goes through its own k experts only, one product per
+expert over its rows, the per-expert counts read to the host once per
+layer. It drops nothing, as full capacity does, and computes k rows a
+token where the (E, C) buffer computes E.
 """
 from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
@@ -56,7 +73,8 @@ def init_moe(cfg, gen, dtype, device):
     p["w_up"] = stack((d, ff), d ** -0.5)
     p["w_down"] = stack((ff, d), ff ** -0.5)
     if cfg.moe_shared_expert:
-        p["shared"] = init_mlp(cfg, gen, d, ff, dtype, device)
+        p["shared"] = init_mlp(cfg, gen, d, cfg.moe_shared_d_ff or ff, dtype,
+                               device)
     return p
 
 
@@ -94,6 +112,14 @@ def group_shape(t: int, group_size: int = 2048):
     while t % g:
         g //= 2
     return t // g, g
+
+
+def top_gates(cfg, logits):
+    """The "topk_softmax" router's picks: the top k of the float32
+    ``logits`` (..., E) and the softmax over those k. Returns (gates,
+    expert ids), each (..., k)."""
+    vals, idx = torch.topk(logits, cfg.experts_per_token, dim=-1)
+    return torch.softmax(vals, dim=-1), idx
 
 
 def route(cfg, probs, c: int):
@@ -139,6 +165,9 @@ def _dispatch(cfg, p, x, group_size: int, full_cap: bool):
     xg = x.reshape(n, g, d)
     logits = torch.matmul(xg.to(F32), p["router"].to(F32))  # (N, g, E)
     probs = torch.softmax(logits, dim=-1)
+    if cfg.moe_router == "topk_softmax":  # the k picks' gates, zeros else
+        gates, idx = top_gates(cfg, logits)
+        probs = torch.zeros_like(logits).scatter_(-1, idx, gates)
     combine, _, routed = route(cfg, probs, c)
     combine = combine.to(x.dtype)  # the gates, rounded, then the dispatch
     dispatch = (combine > 0).to(x.dtype)
@@ -157,11 +186,80 @@ def _combine(combine, ye, shape):
     return torch.matmul(combine, ye).reshape(shape)
 
 
-def apply_moe(cfg, p, x, *, group_size: int = 2048, full_cap: bool = False):
+@dataclass(frozen=True)
+class SortedDispatch:
+    """A MoE MLP's token-sorted routing (``_apply_sorted``), for an eager
+    step: ``read(t)`` returns the per-expert counts ``t`` (E,) as a host
+    list (the engine's named sync ``moe.counts``); ``timed()`` a context
+    manager around each layer's MoE MLP and shared expert (the engine's
+    CUDA events)."""
+
+    read: Callable = lambda t: t.tolist()
+    timed: Callable = contextlib.nullcontext
+
+
+def _apply_sorted(cfg, p, x, read):
+    """The routed experts of x (B, S, d), token-sorted: the (token,
+    expert) pairs grouped by expert (a stable sort, so each expert's rows
+    keep token order), each expert's SwiGLU over its rows alone, and each
+    token's gated sum over its k outputs in float32, in pick order. The
+    gates round to x's dtype first, as the capacity path's combine
+    weights do."""
+    from repro_torch.models.blocks import mlp_hidden
+
+    d, e, k = x.shape[-1], cfg.num_experts, cfg.experts_per_token
+    xf = x.reshape(-1, d)
+    logits = torch.matmul(xf.to(F32), p["router"].to(F32))
+    if cfg.moe_router == "topk_softmax":
+        gates, idx = top_gates(cfg, logits)
+    else:
+        gates, idx = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+    order = torch.argsort(idx.reshape(-1), stable=True)
+    counts = read(torch.bincount(idx.reshape(-1), minlength=e))
+    rows = xf[order // k]
+    ys = torch.empty_like(rows)
+    lo = 0
+    for j, n in enumerate(counts):
+        if n:
+            w = {name: p[name][j] for name in ("w_gate", "w_up", "w_down")
+                 if name in p}
+            ys[lo:lo + n] = torch.matmul(mlp_hidden(cfg, w, rows[lo:lo + n]),
+                                         w["w_down"])
+            lo += n
+    picked = torch.empty_like(ys)
+    picked[order] = ys  # back to (token, pick) order
+    g = gates.to(x.dtype).to(F32)
+    y = (picked.reshape(-1, k, d).to(F32) * g[..., None]).sum(dim=1)
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def expert_rows(cfg, tokens: int, *, full_cap: bool, sorted_: bool = False,
+                group_size: int = 2048):
+    """(routed pairs, expert-product rows) of one MoE layer over
+    ``tokens`` tokens, from the shapes alone: k pairs a token; the
+    token-sorted dispatch computes one row a pair, the capacity path
+    every slot of its (E, C) buffer in every group."""
+    pairs = tokens * cfg.experts_per_token
+    if sorted_:
+        return pairs, pairs
+    n, g = group_shape(tokens, group_size)
+    return pairs, n * cfg.num_experts * _capacity(cfg, g, full=full_cap)
+
+
+def apply_moe(cfg, p, x, *, group_size: int = 2048, full_cap: bool = False,
+              sorted_by=None):
     """x (B, S, d) -> (y (B, S, d), aux loss, a float32 scalar).
-    ``full_cap``: capacity of the whole group (the "strict" policy)."""
+    ``full_cap``: capacity of the whole group (the "strict" policy);
+    ``sorted_by`` (a ``SortedDispatch``): token-sorted instead, dropless
+    too, with no aux loss."""
     from repro_torch.models.blocks import apply_mlp, mlp_hidden
 
+    if sorted_by is not None:
+        with sorted_by.timed():
+            y = _apply_sorted(cfg, p, x, sorted_by.read)
+            if cfg.moe_shared_expert:
+                y = y + apply_mlp(cfg, p["shared"], x)
+        return y, 0.0
     combine, xe, probs, routed = _dispatch(cfg, p, x, group_size, full_cap)
     ye = torch.bmm(mlp_hidden(cfg, p, xe, torch.bmm), p["w_down"])
     y = _combine(combine, ye, x.shape)

@@ -33,9 +33,10 @@ from repro_torch.models import layers as L
 F32 = torch.float32
 
 
-def causal_conv(x, conv_w, conv_state=None, activation=None):
+def causal_conv(x, conv_w, conv_state=None, activation=None, bias=None):
     """Depthwise causal conv over time (the reference's ``_causal_conv``).
-    x (B, S, C); conv_w (K, C). ``conv_state`` (B, K-1, C), when given, is
+    x (B, S, C); conv_w (K, C); ``bias`` (C,), when given, is added
+    before the activation. ``conv_state`` (B, K-1, C), when given, is
     prepended (decode / streaming); otherwise K-1 zeros. Returns (out (B,
     S, C) in x's dtype, new state: the last K-1 inputs)."""
     k = conv_w.shape[0]
@@ -50,6 +51,8 @@ def causal_conv(x, conv_w, conv_state=None, activation=None):
     for i in range(1, k):
         out = out + xp[:, i:i + s] * conv_w[i]
     new_state = xp[:, -(k - 1):] if k > 1 else None
+    if bias is not None:
+        out = out + bias
     if activation is not None:
         out = activation(out)
     return out, new_state
@@ -68,7 +71,7 @@ def init_ssd(cfg, gen, dtype, device):
         return w.to(dtype)
 
     in_dim = 2 * di + 2 * ns + nh  # z, x, B, C, dt
-    return {
+    p = {
         "in_proj": normal((d, in_dim), d ** -0.5),
         "out_proj": normal((di, d), di ** -0.5),
         "conv_w": normal((cfg.conv_kernel, di + 2 * ns), 0.2),
@@ -77,6 +80,9 @@ def init_ssd(cfg, gen, dtype, device):
         "dt_bias": torch.zeros((nh,), dtype=F32, device=device),
         "norm_scale": torch.zeros((di,), dtype=dtype, device=device),
     }
+    if cfg.ssm_conv_bias:
+        p["conv_b"] = torch.zeros((di + 2 * ns,), dtype=dtype, device=device)
+    return p
 
 
 def _split_proj(cfg, xz):
@@ -163,7 +169,7 @@ def _ssd_mix(cfg, p, x, xz, cache, in_place: bool = True):
     z, xbc, dt = _split_proj(cfg, xz)
     conv_state = cache["conv"] if cache is not None else None
     xbc, new_conv = causal_conv(xbc, p["conv_w"], conv_state,
-                                activation=F.silu)
+                                activation=F.silu, bias=p.get("conv_b"))
     xs = xbc[..., :di].reshape(b, s, nh, hd)
     B = xbc[..., di:di + ns]
     C = xbc[..., di + ns:]
@@ -180,7 +186,7 @@ def _ssd_mix(cfg, p, x, xz, cache, in_place: bool = True):
         y4, state = ssd_chunked(xs, dt, A, B, C, p["D"], cfg.ssm_chunk)
         y = y4.reshape(b, s, di)
 
-    y = L.rmsnorm(y.to(x.dtype) * F.silu(z), p["norm_scale"])
+    y = L.rmsnorm(y.to(x.dtype) * F.silu(z), p["norm_scale"], cfg.norm_eps)
     return torch.matmul(y, p["out_proj"]), new_conv, state
 
 

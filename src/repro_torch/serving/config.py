@@ -12,7 +12,9 @@ hook, on one card or, under ``DeviceTopology(dp=M, tp=N)``, as one
 replica over a grid of M data rows of N shards each (the batch split
 over the rows; tensor parallel, and expert parallel on MoE archs whose
 config asks for it, within a row) on every serving arch, on paged or
-rolling caches with model-dtype or int8 KV. ``validate()`` refuses every
+rolling caches with model-dtype or int8 KV; granite-4.0-h-small (SSD and
+attention layers with MoE MLPs, rolling caches) on one card only.
+``validate()`` refuses every
 option whose path is not ported and names the ``ROADMAP.md`` item that
 would bring it, so nothing silently runs a different path than the one
 asked for; with the reference it refuses int8 weights on a sharded
@@ -204,6 +206,12 @@ class EngineConfig:
                 not_yet.append((f"arch {cfg.name} with rope variant "
                                 f"{cfg.rope_variant!r}",
                                 f"{q1}, 'Other block families'"))
+            if self.topology.sharded and not _reference_shaped(cfg):
+                not_yet.append((
+                    f"arch {cfg.name} (ssd_moe blocks or port-only "
+                    f"router and multipliers) on a sharded topology "
+                    f"(dp={self.topology.dp} x tp={self.topology.tp})",
+                    f"{q1}, item 5, 'Hybrid MoE on a grid'"))
         if not_yet:
             what, item = not_yet[0]
             raise ValueError(f"{what} is not ported to repro_torch yet "
@@ -251,13 +259,28 @@ class EngineConfig:
 
     def resolved_moe_policy(self, cfg) -> str:
         """The capacity policy once the None default resolves: "strict"
-        for a moe arch on a sharded topology (a data axis included), else
-        "drop" (the reference's rule)."""
+        for an arch with MoE layers on a sharded topology (a data axis
+        included), else "drop" (the reference's rule)."""
         if self.moe_capacity_policy is not None:
             return self.moe_capacity_policy
-        if cfg.arch_type == "moe" and self.topology.sharded:
+        if cfg.num_moe_layers and self.topology.sharded:
             return "strict"
         return "drop"
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)
+
+
+def _reference_shaped(cfg) -> bool:
+    """Whether the sharded blocks serve ``cfg``: no ``ssd_moe`` block and
+    every port-only field at its default (``configs.reference_view``)."""
+    from repro_torch.configs import reference_view
+    from repro_torch.models import layer_types
+
+    if "ssd_moe" in layer_types(cfg):
+        return False
+    try:
+        reference_view(cfg)
+    except ValueError:
+        return False
+    return True

@@ -15,7 +15,8 @@ fused decode windows with one host sync per window, and device-resident
 sampling keyed by (seed, absolute position); MoE archs under the
 reference's three capacity policies ("strict": every step at the whole
 group's capacity; "backpressure": slots clamped to the drop-free group,
-longer prefill groups rejected; "drop"), and mrope archs with their
+longer prefill groups rejected; "drop"; any arch with MoE layers, the
+hybrid granite-4.0-h-small's too), and mrope archs with their
 (3, B, S) positions built on the device from the cache's positions;
 request span tracing
 (``tracing``), ``metrics_registry`` and a ``torch.profiler`` hook
@@ -32,7 +33,10 @@ engine's one (1, max_seq) working buffer, and a prefix hit's suffix step
 with its gather and its scatter. Exact-length prefill (recurrentgemma,
 whose recurrent state forbids end padding) runs eagerly, on a key per
 prompt length that is counted as the reference counts its retrace
-(``prefill/exact{L}``) and never captured. The probes ``prefill_traces``
+(``prefill/exact{L}``) and never captured; under the "strict" policy its
+MoE layers route token-sorted (``models.moe.SortedDispatch``: k expert
+rows a token, not the (E, C) buffer), each reading its per-expert counts
+at the named sync ``moe.counts``. The probes ``prefill_traces``
 and ``decode_traces`` count the keys as the reference counts its traces;
 on the CPU the same steps run eagerly.
 
@@ -112,7 +116,7 @@ from repro_torch.models.blocks import (
     last_writer,
     quantize_kv,
 )
-from repro_torch.models.moe import drop_free_group
+from repro_torch.models.moe import SortedDispatch, drop_free_group, expert_rows
 from repro_torch.serving import prng
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.graphs import StepGraphs, StepTimeline
@@ -182,7 +186,8 @@ def mrope_positions(cfg, start, s: int):
 
 
 def rolling_prefill_step(cfg, params, tokens, true_len, *, window: int,
-                         kv_dtype: str = "", moe_full_cap: bool = False):
+                         kv_dtype: str = "", moe_full_cap: bool = False,
+                         moe_sorted=None):
     """Prefill a prompt into a fresh rolling cache (``init_cache``, rings
     of ``window``; ``kv_dtype`` "int8": int8 rings with per-token scales):
     tokens (B, L) is the prompt at its exact length (L = ``true_len``,
@@ -194,8 +199,9 @@ def rolling_prefill_step(cfg, params, tokens, true_len, *, window: int,
     writes replace them. ``true_len`` is an int or a (1,) device tensor
     (the engine's captured buckets). ``moe_full_cap``: MoE blocks at the
     whole group's capacity (the "strict" policy), in this and every step
-    below. Returns (first greedy token (B,) int32, last-true-position
-    logits (B, V), cache)."""
+    below; ``moe_sorted`` (one card, eager) token-sorted instead. Returns
+    (first greedy token (B,) int32, last-true-position logits (B, V),
+    cache)."""
     b = tokens.shape[0]
     if isinstance(params, Shards):  # a sharded replica's layout
         cache = shard_cache(cfg, init_cache(cfg, b, window, device="meta",
@@ -207,6 +213,7 @@ def rolling_prefill_step(cfg, params, tokens, true_len, *, window: int,
     n = _dev_index(true_len, tokens.device)
     last, _ = forward(cfg, params, tokens, logits_at=(n - 1).expand(b),
                       cache=cache, moe_full_cap=moe_full_cap,
+                      moe_sorted=moe_sorted,
                       positions=mrope_positions(cfg, _pos(cache),
                                                 tokens.shape[1]))
     for c in _shards(cache):
@@ -556,6 +563,21 @@ def _attn_only(cfg) -> bool:
     return all(bt in KV_CACHE_BLOCKS for bt in layer_types(cfg))
 
 
+def _cache_bytes(cfg, cache, paged: bool) -> Tuple[int, int]:
+    """(bytes of recurrent state: SSD and RG-LRU conv windows and states,
+    bytes of KV rings) of an engine's cache, over its shards, from the
+    tensors' shapes; a paged cache's pools are pages, not rings."""
+    state = ring = 0
+    for c in _shards(cache):
+        for bt, layer in zip(layer_types(cfg), c["layers"]):
+            n = sum(t.numel() * t.element_size() for t in layer.values())
+            if bt in KV_CACHE_BLOCKS:
+                ring += 0 if paged else n
+            else:
+                state += n
+    return state, ring
+
+
 def _min_cache_window(cfg, window: int) -> int:
     """The smallest KV ring of the model: a bucketed or chunked prefill
     must fit in it."""
@@ -810,8 +832,9 @@ class ServingEngine:
         slots = config.slots or self.plan.slots
         # MoE capacity policy: overflow as typed backpressure, or none
         self.moe_capacity_policy = (config.resolved_moe_policy(cfg)
-                                    if cfg.arch_type == "moe" else "")
-        # "strict": every model step at the whole group's capacity
+                                    if cfg.num_moe_layers else "")
+        # "strict": every model step at the whole group's capacity, the
+        # eager exact-length prefill token-sorted
         self._moe_full_cap = self.moe_capacity_policy == "strict"
         self._moe_gmax = 0  # drop-free group bound (backpressure only)
         if self.moe_capacity_policy == "backpressure":
@@ -875,6 +898,7 @@ class ServingEngine:
             self.prefix_index = None
             self.cache = self._new_cache(init_cache(
                 cfg, slots, config.window, device=self._alloc_device))
+        self._cache_bytes = _cache_bytes(cfg, self.cache, self.paged)
         # the B=1 working buffers: one for chunk jobs (only the head job
         # advances), linear over max_seq (paged) or a ring of the window
         # (rolling), and one for a prefix hit's synchronous suffix step,
@@ -1366,16 +1390,52 @@ class ServingEngine:
             def exact():
                 tok, last, single = rolling_prefill_step(
                     self.cfg, self.params, tokens, true_len,
-                    window=self.window, moe_full_cap=self._moe_full_cap)
+                    window=self.window, moe_full_cap=self._moe_full_cap,
+                    moe_sorted=self._moe_sorted())
                 cache_insert(self.cache, single, at)
                 return tok, last
 
             tok, last = self.graphs.run("prefill", "exact", plen, exact,
                                         capture=False)
+            self._count_moe(plen, sorted_=self._moe_full_cap)
         self.prefill_calls += 1
         n_tabled = (self.allocator.pages_for(padded.shape[1]) if self.paged
                     else 0)
         self._activate(req, slot, tok, last, now, n_tabled)
+
+    def _moe_sorted(self) -> Optional[SortedDispatch]:
+        """The exact-length prefill's MoE dispatch: token-sorted under the
+        "strict" policy (each layer's per-expert counts read at the sync
+        ``moe.counts``; with the step timeline's events, a CUDA event pair
+        around each layer's MoE MLP, its prefill span's ``moe`` device
+        seconds), else None: the step's own."""
+        if not self._moe_full_cap:
+            return None
+        tl = self._tl
+        read = lambda t: self._wait("moe.counts", t.tolist)  # noqa: E731
+        if tl is not None and tl.events:
+            return SortedDispatch(read, lambda: tl.device_span("moe"))
+        return SortedDispatch(read)
+
+    def _count_moe(self, tokens: int, ticks: int = 1, *,
+                   sorted_: bool = False):
+        """``ServeMetrics``' MoE counters for ``ticks`` model steps of
+        ``tokens`` tokens each, from the shapes (no device read): routed
+        (token, expert) pairs, idle lanes' included, and the expert
+        products' rows, over every MoE layer. Nothing is dropped under
+        the "strict" and "backpressure" policies; a "drop" engine's drops
+        would need a device read, and are not counted."""
+        if not self.moe_capacity_policy:
+            return
+        pairs, rows = expert_rows(self.cfg, tokens,
+                                  full_cap=self._moe_full_cap,
+                                  sorted_=sorted_)
+        n = ticks * self.cfg.num_moe_layers
+        self.metrics.moe_routed_pairs += n * pairs
+        self.metrics.moe_expert_rows += n * rows
+        if self._tl is not None:  # the step timeline's records too
+            self._tl.count("moe_routed_pairs", n * pairs)
+            self._tl.count("moe_expert_rows", n * rows)
 
     def _prefill_bucket(self, padded: np.ndarray, plen: int, slot: int):
         """The padded prompt's prefill step, with the page scatter (paged)
@@ -1413,6 +1473,7 @@ class ServingEngine:
             cache_insert(self.cache, single, at)
             return tok, last
 
+        self._count_moe(length)
         if self.paged:
             return self.graphs.run("prefill", "paged", length, paged)
         return self.graphs.run("prefill", "bucket", length, bucket)
@@ -1495,6 +1556,7 @@ class ServingEngine:
                                 args[3 + 2 * p:], args[2:3], args[1:2])
             return tok, last
 
+        self._count_moe(width)
         return self.graphs.run("prefill", "suffix", width, suffix)
 
     def _start_chunked(self, req: Request, slot: int, now: float):
@@ -1535,6 +1597,7 @@ class ServingEngine:
                        torch.tensor([job.true_len], dtype=torch.int64))
             tok, last = self.graphs.run("aux", "chunk", self.chunk,
                                         self._chunk_step)
+            self._count_moe(self.chunk)
             job.next_off += self.chunk
             if off <= job.true_len - 1 < job.next_off:
                 # the first token's logits live in the chunk holding
@@ -1723,6 +1786,7 @@ class ServingEngine:
                 self._ensure_headroom(self.sync_every, now)
             self.graphs.run("decode", "scan", self.sync_every, self._window)
             self.metrics.decode_ticks += self.sync_every
+            self._count_moe(self.slots, self.sync_every)
             self._advance_pos(self.sync_every)
             self._distribute(self._wait("window", self._hist.cpu,
                                         delivery=True).numpy(), now)
@@ -1734,6 +1798,7 @@ class ServingEngine:
         self._hist[self._unsynced].copy_(self._tokens)
         self._unsynced += 1
         self.metrics.decode_ticks += 1
+        self._count_moe(self.slots)
         self._advance_pos(1)
         pend = self._unsynced
         if (pend >= self.sync_every
@@ -2136,7 +2201,9 @@ class ServingEngine:
             kv_cache_dtype=self.kv_dtype,
             weight_dtype=self.config.precision.weight_dtype,
             moe_capacity_policy=self.moe_capacity_policy,
-            moe_drop_free_group=self._moe_gmax)
+            moe_drop_free_group=self._moe_gmax,
+            state_bytes=self._cache_bytes[0],
+            kv_ring_bytes=self._cache_bytes[1])
 
     @property
     def mesh_axes(self):

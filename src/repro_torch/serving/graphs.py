@@ -123,7 +123,7 @@ class StepTimeline:
         self.owner: Optional[Timing] = None
         self.period = self.record(next(self._serial)) if self.timing else None
         self.period_t0: Optional[float] = None  # perf_counter: it opened
-        self._pending: List[tuple] = []  # (kind, events, owner)
+        self._pending: List[tuple] = []  # (kind, events, owner, period)
 
     def record(self, serial: Optional[int] = None) -> Timing:
         return Timing(serial, self._kinds)
@@ -160,13 +160,34 @@ class StepTimeline:
             dt = time.perf_counter() - t0
             if pair is not None:
                 pair[1].record(stream)
-                self._pending.append((kind, pair, self.owner))
+                self._pending.append((kind, pair, self.owner, True))
             if self.period_t0 is None:
                 self.period_t0 = t0
             self.period.launch_s += dt
             if self.owner is not None:
                 self.owner.launch_s += dt
             return out
+
+    @contextlib.contextmanager
+    def device_span(self, kind: str):
+        """A CUDA event pair around the work launched inside, on the
+        current stream, for the owner's record alone (``device_s[kind]``,
+        read at the next delivery, as every step's): a part of a step
+        (the MoE MLPs of an eager prefill), which the step's own events
+        already count into the period."""
+        if not self.events or self.owner is None:
+            yield
+            return
+        pair = self._free.pop() if self._free else (
+            torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+        stream = torch.cuda.current_stream(self.device)
+        pair[0].record(stream)
+        try:
+            yield
+        finally:
+            pair[1].record(stream)
+            self._pending.append((kind, pair, self.owner, False))
 
     def wait(self, site: str, fn, *args, delivery: bool = False):
         """``fn(*args)``, a host sync, timed and counted under ``site``;
@@ -185,17 +206,27 @@ class StepTimeline:
                     rec.syncs[site] = rec.syncs.get(site, 0) + 1
         return out
 
+    def count(self, name: str, n: int):
+        """Add ``n`` to the counter ``name`` of the open period and of
+        the owner's record (host arithmetic, no device read)."""
+        if not self.timing:
+            return
+        for rec in (self.period, self.owner):
+            if rec is not None:
+                rec.counts[name] = rec.counts.get(name, 0) + n
+
     def deliver(self, ticks: int) -> Timing:
         """Close the period right after a delivery sync of ``ticks``
         decode ticks: its events are read now (the sync passed them) and
         its record returned; the next period opens."""
         now = time.perf_counter()
         rec = self.period
-        for kind, pair, owner in self._pending:
+        for kind, pair, owner, period in self._pending:
             s = pair[0].elapsed_time(pair[1]) * 1e-3
-            rec.device_s[kind] += s
+            if period:
+                rec.device_s[kind] += s
             if owner is not None:
-                owner.device_s[kind] += s
+                owner.device_s[kind] = owner.device_s.get(kind, 0.0) + s
             self._free.append(pair)
         self._pending.clear()
         rec.ticks = ticks

@@ -33,7 +33,7 @@ branch through ``from_dict``.
 """
 from __future__ import annotations
 
-from dataclasses import asdict, dataclass, fields
+from dataclasses import asdict, dataclass, field, fields
 
 SCHEMA_VERSION = 5
 
@@ -44,6 +44,9 @@ _TUPLE_FIELDS = ("active_remaining", "queued_budgets", "mesh_axes",
 #: arbitrarily nested tuple fields (v3+) — converted recursively
 _DEEP_FIELDS = ("histograms", "span_totals", "compile_events",
                 "tenant_stats")
+
+#: the port's local fields, kept off the wire
+_LOCAL_FIELDS = ("state_bytes", "kv_ring_bytes")
 
 
 def _listify(x):
@@ -138,6 +141,12 @@ class LoadReport:
     # the replica's PrecisionConfig storage dtypes ("" = model dtype)
     kv_cache_dtype: str = ""
     weight_dtype: str = ""
+    # --- port-only, local: the cache's device bytes of recurrent state
+    # (SSD and RG-LRU conv windows and states) and of KV rings (rolling
+    # caches; a paged pool is not a ring). Not on the wire, which is the
+    # reference's, and not compared, so a report equals its round trip ---
+    state_bytes: int = field(default=0, compare=False)
+    kv_ring_bytes: int = field(default=0, compare=False)
 
     @property
     def saturated(self) -> bool:
@@ -155,6 +164,8 @@ class LoadReport:
     def to_dict(self) -> dict:
         """JSON-safe dict (tuples -> lists), carrying ``schema_version``."""
         d = asdict(self)
+        for k in _LOCAL_FIELDS:
+            del d[k]
         for k in _TUPLE_FIELDS:
             d[k] = [list(x) if isinstance(x, tuple) else x for x in d[k]]
         for k in _DEEP_FIELDS:

@@ -61,6 +61,12 @@ at host syncs and their count, per site name; ``device_s`` device seconds
 by step kind (``graphs.KINDS``) from CUDA events around each step, None on
 the CPU and on a grid whose shards lie on several cards (for an eager
 step the events span the device's waits for the host's launches too);
+on a ``prefill`` span also ``moe``, the part of its exact-length step
+inside the MoE MLPs and shared experts of every layer (an event pair
+around each, ``StepTimeline.device_span``), when the step routed them
+token-sorted; ``counts`` the engine's host-side counters of the steps
+inside, by name (``moe_routed_pairs``, ``moe_expert_rows``: the
+``ServeMetrics`` counters of the same names, from the steps' shapes);
 and, on a delivery period, ``ticks`` (decode ticks the sync delivered),
 ``wall_s`` (host seconds from the end of the previous delivery sync, or
 from the first engine call after the engine stood idle, to the end of
@@ -92,7 +98,7 @@ class Timing:
     the device, else None."""
 
     __slots__ = ("launch_s", "wait_s", "syncs", "device_s", "ticks",
-                 "wall_s", "serial")
+                 "wall_s", "serial", "counts")
 
     def __init__(self, serial: Optional[int] = None,
                  device_kinds: Optional[Tuple[str, ...]] = None):
@@ -105,10 +111,12 @@ class Timing:
         self.ticks = 0
         self.wall_s: Optional[float] = None
         self.serial = serial
+        self.counts: Dict[str, int] = {}
 
     def __repr__(self) -> str:
         return (f"Timing(serial={self.serial}, launch_s={self.launch_s:.6f}, "
-                f"syncs={self.syncs}, device_s={self.device_s}, "
+                f"syncs={self.syncs}, counts={self.counts}, "
+                f"device_s={self.device_s}, "
                 f"ticks={self.ticks}, wall_s={self.wall_s})")
 
 
