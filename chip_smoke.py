@@ -217,7 +217,17 @@ after phase 13, on its tables, and phase 14 after phase 15; phase 15
    4's prompts on 8 slots, with phase 9's prints and gates (the sampler
    and the SSD step launched); then in float32 at full width, decode logits 1 and 16
    ticks after the 584-token prompt (chunks of 256, 256 and 72) against
-   the full forward, within 1e-3 of the largest logit.
+   the full forward, within 1e-3 of the largest logit. Before mamba2,
+   the grouped MoE expert kernel at granite-4.0-h-small's widths (E 72,
+   top 10, d 4096, ff 768) over 512, 691 (96 rows an expert, where the
+   row tile switches from 64 to 128), 1544 and 3072-token prefills,
+   against its per-expert loop in units of 2^-8 sum |h w_down|, timed
+   beside its byte bound, the loop and its own time at the other row
+   tile, two launches a call; then
+   granite-4.0-h-small at full width cut to 20 layers, served under the
+   "strict" policy from rolling caches with phase 9's rounds, prints and
+   gates, the grouped kernel launched exactly twice a MoE layer for each
+   exact-length prefill of the timed round.
 11. The MoE block family and mrope at full width in bf16 (random weights
    from seed 0), each freed before the next, on the default path (paged
    KV pages of 16, chunk 64, max_seq 1024, capacity policy "drop"):
@@ -3170,8 +3180,111 @@ def ssd_step_kernel(torch, gen, b):
                       bound_by=b_by, library_ms=None, launches=None)
 
 
+def moe_grouped_kernel(torch, gen, t):
+    """The grouped MoE expert product at granite-4.0-h-small's widths (72
+    experts, top 10, d 4096, ff 768, bf16) over a ``t``-token prefill's
+    sorted pairs, routed by the top 10 of random logits: against the
+    per-expert loop (``plain.moe_grouped``) in units of 2^-8 sum |h
+    w_down| (limit 4, ``tests/test_torch_gpu.py``), the same bits on a
+    repeat call; the kernel's two launches timed in a CUDA graph (each
+    call reads 1.36 GB of experts, well past the 50 MB L2, as a served
+    layer finds them cold), the loop by CUDA events around eager calls
+    (its count read to the host, as served before); the launches counted
+    around one call (2, else the check fails). The kernel is also timed
+    at the other tile size than ``grouped_plan`` picks (the plan swapped
+    for the call), within the same tolerance, so that the line shows what
+    the choice of 64 or 128 rows buys at ``t``. The bound: the experts, x
+    and ys each moved once (h, internal, not counted), against 3 x 2 R d
+    ff FLOPs. Prints the line; returns (ok, the row's numbers)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import moe_grouped as mg
+    from repro_torch.kernels import ops, plain
+    from repro_torch.models import moe as tmoe
+
+    dev, bf16 = "cuda", torch.bfloat16
+    e, k, d, ff = 72, 10, 4096, 768
+    r = t * k
+    x = torch.randn((t, d), generator=gen, device=dev, dtype=bf16)
+    idx = torch.topk(torch.randn((t, e), generator=gen, device=dev), k,
+                     dim=-1).indices
+    order = torch.argsort(idx.reshape(-1), stable=True)
+    offsets = tmoe.expert_offsets(idx, e)
+    ws = [torch.randn((e,) + shape, generator=gen, device=dev,
+                      dtype=bf16) * std
+          for shape, std in (((d, ff), d ** -0.5), ((d, ff), d ** -0.5),
+                             ((ff, d), ff ** -0.5))]
+    args = (x, order, offsets, *ws)
+    before = ops.LAUNCHES["moe_grouped"]
+    got = ops.moe_grouped(*args, k=k, variant="swiglu")
+    launches = ops.LAUNCHES["moe_grouped"] - before
+    again = ops.moe_grouped(*args, k=k, variant="swiglu")
+    want = plain.moe_grouped(*args, k=k, variant="swiglu")
+    rows = x[order // k].float()
+    counts = (offsets[1:] - offsets[:-1]).tolist()
+    bound_t = torch.zeros((r, d), device=dev)
+    lo = 0
+    for j, n in enumerate(counts):
+        if n:
+            xr = rows[lo:lo + n]
+            h = F.silu(xr @ ws[0][j].float()) * (xr @ ws[1][j].float())
+            bound_t[lo:lo + n] = h.abs() @ ws[2][j].float().abs()
+            lo += n
+    scale = (BF16_UNIT * bound_t).clamp_min(1e-30)
+    units = ((got.float() - want.float()).abs() / scale).max().item()
+    good = units <= 4.0 and torch.equal(got, again) and launches == 2
+    ms = time_ms(torch, lambda i: ops.moe_grouped(*args, k=k,
+                                                  variant="swiglu"),
+                 iters=10, warm=2)
+    bm, tiles = mg.grouped_plan(r, e)
+    other, plan = 192 - bm, mg.grouped_plan
+    mg.grouped_plan = lambda rr, ee: (other, (rr + ee * (other - 1))
+                                      // other)
+    try:
+        got_other = ops.moe_grouped(*args, k=k, variant="swiglu")
+        other_ms = time_ms(torch, lambda i: ops.moe_grouped(
+            *args, k=k, variant="swiglu"), iters=10, warm=2)
+    finally:
+        mg.grouped_plan = plan
+    plain_call = lambda: plain.moe_grouped(*args, k=k,  # noqa: E731
+                                           variant="swiglu")
+    plain_call()
+    torch.cuda.synchronize()
+    s0 = torch.cuda.Event(enable_timing=True)
+    s1 = torch.cuda.Event(enable_timing=True)
+    s0.record()
+    for _ in range(3):
+        plain_call()
+    s1.record()
+    torch.cuda.synchronize()
+    pl_ms = s0.elapsed_time(s1) / 3
+    used = sum(1 for n in counts if n)
+    nbytes = used * 3 * d * ff * 2 + t * d * 2 + r * (d * 2 + 8)
+    flops = 3 * 2.0 * r * d * ff
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    units_other = ((got_other.float() - want.float()).abs()
+                   / scale).max().item()
+    good &= units_other <= 4.0
+    plain_launches = 6 * used + 3
+    print(f"moe_grouped T={t} (E {e}, k {k}, d {d}, ff {ff}, bf16, bm "
+          f"{bm}, {tiles} row tiles for {r} rows, experts "
+          f"{min(counts)}-{max(counts)} rows): max err {units:.3f} units of "
+          f"2^-8 sum|h w| (4), repeat bit for bit "
+          f"{'ok' if good else 'FAIL'} ms={ms:.4f} plain_ms={pl_ms:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by}, {nbytes / 1e9:.3f} GB, "
+          f"{flops / 1e12:.3f} TFLOP): {100 * b_ms / ms:.1f}% of the bound, "
+          f"{flops / ms / 1e9:.1f} TFLOP/s; at bm {other} instead "
+          f"ms={other_ms:.4f} ({units_other:.3f} units); launches a call "
+          f"{launches} "
+          f"(2; plain ~{plain_launches} and a host read of the counts)",
+          flush=True)
+    err = (got.float() - want.float()).abs().max().item()
+    return good, dict(max_abs_err=err, ms=ms, plain_ms=pl_ms, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=None, launches=launches)
+
+
 def full_width_engine(torch, rec, label, cfg, params, prompts, run,
-                      kernels):
+                      kernels, per_exact=None):
     """One engine at full width on ``prompts`` (64 new tokens each): a
     warm-up round pays its captures; then ``reset()``, the launch counts
     zeroed, a timed round, the counts read; a rerun; the steady decode of
@@ -3179,7 +3292,9 @@ def full_width_engine(torch, rec, label, cfg, params, prompts, run,
     with its 64 tokens, the timed round and the rerun give the warm-up
     round's streams, every kernel of ``kernels`` ({record: launch
     counter}) launched in the timed round (its record takes the count),
-    and the graph rule (nothing captured after the warm-up round).
+    each kernel of ``per_exact`` ({launch counter: n}) launched exactly n
+    times for each exact-length prefill of the timed round, and the graph
+    rule (nothing captured after the warm-up round).
     Prints the burst's TTFT and tok/s, peak memory, launches per kernel,
     and ms per decode tick at 8 slots. Returns (ok, ms per tick)."""
     from repro_torch.kernels import ops
@@ -3204,6 +3319,15 @@ def full_width_engine(torch, rec, label, cfg, params, prompts, run,
             ok = False
             print(f"FAIL: kernel {name} never launched on the {label} "
                   f"path", flush=True)
+    eng = st["engine"]
+    n_exact = sum(1 for r in reqs if not eng._chunkable(r) and not eng.paged
+                  and eng._bucket_for(r.prompt_len) is None)
+    for name, n in (per_exact or {}).items():
+        good = n_exact > 0 and launches[name] == n * n_exact
+        ok &= good
+        print(f"{label}: {name} launched {launches[name]} times over "
+              f"{n_exact} exact-length prefills (want {n} each) "
+              f"{'ok' if good else 'FAIL'}", flush=True)
     reqs2, _ = serve(torch, cfg, params, prompts, **run)
     same = (all(a.output == b.output for a, b in zip(warm, reqs))
             and all(a.output == b.output for a, b in zip(reqs, reqs2)))
@@ -3276,9 +3400,51 @@ def phase_dense(torch, rec):
     return ok
 
 
+def hybrid_moe_engine(torch, rec):
+    """granite-4.0-h-small at full width cut to 20 of its 40 layers (the
+    benchmark's cut: 18 SSD and 2 attention layers, each with its MoE of
+    72 experts top 10 and the shared expert; bf16, random weights from
+    seed 0), served under the "strict" capacity policy from rolling
+    caches (rings of 1024), so that every prompt's exact-length prefill
+    routes its 20 MoE layers token-sorted: phase 4's 16 prompts on 8
+    slots, with phase 9's rounds, prints and gates, on phase 8's virtual
+    clock. The grouped kernel's count is read from the timed round (its
+    T 1544 record takes it) and must be 2 a MoE layer for each exact
+    prefill there."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    full = get_config("granite-4.0-h-small")
+    cfg = dataclasses.replace(full, num_layers=20)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"full width granite-4.0-h-small (depth 20 of {full.num_layers}): "
+          f"{cfg.num_moe_layers} MoE layers of {cfg.num_experts} experts of "
+          f"{cfg.d_ff} (top-{cfg.experts_per_token}, shared expert), "
+          f"{n_bytes / 1e9:.2f} GB (bf16) initialized in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    _, prompts = burst_prompts()
+    run = dict(device="cuda", max_new=64, slots=8, max_seq=None, window=1024,
+               virtual=True, moe_capacity_policy="strict")
+    good, _ = full_width_engine(
+        torch, rec, "granite-4.0-h bf16 strict", cfg, params, prompts, run,
+        {"moe_grouped_t1544": "moe_grouped"},
+        per_exact={"moe_grouped": 2 * cfg.num_moe_layers})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return good
+
+
 def phase_ssd(torch, rec):
     """Phase 10: the SSD decode step's kernel at B 8 and 64
-    (``ssd_step_kernel``); mamba2-1.3b at full width and depth in bf16
+    (``ssd_step_kernel``), the grouped MoE product at granite-4.0-h's
+    widths over 512, 691, 1544 and 3072-token prefills
+    (``moe_grouped_kernel``)
+    and granite-4.0-h-small served at full width (``hybrid_moe_engine``);
+    mamba2-1.3b at full width and depth in bf16
     from rolling caches (exact-length prefill, captured decode), phase 4's
     prompts on 8 slots; then, in float32 at full width, decode logits after the
     584-token prompt (chunks of 256, 256 and a ragged 72) against the
@@ -3294,8 +3460,13 @@ def phase_ssd(torch, rec):
         good, row = ssd_step_kernel(torch, gen, b)
         ok &= good
         rec[f"ssd_step_b{b}"].update(row)
+    for t in (512, 691, 1544, 3072):
+        good, row = moe_grouped_kernel(torch, gen, t)
+        ok &= good
+        rec[f"moe_grouped_t{t}"].update(row)
     gc.collect()
     torch.cuda.empty_cache()
+    ok &= hybrid_moe_engine(torch, rec)
 
     cfg = get_config("mamba2-1.3b")
     t0 = time.perf_counter()
@@ -4552,6 +4723,13 @@ def main() -> int:
             source=f"{csrc}/ssd_step.cu",
             replaces="none: the reference's step is plain jnp "
                      "(src/repro/models/ssm.py apply_ssd)")
+    for t in (512, 691, 1544, 3072):
+        rec[f"moe_grouped_t{t}"] = dict(
+            name=f"moe_grouped (granite-4.0-h-small MoE layer, T {t}: E 72, "
+                 f"top 10, d 4096, ff 768, bf16)", route="cuda",
+            source=f"{csrc}/moe_grouped.cu",
+            replaces="none: the reference's MoE is plain jnp "
+                     "(src/repro/models/moe.py)")
     full, keep = {}, {}
     for phase, fn in (("kernels vs plain", lambda: phase_kernels(torch,
                                                                  rec)),

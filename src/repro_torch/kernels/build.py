@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_attention", "paged_decode_attention",
            "paged_decode_attention_int8", "decode_attention", "int8_matmul",
-           "rglru_scan", "sampling", "ssd_step")
+           "rglru_scan", "sampling", "ssd_step", "moe_grouped")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -68,6 +68,8 @@ SIGNATURES = {
     "topk_sample_f32": ("sampling", [_P] * 5 + [_I] * 3 + [_P]),
     "ssd_step_f32": ("ssd_step", [_P] * 10 + [_L] * 4 + [_I] * 7 + [_P]),
     "ssd_step_bf16": ("ssd_step", [_P] * 10 + [_L] * 4 + [_I] * 7 + [_P]),
+    "moe_grouped_bf16": ("moe_grouped",
+                         [_P, _P, _I, _P, _P, _P, _P] + [_I] * 7 + [_P]),
 }
 
 
@@ -84,7 +86,7 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0,
                             "int8_matmul": 0, "int8_matmul_prefill": 0,
                             "rglru_scan": 0,
                             "sample_tokens": 0, "topk_sample": 0,
-                            "ssd_step": 0}
+                            "ssd_step": 0, "moe_grouped": 0}
 
 
 def reset_launches():

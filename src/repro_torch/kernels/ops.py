@@ -20,6 +20,7 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention_int8,
 )
 from repro_torch.kernels.int8_matmul import int8_matmul, quantize_int8
+from repro_torch.kernels.moe_grouped import moe_grouped
 from repro_torch.kernels.ssd_step import ssd_step
 from repro_torch.kernels.topk_sample import (
     path_rows,
@@ -29,7 +30,8 @@ from repro_torch.kernels.topk_sample import (
 )
 
 __all__ = ["LAUNCHES", "decode_attention", "flash_attention", "int8_matmul",
-           "paged_decode_attention", "paged_decode_attention_int8",
+           "moe_grouped", "paged_decode_attention",
+           "paged_decode_attention_int8",
            "path_rows", "quantize_int8", "reset_launches", "rglru_scan",
            "sample_tokens", "ssd_step", "topk_sample"]
 

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's hand-written kernels: the int8
 matmul, prefill (optionally windowed) and (rolling, paged, int8) decode
-attention, the RG-LRU scan, the Mamba-2 SSD decode step and the sampler.
+attention, the RG-LRU scan, the Mamba-2 SSD decode step, the sampler and
+the MoE experts over token-sorted rows.
 They are the torch twins of the JAX package's ``repro.models.layers``
 functions of the same names, and ``repro_torch.models.layers`` re-exports
 them; the SSD step is the ``s == 1`` branch of the reference's
@@ -21,6 +22,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 F32 = torch.float32
 F64 = torch.float64
@@ -206,6 +208,40 @@ def ssd_step(state, x, B, C, dt, dt_bias, A_log, D, *, in_place: bool):
     if in_place:
         new = state.copy_(new)
     return y.to(x.dtype), new
+
+
+# ---------------------------------------------------------------------------
+# MoE experts over token-sorted rows (plain version of kernels/moe_grouped)
+# ---------------------------------------------------------------------------
+
+
+def moe_grouped(x, order, offsets, w_gate, w_up, w_down, *, k: int,
+                variant: str):
+    """Each (token, expert) pair's expert MLP, the pairs sorted by expert:
+    row p is token ``order[p] // k`` of x (T, d), and expert e owns rows
+    ``offsets[e]:offsets[e + 1]`` (offsets (E + 1,) int32). One product per
+    expert over its rows: ``act(x w_gate) * (x w_up)`` (``variant``
+    "swiglu": silu; "geglu": tanh gelu) or ``gelu(x w_up)`` ("gelu", no
+    ``w_gate``), then ``w_down``; (E, d, ff) / (E, ff, d) stacks. Returns
+    ys (R, d) in x's dtype, in sorted order. The per-expert counts are read
+    to the host: a CPU tensor's."""
+    counts = (offsets[1:] - offsets[:-1]).tolist()
+    rows = x[order // k]
+    ys = torch.empty_like(rows)
+    lo = 0
+    for j, n in enumerate(counts):
+        if n:
+            r = rows[lo:lo + n]
+            if variant in ("swiglu", "geglu"):
+                g = torch.matmul(r, w_gate[j])
+                act = (F.silu(g) if variant == "swiglu"
+                       else F.gelu(g, approximate="tanh"))
+                h = act * torch.matmul(r, w_up[j])
+            else:
+                h = F.gelu(torch.matmul(r, w_up[j]), approximate="tanh")
+            ys[lo:lo + n] = torch.matmul(h, w_down[j])
+            lo += n
+    return ys
 
 
 # ---------------------------------------------------------------------------

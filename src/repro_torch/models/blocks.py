@@ -413,7 +413,7 @@ def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
     mixer or the SSD mixer (``ssd_moe``), then the MLP (the MoE MLP in a
     ``moe`` or ``ssd_moe`` block, at the whole group's capacity when
     ``moe_full_cap``: the engine's "strict" policy; token-sorted given
-    ``moe_sorted``, a ``moe.SortedDispatch``); or the SSD mixer
+    ``moe_sorted``, ``moe.apply_moe``'s ``sorted_by``); or the SSD mixer
     alone (``x + ssd(norm1(x))``, no MLP). Returns (x,
     new_kv, aux): the prompt's (k, v) of an attention block in prefill
     mode, else None, and the block's aux loss (the MoE block's Switch

@@ -530,8 +530,8 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
     (logits (B, S, V) float32, aux): aux is the float32 sum of the MoE
     blocks' Switch load-balance terms (0 on other archs). Under grad mode
     each repeat of the block pattern is recomputed in backward; nothing
-    is cached. ``moe_sorted`` (prefill on one card: a
-    ``moe.SortedDispatch``) routes the MoE MLPs token-sorted."""
+    is cached. ``moe_sorted`` (prefill on one card:
+    ``moe.apply_moe``'s ``sorted_by``) routes the MoE MLPs token-sorted."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"forward: mode {mode!r} not in ('prefill', "
                          f"'train')")

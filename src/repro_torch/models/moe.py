@@ -31,20 +31,19 @@ k: the gates sum to 1. It enters the same capacity routing as the k
 picked gates, zeros elsewhere, so the k argmax rounds take the picks in
 descending order.
 
-Given a ``SortedDispatch`` (an eager step: the engine's exact-length
-prefill under the "strict" policy), a MoE MLP routes token-sorted
-instead: each token goes through its own k experts only, one product per
-expert over its rows, the per-expert counts read to the host once per
-layer. It drops nothing, as full capacity does, and computes k rows a
-token where the (E, C) buffer computes E.
+Given ``sorted_by`` (an eager step: the engine's exact-length prefill
+under the "strict" policy), a MoE MLP routes token-sorted
+instead: each token goes through its own k experts only, in one grouped
+product over every expert's rows (``ops.moe_grouped``: two launches of a
+hand-written kernel on the card, the per-expert loop on the CPU), the
+per-expert offsets left on the device. It drops nothing, as full capacity
+does, and computes k rows a token where the (E, C) buffer computes E.
 """
 from __future__ import annotations
 
-import contextlib
-from dataclasses import dataclass
-from typing import Callable
-
 import torch
+
+from repro_torch.kernels import ops
 
 F32 = torch.float32
 
@@ -186,27 +185,24 @@ def _combine(combine, ye, shape):
     return torch.matmul(combine, ye).reshape(shape)
 
 
-@dataclass(frozen=True)
-class SortedDispatch:
-    """A MoE MLP's token-sorted routing (``_apply_sorted``), for an eager
-    step: ``read(t)`` returns the per-expert counts ``t`` (E,) as a host
-    list (the engine's named sync ``moe.counts``); ``timed()`` a context
-    manager around each layer's MoE MLP and shared expert (the engine's
-    CUDA events)."""
+def expert_offsets(idx, e: int):
+    """(E + 1,) int32 row offsets of each expert in the pairs sorted by
+    expert, from the picks ``idx`` (..., k), on their device: a
+    ``scatter_add_`` of ones and a cumsum (``torch.bincount`` would read
+    the largest id to the host on the card)."""
+    flat = idx.reshape(-1)
+    counts = torch.zeros(e + 1, dtype=torch.int32, device=idx.device)
+    counts.scatter_add_(0, flat + 1, torch.ones_like(flat, dtype=torch.int32))
+    return torch.cumsum(counts, 0, dtype=torch.int32)
 
-    read: Callable = lambda t: t.tolist()
-    timed: Callable = contextlib.nullcontext
 
-
-def _apply_sorted(cfg, p, x, read):
+def _apply_sorted(cfg, p, x):
     """The routed experts of x (B, S, d), token-sorted: the (token,
     expert) pairs grouped by expert (a stable sort, so each expert's rows
-    keep token order), each expert's SwiGLU over its rows alone, and each
-    token's gated sum over its k outputs in float32, in pick order. The
-    gates round to x's dtype first, as the capacity path's combine
-    weights do."""
-    from repro_torch.models.blocks import mlp_hidden
-
+    keep token order), each expert's MLP over its rows alone
+    (``ops.moe_grouped``), and each token's gated sum over its k outputs
+    in float32, in pick order. The gates round to x's dtype first, as the
+    capacity path's combine weights do. Nothing is read to the host."""
     d, e, k = x.shape[-1], cfg.num_experts, cfg.experts_per_token
     xf = x.reshape(-1, d)
     logits = torch.matmul(xf.to(F32), p["router"].to(F32))
@@ -215,17 +211,9 @@ def _apply_sorted(cfg, p, x, read):
     else:
         gates, idx = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
     order = torch.argsort(idx.reshape(-1), stable=True)
-    counts = read(torch.bincount(idx.reshape(-1), minlength=e))
-    rows = xf[order // k]
-    ys = torch.empty_like(rows)
-    lo = 0
-    for j, n in enumerate(counts):
-        if n:
-            w = {name: p[name][j] for name in ("w_gate", "w_up", "w_down")
-                 if name in p}
-            ys[lo:lo + n] = torch.matmul(mlp_hidden(cfg, w, rows[lo:lo + n]),
-                                         w["w_down"])
-            lo += n
+    ys = ops.moe_grouped(xf, order, expert_offsets(idx, e), p.get("w_gate"),
+                         p["w_up"], p["w_down"], k=k,
+                         variant=cfg.mlp_variant)
     picked = torch.empty_like(ys)
     picked[order] = ys  # back to (token, pick) order
     g = gates.to(x.dtype).to(F32)
@@ -250,13 +238,15 @@ def apply_moe(cfg, p, x, *, group_size: int = 2048, full_cap: bool = False,
               sorted_by=None):
     """x (B, S, d) -> (y (B, S, d), aux loss, a float32 scalar).
     ``full_cap``: capacity of the whole group (the "strict" policy);
-    ``sorted_by`` (a ``SortedDispatch``): token-sorted instead, dropless
-    too, with no aux loss."""
+    ``sorted_by``: token-sorted instead (``_apply_sorted``), dropless
+    too, with no aux loss; ``sorted_by()`` is the context manager around
+    the routed and shared experts (the engine's CUDA events, or
+    ``contextlib.nullcontext``)."""
     from repro_torch.models.blocks import apply_mlp, mlp_hidden
 
     if sorted_by is not None:
-        with sorted_by.timed():
-            y = _apply_sorted(cfg, p, x, sorted_by.read)
+        with sorted_by():
+            y = _apply_sorted(cfg, p, x)
             if cfg.moe_shared_expert:
                 y = y + apply_mlp(cfg, p["shared"], x)
         return y, 0.0

@@ -158,13 +158,16 @@ class EngineConfig:
     def n_chips(self) -> int:
         return self.modeled_chips or self.topology.n_chips
 
-    def validate(self, cfg=None, devices=None) -> "EngineConfig":
+    def validate(self, cfg=None, devices=None,
+                 device=None) -> "EngineConfig":
         """Refuse, before any work, a paged cache or a precision the
         reference refuses (with its message), a sharded topology that
         needs more cards than the host has when no device grid
         (``devices``) is given (as the reference refuses more devices than
-        the host exposes), then every option whose path the port does not
-        serve yet; that message names the ROADMAP.md item."""
+        the host exposes), a token-sorted MoE prefill that one card
+        (``device``) has no kernel for, then every option whose path the
+        port does not serve yet; that message names the ROADMAP.md
+        item."""
         if cfg is not None and self.paged:
             from repro_torch.models import paged_ok
 
@@ -174,6 +177,8 @@ class EngineConfig:
                     f"or local-attention); pass paged=None to auto-fall "
                     f"back to rolling windows")
         self._validate_precision(cfg)
+        if cfg is not None and device is not None:
+            self._validate_sorted_moe(cfg, device)
         q1 = "ROADMAP.md queue 1"
         need = self.topology.n_chips
         if need > 1 and devices is None:
@@ -256,6 +261,30 @@ class EngineConfig:
                     f"supported on sharded replicas yet (int8 weight "
                     f"leaves have no GSPMD profile) — serve quantized "
                     f"weights on 1-chip replicas or clear weight_dtype")
+
+    def _validate_sorted_moe(self, cfg, device):
+        """Under the "strict" policy on one card's rolling caches, the
+        exact-length prefill routes the MoE layers token-sorted, through
+        the grouped expert kernel on a CUDA card, which takes bfloat16
+        only (``kernels/moe_grouped.py``): another dtype is refused here,
+        not at the first prompt."""
+        import torch
+
+        from repro_torch.models import paged_ok
+
+        if (not cfg.num_moe_layers or self.topology.sharded
+                or cfg.dtype == "bfloat16"
+                or torch.device(device).type != "cuda"
+                or self.resolved_moe_policy(cfg) != "strict"):
+            return
+        if (paged_ok(cfg) if self.paged is None else self.paged):
+            return  # paged prefill: the capacity path, in any dtype
+        raise ValueError(
+            f"{cfg.name} in {cfg.dtype} under moe_capacity_policy="
+            f"\"strict\" on rolling caches: the exact-length prefill's "
+            f"token-sorted MoE runs the grouped expert kernel, which takes "
+            f"bfloat16 only on a CUDA card — serve dtype bfloat16, or "
+            f"choose another capacity policy")
 
     def resolved_moe_policy(self, cfg) -> str:
         """The capacity policy once the None default resolves: "strict"

@@ -34,11 +34,11 @@ with its gather and its scatter. Exact-length prefill (recurrentgemma,
 whose recurrent state forbids end padding) runs eagerly, on a key per
 prompt length that is counted as the reference counts its retrace
 (``prefill/exact{L}``) and never captured; under the "strict" policy its
-MoE layers route token-sorted (``models.moe.SortedDispatch``: k expert
-rows a token, not the (E, C) buffer), each reading its per-expert counts
-at the named sync ``moe.counts``. The probes ``prefill_traces``
-and ``decode_traces`` count the keys as the reference counts its traces;
-on the CPU the same steps run eagerly.
+MoE layers route token-sorted (``models.moe.apply_moe``'s ``sorted_by``:
+k expert rows a token, not the (E, C) buffer, in one grouped product with
+no host read). The probes ``prefill_traces`` and ``decode_traces`` count
+the keys as the reference counts its traces; on the CPU the same steps run
+eagerly.
 
 Tracing stamps host clocks the caller passes in, at the engine's existing
 sync points only: it adds no device sync and no step, and with it off a
@@ -73,6 +73,7 @@ the engine is built with.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import os
@@ -116,7 +117,7 @@ from repro_torch.models.blocks import (
     last_writer,
     quantize_kv,
 )
-from repro_torch.models.moe import SortedDispatch, drop_free_group, expert_rows
+from repro_torch.models.moe import drop_free_group, expert_rows
 from repro_torch.serving import prng
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.graphs import StepGraphs, StepTimeline
@@ -742,7 +743,8 @@ class ServingEngine:
             config = EngineConfig()
         grid = (list(device) if isinstance(device, (list, tuple))
                 else None)
-        config.validate(cfg, devices=grid)
+        config.validate(cfg, devices=grid,
+                        device=grid[0] if grid else device)
         self.config = config
         self.cfg = cfg
         self.mesh = None
@@ -1403,19 +1405,18 @@ class ServingEngine:
                     else 0)
         self._activate(req, slot, tok, last, now, n_tabled)
 
-    def _moe_sorted(self) -> Optional[SortedDispatch]:
+    def _moe_sorted(self):
         """The exact-length prefill's MoE dispatch: token-sorted under the
-        "strict" policy (each layer's per-expert counts read at the sync
-        ``moe.counts``; with the step timeline's events, a CUDA event pair
-        around each layer's MoE MLP, its prefill span's ``moe`` device
-        seconds), else None: the step's own."""
+        "strict" policy, given as the context manager factory around each
+        layer's MoE MLP (with the step timeline's events, a CUDA event
+        pair, its prefill span's ``moe`` device seconds), else None: the
+        step's own."""
         if not self._moe_full_cap:
             return None
         tl = self._tl
-        read = lambda t: self._wait("moe.counts", t.tolist)  # noqa: E731
         if tl is not None and tl.events:
-            return SortedDispatch(read, lambda: tl.device_span("moe"))
-        return SortedDispatch(read)
+            return lambda: tl.device_span("moe")
+        return contextlib.nullcontext
 
     def _count_moe(self, tokens: int, ticks: int = 1, *,
                    sorted_: bool = False):

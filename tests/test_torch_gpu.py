@@ -12,7 +12,11 @@ Tolerances: float32 2e-5 (the reference suite's); bfloat16 2e-2, and 1e-3
 absolute for the int8 paged decode kernel; the RG-LRU scan bit for bit
 (it rounds as its plain version does, in the same order); sampled tokens
 exact, and a repeat call bit-identical; the SSD decode step's state
-2e-5 (float32 throughout, the sum over N in another order)."""
+2e-5 (float32 throughout, the sum over N in another order); the grouped
+MoE product 4 units of 2^-8 sum |h w_down| (bf16, h rounded once where
+the plain loop rounds it four times)."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1419,6 +1423,203 @@ def test_ssd_tp2_shards_sharing_one_cache_match_one_shard(dev, b):
     for name in ("conv", "state"):
         torch.testing.assert_close(cache[name], one[name], atol=2e-5,
                                    rtol=2e-5)
+
+
+# -- the grouped MoE expert product (token-sorted prefill) ------------------
+
+# (E, k, d, ff) of granite-4.0-h-small, grok-1 and llama4-maverick
+GROUPED = {"granite": (72, 10, 4096, 768), "grok": (8, 2, 6144, 32768),
+           "llama4": (128, 1, 5120, 8192)}
+
+
+def _grouped_case(dev, arch, variant, t, routing, seed=0):
+    """bf16 x (t, d), the pairs sorted by expert and the offsets, and the
+    expert stacks at ``arch``'s widths (the init's scales). ``routing``:
+    "natural" (the top k of random logits), "skewed" (a few experts' logits
+    raised: they take most rows), "one" (every token picks experts 0..k-1:
+    the rest get no row)."""
+    from repro_torch.models import moe as tmoe
+
+    e, k, d, ff = GROUPED[arch]
+    gen = torch.Generator(device=dev).manual_seed(seed + t)
+    x = torch.randn((t, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    logits = torch.randn((t, e), generator=gen, device=dev)
+    if routing == "skewed":
+        logits[:, :3] += 2.5
+    elif routing == "one":
+        logits = torch.linspace(1.0, -1.0, e, device=dev).expand(t, e)
+    idx = torch.topk(logits, k, dim=-1).indices
+    order = torch.argsort(idx.reshape(-1), stable=True)
+    offsets = tmoe.expert_offsets(idx, e)
+
+    def stack(shape, std):
+        return (torch.randn((e,) + shape, generator=gen, device=dev,
+                            dtype=torch.bfloat16) * std)
+
+    wg = stack((d, ff), d ** -0.5) if variant != "gelu" else None
+    wu = stack((d, ff), d ** -0.5)
+    wd = stack((ff, d), ff ** -0.5)
+    return x, order, offsets, wg, wu, wd, k
+
+
+def _grouped_units(got, want, x, order, offsets, wg, wu, wd, k, variant):
+    """The largest |got - want| in units of 2^-8 sum_j |h_j w_down[j, c]|,
+    h from the bf16 inputs in float32."""
+    import torch.nn.functional as F
+
+    rows = x[order // k].float()
+    bound = torch.zeros(got.shape, dtype=torch.float32, device=got.device)
+    lo = 0
+    for j, n in enumerate((offsets[1:] - offsets[:-1]).tolist()):
+        if n:
+            r = rows[lo:lo + n]
+            u = r @ wu[j].float()
+            if variant == "gelu":
+                h = F.gelu(u, approximate="tanh")
+            else:
+                g = r @ wg[j].float()
+                h = (F.silu(g) if variant == "swiglu"
+                     else F.gelu(g, approximate="tanh")) * u
+            bound[lo:lo + n] = h.abs() @ wd[j].float().abs()
+            lo += n
+    err = (got.float() - want.float()).abs()
+    return float((err / (2.0 ** -8 * bound).clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("arch,variant,t,routing", [
+    ("granite", "swiglu", 512, "natural"),
+    ("granite", "swiglu", 1544, "natural"),
+    ("granite", "swiglu", 3072, "natural"),
+    ("granite", "swiglu", 1544, "skewed"),
+    ("granite", "swiglu", 512, "one"),
+    ("granite", "swiglu", 1, "natural"),
+    ("granite", "swiglu", 37, "natural"),
+    ("granite", "geglu", 300, "skewed"),
+    ("granite", "gelu", 300, "natural"),
+    ("grok", "geglu", 300, "natural"),
+    ("grok", "geglu", 300, "one"),
+    ("llama4", "swiglu", 300, "natural"),
+    ("llama4", "swiglu", 1544, "skewed"),
+])
+def test_moe_grouped_kernel_matches_plain(dev, arch, variant, t, routing):
+    """The two launches against the per-expert loop, within 4 units of
+    2^-8 sum |h w_down| (the bf16 tolerance of prefill attention's 2^-8
+    sum p|v|): the loop rounds the gate, the up product, the activation
+    and their product to bf16 (four roundings of 2^-9 of |h|, the gate's
+    carried through an activation whose relative slope stays near 1 where
+    h is large), the kernel rounds h once; both round ys once. Twice the
+    same call is the same bits (no atomics), two launches each."""
+    args = _grouped_case(dev, arch, variant, t, routing)
+    x, order, offsets, wg, wu, wd, k = args
+    before = ops.LAUNCHES["moe_grouped"]
+    got = ops.moe_grouped(x, order, offsets, wg, wu, wd, k=k,
+                          variant=variant)
+    again = ops.moe_grouped(x, order, offsets, wg, wu, wd, k=k,
+                            variant=variant)
+    assert ops.LAUNCHES["moe_grouped"] == before + 4
+    want = plain.moe_grouped(x, order, offsets, wg, wu, wd, k=k,
+                             variant=variant)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    assert _grouped_units(got, want, *args[:-1], k, variant) <= 4.0
+
+
+def test_moe_grouped_kernel_refuses_float32(dev):
+    x, order, offsets, wg, wu, wd, k = _grouped_case(dev, "granite",
+                                                     "swiglu", 16, "natural")
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.moe_grouped(x.float(), order, offsets, wg, wu, wd, k=k,
+                        variant="swiglu")
+
+
+def _tiny_hybrid(dev):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("granite-4.0-h-small").reduced(),
+                              dtype="bfloat16")
+    return cfg, init_params(cfg, 0, device=str(dev))
+
+
+def test_sorted_moe_layer_launches_the_kernel_twice(dev):
+    """A token-sorted MoE layer of the tiny granite-4.0-h (d 256, ff 64:
+    one column tile, ragged) is two launches, within the tolerance above
+    of the CPU's plain path run on the same bf16 weights."""
+    from repro_torch.models import moe as tmoe
+
+    cfg, params = _tiny_hybrid(dev)
+    m = params["layers"][0]["moe"]
+    x = torch.randn((1, 45, cfg.d_model), device=dev, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    before = ops.LAUNCHES["moe_grouped"]
+    with torch.no_grad():
+        y, _ = tmoe.apply_moe(cfg, m, x, sorted_by=contextlib.nullcontext)
+        y_cpu, _ = tmoe.apply_moe(cfg, _to(m, "cpu"), x.cpu(),
+                                  sorted_by=contextlib.nullcontext)
+    assert ops.LAUNCHES["moe_grouped"] == before + 2
+    torch.testing.assert_close(y.cpu().float(), y_cpu.float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+def test_hybrid_exact_prefill_moe_makes_no_host_sync(dev):
+    """The tiny granite-4.0-h served under the "strict" policy from rolling
+    caches: every prompt's exact-length prefill routes its MoE layers
+    token-sorted, two grouped launches a layer, and, under
+    ``torch.cuda.set_sync_debug_mode("error")`` with only the engine's
+    named sync sites exempted (as ``tests/test_torch_timeline.py``), the
+    second round serves without any other blocking call; no prefill span
+    records a ``moe.counts`` sync."""
+    from repro_torch import serving as ts
+
+    cfg, params = _tiny_hybrid(dev)
+    eng = ts.ServingEngine(cfg, params, ts.EngineConfig(
+        slots=2, window=64, sync_every=4, moe_capacity_policy="strict",
+        tracing=True), device="cuda")
+    assert not eng.paged
+    rng = np.random.default_rng(0)
+
+    def serve():
+        reqs = [ts.Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=5,
+            sampling=ts.SamplingParams()) for i, n in enumerate((9, 23, 40))]
+        for r in reqs:
+            eng.submit(r, 0.0)
+        t = 0.0
+        while not all(r.done for r in reqs) and t < 200:
+            t += 1.0
+            eng.step(t)
+        eng.drain(t)
+        return reqs
+
+    serve()  # every step key run once and captured
+    torch.cuda.synchronize()
+    eng.reset()
+    wait = eng._tl.wait
+
+    def exempt(site, fn, *args, **kw):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return wait(site, fn, *args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    eng._tl.wait = exempt
+    before = ops.LAUNCHES["moe_grouped"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        reqs = serve()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(r.done and len(r.output) == 5 for r in reqs)
+    assert ops.LAUNCHES["moe_grouped"] == before + 2 * cfg.num_moe_layers * 3
+    for r in reqs:
+        pre = next(s for s in r.trace.spans if s.kind == "prefill").timing
+        assert "moe.counts" not in pre.syncs
+        assert pre.device_s.get("moe", 0.0) > 0
 
 
 # -- the GQA groups and vocabularies of grok-1, llama4 and qwen2-vl ----------

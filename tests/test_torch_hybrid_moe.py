@@ -3,11 +3,16 @@ ldsbench's plain reference holds its forward, ``ldsbench/
 test_ldsbench_reference.py``): the published config and its count; the
 Granite router (the top k of the logits, the softmax over those k); the
 token-sorted dispatch of the eager prefill against the full-capacity
-buffer, under a router skewed to one expert, dropping nothing; the SSD
+buffer, under a router skewed to one expert, dropping nothing; its
+grouped expert product (``ops.moe_grouped``, the plain version here)
+against the per-expert loop it replaced, bit for bit; the SSD
 mixer without a conv bias as it computed before the bias existed, bit
 for bit; grok's and llama4's routing as the unchanged ``route`` gives
-it; the engine's MoE counters, step-timeline counts, sync site and cache
-bytes; ``validate()`` refusing the new blocks on a grid."""
+it; the engine's MoE counters, step-timeline counts and sync sites (no
+``moe.counts``) and cache bytes; ``validate()`` refusing the new blocks
+on a grid, and a token-sorted prefill in a dtype the card's grouped
+kernel does not take."""
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -91,12 +96,16 @@ def test_sorted_dispatch_equals_full_capacity_dropping_nothing():
                     .manual_seed(2))
     with torch.no_grad():
         full, _ = tmoe.apply_moe(cfg, m, x, full_cap=True)
-        reads = []
-        srt, aux = tmoe.apply_moe(cfg, m, x, sorted_by=tmoe.SortedDispatch(
-            lambda t: reads.append(t.tolist()) or t.tolist()))
+        srt, aux = tmoe.apply_moe(cfg, m, x,
+                                  sorted_by=contextlib.nullcontext)
         capped, _ = tmoe.apply_moe(cfg, m, x)
-    assert reads[0][0] == max(reads[0]) > 1.5 * 40 * 2 / 8
-    assert sum(reads[0]) == 40 * 2
+    _, idx = tmoe.top_gates(cfg, x.reshape(40, -1) @ m["router"])
+    offsets = tmoe.expert_offsets(idx, 8)
+    counts = (offsets[1:] - offsets[:-1]).tolist()
+    assert offsets.dtype == torch.int32 and int(offsets[0]) == 0
+    assert counts == torch.bincount(idx.reshape(-1), minlength=8).tolist()
+    assert counts[0] == max(counts) > 1.5 * 40 * 2 / 8
+    assert sum(counts) == 40 * 2
     # float32: the same products, each token's k outputs summed in another
     # order than the combine product's
     torch.testing.assert_close(srt, full, rtol=1e-5, atol=1e-6)
@@ -114,6 +123,115 @@ def test_sorted_dispatch_equals_full_capacity_dropping_nothing():
     torch.testing.assert_close(capped, full)  # factor 8: nothing binds
     assert tmoe.expert_rows(cfg, 40, full_cap=True, sorted_=True) == (80, 80)
     assert tmoe.expert_rows(cfg, 40, full_cap=True) == (80, 8 * 40)
+
+
+def _loop_before(cfg, p, x):
+    """``_apply_sorted`` as it was before the grouped product: the counts
+    by ``torch.bincount``, read to the host, and one product per expert."""
+    from repro_torch.models.blocks import mlp_hidden
+
+    d, e, k = x.shape[-1], cfg.num_experts, cfg.experts_per_token
+    xf = x.reshape(-1, d)
+    logits = torch.matmul(xf.to(torch.float32), p["router"].to(torch.float32))
+    if cfg.moe_router == "topk_softmax":
+        gates, idx = tmoe.top_gates(cfg, logits)
+    else:
+        gates, idx = torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+    order = torch.argsort(idx.reshape(-1), stable=True)
+    counts = torch.bincount(idx.reshape(-1), minlength=e).tolist()
+    rows = xf[order // k]
+    ys = torch.empty_like(rows)
+    lo = 0
+    for j, n in enumerate(counts):
+        if n:
+            w = {name: p[name][j] for name in ("w_gate", "w_up", "w_down")
+                 if name in p}
+            ys[lo:lo + n] = torch.matmul(mlp_hidden(cfg, w, rows[lo:lo + n]),
+                                         w["w_down"])
+            lo += n
+    picked = torch.empty_like(ys)
+    picked[order] = ys
+    g = gates.to(x.dtype).to(torch.float32)
+    y = (picked.reshape(-1, k, d).to(torch.float32) * g[..., None]).sum(dim=1)
+    return y.to(x.dtype).reshape(x.shape), (xf, order, idx, ys)
+
+
+def _routed(name, variant, routing, t):
+    """A MoE layer of ``name``'s reduced config in bf16 under ``variant``
+    and x (1, t, d), its router set for ``routing``: "natural" (random);
+    "one" (every token's first coordinate positive and each expert's
+    logit that coordinate times a constant: every token picks the same k
+    experts, the rest get no row; llama4's k 1 sends every pair to one
+    expert); "empty" (every odd expert's logit below -100: half the
+    experts get no row)."""
+    cfg = dataclasses.replace(get_config(name).reduced(), mlp_variant=variant,
+                              dtype="bfloat16")
+    gen = torch.Generator().manual_seed(t + len(variant))
+    p = tmoe.init_moe(cfg, gen, torch.bfloat16, "cpu")
+    x = torch.randn(1, t, cfg.d_model, generator=gen)
+    e = cfg.num_experts
+    if routing != "natural":
+        x[..., 0] = x[..., 0].abs() + 1.0
+    if routing == "one":
+        p["router"] = torch.zeros_like(p["router"])
+        p["router"][0] = torch.linspace(1.0, -1.0, e)
+    elif routing == "empty":
+        p["router"][:, 1::2] = 0.0
+        p["router"][0, 1::2] = -100.0
+    return cfg, p, x.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("t", [1, 37])
+@pytest.mark.parametrize("routing", ["natural", "one", "empty"])
+@pytest.mark.parametrize("name,variant", [
+    (GRANITE, "swiglu"), (GRANITE, "geglu"), (GRANITE, "gelu"),
+    ("grok-1-314b", "geglu"), ("llama4-maverick-400b-a17b", "swiglu")])
+def test_grouped_experts_are_the_per_expert_loop(name, variant, routing, t):
+    """On the CPU ``ops.moe_grouped`` takes ``plain.moe_grouped``: the
+    per-expert loop that ``_apply_sorted`` ran before, bit for bit, fed
+    the offsets from the device-side count; so ``_apply_sorted`` is what
+    it was, for every MLP variant, at grok's and llama4's widths, with one
+    token and with counts that fill no tile."""
+    from repro_torch.kernels import ops, plain
+
+    cfg, p, x = _routed(name, variant, routing, t)
+    e, k = cfg.num_experts, cfg.experts_per_token
+    with torch.no_grad():
+        want, (xf, order, idx, ys_before) = _loop_before(cfg, p, x)
+        offsets = tmoe.expert_offsets(idx, e)
+        ys = plain.moe_grouped(xf, order, offsets, p.get("w_gate"),
+                               p["w_up"], p["w_down"], k=k, variant=variant)
+        assert torch.equal(ys, ys_before)
+        assert torch.equal(ops.moe_grouped(
+            xf, order, offsets, p.get("w_gate"), p["w_up"], p["w_down"],
+            k=k, variant=variant), ys)
+        assert torch.equal(tmoe._apply_sorted(cfg, p, x), want)
+    counts = (offsets[1:] - offsets[:-1]).tolist()
+    assert sum(counts) == t * k
+    if routing == "one":
+        assert counts[:k] == [t] * k and not any(counts[k:])
+    if routing == "empty":
+        assert not any(counts[1::2])
+
+
+def test_grouped_experts_refuse_what_the_kernel_does_not_take():
+    from repro_torch.kernels import ops
+
+    cfg, p, x = _routed(GRANITE, "swiglu", "natural", 5)
+    xf = x.reshape(5, -1)
+    _, idx = tmoe.top_gates(cfg, xf.float() @ p["router"])
+    order = torch.argsort(idx.reshape(-1), stable=True)
+    offsets = tmoe.expert_offsets(idx, cfg.num_experts)
+    args = (p["w_gate"], p["w_up"], p["w_down"])
+    with pytest.raises(ValueError, match="no MLP variant"):
+        ops.moe_grouped(xf, order, offsets, *args, k=2, variant="relu")
+    with pytest.raises(ValueError, match="takes no w_gate"):
+        ops.moe_grouped(xf, order, offsets, *args, k=2, variant="gelu")
+    with pytest.raises(ValueError, match="do not match"):
+        ops.moe_grouped(xf, order, offsets, *args, k=3, variant="swiglu")
+    with pytest.raises(ValueError, match="do not match"):
+        ops.moe_grouped(xf, order, offsets[:-1], *args, k=2,
+                        variant="swiglu")
 
 
 def _conv_before(x, conv_w, conv_state=None, activation=None):
@@ -215,9 +333,10 @@ def test_engine_counts_moe_work_and_cache_bytes():
     """Under the strict policy with a router skewed to one expert: greedy
     streams are the full forward's argmax, the counters come from the
     shapes (the exact prefills token-sorted, the decode ticks at full
-    capacity), nothing is dropped, each prefill reads its counts once a
-    MoE layer at the ``moe.counts`` site, and the step timeline's records
-    carry the same counts."""
+    capacity), nothing is dropped, no prefill blocks on a read of the
+    per-expert counts (the ``moe.counts`` site is gone: the offsets stay
+    on the device), and the step timeline's records carry the same
+    counts."""
     cfg = tiny()
     params, m = _skewed(cfg)
     params["layers"][0] = dict(params["layers"][0], moe=m)
@@ -237,7 +356,9 @@ def test_engine_counts_moe_work_and_cache_bytes():
                             moe_full_cap=True)
         assert r.output == lg[0, len(r.prompt) - 1:].argmax(-1).tolist()
         pre = next(s for s in r.trace.spans if s.kind == "prefill").timing
-        assert pre.syncs["moe.counts"] == cfg.num_moe_layers
+        assert "moe.counts" not in pre.syncs
+        assert dict(pre.syncs) == {"exact.tokens": 1, "exact.len": 1,
+                                   "exact.slot": 1, "first_token": 1}
         assert pre.counts["moe_routed_pairs"] == pre.counts[
             "moe_expert_rows"] == cfg.num_moe_layers * 2 * len(r.prompt)
     met = eng.metrics
@@ -255,6 +376,38 @@ def test_engine_counts_moe_work_and_cache_bytes():
     wire = rep.to_dict()
     assert "state_bytes" not in wire and "kv_ring_bytes" not in wire
     assert type(rep).from_dict(wire) == rep
+
+
+@pytest.mark.parametrize("dtype,policy,paged,device,refused", [
+    ("float32", "strict", None, "cuda", True),
+    ("float32", "strict", False, "cuda:0", True),
+    ("float16", None, None, "cuda", False),  # resolves to "drop"
+    ("float32", "drop", None, "cuda", False),
+    ("float32", "strict", None, "cpu", False),
+    ("bfloat16", "strict", None, "cuda", False),
+])
+def test_engine_refuses_a_sorted_moe_prefill_the_card_has_no_kernel_for(
+        dtype, policy, paged, device, refused):
+    """The exact-length prefill of the "strict" policy on rolling caches
+    routes the MoE layers through the grouped expert kernel on a CUDA
+    card, bfloat16 only: the engine refuses another dtype when it is
+    built (before it touches the card), and serves the rest: the CPU's
+    plain version takes any dtype, and another policy keeps the capacity
+    path."""
+    cfg = dataclasses.replace(tiny(), dtype=dtype)
+    config = EngineConfig(moe_capacity_policy=policy, paged=paged)
+    if refused:
+        with pytest.raises(ValueError, match="bfloat16 only on a CUDA"):
+            config.validate(cfg, device=device)
+        with pytest.raises(ValueError, match="another capacity policy"):
+            ServingEngine(cfg, {}, config, device=device)
+    else:
+        assert config.validate(cfg, device=device) is config
+    # on a grid the sorted path never runs: the grid's own refusal holds
+    grid = EngineConfig(moe_capacity_policy=policy,
+                        topology=DeviceTopology(tp=2))
+    with pytest.raises(ValueError, match="Hybrid MoE on a grid"):
+        grid.validate(cfg, devices=[device] * 2)
 
 
 def test_validate_refuses_the_new_blocks_on_a_grid():

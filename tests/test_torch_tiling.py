@@ -4,13 +4,14 @@ projection shapes (wq/wo, wk/wv, w1/w3, w2), for the float32, bf16 decode
 and bf16 prefill tiles; the one-pass bf16 rolling decode kernel's
 context splits (one thread-block cluster per slot and kv head); the RG-LRU
 scan's channel and time tiles; the SSD decode step's tiles of the
-state; and the sampler's slices of a row over its thread-block
-cluster."""
+state; the sampler's slices of a row over its thread-block cluster; and
+the grouped MoE product's row tiles over the experts' sorted rows."""
 import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import int8_matmul as im
+from repro_torch.kernels import moe_grouped as mg
 from repro_torch.kernels import rglru_scan as rs
 from repro_torch.kernels import ssd_step as ss
 from repro_torch.kernels import topk_sample as ts
@@ -412,3 +413,65 @@ def test_sample_plan_at_the_served_shapes(b, v, cluster, store_w):
     plan = ts.sample_plan(b, v)
     assert (plan.cluster, plan.store_w) == (cluster, store_w)
     assert ts.max_vocab() == ts.max_vocab(16) >= v
+
+
+def _expert_tiles(counts, bm, tiles):
+    """Each launched row tile's (expert, first row, end row) or None, as
+    ``csrc/moe_grouped.cu``'s blocks find them: the experts' tiles
+    numbered expert by expert, ceil(count / bm) each."""
+    out, starts = [], [sum(counts[:i]) for i in range(len(counts))]
+    for tile in range(tiles):
+        found, t0 = None, 0
+        for e, n in enumerate(counts):
+            cnt = -(-n // bm)
+            if t0 <= tile < t0 + cnt:
+                r0 = starts[e] + (tile - t0) * bm
+                found = (e, r0, min(starts[e] + n, r0 + bm))
+            t0 += cnt
+        out.append(found)
+    return out
+
+
+@pytest.mark.parametrize("routing", ["uniform", "one", "ragged"])
+@pytest.mark.parametrize("t,k,e", [(1, 10, 72), (37, 10, 72), (512, 10, 72),
+                                   (1544, 10, 72), (300, 2, 8), (97, 1, 128)])
+def test_grouped_tiles_cover_every_sorted_row_once(t, k, e, routing):
+    """Whatever the counts, the row tiles planned from (R, E) alone hold
+    every expert's tiles: each sorted row lies in exactly one tile, a tile
+    holds rows of one expert only and at most ``bm``."""
+    r = t * k
+    g = torch.Generator().manual_seed(t + e)
+    if routing == "uniform":
+        counts = torch.bincount(torch.randint(0, e, (r,), generator=g),
+                                minlength=e).tolist()
+    elif routing == "one":
+        counts = [r] + [0] * (e - 1)
+    else:  # every count one past a tile or empty
+        counts = [0] * e
+        for i in range(0, e, 3):
+            counts[i] = 65
+        counts[-1] += r - sum(counts)
+        if counts[-1] < 0:
+            counts = [r] + [0] * (e - 1)
+    bm, tiles = mg.grouped_plan(r, e)
+    assert bm == (64 if r / e < 96 else 128)
+    assert sum(-(-n // bm) for n in counts) <= tiles
+    seen = [0] * r
+    starts = [sum(counts[:i]) for i in range(e)]
+    for found in _expert_tiles(counts, bm, tiles):
+        if found is None:
+            continue
+        ex, r0, r1 = found
+        assert 0 < r1 - r0 <= bm
+        assert starts[ex] <= r0 and r1 <= starts[ex] + counts[ex]
+        for row in range(r0, r1):
+            seen[row] += 1
+    assert seen == [1] * r
+
+
+def test_grouped_tile_rows_at_the_served_shapes():
+    """granite-4.0-h (E 72, top 10): 512 tokens average 71 rows an expert
+    and take tiles of 64; 1544 and 3072 average 214 and 427 and take 128."""
+    assert mg.grouped_plan(5120, 72) == (64, 150)
+    assert mg.grouped_plan(15440, 72) == (128, 192)
+    assert mg.grouped_plan(30720, 72) == (128, 311)
