@@ -4274,6 +4274,7 @@ def stream_gap(torch, label, cfg, params, eng, got, want) -> bool:
     import numpy as np
 
     from repro_torch.models import forward
+    from repro_torch.models.moe import resolve_dispatch
 
     good = True
     for r, w in zip(got, want):
@@ -4283,10 +4284,10 @@ def stream_gap(torch, label, cfg, params, eng, got, want) -> bool:
                   if x != y), min(len(r.output), len(w.output)))
         toks = torch.from_numpy(np.concatenate([
             w.prompt, np.asarray(w.output[:i], np.int32)])).cuda()[None]
-        full_cap = eng._moe_full_cap
+        moe = resolve_dispatch(eng.moe_capacity_policy)
         with torch.no_grad():
-            a, _ = forward(cfg, params, toks, moe_full_cap=full_cap)
-            b, _ = forward(cfg, eng.params, toks, moe_full_cap=full_cap)
+            a, _ = forward(cfg, params, toks, moe_dispatch=moe)
+            b, _ = forward(cfg, eng.params, toks, moe_dispatch=moe)
         a, b = a[0, -1].float(), b[0, -1].float().to(a.device)
         diff, scale = float((a - b).abs().max()), float(a.abs().max())
         top2 = torch.topk(a, 2).values

@@ -31,9 +31,7 @@
 // 16-byte aligned), STAGES - 1 tiles in flight, and store each finished y
 // tile with 16-byte stores while warp 0 walks the next; one block barrier
 // a tile hands the tiles over. WARPS, TT and STAGES are 4, 32 and 8 (56 KB
-// of a and x in flight a block) for every shape; ``kernels/tile_sweep.py``
-// builds the other values with -DSCAN_WARPS, -DSCAN_TT and -DSCAN_STAGES
-// to time them.
+// of a and x in flight a block) for every shape.
 //
 // Numerics: ``a * h`` and ``+ x`` are rounded separately (no fused
 // multiply-add), in time order, as the plain version ``plain.rglru_scan``
@@ -42,21 +40,11 @@
 #include "common.cuh"
 #include "tensor_core.cuh"
 
-#ifndef SCAN_WARPS
-#define SCAN_WARPS 4
-#endif
-#ifndef SCAN_TT
-#define SCAN_TT 32
-#endif
-#ifndef SCAN_STAGES
-#define SCAN_STAGES 8
-#endif
-
 namespace {
 
-constexpr int WARPS = SCAN_WARPS;  // warp 0 computes, the others copy
-constexpr int TT = SCAN_TT;        // steps of a and x in one ring stage
-constexpr int STAGES = SCAN_STAGES;  // ring depth
+constexpr int WARPS = 4;  // warp 0 computes, the others copy
+constexpr int TT = 32;    // steps of a and x in one ring stage
+constexpr int STAGES = 8;  // ring depth
 
 template <bool VEC>
 __global__ void __launch_bounds__(WARPS * 32)

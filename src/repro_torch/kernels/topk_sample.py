@@ -149,7 +149,7 @@ def sample_tokens(logits, greedy, temperature, top_k, top_p, uniform,
                   _plan=None):
     """logits (B, V) float32; greedy (B,) bool; temperature, top_p,
     uniform (B,) float32; top_k (B,) int32. Returns (B,) int32. ``_plan``
-    (tests and ``tile_sweep.py`` only): a ``SamplePlan`` to run instead of
+    (tests only): a ``SamplePlan`` to run instead of
     ``sample_plan``'s."""
     _check_rows("sample_tokens", logits, greedy, temperature, top_k, top_p,
                 uniform)

@@ -406,17 +406,15 @@ def _attn_apply(cfg, p, x, rope, *, mode: str, window: int = 0, cache=None,
 
 def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
                 pos=None, pages=None, write_at=None, n_valid=None,
-                moe_full_cap: bool = False, parallel_block: bool = False,
-                moe_sorted=None):
+                moe_dispatch: str = "factor", parallel_block: bool = False):
     """Pre-norm residual block: attention (dense, bidirectional in an
     ``encoder`` block, or local over ``cfg.local_window``), the RG-LRU
     mixer or the SSD mixer (``ssd_moe``), then the MLP (the MoE MLP in a
-    ``moe`` or ``ssd_moe`` block, at the whole group's capacity when
-    ``moe_full_cap``: the engine's "strict" policy; token-sorted given
-    ``moe_sorted``, ``moe.apply_moe``'s ``sorted_by``); or the SSD mixer
-    alone (``x + ssd(norm1(x))``, no MLP). Returns (x,
-    new_kv, aux): the prompt's (k, v) of an attention block in prefill
-    mode, else None, and the block's aux loss (the MoE block's Switch
+    ``moe`` or ``ssd_moe`` block, under ``moe_dispatch``:
+    ``moe.apply_moe``'s ``dispatch``); or the SSD mixer alone (``x +
+    ssd(norm1(x))``, no MLP). Returns (x, new_kv, aux): the prompt's (k,
+    v) of an attention block in prefill mode, else None, and the block's
+    aux loss (the MoE block's Switch
     load-balance term, a float32 scalar; 0.0 for any other block).
     ``cache`` is the block's paged pools (with ``pages``) or its rolling
     cache (ring or recurrent state, with the slots' positions ``pos`` in
@@ -454,8 +452,7 @@ def apply_block(cfg, btype: str, p, x, rope, *, mode: str, cache=None,
     x = _residual(cfg, x, a)
     h = L.apply_norm(cfg, p["norm2"], x)
     if "moe" in p:
-        m, aux = apply_moe(cfg, p["moe"], h, full_cap=moe_full_cap,
-                           sorted_by=moe_sorted)
+        m, aux = apply_moe(cfg, p["moe"], h, dispatch=moe_dispatch)
     else:
         m = apply_mlp(cfg, p["mlp"], h)
     return _residual(cfg, x, m), new_kv, aux
@@ -697,17 +694,17 @@ def _mlp_sharded(cfg, ps, xs):
             for x, h, p in zip(xs, hb, ps)]
 
 
-def _moe_grid(cfg, ps, hs, tp: int, split: bool, full_cap: bool):
+def _moe_grid(cfg, ps, hs, tp: int, split: bool, dispatch: str):
     """The MoE MLP over a grid: the reference routes and sizes capacity
     over the whole batch's token group, so the rows' blocks of the batch
     (``split``) are concatenated at each model coordinate, the first row's
     shards run ``apply_moe_sharded`` on the whole batch, and every row
     takes its block of the output (its own under a whole batch)."""
     if len(ps) == tp:
-        return apply_moe_sharded(cfg, ps, hs, full_cap=full_cap)
+        return apply_moe_sharded(cfg, ps, hs, dispatch=dispatch)
     whole = [gather(hs[m::tp], hs[m].device, dim=0) if split else hs[m]
              for m in range(tp)]
-    ys = apply_moe_sharded(cfg, ps[:tp], whole, full_cap=full_cap)
+    ys = apply_moe_sharded(cfg, ps[:tp], whole, dispatch=dispatch)
     out = []
     for j, h in enumerate(hs):
         y = ys[j % tp]
@@ -721,7 +718,7 @@ def _moe_grid(cfg, ps, hs, tp: int, split: bool, full_cap: bool):
 def apply_block_sharded(cfg, btype: str, ps, xs, ropes, *, mode: str,
                         tp: int = 0, split: bool = False, caches=None,
                         poss=None, pagess=None, write_ats=None,
-                        n_valids=None, moe_full_cap: bool = False):
+                        n_valids=None, moe_dispatch: str = "factor"):
     """``apply_block`` over a grid of shards: lists with one entry per
     shard, row-major over data rows of ``tp`` shards (``tp`` 0: one row
     of all of them); ``split`` when each row holds its block of the batch
@@ -755,7 +752,7 @@ def apply_block_sharded(cfg, btype: str, ps, xs, ropes, *, mode: str,
     hs = [L.apply_norm(cfg, p["norm2"], x) for x, p in zip(xs, ps)]
     if btype == "moe":
         m = _moe_grid(cfg, [p["moe"] for p in ps], hs, tp, split,
-                      moe_full_cap)
+                      moe_dispatch)
     else:
         m = by_rows(lambda p, h: _mlp_sharded(cfg, [q["mlp"] for q in p], h),
                     tp, ps, hs)

@@ -34,9 +34,9 @@ shard's device, where the sampler runs.
 
 Both steps take ``positions`` (3, B, S) for mrope (qwen2-vl: the stubbed
 vision frontend's three position streams; the reference's
-``batch["positions"]``) and ``moe_full_cap`` (MoE blocks at the whole
-group's capacity: the serving engine's "strict" policy, which the
-reference passes as a trace hint); ``forward`` also takes ``patches``
+``batch["positions"]``) and ``moe_dispatch`` (the MoE blocks' expert
+dispatch, ``moe.resolve_dispatch``: the reference passes full capacity
+as a trace hint); ``forward`` also takes ``patches``
 (B, P, d), precomputed patch embeddings fused ahead of the text tokens
 (``vision_text`` archs). An audio arch (hubert-xlarge) has no token
 embedding: ``forward`` takes its precomputed frame embeddings (B, S, d)
@@ -367,7 +367,7 @@ def _at(xs, logits_at):
 
 
 def _forward_sharded(cfg, shards, tokens, *, logits_at, want_kv, cache,
-                     positions, moe_full_cap):
+                     positions, moe_dispatch):
     """``forward`` (prefill mode) over a sharded replica: each data row
     over its block of the batch (or all of it), its model group
     tensor-parallel. kv, when wanted, is per shard the per-layer (k, v)
@@ -386,7 +386,7 @@ def _forward_sharded(cfg, shards, tokens, *, logits_at, want_kv, cache,
     for i, bt in enumerate(layer_types(cfg)):
         xs, kv = apply_block_sharded(
             cfg, bt, [p["layers"][i] for p in shards], xs, ropes,
-            mode="prefill", tp=tp, split=split, moe_full_cap=moe_full_cap,
+            mode="prefill", tp=tp, split=split, moe_dispatch=moe_dispatch,
             caches=None if cache is None else [c["layers"][i]
                                                for c in cache])
         for j in range(len(devs)):
@@ -400,7 +400,7 @@ def _forward_sharded(cfg, shards, tokens, *, logits_at, want_kv, cache,
 
 
 def _decode_sharded(cfg, shards, cache, tokens, *, logits_at, positions,
-                    moe_full_cap):
+                    moe_dispatch):
     """``decode_step`` over a sharded replica: each data row over its
     block of the slots (or all of them) from its shards' caches (its
     block of the rings and states; the pools whole and shared), every
@@ -429,7 +429,7 @@ def _decode_sharded(cfg, shards, cache, tokens, *, logits_at, positions,
             mode="decode", tp=tp, split=split,
             caches=[c["layers"][i] for c in cache], poss=poss,
             pagess=pagess, write_ats=write_ats, n_valids=n_valids,
-            moe_full_cap=moe_full_cap)
+            moe_dispatch=moe_dispatch)
     for c in cache:
         c["pos"].add_(s)
     ats = None if logits_at is None else [logits_at[x] for x in sl]
@@ -477,7 +477,7 @@ def _rope(cfg, positions, default):
     return L.rope_table(cfg, default() if positions is None else positions)
 
 
-def _train_layers(cfg, params, x, rope, moe_full_cap, parallel_block):
+def _train_layers(cfg, params, x, rope, moe_dispatch, parallel_block):
     """The layers in train mode: the body's repeats of the block pattern
     each recomputed in backward (``torch.utils.checkpoint``, non-
     reentrant: the reference's ``jax.checkpoint`` of each blockset with
@@ -490,7 +490,7 @@ def _train_layers(cfg, params, x, rope, moe_full_cap, parallel_block):
         aux = 0.0
         for bt, p in zip(types[lo:hi], params["layers"][lo:hi]):
             x, _, a = apply_block(cfg, bt, p, x, rope, mode="train",
-                                  moe_full_cap=moe_full_cap,
+                                  moe_dispatch=moe_dispatch,
                                   parallel_block=parallel_block)
             aux = aux + a
         return x, aux
@@ -512,8 +512,8 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
             want_kv: bool = False, cache: Optional[dict] = None,
             patches: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
-            moe_full_cap: bool = False, mode: str = "prefill",
-            parallel_block: bool = False, moe_sorted=None):
+            moe_dispatch: str = "factor", mode: str = "prefill",
+            parallel_block: bool = False):
     """Full-sequence forward, causal unless the arch is an encoder.
     tokens (B, S) integer, or an audio arch's frames (B, S, d);
     ``patches`` (B, P, d) go ahead of the tokens on a ``vision_text`` arch
@@ -530,8 +530,7 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
     (logits (B, S, V) float32, aux): aux is the float32 sum of the MoE
     blocks' Switch load-balance terms (0 on other archs). Under grad mode
     each repeat of the block pattern is recomputed in backward; nothing
-    is cached. ``moe_sorted`` (prefill on one card:
-    ``moe.apply_moe``'s ``sorted_by``) routes the MoE MLPs token-sorted."""
+    is cached."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"forward: mode {mode!r} not in ('prefill', "
                          f"'train')")
@@ -543,7 +542,7 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
         return _forward_sharded(cfg, params, tokens, logits_at=logits_at,
                                 want_kv=want_kv, cache=cache,
                                 positions=positions,
-                                moe_full_cap=moe_full_cap)
+                                moe_dispatch=moe_dispatch)
     x = _embed_inputs(cfg, params, tokens, patches)
     b, s = x.shape[:2]
     rope = _rope(cfg, positions, lambda: torch.arange(
@@ -552,7 +551,7 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
         if cache is not None or want_kv or logits_at is not None:
             raise ValueError("forward: mode 'train' takes no cache, "
                              "want_kv or logits_at")
-        x, aux = _train_layers(cfg, params, x, rope, moe_full_cap,
+        x, aux = _train_layers(cfg, params, x, rope, moe_dispatch,
                                parallel_block)
         return _logits(cfg, params, x), aux
     kvs = []
@@ -560,9 +559,8 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
                     else [None] * cfg.num_layers)
     for bt, p, c in zip(layer_types(cfg), params["layers"], layer_caches):
         x, kv, _ = apply_block(cfg, bt, p, x, rope, mode="prefill",
-                               cache=c, moe_full_cap=moe_full_cap,
-                               parallel_block=parallel_block,
-                               moe_sorted=moe_sorted)
+                               cache=c, moe_dispatch=moe_dispatch,
+                               parallel_block=parallel_block)
         if want_kv:
             kvs.append(kv)
     if cache is not None:
@@ -575,7 +573,7 @@ def forward(cfg, params, tokens, *, logits_at: Optional[torch.Tensor] = None,
 def decode_step(cfg, params, cache, tokens, *,
                 logits_at: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None,
-                moe_full_cap: bool = False, parallel_block: bool = False):
+                moe_dispatch: str = "factor", parallel_block: bool = False):
     """Incremental decode against the paged cache (``init_paged_cache``)
     or the rolling one (``init_cache``). tokens (B, S): S=1 is the
     one-token decode step, S > 1 a chunk of prefill (recurrent blocks
@@ -591,7 +589,7 @@ def decode_step(cfg, params, cache, tokens, *,
                              "option")
         return _decode_sharded(cfg, params, cache, tokens,
                                logits_at=logits_at, positions=positions,
-                               moe_full_cap=moe_full_cap)
+                               moe_dispatch=moe_dispatch)
     b, s = tokens.shape
     pos = cache["pos"]
     pages = cache.get("page_table")
@@ -609,7 +607,7 @@ def decode_step(cfg, params, cache, tokens, *,
     for bt, p, c in zip(layer_types(cfg), params["layers"], cache["layers"]):
         x, _, _ = apply_block(cfg, bt, p, x, rope, mode="decode", cache=c,
                               pos=pos, pages=pages, write_at=write_at,
-                              n_valid=n_valid, moe_full_cap=moe_full_cap,
+                              n_valid=n_valid, moe_dispatch=moe_dispatch,
                               parallel_block=parallel_block)
     cache["pos"].add_(s)  # after the layers' last read of the old value
     if logits_at is not None:

@@ -4,9 +4,9 @@
 Tokens are split into groups of ``g`` (``min(2048, t)``, halved until it
 divides the token count t). Each group routes its tokens to experts with
 a per-expert capacity ``c = max(int(g * k * capacity_factor / E) + 1,
-k)``, or ``c = g`` under the serving engine's "strict" policy
-(``full_cap``), which no routing pattern can overflow. A token past its
-expert's capacity is dropped: its residual passes through untouched.
+k)`` (dispatch "factor"), or ``c = g`` (dispatch "full"), which no
+routing pattern can overflow. A token past its expert's capacity is
+dropped: its residual passes through untouched.
 
 The routing is the reference's integer logic, step for step, so the same
 tokens are kept and dropped in both packages: float32 router logits and
@@ -31,15 +31,20 @@ k: the gates sum to 1. It enters the same capacity routing as the k
 picked gates, zeros elsewhere, so the k argmax rounds take the picks in
 descending order.
 
-Given ``sorted_by`` (an eager step: the engine's exact-length prefill
-under the "strict" policy), a MoE MLP routes token-sorted
+Dispatch "sorted" (an eager step on one card) routes token-sorted
 instead: each token goes through its own k experts only, in one grouped
 product over every expert's rows (``ops.moe_grouped``: two launches of a
 hand-written kernel on the card, the per-expert loop on the CPU), the
 per-expert offsets left on the device. It drops nothing, as full capacity
 does, and computes k rows a token where the (E, C) buffer computes E.
+
+``resolve_dispatch`` decides a serving step's dispatch from the engine's
+capacity policy and the kind of step; the engine and
+``EngineConfig.validate`` both ask it.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -75,6 +80,36 @@ def init_moe(cfg, gen, dtype, device):
         p["shared"] = init_mlp(cfg, gen, d, cfg.moe_shared_d_ff or ff, dtype,
                                device)
     return p
+
+
+def resolve_dispatch(policy: str, *, exact: bool = False,
+                     sharded: bool = False) -> str:
+    """The expert dispatch of a serving step under the engine's resolved
+    capacity ``policy``: "factor" (the (E, C) buffer at
+    ``moe_capacity_factor``) under "backpressure" and "drop"; under
+    "strict", "sorted" (token-sorted) for the eager exact-length prefill
+    (``exact``) on one card, else "full" (the buffer at the whole group),
+    a sharded replica's exact prefill included: the grid has no
+    token-sorted form."""
+    if policy != "strict":
+        return "factor"
+    return "sorted" if exact and not sharded else "full"
+
+
+_SORTED_SPAN = contextlib.nullcontext
+
+
+@contextlib.contextmanager
+def sorted_span(span):
+    """Inside, every token-sorted MoE MLP (its routed and shared experts)
+    runs inside ``span()``, a context manager: the serving engine's CUDA
+    event pair for its step timeline's ``moe`` device seconds."""
+    global _SORTED_SPAN
+    prev, _SORTED_SPAN = _SORTED_SPAN, span
+    try:
+        yield
+    finally:
+        _SORTED_SPAN = prev
 
 
 def _capacity(cfg, g: int, *, full: bool = False) -> int:
@@ -153,14 +188,15 @@ def route(cfg, probs, c: int):
     return combine, torch.stack(keeps, dim=-1), routed
 
 
-def _dispatch(cfg, p, x, group_size: int, full_cap: bool):
+def _dispatch(cfg, p, x, group_size: int, dispatch: str):
     """Route x (B, S, d) in groups and gather each expert's capacity
-    buffer: (combine (N, g, E*C) in x's dtype, the buffers xe (E, N*C, d),
-    probs (N, g, E) float32, the routed fraction (N, E))."""
+    buffer (``dispatch`` "factor" or "full"): (combine (N, g, E*C) in x's
+    dtype, the buffers xe (E, N*C, d), probs (N, g, E) float32, the
+    routed fraction (N, E))."""
     b, s, d = x.shape
     e = cfg.num_experts
     n, g = group_shape(b * s, group_size)
-    c = _capacity(cfg, g, full=full_cap)
+    c = _capacity(cfg, g, full=dispatch == "full")
     xg = x.reshape(n, g, d)
     logits = torch.matmul(xg.to(F32), p["router"].to(F32))  # (N, g, E)
     probs = torch.softmax(logits, dim=-1)
@@ -221,36 +257,33 @@ def _apply_sorted(cfg, p, x):
     return y.to(x.dtype).reshape(x.shape)
 
 
-def expert_rows(cfg, tokens: int, *, full_cap: bool, sorted_: bool = False,
-                group_size: int = 2048):
+def expert_rows(cfg, tokens: int, dispatch: str, group_size: int = 2048):
     """(routed pairs, expert-product rows) of one MoE layer over
-    ``tokens`` tokens, from the shapes alone: k pairs a token; the
-    token-sorted dispatch computes one row a pair, the capacity path
-    every slot of its (E, C) buffer in every group."""
+    ``tokens`` tokens under ``dispatch``, from the shapes alone: k pairs
+    a token; the token-sorted dispatch computes one row a pair, the
+    capacity path every slot of its (E, C) buffer in every group."""
     pairs = tokens * cfg.experts_per_token
-    if sorted_:
+    if dispatch == "sorted":
         return pairs, pairs
     n, g = group_shape(tokens, group_size)
-    return pairs, n * cfg.num_experts * _capacity(cfg, g, full=full_cap)
+    return pairs, n * cfg.num_experts * _capacity(cfg, g,
+                                                  full=dispatch == "full")
 
 
-def apply_moe(cfg, p, x, *, group_size: int = 2048, full_cap: bool = False,
-              sorted_by=None):
-    """x (B, S, d) -> (y (B, S, d), aux loss, a float32 scalar).
-    ``full_cap``: capacity of the whole group (the "strict" policy);
-    ``sorted_by``: token-sorted instead (``_apply_sorted``), dropless
-    too, with no aux loss; ``sorted_by()`` is the context manager around
-    the routed and shared experts (the engine's CUDA events, or
-    ``contextlib.nullcontext``)."""
+def apply_moe(cfg, p, x, *, group_size: int = 2048,
+              dispatch: str = "factor"):
+    """x (B, S, d) -> (y (B, S, d), aux loss, a float32 scalar), under
+    ``dispatch`` "factor", "full" or "sorted" (``_apply_sorted``:
+    dropless, no aux loss, inside ``sorted_span``'s span)."""
     from repro_torch.models.blocks import apply_mlp, mlp_hidden
 
-    if sorted_by is not None:
-        with sorted_by():
+    if dispatch == "sorted":
+        with _SORTED_SPAN():
             y = _apply_sorted(cfg, p, x)
             if cfg.moe_shared_expert:
                 y = y + apply_mlp(cfg, p["shared"], x)
         return y, 0.0
-    combine, xe, probs, routed = _dispatch(cfg, p, x, group_size, full_cap)
+    combine, xe, probs, routed = _dispatch(cfg, p, x, group_size, dispatch)
     ye = torch.bmm(mlp_hidden(cfg, p, xe, torch.bmm), p["w_down"])
     y = _combine(combine, ye, x.shape)
     if cfg.moe_shared_expert:
@@ -261,12 +294,13 @@ def apply_moe(cfg, p, x, *, group_size: int = 2048, full_cap: bool = False,
 
 
 def apply_moe_sharded(cfg, ps, xs, *, group_size: int = 2048,
-                      full_cap: bool = False):
+                      dispatch: str = "factor"):
     """``apply_moe`` over n shards (lists, one entry per shard, ``xs``
-    whole on every shard). Every shard routes all tokens with the whole
-    router (the same routing on each), then runs its block of the
-    experts: under expert parallelism (``w_up`` holds E / n experts) its
-    experts' outputs, concatenated over the expert axis on every shard;
+    whole on every shard), ``dispatch`` "factor" or "full". Every shard
+    routes all tokens with the whole router (the same routing on each),
+    then runs its block of the experts: under expert parallelism (``w_up``
+    holds E / n experts) its experts' outputs, concatenated over the
+    expert axis on every shard;
     with the experts split on ff, its block of their hidden,
     concatenated for the whole ``w_down``. Each shard then combines the
     whole (E, C) buffer with the single-card product: no shard adds
@@ -276,7 +310,7 @@ def apply_moe_sharded(cfg, ps, xs, *, group_size: int = 2048,
     e = cfg.num_experts
     combs, parts = [], []
     for j, (x, p) in enumerate(zip(xs, ps)):
-        combine, xe, _, _ = _dispatch(cfg, p, x, group_size, full_cap)
+        combine, xe, _, _ = _dispatch(cfg, p, x, group_size, dispatch)
         e_loc = p["w_up"].shape[0]
         if e_loc < e:  # expert parallel: this shard's experts
             xe = xe[j * e_loc:(j + 1) * e_loc]

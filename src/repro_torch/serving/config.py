@@ -263,22 +263,24 @@ class EngineConfig:
                     f"weights on 1-chip replicas or clear weight_dtype")
 
     def _validate_sorted_moe(self, cfg, device):
-        """Under the "strict" policy on one card's rolling caches, the
-        exact-length prefill routes the MoE layers token-sorted, through
-        the grouped expert kernel on a CUDA card, which takes bfloat16
-        only (``kernels/moe_grouped.py``): another dtype is refused here,
-        not at the first prompt."""
+        """Where an exact-length prefill would route the MoE layers
+        token-sorted (``moe.resolve_dispatch``), through the grouped expert
+        kernel on a CUDA card, which takes bfloat16 only
+        (``kernels/moe_grouped.py``), another dtype is refused here, not
+        at the first prompt."""
         import torch
 
         from repro_torch.models import paged_ok
+        from repro_torch.models.moe import resolve_dispatch
 
-        if (not cfg.num_moe_layers or self.topology.sharded
-                or cfg.dtype == "bfloat16"
-                or torch.device(device).type != "cuda"
-                or self.resolved_moe_policy(cfg) != "strict"):
+        if (not cfg.num_moe_layers or cfg.dtype == "bfloat16"
+                or torch.device(device).type != "cuda"):
             return
-        if (paged_ok(cfg) if self.paged is None else self.paged):
-            return  # paged prefill: the capacity path, in any dtype
+        # an exact-length prefill runs on rolling caches only
+        rolling = not (paged_ok(cfg) if self.paged is None else self.paged)
+        if resolve_dispatch(self.resolved_moe_policy(cfg), exact=rolling,
+                            sharded=self.topology.sharded) != "sorted":
+            return
         raise ValueError(
             f"{cfg.name} in {cfg.dtype} under moe_capacity_policy="
             f"\"strict\" on rolling caches: the exact-length prefill's "

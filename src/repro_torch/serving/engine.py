@@ -34,7 +34,7 @@ with its gather and its scatter. Exact-length prefill (recurrentgemma,
 whose recurrent state forbids end padding) runs eagerly, on a key per
 prompt length that is counted as the reference counts its retrace
 (``prefill/exact{L}``) and never captured; under the "strict" policy its
-MoE layers route token-sorted (``models.moe.apply_moe``'s ``sorted_by``:
+MoE layers route token-sorted (``models.moe.resolve_dispatch``'s "sorted":
 k expert rows a token, not the (E, C) buffer, in one grouped product with
 no host read). The probes ``prefill_traces`` and ``decode_traces`` count
 the keys as the reference counts its traces; on the CPU the same steps run
@@ -117,7 +117,12 @@ from repro_torch.models.blocks import (
     last_writer,
     quantize_kv,
 )
-from repro_torch.models.moe import drop_free_group, expert_rows
+from repro_torch.models.moe import (
+    drop_free_group,
+    expert_rows,
+    resolve_dispatch,
+    sorted_span,
+)
 from repro_torch.serving import prng
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.graphs import StepGraphs, StepTimeline
@@ -187,8 +192,7 @@ def mrope_positions(cfg, start, s: int):
 
 
 def rolling_prefill_step(cfg, params, tokens, true_len, *, window: int,
-                         kv_dtype: str = "", moe_full_cap: bool = False,
-                         moe_sorted=None):
+                         kv_dtype: str = "", moe_dispatch: str = "factor"):
     """Prefill a prompt into a fresh rolling cache (``init_cache``, rings
     of ``window``; ``kv_dtype`` "int8": int8 rings with per-token scales):
     tokens (B, L) is the prompt at its exact length (L = ``true_len``,
@@ -198,9 +202,9 @@ def rolling_prefill_step(cfg, params, tokens, true_len, *, window: int,
     keeps the pads out of the true tokens' keys; ``pos`` is clamped to
     ``true_len``, so decode's validity mask hides the pad rows until its
     writes replace them. ``true_len`` is an int or a (1,) device tensor
-    (the engine's captured buckets). ``moe_full_cap``: MoE blocks at the
-    whole group's capacity (the "strict" policy), in this and every step
-    below; ``moe_sorted`` (one card, eager) token-sorted instead. Returns
+    (the engine's captured buckets). ``moe_dispatch``: the MoE blocks'
+    expert dispatch (``moe.resolve_dispatch``), in this and every step
+    below. Returns
     (first greedy token (B,) int32, last-true-position logits (B, V),
     cache)."""
     b = tokens.shape[0]
@@ -213,8 +217,7 @@ def rolling_prefill_step(cfg, params, tokens, true_len, *, window: int,
                            kv_dtype=kv_dtype)
     n = _dev_index(true_len, tokens.device)
     last, _ = forward(cfg, params, tokens, logits_at=(n - 1).expand(b),
-                      cache=cache, moe_full_cap=moe_full_cap,
-                      moe_sorted=moe_sorted,
+                      cache=cache, moe_dispatch=moe_dispatch,
                       positions=mrope_positions(cfg, _pos(cache),
                                                 tokens.shape[1]))
     for c in _shards(cache):
@@ -279,7 +282,7 @@ def cache_insert(cache, single, slot):
 
 
 def paged_prefill_step(cfg, params, tokens, true_len, *,
-                       moe_full_cap: bool = False):
+                       moe_dispatch: str = "factor"):
     """Prefill a prompt padded at the end to a bucket: tokens (1, L). The
     pad keys are hidden from the true tokens by causality. ``true_len`` is
     an int or a (1,) device tensor, so one captured bucket serves every
@@ -289,7 +292,7 @@ def paged_prefill_step(cfg, params, tokens, true_len, *,
     n = _dev_index(true_len, tokens.device)
     b, s = tokens.shape
     last, kv = forward(cfg, params, tokens, logits_at=(n - 1).expand(b),
-                       want_kv=True, moe_full_cap=moe_full_cap,
+                       want_kv=True, moe_dispatch=moe_dispatch,
                        positions=mrope_positions(
                            cfg, torch.zeros((b,), dtype=torch.int64,
                                             device=tokens.device), s))
@@ -346,7 +349,7 @@ def pages_insert(cache, kv, pages, slot, true_len, *, scale_group: int = 0,
 
 
 def prefill_chunk_step(cfg, params, cache, tokens, true_len, *,
-                       moe_full_cap: bool = False):
+                       moe_dispatch: str = "factor"):
     """One chunk of incremental prefill into a B=1 linear buffer (or a
     ring the padded prompt fits in) through the multi-token decode path:
     tokens (1, C) may carry end padding on the final chunks; the advanced
@@ -360,7 +363,7 @@ def prefill_chunk_step(cfg, params, cache, tokens, true_len, *,
     at = torch.clamp(n - 1 - start, 0, c - 1)
     last = decode_step(cfg, params, cache, tokens, logits_at=at,
                        positions=mrope_positions(cfg, start, c),
-                       moe_full_cap=moe_full_cap)
+                       moe_dispatch=moe_dispatch)
     for sh in _shards(cache):
         pos = sh["pos"]
         pos.copy_(torch.minimum(pos, n.to(pos.device, pos.dtype)))
@@ -501,7 +504,7 @@ def draw_tokens(last, samp, pos, *, partitionable: bool = True,
 
 def decode_tick(cfg, params, cache, tokens, samp, *,
                 partitionable: bool = True, uniform=None,
-                moe_full_cap: bool = False):
+                moe_dispatch: str = "factor"):
     """One decode step for every slot: ``tokens`` (B,) is the device-
     resident last-token carry (an idle slot's lane decodes on, as the
     reference's: on a MoE arch its token routes and takes capacity too).
@@ -510,14 +513,14 @@ def decode_tick(cfg, params, cache, tokens, samp, *,
     int32; the cache advances in place."""
     logits = decode_step(cfg, params, cache, tokens[:, None],
                          positions=mrope_positions(cfg, _pos(cache), 1),
-                         moe_full_cap=moe_full_cap)
+                         moe_dispatch=moe_dispatch)
     return draw_tokens(logits[:, -1], samp, _pos(cache),
                        partitionable=partitionable, uniform=uniform)
 
 
 def decode_scan_step(cfg, params, cache, tokens, samp, *, n: int,
                      out=None, partitionable: bool = True,
-                     moe_full_cap: bool = False):
+                     moe_dispatch: str = "factor"):
     """``n`` decode ticks back to back with no host sync between them (the
     reference's fused ``lax.scan`` window). Returns (final tokens (B,),
     token history (n, B) int32) — the caller syncs the history once. The
@@ -529,7 +532,7 @@ def decode_scan_step(cfg, params, cache, tokens, samp, *, n: int,
     for i in range(n):
         tokens = decode_tick(cfg, params, cache, tokens, samp,
                              partitionable=partitionable, uniform=us[i],
-                             moe_full_cap=moe_full_cap)
+                             moe_dispatch=moe_dispatch)
         hist[i].copy_(tokens)
     return tokens, hist
 
@@ -835,9 +838,6 @@ class ServingEngine:
         # MoE capacity policy: overflow as typed backpressure, or none
         self.moe_capacity_policy = (config.resolved_moe_policy(cfg)
                                     if cfg.num_moe_layers else "")
-        # "strict": every model step at the whole group's capacity, the
-        # eager exact-length prefill token-sorted
-        self._moe_full_cap = self.moe_capacity_policy == "strict"
         self._moe_gmax = 0  # drop-free group bound (backpressure only)
         if self.moe_capacity_policy == "backpressure":
             self._moe_gmax = drop_free_group(cfg)
@@ -1389,48 +1389,42 @@ class ServingEngine:
             true_len = self._wait("exact.len", _dev_index, plen, self.device)
             at = self._wait("exact.slot", _dev_index, slot, self.device)
 
+            moe = self._moe_dispatch(exact=True)
+
             def exact():
                 tok, last, single = rolling_prefill_step(
                     self.cfg, self.params, tokens, true_len,
-                    window=self.window, moe_full_cap=self._moe_full_cap,
-                    moe_sorted=self._moe_sorted())
+                    window=self.window, moe_dispatch=moe)
                 cache_insert(self.cache, single, at)
                 return tok, last
 
-            tok, last = self.graphs.run("prefill", "exact", plen, exact,
-                                        capture=False)
-            self._count_moe(plen, sorted_=self._moe_full_cap)
+            tl = self._tl
+            with (sorted_span(lambda: tl.device_span("moe"))
+                  if moe == "sorted" and tl is not None and tl.events
+                  else contextlib.nullcontext()):
+                tok, last = self.graphs.run("prefill", "exact", plen, exact,
+                                            capture=False)
+            self._count_moe(moe, plen)
         self.prefill_calls += 1
         n_tabled = (self.allocator.pages_for(padded.shape[1]) if self.paged
                     else 0)
         self._activate(req, slot, tok, last, now, n_tabled)
 
-    def _moe_sorted(self):
-        """The exact-length prefill's MoE dispatch: token-sorted under the
-        "strict" policy, given as the context manager factory around each
-        layer's MoE MLP (with the step timeline's events, a CUDA event
-        pair, its prefill span's ``moe`` device seconds), else None: the
-        step's own."""
-        if not self._moe_full_cap:
-            return None
-        tl = self._tl
-        if tl is not None and tl.events:
-            return lambda: tl.device_span("moe")
-        return contextlib.nullcontext
+    def _moe_dispatch(self, exact: bool = False) -> str:
+        """The MoE dispatch of a step (``moe.resolve_dispatch``):
+        ``exact``, the eager exact-length prefill; else a captured
+        step."""
+        return resolve_dispatch(self.moe_capacity_policy, exact=exact,
+                                sharded=self.mesh is not None)
 
-    def _count_moe(self, tokens: int, ticks: int = 1, *,
-                   sorted_: bool = False):
+    def _count_moe(self, dispatch: str, tokens: int, ticks: int = 1):
         """``ServeMetrics``' MoE counters for ``ticks`` model steps of
-        ``tokens`` tokens each, from the shapes (no device read): routed
-        (token, expert) pairs, idle lanes' included, and the expert
-        products' rows, over every MoE layer. Nothing is dropped under
-        the "strict" and "backpressure" policies; a "drop" engine's drops
-        would need a device read, and are not counted."""
+        ``tokens`` tokens each under ``dispatch``, from the shapes (no
+        device read): routed (token, expert) pairs, idle lanes' included,
+        and the expert products' rows, over every MoE layer."""
         if not self.moe_capacity_policy:
             return
-        pairs, rows = expert_rows(self.cfg, tokens,
-                                  full_cap=self._moe_full_cap,
-                                  sorted_=sorted_)
+        pairs, rows = expert_rows(self.cfg, tokens, dispatch)
         n = ticks * self.cfg.num_moe_layers
         self.metrics.moe_routed_pairs += n * pairs
         self.metrics.moe_expert_rows += n * rows
@@ -1458,11 +1452,11 @@ class ServingEngine:
         self._wait("bucket.args", args.copy_,
                    torch.tensor([plen, slot, *pages], dtype=torch.int64))
         true_len, at = args[0:1], args[1:2]
+        moe = self._moe_dispatch()
 
         def paged():
             tok, last, kv = paged_prefill_step(
-                self.cfg, self.params, tokens, true_len,
-                moe_full_cap=self._moe_full_cap)
+                self.cfg, self.params, tokens, true_len, moe_dispatch=moe)
             pages_insert(self.cache, kv, args[2:], at, true_len,
                          scale_group=self.kv_scale_group)
             return tok, last
@@ -1470,11 +1464,11 @@ class ServingEngine:
         def bucket():
             tok, last, single = rolling_prefill_step(
                 self.cfg, self.params, tokens, true_len, window=self.window,
-                moe_full_cap=self._moe_full_cap)
+                moe_dispatch=moe)
             cache_insert(self.cache, single, at)
             return tok, last
 
-        self._count_moe(length)
+        self._count_moe(moe, length)
         if self.paged:
             return self.graphs.run("prefill", "paged", length, paged)
         return self.graphs.run("prefill", "bucket", length, bucket)
@@ -1547,17 +1541,19 @@ class ServingEngine:
             np.array([start, plen, slot], np.int64), gpages,
             info.scatter_pages, info.table_pages])))
 
+        moe = self._moe_dispatch()
+
         def suffix():
             lin = self._lin_sfx
             prefix_seed_cache(self.cache, lin, args[3:3 + p], args[0:1])
             tok, last = prefill_chunk_step(
                 self.cfg, self.params, lin, tokens, args[1:2],
-                moe_full_cap=self._moe_full_cap)
+                moe_dispatch=moe)
             pages_insert_prefix(self.cache, lin, args[3 + p:3 + 2 * p],
                                 args[3 + 2 * p:], args[2:3], args[1:2])
             return tok, last
 
-        self._count_moe(width)
+        self._count_moe(moe, width)
         return self.graphs.run("prefill", "suffix", width, suffix)
 
     def _start_chunked(self, req: Request, slot: int, now: float):
@@ -1598,7 +1594,7 @@ class ServingEngine:
                        torch.tensor([job.true_len], dtype=torch.int64))
             tok, last = self.graphs.run("aux", "chunk", self.chunk,
                                         self._chunk_step)
-            self._count_moe(self.chunk)
+            self._count_moe(self._moe_dispatch(), self.chunk)
             job.next_off += self.chunk
             if off <= job.true_len - 1 < job.next_off:
                 # the first token's logits live in the chunk holding
@@ -1616,7 +1612,7 @@ class ServingEngine:
     def _chunk_step(self):
         tokens, args = self._chunk_in
         return prefill_chunk_step(self.cfg, self.params, self._lin, tokens,
-                                  args, moe_full_cap=self._moe_full_cap)
+                                  args, moe_dispatch=self._moe_dispatch())
 
     def _take_buffer(self, job: _PrefillJob):
         """The head job takes the working buffer: a prefix hit gathers its
@@ -1787,7 +1783,8 @@ class ServingEngine:
                 self._ensure_headroom(self.sync_every, now)
             self.graphs.run("decode", "scan", self.sync_every, self._window)
             self.metrics.decode_ticks += self.sync_every
-            self._count_moe(self.slots, self.sync_every)
+            self._count_moe(self._moe_dispatch(), self.slots,
+                            self.sync_every)
             self._advance_pos(self.sync_every)
             self._distribute(self._wait("window", self._hist.cpu,
                                         delivery=True).numpy(), now)
@@ -1799,7 +1796,7 @@ class ServingEngine:
         self._hist[self._unsynced].copy_(self._tokens)
         self._unsynced += 1
         self.metrics.decode_ticks += 1
-        self._count_moe(self.slots)
+        self._count_moe(self._moe_dispatch(), self.slots)
         self._advance_pos(1)
         pend = self._unsynced
         if (pend >= self.sync_every
@@ -1813,7 +1810,7 @@ class ServingEngine:
         """The single decode tick, as a step: the carry in, the carry out."""
         nxt = decode_tick(self.cfg, self.params, self.cache, self._tokens,
                           self._samp, partitionable=self.partitionable,
-                          moe_full_cap=self._moe_full_cap)
+                          moe_dispatch=self._moe_dispatch())
         self._tokens.copy_(nxt)
 
     def _window(self):
@@ -1823,7 +1820,7 @@ class ServingEngine:
             self.cfg, self.params, self.cache, self._tokens, self._samp,
             n=self.sync_every, out=self._hist,
             partitionable=self.partitionable,
-            moe_full_cap=self._moe_full_cap)
+            moe_dispatch=self._moe_dispatch())
         self._tokens.copy_(toks)
 
     # -- lifecycle: cancel / timeout / shed ----------------------------------

@@ -377,7 +377,6 @@ class ServeMetrics:
     # not in ``registry``, which mirrors the reference's exposition) ---
     moe_routed_pairs: int = 0  # (token, expert) pairs, idle lanes' too
     moe_expert_rows: int = 0  # rows the expert products computed
-    moe_dropped: int = 0  # pairs past capacity: 0 under dropless policies
     # --- multi-tenant overload control (keyed by Request.tenant; untagged
     # traffic stays out of this dict, so the single-tenant path is free) ---
     tenants: Dict[str, TenantMetrics] = field(default_factory=dict)
@@ -470,7 +469,6 @@ class ServeMetrics:
         self.failed_over += other.failed_over
         self.moe_routed_pairs += other.moe_routed_pairs
         self.moe_expert_rows += other.moe_expert_rows
-        self.moe_dropped += other.moe_dropped
         for name, tm in other.tenants.items():
             self.tenant(name).merge(tm)
 

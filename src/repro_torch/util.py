@@ -12,7 +12,7 @@ that change results are explicit options here: ``parallel_block`` is
 ``apply_block`` / ``forward`` / ``decode_step`` / ``train_step``'s
 ``parallel_block=``, and ``kv_seq`` is the dry run's ``--opt kv_seq``
 (``launch/dryrun.py``, the policy's ``kv_shard="seq"``); so are
-``moe_full_cap`` (``models/moe.py``'s ``full_cap``) and
+the full-capacity MoE hint (``models/moe.py``'s dispatch "full") and
 ``kv_scale_page`` (the engine's ``kv_scale_group``). The rest have no
 PyTorch counterpart, one line each:
 

@@ -15,7 +15,6 @@ exact, and a repeat call bit-identical; the SSD decode step's state
 2e-5 (float32 throughout, the sum over N in another order); the grouped
 MoE product 4 units of 2^-8 sum |h w_down| (bf16, h rounded once where
 the plain loop rounds it four times)."""
-import contextlib
 
 import numpy as np
 import pytest
@@ -1556,9 +1555,9 @@ def test_sorted_moe_layer_launches_the_kernel_twice(dev):
                     generator=torch.Generator(device=dev).manual_seed(3))
     before = ops.LAUNCHES["moe_grouped"]
     with torch.no_grad():
-        y, _ = tmoe.apply_moe(cfg, m, x, sorted_by=contextlib.nullcontext)
+        y, _ = tmoe.apply_moe(cfg, m, x, dispatch="sorted")
         y_cpu, _ = tmoe.apply_moe(cfg, _to(m, "cpu"), x.cpu(),
-                                  sorted_by=contextlib.nullcontext)
+                                  dispatch="sorted")
     assert ops.LAUNCHES["moe_grouped"] == before + 2
     torch.testing.assert_close(y.cpu().float(), y_cpu.float(),
                                atol=TOL[torch.bfloat16],

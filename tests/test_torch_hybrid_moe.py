@@ -9,7 +9,8 @@ against the per-expert loop it replaced, bit for bit; the SSD
 mixer without a conv bias as it computed before the bias existed, bit
 for bit; grok's and llama4's routing as the unchanged ``route`` gives
 it; the engine's MoE counters, step-timeline counts and sync sites (no
-``moe.counts``) and cache bytes; ``validate()`` refusing the new blocks
+``moe.counts``) and cache bytes; the one resolver of the MoE dispatch
+and the device span's hook; ``validate()`` refusing the new blocks
 on a grid, and a token-sorted prefill in a dtype the card's grouped
 kernel does not take."""
 import contextlib
@@ -72,7 +73,7 @@ def test_router_gates_sum_to_one_over_the_picks():
     d = cfg.d_model
     p = {"router": torch.randn(d, 72, generator=g) * d ** -0.5}
     x = torch.randn(2, 16, d, generator=g)
-    combine, _, _, _ = tmoe._dispatch(cfg, p, x, 2048, True)
+    combine, _, _, _ = tmoe._dispatch(cfg, p, x, 2048, "full")
     per = combine.reshape(32, 72, -1).sum(-1)
     gates, idx = tmoe.top_gates(cfg, x.reshape(32, d) @ p["router"])
     want = torch.zeros(32, 72).scatter_(-1, idx, gates)
@@ -95,9 +96,8 @@ def test_sorted_dispatch_equals_full_capacity_dropping_nothing():
     x = torch.randn(1, 40, cfg.d_model, generator=torch.Generator()
                     .manual_seed(2))
     with torch.no_grad():
-        full, _ = tmoe.apply_moe(cfg, m, x, full_cap=True)
-        srt, aux = tmoe.apply_moe(cfg, m, x,
-                                  sorted_by=contextlib.nullcontext)
+        full, _ = tmoe.apply_moe(cfg, m, x, dispatch="full")
+        srt, aux = tmoe.apply_moe(cfg, m, x, dispatch="sorted")
         capped, _ = tmoe.apply_moe(cfg, m, x)
     _, idx = tmoe.top_gates(cfg, x.reshape(40, -1) @ m["router"])
     offsets = tmoe.expert_offsets(idx, 8)
@@ -121,8 +121,8 @@ def test_sorted_dispatch_equals_full_capacity_dropping_nothing():
     _, keep, _ = tmoe.route(one, probs, tmoe._capacity(one, 40))
     assert not bool(keep.all())
     torch.testing.assert_close(capped, full)  # factor 8: nothing binds
-    assert tmoe.expert_rows(cfg, 40, full_cap=True, sorted_=True) == (80, 80)
-    assert tmoe.expert_rows(cfg, 40, full_cap=True) == (80, 8 * 40)
+    assert tmoe.expert_rows(cfg, 40, "sorted") == (80, 80)
+    assert tmoe.expert_rows(cfg, 40, "full") == (80, 8 * 40)
 
 
 def _loop_before(cfg, p, x):
@@ -305,14 +305,15 @@ def test_grok_and_llama4_route_as_before(name, full):
     x = torch.randn(3, 16, cfg.d_model,
                     generator=torch.Generator().manual_seed(8))
     with torch.no_grad():
-        combine, _, probs, _ = tmoe._dispatch(cfg, m, x, 2048, full)
+        dispatch = "full" if full else "factor"
+        combine, _, probs, _ = tmoe._dispatch(cfg, m, x, 2048, dispatch)
         n, g = tmoe.group_shape(48)
         c = tmoe._capacity(cfg, g, full=full)
         want = torch.softmax(x.reshape(n, g, -1) @ m["router"], dim=-1)
         assert torch.equal(probs, want)
         cw, _, _ = tmoe.route(cfg, want, c)
         assert torch.equal(combine, cw.to(x.dtype).reshape(n, g, -1))
-        _, aux = tmoe.apply_moe(cfg, m, x, full_cap=full)
+        _, aux = tmoe.apply_moe(cfg, m, x, dispatch=dispatch)
         assert float(aux) > 0
 
 
@@ -353,7 +354,7 @@ def test_engine_counts_moe_work_and_cache_bytes():
         seq = np.concatenate([r.prompt, np.asarray(r.output[:-1], np.int32)])
         with torch.no_grad():
             lg, _ = forward(cfg, params, torch.from_numpy(seq)[None].long(),
-                            moe_full_cap=True)
+                            moe_dispatch="full")
         assert r.output == lg[0, len(r.prompt) - 1:].argmax(-1).tolist()
         pre = next(s for s in r.trace.spans if s.kind == "prefill").timing
         assert "moe.counts" not in pre.syncs
@@ -367,7 +368,6 @@ def test_engine_counts_moe_work_and_cache_bytes():
     ticks = met.decode_ticks
     assert met.moe_routed_pairs == layers * k * (plen + ticks * slots)
     assert met.moe_expert_rows == layers * (k * plen + ticks * slots * e)
-    assert met.moe_dropped == 0
     rep = eng.load_report()
     conv = (cfg.conv_kernel - 1) * (cfg.d_inner + 2 * cfg.ssm_state_dim)
     state = cfg.ssm_num_heads * cfg.ssm_head_dim * cfg.ssm_state_dim
@@ -376,6 +376,91 @@ def test_engine_counts_moe_work_and_cache_bytes():
     wire = rep.to_dict()
     assert "state_bytes" not in wire and "kv_ring_bytes" not in wire
     assert type(rep).from_dict(wire) == rep
+
+
+@pytest.mark.parametrize("step", ["exact", "sharded exact", "captured"])
+@pytest.mark.parametrize("policy", ["strict", "backpressure", "drop"])
+def test_one_resolver_decides_the_moe_dispatch(policy, step, monkeypatch):
+    """``moe.resolve_dispatch``: token-sorted only for the eager exact
+    prefill on one card under "strict", the whole group for every other
+    "strict" step (a sharded replica's exact prefill too), the factor
+    under the other policies. ``validate()`` refuses a float32 card
+    exactly where it says token-sorted. On one card the engine serves
+    with it: the MoE hook (``moe.sorted_span``: the step timeline's
+    ``moe`` device span) is entered around each MoE layer of a
+    token-sorted exact prefill and nowhere else, and every step counts
+    the rows of the dispatch it took."""
+    exact, sharded = step != "captured", step == "sharded exact"
+    want = ("factor" if policy != "strict"
+            else "sorted" if step == "exact" else "full")
+    assert tmoe.resolve_dispatch(policy, exact=exact,
+                                 sharded=sharded) == want
+    grok = get_config("grok-1-314b").reduced()
+    config = EngineConfig(moe_capacity_policy=policy, paged=not exact,
+                          topology=DeviceTopology(tp=2 if sharded else 1))
+    if want == "sorted":
+        with pytest.raises(ValueError, match="another capacity policy"):
+            config.validate(grok, devices=["cpu"], device="cuda")
+    else:
+        config.validate(grok, devices=["cpu"] * (2 if sharded else 1),
+                        device="cuda")
+    if sharded:
+        return
+    cfg = tiny()
+    slots = 3
+    eng = ServingEngine(cfg, init_params(cfg, 0, "cpu"), EngineConfig(
+        slots=slots, window=128, sync_every=4, moe_capacity_policy=policy,
+        tracing=True), device="cpu")
+    assert eng._moe_dispatch(exact=exact) == want
+    # the timeline as on a card (no CUDA events on the CPU): each step
+    # noted, the device span recorded
+    tl, now, spans, sorted_calls = eng._tl, [None], [], []
+
+    def step_(run, kind, name, n, step, capture):
+        now[0] = (kind, name)
+        try:
+            return run(kind, name, n, step, capture)
+        finally:
+            now[0] = None
+
+    @contextlib.contextmanager
+    def device_span(kind):
+        spans.append((kind, now[0]))
+        now.append("in span")
+        try:
+            yield
+        finally:
+            now.pop()
+
+    apply_sorted = tmoe._apply_sorted
+
+    def spy(*a):
+        sorted_calls.append(now[-1])
+        return apply_sorted(*a)
+
+    monkeypatch.setattr(tl, "events", True)
+    monkeypatch.setattr(tl, "step", step_)
+    monkeypatch.setattr(tl, "device_span", device_span)
+    monkeypatch.setattr(tmoe, "_apply_sorted", spy)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 23)]
+    reqs = _serve(eng, prompts)
+    layers = cfg.num_moe_layers
+    n_sorted = layers * len(prompts) if policy == "strict" else 0
+    assert spans == [("moe", ("prefill", "exact"))] * n_sorted
+    assert sorted_calls == ["in span"] * n_sorted
+    prefill = eng._moe_dispatch(exact=True)
+    for r in reqs:
+        pre = next(s for s in r.trace.spans if s.kind == "prefill").timing
+        assert (pre.counts["moe_routed_pairs"], pre.counts[
+            "moe_expert_rows"]) == tuple(layers * v for v in tmoe.expert_rows(
+                cfg, len(r.prompt), prefill))
+    met = eng.metrics
+    decode = layers * met.decode_ticks * tmoe.expert_rows(
+        cfg, slots, eng._moe_dispatch())[1]
+    assert met.moe_expert_rows == decode + sum(
+        layers * tmoe.expert_rows(cfg, len(p), prefill)[1] for p in prompts)
 
 
 @pytest.mark.parametrize("dtype,policy,paged,device,refused", [

@@ -218,7 +218,8 @@ def test_apply_moe_matches_jax(arch, monkeypatch, cf, full, shared, group):
     k = tc.experts_per_token
     (want, want_aux), want_keep = _jax_keep(monkeypatch, run_jax, k)
     (got, aux), keep = _torch_keep(monkeypatch, lambda: tmoe.apply_moe(
-        tc, tm_p, torch.from_numpy(x), group_size=group, full_cap=full))
+        tc, tm_p, torch.from_numpy(x), group_size=group,
+        dispatch="full" if full else "factor"))
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=TOL, rtol=0)
     np.testing.assert_allclose(float(aux), float(want_aux), atol=TOL,
                                rtol=0)
