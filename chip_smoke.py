@@ -32,7 +32,10 @@ after phase 13, on its tables, and phase 14 after phase 15; phase 15
    prefill attention also at phase 12's exact prompt lengths (S 514 and
    121, off the tile, 32/8 heads). bf16 paged decode over model-dtype
    and int8 pools (the one-launch twin-order kernel) also prints its
-   error in units of 2^-8 sum p|v| and must repeat bit for bit. Then recurrentgemma-9b's
+   error in units of 2^-8 sum p|v| and must repeat bit for bit; over bf16
+   pools it is also timed at granite-8b's served docqa pools (32 slots of
+   2000-3299 rows in pools of 4096, S 1), where it must equal its plain
+   version bit for bit, with the twin-order blocks an SM holds. Then recurrentgemma-9b's
    shapes: windowed prefill attention (S 2560, 16 q heads over 1 kv head,
    head_dim 256, window 2048), rolling-cache decode attention (8 rings of
    2048, S 1 and 4, rings partly filled to wrapped; bf16 on the one-pass
@@ -570,6 +573,69 @@ def paged_decode_kernel(torch, rec, gen, H, KVH, D, s_list, rec_key, B=8):
     return ok
 
 
+def paged_decode_served(torch, rec):
+    """bf16 paged decode at granite-8b's served docqa pools: 32 slots of
+    2000-3299 valid rows (about 2.6k on average) in pools of 4096 rows a
+    slot (256 pages of 16), 32/8 heads, D 128, S 1, from a generator of
+    its own (every other check keeps its inputs): one launch a call, bit
+    for bit against its plain version and on a repeat call, timed beside
+    the plain version,
+    with its bound and the twin-order blocks each SM holds at the plan.
+    ``rec["paged_decode_attention_served"]`` takes the row."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import layers as L
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(34)
+    B, n_pages, ps, H, KVH, D = 32, 256, 16, 32, 8, 128
+    P = B * n_pages + 1
+    # 2 pool pairs of 537 MB, each past the 50 MB L2
+    pools = [tuple(torch.randn((P, ps, KVH, D), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(2)) for _ in range(2)]
+    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    tab = perm[:B * n_pages].reshape(B, n_pages).to(torch.int32)
+    pos = torch.randint(2000, 3300, (B,), generator=gen,
+                        device=dev).to(torch.int32)
+    q = torch.randn((B, 1, H, D), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    n0 = ops.LAUNCHES["paged_decode_attention"]
+    got = ops.paged_decode_attention(q, *pools[0], tab, pos)
+    launches = ops.LAUNCHES["paged_decode_attention"] - n0
+    want = L.paged_decode_attention(q, *pools[0], tab, pos)
+    err = (got.float() - want.float()).abs().max().item()
+    good = launches == 1 and bool(torch.equal(got, want)) and bool(
+        torch.equal(got, ops.paged_decode_attention(q, *pools[0], tab,
+                                                    pos)))
+    ms = time_ms(torch, lambda i: ops.paged_decode_attention(
+        q, *pools[i % 2], tab, pos))
+    plain = time_ms(torch, lambda i: L.paged_decode_attention(
+        q, *pools[i % 2], tab, pos), iters=4, warm=1)
+    valid = int(pos.sum())
+    nbytes = 2 * (2 * valid * KVH * D + 2 * q.numel()) + 4 * (tab.numel()
+                                                              + B)
+    b_ms, b_by = bound(nbytes, 4.0 * valid * H * D, "bfloat16")
+    rows, window = H // KVH, n_pages * ps
+    nsplit, per, keep, stages = da.paged_plan_sm90(B, KVH, window, rows, D,
+                                                   False)
+    blocks = build.load().value("paged_decode_twin_blocks_per_sm", D, rows,
+                                window, nsplit, int(keep), stages)
+    print(f"paged decode bfloat16 served S=1 H={H}/{KVH} D={D}, {B} slots "
+          f"of {valid / B:.0f} rows on average in pools of {window}: "
+          f"max_abs_err={err:.3g}, bit for bit (and on a repeat call): "
+          f"{good}, {launches} launch(es) a call "
+          f"{'ok' if good else 'FAIL'} ms={ms:.4f} plain_ms="
+          f"{plain:.4f} bound_ms={b_ms:.5f} ({b_by}); plan {nsplit} "
+          f"splits, keep {keep}, {stages} ring slots, {blocks} blocks an "
+          f"SM", flush=True)
+    rec["paged_decode_attention_served"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, launches=launches)
+    del pools
+    return good
+
+
 def phase_kernels(torch, rec):
     """Phase 2: every kernel against its plain version, full width."""
     from repro_torch.kernels import ops, ref
@@ -604,6 +670,7 @@ def phase_kernels(torch, rec):
     B = 8
     ok &= paged_decode_kernel(torch, rec, gen, H, KVH, D, (1, 4, 8),
                               "paged_decode_attention")
+    ok &= paged_decode_served(torch, rec)
     ok &= chunk_decode_kernel(torch, rec, gen, H, KVH, D)
     # phase 12's serve_step: 8 rings of 1024 at the static batch's
     # positions mid-run (phase 4's first 8 prompts, 32 ticks on); drawn
@@ -4613,6 +4680,11 @@ def main() -> int:
         "paged_decode_attention": dict(
             name="paged_decode_attention", route="cuda",
             source=f"{csrc}/paged_decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:167"),
+        "paged_decode_attention_served": dict(
+            name="paged_decode_attention (granite-8b docqa's pools: 32 "
+                 "slots of 2000-3299 rows, window 4096, S 1, 32/8 heads)",
+            route="cuda", source=f"{csrc}/paged_decode_attention.cu",
             replaces="src/repro/kernels/decode_attention.py:167"),
         "sample_tokens": dict(
             name="sample_tokens", route="cuda",

@@ -34,8 +34,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 
 #: C signature of every entry point: (library, argtypes); all return int
 #: (a cudaError_t, 0 on success; ``paged_decode_sm90_smem`` and
-#: ``sample_tokens_static_smem``: bytes; ``sample_tokens_max_clusters``: a
-#: count).
+#: ``sample_tokens_static_smem``: bytes; ``sample_tokens_max_clusters`` and
+#: ``paged_decode_*twin_blocks_per_sm``: a count).
 SIGNATURES = {
     "flash_attention_f32": ("flash_attention",
                             [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P]),
@@ -48,6 +48,9 @@ SIGNATURES = {
         "paged_decode_attention",
         [_P] * 6 + [_I] * 7 + [_L] * 3 + [_I] * 3 + [_F, _P]),
     "paged_decode_sm90_smem": ("paged_decode_attention", [_I] * 7),
+    "paged_decode_twin_blocks_per_sm": ("paged_decode_attention", [_I] * 6),
+    "paged_decode_int8_twin_blocks_per_sm": ("paged_decode_attention_int8",
+                                             [_I] * 6),
     "paged_decode_attention_int8_f32": (
         "paged_decode_attention_int8",
         [_P] * 11 + [_I] * 7 + [_L] * 6 + [_I, _F, _P]),

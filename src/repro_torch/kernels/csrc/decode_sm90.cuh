@@ -57,29 +57,57 @@
 // at 1e-3: scores as one float32 FMA chain over d, the row's GLOBAL max M
 // and sum L, then p = round_to<bf16>(exp(s - M) / L), P V, the output
 // rounded to float32 and then bf16. L and P V are float64 sums: their
-// terms (exp values, exact float32 products of bf16 values) summed in
-// float64 land where the twin's float64 sums do, whatever order either
-// side sums in; float32 sums in two orders put one output a bf16 step
-// apart now and then, which at |o| >= 0.25 is past 1e-3 (seen at
-// chatglm3's 32/2 heads, S 4). One launch:
-//   A. each split computes its scaled, masked scores S = Q K^T, keeps them
-//      in shared memory as float32 (``keep``) and its own (m, l);
+// terms (exp values, exact products of bf16 values) summed in float64 land
+// where the twin's float64 sums do after the float32 rounding, whatever
+// order either side sums in (the sums differ in their last float64 bits
+// at most, 29 bits below a float32 step, and then 8 more below a bf16
+// one); float32 sums in two orders put one output a bf16 step apart now
+// and then, which at |o| >= 0.25 is past 1e-3 (seen at chatglm3's 32/2
+// heads, S 4). On ``mma.sync`` the scores differed in their last bits and
+// p flipped by one bf16 step, so the twin kernel stays off the tensor
+// cores. One launch, blocks of 64 threads a row group of RT = 4 query
+// rows up to 16 rows, else 8 (``twin_rt``; 16 past 32 rows at head_dim
+// 256), with the registers that leave an SM 16 or 32 warps at every row
+// count up to 64 at head_dim 128 over bf16 pools (``twin_min_blocks``):
+//   A. thread t of a group takes key t of each K tile of its split and
+//      runs RT independent score chains, one per query row, each over
+//      d = 0, ..., D - 1 in float32, reading each K chunk once for all RT
+//      rows; it keeps the scores in shared memory (``keep``) and a
+//      running (m, l) of each row over its keys (one float64 exp a
+//      score); the block's (m, l) of a row is their max and rescaled sum;
 //   B. ``cluster.sync()``, then every block reads all ranks' (m, l)
 //      through distributed shared memory and forms M = max m_j and L =
 //      sum_j l_j exp(m_j - M) in rank order;
-//   C. p = round_to<bf16>(exp(s - M) / L) in place of the scores, O += P V;
-//      block r sums output columns [r D / nsplit, ...) of every block's O
-//      in rank order (p is already normalized: no rescaling) and writes
-//      bf16.
-// The scores never leave the SM. The score chains are the twin's float32
-// sums bit for bit: bf16 products are exact. On ``mma.sync`` they were
-// not: S differed in its last bits and p flipped by one bf16 step, and
-// the tensor cores' wider P V sums missed the twin's rounding (one element
-// 3.9e-3 off at S 4 in ``chip_smoke.py``). A split whose scores do not
-// fit the shared memory (``keep`` 0: long contexts at many query rows)
-// computes Q K^T again in C from a second read of K. The ring's events are
-// K tiles in A, then V tiles (or K then V tiles) in C. Double-precision
-// ``exp`` (the twin's, on the card) and a true division form p.
+//   C. thread t forms p = round_to<bf16>(exp(s - M) / L) of its key (a
+//      float64 ``exp`` and a true division) into a float64 P tile while
+//      the V tile's copy lands; then thread t owns D / 64 output columns
+//      of the group's RT rows (head_dim 32: 32 columns, two key halves)
+//      and runs O += P V as float64 FMAs over the tile's keys, each V
+//      element widened to float64 once for all RT rows (exact: a bf16
+//      value is a float32 one); block r sums output columns
+//      [r D / nsplit, ...) of every block's O in rank order (p is already
+//      normalized: no rescaling) and writes bf16.
+// What bounds it at granite's served pools (32 slots of 2.6-4k rows x 8
+// kv heads, G 4): the bytes. A 64-row K and V tile pair is 32 KB, about
+// 2260 SM cycles of the card's 3.35 TB/s; its work is 32768 float32 FMAs
+// (256 cycles at 128 a cycle), 32768 float64 FMAs and 8192 widenings
+// (512 cycles each at 64 and 16 a cycle), 512 float64 exps and 256
+// divisions. Converting each product as the kernel once did (R D 64 a
+// tile) cost 2048 cycles alone, and its one 173 KB block an SM left the
+// card waiting on each block's chain of tiles. So the plan
+// (``decode_attention.paged_plan_sm90``) keeps many small blocks on each
+// SM, whose copies and arithmetic overlap one another's: at docqa's
+// pools 8 splits (2048 blocks) of one ring slot each, the scores kept,
+// P over Q, 26.7 KB a block, eight blocks (16 warps) an SM; a deeper
+// ring costs more blocks than it hides (measured: one slot 0.289 ms a
+// launch, two 0.318): the ring takes a second slot and more only while
+// the SM holds as many blocks as at one (where the registers, not
+// shared memory, set the blocks: 5 to 64 rows over short pools), up to
+// one per event. The ring issues the
+// first V tile while phases A and B finish. A split whose scores do not
+// fit (``keep`` 0: long contexts at many query rows) computes its scores
+// again in C from a second read of K. The ring's events are K tiles in A, then V tiles (or
+// K then V tiles) in C.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -175,11 +203,12 @@ __device__ __forceinline__ void issue_tile(unsigned char* slot,
                                            const void* dummy) {
   const int tid = threadIdx.x;
   if constexpr (!kCodes<Pool>) {
-    constexpr int CPR = D / 8;
+    constexpr int CPR = D / 8, N = BKV * CPR;
     uint4* dst = reinterpret_cast<uint4*>(slot);
 #pragma unroll
-    for (int i = 0; i < BKV * CPR / THREADS; ++i) {
+    for (int i = 0; i < (N + THREADS - 1) / THREADS; ++i) {
       const int idx = tid + i * THREADS;
+      if (N % THREADS != 0 && idx >= N) break;
       const int r = idx / CPR, ch = idx % CPR;
       const bf16* row = rows(r);
       cp_async16(dst + swizzle<CPR>(r, ch),
@@ -188,9 +217,11 @@ __device__ __forceinline__ void issue_tile(unsigned char* slot,
     }
   } else {
     constexpr int C16 = D / 16;  // 16-byte chunks of codes per row
+    constexpr int N16 = BKV * C16;
 #pragma unroll
-    for (int i = 0; i < BKV * C16 / THREADS; ++i) {
+    for (int i = 0; i < (N16 + THREADS - 1) / THREADS; ++i) {
       const int idx = tid + i * THREADS;
+      if (N16 % THREADS != 0 && idx >= N16) break;
       const int r = idx / C16, ch = idx % C16;
       const auto row = rows(r);
       cp_async16(slot + r * D + ch * 16,
@@ -212,14 +243,15 @@ __device__ __forceinline__ void issue_tile(unsigned char* slot,
 template <int D, int THREADS>
 __device__ __forceinline__ void convert_tile(const unsigned char* slot,
                                              uint4* dst) {
-  constexpr int CPR = D / 8;
+  constexpr int CPR = D / 8, N = BKV * CPR;
   const float* sc = reinterpret_cast<const float*>(slot + BKV * D);
   auto code = [](uint32_t w, int e) {
     return (float)(int8_t)(uint8_t)(w >> (8 * e));
   };
 #pragma unroll
-  for (int i = 0; i < BKV * CPR / THREADS; ++i) {
+  for (int i = 0; i < (N + THREADS - 1) / THREADS; ++i) {
     const int idx = threadIdx.x + i * THREADS;
+    if (N % THREADS != 0 && idx >= N) break;
     const int r = idx / CPR, ch = idx % CPR;
     const uint2 c = *reinterpret_cast<const uint2*>(slot + r * D + ch * 8);
     const float s = sc[r];
@@ -583,149 +615,175 @@ __device__ __forceinline__ void unpack_bf16x8(const uint4& w, float* f) {
   }
 }
 
-// RPT rows r0 + (THREADS / 64) i of the scaled scores of the 64 keys of a
-// K tile from row t0 of the slot (thread t: key t % 64), masked past each
-// query's limit, into dst[r * pitch + key]. Each dot product is one chain
-// of float32 FMAs over d = 0, 1, ..., D - 1, the twin's float32 product
-// bit for bit. Rows past R compute row r0's chain again (no branch in the
-// loop) and are dropped.
-template <int D, int THREADS, int RPT>
-__device__ __forceinline__ void scores_rows(const float* qf, const uint4* ks,
-                                            float* dst, int pitch, int t0,
-                                            int p, const Geometry& g,
-                                            int r0) {
-  constexpr int CPR = D / 8, RG = THREADS / 64;
-  const int key = threadIdx.x % 64;
-  int rr[RPT];
-  float acc[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    rr[i] = r0 + RG * i < g.R ? r0 + RG * i : r0;
-    acc[i] = 0.0f;
-  }
-#pragma unroll 8
-  for (int ch = 0; ch < CPR; ++ch) {
-    float kf[8];
-    unpack_bf16x8(ks[swizzle<CPR>(key, ch)], kf);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float4* qv = reinterpret_cast<const float4*>(qf + rr[i] * D);
-      const float4 a = qv[2 * ch], b = qv[2 * ch + 1];
-      const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[i] = fmaf(x[e], kf[e], acc[i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = r0 + RG * i;
-    if (r < g.R) {
-      const int lim = min(p - (g.S - 1) + r % g.S, g.W);
-      dst[r * pitch + key] = t0 + key < lim ? acc[i] * g.scale : -INFINITY;
-    }
-  }
-}
-
-// The scores of one K tile for all R query rows (float32 Q [R][D] in
-// ``qf``): one row a thread when R <= THREADS / 64 (granite's S = 1),
-// else four at a time.
-template <int D, int THREADS>
-__device__ __forceinline__ void scores_fma(const float* qf, const uint4* ks,
-                                           float* dst, int pitch, int t0,
-                                           int p, const Geometry& g) {
-  constexpr int RG = THREADS / 64;
-  const int rg = threadIdx.x / 64;
-  if (g.R <= RG) {
-    if (rg < g.R)
-      scores_rows<D, THREADS, 1>(qf, ks, dst, pitch, t0, p, g, rg);
-  } else {
-    for (int r0 = rg; r0 < g.R; r0 += 4 * RG)
-      scores_rows<D, THREADS, 4>(qf, ks, dst, pitch, t0, p, g, r0);
-  }
-}
-
-// O += P V of one V tile for rows rg + RGC i (rg = t / (D / 2)) and
-// columns 2 c2, 2 c2 + 1 (c2 = t % (D / 2)) of thread t: P float32 (bf16
-// values) in pp[r * pitch + key], each output a float64 sum over the keys
-// of the float32 products, which are exact (bf16 values): the order of
-// summation no longer shows in the rounded output. Rows past R repeat row
-// rg and are dropped.
-template <int D, int THREADS, int RPT>
-__device__ __forceinline__ void pv_rows(const float* pp, int pitch,
-                                        const uint4* vs,
-                                        double (&acc)[RPT][2], int R) {
-  constexpr int CPR = D / 8, RGC = THREADS / (D / 2);
-  const int c2 = threadIdx.x % (D / 2), rg = threadIdx.x / (D / 2);
-  int rr[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) rr[i] = rg + RGC * i < R ? rg + RGC * i : rg;
-#pragma unroll 8
-  for (int t = 0; t < BKV; ++t) {
-    const uint32_t w = reinterpret_cast<const uint32_t*>(
-        vs + swizzle<CPR>(t, c2 / 4))[c2 % 4];
-    const float v0 = __uint_as_float(w << 16);
-    const float v1 = __uint_as_float(w & 0xffff0000u);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float pr = pp[rr[i] * pitch + t];
-      acc[i][0] += (double)(pr * v0);
-      acc[i][1] += (double)(pr * v1);
-    }
-  }
-}
-
-// Its shared-memory layout, in bytes: per-split l and global L [RP]
-// float64 each, per-split m and global M [RP] float32 each (which other
-// blocks of the cluster read) | Q [RP][D] float32 | int8 only: the
-// converted K or V tile [64][D] bf16 | scores, then P in their place,
-// [RP][64 per + 8] float32 (``keep``; else one tile's, [RP][72]) | the
-// ring, ``stages`` slots of one tile each. After C the published O [RP][D
-// + 2] float64 lies over everything past the statistics.
+// Its blocks: the G * S query rows padded to RP = 4, 8, 16, 32 or 64
+// (``twin_rp``), in row groups of RT rows (``twin_rt``: 4 up to 16 rows,
+// else 8; 16 past 32 rows at head_dim 256), 64 threads a group; the shared-memory layout, in
+// bytes: per-split l and global L [RP] float64 each, per-split m and
+// global M [RP] float32 each (which other blocks of the cluster read) | Q
+// [RP][D] float32, and in its place in C (``keep``) P of one V tile [64]
+// [RP] float64 | int8 only: the converted K or V tile [64][D] bf16 |
+// ``keep``: the scores [RP][64 per] float32, else P | the ring,
+// ``stages`` slots of one tile each. After C the published O [KG][RP][D +
+// 2] float64 lies over everything past the statistics.
 // ``decode_attention.sm90_smem`` in Python mirrors it.
 __host__ __device__ constexpr int twin_rp(int rows) {
-  return rows <= 16 ? 16 : rows <= 32 ? 32 : 64;
+  return rows <= 4 ? 4 : rows <= 8 ? 8 : rows <= 16 ? 16 : rows <= 32 ? 32
+                                                                       : 64;
 }
+__host__ __device__ constexpr int twin_rt(int d, int rp) {
+  return rp <= 16 ? 4 : rp <= 32 || d <= 128 ? 8 : 16;
+}
+__host__ __device__ constexpr int twin_kg(int d) { return d < 64 ? 64 / d : 1; }
 __host__ __device__ constexpr int twin_slot(bool codes, int d) {
   return codes ? BKV * d + BKV * 4 : BKV * d * 2;
 }
-__host__ __device__ constexpr int twin_spitch(int per, int keep) {
-  return (keep ? per : 1) * BKV + 8;  // floats; rows 8 banks apart
+__host__ __device__ constexpr int twin_stats(int rp) { return rp * 24; }
+__host__ __device__ constexpr int twin_q_bytes(int d, int rp, int keep) {
+  return keep && BKV * rp * 8 > rp * d * 4 ? BKV * rp * 8 : rp * d * 4;
 }
-__host__ __device__ constexpr int twin_stats(int rp) {
-  return rp * (8 + 8 + 4 + 4);
+__host__ __device__ constexpr int twin_scs_off(bool codes, int d, int rp,
+                                               int keep) {
+  return twin_stats(rp) + twin_q_bytes(d, rp, keep) +
+         (codes ? BKV * d * 2 : 0);
+}
+__host__ __device__ constexpr int twin_pd_off(bool codes, int d, int rp,
+                                              int keep) {
+  return keep ? twin_stats(rp) : twin_scs_off(codes, d, rp, keep);
 }
 __host__ __device__ constexpr int twin_ring_off(bool codes, int d, int rp,
                                                 int per, int keep) {
-  return twin_stats(rp) + rp * d * 4 + (codes ? BKV * d * 2 : 0) +
-         rp * twin_spitch(per, keep) * 4;
+  return twin_scs_off(codes, d, rp, keep) +
+         (keep ? rp * per * BKV * 4 : BKV * rp * 8);
 }
 __host__ __device__ constexpr int twin_smem(bool codes, int d, int rows,
                                             int per, int keep, int stages) {
   const int rp = twin_rp(rows);
   const int work = twin_ring_off(codes, d, rp, per, keep) - twin_stats(rp) +
                    stages * twin_slot(codes, d);
-  const int obytes = rp * (d + 2) * 8;
+  const int obytes = twin_kg(d) * rp * (d + 2) * 8;
   return twin_stats(rp) + (work > obytes ? work : obytes);
 }
 
-// Blocks an SM the registers must allow: four at up to 16 query rows
-// (64 registers a thread at 256 threads), so that granite's 512 blocks at
-// S 1 and 4 run in one wave; two at more rows.
-template <int D, int MT>
+// Blocks an SM the registers must allow: 64 registers a thread at 4 rows
+// a thread in blocks of 2 or 4 row groups (5 to 16 rows: 32 warps an
+// SM), 128 at 4 rows in 64-thread blocks and at 8 rows (16 warps: eight
+// 64-thread blocks at the served pools, as the plan's shared memory
+// allows, two of 256 threads at 32 rows, one of 512 at 64), all 255 at
+// head_dim 256 and at 16 rows, whose float64 sums need them. Over int8
+// pools a 64-thread block takes 168 (its conversion pass spilled at 128:
+// chip_smoke's short shape, S 1, 0.0370 ms against 0.0335 at 168).
+template <int D, int RT, int MT, bool CODES>
 constexpr int twin_min_blocks() {
-  return D > 128 ? 1 : MT == 1 ? 4 : 2;
+  constexpr int regs = D > 128 || RT > 8      ? 255
+                       : RT == 4 && MT > 1    ? 64
+                       : CODES && MT == 1     ? 168
+                                              : 128;
+  constexpr int n = 65536 / (regs * 64 * MT);
+  return n > 1 ? n : 1;
 }
 
-template <typename Pool, int D, int MT>
-__global__ void __launch_bounds__(Config<D, MT>::THREADS,
-                                  twin_min_blocks<D, MT>())
+// The scores of this thread's key (row ``key`` of the K tile ``ks``)
+// for RT query rows (float32 Q [RT][D] in ``qf``): RT independent chains,
+// each one float32 FMA chain over d = 0, 1, ..., D - 1, the twin's
+// float32 product bit for bit (bf16 products are exact); the K chunk is
+// read once for all RT rows.
+template <int D, int RT>
+__device__ __forceinline__ void score_chains(const float* qf, const uint4* ks,
+                                             int key, float (&acc)[RT]) {
+  constexpr int CPR = D / 8;
+#pragma unroll
+  for (int i = 0; i < RT; ++i) acc[i] = 0.0f;
+#pragma unroll 2
+  for (int ch = 0; ch < CPR; ++ch) {
+    float kf[8];
+    unpack_bf16x8(ks[swizzle<CPR>(key, ch)], kf);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float4* qv = reinterpret_cast<const float4*>(qf + i * D) + 2 * ch;
+      const float4 a = qv[0], b = qv[1];
+      const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[i] = fmaf(x[e], kf[e], acc[i]);
+    }
+  }
+}
+
+// One score into this thread's running (m, l) of its row: l the float64
+// sum of exp(s - m) over the row's scores so far, rescaled when m grows
+// (one exp a score either way); masked scores change nothing.
+__device__ __forceinline__ void online_stat(float x, float& m, double& l) {
+  if (x != -INFINITY) {
+    const bool up = x > m;
+    const double e = exp(up ? (double)m - (double)x : (double)x - (double)m);
+    l = up ? l * e + 1.0 : l + e;
+    m = up ? x : m;
+  }
+}
+
+// CPT bf16 values of V row t from column c0 (a 2-, 4- or 8-byte load of
+// the swizzled tile), each widened to float64 once, exactly.
+template <int D, int CPT>
+__device__ __forceinline__ void load_v(const uint4* vs, int t, int c0,
+                                       double (&v)[CPT]) {
+  constexpr int CPR = D / 8;
+  const unsigned char* chunk = reinterpret_cast<const unsigned char*>(
+      vs + swizzle<CPR>(t, c0 / 8));
+  if constexpr (CPT == 1) {
+    const uint32_t h =
+        reinterpret_cast<const unsigned short*>(chunk)[c0 % 8];
+    v[0] = (double)__uint_as_float(h << 16);
+  } else if constexpr (CPT == 2) {
+    const uint32_t w = reinterpret_cast<const uint32_t*>(chunk)[(c0 % 8) / 2];
+    v[0] = (double)__uint_as_float(w << 16);
+    v[1] = (double)__uint_as_float(w & 0xffff0000u);
+  } else {
+    const uint2 w = reinterpret_cast<const uint2*>(chunk)[(c0 % 8) / 4];
+    v[0] = (double)__uint_as_float(w.x << 16);
+    v[1] = (double)__uint_as_float(w.x & 0xffff0000u);
+    v[2] = (double)__uint_as_float(w.y << 16);
+    v[3] = (double)__uint_as_float(w.y & 0xffff0000u);
+  }
+}
+
+// O += P V of one V tile for this thread's RT rows and CPT columns from
+// c0, over its key group's keys: P float64 (bf16 values) in pd[t][RP]
+// (``pd`` at the group's first row), each output a float64 FMA chain of
+// exact products, each V element widened once for all RT rows.
+template <int D, int RT, int RP, int CPT, int KG>
+__device__ __forceinline__ void pv_f64(const double* pd, const uint4* vs,
+                                       double (&acc)[RT][CPT], int c0,
+                                       int kg) {
+  constexpr int KEYS = BKV / KG;
+#pragma unroll 4
+  for (int k = 0; k < KEYS; ++k) {
+    const int t = kg * KEYS + k;
+    double v[CPT];
+    load_v<D, CPT>(vs, t, c0, v);
+    const double2* pr = reinterpret_cast<const double2*>(pd + t * RP);
+#pragma unroll
+    for (int i = 0; i < RT / 2; ++i) {
+      const double2 pp = pr[i];
+#pragma unroll
+      for (int cc = 0; cc < CPT; ++cc) {
+        acc[2 * i][cc] = fma(pp.x, v[cc], acc[2 * i][cc]);
+        acc[2 * i + 1][cc] = fma(pp.y, v[cc], acc[2 * i + 1][cc]);
+      }
+    }
+  }
+}
+
+template <typename Pool, int D, int RT, int MT>
+__global__ void __launch_bounds__(64 * MT,
+                                  twin_min_blocks<D, RT, MT, kCodes<Pool>>())
 twin_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
             const int* __restrict__ table, const int* __restrict__ pos,
             bf16* __restrict__ o, Geometry g) {
-  using C = Config<D, MT>;
   constexpr bool CODES = kCodes<Pool>;
-  constexpr int RP = C::RP, WARPS = C::WARPS, THREADS = C::THREADS;
+  constexpr int THREADS = 64 * MT, RP = RT * MT, WARPS = THREADS / 32;
   constexpr int SLOT = twin_slot(CODES, D);
+  constexpr int KG = twin_kg(D);  // key groups of P V (head_dim 32: 2)
+  constexpr int CPT = D * KG / 64;  // P V columns a thread: 1, 2 or 4
+  constexpr int OP = D + 2;         // doubles per published O row
   extern __shared__ uint4 sm90_smem[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(sm90_smem);
   // [RP] float64: this split's row sum of exp(s - max), the row's sum
@@ -734,16 +792,19 @@ twin_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
   float* pm = reinterpret_cast<float*>(gl + RP);  // [RP] this split's max
   float* gm = pm + RP;  // [RP] the row's global max
   float* qf = gm + RP;  // Q [RP][D]
-  uint4* conv = reinterpret_cast<uint4*>(qf + RP * D);  // int8: K or V tile
-  float* scs = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(conv) + (CODES ? BKV * D * 2 : 0));
-  const int spitch = twin_spitch(g.per, g.keep);  // scores, then P
+  uint4* conv = reinterpret_cast<uint4*>(  // int8: the K or V tile
+      sm + twin_stats(RP) + twin_q_bytes(D, RP, g.keep));
+  float* scs =
+      reinterpret_cast<float*>(sm + twin_scs_off(CODES, D, RP, g.keep));
+  double* pd = reinterpret_cast<double*>(
+      sm + twin_pd_off(CODES, D, RP, g.keep));  // P [64][RP]
   unsigned char* ring = sm + twin_ring_off(CODES, D, RP, g.per, g.keep);
-  constexpr int OP = D + 2;  // doubles per published O row
-  // [RP][OP] after C, over Q and everything after it
+  // [KG][RP][OP] after C, over Q and everything after it
   double* os = reinterpret_cast<double*>(qf);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // this thread's key of a tile (A) or column unit (C), and row group
+  const int u = tid & 63, r0 = (tid >> 6) * RT;
   const int c = blockIdx.x, b = blockIdx.y;
   const int p = pos[b];
   const int nmax = min(p, g.W);
@@ -753,6 +814,7 @@ twin_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
   const bool keep = g.keep != 0;
   const int E = (keep ? 2 : 3) * T;  // ring events of this split
   const int stages = g.stages;
+  const int spitch = g.per * BKV;  // keep: floats per row of the scores
   const int* trow = paged::table_row(table, b, g.n_pages);
 
   // ---- the ring: event e < T is K tile e (A); then V tile j (keep) or
@@ -796,42 +858,77 @@ twin_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
   auto release = [&](int e) {
     if constexpr (!CODES) issue(e + stages);
   };
-  // K tile j's scores: column j * 64 of ``scs`` (keep), or its tile
-  auto tile_scores = [&](int j) { return scs + (keep ? j * BKV : 0); };
+  // this thread's scaled, masked scores of K tile j (in ``ks``): row
+  // r0 + i sees min(pos - (S-1) + s, W) keys; padded rows see none
+  auto scores = [&](const uint4* ks, int j, float (&x)[RT]) {
+    score_chains<D, RT>(qf + r0 * D, ks, u, x);
+    const int t = t_begin + j * BKV + u;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = r0 + i;
+      const int lim = r < g.R ? min(p - (g.S - 1) + r % g.S, g.W) : 0;
+      x[i] = t < lim ? x[i] * g.scale : -INFINITY;
+    }
+  };
 
-  // the first copies, then Q, as float32
+  // the first copies, then Q as float32 (padded rows zero)
   for (int e = 0; e < stages; ++e) issue(e);
-  for (int idx = tid; idx < g.R * D; idx += THREADS) {
+  for (int idx = tid; idx < RP * D; idx += THREADS) {
     const int r = idx / D, gi = r / g.S, s = r % g.S;
-    qf[idx] = __bfloat162float(
-        q[((size_t)(b * g.S + s) * g.H + c * g.G + gi) * D + idx % D]);
-  }
-  for (int r = tid; r < RP; r += THREADS) {
-    pm[r] = -INFINITY;
-    pl[r] = 0.0;
+    qf[idx] = r < g.R ? __bfloat162float(q[((size_t)(b * g.S + s) * g.H +
+                                            c * g.G + gi) * D + idx % D])
+                      : 0.0f;
   }
 
-  // ---- A: scores, and this split's running (m, l) of each row, kept by
-  // the warp that owns the row ----
+  // ---- A: scores (kept in shared memory, by and for this thread), and
+  // this thread's running (m, l) of each of its rows over its keys ----
+  float m_t[RT];
+  double l_t[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    m_t[i] = -INFINITY;
+    l_t[i] = 0.0;
+  }
   for (int j = 0; j < T; ++j) {
     const uint4* ks = acquire(j);
-    float* sj = tile_scores(j);
-    scores_fma<D, THREADS>(qf, ks, sj, spitch, t_begin + j * BKV, p, g);
-    __syncthreads();  // the scores are whole; every warp is done with K
-    release(j);
-    for (int r = warp; r < g.R; r += WARPS) {
-      const float x0 = sj[r * spitch + lane], x1 = sj[r * spitch + lane + 32];
-      const float m_old = pm[r];
-      const float mx = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
-      // a row with every key masked so far keeps m = -inf; exp against 0
-      const double base = mx == -INFINITY ? 0.0 : (double)mx;
-      const double sum =
-          warp_sum_f64(exp((double)x0 - base) + exp((double)x1 - base));
-      if (lane == 0) {
-        pl[r] = pl[r] * exp((double)m_old - base) + sum;
-        pm[r] = mx;
-      }
+    float x[RT];
+    scores(ks, j, x);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      if (keep) scs[(r0 + i) * spitch + j * BKV + u] = x[i];
+      online_stat(x[i], m_t[i], l_t[i]);
     }
+    if constexpr (!CODES) {
+      __syncthreads();  // every warp is done with K
+      release(j);
+    }
+  }
+  __syncthreads();  // every warp is done with Q (``keep``: P lies there)
+  // the split's (m, l) of each row: its group's max, then the threads'
+  // sums rescaled to it, summed (a float64 sum: any order, see the note)
+  float* redm = reinterpret_cast<float*>(pd);         // [WARPS][RT]
+  double* redl = pd + WARPS * RT;                     // [WARPS][RT]
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const float mx = warp_max(m_t[i]);
+    if (lane == 0) redm[warp * RT + i] = mx;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int w0 = (warp & ~1) * RT + i;
+    const float mb = fmaxf(redm[w0], redm[w0 + RT]);
+    double l = m_t[i] == -INFINITY
+                   ? 0.0
+                   : l_t[i] * exp((double)m_t[i] - (double)mb);
+    l = warp_sum_f64(l);
+    if (lane == 0) redl[warp * RT + i] = l;
+  }
+  __syncthreads();
+  for (int r = tid; r < RP; r += THREADS) {
+    const int w0 = (r / RT) * 2 * RT + r % RT;
+    pm[r] = fmaxf(redm[w0], redm[w0 + RT]);
+    pl[r] = redl[w0] + redl[w0 + RT];
   }
 
   // ---- B: every rank's (m, l) of a row through distributed shared
@@ -860,63 +957,53 @@ twin_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
   }
   __syncthreads();
 
-  // ---- C: p = round_to<bf16>(exp(s - M) / L) in place of the scores,
-  // O += P V ----
-  constexpr int RGC = THREADS / (D / 2), RPT = RP / RGC;
-  const int rg = tid / (D / 2), c2 = tid % (D / 2);
-  const bool one_row = g.R <= RGC;  // one row a thread (granite's S = 1)
-  double acc1[1][2] = {{0.0, 0.0}};
-  double acc[RPT][2];
+  // ---- C: this thread's p = round_to<bf16>(exp(s - M) / L) of its key
+  // into P (float64), then O += P V by column units ----
+  const int kg = u / (64 / KG), c0 = (u % (64 / KG)) * CPT;
+  double acc[RT][CPT];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i][0] = acc[i][1] = 0.0;
-  auto probs = [&](float* sj) {
-    for (int idx = tid; idx < g.R * BKV; idx += THREADS) {
-      float* x = sj + (idx / BKV) * spitch + idx % BKV;
-      const double m = gm[idx / BKV], l = gl[idx / BKV];
-      *x = *x == -INFINITY
-               ? 0.0f
-               : round_to<bf16>(__double2float_rn(exp((double)*x - m) / l));
-    }
-  };
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc) acc[i][cc] = 0.0;
   for (int j = 0; j < T; ++j) {
     int e = T + (keep ? j : 2 * j);
-    if (!keep) {
-      const uint4* ks = acquire(e);
-      scores_fma<D, THREADS>(qf, ks, scs, spitch, t_begin + j * BKV, p, g);
-      __syncthreads();  // the scores are whole; every warp is done with K
-      release(e);
+    float x[RT];
+    if (keep) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i) x[i] = scs[(r0 + i) * spitch + j * BKV + u];
+    } else {
+      scores(acquire(e), j, x);
+      if constexpr (!CODES) {
+        __syncthreads();  // every warp is done with K
+        release(e);
+      }
       ++e;
     }
-    const uint4* vs = acquire(e);
-    float* sj = tile_scores(j);
-    probs(sj);
-    __syncthreads();  // P is whole
-    if (one_row) {
-      if (rg < g.R) pv_rows<D, THREADS, 1>(sj, spitch, vs, acc1, g.R);
-    } else {
-      pv_rows<D, THREADS, RPT>(sj, spitch, vs, acc, g.R);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = r0 + i;
+      pd[u * RP + r] =
+          x[i] == -INFINITY
+              ? 0.0
+              : (double)round_to<bf16>(__double2float_rn(
+                    exp((double)x[i] - (double)gm[r]) / gl[r]));
     }
-    if constexpr (!CODES) {
-      __syncthreads();  // every warp is done with the V tile and P
-      release(e);
-    }
+    const uint4* vs = acquire(e);  // its barrier also makes P whole
+    pv_f64<D, RT, RP, CPT, KG>(pd + r0, vs, acc, c0, kg);
+    __syncthreads();  // every warp is done with P and the V tile
+    release(e);
   }
   cp_async_wait<0>();
   __syncthreads();  // Q, the tiles, P and the ring are free for O
 
   // ---- merge: block ``rank`` sums output columns [rank D / cs, ...) of
-  // every rank's O in rank order and writes them ----
-  if (one_row) {
-    if (rg < g.R)
-      *reinterpret_cast<double2*>(os + rg * OP + 2 * c2) =
-          make_double2(acc1[0][0], acc1[0][1]);
-  } else {
+  // every rank's O (key groups, then ranks, in order) and writes them ----
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
-      if (rg + RGC * i < g.R)
-        *reinterpret_cast<double2*>(os + (rg + RGC * i) * OP + 2 * c2) =
-            make_double2(acc[i][0], acc[i][1]);
-  }
+  for (int i = 0; i < RT; ++i)
+    if (r0 + i < g.R)
+#pragma unroll
+      for (int cc = 0; cc < CPT; ++cc)
+        os[(kg * RP + r0 + i) * OP + c0 + cc] = acc[i][cc];
   cl.sync();
   const int dcs = D / cs, d0 = rank * dcs;
   const double* osr[MAX_CLUSTER];
@@ -925,13 +1012,17 @@ twin_kernel(const bf16* __restrict__ q, Pool kp, Pool vp,
     osr[r] = cl.map_shared_rank(os, r < cs ? r : 0);
   for (int idx = tid; idx < g.R * dcs; idx += THREADS) {
     const int row = idx / dcs, d = d0 + idx % dcs;
-    double v[MAX_CLUSTER];
+    double v[MAX_CLUSTER][KG];
 #pragma unroll
     for (int r = 0; r < MAX_CLUSTER; ++r)
-      v[r] = r < cs ? osr[r][row * OP + d] : 0.0;
+#pragma unroll
+      for (int k = 0; k < KG; ++k)
+        v[r][k] = r < cs ? osr[r][(k * RP + row) * OP + d] : 0.0;
     double sum = 0.0;
 #pragma unroll
-    for (int r = 0; r < MAX_CLUSTER; ++r) sum += v[r];
+    for (int r = 0; r < MAX_CLUSTER; ++r)
+#pragma unroll
+      for (int k = 0; k < KG; ++k) sum += v[r][k];
     const int gi = row / g.S, s = row % g.S;
     // float64 -> float32 -> bf16, as the twin's conversions round
     o[((size_t)(b * g.S + s) * g.H + c * g.G + gi) * D + d] =
@@ -969,22 +1060,79 @@ int launch_cluster(Kernel kernel, int threads, int smem, const void* q,
   return (int)cudaGetLastError();
 }
 
-// TWIN: the twin-order kernel and its layout; else the online kernel
-// with as many stages as fit.
-template <bool TWIN, typename Pool, int D, int MT>
+// The online kernel with as many stages as fit.
+template <typename Pool, int D, int MT>
 int launch(const void* q, const Pool& kp, const Pool& vp, const int* table,
            const int* pos, void* o, int B, Geometry g, cudaStream_t stream) {
   using C = Config<D, MT>;
-  if constexpr (TWIN) {
-    return launch_cluster(
-        twin_kernel<Pool, D, MT>, C::THREADS,
-        twin_smem(kCodes<Pool>, D, g.R, g.per, g.keep, g.stages), q, kp, vp,
-        table, pos, o, B, g, stream);
-  } else {
-    while (g.stages > 1 && C::smem(g.stages) > MAX_SMEM) --g.stages;
-    return launch_cluster(decode_kernel<Pool, D, MT>, C::THREADS,
-                          C::smem(g.stages), q, kp, vp, table, pos, o, B, g,
-                          stream);
+  while (g.stages > 1 && C::smem(g.stages) > MAX_SMEM) --g.stages;
+  return launch_cluster(decode_kernel<Pool, D, MT>, C::THREADS,
+                        C::smem(g.stages), q, kp, vp, table, pos, o, B, g,
+                        stream);
+}
+
+// The twin-order kernel at RT rows a row group, MT groups, and its layout.
+template <typename Pool, int D, int RT, int MT>
+int launch_twin(const void* q, const Pool& kp, const Pool& vp,
+                const int* table, const int* pos, void* o, int B,
+                const Geometry& g, cudaStream_t stream) {
+  return launch_cluster(
+      twin_kernel<Pool, D, RT, MT>, 64 * MT,
+      twin_smem(kCodes<Pool>, D, g.R, g.per, g.keep, g.stages), q, kp, vp,
+      table, pos, o, B, g, stream);
+}
+
+// Blocks of the twin-order kernel one SM holds at ``smem`` bytes, as the
+// runtime counts them (shared memory, registers, threads); -1 on error.
+template <typename Pool, int D, int RT, int MT>
+int twin_occupancy(int smem) {
+  auto kernel = twin_kernel<Pool, D, RT, MT>;
+  int n = 0;
+  if (smem > MAX_SMEM ||
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, 64 * MT,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+// f(RT, MT) (``std::integral_constant``s) at the instantiation of R query
+// rows: padded as ``twin_rp``, in ``twin_rt`` groups.
+template <int D, typename F>
+int by_twin_rows(int R, F&& f) {
+  using std::integral_constant;
+  constexpr int RT4 = twin_rt(D, 4), RT8 = twin_rt(D, 8),
+                RT16 = twin_rt(D, 16), RT32 = twin_rt(D, 32),
+                RT64 = twin_rt(D, 64);
+  if (R <= 4)
+    return f(integral_constant<int, RT4>{}, integral_constant<int, 4 / RT4>{});
+  if (R <= 8)
+    return f(integral_constant<int, RT8>{}, integral_constant<int, 8 / RT8>{});
+  if (R <= 16)
+    return f(integral_constant<int, RT16>{},
+             integral_constant<int, 16 / RT16>{});
+  if (R <= 32)
+    return f(integral_constant<int, RT32>{},
+             integral_constant<int, 32 / RT32>{});
+  return f(integral_constant<int, RT64>{}, integral_constant<int, 64 / RT64>{});
+}
+
+template <typename Pool>
+int twin_blocks_per_sm(int D, int R, int smem) {
+  auto occ = [&](auto d) {
+    return by_twin_rows<decltype(d)::value>(R, [&](auto rt, auto mt) {
+      return twin_occupancy<Pool, decltype(d)::value, decltype(rt)::value,
+                            decltype(mt)::value>(smem);
+    });
+  };
+  switch (D) {
+    case 32: return occ(std::integral_constant<int, 32>{});
+    case 64: return occ(std::integral_constant<int, 64>{});
+    case 128: return occ(std::integral_constant<int, 128>{});
+    case 256: return occ(std::integral_constant<int, 256>{});
+    default: return -1;
   }
 }
 
@@ -992,11 +1140,18 @@ template <bool TWIN, typename Pool, int D>
 int by_rows(const void* q, const Pool& kp, const Pool& vp, const int* table,
             const int* pos, void* o, int B, const Geometry& g,
             cudaStream_t st) {
-  if (g.R <= 16)  // one group
-    return launch<TWIN, Pool, D, 1>(q, kp, vp, table, pos, o, B, g, st);
-  if (g.R <= 32)
-    return launch<TWIN, Pool, D, 2>(q, kp, vp, table, pos, o, B, g, st);
-  return launch<TWIN, Pool, D, 4>(q, kp, vp, table, pos, o, B, g, st);
+  if constexpr (TWIN) {
+    return by_twin_rows<D>(g.R, [&](auto rt, auto mt) {
+      return launch_twin<Pool, D, decltype(rt)::value, decltype(mt)::value>(
+          q, kp, vp, table, pos, o, B, g, st);
+    });
+  } else {
+    if (g.R <= 16)  // one group
+      return launch<Pool, D, 1>(q, kp, vp, table, pos, o, B, g, st);
+    if (g.R <= 32)
+      return launch<Pool, D, 2>(q, kp, vp, table, pos, o, B, g, st);
+    return launch<Pool, D, 4>(q, kp, vp, table, pos, o, B, g, st);
+  }
 }
 
 // Shapes to a Geometry, and head_dim and rows to an instantiation. The

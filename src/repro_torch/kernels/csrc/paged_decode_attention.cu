@@ -68,3 +68,15 @@ extern "C" int paged_decode_sm90_smem(int D, int R, int W, int nsplit,
   return sm90::twin_smem(codes != 0, D, R, sm90::tiles_per_split(W, nsplit),
                          keep, stages);
 }
+
+// Twin-order blocks one SM holds for a call of the plan over bf16 pools,
+// as the runtime counts them; ``decode_attention.twin_blocks_per_sm``
+// promises at most as many.
+extern "C" int paged_decode_twin_blocks_per_sm(int D, int R, int W,
+                                               int nsplit, int keep,
+                                               int stages) {
+  return sm90::twin_blocks_per_sm<PlainPool<__nv_bfloat16>>(
+      D, R,
+      sm90::twin_smem(false, D, R, sm90::tiles_per_split(W, nsplit), keep,
+                      stages));
+}

@@ -133,3 +133,15 @@ extern "C" int paged_decode_attention_int8_bf16(
                              B, S, H, KVH, D, n_pages, ps, nsplit, keep,
                              stages, scale, stream);
 }
+
+// Twin-order blocks one SM holds for a call of the plan over int8 pools,
+// as the runtime counts them; ``decode_attention.twin_blocks_per_sm``
+// promises at most as many.
+extern "C" int paged_decode_int8_twin_blocks_per_sm(int D, int R, int W,
+                                                    int nsplit, int keep,
+                                                    int stages) {
+  return sm90::twin_blocks_per_sm<Int8Pool>(
+      D, R,
+      sm90::twin_smem(true, D, R, sm90::tiles_per_split(W, nsplit), keep,
+                      stages));
+}

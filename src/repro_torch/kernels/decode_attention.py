@@ -45,7 +45,8 @@ SM90_TILE = 64  # cache rows per tile of the one-launch bf16 kernels
 MAX_SPLITS_SM90 = 8  # their splits of one (slot, kv head): one cluster
 SM90_MAX_SMEM = 232448  # a block's shared memory on the H100
 SM90_MAX_RING = 8  # ring slots of the twin-order kernel
-SM90_SMEM_TARGET = SM90_MAX_SMEM // 4  # its blocks' size, ring permitting
+SM90_SM_SMEM = 233472  # an SM's shared memory; each block also takes 1 KB
+TWIN_TARGET_BLOCKS = 2 * 8 * 132  # two waves of eight 64-thread blocks
 
 
 def n_splits(b: int, hkv: int, window: int) -> int:
@@ -55,14 +56,18 @@ def n_splits(b: int, hkv: int, window: int) -> int:
     return max(1, min(-(-TARGET_BLOCKS // (b * hkv)), -(-window // TILE)))
 
 
-def n_splits_sm90(b: int, hkv: int, window: int) -> int:
+def n_splits_sm90(b: int, hkv: int, window: int,
+                  target: int = TARGET_BLOCKS) -> int:
     """Splits per (slot, kv head) of the one-launch bf16 kernels, one
     thread-block cluster: the power of two that brings pairs x splits to
-    about ``TARGET_BLOCKS``, at most 8 and at most the 64-row tiles (one
-    more power of two where the tiles are not one). At recurrentgemma's
-    8 slots over 1 kv head that is 8 splits, 64 blocks: 16 or 32 splits
-    merged across clusters measured slower on the H100."""
-    want = min(-(-TARGET_BLOCKS // (b * hkv)), -(-window // SM90_TILE),
+    about ``target`` blocks, at most 8 and at most the 64-row tiles (one
+    more power of two where the tiles are not one). The online kernel
+    aims at ``TARGET_BLOCKS``: at recurrentgemma's 8 slots over 1 kv head
+    that is 8 splits, 64 blocks, as 16 or 32 splits merged across
+    clusters measured slower on the H100. The twin-order kernel aims at
+    ``TWIN_TARGET_BLOCKS``: at docqa's pools 8 splits 0.289 ms, 4 0.328, 2
+    0.320 (one ring slot)."""
+    want = min(-(-target // (b * hkv)), -(-window // SM90_TILE),
                MAX_SPLITS_SM90)
     return 1 << (max(1, want) - 1).bit_length()
 
@@ -79,20 +84,52 @@ def ring_plan(b: int, hkv: int, window: int, rows: int, bf16: bool):
     return groups, split(b * groups, hkv, window)
 
 
+def twin_rows(rows: int, d: int):
+    """(padded rows, threads) of a twin-order block for ``rows`` = G * S
+    query rows at head_dim ``d`` (``csrc/decode_sm90.cuh`` ``twin_rp``,
+    ``twin_rt``): 4, 8, 16, 32 or 64 rows in groups of 4 (up to 16 rows)
+    or 8 (16 past 32 rows at head_dim 256); 64 threads a group."""
+    rp = next(n for n in (4, 8, 16, 32, 64) if rows <= n or n == 64)
+    rt = 4 if rp <= 16 else 8 if rp <= 32 or d <= 128 else 16
+    return rp, 64 * (rp // rt)
+
+
 def sm90_smem(d: int, rows: int, per: int, keep: bool, stages: int,
               int8: bool) -> int:
     """Shared-memory bytes of the twin-order kernel (``csrc/decode_sm90.cuh``
     ``twin_smem``): row statistics (the sums float64, the maxima
-    float32), then float32 Q, int8's converted tile, float32 scores, then
-    P (the split's ``per`` 64-row tiles when ``keep``, else one tile; rows
-    padded by 8), and a ring of ``stages`` tiles; after them, over all
-    but the statistics, the published O in float64 (rows padded by 2)."""
-    rp = 16 if rows <= 16 else 32 if rows <= 32 else 64
+    float32), then float32 Q, over which ``keep`` puts one V tile's P in
+    float64, int8's converted tile, the split's float32 scores of ``per``
+    64-row tiles when ``keep`` (else P), and a ring of ``stages`` tiles;
+    after them, over all but the statistics, the published O in float64
+    (rows padded by 2, twice at head_dim 32, whose P V runs in two key
+    groups)."""
+    rp, _ = twin_rows(rows, d)
     slot = SM90_TILE * (d + 4) if int8 else SM90_TILE * d * 2
-    work = (rp * d * 4 + (SM90_TILE * d * 2 if int8 else 0)
-            + rp * ((per if keep else 1) * SM90_TILE + 8) * 4
+    p_tile = SM90_TILE * rp * 8
+    work = (max(rp * d * 4, p_tile if keep else 0)
+            + (SM90_TILE * d * 2 if int8 else 0)
+            + (rp * per * SM90_TILE * 4 if keep else p_tile)
             + stages * slot)
-    return rp * (8 + 8 + 4 + 4) + max(work, rp * (d + 2) * 8)
+    groups = 64 // d if d < 64 else 1
+    return rp * 24 + max(work, groups * rp * (d + 2) * 8)
+
+
+def twin_blocks_per_sm(d: int, rows: int, per: int, keep: bool,
+                       stages: int, int8: bool) -> int:
+    """Twin-order blocks one SM holds by shared memory, threads and the
+    registers the kernel's launch bounds leave a thread (64 at 4 rows a
+    thread in blocks of more than 64 threads, 128 at 4 rows in 64-thread
+    blocks, 168 there over int8 pools, 128 at 8 rows, 255 at 16 and at
+    head_dim 256: ``twin_min_blocks``)."""
+    rp, threads = twin_rows(rows, d)
+    rt = rp * 64 // threads
+    regs = (255 if d > 128 or rt > 8 else
+            64 if rt == 4 and threads > 64 else
+            168 if int8 and threads == 64 else 128)
+    return min(SM90_SM_SMEM // (sm90_smem(d, rows, per, keep, stages, int8)
+                                + 1024), 2048 // threads, 32,
+               max(1, 65536 // (regs * threads)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,21 +137,24 @@ def paged_plan_sm90(b: int, hkv: int, window: int, rows: int, d: int,
                     int8: bool):
     """(nsplit, 64-row tiles per split, keep, ring slots) of the
     twin-order kernel over pools of ``window`` rows per slot, ``rows`` =
-    G * S query rows: the splits of ``n_splits_sm90``; the scores stay in
-    shared memory (``keep``) when they fit beside a ring of two tiles,
-    else phase C reads K again to recompute them; then two ring slots,
-    and more, up to one per event of the split (K tiles, then V tiles, or
-    K and V tiles) and ``SM90_MAX_RING``, while the block stays within
-    ``SM90_SMEM_TARGET``: four blocks an SM, so that granite's 512 blocks
-    (8 slots x 8 kv heads x 8 splits) run in one wave. Cached: every layer
-    of every tick asks for the same plan."""
-    nsplit = n_splits_sm90(b, hkv, window)
+    G * S query rows: the splits of ``n_splits_sm90`` at
+    ``TWIN_TARGET_BLOCKS``; the scores stay in shared memory (``keep``)
+    when they fit beside a ring of two tiles, else phase C reads K again
+    to recompute them; then one ring slot, and more, up to one per event
+    of the split (K tiles, then V tiles, or K and V tiles) and
+    ``SM90_MAX_RING``, only while an SM holds as many blocks as at one
+    slot: the SM's other blocks hide a block's copies better than its own
+    deeper ring (docqa's pools, 8 splits: one slot 0.289 ms, two 0.318,
+    three 0.440 on the H100). A pure function of the shapes, cached:
+    every layer of every tick asks for the same plan."""
+    nsplit = n_splits_sm90(b, hkv, window, TWIN_TARGET_BLOCKS)
     per = -(-(-(-window // SM90_TILE)) // nsplit)
     keep = sm90_smem(d, rows, per, True, 2, int8) <= SM90_MAX_SMEM
     events = (2 if keep else 3) * per
-    stages = 2
-    while stages < min(events, SM90_MAX_RING) and sm90_smem(
-            d, rows, per, keep, stages + 1, int8) <= SM90_SMEM_TARGET:
+    blocks = twin_blocks_per_sm(d, rows, per, keep, 1, int8)
+    stages = 1
+    while stages < min(events, SM90_MAX_RING) and twin_blocks_per_sm(
+            d, rows, per, keep, stages + 1, int8) == blocks:
         stages += 1
     return nsplit, per, keep, stages
 

@@ -141,8 +141,9 @@ def _paged_kinds(gen, kind, pool, ps, kvh, d, dev):
 def _twin_order_call(dev, kind, s, b, n_pages, kvh, h, d, pos_list,
                      released, seed):
     """One bf16 call of the twin-order kernel: one launch, a second call
-    bit for bit the same, within the standing tolerance of the twin (2e-2
-    for bf16 pools; int8 1e-3 absolute, no relative term)."""
+    bit for bit the same; over bf16 pools bit for bit its plain version
+    (and within 2e-2), over int8 pools within 1e-3 absolute, no relative
+    term."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     ps = 16
     pool = b * n_pages + 1
@@ -167,6 +168,24 @@ def _twin_order_call(dev, kind, s, b, n_pages, kvh, h, d, pos_list,
                   else INT8_DECODE_TOL[torch.bfloat16])
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+    if kind == "bf16":
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("s", [1, 4])
+def test_bf16_paged_decode_bit_equal_at_the_served_shape(dev, s):
+    """granite-8b's served pools (the docqa cell's): 32 slots x 8 kv
+    heads, 32 q heads of 128, pages of 16, a window of 4096 rows; slots
+    of 1, 63, 64, 65, 2047, 2600, 4095 and 4096 valid rows, one released
+    on trash page 0, the rest 2-4k rows: the twin-order kernel equals
+    its plain version bit for bit."""
+    b, n_pages, kvh, h, d = 32, 256, 8, 32, 128
+    gen = torch.Generator(device=dev).manual_seed(340 + s)
+    rest = torch.randint(2000, 4097, (b - 9,), generator=gen, device=dev)
+    pos_list = [max(n, s) for n in [1, 63, 64, 65, 2047, 2600, 4095, 4096]
+                + rest.tolist()] + [s]
+    _twin_order_call(dev, "bf16", s, b, n_pages, kvh, h, d, pos_list,
+                     released=(b - 1,), seed=340 + s)
 
 
 @pytest.mark.parametrize("kind", ["bf16", "int8 page", "int8 token"])
@@ -219,6 +238,33 @@ def test_paged_sm90_smem_matches_the_kernel(dev):
                         "paged_decode_sm90_smem", d, rows, window, nsplit,
                         int(keep), stages, int(int8)) == \
                         da.sm90_smem(d, rows, per, keep, stages, int8)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("b,n_pages,s", [(32, 256, 1), (32, 160, 1),
+                                         (8, 64, 1), (8, 64, 4), (8, 64, 8),
+                                         (8, 64, 16), (32, 256, 4),
+                                         (8, 64, 2)])
+def test_paged_twin_blocks_resident_as_planned(dev, b, n_pages, s, int8):
+    """At granite's served pools (docqa's 4096 and chat's 2560 rows a
+    slot, 32 slots; chip_smoke's 8 slots of 1024, S 1 to 16, up to 64
+    query rows), bf16 and int8 pools, the runtime fits on each SM at
+    least the twin-order blocks the plan counts (the registers do not
+    undercut it), over bf16 pools at S 1 and over chip_smoke's pools 16
+    warps or more."""
+    from repro_torch.kernels import decode_attention as da
+
+    lib = build.load()
+    window, rows, d = 16 * n_pages, 4 * s, 128
+    nsplit, per, keep, stages = da.paged_plan_sm90(b, 8, window, rows, d,
+                                                   int8)
+    planned = da.twin_blocks_per_sm(d, rows, per, keep, stages, int8)
+    if not int8 and (s == 1 or b == 8):
+        assert planned * da.twin_rows(rows, d)[1] // 32 >= 16
+    entry = ("paged_decode_int8_twin_blocks_per_sm" if int8
+             else "paged_decode_twin_blocks_per_sm")
+    assert lib.value(entry, d, rows, window, nsplit, int(keep),
+                     stages) >= planned
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -183,23 +183,27 @@ def test_rolling_plan_cuts_chunk_rows_into_groups(s, bf16):
 
 
 # paged decode: (slots, kv heads, pages of 16) of granite's served pools
-# (max_seq 1024 and 4096), of the GPU tests' small pools, and a long one
+# (chip_smoke's max_seq 1024 and 4096; the chat and docqa cells' 32 slots
+# of 2560 and 4096 rows), of the GPU tests' small pools, and a long one
 PAGED_SHAPES = ((8, 8, 64), (8, 8, 256), (3, 2, 5), (1, 1, 1), (2, 1, 512),
-                (16, 8, 64))
+                (16, 8, 64), (32, 8, 256), (32, 8, 160))
 
 
 @pytest.mark.parametrize("b,hkv,n_pages", PAGED_SHAPES)
 def test_paged_sm90_splits_cover_every_row_once(b, hkv, n_pages):
     """The twin-order kernel's splits: a power of two up to 8 (one
-    cluster), no more tiles a split than the plan sized its shared memory
-    for, and every valid row of a slot in exactly one split, for slots
-    holding 1 row, a page's and a tile's edge, and the whole pool."""
+    cluster), at most one power of two past the 64-row tiles, no more
+    tiles a split than the plan sized its shared memory for, and every
+    valid row of a slot in exactly one split, for slots holding 1 row, a
+    page's and a tile's edge, docqa's lengths and the whole pool."""
     window = 16 * n_pages
     nsplit, per, _, _ = da.paged_plan_sm90(b, hkv, window, 4, 128, False)
-    assert nsplit == da.n_splits_sm90(b, hkv, window)
+    assert nsplit == da.n_splits_sm90(b, hkv, window,
+                                      da.TWIN_TARGET_BLOCKS)
     assert 1 <= nsplit <= da.MAX_SPLITS_SM90 and nsplit & (nsplit - 1) == 0
-    for nmax in sorted({1, 15, 16, 17, 63, 64, 65, 257, window - 1,
-                        window}):
+    assert nsplit < 2 * -(-window // da.SM90_TILE)
+    for nmax in sorted({1, 15, 16, 17, 63, 64, 65, 257, 2047, 2600,
+                        window - 1, window}):
         if not 1 <= nmax <= window:
             continue
         covered = [0] * nmax
@@ -218,11 +222,10 @@ def test_paged_sm90_plan_fits_shared_memory(d, rows, int8):
     """Every plan fits a block's 227 KB at every head_dim and G * S up to
     64, for pools of 16 to 8192 rows per slot: the scores stay in shared
     memory when they fit beside a ring of two tiles, else they are
-    recomputed; the ring has two slots, and more only while the block
-    stays within ``SM90_SMEM_TARGET`` (four an SM), up to one per event
-    of the split."""
+    recomputed; the ring has one slot, and more only while an SM holds
+    as many blocks as at one slot, up to one per event of the split."""
     for b, hkv, n_pages in PAGED_SHAPES:
-        for window in (16 * n_pages, 1024, 8192, 960):
+        for window in (16 * n_pages, 1024, 8192, 960, 2560, 4096):
             nsplit, per, keep, stages = da.paged_plan_sm90(b, hkv, window,
                                                            rows, d, int8)
             assert da.sm90_smem(d, rows, per, keep, stages,
@@ -230,13 +233,13 @@ def test_paged_sm90_plan_fits_shared_memory(d, rows, int8):
             assert keep == (da.sm90_smem(d, rows, per, True, 2, int8)
                             <= da.SM90_MAX_SMEM)
             cap = min(da.SM90_MAX_RING, (2 if keep else 3) * per)
-            assert 2 <= stages <= cap
-            if stages > 2:
-                assert da.sm90_smem(d, rows, per, keep, stages,
-                                    int8) <= da.SM90_SMEM_TARGET
+            assert 1 <= stages <= cap
+
+            def blocks(n):
+                return da.twin_blocks_per_sm(d, rows, per, keep, n, int8)
+            assert blocks(stages) == blocks(1) >= 1
             if stages < cap:
-                assert da.sm90_smem(d, rows, per, keep, stages + 1,
-                                    int8) > da.SM90_SMEM_TARGET
+                assert blocks(stages + 1) < blocks(1)
 
 
 def test_paged_sm90_recomputes_only_long_wide_splits():
@@ -250,19 +253,31 @@ def test_paged_sm90_recomputes_only_long_wide_splits():
 
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("s", [1, 4, 8])
-def test_paged_sm90_plan_at_granite_served_shape(s, int8):
-    """granite-8b served: 8 slots x 8 kv heads, head_dim 128, max_seq
-    1024 (64 pages of 16), G = 4: 8 splits of 2 tiles (128 rows), one
-    cluster each, 512 blocks, the scores in shared memory; at S 1 and 4
-    four blocks fit an SM, so the 512 run in one wave."""
-    nsplit, per, keep, stages = da.paged_plan_sm90(8, 8, 1024, 4 * s, 128,
+@pytest.mark.parametrize("b,window", [(32, 4096), (32, 2560), (8, 1024)])
+def test_paged_sm90_plan_at_granite_served_shape(b, window, s, int8):
+    """granite-8b served over 8 kv heads, head_dim 128, G = 4: docqa's and
+    chat's 32 slots of 4096 and 2560 rows and chip_smoke's 8 of 1024.
+    Enough (slot, kv head, split) blocks for two waves of eight an SM, or
+    the full cluster of 8, the scores kept in shared memory; at S 1 (the
+    served decode) an SM holds blocks whose rings keep at least 48 KB of K
+    and V copies in flight, over bf16 pools 16 warps of them (eight
+    64-thread blocks), as it does at every S over chip_smoke's short
+    pools."""
+    pairs, rows, d = b * 8, 4 * s, 128
+    nsplit, per, keep, stages = da.paged_plan_sm90(b, 8, window, rows, d,
                                                    int8)
-    assert (nsplit, per) == (8, 2)
+    assert pairs * nsplit >= min(da.TWIN_TARGET_BLOCKS,
+                                 pairs * da.MAX_SPLITS_SM90)
     assert keep
-    assert 8 * 8 * nsplit >= im.SMS
-    if s < 8:
-        assert 4 * da.sm90_smem(128, 4 * s, per, keep, stages,
-                                int8) <= da.SM90_MAX_SMEM
+    assert da.sm90_smem(d, rows, per, keep, stages, int8) \
+        <= da.SM90_MAX_SMEM
+    if s == 1:
+        held = da.twin_blocks_per_sm(d, rows, per, keep, stages, int8)
+        slot = da.SM90_TILE * (d + 4 if int8 else 2 * d)
+        assert held * stages * slot >= 48 * 1024
+    if not int8 and (s == 1 or b == 8):
+        held = da.twin_blocks_per_sm(d, rows, per, keep, stages, int8)
+        assert held * da.twin_rows(rows, d)[1] // 32 >= 16
 
 
 # the RG-LRU scan: (B, S, L) of recurrentgemma's prefill (L 4096, B 1 at a
